@@ -1,0 +1,108 @@
+"""Decoded-columnar tensor reader (counterpart of
+``petastorm_tpu/reader.py:214-343`` and the ``Reader`` at ``:633-1536``).
+
+``make_tensor_reader`` yields one namedtuple of ``[rows, ...field.shape]``
+numpy blocks per row-group, decoded by a thread pool. Row-groups are
+sharded by ``index % shard_count == cur_shard`` and, per epoch, shuffled by
+``random.Random(seed)`` as in the JAX package, so one seed gives both
+packages the same row-group order. Cache tiers, process pools,
+``state_dict``/resume, health and autotune come in later slices.
+"""
+
+from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormMetadataError
+from petastorm_tpu_torch.etl.dataset_metadata import get_schema
+from petastorm_tpu_torch.storage import ParquetStore
+from petastorm_tpu_torch.tensor_worker import TensorWorker, validate_tensor_schema
+from petastorm_tpu_torch.unischema import match_unischema_fields
+from petastorm_tpu_torch.workers import EmptyResultError
+from petastorm_tpu_torch.workers.thread_pool import ThreadPool
+from petastorm_tpu_torch.workers.ventilator import ConcurrentVentilator
+
+#: Row-groups ventilated beyond the worker count, as in the JAX reader.
+_VENTILATE_EXTRA_ROWGROUPS = 2
+
+
+def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
+                       workers_count=10, results_queue_size=50, shuffle_row_groups=True,
+                       seed=None, num_epochs=1, cur_shard=None, shard_count=None):
+    """Reader of decoded column blocks, one namedtuple per row-group.
+
+    :param schema_fields: fields or full-match regex patterns to read
+        (default: all).
+    :param reader_pool_type: ``'thread'`` (the only pool of this slice).
+    :param num_epochs: epochs to read; ``None`` = endless.
+    :param cur_shard/shard_count: read only row-groups ``i`` with
+        ``i % shard_count == cur_shard``.
+    """
+    if reader_pool_type != 'thread':
+        raise ValueError("petastorm_tpu_torch has only reader_pool_type='thread' so far, "
+                         'got {!r}'.format(reader_pool_type))
+    store = ParquetStore(dataset_url)
+    try:
+        stored_schema = get_schema(store)
+    except PetastormMetadataError as e:
+        raise RuntimeError('make_tensor_reader requires a petastorm_tpu '
+                           '(codec-materialized) dataset: {}'.format(e))
+    view = stored_schema
+    if schema_fields is not None:
+        view = stored_schema.create_schema_view(
+            match_unischema_fields(stored_schema, schema_fields, allow_empty_match=False))
+    validate_tensor_schema(view)
+    return Reader(store, view, ThreadPool(workers_count, results_queue_size),
+                  shuffle_row_groups=shuffle_row_groups, seed=seed, num_epochs=num_epochs,
+                  cur_shard=cur_shard, shard_count=shard_count)
+
+
+class Reader(object):
+    """Iterates decoded row-group chunks off a worker pool."""
+
+    def __init__(self, store, schema, pool, shuffle_row_groups=True, seed=None,
+                 num_epochs=1, cur_shard=None, shard_count=None):
+        if (cur_shard is None) != (shard_count is None):
+            raise ValueError('cur_shard and shard_count must be specified together')
+        if cur_shard is not None and not 0 <= cur_shard < shard_count:
+            raise ValueError('cur_shard {} out of range [0, {})'.format(cur_shard, shard_count))
+        self.schema = schema
+        pieces = store.row_groups()
+        if shard_count is not None:
+            pieces = [p for i, p in enumerate(pieces) if i % shard_count == cur_shard]
+        if not pieces:
+            raise NoDataAvailableError('No row-groups left after sharding; cannot create a Reader')
+        self._row_groups = pieces
+        self._pool = pool
+        self._stopped = False
+        self._ventilator = ConcurrentVentilator(
+            ventilate_fn=None,   # bound by pool.start
+            items_to_ventilate=[{'piece_index': i} for i in range(len(pieces))],
+            iterations=num_epochs,
+            randomize_item_order=shuffle_row_groups,
+            random_seed=seed,
+            max_ventilation_queue_size=pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS)
+        pool.start(TensorWorker, {'row_groups': pieces, 'schema': schema}, self._ventilator)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._stopped:
+            raise RuntimeError('Trying to iterate a stopped Reader')
+        try:
+            chunk = self._pool.get_results()
+        except EmptyResultError:
+            raise StopIteration
+        return self.schema.make_namedtuple(**chunk['cols'])
+
+    def stop(self):
+        self._pool.stop()
+        self._stopped = True
+
+    def join(self):
+        self._pool.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.stop()
+        self.join()
+        return False
