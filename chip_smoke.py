@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``petastorm_tpu_torch``) end to end on one GPU.
 
-    python3 chip_smoke.py [--steps N] [--out FILE] [--only kernels]
+    python3 chip_smoke.py [--steps N] [--out FILE]
 
 Phases, each printing one JSON line; any failure ends the script with a
 non-zero exit and no result line:
@@ -207,7 +207,7 @@ def check_model(device):
     import torch
     from petastorm_tpu_torch.models.resnet import ResNet50, init_flax_like
 
-    model = init_flax_like(ResNet50(num_classes=1000, dtype=torch.float32),
+    model = init_flax_like(ResNet50(num_classes=1000, dtype=torch.float32, device='cpu'),
                            torch.Generator().manual_seed(1))
     x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(2)) * 4 - 2
     with torch.no_grad():
@@ -215,8 +215,8 @@ def check_model(device):
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        model_gpu = init_flax_like(ResNet50(num_classes=1000, dtype=torch.float32),
-                                   torch.Generator().manual_seed(1)).to(device)
+        model_gpu = init_flax_like(ResNet50(num_classes=1000, dtype=torch.float32, device=device),
+                                   torch.Generator().manual_seed(1))
         with torch.no_grad():
             got = model_gpu(x.to(device)).cpu()
     finally:
@@ -237,9 +237,9 @@ def run_slice(url, device, steps, card):
     from petastorm_tpu_torch.ops.augment import imagenet_train_augment
 
     torch.backends.cudnn.benchmark = True
-    model = init_flax_like(ResNet50(num_classes=1000, stem='conv7', dtype=torch.bfloat16),
-                           torch.Generator().manual_seed(0))
-    model = model.to(device, memory_format=torch.channels_last)
+    model = init_flax_like(ResNet50(num_classes=1000, stem='conv7', dtype=torch.bfloat16,
+                                    device=device), torch.Generator().manual_seed(0))
+    model = model.to(memory_format=torch.channels_last)
     state = create_train_state(model, learning_rate=0.1, momentum=0.9)
     train_step = make_train_step()
     aug_gen = torch.Generator(device=device).manual_seed(0)
@@ -302,8 +302,6 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--steps', type=int, default=20, help='measured SGD steps (after 3 warm-up)')
     parser.add_argument('--out', default=None, help='also write every JSON line to this file')
-    parser.add_argument('--only', choices=['kernels'], default=None,
-                        help='run the device and kernels phases only (prints no result)')
     args = parser.parse_args()
     if args.steps < 10:
         parser.error('--steps must be >= 10')
@@ -334,8 +332,6 @@ def main():
     k1 = check_normalize(device, hbm_rate(name))
     record({'phase': 'kernels', 'card': card, 'seconds': time.perf_counter() - t0, 'normalize_images': k1})
 
-    if args.only is not None:
-        return 0
     os.makedirs(BUILD_DIR, exist_ok=True)
     store_dir = tempfile.mkdtemp(prefix='smoke_store_', dir=BUILD_DIR)
     try:

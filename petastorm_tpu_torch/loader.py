@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from petastorm_tpu_torch.device import resolve_device
-from petastorm_tpu_torch.staging import ArenaPool, StagingEngine
+from petastorm_tpu_torch.staging import INFLIGHT, ArenaPool, StagingEngine
 
 _WIDEN = {np.dtype('uint16'): np.dtype('int32'), np.dtype('uint32'): np.dtype('int64')}
 _KEEP = frozenset(np.dtype(t) for t in ('bool', 'uint8', 'int8', 'int16', 'int32', 'int64',
@@ -139,19 +139,18 @@ class TorchLoader(object):
         it: stop the reader yourself.
     :param batch_size: rows per batch.
     :param device: ``'cuda'`` (default; raises without a GPU) or ``'cpu'``.
-    :param prefetch: staged batches kept ahead of the consumer. ``> 0`` runs
-        the staging engine (assemble + dispatch threads); ``0`` collates
-        and copies inline in the consumer thread.
-    :param inflight: staged batches whose copies may be in flight before
-        the dispatch thread waits on the oldest.
+    :param prefetch: staged batches kept ahead of the consumer (>= 1); the
+        staging engine's assemble and dispatch threads fill them.
     """
 
-    def __init__(self, reader, batch_size, device='cuda', prefetch=2, inflight=2):
+    def __init__(self, reader, batch_size, device='cuda', prefetch=2):
         if batch_size < 1:
             raise ValueError('batch_size must be >= 1, got {}'.format(batch_size))
+        if prefetch < 1:
+            raise ValueError('prefetch must be >= 1, got {}'.format(prefetch))
         self.device = resolve_device(device)
         self._cuda = self.device.type == 'cuda'
-        self._prefetch = max(0, int(prefetch))
+        self._prefetch = int(prefetch)
         self._stop = threading.Event()
         self._h2d_stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._closed = False
@@ -159,19 +158,16 @@ class TorchLoader(object):
         self.stats = {'batches': 0, 'rows': 0, 'wait_s': 0.0, 'h2d_bytes': 0, 'h2d_s': 0.0}
         # Arenas: those behind queued batches, in-flight copies, and the two
         # being filled and consumed.
-        arena_depth = max(2, self._prefetch) + max(1, inflight) + 2
+        arena_depth = max(2, self._prefetch) + INFLIGHT + 2
         self._pool = ArenaPool(arena_depth, self._stop, pinned=self._cuda)
         # Copying device (CUDA): every batch goes through a pinned arena.
         # Aliasing device (CPU): views of the reader's blocks are cheapest.
         self._host_iter = iter_block_batches(reader, batch_size, batch_buffers=self._pool.get_buffers,
                                              views_ok=not self._cuda)
-        self._engine = None
-        if self._prefetch:
-            self._queue = queue.Queue(maxsize=self._prefetch)
-            self._engine = StagingEngine(
-                self._host_iter, self._stage, self._queue, self._stop, _END, self._pool,
-                inflight=inflight, ready_fn=self._wait_copied,
-                holds_mode=not self._cuda).start()
+        self._queue = queue.Queue(maxsize=self._prefetch)
+        self._engine = StagingEngine(
+            self._host_iter, self._stage, self._queue, self._stop, _END, self._pool,
+            ready_fn=self._wait_copied, holds_mode=not self._cuda).start()
 
     # -- staging -------------------------------------------------------------
 
@@ -222,13 +218,7 @@ class TorchLoader(object):
         if self._exhausted:
             raise StopIteration
         t0 = time.perf_counter()
-        if self._engine is None:
-            try:
-                item = self._stage_inline(next(self._host_iter))
-            except StopIteration:
-                item = _END
-        else:
-            item = self._queue.get()
+        item = self._queue.get()
         self.stats['wait_s'] += time.perf_counter() - t0
         if item is _END:
             self._exhausted = True
@@ -238,35 +228,20 @@ class TorchLoader(object):
             raise item
         return self._deliver(item)
 
-    def _stage_inline(self, batch):
-        """``prefetch=0``: stage in the consumer thread, then hand the
-        arena back once its copy landed (CUDA) or its tensors died (CPU)."""
-        arena = self._pool.claim_pending()
-        staged = self._stage(batch, arena)
-        if arena is not None:
-            if self._cuda:
-                self._wait_copied(staged)
-            else:
-                for t in staged.tensors.values():
-                    arena.add_hold(t)
-            arena.retire()
-        return staged
-
     def close(self):
         """Stop and join the staging threads (idempotent)."""
         if self._closed:
             return
         self._closed = True
         self._stop.set()
-        if self._engine is not None:
-            while True:   # unblock a dispatch thread parked on a full queue
-                try:
-                    self._queue.get_nowait()
-                except queue.Empty:
-                    break
-            leaked = self._engine.stop()
-            if leaked:
-                raise RuntimeError('staging threads did not stop: {}'.format(leaked))
+        while True:   # unblock a dispatch thread parked on a full queue
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                break
+        leaked = self._engine.stop()
+        if leaked:
+            raise RuntimeError('staging threads did not stop: {}'.format(leaked))
 
     def __enter__(self):
         return self

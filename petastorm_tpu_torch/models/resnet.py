@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from petastorm_tpu_torch.device import resolve_device
+
 
 def same_padding(size, kernel, stride):
     """``(lo, hi)`` padding of flax/XLA ``'SAME'`` along one axis."""
@@ -132,13 +134,16 @@ class ResNet(nn.Module):
     :param stem: ``'conv7'`` (7x7/2) or ``'space_to_depth'`` (2x2 pixel
         blocks to channels, then a 4x4/1 conv), as the flax model.
     :param dtype: compute type; ``torch.bfloat16`` runs under autocast.
+    :param device: where the params live: ``'cuda'`` (default; raises
+        without a GPU) or ``'cpu'``.
     """
 
     def __init__(self, stage_sizes, block_cls, num_classes=1000, num_filters=64,
-                 stem='conv7', dtype=torch.bfloat16, in_channels=3):
+                 stem='conv7', dtype=torch.bfloat16, in_channels=3, device='cuda'):
         super().__init__()
         if stem not in ('conv7', 'space_to_depth'):
             raise ValueError('unknown stem {!r}'.format(stem))
+        device = resolve_device(device)
         self.stem = stem
         self.dtype = dtype
         if stem == 'space_to_depth':
@@ -155,6 +160,7 @@ class ResNet(nn.Module):
                 in_ch = filters * block_cls.expansion
         self.blocks = nn.ModuleList(blocks)
         self.head = nn.Linear(in_ch, num_classes)
+        self.to(device)
 
     def forward(self, x):
         if self.stem == 'space_to_depth':
@@ -178,14 +184,17 @@ class ResNet(nn.Module):
 def init_flax_like(model, generator):
     """Initialise as flax does, from ``generator``: conv and dense kernels
     lecun-normal (truncated at 2 sigma), dense bias 0, BatchNorm scale 1
-    (0 where the block zero-initialises it) and bias 0."""
+    (0 where the block zero-initialises it) and bias 0. Kernels are drawn
+    on the generator's device and copied to the model's, so one seed gives
+    the same weights wherever the model lives."""
     for module in model.modules():
         if isinstance(module, (nn.Conv2d, nn.Linear)):
             fan_in = module.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            draw = torch.empty(module.weight.shape, device=generator.device)
+            nn.init.trunc_normal_(draw, std=std, a=-2 * std, b=2 * std, generator=generator)
             with torch.no_grad():
-                nn.init.trunc_normal_(module.weight, std=std, a=-2 * std, b=2 * std,
-                                      generator=generator)
+                module.weight.copy_(draw)
             if getattr(module, 'bias', None) is not None:
                 nn.init.zeros_(module.bias)
     return model

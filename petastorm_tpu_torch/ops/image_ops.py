@@ -33,7 +33,7 @@ LAUNCHES = collections.Counter()
 _BLOCK = 2048
 _NUM_WARPS = 4
 _KERNEL_IN = (torch.uint8, torch.float32)
-_KERNEL_OUT = (torch.bfloat16, torch.float16, torch.float32)
+_KERNEL_OUT = (torch.bfloat16, torch.float32)
 _kernel = None
 _scale_shift_cache = {}
 
@@ -52,14 +52,6 @@ def _scale_shift(mean, std, device):
         _scale_shift_cache[key] = ((1.0 / (255.0 * std_t)).to(device),
                                    (-mean_t / std_t).to(device))
     return _scale_shift_cache[key]
-
-
-def normalize_images_reference(images, mean=IMAGENET_MEAN, std=IMAGENET_STD,
-                               dtype=torch.bfloat16):
-    """The JAX reference formula: ``((x / 255) - mean) / std`` in ``dtype``."""
-    mean_t = torch.tensor(mean, dtype=torch.float32, device=images.device)
-    std_t = torch.tensor(std, dtype=torch.float32, device=images.device)
-    return ((images.to(torch.float32) / 255.0 - mean_t) / std_t).to(dtype)
 
 
 def normalize_images_plain(images, scale, shift, dtype=torch.bfloat16, flip=None):
@@ -104,7 +96,7 @@ def _normalize_triton(images, scale, shift, dtype, flip=None):
     if images.dtype not in _KERNEL_IN:
         raise TypeError('normalize kernel takes uint8 or float32 images, got {}'.format(images.dtype))
     if dtype not in _KERNEL_OUT:
-        raise TypeError('normalize kernel writes bf16, f16 or f32, got {}'.format(dtype))
+        raise TypeError('normalize kernel writes bf16 or f32, got {}'.format(dtype))
     if not images.is_contiguous():
         raise ValueError('normalize kernel needs contiguous NHWC images')
     total = images.numel()

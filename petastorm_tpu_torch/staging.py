@@ -25,6 +25,9 @@ import numpy as np
 import torch
 
 THREAD_PREFIX = 'pstt-staging-'
+#: Staged batches whose copies may be in flight before the dispatch thread
+#: blocks on the oldest.
+INFLIGHT = 2
 _GROW_TIMEOUT_S = 0.5
 
 
@@ -165,8 +168,6 @@ class StagingEngine(object):
         device copies.
     :param out_queue: receives staged batches in order, then
         ``end_sentinel`` (or the exception that ended the pipeline).
-    :param inflight: staged batches whose copies may be in flight before
-        the dispatch thread blocks on the oldest.
     :param ready_fn: ``staged -> None``, blocks until its copies completed;
         called before the arena behind it is recycled.
     :param holds_mode: staged tensors alias arena memory: an arena is
@@ -174,14 +175,13 @@ class StagingEngine(object):
     """
 
     def __init__(self, host_iter, stage_fn, out_queue, stop_event, end_sentinel,
-                 pool, inflight=2, ready_fn=None, holds_mode=False):
+                 pool, ready_fn=None, holds_mode=False):
         self._host_iter = host_iter
         self._stage_fn = stage_fn
         self._out = out_queue
         self._stop = stop_event
         self._end = end_sentinel
         self._pool = pool
-        self._window = max(1, int(inflight))
         self._ready_fn = ready_fn or (lambda staged: None)
         self._holds_mode = holds_mode
         self._stage_q = queue.Queue(maxsize=2)
@@ -267,7 +267,7 @@ class StagingEngine(object):
                 if not self._put(self._out, staged):
                     return
                 del staged
-                while len(inflight) > self._window:
+                while len(inflight) > INFLIGHT:
                     self._retire(*inflight.popleft(), wait=True)
         except Exception as e:  # noqa: BLE001 - delivered to the consumer
             self._put(self._out, e)

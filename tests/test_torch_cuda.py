@@ -74,7 +74,7 @@ def test_imagenet_augment_on_card_matches_cpu(dev):
 
 
 def test_resnet_tiny_on_card_matches_cpu(dev):
-    model = init_flax_like(ResNetTiny(num_classes=10, dtype=torch.float32),
+    model = init_flax_like(ResNetTiny(num_classes=10, dtype=torch.float32, device='cpu'),
                            torch.Generator().manual_seed(0))
     x = torch.randn((4, 32, 32, 3), generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
@@ -101,7 +101,7 @@ def test_cuda_loader_batches_equal_cpu_loader(dev, tmp_path):
                 return out
 
     on_host = batches('cpu', 2)
-    for prefetch in (0, 2):
+    for prefetch in (1, 2):
         on_card = batches('cuda', prefetch)
         assert len(on_card) == len(on_host) == 7
         for (image, label, where), (want_image, want_label, _) in zip(on_card, on_host):

@@ -16,6 +16,7 @@ import petastorm_tpu_torch
 from petastorm_tpu_torch import (CompressedImageCodec, ScalarCodec, TorchLoader, Unischema,
                                  UnischemaField, make_tensor_reader, write_dataset)
 from petastorm_tpu_torch.device import resolve_device
+from petastorm_tpu_torch.models import ResNet50, ResNetTiny
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.dirname(petastorm_tpu_torch.__file__)
@@ -81,6 +82,9 @@ def test_cuda_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
         resolve_device('cuda')
     with pytest.raises(RuntimeError, match='is_available'):
         TorchLoader(iter(()), 4)    # device defaults to 'cuda'
+    for build in (ResNetTiny, ResNet50):
+        with pytest.raises(RuntimeError, match='is_available'):
+            build(num_classes=10)   # device defaults to 'cuda'
     assert resolve_device('cpu') == torch.device('cpu')
     with pytest.raises(ValueError):
         resolve_device('meta')
@@ -102,7 +106,12 @@ def _port_threads():
     return [t.name for t in threading.enumerate() if t.name.startswith('pstt-')]
 
 
-@pytest.mark.parametrize('prefetch', [0, 2])
+def test_loader_refuses_prefetch_below_one():
+    with pytest.raises(ValueError, match='prefetch'):
+        TorchLoader(iter(()), 4, device='cpu', prefetch=0)
+
+
+@pytest.mark.parametrize('prefetch', [1, 2])
 def test_no_port_thread_survives_close(tmp_path, prefetch):
     url = _store(tmp_path)
     reader = make_tensor_reader(url, workers_count=3, num_epochs=None, seed=1)

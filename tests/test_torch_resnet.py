@@ -36,7 +36,8 @@ def _models(arch, stem):
         jax_kwargs['block_cls'] = jax_resnet.BottleneckBlock
         port_kwargs['block_cls'] = port_resnet.BottleneckBlock
     jax_model = jax_cls(num_classes=10, stem=stem, dtype=jnp.float32, **jax_kwargs)
-    port_model = port_cls(num_classes=10, stem=stem, dtype=torch.float32, **port_kwargs)
+    port_model = port_cls(num_classes=10, stem=stem, dtype=torch.float32, device='cpu',
+                          **port_kwargs)
     return jax_model, port_model
 
 
@@ -160,9 +161,9 @@ def test_batchnorm_running_var_uses_biased_variance():
 
 
 def test_init_flax_like_zero_scales_and_is_seeded():
-    a = port_resnet.init_flax_like(port_resnet.ResNetTiny(num_classes=10),
+    a = port_resnet.init_flax_like(port_resnet.ResNetTiny(num_classes=10, device='cpu'),
                                    torch.Generator().manual_seed(0))
-    b = port_resnet.init_flax_like(port_resnet.ResNetTiny(num_classes=10),
+    b = port_resnet.init_flax_like(port_resnet.ResNetTiny(num_classes=10, device='cpu'),
                                    torch.Generator().manual_seed(0))
     for (name, pa), (_, pb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert torch.equal(pa, pb), name

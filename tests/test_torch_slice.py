@@ -72,7 +72,7 @@ def test_three_sgd_steps_match_flax(store):
     jax_state = jax_create_train_state(jax.random.PRNGKey(0), jax_model, (1, SIZE, SIZE, 3),
                                        learning_rate=0.1)
     port_model = load_flax_resnet(
-        ResNetTiny(num_classes=10, dtype=torch.float32),
+        ResNetTiny(num_classes=10, dtype=torch.float32, device='cpu'),
         {k: np.asarray(v) for k, v in flatten_dict(jax_state.params).items()},
         {k: np.asarray(v) for k, v in flatten_dict(jax_state.batch_stats).items()})
     port_state = create_train_state(port_model, learning_rate=0.1, momentum=0.9)
