@@ -7,18 +7,30 @@ Phases, each printing one JSON line; any failure ends the script with a
 non-zero exit and no result line:
 
 1. device: the card's name and power limit.
-2. kernels: every kernel of the slice is built from this checkout (Triton,
-   cached under ``.torch_build/``), launched at the main path's shapes and
-   held against its plain PyTorch version; its time, the plain version's,
-   a PyTorch library call's where one exists, and the bound for the card.
+2. kernels: every kernel of both paths is built from this checkout (the
+   Triton normalize kernel, cached under ``.torch_build/``; the CUDA C++
+   flash-attention kernels, compiled by ``nvcc`` into
+   ``.torch_build/kernels/``, started in the background at once), launched
+   at the main paths' shapes and held against its plain PyTorch version;
+   its time, the plain version's, a PyTorch library call's where one
+   exists, and the bound for the card. The flash kernels are also checked
+   in f32 at a small shape, causal and not, with T not a multiple of a tile.
 3. checks: the loader's first batch against an independent decode of the
-   store, and the ResNet-50 forward on the card against the CPU.
-4. slice: an ImageNet-shaped JPEG Parquet store (2048 rows, 224x224x3,
+   store, the ResNet-50 forward on the card against the CPU, and the
+   TransformerLM (f32, flash kernels, 2 layers) on the card against the CPU.
+4. imagenet: an ImageNet-shaped JPEG Parquet store (2048 rows, 224x224x3,
    q90, int64 label, 256-row groups) is written with the port's writer,
    read by ``make_tensor_reader`` (4 threads), loaded by ``TorchLoader``
    (batch 128, pinned arenas), augmented by ``imagenet_train_augment`` and
-   fed to ResNet-50 SGD steps (bf16 autocast, channels_last). Every kernel's
-   launch count is zeroed just before and read just after.
+   fed to ResNet-50 SGD steps (bf16 autocast, channels_last).
+5. lm: the bench's token store (``bench.py:130-157``: 2048 rows of 1025
+   int32 tokens, vocab 32768, 256-row groups) is written with the port's
+   writer, read and loaded (batch 8) and fed to SGD steps (lr 0.01,
+   momentum 0.9) of ``TransformerLM`` (d 512, 8 heads, 8 layers, bf16,
+   ``attention='flash'``), as the bench's ``lm`` child configures it.
+
+Each path's kernel launch counts are zeroed just before it and read just
+after.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.
@@ -33,6 +45,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(ROOT, '.torch_build')
@@ -49,6 +62,13 @@ HBM_BYTES_PER_S = {'H100 80GB HBM3': 3.35e12, 'H100 SXM': 3.35e12, 'H100 NVL': 3
                    'H100 PCIe': 2.0e12, 'H200': 4.8e12}
 #: Peak f32 rate outside the tensor cores (flop/s), H100 SXM data sheet.
 F32_FLOPS = 67e12
+#: Peak dense bf16 tensor-core rate (flop/s), H100 SXM data sheet.
+BF16_TC_FLOPS = 989e12
+
+# The bench's lm child (bench.py:186-209): the flash kernels see
+# [B*H, T, D] = [64, 1024, 64] bf16, causal.
+LM_VOCAB, LM_D, LM_HEADS, LM_LAYERS, LM_SEQ = 32768, 512, 8, 8, 1025
+LM_BATCH, LM_ROWS = 8, 2048
 
 
 def emit(obj):
@@ -154,8 +174,130 @@ def check_normalize(device, rate):
                 replaces='petastorm_tpu/ops/image_ops.py:31', variants=results[1:])
 
 
+def _bf16_tolerance(want):
+    """Two bf16 ulps of each value plus 2^-8 of the largest: the kernels and
+    the plain versions round P and dS to bf16 at the same places, and a
+    value one f32 sum puts on the other side of a rounding boundary moves
+    by an ulp, through the next product."""
+    return 2 * bf16_ulp(want) + 2.0 ** -8 * want.abs().max()
+
+
+def _flash_errors(got, want, dtype, t):
+    """Max abs errors and whether each is within tolerance (rows past t are pad)."""
+    import torch
+    errs, ok = [], True
+    for name, a, b in zip(('out', 'lse', 'dq', 'dk', 'dv'), got, want):
+        a, b = a[:, :t].float(), b[:, :t].float()
+        diff = (a - b).abs()
+        if name == 'lse' or dtype == torch.float32:
+            bound = 1e-5 + 1e-5 * b.abs()
+        else:
+            bound = _bf16_tolerance(b)
+        ok = ok and bool((diff <= bound).all())
+        errs.append(float(diff.max()))
+    return dict(zip(('out', 'lse', 'dq', 'dk', 'dv'), errs)), ok
+
+
+def _flash_inputs(shape, dtype, t, device, seed):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g, device=device).to(dtype) for _ in range(4))
+    do[:, t:] = 0                      # pad rows carry no gradient
+    return q, k, v, do
+
+
+def _flash_run(fa, q, k, v, do, t, causal, block):
+    """Kernels and plain versions on the same inputs; the backward of both
+    is fed the plain forward's lse and D, so each kernel is held alone."""
+    pout, plse = fa.flash_fwd_plain(q, k, v, t, causal, block)
+    dd = (do.float() * pout.float()).sum(-1)
+    out, lse = fa.flash_fwd_cuda(q, k, v, t, causal, True)
+    dq = fa.flash_dq_cuda(q, k, v, do, plse, dd, t, causal)
+    dk, dv = fa.flash_dkv_cuda(q, k, v, do, plse, dd, t, causal)
+    want = (pout, plse, fa.flash_dq_plain(q, k, v, do, plse, dd, t, causal, block)) + \
+        fa.flash_dkv_plain(q, k, v, do, plse, dd, t, causal, block)
+    return (out, lse, dq, dk, dv), want, plse, dd
+
+
+def check_flash(device, rate):
+    """K2-K4 (flash forward, dQ, dK/dV) at the lm path's shape in bf16,
+    causal, and at a small f32 shape, causal and not, with a padded tail."""
+    import torch
+    import torch.nn.functional as F
+    from petastorm_tpu_torch.ops import flash_attention as fa
+
+    small = []
+    for causal in (False, True):
+        t, bh, d = 100, 6, 16
+        bq, bk, t_pad = fa._pad_plan(t, fa.DEFAULT_BLOCK, fa.DEFAULT_BLOCK)
+        q, k, v, do = _flash_inputs((bh, t_pad, d), torch.float32, t, device, 1)
+        got, want, _, _ = _flash_run(fa, q, k, v, do, t, causal, bk)
+        torch.cuda.synchronize()
+        errs, ok = _flash_errors(got, want, torch.float32, t)
+        if not ok:
+            raise AssertionError('flash kernels disagree with the plain versions in f32 '
+                                 '(causal={}): {}'.format(causal, errs))
+        small.append({'shape': [bh, t_pad, d], 'seq_len': t, 'dtype': 'float32', 'causal': causal,
+                      'max_abs_err': errs, 'tolerance': 'atol=rtol=1e-5 (f32)'})
+
+    b, h, t, d = LM_BATCH, LM_HEADS, LM_SEQ - 1, LM_D // LM_HEADS
+    bh = b * h
+    q, k, v, do = _flash_inputs((bh, t, d), torch.bfloat16, t, device, 2)
+    got, want, lse, dd = _flash_run(fa, q, k, v, do, t, True, fa.DEFAULT_BLOCK)
+    torch.cuda.synchronize()
+    errs, ok = _flash_errors(got, want, torch.bfloat16, t)
+    if not ok:
+        raise AssertionError('flash kernels disagree with the plain versions at the lm shape: '
+                             '{}'.format(errs))
+    tolerance = ('bf16 outputs: 2 bf16 ulps + 2^-8 max|plain|; lse (f32): atol=rtol=1e-5')
+
+    # Library yardsticks (timed here only; the port never calls them).
+    qh, kh, vh, doh = (x.view(b, h, t, d) for x in (q, k, v, do))
+    sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qh, kh, vh))
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(doh)
+
+    sdpa_bwd_ms = time_ms(sdpa_fwd_bwd) - sdpa_fwd_ms
+
+    product = 2.0 * bh * t * t * d / 2          # one causal product's flops
+    tile = bh * t * d * 2                       # one bf16 [BH, T, D] tensor's bytes
+    row = bh * t * 4                            # one f32 [BH, T] row vector's bytes
+    specs = [
+        ('flash_fwd', 'petastorm_tpu/ops/flash_attention.py:115', 2, 3 * tile, tile + row,
+         lambda: fa.flash_fwd_cuda(q, k, v, t, True, True),
+         lambda: fa.flash_fwd_plain(q, k, v, t, True, fa.DEFAULT_BLOCK),
+         sdpa_fwd_ms, 'scaled_dot_product_attention(is_causal=True) forward'),
+        ('flash_dq', 'petastorm_tpu/ops/flash_attention.py:232', 3, 4 * tile + 2 * row, tile,
+         lambda: fa.flash_dq_cuda(q, k, v, do, lse, dd, t, True),
+         lambda: fa.flash_dq_plain(q, k, v, do, lse, dd, t, True, fa.DEFAULT_BLOCK),
+         None, None),
+        ('flash_dkv', 'petastorm_tpu/ops/flash_attention.py:270', 4, 4 * tile + 2 * row, 2 * tile,
+         lambda: fa.flash_dkv_cuda(q, k, v, do, lse, dd, t, True),
+         lambda: fa.flash_dkv_plain(q, k, v, do, lse, dd, t, True, fa.DEFAULT_BLOCK),
+         sdpa_bwd_ms, 'scaled_dot_product_attention backward (fwd+bwd minus fwd): covers K3+K4'),
+    ]
+    results = []
+    for (name, replaces, products, read, written, kernel, plain, library_ms, library,
+         ) in specs:
+        ops_ms = products * product / BF16_TC_FLOPS * 1e3
+        bytes_ms = (read + written) / rate * 1e3
+        err = {'flash_fwd': max(errs['out'], errs['lse']), 'flash_dq': errs['dq'],
+               'flash_dkv': max(errs['dk'], errs['dv'])}[name]
+        results.append({
+            'name': name, 'route': 'cuda', 'source': 'petastorm_tpu_torch/csrc/flash_attention.cu',
+            'replaces': replaces, 'max_abs_err': err, 'tolerance': tolerance,
+            'ms': time_ms(kernel), 'plain_ms': time_ms(plain, reps=10),
+            'bound_ms': max(ops_ms, bytes_ms), 'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
+            'library_ms': library_ms, 'library': library, 'flops': products * product,
+            'bytes_moved': read + written, 'variant': 'bf16 causal (lm path)',
+            'shape': [bh, t, d], 'variants': small})
+    return results
+
+
 # --------------------------------------------------------------------------
-# phase 3 and 4: the slice
+# phases 3 to 5: checks and the two paths
 # --------------------------------------------------------------------------
 
 def write_store(path):
@@ -227,13 +369,12 @@ def check_model(device):
     return {'check': 'resnet50_forward_card_vs_cpu', 'max_abs_err': err, 'tolerance': 'rtol=atol=1e-3 (f32)'}
 
 
-def run_slice(url, device, steps, card):
+def run_imagenet(url, device, steps, card):
     import numpy as np
     import torch
     from petastorm_tpu_torch import TorchLoader, make_tensor_reader
     from petastorm_tpu_torch.models import ResNet50, create_train_state, make_train_step
     from petastorm_tpu_torch.models.resnet import init_flax_like
-    from petastorm_tpu_torch.ops import image_ops
     from petastorm_tpu_torch.ops.augment import imagenet_train_augment
 
     torch.backends.cudnn.benchmark = True
@@ -250,7 +391,7 @@ def run_slice(url, device, steps, card):
                                 workers_count=4, shuffle_row_groups=True, seed=0, num_epochs=None)
     with reader:
         with TorchLoader(reader, BATCH, device=device, prefetch=2) as loader:
-            image_ops.reset_launch_counts()          # main path starts here
+            reset_launch_counts()                    # the path starts here
             for i in range(total):
                 if i == WARMUP_STEPS:
                     torch.cuda.synchronize()
@@ -274,7 +415,7 @@ def run_slice(url, device, steps, card):
                     step_ms.append((ev[1], ev[2]))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t_start
-            launches = dict(image_ops.LAUNCHES)      # main path ends here
+            launches = launch_counts()               # the path ends here
             stats = dict(loader.stats)
     losses = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in losses):
@@ -287,12 +428,138 @@ def run_slice(url, device, steps, card):
     h2d_bytes = stats['h2d_bytes'] - stats0['h2d_bytes']
     h2d_s = stats['h2d_s'] - stats0['h2d_s']
     return {
-        'phase': 'slice', 'card': card, 'model': 'resnet50', 'stem': 'conv7', 'classes': 1000,
+        'phase': 'imagenet', 'card': card, 'model': 'resnet50', 'stem': 'conv7', 'classes': 1000,
         'batch': BATCH, 'image': [IMAGE, IMAGE, 3], 'steps': total, 'measured_steps': steps,
         'losses': losses, 'img_per_s': steps * BATCH / wall, 'step_ms': wall / steps * 1e3,
         'input_stall_frac': wait_s / wall,
         'h2d_GBps': h2d_bytes / h2d_s / 1e9 if h2d_s else None,
         'device_aug_ms_median': float(np.median([a.elapsed_time(b) for a, b in aug_ms])),
+        'device_train_step_ms_median': float(np.median([a.elapsed_time(b) for a, b in step_ms])),
+        'peak_mem_GB': torch.cuda.max_memory_allocated(device) / 1e9,
+        'rows_delivered': stats['rows'], 'launches': launches}
+
+
+def reset_launch_counts():
+    from petastorm_tpu_torch.ops import flash_attention, image_ops
+    image_ops.reset_launch_counts()
+    flash_attention.reset_launch_counts()
+
+
+def launch_counts():
+    from petastorm_tpu_torch.ops import flash_attention, image_ops
+    return dict(image_ops.LAUNCHES, **flash_attention.LAUNCHES)
+
+
+def write_lm_store(path):
+    """The bench's token store (``bench.py:130-157``), with the port's writer."""
+    import numpy as np
+    from petastorm_tpu_torch import NdarrayCodec, Unischema, UnischemaField, write_dataset
+    schema = Unischema('LMBenchSchema', [
+        UnischemaField('tokens', np.int32, (LM_SEQ,), NdarrayCodec(), False)])
+    rng = np.random.default_rng(11)
+    rows = ({'tokens': rng.integers(0, LM_VOCAB, LM_SEQ, dtype=np.int32)} for _ in range(LM_ROWS))
+    url = 'file://' + path
+    write_dataset(url, schema, rows, rows_per_row_group=ROWS_PER_GROUP)
+    return url
+
+
+def check_lm_model(device):
+    """TransformerLM (lm widths, 2 layers, f32, flash) on the card, through
+    the CUDA kernels with TF32 off, against the CPU's plain versions; T = 200
+    is not a multiple of a tile."""
+    import torch
+    from petastorm_tpu_torch.models import TransformerLM
+    from petastorm_tpu_torch.models.transformer import init_flax_like
+    from petastorm_tpu_torch.ops import flash_attention
+
+    def build(where):
+        model = TransformerLM(LM_VOCAB, LM_D, LM_HEADS, 2, LM_SEQ - 1, attention='flash',
+                              dtype=torch.float32, device=where)
+        return init_flax_like(model, torch.Generator().manual_seed(3))
+
+    tokens = torch.randint(0, LM_VOCAB, (2, 200), generator=torch.Generator().manual_seed(4),
+                           dtype=torch.int32)
+    with torch.no_grad():
+        want = build('cpu')(tokens)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = flash_attention.LAUNCHES['flash_fwd']
+        with torch.no_grad():
+            got = build(device)(tokens.to(device)).cpu()
+        launched = flash_attention.LAUNCHES['flash_fwd'] - before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    err = float((got - want).abs().max())
+    if launched != 2 or not (torch.isfinite(got).all()
+                             and torch.allclose(got, want, rtol=1e-4, atol=1e-4)):
+        raise AssertionError('TransformerLM on the card disagrees with the CPU: max abs err {}, '
+                             '{} flash_fwd launches'.format(err, launched))
+    return {'check': 'transformer_lm_forward_card_vs_cpu', 'layers': 2, 'tokens': [2, 200],
+            'max_abs_err': err, 'tolerance': 'rtol=atol=1e-4 (f32)'}
+
+
+def run_lm(url, device, steps, card):
+    import numpy as np
+    import torch
+    from petastorm_tpu_torch import TorchLoader, make_tensor_reader
+    from petastorm_tpu_torch.models import TransformerLM, create_train_state, make_lm_train_step
+    from petastorm_tpu_torch.models.transformer import init_flax_like
+
+    t = LM_SEQ - 1
+    model = init_flax_like(
+        TransformerLM(LM_VOCAB, LM_D, LM_HEADS, LM_LAYERS, max_len=t, attention='flash',
+                      dtype=torch.bfloat16, device=device), torch.Generator().manual_seed(0))
+    params = sum(p.numel() for p in model.parameters())
+    state = create_train_state(model, learning_rate=0.01, momentum=0.9)
+    train_step = make_lm_train_step()
+    total = WARMUP_STEPS + steps
+    losses, wait_s, step_ms = [], 0.0, []
+    torch.cuda.reset_peak_memory_stats(device)
+    reader = make_tensor_reader(url, schema_fields=['tokens'], reader_pool_type='thread',
+                                workers_count=2, shuffle_row_groups=True, seed=0, num_epochs=None)
+    with reader:
+        with TorchLoader(reader, LM_BATCH, device=device, prefetch=2) as loader:
+            reset_launch_counts()                    # the path starts here
+            for i in range(total):
+                if i == WARMUP_STEPS:
+                    torch.cuda.synchronize()
+                    t_start, wait_s = time.perf_counter(), 0.0
+                t0 = time.perf_counter()
+                batch = next(loader)
+                wait_s += time.perf_counter() - t0
+                tokens = batch.tokens
+                if not (tokens.is_cuda and tokens.dtype == torch.int32
+                        and tuple(tokens.shape) == (LM_BATCH, LM_SEQ)):
+                    raise AssertionError('tokens arrived as {} {} on {}'.format(
+                        tokens.dtype, tuple(tokens.shape), tokens.device))
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                losses.append(train_step(state, tokens)['loss'])
+                ev[1].record()
+                if i >= WARMUP_STEPS:
+                    step_ms.append(ev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_start
+            launches = launch_counts()               # the path ends here
+            stats = dict(loader.stats)
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError('non-finite loss: {}'.format(losses))
+    if stats['rows'] != total * LM_BATCH:
+        raise AssertionError('loader delivered {} rows, expected {}'.format(
+            stats['rows'], total * LM_BATCH))
+    for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
+        if launches.get(name, 0) != LM_LAYERS * total:
+            raise AssertionError('{} launched {} times in {} steps of {} layers'.format(
+                name, launches.get(name, 0), total, LM_LAYERS))
+    return {
+        'phase': 'lm', 'card': card, 'model': 'TransformerLM', 'params': params,
+        'vocab': LM_VOCAB, 'd_model': LM_D, 'heads': LM_HEADS, 'layers': LM_LAYERS, 'seq': t,
+        'batch': LM_BATCH, 'attention': 'flash', 'dtype': 'bfloat16', 'steps': total,
+        'measured_steps': steps, 'losses': losses,
+        'tokens_per_s': steps * LM_BATCH * t / wall, 'step_ms': wall / steps * 1e3,
+        'input_stall_frac': wait_s / wall,
         'device_train_step_ms_median': float(np.median([a.elapsed_time(b) for a, b in step_ms])),
         'peak_mem_GB': torch.cuda.max_memory_allocated(device) / 1e9,
         'rows_delivered': stats['rows'], 'launches': launches}
@@ -328,28 +595,44 @@ def main():
     record({'phase': 'device', 'name': name, 'count': torch.cuda.device_count(),
             'nvidia_smi': smi, 'torch': torch.__version__, 'cuda': torch.version.cuda})
 
+    # nvcc builds the flash kernels in the background while K1's Triton
+    # kernel compiles and runs.
+    from petastorm_tpu_torch.ops import flash_attention
     t0 = time.perf_counter()
-    k1 = check_normalize(device, hbm_rate(name))
-    record({'phase': 'kernels', 'card': card, 'seconds': time.perf_counter() - t0, 'normalize_images': k1})
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        build = pool.submit(flash_attention._library)
+        k1 = check_normalize(device, hbm_rate(name))
+        build.result()
+    flash = check_flash(device, hbm_rate(name))
+    record({'phase': 'kernels', 'card': card, 'seconds': time.perf_counter() - t0,
+            'normalize_images': k1, 'flash': flash})
 
     os.makedirs(BUILD_DIR, exist_ok=True)
     store_dir = tempfile.mkdtemp(prefix='smoke_store_', dir=BUILD_DIR)
     try:
         t0 = time.perf_counter()
-        url = write_store(store_dir)
-        record({'phase': 'store', 'rows': ROWS, 'rows_per_group': ROWS_PER_GROUP,
+        url = write_store(os.path.join(store_dir, 'imagenet'))
+        record({'phase': 'store', 'path': 'imagenet', 'rows': ROWS, 'rows_per_group': ROWS_PER_GROUP,
                 'codec': 'jpeg q90', 'seconds': time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        lm_url = write_lm_store(os.path.join(store_dir, 'lm'))
+        record({'phase': 'store', 'path': 'lm', 'rows': LM_ROWS, 'rows_per_group': ROWS_PER_GROUP,
+                'codec': 'ndarray int32 ({},)'.format(LM_SEQ), 'seconds': time.perf_counter() - t0})
         record(dict(check_first_batch(url, device), phase='checks'))
         record(dict(check_model(device), phase='checks'))
-        result = run_slice(url, device, args.steps, card)
+        record(dict(check_lm_model(device), phase='checks'))
+        result = run_imagenet(url, device, args.steps, card)
         record(result)
         k1['launches'] = result['launches'].get('normalize_images', 0)
+        result = run_lm(lm_url, device, args.steps, card)
+        record(result)
+        for k in flash:
+            k['launches'] = result['launches'].get(k['name'], 0)
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
-    kernels = {'kernels': [{key: k1[key] for key in (
-        'name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms', 'plain_ms',
-        'bound_ms', 'bound_by', 'library_ms', 'variant', 'shape', 'variants')}]}
-    record(kernels)
+    keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms', 'plain_ms',
+            'bound_ms', 'bound_by', 'library_ms', 'variant', 'shape', 'variants')
+    record({'kernels': [{key: k[key] for key in keys} for k in [k1] + flash]})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as f:

@@ -2,8 +2,10 @@
 
 It stands beside the JAX package and imports nothing of it: JPEG Parquet
 -> decoded-columnar tensor reader -> pinned-arena H2D loader -> on-device
-augmentation ending in a hand-written normalize kernel -> ResNet training.
-Entry points take ``device=`` and default to ``'cuda'``.
+augmentation ending in a hand-written normalize kernel -> ResNet training;
+and token Parquet -> the same reader and loader -> TransformerLM with
+hand-written CUDA flash attention -> SGD steps. Entry points take
+``device=`` and default to ``'cuda'``.
 """
 
 from petastorm_tpu_torch.codecs import CompressedImageCodec, NdarrayCodec, ScalarCodec  # noqa: F401

@@ -1,4 +1,5 @@
-"""SGD training step (counterpart of ``petastorm_tpu/models/train.py:34-61, 102-185``).
+"""SGD training steps (counterparts of ``petastorm_tpu/models/train.py:34-61, 102-185``
+and of the LM step body in ``bench.py:216-240``).
 
 ``optax.sgd(lr, momentum)`` keeps ``t = g + momentum * t`` and steps
 ``-lr * t``; ``torch.optim.SGD(momentum=, dampening=0)`` is the same
@@ -40,5 +41,26 @@ def make_train_step():
         with torch.no_grad():
             accuracy = (logits.argmax(-1) == labels).float().mean()
         return {'loss': loss.detach(), 'accuracy': accuracy}
+
+    return train_step
+
+
+def make_lm_train_step():
+    """``step(state, tokens) -> {'loss'}`` for a language model: ``tokens``
+    is ``[B, T + 1]`` integer, the inputs ``tokens[:, :-1]`` predict
+    ``tokens[:, 1:]``, the loss is the mean softmax cross entropy over
+    ``[B, T, vocab]`` f32 logits (the non-MoE body of ``bench.py:216-240``,
+    one step per call). The loss is a 0-d tensor, not synchronised."""
+
+    def train_step(state, tokens):
+        state.model.train()
+        x, y = tokens[:, :-1], tokens[:, 1:]
+        logits = state.model(x)
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long())
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return {'loss': loss.detach()}
 
     return train_step

@@ -1,6 +1,7 @@
 """The port on the card, held against its own CPU path. Every test here
-needs a CUDA device and skips without one (the Triton kernel has no CPU
-mode). The file imports no JAX, so it also runs where JAX is absent:
+needs a CUDA device and skips without one (the Triton and CUDA C++ kernels
+have no CPU mode). The file imports no JAX, so it also runs where JAX is
+absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
@@ -11,8 +12,11 @@ import torch
 
 from petastorm_tpu_torch import (CompressedImageCodec, ScalarCodec, TorchLoader, Unischema,
                                  UnischemaField, make_tensor_reader, write_dataset)
+from petastorm_tpu_torch.models import TransformerLM
+from petastorm_tpu_torch.models import transformer
 from petastorm_tpu_torch.models.resnet import ResNetTiny, init_flax_like
 from petastorm_tpu_torch.ops import augment, image_ops
+from petastorm_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +111,92 @@ def test_cuda_loader_batches_equal_cpu_loader(dev, tmp_path):
         for (image, label, where), (want_image, want_label, _) in zip(on_card, on_host):
             assert where == 'cuda'
             assert torch.equal(image, want_image) and torch.equal(label, want_label)
+
+
+def _flash_close(got, want, dtype):
+    """f32: atol=rtol=1e-5. bf16: two bf16 ulps plus 2^-8 of the largest
+    value (P and dS round to bf16 at the same places on both sides; an ulp
+    flips where an f32 sum lands on the other side of a boundary)."""
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        bound = 1e-5 + 1e-5 * want.abs()
+    else:
+        _, exponent = torch.frexp(want.abs().clamp(min=2.0 ** -126))
+        bound = 2 * torch.ldexp(torch.ones_like(want), exponent - 8) + 2.0 ** -8 * want.abs().max()
+    return bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('bh,t,d', [(6, 100, 16), (3, 77, 64), (2, 130, 128), (1, 7, 4)])
+def test_flash_kernels_match_plain(dev, dtype, causal, bh, t, d):
+    bq, bk, t_pad = fa._pad_plan(t, fa.DEFAULT_BLOCK, fa.DEFAULT_BLOCK)
+    g = torch.Generator(device=dev).manual_seed(t)
+    q, k, v, do = (torch.randn((bh, t_pad, d), generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    do[:, t:] = 0
+    before = dict(fa.LAUNCHES)
+    out, lse = fa.flash_fwd_cuda(q, k, v, t, causal, True)
+    pout, plse = fa.flash_fwd_plain(q, k, v, t, causal, bk)
+    dd = (do.float() * pout.float()).sum(-1)
+    dq = fa.flash_dq_cuda(q, k, v, do, plse, dd, t, causal)
+    dk, dv = fa.flash_dkv_cuda(q, k, v, do, plse, dd, t, causal)
+    want = ((pout, plse, fa.flash_dq_plain(q, k, v, do, plse, dd, t, causal, bk))
+            + fa.flash_dkv_plain(q, k, v, do, plse, dd, t, causal, bq))
+    for name, a, b in zip(('out', 'lse', 'dq', 'dk', 'dv'), (out, lse, dq, dk, dv), want):
+        assert a.dtype == b.dtype, name
+        assert _flash_close(a[:, :t], b[:, :t], torch.float32 if name == 'lse' else dtype), name
+    for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
+        assert fa.LAUNCHES[name] == before.get(name, 0) + 1
+
+
+def test_flash_wrappers_refuse_what_the_kernels_cannot_take(dev):
+    x = torch.zeros((2, 16, 8), device=dev)
+    lse = torch.zeros((2, 16), device=dev)
+    with pytest.raises(ValueError, match='one CUDA device'):
+        fa.flash_fwd_cuda(x, x.cpu(), x, 16, True, True)
+    with pytest.raises(TypeError, match='bfloat16 or float32'):
+        fa.flash_fwd_cuda(*(x.half(),) * 3, 16, True, True)
+    with pytest.raises(TypeError, match='mixed types'):
+        fa.flash_fwd_cuda(x, x.bfloat16(), x, 16, True, True)
+    with pytest.raises(ValueError, match='contiguous'):
+        y = torch.zeros((2, 8, 16), device=dev).transpose(1, 2)
+        fa.flash_dq_cuda(y, y, y, y, lse, lse, 16, True)
+    with pytest.raises(ValueError, match='head dim'):
+        big = torch.zeros((2, 16, 129), device=dev)
+        fa.flash_dkv_cuda(big, big, big, big, lse, lse, 16, True)
+    with pytest.raises(ValueError, match='lse and D'):
+        fa.flash_dkv_cuda(x, x, x, x, lse.bfloat16(), lse, 16, True)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_flash_attention_autograd_on_card_matches_cpu(dev, causal):
+    rng = np.random.default_rng(5)
+    arrays = [torch.from_numpy(rng.standard_normal((2, 90, 3, 32)).astype(np.float32))
+              for _ in range(4)]
+    results = []
+    for where in ('cpu', dev):
+        q, k, v = (a.to(where, copy=True).requires_grad_() for a in arrays[:3])
+        out = fa.flash_attention(q, k, v, causal=causal)
+        (out * arrays[3].to(where)).sum().backward()
+        results.append([x.detach().cpu() for x in (out, q.grad, k.grad, v.grad)])
+    for got, want in zip(*results[::-1]):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_lm_on_card_matches_cpu(dev):
+    def build(where):
+        model = TransformerLM(512, 64, 4, 2, 96, attention='flash', dtype=torch.float32,
+                              device=where)
+        return transformer.init_flax_like(model, torch.Generator().manual_seed(0))
+
+    tokens = torch.randint(0, 512, (2, 90), generator=torch.Generator().manual_seed(1))
+    results = []
+    for where in ('cpu', dev):
+        model = build(where)
+        logits = model(tokens.to(where))
+        logits.square().mean().backward()
+        results.append((logits.detach().cpu(), model.embed.weight.grad.cpu(),
+                        model.blocks[0].attn.query.weight.grad.cpu()))
+    for got, want in zip(results[1], results[0]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)

@@ -16,7 +16,7 @@ import petastorm_tpu_torch
 from petastorm_tpu_torch import (CompressedImageCodec, ScalarCodec, TorchLoader, Unischema,
                                  UnischemaField, make_tensor_reader, write_dataset)
 from petastorm_tpu_torch.device import resolve_device
-from petastorm_tpu_torch.models import ResNet50, ResNetTiny
+from petastorm_tpu_torch.models import ResNet50, ResNetTiny, TransformerLM
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.dirname(petastorm_tpu_torch.__file__)
@@ -85,6 +85,8 @@ def test_cuda_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     for build in (ResNetTiny, ResNet50):
         with pytest.raises(RuntimeError, match='is_available'):
             build(num_classes=10)   # device defaults to 'cuda'
+    with pytest.raises(RuntimeError, match='is_available'):
+        TransformerLM(64)           # device defaults to 'cuda'
     assert resolve_device('cpu') == torch.device('cpu')
     with pytest.raises(ValueError):
         resolve_device('meta')
