@@ -8,13 +8,18 @@ non-zero exit and no result line:
 
 1. device: the card's name and power limit.
 2. kernels: every kernel of both paths is built from this checkout (the
-   Triton normalize kernel, cached under ``.torch_build/``; the CUDA C++
-   flash-attention kernels, compiled by ``nvcc`` into
-   ``.torch_build/kernels/``, started in the background at once), launched
-   at the main paths' shapes and held against its plain PyTorch version;
-   its time, the plain version's, a PyTorch library call's where one
-   exists, and the bound for the card. The flash kernels are also checked
-   in f32 at a small shape, causal and not, with T not a multiple of a tile.
+   Triton normalize kernel, cached under ``.torch_build/``; the two CUDA
+   C++ flash-attention libraries, the Hopper route's and the WMMA route's,
+   each compiled by ``nvcc`` into ``.torch_build/kernels/``, both builds
+   started in the background at once), launched at the main paths' shapes
+   and held against its plain PyTorch version; its time, the plain
+   version's, a PyTorch library call's where one exists, and the bound for
+   the card. The Hopper forward and dK/dV are also timed against the WMMA
+   kernels they replace on the LM path (``previous_ms``, in turns, same
+   inputs), with their registers and spills from ``build.log``, and are
+   checked and timed again at the bench's ``flashattn`` shape
+   ([32, 8192, 128] bf16 causal). The WMMA kernels are also checked in f32
+   at a small shape, causal and not, with T not a multiple of a tile.
 3. checks: the loader's first batch against an independent decode of the
    store, the ResNet-50 forward on the card against the CPU, and the
    TransformerLM (f32, flash kernels, 2 layers) on the card against the CPU.
@@ -27,7 +32,9 @@ non-zero exit and no result line:
    int32 tokens, vocab 32768, 256-row groups) is written with the port's
    writer, read and loaded (batch 8) and fed to SGD steps (lr 0.01,
    momentum 0.9) of ``TransformerLM`` (d 512, 8 heads, 8 layers, bf16,
-   ``attention='flash'``), as the bench's ``lm`` child configures it.
+   ``attention='flash'``), as the bench's ``lm`` child configures it; its
+   attention (bf16, head dim 64) must run the Hopper forward and dK/dV and
+   the WMMA dQ, 8 launches each a step.
 
 Each path's kernel launch counts are zeroed just before it and read just
 after.
@@ -40,6 +47,7 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -69,6 +77,8 @@ BF16_TC_FLOPS = 989e12
 # [B*H, T, D] = [64, 1024, 64] bf16, causal.
 LM_VOCAB, LM_D, LM_HEADS, LM_LAYERS, LM_SEQ = 32768, 512, 8, 8, 1025
 LM_BATCH, LM_ROWS = 8, 2048
+# The bench's flashattn child (bench.py:1610-1618): [B, T, H, D] = [4, 8192, 8, 128].
+FA_BATCH, FA_SEQ, FA_HEADS, FA_D = 4, 8192, 8, 128
 
 
 def emit(obj):
@@ -182,11 +192,11 @@ def _bf16_tolerance(want):
     return 2 * bf16_ulp(want) + 2.0 ** -8 * want.abs().max()
 
 
-def _flash_errors(got, want, dtype, t):
+def _flash_errors(got, want, dtype, t, names=('out', 'lse', 'dq', 'dk', 'dv')):
     """Max abs errors and whether each is within tolerance (rows past t are pad)."""
     import torch
     errs, ok = [], True
-    for name, a, b in zip(('out', 'lse', 'dq', 'dk', 'dv'), got, want):
+    for name, a, b in zip(names, got, want):
         a, b = a[:, :t].float(), b[:, :t].float()
         diff = (a - b).abs()
         if name == 'lse' or dtype == torch.float32:
@@ -195,7 +205,7 @@ def _flash_errors(got, want, dtype, t):
             bound = _bf16_tolerance(b)
         ok = ok and bool((diff <= bound).all())
         errs.append(float(diff.max()))
-    return dict(zip(('out', 'lse', 'dq', 'dk', 'dv'), errs)), ok
+    return dict(zip(names, errs)), ok
 
 
 def _flash_inputs(shape, dtype, t, device, seed):
@@ -219,9 +229,130 @@ def _flash_run(fa, q, k, v, do, t, causal, block):
     return (out, lse, dq, dk, dv), want, plse, dd
 
 
+def _wmma_fwd(fa, q, k, v, t, causal):
+    """The WMMA forward (``flash_attention.cu``) on the same bf16 inputs,
+    called on its library directly: the kernel the Hopper route replaced,
+    kept as the yardstick (no launch is counted)."""
+    import torch
+    bh, t_pad, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, t_pad), dtype=torch.float32, device=q.device)
+    fa._raise_on(fa._library().flash_fwd(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, t_pad,
+        d, t, int(causal), 1.0 / math.sqrt(d), fa._stream(q)), 'flash_fwd (WMMA)')
+    return out, lse
+
+
+def _wmma_dkv(fa, q, k, v, do, lse, dd, t, causal):
+    """The WMMA dK/dV on the same bf16 inputs (see :func:`_wmma_fwd`)."""
+    import torch
+    bh, t_pad, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fa._raise_on(fa._library().flash_dkv(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), bh, t_pad, d, t, int(causal), 1.0 / math.sqrt(d),
+        fa._stream(q)), 'flash_dkv (WMMA)')
+    return dk, dv
+
+
+def ptxas_report(kernel, d):
+    """Registers and spills of ``kernel<d>`` from the Hopper library's
+    ``build.log`` (``nvcc -Xptxas -v``), and its dynamic shared memory."""
+    from petastorm_tpu_torch.ops import _cuda_build
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    log_path = os.path.join(os.path.dirname(_cuda_build.library_path(fa._SM90_SOURCE)), 'build.log')
+    with open(log_path) as f:
+        log = f.read()
+    entry = '{}ILi{}E'.format(kernel, d)
+    report, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = m.group(1)
+        elif current and entry in current:
+            m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+            if m:
+                report['spill_stores'], report['spill_loads'] = int(m.group(1)), int(m.group(2))
+            m = re.search(r'Used (\d+) registers', line)
+            if m:
+                report['registers'] = int(m.group(1))
+    if set(report) != {'registers', 'spill_stores', 'spill_loads'}:
+        raise AssertionError('no ptxas report for {} in {}'.format(entry, log_path))
+    report['smem_bytes'] = fa._library(fa._SM90_SOURCE).flash_sm90_smem_bytes(
+        0 if kernel.startswith('flash_fwd') else 1, d)
+    return report
+
+
+def _in_turns(previous, kernel, reps=30):
+    """(kernel ms, previous ms): each timed twice, in turns previous,
+    kernel, kernel, previous, on the same inputs; the mean of each pair."""
+    p1, k1, k2, p2 = (time_ms(fn, reps=reps) for fn in (previous, kernel, kernel, previous))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _bound(products, product_flops, nbytes, rate):
+    ops_ms = products * product_flops / BF16_TC_FLOPS * 1e3
+    bytes_ms = nbytes / rate * 1e3
+    return max(ops_ms, bytes_ms), 'operations' if ops_ms >= bytes_ms else 'bytes'
+
+
+def check_flash_d128(device, rate):
+    """The Hopper forward and dK/dV at the flashattn child's shape, against
+    the plain versions, timed beside the WMMA kernels and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from petastorm_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, d = FA_BATCH, FA_SEQ, FA_HEADS, FA_D
+    bh = b * h
+    if fa.kernel_route(torch.bfloat16, d) != 'cuda-sm90':
+        raise AssertionError('bf16 D={} does not take the Hopper route'.format(d))
+    q, k, v, do = _flash_inputs((bh, t, d), torch.bfloat16, t, device, 3)
+    out, lse = fa.flash_fwd_cuda(q, k, v, t, True, True)
+    pout, plse = fa.flash_fwd_plain(q, k, v, t, True, fa.DEFAULT_BLOCK)
+    dd = (do.float() * pout.float()).sum(-1)
+    dk, dv = fa.flash_dkv_cuda(q, k, v, do, plse, dd, t, True)
+    pdk, pdv = fa.flash_dkv_plain(q, k, v, do, plse, dd, t, True, fa.DEFAULT_BLOCK)
+    torch.cuda.synchronize()
+    errs, ok = _flash_errors((out, lse, dk, dv), (pout, plse, pdk, pdv), torch.bfloat16, t,
+                             names=('out', 'lse', 'dk', 'dv'))
+    if not ok:
+        raise AssertionError('Hopper flash kernels disagree with the plain versions at '
+                             '[{}, {}, {}]: {}'.format(bh, t, d, errs))
+    qh, kh, vh, doh = (x.view(b, h, t, d) for x in (q, k, v, do))
+    sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), reps=10)
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qh, kh, vh))
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(doh)
+
+    sdpa_bwd_ms = time_ms(sdpa_fwd_bwd, reps=10) - sdpa_fwd_ms
+    product = 2.0 * bh * t * t * d / 2
+    tile, row = bh * t * d * 2, bh * t * 4
+    fwd_ms, fwd_prev = _in_turns(lambda: _wmma_fwd(fa, q, k, v, t, True),
+                                 lambda: fa.flash_fwd_cuda(q, k, v, t, True, True), reps=10)
+    dkv_ms, dkv_prev = _in_turns(lambda: _wmma_dkv(fa, q, k, v, do, plse, dd, t, True),
+                                 lambda: fa.flash_dkv_cuda(q, k, v, do, plse, dd, t, True), reps=10)
+    tolerance = 'bf16 outputs: 2 bf16 ulps + 2^-8 max|plain|; lse (f32): atol=rtol=1e-5'
+    common = {'variant': 'bf16 causal, flashattn child shape', 'shape': [bh, t, d],
+              'tolerance': tolerance}
+    fwd_bound, fwd_by = _bound(2, product, 3 * tile + tile + row, rate)
+    dkv_bound, dkv_by = _bound(4, product, 4 * tile + 2 * row + 2 * tile, rate)
+    return {
+        'flash_fwd_sm90': dict(common, max_abs_err=max(errs['out'], errs['lse']), ms=fwd_ms,
+                               previous_ms=fwd_prev, library_ms=sdpa_fwd_ms, bound_ms=fwd_bound,
+                               bound_by=fwd_by, ptxas=ptxas_report('flash_fwd_sm90_kernel', d)),
+        'flash_dkv_sm90': dict(common, max_abs_err=max(errs['dk'], errs['dv']), ms=dkv_ms,
+                               previous_ms=dkv_prev, library_ms=sdpa_bwd_ms, bound_ms=dkv_bound,
+                               bound_by=dkv_by, ptxas=ptxas_report('flash_dkv_sm90_kernel', d)),
+    }
+
+
 def check_flash(device, rate):
     """K2-K4 (flash forward, dQ, dK/dV) at the lm path's shape in bf16,
-    causal, and at a small f32 shape, causal and not, with a padded tail."""
+    causal: the Hopper forward and dK/dV beside the WMMA kernels they
+    replaced, and at the flashattn shape; the WMMA kernels also at a small
+    f32 shape, causal and not, with a padded tail."""
     import torch
     import torch.nn.functional as F
     from petastorm_tpu_torch.ops import flash_attention as fa
@@ -261,38 +392,60 @@ def check_flash(device, rate):
 
     sdpa_bwd_ms = time_ms(sdpa_fwd_bwd) - sdpa_fwd_ms
 
+    # The WMMA kernels the Hopper route replaced, on the same inputs.
+    prev_out, prev_lse = _wmma_fwd(fa, q, k, v, t, True)
+    prev_dk, prev_dv = _wmma_dkv(fa, q, k, v, do, lse, dd, t, True)
+    torch.cuda.synchronize()
+    prev_errs, ok = _flash_errors((prev_out, prev_lse, prev_dk, prev_dv),
+                                  (want[0], want[1], want[3], want[4]), torch.bfloat16, t,
+                                  names=('out', 'lse', 'dk', 'dv'))
+    if not ok:
+        raise AssertionError('WMMA flash kernels disagree with the plain versions at the lm '
+                             'shape: {}'.format(prev_errs))
+
     product = 2.0 * bh * t * t * d / 2          # one causal product's flops
     tile = bh * t * d * 2                       # one bf16 [BH, T, D] tensor's bytes
     row = bh * t * 4                            # one f32 [BH, T] row vector's bytes
+    sm90_source = 'petastorm_tpu_torch/csrc/flash_attention_sm90.cu'
+    wmma_source = 'petastorm_tpu_torch/csrc/flash_attention.cu'
     specs = [
-        ('flash_fwd', 'petastorm_tpu/ops/flash_attention.py:115', 2, 3 * tile, tile + row,
+        ('flash_fwd_sm90', 'cuda-sm90', sm90_source, 'petastorm_tpu/ops/flash_attention.py:115', 2,
+         3 * tile, tile + row, max(errs['out'], errs['lse']),
          lambda: fa.flash_fwd_cuda(q, k, v, t, True, True),
          lambda: fa.flash_fwd_plain(q, k, v, t, True, fa.DEFAULT_BLOCK),
+         lambda: _wmma_fwd(fa, q, k, v, t, True), max(prev_errs['out'], prev_errs['lse']),
          sdpa_fwd_ms, 'scaled_dot_product_attention(is_causal=True) forward'),
-        ('flash_dq', 'petastorm_tpu/ops/flash_attention.py:232', 3, 4 * tile + 2 * row, tile,
+        ('flash_dq', 'cuda', wmma_source, 'petastorm_tpu/ops/flash_attention.py:232', 3,
+         4 * tile + 2 * row, tile, errs['dq'],
          lambda: fa.flash_dq_cuda(q, k, v, do, lse, dd, t, True),
          lambda: fa.flash_dq_plain(q, k, v, do, lse, dd, t, True, fa.DEFAULT_BLOCK),
-         None, None),
-        ('flash_dkv', 'petastorm_tpu/ops/flash_attention.py:270', 4, 4 * tile + 2 * row, 2 * tile,
+         None, None, None, None),
+        ('flash_dkv_sm90', 'cuda-sm90', sm90_source, 'petastorm_tpu/ops/flash_attention.py:270', 4,
+         4 * tile + 2 * row, 2 * tile, max(errs['dk'], errs['dv']),
          lambda: fa.flash_dkv_cuda(q, k, v, do, lse, dd, t, True),
          lambda: fa.flash_dkv_plain(q, k, v, do, lse, dd, t, True, fa.DEFAULT_BLOCK),
+         lambda: _wmma_dkv(fa, q, k, v, do, lse, dd, t, True), max(prev_errs['dk'], prev_errs['dv']),
          sdpa_bwd_ms, 'scaled_dot_product_attention backward (fwd+bwd minus fwd): covers K3+K4'),
     ]
+    d128 = check_flash_d128(device, rate)
     results = []
-    for (name, replaces, products, read, written, kernel, plain, library_ms, library,
-         ) in specs:
-        ops_ms = products * product / BF16_TC_FLOPS * 1e3
-        bytes_ms = (read + written) / rate * 1e3
-        err = {'flash_fwd': max(errs['out'], errs['lse']), 'flash_dq': errs['dq'],
-               'flash_dkv': max(errs['dk'], errs['dv'])}[name]
-        results.append({
-            'name': name, 'route': 'cuda', 'source': 'petastorm_tpu_torch/csrc/flash_attention.cu',
-            'replaces': replaces, 'max_abs_err': err, 'tolerance': tolerance,
-            'ms': time_ms(kernel), 'plain_ms': time_ms(plain, reps=10),
-            'bound_ms': max(ops_ms, bytes_ms), 'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
-            'library_ms': library_ms, 'library': library, 'flops': products * product,
-            'bytes_moved': read + written, 'variant': 'bf16 causal (lm path)',
-            'shape': [bh, t, d], 'variants': small})
+    for (name, route, source, replaces, products, read, written, err, kernel, plain, previous,
+         previous_err, library_ms, library) in specs:
+        bound_ms, bound_by = _bound(products, product, read + written, rate)
+        entry = {
+            'name': name, 'route': route, 'source': source, 'replaces': replaces,
+            'max_abs_err': err, 'tolerance': tolerance, 'plain_ms': time_ms(plain, reps=10),
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': library_ms,
+            'library': library, 'flops': products * product, 'bytes_moved': read + written,
+            'variant': 'bf16 causal (lm path)', 'shape': [bh, t, d]}
+        if previous is None:
+            entry.update(ms=time_ms(kernel), variants=small)
+        else:
+            entry['ms'], entry['previous_ms'] = _in_turns(previous, kernel)
+            entry.update(previous='WMMA kernel of flash_attention.cu, same inputs',
+                         previous_max_abs_err=previous_err,
+                         ptxas=ptxas_report(name + '_kernel', d), variants=[d128[name]])
+        results.append(entry)
     return results
 
 
@@ -549,7 +702,7 @@ def run_lm(url, device, steps, card):
     if stats['rows'] != total * LM_BATCH:
         raise AssertionError('loader delivered {} rows, expected {}'.format(
             stats['rows'], total * LM_BATCH))
-    for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
+    for name in ('flash_fwd', 'flash_dq', 'flash_dkv', 'flash_fwd_sm90', 'flash_dkv_sm90'):
         if launches.get(name, 0) != LM_LAYERS * total:
             raise AssertionError('{} launched {} times in {} steps of {} layers'.format(
                 name, launches.get(name, 0), total, LM_LAYERS))
@@ -595,17 +748,26 @@ def main():
     record({'phase': 'device', 'name': name, 'count': torch.cuda.device_count(),
             'nvidia_smi': smi, 'torch': torch.__version__, 'cuda': torch.version.cuda})
 
-    # nvcc builds the flash kernels in the background while K1's Triton
-    # kernel compiles and runs.
+    # nvcc builds both flash libraries in the background, at once, while
+    # K1's Triton kernel compiles and runs.
     from petastorm_tpu_torch.ops import flash_attention
+
+    def timed_build(load):
+        start = time.perf_counter()
+        load()
+        return time.perf_counter() - start
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        build = pool.submit(flash_attention._library)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = {source: pool.submit(timed_build, load) for source, load in (
+            (flash_attention._SOURCE, lambda: flash_attention._library()),
+            (flash_attention._SM90_SOURCE,
+             lambda: flash_attention._library(flash_attention._SM90_SOURCE)))}
         k1 = check_normalize(device, hbm_rate(name))
-        build.result()
+        build_s = {source: build.result() for source, build in builds.items()}
     flash = check_flash(device, hbm_rate(name))
     record({'phase': 'kernels', 'card': card, 'seconds': time.perf_counter() - t0,
-            'normalize_images': k1, 'flash': flash})
+            'build_s': build_s, 'normalize_images': k1, 'flash': flash})
 
     os.makedirs(BUILD_DIR, exist_ok=True)
     store_dir = tempfile.mkdtemp(prefix='smoke_store_', dir=BUILD_DIR)
@@ -631,8 +793,9 @@ def main():
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms', 'plain_ms',
-            'bound_ms', 'bound_by', 'library_ms', 'variant', 'shape', 'variants')
-    record({'kernels': [{key: k[key] for key in keys} for k in [k1] + flash]})
+            'bound_ms', 'bound_by', 'library_ms', 'previous_ms', 'ptxas', 'variant', 'shape',
+            'variants')
+    record({'kernels': [{key: k[key] for key in keys if key in k} for k in [k1] + flash]})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as f:

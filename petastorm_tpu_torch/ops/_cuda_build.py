@@ -2,8 +2,9 @@
 
 A source under ``petastorm_tpu_torch/csrc/`` is compiled at first use into
 ``.torch_build/kernels/<hash>/lib<name>.so`` at the root of the checkout
-(``.gitignore`` lists ``.torch_build/``); the hash covers the source and the
-flags, so an edited kernel is rebuilt and an unchanged one is loaded as it
+(``.gitignore`` lists ``.torch_build/``); the hash covers every file under
+``csrc/`` (the named source and any header it includes) and the flags, so
+an edited kernel or header is rebuilt and an unchanged one is loaded as it
 is. The library has a plain C interface: no PyTorch headers, so ``nvcc``
 takes seconds, not minutes. ``nvcc`` comes from ``$CUDA_HOME/bin``,
 ``PATH`` or ``/usr/local/cuda/bin``; a missing compiler or a failed build
@@ -42,11 +43,18 @@ def find_nvcc():
 
 
 def library_path(source):
-    """Where ``csrc/<source>`` builds to: keyed by its content and the flags."""
-    with open(os.path.join(CSRC, source), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(FLAGS).encode()).hexdigest()[:16]
+    """Where ``csrc/<source>`` builds to: keyed by the source's name, the
+    content of every file under ``csrc/`` and the flags."""
+    digest = hashlib.sha256(' '.join((source,) + FLAGS).encode())
+    for root, dirs, files in os.walk(CSRC):
+        dirs.sort()
+        for name in sorted(files):
+            path = os.path.join(root, name)
+            digest.update(os.path.relpath(path, CSRC).encode() + b'\0')
+            with open(path, 'rb') as f:
+                digest.update(f.read())
     name = os.path.splitext(source)[0]
-    return os.path.join(BUILD_ROOT, digest, 'lib{}.so'.format(name))
+    return os.path.join(BUILD_ROOT, digest.hexdigest()[:16], 'lib{}.so'.format(name))
 
 
 def load(source):

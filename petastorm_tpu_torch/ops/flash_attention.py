@@ -2,15 +2,22 @@
 
 Counterpart of ``petastorm_tpu/ops/flash_attention.py``. On CUDA tensors
 the three Pallas TPU kernels become hand-written CUDA C++ kernels for
-Hopper (``petastorm_tpu_torch/csrc/flash_attention.cu``, built by ``nvcc``
-at first use, see :mod:`._cuda_build`):
+Hopper (built by ``nvcc`` at first use, see :mod:`._cuda_build`):
 
-- ``flash_fwd`` replaces ``_flash_kernel`` (launched by ``_flash_bhtd``,
+- the forward replaces ``_flash_kernel`` (launched by ``_flash_bhtd``,
   ``flash_attention.py:115`` / ``:179``): out, and the logsumexp rows when
   a gradient will be needed;
-- ``flash_dq`` replaces ``_flash_dq_kernel`` (``:232``) and ``flash_dkv``
+- ``flash_dq`` replaces ``_flash_dq_kernel`` (``:232``) and dK/dV
   replaces ``_flash_dkv_kernel`` (``:270``), both launched by
   ``_flash_bwd_bhtd`` (``:316``).
+
+Two routes, chosen by dtype and head dim only (:func:`kernel_route`):
+bf16 with ``D`` in {64, 128} runs the forward and dK/dV on
+``csrc/flash_attention_sm90.cu`` (``flash_fwd_sm90``, ``flash_dkv_sm90``:
+TMA, wgmma, register accumulators; route ``'cuda-sm90'``); f32, every
+other head dim, and every dQ run on ``csrc/flash_attention.cu``
+(``flash_fwd``, ``flash_dq``, ``flash_dkv``: WMMA; route ``'cuda'``).
+Each source is its own library.
 
 On CPU tensors the plain PyTorch versions below run instead
 (:func:`flash_fwd_plain`, :func:`flash_dq_plain`, :func:`flash_dkv_plain`).
@@ -26,8 +33,9 @@ kernel. Changed: lse is ``[BH, T_pad]`` f32 (the TPU's 128-lane broadcast
 was a Mosaic layout), and the default blocks are 64x64, the CUDA kernels'
 bf16 tiles (the JAX defaults, 512x1024, are TPU VMEM sizes). On the card
 ``block_q``/``block_k`` set only the padding plan; the kernels tile with
-their own sizes (64x64 in bf16, 32x32 in f32) and mask by ``seq_len``, so
-the result is the same function.
+their own sizes (WMMA: 64x64 in bf16, 32x32 in f32; sm90: 128-row q or kv
+tiles against 128 kv or 64 q rows) and mask by ``seq_len``, so the
+result is the same function.
 """
 
 import collections
@@ -42,12 +50,18 @@ DEFAULT_BLOCK = 64
 MAX_HEAD_DIM = 128
 
 #: Kernel launches per kernel (incremented where each is launched, nowhere
-#: else): the proof that a run went through the kernels.
+#: else): the proof that a run went through the kernels. ``flash_fwd``,
+#: ``flash_dq`` and ``flash_dkv`` count every launch of either route;
+#: ``flash_fwd_sm90`` and ``flash_dkv_sm90`` count the Hopper route's.
 LAUNCHES = collections.Counter()
+
+#: Head dims the Hopper route (bf16 only) takes.
+SM90_HEAD_DIMS = (64, 128)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = 'flash_attention.cu'
-_lib = None
+_SM90_SOURCE = 'flash_attention_sm90.cu'
+_libs = {}
 
 
 def reset_launch_counts():
@@ -162,19 +176,37 @@ def flash_dkv_plain(q, k, v, dout, lse, dd, seq_len, causal, block_q):
 # CUDA kernels
 # --------------------------------------------------------------------------
 
-def _library():
-    global _lib
-    if _lib is None:
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: Each library's entry points and their argument types.
+_ARGTYPES = {
+    _SOURCE: {
+        'flash_fwd': [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        'flash_dq': [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        'flash_dkv': [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]},
+    _SM90_SOURCE: {
+        'flash_fwd_sm90': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        'flash_dkv_sm90': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        'flash_sm90_smem_bytes': [_I, _I]},
+}
+
+
+def _library(source=_SOURCE):
+    """The typed ``ctypes`` library of ``csrc/<source>``, built at first use."""
+    if source not in _libs:
         from petastorm_tpu_torch.ops import _cuda_build
-        lib = _cuda_build.load(_SOURCE)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd.argtypes = [i, p, p, p, p, p, i, i, i, i, i, f, p]
-        lib.flash_dq.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
-        lib.flash_dkv.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
-        for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv):
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        lib = _cuda_build.load(source)
+        for name, argtypes in _ARGTYPES[source].items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _libs[source] = lib
+    return _libs[source]
+
+
+def kernel_route(dtype, head_dim):
+    """Which kernels a CUDA call runs: ``'cuda-sm90'`` (the Hopper forward
+    and dK/dV) for bf16 with a head dim in :data:`SM90_HEAD_DIMS`, else
+    ``'cuda'`` (the WMMA kernels). dQ always runs on ``'cuda'``."""
+    return 'cuda-sm90' if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS else 'cuda'
 
 
 def _check_kernel_inputs(name, tensors, vectors=()):
@@ -204,9 +236,22 @@ def _check_kernel_inputs(name, tensors, vectors=()):
             raise ValueError('{}: every input must lie on one CUDA device'.format(name))
         if not x.is_contiguous():
             raise ValueError('{} needs contiguous inputs'.format(name))
+    if kernel_route(ref.dtype, ref.shape[-1]) == 'cuda-sm90':
+        # TMA reads [BH, T_pad, D] and [BH, T_pad] through tensor maps.
+        if any(x.data_ptr() % 16 for x in tuple(tensors) + tuple(vectors)):
+            raise ValueError('{} needs 16-byte aligned inputs on the sm90 route'.format(name))
+        if ref.shape[1] % 8:
+            raise ValueError('{} needs T_pad a multiple of 8 on the sm90 route, got {}'.format(
+                name, ref.shape[1]))
+
+
+_HOST_ERRORS = {-1: 'cuTensorMapEncodeTiled was not found in libcuda.so.1',
+                -2: 'a TMA tensor map could not be encoded', -3: 'unsupported head dim'}
 
 
 def _raise_on(err, name):
+    if err < 0:
+        raise RuntimeError('{} kernel launch failed: {}'.format(name, _HOST_ERRORS.get(err, err)))
     if err != 0:
         raise RuntimeError('{} kernel launch failed: CUDA error {}'.format(name, err))
 
@@ -220,13 +265,20 @@ def flash_fwd_cuda(q, k, v, seq_len, causal, emit_lse):
     bh, t_pad, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, t_pad), dtype=torch.float32, device=q.device) if emit_lse else None
+    sm90 = kernel_route(q.dtype, d) == 'cuda-sm90'
+    name = 'flash_fwd_sm90' if sm90 else 'flash_fwd'
     with torch.cuda.device(q.device):
-        err = _library().flash_fwd(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if emit_lse else None, bh, t_pad, d, seq_len, int(causal),
-            1.0 / math.sqrt(d), _stream(q))
-    _raise_on(err, 'flash_fwd')
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if emit_lse else None, bh, t_pad, d, seq_len, int(causal),
+                1.0 / math.sqrt(d), _stream(q))
+        if sm90:
+            err = _library(_SM90_SOURCE).flash_fwd_sm90(*args)
+        else:
+            err = _library().flash_fwd(_DTYPE_CODE[q.dtype], *args)
+    _raise_on(err, name)
     LAUNCHES['flash_fwd'] += 1
+    if sm90:
+        LAUNCHES['flash_fwd_sm90'] += 1
     return out, lse
 
 
@@ -248,13 +300,20 @@ def flash_dkv_cuda(q, k, v, dout, lse, dd, seq_len, causal):
     _check_kernel_inputs('flash_dkv', (q, k, v, dout), (lse, dd))
     bh, t_pad, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    sm90 = kernel_route(q.dtype, d) == 'cuda-sm90'
+    name = 'flash_dkv_sm90' if sm90 else 'flash_dkv'
     with torch.cuda.device(q.device):
-        err = _library().flash_dkv(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t_pad, d, seq_len,
-            int(causal), 1.0 / math.sqrt(d), _stream(q))
-    _raise_on(err, 'flash_dkv')
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t_pad, d, seq_len, int(causal),
+                1.0 / math.sqrt(d), _stream(q))
+        if sm90:
+            err = _library(_SM90_SOURCE).flash_dkv_sm90(*args)
+        else:
+            err = _library().flash_dkv(_DTYPE_CODE[q.dtype], *args)
+    _raise_on(err, name)
     LAUNCHES['flash_dkv'] += 1
+    if sm90:
+        LAUNCHES['flash_dkv_sm90'] += 1
     return dk, dv
 
 

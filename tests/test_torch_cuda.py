@@ -148,6 +148,50 @@ def test_flash_kernels_match_plain(dev, dtype, causal, bh, t, d):
         assert _flash_close(a[:, :t], b[:, :t], torch.float32 if name == 'lse' else dtype), name
     for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
         assert fa.LAUNCHES[name] == before.get(name, 0) + 1
+    sm90 = int(fa.kernel_route(dtype, d) == 'cuda-sm90')
+    for name in ('flash_fwd_sm90', 'flash_dkv_sm90'):
+        assert fa.LAUNCHES[name] == before.get(name, 0) + sm90
+
+
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('d', [64, 128])
+@pytest.mark.parametrize('t,seq_len', [(1000, 1000), (1024, 1024), (2048, 2048), (1024, 777)])
+def test_sm90_flash_kernels_match_plain(dev, d, causal, t, seq_len):
+    """The Hopper forward and dK/dV (bf16, D 64 or 128) against the plain
+    versions on every row, T_pad included; seq_len < T_pad masks keys."""
+    bq, bk, t_pad = fa._pad_plan(t, fa.DEFAULT_BLOCK, fa.DEFAULT_BLOCK)
+    assert fa.kernel_route(torch.bfloat16, d) == 'cuda-sm90'
+    g = torch.Generator(device=dev).manual_seed(seq_len + d)
+    q, k, v, do = (torch.randn((3, t_pad, d), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    do[:, seq_len:] = 0                  # rows past seq_len carry no gradient
+    before = dict(fa.LAUNCHES)
+    out, lse = fa.flash_fwd_cuda(q, k, v, seq_len, causal, True)
+    pout, plse = fa.flash_fwd_plain(q, k, v, seq_len, causal, bk)
+    dd = (do.float() * pout.float()).sum(-1)
+    dk, dv = fa.flash_dkv_cuda(q, k, v, do, plse, dd, seq_len, causal)
+    pdk, pdv = fa.flash_dkv_plain(q, k, v, do, plse, dd, seq_len, causal, bq)
+    torch.cuda.synchronize()
+    for name, a, b in (('out', out, pout), ('lse', lse, plse), ('dk', dk, pdk), ('dv', dv, pdv)):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _flash_close(a, b, torch.float32 if name == 'lse' else torch.bfloat16), name
+    for name in ('flash_fwd', 'flash_fwd_sm90', 'flash_dkv', 'flash_dkv_sm90'):
+        assert fa.LAUNCHES[name] == before.get(name, 0) + 1, name
+
+
+def test_sm90_flash_forward_without_lse(dev):
+    q, k, v = (torch.randn((2, 256, 64), device=dev).to(torch.bfloat16) for _ in range(3))
+    out, lse = fa.flash_fwd_cuda(q, k, v, 200, True, False)
+    want, _ = fa.flash_fwd_plain(q, k, v, 200, True, fa.DEFAULT_BLOCK)
+    assert lse is None and _flash_close(out, want, torch.bfloat16)
+
+
+def test_sm90_kernels_fit_shared_memory(dev):
+    lib = fa._library(fa._SM90_SOURCE)
+    for kernel in (0, 1):
+        for d in fa.SM90_HEAD_DIMS:
+            assert 0 < lib.flash_sm90_smem_bytes(kernel, d) <= 232448
+        assert lib.flash_sm90_smem_bytes(kernel, 96) < 0
 
 
 def test_flash_wrappers_refuse_what_the_kernels_cannot_take(dev):
@@ -167,6 +211,15 @@ def test_flash_wrappers_refuse_what_the_kernels_cannot_take(dev):
         fa.flash_dkv_cuda(big, big, big, big, lse, lse, 16, True)
     with pytest.raises(ValueError, match='lse and D'):
         fa.flash_dkv_cuda(x, x, x, x, lse.bfloat16(), lse, 16, True)
+    # The sm90 route (bf16, D 64 or 128) reads through TMA tensor maps.
+    raw = torch.zeros(2 * 16 * 64 + 8, dtype=torch.bfloat16, device=dev)
+    shifted = raw[1:1 + 2 * 16 * 64].view(2, 16, 64)
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        fa.flash_fwd_cuda(shifted, shifted, shifted, 16, True, True)
+    ragged = torch.zeros((2, 12, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match='multiple of 8'):
+        fa.flash_dkv_cuda(ragged, ragged, ragged, ragged, lse[:, :12].contiguous(),
+                          lse[:, :12].contiguous(), 12, True)
 
 
 @pytest.mark.parametrize('causal', [False, True])
