@@ -14,10 +14,13 @@ non-zero exit and no result line:
    started in the background at once), launched at the main paths' shapes
    and held against its plain PyTorch version; its time, the plain
    version's, a PyTorch library call's where one exists, and the bound for
-   the card. The Hopper forward and dK/dV are also timed against the WMMA
-   kernels they replace on the LM path (``previous_ms``, in turns, same
-   inputs), with their registers and spills from ``build.log``, and are
-   checked and timed again at the bench's ``flashattn`` shape
+   the card. Every time is device time; an entry's ``host_bound`` lists
+   the times that may hold host time as well (see :func:`time_ms`). The
+   Hopper forward, dQ and dK/dV are also timed
+   against the WMMA kernels they replace on the LM path (``previous_ms``,
+   in turns, same inputs; the WMMA kernels are checked against the plain
+   versions too), with their registers and spills from ``build.log``, and
+   are checked and timed again at the bench's ``flashattn`` shape
    ([32, 8192, 128] bf16 causal). The WMMA kernels are also checked in f32
    at a small shape, causal and not, with T not a multiple of a tile.
 3. checks: the loader's first batch against an independent decode of the
@@ -33,11 +36,12 @@ non-zero exit and no result line:
    writer, read and loaded (batch 8) and fed to SGD steps (lr 0.01,
    momentum 0.9) of ``TransformerLM`` (d 512, 8 heads, 8 layers, bf16,
    ``attention='flash'``), as the bench's ``lm`` child configures it; its
-   attention (bf16, head dim 64) must run the Hopper forward and dK/dV and
-   the WMMA dQ, 8 launches each a step.
+   attention (bf16, head dim 64) must run the Hopper forward, dQ and dK/dV,
+   8 launches each a step.
 
 Each path's kernel launch counts are zeroed just before it and read just
-after.
+after; then three more of its steps are traced with ``torch.profiler``
+(the card's busy time a step and idle share, ``trace`` in its line).
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.
@@ -72,6 +76,10 @@ HBM_BYTES_PER_S = {'H100 80GB HBM3': 3.35e12, 'H100 SXM': 3.35e12, 'H100 NVL': 3
 F32_FLOPS = 67e12
 #: Peak dense bf16 tensor-core rate (flop/s), H100 SXM data sheet.
 BF16_TC_FLOPS = 989e12
+#: Clock cycles the card first spins ahead of a timed run (~10 ms at 1.98 GHz),
+#: and the most it spins once doubled (see :func:`time_ms`).
+SPIN_CYCLES = 20_000_000
+MAX_SPIN_CYCLES = 16 * SPIN_CYCLES
 
 # The bench's lm child (bench.py:186-209): the flash kernels see
 # [B*H, T, D] = [64, 1024, 64] bf16, causal.
@@ -93,20 +101,43 @@ def hbm_rate(name):
 
 
 def time_ms(fn, reps=30, warmup=3):
-    """Median device time of ``fn()`` over ``reps`` launches (CUDA events)."""
+    """(median device time of ``fn()`` over ``reps`` calls, host-bound):
+    CUDA events between back-to-back calls, all queued behind a spin of
+    the card so that the host's launch overhead falls outside the timed
+    intervals. If the spin ended before the host had queued the last call
+    (a host-heavy ``fn`` such as an autograd backward, or a slow host),
+    the run is repeated behind a spin twice as long, up to
+    ``MAX_SPIN_CYCLES``. If even that spin ends first, the median may hold
+    host time, and host-bound is True."""
     import torch
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
+    spin = SPIN_CYCLES
+    while True:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin)
+        events[0].record()
+        for event in events[1:]:
+            fn()
+            event.record()
+        queued_in_time = not events[0].query()   # the card still spun after the last call
+        events[-1].synchronize()
+        if queued_in_time or spin >= MAX_SPIN_CYCLES:
+            break
+        spin *= 2
+    times = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    return times[len(times) // 2], not queued_in_time
+
+
+def time_into(entry, reps=30, **fns):
+    """``entry[key]`` = the device time of ``fns[key]()``, for each key;
+    ``entry['host_bound']`` lists the keys whose time may hold host time."""
+    host_bound = entry.setdefault('host_bound', [])
+    for key, fn in fns.items():
+        entry[key], slow = time_ms(fn, reps=reps)
+        if slow:
+            host_bound.append(key)
 
 
 def synthetic_image(rng, size):
@@ -130,8 +161,23 @@ def bf16_ulp(ref):
     return torch.ldexp(torch.ones_like(ref), exponent - 8)
 
 
+def _normalize_error(got, want, dtype):
+    """(max abs error, within tolerance, the tolerance stated)."""
+    import torch
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        tolerance = '1e-5 absolute (f32 fma vs mul+add)'
+        ok = bool((diff <= 1e-5).all())
+    else:
+        # Near zero, x * scale + shift cancels: the f32 roundings of the
+        # two formulas (fma or not) then differ by ~1e-7 absolute.
+        tolerance = '1 bf16 ulp of the plain value, at least 1e-6'
+        ok = bool((diff <= bf16_ulp(want.float()).clamp(min=1e-6)).all())
+    return float(diff.max()), ok, tolerance
+
+
 def check_normalize(device, rate):
-    """K1 at the main path's shape in four variants; the main path's own is
+    """K1 at the main path's shape in five variants; the main path's own is
     f32 (after color jitter) -> bf16 with the flip fused."""
     import torch
     from petastorm_tpu_torch.ops import image_ops
@@ -143,6 +189,7 @@ def check_normalize(device, rate):
     flip = image_ops.sample_flip(BATCH, g, device)
     scale, shift = image_ops._scale_shift(image_ops.IMAGENET_MEAN, image_ops.IMAGENET_STD, device)
     variants = [('f32->bf16+flip', x_f32, torch.bfloat16, flip),
+                ('f32->bf16', x_f32, torch.bfloat16, None),
                 ('u8->bf16', x_u8, torch.bfloat16, None),
                 ('f32->f32', x_f32, torch.float32, None),
                 ('u8->bf16+flip', x_u8, torch.bfloat16, flip)]
@@ -151,37 +198,33 @@ def check_normalize(device, rate):
         got = image_ops.normalize_images(x, dtype=dtype, flip=fl)
         want = image_ops.normalize_images_plain(x, scale, shift, dtype, fl)
         torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        if dtype == torch.float32:
-            tolerance = '1e-5 absolute (f32 fma vs mul+add)'
-            ok = bool((diff <= 1e-5).all())
-        else:
-            # Near zero, x * scale + shift cancels: the f32 roundings of the
-            # two formulas (fma or not) then differ by ~1e-7 absolute.
-            tolerance = '1 bf16 ulp of the plain value, at least 1e-6'
-            ok = bool((diff <= bf16_ulp(want.float()).clamp(min=1e-6)).all())
-        max_err = float(diff.max())
+        max_err, ok, tolerance = _normalize_error(got, want, dtype)
         if not ok:
             raise AssertionError('normalize kernel {} disagrees with its plain version: '
                                  'max abs err {}'.format(label, max_err))
-        library_ms = None
-        if dtype == torch.float32 and fl is None:
-            library_ms = time_ms(lambda: torch.addcmul(shift, x, scale))
         n = x.numel()
         nbytes = n * (x.element_size() + torch.empty((), dtype=dtype).element_size())
         nbytes += 0 if fl is None else BATCH
         bytes_ms, ops_ms = nbytes / rate * 1e3, 2 * n / F32_FLOPS * 1e3
-        results.append({
+        entry = {
             'variant': label, 'shape': list(shape), 'max_abs_err': max_err, 'tolerance': tolerance,
-            'ms': time_ms(lambda: image_ops.normalize_images(x, dtype=dtype, flip=fl)),
-            'plain_ms': time_ms(lambda: image_ops.normalize_images_plain(x, scale, shift, dtype, fl)),
             'bound_ms': max(bytes_ms, ops_ms),
             'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
-            'library_ms': library_ms, 'bytes_moved': nbytes})
+            'library_ms': None, 'bytes_moved': nbytes}
+        time_into(entry,
+                  ms=lambda: image_ops.normalize_images(x, dtype=dtype, flip=fl),
+                  plain_ms=lambda: image_ops.normalize_images_plain(x, scale, shift, dtype, fl),
+                  # PyTorch's cast of the input into the output type: the same bytes,
+                  # no arithmetic, so the streaming rate the card reaches in practice.
+                  copy_ms=lambda: got.copy_(x))
+        if dtype == torch.float32 and fl is None:
+            time_into(entry, library_ms=lambda: torch.addcmul(shift, x, scale))
+        results.append(entry)
     main = dict(results[0])
     return dict(main, name='normalize_images', route='triton',
                 source='petastorm_tpu_torch/ops/image_ops.py',
-                replaces='petastorm_tpu/ops/image_ops.py:31', variants=results[1:])
+                replaces='petastorm_tpu/ops/image_ops.py:31', variants=results[1:],
+                block=image_ops._BLOCK, num_warps=image_ops._NUM_WARPS)
 
 
 def _bf16_tolerance(want):
@@ -243,6 +286,18 @@ def _wmma_fwd(fa, q, k, v, t, causal):
     return out, lse
 
 
+def _wmma_dq(fa, q, k, v, do, lse, dd, t, causal):
+    """The WMMA dQ on the same bf16 inputs (see :func:`_wmma_fwd`)."""
+    import torch
+    bh, t_pad, d = q.shape
+    dq = torch.empty_like(q)
+    fa._raise_on(fa._library().flash_dq(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+        dq.data_ptr(), bh, t_pad, d, t, int(causal), 1.0 / math.sqrt(d), fa._stream(q)),
+        'flash_dq (WMMA)')
+    return dq
+
+
 def _wmma_dkv(fa, q, k, v, do, lse, dd, t, causal):
     """The WMMA dK/dV on the same bf16 inputs (see :func:`_wmma_fwd`)."""
     import torch
@@ -255,15 +310,47 @@ def _wmma_dkv(fa, q, k, v, do, lse, dd, t, causal):
     return dk, dv
 
 
+#: Library yardsticks of the flash kernels (timed here only; the port never calls them).
+SDPA_FWD = 'scaled_dot_product_attention(is_causal=True) forward'
+SDPA_DQ = ('scaled_dot_product_attention backward for q alone (k and v need no gradient; '
+           'forward + autograd.grad minus forward): its fused backward may still compute '
+           'dK/dV inside')
+SDPA_BWD = 'scaled_dot_product_attention backward (fwd+bwd minus fwd): covers K3+K4'
+
+
+def sdpa_ms(q, k, v, do, reps):
+    """SDPA's causal forward, its backward for q alone, and its backward for
+    q, k and v, on ``[B, H, T, D]`` views of the kernels' inputs; each
+    backward as forward + backward minus forward. Each is (ms, host-bound),
+    as :func:`time_ms` gives them."""
+    import torch
+    import torch.nn.functional as F
+
+    def attend(*qkv):
+        return F.scaled_dot_product_attention(*qkv, is_causal=True)
+
+    fwd = time_ms(lambda: attend(q, k, v), reps=reps)
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    dq = time_ms(lambda: torch.autograd.grad(attend(qg, k, v), qg, do), reps=reps)
+    bwd = time_ms(lambda: attend(qg, kg, vg).backward(do), reps=reps)
+    return {'flash_fwd_sm90': fwd, 'flash_dq_sm90': (dq[0] - fwd[0], dq[1] or fwd[1]),
+            'flash_dkv_sm90': (bwd[0] - fwd[0], bwd[1] or fwd[1])}
+
+
+#: ``flash_sm90_smem_bytes`` kernel codes.
+SMEM_CODE = {'flash_fwd_sm90': 0, 'flash_dkv_sm90': 1, 'flash_dq_sm90': 2}
+
+
 def ptxas_report(kernel, d):
-    """Registers and spills of ``kernel<d>`` from the Hopper library's
-    ``build.log`` (``nvcc -Xptxas -v``), and its dynamic shared memory."""
+    """Registers and spills of ``<kernel>_kernel<d>`` from the Hopper
+    library's ``build.log`` (``nvcc -Xptxas -v``), and its dynamic shared
+    memory."""
     from petastorm_tpu_torch.ops import _cuda_build
     from petastorm_tpu_torch.ops import flash_attention as fa
     log_path = os.path.join(os.path.dirname(_cuda_build.library_path(fa._SM90_SOURCE)), 'build.log')
     with open(log_path) as f:
         log = f.read()
-    entry = '{}ILi{}E'.format(kernel, d)
+    entry = '{}_kernelILi{}E'.format(kernel, d)
     report, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -278,16 +365,27 @@ def ptxas_report(kernel, d):
                 report['registers'] = int(m.group(1))
     if set(report) != {'registers', 'spill_stores', 'spill_loads'}:
         raise AssertionError('no ptxas report for {} in {}'.format(entry, log_path))
-    report['smem_bytes'] = fa._library(fa._SM90_SOURCE).flash_sm90_smem_bytes(
-        0 if kernel.startswith('flash_fwd') else 1, d)
+    report['smem_bytes'] = fa._library(fa._SM90_SOURCE).flash_sm90_smem_bytes(SMEM_CODE[kernel], d)
     return report
 
 
-def _in_turns(previous, kernel, reps=30):
-    """(kernel ms, previous ms): each timed twice, in turns previous,
-    kernel, kernel, previous, on the same inputs; the mean of each pair."""
+def _in_turns(entry, previous, kernel, reps=30):
+    """``entry['ms']`` and ``entry['previous_ms']``: each timed twice, in
+    turns previous, kernel, kernel, previous, on the same inputs; the mean
+    of each pair (host-bound if either time of the pair is)."""
     p1, k1, k2, p2 = (time_ms(fn, reps=reps) for fn in (previous, kernel, kernel, previous))
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    host_bound = entry.setdefault('host_bound', [])
+    for key, (a, b) in (('ms', (k1, k2)), ('previous_ms', (p1, p2))):
+        entry[key] = (a[0] + b[0]) / 2
+        if a[1] or b[1]:
+            host_bound.append(key)
+
+
+def _library_into(entry, timing):
+    """``entry['library_ms']`` from an :func:`sdpa_ms` timing."""
+    entry['library_ms'] = timing[0]
+    if timing[1]:
+        entry.setdefault('host_bound', []).append('library_ms')
 
 
 def _bound(products, product_flops, nbytes, rate):
@@ -297,10 +395,9 @@ def _bound(products, product_flops, nbytes, rate):
 
 
 def check_flash_d128(device, rate):
-    """The Hopper forward and dK/dV at the flashattn child's shape, against
-    the plain versions, timed beside the WMMA kernels and SDPA."""
+    """The Hopper forward, dQ and dK/dV at the flashattn child's shape,
+    against the plain versions, timed beside the WMMA kernels and SDPA."""
     import torch
-    import torch.nn.functional as F
     from petastorm_tpu_torch.ops import flash_attention as fa
 
     b, t, h, d = FA_BATCH, FA_SEQ, FA_HEADS, FA_D
@@ -308,53 +405,45 @@ def check_flash_d128(device, rate):
     if fa.kernel_route(torch.bfloat16, d) != 'cuda-sm90':
         raise AssertionError('bf16 D={} does not take the Hopper route'.format(d))
     q, k, v, do = _flash_inputs((bh, t, d), torch.bfloat16, t, device, 3)
-    out, lse = fa.flash_fwd_cuda(q, k, v, t, True, True)
-    pout, plse = fa.flash_fwd_plain(q, k, v, t, True, fa.DEFAULT_BLOCK)
-    dd = (do.float() * pout.float()).sum(-1)
-    dk, dv = fa.flash_dkv_cuda(q, k, v, do, plse, dd, t, True)
-    pdk, pdv = fa.flash_dkv_plain(q, k, v, do, plse, dd, t, True, fa.DEFAULT_BLOCK)
+    got, want, plse, dd = _flash_run(fa, q, k, v, do, t, True, fa.DEFAULT_BLOCK)
     torch.cuda.synchronize()
-    errs, ok = _flash_errors((out, lse, dk, dv), (pout, plse, pdk, pdv), torch.bfloat16, t,
-                             names=('out', 'lse', 'dk', 'dv'))
+    errs, ok = _flash_errors(got, want, torch.bfloat16, t)
     if not ok:
         raise AssertionError('Hopper flash kernels disagree with the plain versions at '
                              '[{}, {}, {}]: {}'.format(bh, t, d, errs))
-    qh, kh, vh, doh = (x.view(b, h, t, d) for x in (q, k, v, do))
-    sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), reps=10)
-    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qh, kh, vh))
-
-    def sdpa_fwd_bwd():
-        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(doh)
-
-    sdpa_bwd_ms = time_ms(sdpa_fwd_bwd, reps=10) - sdpa_fwd_ms
+    library = sdpa_ms(*(x.view(b, h, t, d) for x in (q, k, v, do)), reps=10)
     product = 2.0 * bh * t * t * d / 2
     tile, row = bh * t * d * 2, bh * t * 4
-    fwd_ms, fwd_prev = _in_turns(lambda: _wmma_fwd(fa, q, k, v, t, True),
-                                 lambda: fa.flash_fwd_cuda(q, k, v, t, True, True), reps=10)
-    dkv_ms, dkv_prev = _in_turns(lambda: _wmma_dkv(fa, q, k, v, do, plse, dd, t, True),
-                                 lambda: fa.flash_dkv_cuda(q, k, v, do, plse, dd, t, True), reps=10)
-    tolerance = 'bf16 outputs: 2 bf16 ulps + 2^-8 max|plain|; lse (f32): atol=rtol=1e-5'
-    common = {'variant': 'bf16 causal, flashattn child shape', 'shape': [bh, t, d],
-              'tolerance': tolerance}
-    fwd_bound, fwd_by = _bound(2, product, 3 * tile + tile + row, rate)
-    dkv_bound, dkv_by = _bound(4, product, 4 * tile + 2 * row + 2 * tile, rate)
-    return {
-        'flash_fwd_sm90': dict(common, max_abs_err=max(errs['out'], errs['lse']), ms=fwd_ms,
-                               previous_ms=fwd_prev, library_ms=sdpa_fwd_ms, bound_ms=fwd_bound,
-                               bound_by=fwd_by, ptxas=ptxas_report('flash_fwd_sm90_kernel', d)),
-        'flash_dkv_sm90': dict(common, max_abs_err=max(errs['dk'], errs['dv']), ms=dkv_ms,
-                               previous_ms=dkv_prev, library_ms=sdpa_bwd_ms, bound_ms=dkv_bound,
-                               bound_by=dkv_by, ptxas=ptxas_report('flash_dkv_sm90_kernel', d)),
+    timed = {
+        'flash_fwd_sm90': (2, 3 * tile + tile + row, max(errs['out'], errs['lse']),
+                           lambda: _wmma_fwd(fa, q, k, v, t, True),
+                           lambda: fa.flash_fwd_cuda(q, k, v, t, True, True)),
+        'flash_dq_sm90': (3, 4 * tile + 2 * row + tile, errs['dq'],
+                          lambda: _wmma_dq(fa, q, k, v, do, plse, dd, t, True),
+                          lambda: fa.flash_dq_cuda(q, k, v, do, plse, dd, t, True)),
+        'flash_dkv_sm90': (4, 4 * tile + 2 * row + 2 * tile, max(errs['dk'], errs['dv']),
+                           lambda: _wmma_dkv(fa, q, k, v, do, plse, dd, t, True),
+                           lambda: fa.flash_dkv_cuda(q, k, v, do, plse, dd, t, True)),
     }
+    tolerance = 'bf16 outputs: 2 bf16 ulps + 2^-8 max|plain|; lse (f32): atol=rtol=1e-5'
+    results = {}
+    for name, (products, nbytes, err, previous, kernel) in timed.items():
+        bound_ms, bound_by = _bound(products, product, nbytes, rate)
+        entry = {'variant': 'bf16 causal, flashattn child shape', 'shape': [bh, t, d],
+                 'tolerance': tolerance, 'max_abs_err': err, 'bound_ms': bound_ms,
+                 'bound_by': bound_by, 'ptxas': ptxas_report(name, d)}
+        _in_turns(entry, previous, kernel, reps=10)
+        _library_into(entry, library[name])
+        results[name] = entry
+    return results
 
 
 def check_flash(device, rate):
     """K2-K4 (flash forward, dQ, dK/dV) at the lm path's shape in bf16,
-    causal: the Hopper forward and dK/dV beside the WMMA kernels they
-    replaced, and at the flashattn shape; the WMMA kernels also at a small
-    f32 shape, causal and not, with a padded tail."""
+    causal: the Hopper kernels beside the WMMA kernels they replaced, and
+    at the flashattn shape; the WMMA kernels also at a small f32 shape,
+    causal and not, with a padded tail. Returns (kernel entries, f32 checks)."""
     import torch
-    import torch.nn.functional as F
     from petastorm_tpu_torch.ops import flash_attention as fa
 
     small = []
@@ -381,24 +470,13 @@ def check_flash(device, rate):
         raise AssertionError('flash kernels disagree with the plain versions at the lm shape: '
                              '{}'.format(errs))
     tolerance = ('bf16 outputs: 2 bf16 ulps + 2^-8 max|plain|; lse (f32): atol=rtol=1e-5')
-
-    # Library yardsticks (timed here only; the port never calls them).
-    qh, kh, vh, doh = (x.view(b, h, t, d) for x in (q, k, v, do))
-    sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
-    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qh, kh, vh))
-
-    def sdpa_fwd_bwd():
-        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(doh)
-
-    sdpa_bwd_ms = time_ms(sdpa_fwd_bwd) - sdpa_fwd_ms
+    library = sdpa_ms(*(x.view(b, h, t, d) for x in (q, k, v, do)), reps=30)
 
     # The WMMA kernels the Hopper route replaced, on the same inputs.
-    prev_out, prev_lse = _wmma_fwd(fa, q, k, v, t, True)
-    prev_dk, prev_dv = _wmma_dkv(fa, q, k, v, do, lse, dd, t, True)
+    prev = (_wmma_fwd(fa, q, k, v, t, True) + (_wmma_dq(fa, q, k, v, do, lse, dd, t, True),)
+            + _wmma_dkv(fa, q, k, v, do, lse, dd, t, True))
     torch.cuda.synchronize()
-    prev_errs, ok = _flash_errors((prev_out, prev_lse, prev_dk, prev_dv),
-                                  (want[0], want[1], want[3], want[4]), torch.bfloat16, t,
-                                  names=('out', 'lse', 'dk', 'dv'))
+    prev_errs, ok = _flash_errors(prev, want, torch.bfloat16, t)
     if not ok:
         raise AssertionError('WMMA flash kernels disagree with the plain versions at the lm '
                              'shape: {}'.format(prev_errs))
@@ -406,52 +484,75 @@ def check_flash(device, rate):
     product = 2.0 * bh * t * t * d / 2          # one causal product's flops
     tile = bh * t * d * 2                       # one bf16 [BH, T, D] tensor's bytes
     row = bh * t * 4                            # one f32 [BH, T] row vector's bytes
-    sm90_source = 'petastorm_tpu_torch/csrc/flash_attention_sm90.cu'
-    wmma_source = 'petastorm_tpu_torch/csrc/flash_attention.cu'
+    source = 'petastorm_tpu_torch/csrc/flash_attention_sm90.cu'
     specs = [
-        ('flash_fwd_sm90', 'cuda-sm90', sm90_source, 'petastorm_tpu/ops/flash_attention.py:115', 2,
-         3 * tile, tile + row, max(errs['out'], errs['lse']),
+        ('flash_fwd_sm90', 'petastorm_tpu/ops/flash_attention.py:115', 2, 3 * tile, tile + row,
+         ('out', 'lse'), SDPA_FWD,
          lambda: fa.flash_fwd_cuda(q, k, v, t, True, True),
          lambda: fa.flash_fwd_plain(q, k, v, t, True, fa.DEFAULT_BLOCK),
-         lambda: _wmma_fwd(fa, q, k, v, t, True), max(prev_errs['out'], prev_errs['lse']),
-         sdpa_fwd_ms, 'scaled_dot_product_attention(is_causal=True) forward'),
-        ('flash_dq', 'cuda', wmma_source, 'petastorm_tpu/ops/flash_attention.py:232', 3,
-         4 * tile + 2 * row, tile, errs['dq'],
+         lambda: _wmma_fwd(fa, q, k, v, t, True)),
+        ('flash_dq_sm90', 'petastorm_tpu/ops/flash_attention.py:232', 3, 4 * tile + 2 * row, tile,
+         ('dq',), SDPA_DQ,
          lambda: fa.flash_dq_cuda(q, k, v, do, lse, dd, t, True),
          lambda: fa.flash_dq_plain(q, k, v, do, lse, dd, t, True, fa.DEFAULT_BLOCK),
-         None, None, None, None),
-        ('flash_dkv_sm90', 'cuda-sm90', sm90_source, 'petastorm_tpu/ops/flash_attention.py:270', 4,
-         4 * tile + 2 * row, 2 * tile, max(errs['dk'], errs['dv']),
+         lambda: _wmma_dq(fa, q, k, v, do, lse, dd, t, True)),
+        ('flash_dkv_sm90', 'petastorm_tpu/ops/flash_attention.py:270', 4, 4 * tile + 2 * row,
+         2 * tile, ('dk', 'dv'), SDPA_BWD,
          lambda: fa.flash_dkv_cuda(q, k, v, do, lse, dd, t, True),
          lambda: fa.flash_dkv_plain(q, k, v, do, lse, dd, t, True, fa.DEFAULT_BLOCK),
-         lambda: _wmma_dkv(fa, q, k, v, do, lse, dd, t, True), max(prev_errs['dk'], prev_errs['dv']),
-         sdpa_bwd_ms, 'scaled_dot_product_attention backward (fwd+bwd minus fwd): covers K3+K4'),
+         lambda: _wmma_dkv(fa, q, k, v, do, lse, dd, t, True)),
     ]
     d128 = check_flash_d128(device, rate)
     results = []
-    for (name, route, source, replaces, products, read, written, err, kernel, plain, previous,
-         previous_err, library_ms, library) in specs:
+    for name, replaces, products, read, written, outputs, library_label, kernel, plain, previous in specs:
         bound_ms, bound_by = _bound(products, product, read + written, rate)
         entry = {
-            'name': name, 'route': route, 'source': source, 'replaces': replaces,
-            'max_abs_err': err, 'tolerance': tolerance, 'plain_ms': time_ms(plain, reps=10),
-            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': library_ms,
-            'library': library, 'flops': products * product, 'bytes_moved': read + written,
-            'variant': 'bf16 causal (lm path)', 'shape': [bh, t, d]}
-        if previous is None:
-            entry.update(ms=time_ms(kernel), variants=small)
-        else:
-            entry['ms'], entry['previous_ms'] = _in_turns(previous, kernel)
-            entry.update(previous='WMMA kernel of flash_attention.cu, same inputs',
-                         previous_max_abs_err=previous_err,
-                         ptxas=ptxas_report(name + '_kernel', d), variants=[d128[name]])
+            'name': name, 'route': 'cuda-sm90', 'source': source, 'replaces': replaces,
+            'max_abs_err': max(errs[o] for o in outputs), 'tolerance': tolerance,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'library': library_label,
+            'flops': products * product, 'bytes_moved': read + written,
+            'variant': 'bf16 causal (lm path)', 'shape': [bh, t, d],
+            'previous': 'WMMA kernel of flash_attention.cu, same inputs',
+            'previous_max_abs_err': max(prev_errs[o] for o in outputs),
+            'ptxas': ptxas_report(name, d), 'variants': [d128[name]]}
+        _in_turns(entry, previous, kernel)
+        time_into(entry, reps=10, plain_ms=plain)
+        _library_into(entry, library[name])
         results.append(entry)
-    return results
+    return results, small
 
 
 # --------------------------------------------------------------------------
 # phases 3 to 5: checks and the two paths
 # --------------------------------------------------------------------------
+
+TRACED_STEPS = 3
+
+
+def trace_steps(step, step_ms):
+    """``TRACED_STEPS`` more calls of ``step`` (after the path's launch
+    counts are read) under ``torch.profiler``, CUDA activity only: the
+    card's busy time a step (kernels, copies and sets), its idle share
+    against ``step_ms`` (the path's unprofiled device step), and the five
+    kernels that take the most of it. Device numbers are None if the
+    profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACED_STEPS):
+            step()
+        torch.cuda.synchronize()
+    events = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / TRACED_STEPS
+    if busy_ms == 0:
+        return {'traced_steps': TRACED_STEPS, 'device_busy_ms_per_step': None,
+                'device_idle_share': None}
+    return {'traced_steps': TRACED_STEPS, 'device_busy_ms_per_step': busy_ms,
+            'device_idle_share': 1 - busy_ms / step_ms,
+            'top_kernels_ms_per_step': [[e.key, e.self_device_time_total / 1e3 / TRACED_STEPS]
+                                        for e in events[:5]]}
+
 
 def write_store(path):
     import numpy as np
@@ -570,6 +671,10 @@ def run_imagenet(url, device, steps, card):
             wall = time.perf_counter() - t_start
             launches = launch_counts()               # the path ends here
             stats = dict(loader.stats)
+    device_step_ms = float(np.median([a.elapsed_time(b) for a, b in step_ms]))
+    trace = trace_steps(lambda: train_step(state, imagenet_train_augment(
+        batch.image, aug_gen, IMAGE, IMAGE, dtype=torch.bfloat16), batch.label),
+        float(np.median([a.elapsed_time(b) for a, b in aug_ms])) + device_step_ms)
     losses = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError('non-finite loss: {}'.format(losses))
@@ -587,9 +692,9 @@ def run_imagenet(url, device, steps, card):
         'input_stall_frac': wait_s / wall,
         'h2d_GBps': h2d_bytes / h2d_s / 1e9 if h2d_s else None,
         'device_aug_ms_median': float(np.median([a.elapsed_time(b) for a, b in aug_ms])),
-        'device_train_step_ms_median': float(np.median([a.elapsed_time(b) for a, b in step_ms])),
+        'device_train_step_ms_median': device_step_ms,
         'peak_mem_GB': torch.cuda.max_memory_allocated(device) / 1e9,
-        'rows_delivered': stats['rows'], 'launches': launches}
+        'rows_delivered': stats['rows'], 'launches': launches, 'trace': trace}
 
 
 def reset_launch_counts():
@@ -696,13 +801,16 @@ def run_lm(url, device, steps, card):
             wall = time.perf_counter() - t_start
             launches = launch_counts()               # the path ends here
             stats = dict(loader.stats)
+    device_step_ms = float(np.median([a.elapsed_time(b) for a, b in step_ms]))
+    trace = trace_steps(lambda: train_step(state, tokens), device_step_ms)
     losses = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError('non-finite loss: {}'.format(losses))
     if stats['rows'] != total * LM_BATCH:
         raise AssertionError('loader delivered {} rows, expected {}'.format(
             stats['rows'], total * LM_BATCH))
-    for name in ('flash_fwd', 'flash_dq', 'flash_dkv', 'flash_fwd_sm90', 'flash_dkv_sm90'):
+    for name in ('flash_fwd', 'flash_dq', 'flash_dkv', 'flash_fwd_sm90', 'flash_dq_sm90',
+                 'flash_dkv_sm90'):
         if launches.get(name, 0) != LM_LAYERS * total:
             raise AssertionError('{} launched {} times in {} steps of {} layers'.format(
                 name, launches.get(name, 0), total, LM_LAYERS))
@@ -713,9 +821,9 @@ def run_lm(url, device, steps, card):
         'measured_steps': steps, 'losses': losses,
         'tokens_per_s': steps * LM_BATCH * t / wall, 'step_ms': wall / steps * 1e3,
         'input_stall_frac': wait_s / wall,
-        'device_train_step_ms_median': float(np.median([a.elapsed_time(b) for a, b in step_ms])),
+        'device_train_step_ms_median': device_step_ms,
         'peak_mem_GB': torch.cuda.max_memory_allocated(device) / 1e9,
-        'rows_delivered': stats['rows'], 'launches': launches}
+        'rows_delivered': stats['rows'], 'launches': launches, 'trace': trace}
 
 
 def main():
@@ -765,9 +873,9 @@ def main():
              lambda: flash_attention._library(flash_attention._SM90_SOURCE)))}
         k1 = check_normalize(device, hbm_rate(name))
         build_s = {source: build.result() for source, build in builds.items()}
-    flash = check_flash(device, hbm_rate(name))
+    flash, wmma_f32 = check_flash(device, hbm_rate(name))
     record({'phase': 'kernels', 'card': card, 'seconds': time.perf_counter() - t0,
-            'build_s': build_s, 'normalize_images': k1, 'flash': flash})
+            'build_s': build_s, 'normalize_images': k1, 'flash': flash, 'wmma_f32': wmma_f32})
 
     os.makedirs(BUILD_DIR, exist_ok=True)
     store_dir = tempfile.mkdtemp(prefix='smoke_store_', dir=BUILD_DIR)
@@ -793,8 +901,8 @@ def main():
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms', 'plain_ms',
-            'bound_ms', 'bound_by', 'library_ms', 'previous_ms', 'ptxas', 'variant', 'shape',
-            'variants')
+            'bound_ms', 'bound_by', 'library_ms', 'previous_ms', 'host_bound', 'ptxas', 'variant',
+            'shape', 'block', 'num_warps', 'variants')
     record({'kernels': [{key: k[key] for key in keys if key in k} for k in [k1] + flash]})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

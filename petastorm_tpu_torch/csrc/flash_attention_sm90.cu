@@ -1,12 +1,13 @@
 // Flash attention for Hopper (sm_90a), redesigned around TMA, wgmma and
-// register accumulators: the bf16 forward (K2) and dK/dV (K4) kernels at
-// head dim 64 or 128.
+// register accumulators: the bf16 forward (K2), dQ (K3) and dK/dV (K4)
+// kernels at head dim 64 or 128.
 //
 // Replaces, for bf16 inputs with D in {64, 128}, the Pallas TPU kernels of
 // petastorm_tpu/ops/flash_attention.py:
 //   flash_fwd_sm90 <- _flash_kernel     (launched by _flash_bhtd, :115 / :179)
+//   flash_dq_sm90  <- _flash_dq_kernel  (launched by _flash_bwd_bhtd, :232 / :316)
 //   flash_dkv_sm90 <- _flash_dkv_kernel (launched by _flash_bwd_bhtd, :270 / :316)
-// flash_attention.cu keeps f32, every other head dim, and dQ (K3).
+// flash_attention.cu keeps f32 and every other head dim.
 //
 // The function is the TPU bodies' (and flash_attention.cu's): every tensor
 // is [BH, T_pad, D] row-major bf16, lse and D are [BH, T_pad] f32; keys are
@@ -16,39 +17,43 @@
 // m + log l; no atomics. What differs is the order of the f32 sums: P V
 // accumulates straight into the rescaled accumulator, the softmax runs in
 // base 2 (exp2 with scale * log2 e folded in; lse is converted back), and
-// dK is scaled once at the end.
+// dQ and dK are scaled once at the end.
 //
 // What bounds them on an H100: at the LM path's shape ([64, 1024, 64] bf16,
 // causal) the forward does 2 causal products (8.6 GFLOP) for ~34 MB read
 // and written once, and is bound by its bytes (10.1 us at 3.35 TB/s);
-// dK/dV does 4 products (17.2 GFLOP) for ~42 MB and is bound by the
-// tensor cores (17.4 us at 989 TFLOP/s). Both sit near the card's balance
-// point, so the design keeps the tensor cores fed and every intermediate
-// on chip:
-//  - One block per (bh, tile): a 128-row q tile in the forward, a 128-row
-//    kv tile in dK/dV, heaviest tiles first across the whole grid (causal
-//    work grows with the q tile in the forward and shrinks with the kv tile
-//    in dK/dV). 384 threads: warpgroup 0 is the producer (one thread issues
-//    every load; setmaxnreg lowers it to 24 registers), warpgroups 1 and 2
-//    are consumers of 64 rows each (setmaxnreg 240).
+// dQ does 3 products (12.9 GFLOP) for ~34 MB and dK/dV 4 (17.2 GFLOP) for
+// ~42 MB, both bound by the tensor cores (13.0 and 17.4 us at 989
+// TFLOP/s). All sit near the card's balance point, so the design keeps the
+// tensor cores fed and every intermediate on chip:
+//  - One block per (bh, tile): a 128-row q tile in the forward and dQ, a
+//    128-row kv tile in dK/dV, heaviest tiles first across the whole grid
+//    (causal work grows with the q tile and shrinks with the kv tile).
+//    384 threads: warpgroup 0 is the producer (one thread issues every
+//    load; setmaxnreg lowers it to 24 registers), warpgroups 1 and 2 are
+//    consumers of 64 rows each (setmaxnreg 240).
 //  - Loads are TMA copies of 64-column boxes with the 128-byte swizzle
 //    from 3-D tensor maps over [BH, T_pad, D] (rows past T_pad come back
-//    as zeros), completed on mbarriers. The tile the block owns (Q, or K
-//    and V) is loaded once; the streamed tiles (K and V of 128 rows, or
-//    Q and dO of 64 rows with their lse and D rows from 2-D maps) pass
-//    through a 2-stage ring guarded by full/empty barriers, so the next
-//    tile's copy overlaps this tile's products.
+//    as zeros), completed on mbarriers. The tiles the block owns (Q; Q and
+//    dO with their lse and D rows from 2-D maps; or K and V) are loaded
+//    once; the streamed tiles (K and V of 128 rows in the forward, of 64
+//    rows in dQ; Q and dO of 64 rows with their lse and D rows in dK/dV)
+//    pass through a 2-stage ring guarded by full/empty barriers, so the
+//    next tile's copy overlaps this tile's products.
 //  - Products are wgmma (m64nNk16, f32 accumulators in registers). Scores
-//    (S = Q K^T; in dK/dV, S^T = K Q^T and dP^T = V dO^T) read both
-//    operands from shared memory, K-major. The softmax is applied to the
-//    accumulator in registers; a row's max and sum are reduced over the
-//    four threads that share it. P (and dS) are converted to bf16 in
-//    registers, whose accumulator layout is the A-operand layout of the
-//    next wgmma, so they never touch shared memory: O += P V,
-//    dV += P^T dO and dK += dS^T Q take V, dO and Q as B straight from
-//    their tiles, MN-major (transposed by the descriptor).
-//  - dK/dV work in the transposed frame (rows are keys), so both
-//    accumulators stay in registers for the whole q loop.
+//    (S = Q K^T and, in dQ, dP = dO V^T; in dK/dV, S^T = K Q^T and
+//    dP^T = V dO^T) read both operands from shared memory, K-major. The
+//    softmax is applied to the accumulator in registers; a row's max and
+//    sum are reduced over the four threads that share it. P (and dS) are
+//    converted to bf16 in registers, whose accumulator layout is the
+//    A-operand layout of the next wgmma, so they never touch shared
+//    memory: O += P V, dQ += dS K, dV += P^T dO and dK += dS^T Q take V, K,
+//    dO and Q as B straight from their tiles, MN-major (transposed by the
+//    descriptor).
+//  - dQ keeps its accumulator in registers for the whole kv loop, and each
+//    thread's two rows of lse and D in registers; dK/dV work in the
+//    transposed frame (rows are keys), so both accumulators stay in
+//    registers for the whole q loop.
 //  - The causal mask and the seq_len / T_pad masks are applied only on the
 //    tiles that cross them.
 //  - Epilogue: each consumer warpgroup writes its rows (bf16) into a
@@ -60,7 +65,7 @@
 // a CUDA error (cudaGetLastError() after the launch), or a negative code
 // for a failure on the host: -1 cuTensorMapEncodeTiled was not found in
 // libcuda.so.1, -2 a tensor map could not be encoded, -3 a head dim other
-// than 64 or 128.
+// than 64 or 128, -4 (flash_sm90_smem_bytes only) an unknown kernel code.
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder comes from libcuda.so.1 at run time
 #include <cuda_bf16.h>
@@ -479,6 +484,166 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
 }
 
 // ---------------------------------------------------------------------------
+// backward: dQ (K3)
+// ---------------------------------------------------------------------------
+
+template <int D> struct DqLayout {
+  static constexpr int BQ = 128, BK = 64, CB = D / BOX_COLS;
+  static constexpr int TILE_Q = BQ * D * 2, TILE_KV = BK * D * 2, VEC = BQ * 4;   // bytes
+  static constexpr int Q = 0, DO = Q + TILE_Q, K = DO + TILE_Q, V = K + STAGES * TILE_KV;
+  static constexpr int LSE = V + STAGES * TILE_KV, DD = LSE + VEC, STG = DD + VEC;
+  static constexpr int BAR = STG + BQ * (D + 8) * 2;
+  static constexpr int SMEM = BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_lse, const __grid_constant__ CUtensorMap tm_dd,
+                     bf16 *__restrict__ dq, int bh_count, int n_qt, int t_pad, int seq_len, int causal,
+                     float scale, float scale_log2) {
+  using L = DqLayout<D>;
+  extern __shared__ char smem_raw[];
+  char *smem = align_1024(smem_raw);
+  bf16 *sq = reinterpret_cast<bf16 *>(smem + L::Q);
+  bf16 *sdo = reinterpret_cast<bf16 *>(smem + L::DO);
+  bf16 *sk = reinterpret_cast<bf16 *>(smem + L::K);
+  bf16 *sv = reinterpret_cast<bf16 *>(smem + L::V);
+  const float *slse = reinterpret_cast<const float *>(smem + L::LSE);
+  const float *sdd = reinterpret_cast<const float *>(smem + L::DD);
+  bf16 *stg = reinterpret_cast<bf16 *>(smem + L::STG);
+  uint64_t *q_full = reinterpret_cast<uint64_t *>(smem + L::BAR);
+  uint64_t *full = q_full + 1, *empty = full + STAGES;
+
+  // Heaviest first: later q tiles see more kv tiles under the causal mask.
+  const int bh = blockIdx.x % bh_count;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / bh_count;
+  const int q0 = qt * L::BQ;
+  // Kv tiles past seq_len are never loaded; under the causal mask the last
+  // is the one that holds the tile's last row. Rows of q past seq_len carry
+  // dO = 0 and D = 0, so their dQ is 0.
+  int n_kt = (seq_len + L::BK - 1) / L::BK;
+  if (causal) n_kt = min(n_kt, (q0 + L::BQ - 1) / L::BK + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * L::TILE_Q + 2 * L::VEC);
+      for (int cb = 0; cb < L::CB; ++cb) {
+        tma_load_3d(sq + cb * L::BQ * BOX_COLS, &tm_q, q_full, cb * BOX_COLS, q0, bh);
+        tma_load_3d(sdo + cb * L::BQ * BOX_COLS, &tm_do, q_full, cb * BOX_COLS, q0, bh);
+      }
+      tma_load_2d(smem + L::LSE, &tm_lse, q_full, q0, bh);
+      tma_load_2d(smem + L::DD, &tm_dd, q_full, q0, bh);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * L::TILE_KV);
+        bf16 *k_dst = sk + s * L::BK * D, *v_dst = sv + s * L::BK * D;
+        for (int cb = 0; cb < L::CB; ++cb) {
+          tma_load_3d(k_dst + cb * L::BK * BOX_COLS, &tm_k, &full[s], cb * BOX_COLS, kt * L::BK, bh);
+          tma_load_3d(v_dst + cb * L::BK * BOX_COLS, &tm_v, &full[s], cb * BOX_COLS, kt * L::BK, bh);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup w owns q rows [q0 + 64 w, q0 + 64 w + 64) ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int w = wg - 1, t = threadIdx.x % 128;
+    const int row = w * 64 + (t / 32) * 16 + (t % 32) / 4;   // tile row of the thread's first row
+    const int q_pos[2] = {q0 + row, q0 + row + 8};
+    const int c2 = 2 * (t % 4);
+    const int w_last = q0 + w * 64 + 63;                       // the warpgroup's last row
+    const bf16 *sq_w = sq + w * 64 * BOX_COLS, *sdo_w = sdo + w * 64 * BOX_COLS;
+
+    float dqa[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.0f;
+
+    mbar_wait(q_full, 0);
+    float lse2[2], dd[2];   // the thread's two rows: lse in base 2, and D
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lse2[h] = slse[row + 8 * h] * LOG2E;
+      dd[h] = sdd[row + 8 * h];
+    }
+
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % STAGES, k0 = kt * L::BK;
+      mbar_wait(&full[s], (kt / STAGES) & 1);
+      if (causal && k0 > w_last) {   // wholly above this warpgroup's diagonal: adds nothing
+        mbar_arrive(&empty[s]);
+        continue;
+      }
+      const bf16 *sk_s = sk + s * L::BK * D, *sv_s = sv + s * L::BK * D;
+
+      // S = Q K^T and dP = dO V^T: [64 x 64] f32 each, in registers.
+      float sc[32], dp[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.0f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int own = (kk / 4) * L::BQ * BOX_COLS + (kk % 4) * 16;
+        const int streamed = (kk / 4) * L::BK * BOX_COLS + (kk % 4) * 16;
+        wgmma_ss(sc, smem_desc(sq_w + own, 16), smem_desc(sk_s + streamed, 16), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int own = (kk / 4) * L::BQ * BOX_COLS + (kk % 4) * 16;
+        const int streamed = (kk / 4) * L::BK * BOX_COLS + (kk % 4) * 16;
+        wgmma_ss(dp, smem_desc(sdo_w + own, 16), smem_desc(sv_s + streamed, 16), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P = exp(S scale - lse[row]), dS = P (dP - D[row]); masked P is exactly 0.
+      const bool masked = k0 + L::BK > seq_len || (causal && k0 + L::BK - 1 > q0 + w * 64);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 4 * j + e, h = e >> 1;
+          float p = exp2f(sc[r] * scale_log2 - lse2[h]);
+          if (masked && !visible(q_pos[h], k0 + 8 * j + c2 + (e & 1), seq_len, causal)) p = 0.0f;
+          dp[r] = p * (dp[r] - dd[h]);
+        }
+
+      // dQ += dS K: dS (bf16) from registers, K MN-major from the stage.
+      uint32_t dsa[4][4];
+      to_operands<4>(dp, dsa);
+      fence_regs(dqa);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) wgmma_rs(dqa, dsa[kc], smem_desc(sk_s + kc * 16 * BOX_COLS, L::BK * ROW_BYTES));
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(dqa);
+      mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dqa[i] *= scale;
+    store_rows<D>(dqa, stg + w * 64 * (D + 8), dq + static_cast<size_t>(bh) * t_pad * D, q0 + w * 64, t_pad, t,
+                  1 + w);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // backward: dK and dV (K4)
 // ---------------------------------------------------------------------------
 
@@ -644,7 +809,7 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
 // host: tensor maps and launchers
 // ---------------------------------------------------------------------------
 
-constexpr int ERR_NO_ENCODER = -1, ERR_ENCODE = -2, ERR_HEAD_DIM = -3;
+constexpr int ERR_NO_ENCODER = -1, ERR_ENCODE = -2, ERR_HEAD_DIM = -3, ERR_KERNEL = -4;
 
 using EncodeTiled = CUresult (*)(CUtensorMap *, CUtensorMapDataType, cuuint32_t, void *, const cuuint64_t *,
                                  const cuuint64_t *, const cuuint32_t *, const cuuint32_t *, CUtensorMapInterleave,
@@ -709,6 +874,26 @@ int launch_fwd(const void *q, const void *k, const void *v, void *out, void *lse
 }
 
 template <int D>
+int launch_dq(const void *q, const void *k, const void *v, const void *dout, const void *lse, const void *dd,
+              void *dq, int bh, int t_pad, int seq_len, int causal, float scale, cudaStream_t stream) {
+  using L = DqLayout<D>;
+  CUtensorMap mq, mk, mv, mdo, mlse, mdd;
+  int err;
+  if ((err = map_rows(&mq, q, bh, t_pad, D, L::BQ)) || (err = map_rows(&mk, k, bh, t_pad, D, L::BK)) ||
+      (err = map_rows(&mv, v, bh, t_pad, D, L::BK)) || (err = map_rows(&mdo, dout, bh, t_pad, D, L::BQ)) ||
+      (err = map_vec(&mlse, lse, bh, t_pad, L::BQ)) || (err = map_vec(&mdd, dd, bh, t_pad, L::BQ)))
+    return err;
+  auto kernel = flash_dq_sm90_kernel<D>;
+  cudaError_t cerr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const int n_qt = (t_pad + L::BQ - 1) / L::BQ;
+  kernel<<<static_cast<unsigned>(bh) * n_qt, NT, L::SMEM, stream>>>(
+      mq, mk, mv, mdo, mlse, mdd, static_cast<bf16 *>(dq), bh, n_qt, t_pad, seq_len, causal, scale,
+      scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
 int launch_dkv(const void *q, const void *k, const void *v, const void *dout, const void *lse, const void *dd,
                void *dk, void *dv, int bh, int t_pad, int seq_len, int causal, float scale, cudaStream_t stream) {
   using L = DkvLayout<D>;
@@ -728,6 +913,15 @@ int launch_dkv(const void *q, const void *k, const void *v, const void *dout, co
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D> int smem_bytes(int kernel) {
+  switch (kernel) {
+    case 0: return FwdLayout<D>::SMEM;
+    case 1: return DkvLayout<D>::SMEM;
+    case 2: return DqLayout<D>::SMEM;
+  }
+  return ERR_KERNEL;
+}
+
 }  // namespace
 
 // Pointers are device pointers to contiguous bf16 [BH, T_pad, D] tensors
@@ -743,6 +937,14 @@ int flash_fwd_sm90(const void *q, const void *k, const void *v, void *out, void 
   return ERR_HEAD_DIM;
 }
 
+int flash_dq_sm90(const void *q, const void *k, const void *v, const void *dout, const void *lse, const void *dd,
+                  void *dq, int bh, int t_pad, int d, int seq_len, int causal, float scale, void *stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64) return launch_dq<64>(q, k, v, dout, lse, dd, dq, bh, t_pad, seq_len, causal, scale, s);
+  if (d == 128) return launch_dq<128>(q, k, v, dout, lse, dd, dq, bh, t_pad, seq_len, causal, scale, s);
+  return ERR_HEAD_DIM;
+}
+
 int flash_dkv_sm90(const void *q, const void *k, const void *v, const void *dout, const void *lse, const void *dd,
                    void *dk, void *dv, int bh, int t_pad, int d, int seq_len, int causal, float scale,
                    void *stream) {
@@ -752,10 +954,10 @@ int flash_dkv_sm90(const void *q, const void *k, const void *v, const void *dout
   return ERR_HEAD_DIM;
 }
 
-// Dynamic shared memory of a launch: kernel 0 = flash_fwd_sm90, 1 = flash_dkv_sm90.
+// Dynamic shared memory of a launch: kernel 0 = flash_fwd_sm90, 1 = flash_dkv_sm90, 2 = flash_dq_sm90.
 int flash_sm90_smem_bytes(int kernel, int d) {
-  if (d == 64) return kernel == 0 ? FwdLayout<64>::SMEM : DkvLayout<64>::SMEM;
-  if (d == 128) return kernel == 0 ? FwdLayout<128>::SMEM : DkvLayout<128>::SMEM;
+  if (d == 64) return smem_bytes<64>(kernel);
+  if (d == 128) return smem_bytes<128>(kernel);
   return ERR_HEAD_DIM;
 }
 

@@ -12,6 +12,7 @@ raises. ``-Xptxas -v`` (registers, shared memory, spills per kernel) is kept
 in ``build.log`` beside the library.
 """
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -27,7 +28,8 @@ FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '-shar
          '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _libs = {}
-_lock = threading.Lock()
+_lock = threading.Lock()                          # guards _locks
+_locks = collections.defaultdict(threading.Lock)  # one per source: two sources build at once
 
 
 def find_nvcc():
@@ -60,6 +62,8 @@ def library_path(source):
 def load(source):
     """The ``ctypes.CDLL`` of ``csrc/<source>``, built first if need be."""
     with _lock:
+        lock = _locks[source]
+    with lock:
         if source in _libs:
             return _libs[source]
         lib_path = library_path(source)

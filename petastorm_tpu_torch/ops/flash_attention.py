@@ -12,12 +12,12 @@ Hopper (built by ``nvcc`` at first use, see :mod:`._cuda_build`):
   ``_flash_bwd_bhtd`` (``:316``).
 
 Two routes, chosen by dtype and head dim only (:func:`kernel_route`):
-bf16 with ``D`` in {64, 128} runs the forward and dK/dV on
-``csrc/flash_attention_sm90.cu`` (``flash_fwd_sm90``, ``flash_dkv_sm90``:
-TMA, wgmma, register accumulators; route ``'cuda-sm90'``); f32, every
-other head dim, and every dQ run on ``csrc/flash_attention.cu``
-(``flash_fwd``, ``flash_dq``, ``flash_dkv``: WMMA; route ``'cuda'``).
-Each source is its own library.
+bf16 with ``D`` in {64, 128} runs all three on
+``csrc/flash_attention_sm90.cu`` (``flash_fwd_sm90``, ``flash_dq_sm90``,
+``flash_dkv_sm90``: TMA, wgmma, register accumulators; route
+``'cuda-sm90'``); f32 and every other head dim run on
+``csrc/flash_attention.cu`` (``flash_fwd``, ``flash_dq``, ``flash_dkv``:
+WMMA; route ``'cuda'``). Each source is its own library.
 
 On CPU tensors the plain PyTorch versions below run instead
 (:func:`flash_fwd_plain`, :func:`flash_dq_plain`, :func:`flash_dkv_plain`).
@@ -33,9 +33,10 @@ kernel. Changed: lse is ``[BH, T_pad]`` f32 (the TPU's 128-lane broadcast
 was a Mosaic layout), and the default blocks are 64x64, the CUDA kernels'
 bf16 tiles (the JAX defaults, 512x1024, are TPU VMEM sizes). On the card
 ``block_q``/``block_k`` set only the padding plan; the kernels tile with
-their own sizes (WMMA: 64x64 in bf16, 32x32 in f32; sm90: 128-row q or kv
-tiles against 128 kv or 64 q rows) and mask by ``seq_len``, so the
-result is the same function.
+their own sizes (WMMA: 64x64 in bf16, 32x32 in f32; sm90: 128-row q tiles
+against 128 kv rows in the forward and 64 in dQ, 128-row kv tiles against
+64 q rows in dK/dV) and mask by ``seq_len``, so the result is the same
+function.
 """
 
 import collections
@@ -52,7 +53,8 @@ MAX_HEAD_DIM = 128
 #: Kernel launches per kernel (incremented where each is launched, nowhere
 #: else): the proof that a run went through the kernels. ``flash_fwd``,
 #: ``flash_dq`` and ``flash_dkv`` count every launch of either route;
-#: ``flash_fwd_sm90`` and ``flash_dkv_sm90`` count the Hopper route's.
+#: ``flash_fwd_sm90``, ``flash_dq_sm90`` and ``flash_dkv_sm90`` count the
+#: Hopper route's.
 LAUNCHES = collections.Counter()
 
 #: Head dims the Hopper route (bf16 only) takes.
@@ -185,6 +187,7 @@ _ARGTYPES = {
         'flash_dkv': [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]},
     _SM90_SOURCE: {
         'flash_fwd_sm90': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        'flash_dq_sm90': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
         'flash_dkv_sm90': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
         'flash_sm90_smem_bytes': [_I, _I]},
 }
@@ -203,9 +206,9 @@ def _library(source=_SOURCE):
 
 
 def kernel_route(dtype, head_dim):
-    """Which kernels a CUDA call runs: ``'cuda-sm90'`` (the Hopper forward
-    and dK/dV) for bf16 with a head dim in :data:`SM90_HEAD_DIMS`, else
-    ``'cuda'`` (the WMMA kernels). dQ always runs on ``'cuda'``."""
+    """Which kernels a CUDA call runs: ``'cuda-sm90'`` (the Hopper forward,
+    dQ and dK/dV) for bf16 with a head dim in :data:`SM90_HEAD_DIMS`, else
+    ``'cuda'`` (the WMMA kernels)."""
     return 'cuda-sm90' if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS else 'cuda'
 
 
@@ -260,60 +263,50 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _launch(kernel, q, pointers, seq_len, causal):
+    """Launch ``kernel`` (``'flash_fwd'``, ``'flash_dq'`` or ``'flash_dkv'``)
+    on the route :func:`kernel_route` picks for ``q``: ``<kernel>_sm90`` of
+    the Hopper library, or ``<kernel>`` of the WMMA library (which also
+    takes the dtype code). Raises on a non-zero return; counts the launch."""
+    bh, t_pad, d = q.shape
+    sm90 = kernel_route(q.dtype, d) == 'cuda-sm90'
+    name = kernel + '_sm90' if sm90 else kernel
+    args = pointers + (bh, t_pad, d, seq_len, int(causal), 1.0 / math.sqrt(d), _stream(q))
+    with torch.cuda.device(q.device):
+        if sm90:
+            err = getattr(_library(_SM90_SOURCE), name)(*args)
+        else:
+            err = getattr(_library(), name)(_DTYPE_CODE[q.dtype], *args)
+    _raise_on(err, name)
+    LAUNCHES[kernel] += 1
+    if sm90:
+        LAUNCHES[name] += 1
+
+
 def flash_fwd_cuda(q, k, v, seq_len, causal, emit_lse):
     _check_kernel_inputs('flash_fwd', (q, k, v))
-    bh, t_pad, d = q.shape
+    bh, t_pad, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, t_pad), dtype=torch.float32, device=q.device) if emit_lse else None
-    sm90 = kernel_route(q.dtype, d) == 'cuda-sm90'
-    name = 'flash_fwd_sm90' if sm90 else 'flash_fwd'
-    with torch.cuda.device(q.device):
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr() if emit_lse else None, bh, t_pad, d, seq_len, int(causal),
-                1.0 / math.sqrt(d), _stream(q))
-        if sm90:
-            err = _library(_SM90_SOURCE).flash_fwd_sm90(*args)
-        else:
-            err = _library().flash_fwd(_DTYPE_CODE[q.dtype], *args)
-    _raise_on(err, name)
-    LAUNCHES['flash_fwd'] += 1
-    if sm90:
-        LAUNCHES['flash_fwd_sm90'] += 1
+    _launch('flash_fwd', q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                             lse.data_ptr() if emit_lse else None), seq_len, causal)
     return out, lse
 
 
 def flash_dq_cuda(q, k, v, dout, lse, dd, seq_len, causal):
     _check_kernel_inputs('flash_dq', (q, k, v, dout), (lse, dd))
-    bh, t_pad, d = q.shape
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = _library().flash_dq(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), bh, t_pad, d, seq_len, int(causal),
-            1.0 / math.sqrt(d), _stream(q))
-    _raise_on(err, 'flash_dq')
-    LAUNCHES['flash_dq'] += 1
+    _launch('flash_dq', q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                            lse.data_ptr(), dd.data_ptr(), dq.data_ptr()), seq_len, causal)
     return dq
 
 
 def flash_dkv_cuda(q, k, v, dout, lse, dd, seq_len, causal):
     _check_kernel_inputs('flash_dkv', (q, k, v, dout), (lse, dd))
-    bh, t_pad, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    sm90 = kernel_route(q.dtype, d) == 'cuda-sm90'
-    name = 'flash_dkv_sm90' if sm90 else 'flash_dkv'
-    with torch.cuda.device(q.device):
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t_pad, d, seq_len, int(causal),
-                1.0 / math.sqrt(d), _stream(q))
-        if sm90:
-            err = _library(_SM90_SOURCE).flash_dkv_sm90(*args)
-        else:
-            err = _library().flash_dkv(_DTYPE_CODE[q.dtype], *args)
-    _raise_on(err, name)
-    LAUNCHES['flash_dkv'] += 1
-    if sm90:
-        LAUNCHES['flash_dkv_sm90'] += 1
+    _launch('flash_dkv', q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                             lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr()),
+            seq_len, causal)
     return dk, dv
 
 

@@ -13,10 +13,26 @@ and stored in the output type; an optional per-sample flip mask makes it
 read the mirrored W column, which fuses ``random_flip_and_normalize``.
 What bounds it on Hopper: HBM bytes (read the input once, write the output
 once; 2 flops per element). The design therefore does nothing but stream:
-a 1-D grid over the flattened tensor, contiguous vectorized loads and
-stores, the channel as ``offset % C`` with C a compile-time constant, and
-the three-entry scale/shift tables served from L1. The TPU kernel's
-(8, 128) padding and int32 widening were Mosaic workarounds and are gone.
+
+- the grid is (sample, block of ``_BLOCK`` elements of that sample's
+  rows), flattened to one axis so that neither count meets CUDA's limit
+  on the second axis; the split is a division by a compile-time constant,
+  once a program;
+- H, W and C are compile-time constants, so no index needs a divide by a
+  runtime value;
+- the flip is one scalar load a program and picks one of two paths: the
+  unflipped path reads a contiguous range whose start is a known multiple
+  of ``_BLOCK`` (16-byte vector loads and stores); the flipped path reads
+  the mirrored pixel, ``offset + (W - 1 - 2 w) C``, with ``w`` from the
+  offset by constant divisors;
+- scale and shift are ``C <= 4`` scalar arguments selected by the channel,
+  not a table gathered per element.
+
+The block of 2048 elements and 4 warps came from a sweep on the card at
+the main path's shape, where every block of 1024-4096 elements with 4 or
+8 warps ran within about 1% of the best (``PERF.md``). The kernel takes
+at most 4 channels; the wrapper raises on more. The TPU kernel's (8, 128)
+padding and int32 widening were Mosaic workarounds and are gone.
 """
 
 import collections
@@ -32,6 +48,7 @@ LAUNCHES = collections.Counter()
 
 _BLOCK = 2048
 _NUM_WARPS = 4
+MAX_CHANNELS = 4
 _KERNEL_IN = (torch.uint8, torch.float32)
 _KERNEL_OUT = (torch.bfloat16, torch.float32)
 _kernel = None
@@ -71,27 +88,46 @@ def _build_kernel():
     import triton.language as tl
 
     @triton.jit
-    def normalize_kernel(x_ptr, out_ptr, scale_ptr, shift_ptr, flip_ptr,
-                         total, image_len, row_len,
-                         C: tl.constexpr, HAS_FLIP: tl.constexpr, BLOCK: tl.constexpr):
-        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < total
-        c = offs % C
-        src = offs
+    def normalize_kernel(x_ptr, out_ptr, flip_ptr, s0, s1, s2, s3, t0, t1, t2, t3,
+                         H: tl.constexpr, W: tl.constexpr, C: tl.constexpr,
+                         HAS_FLIP: tl.constexpr, BLOCK: tl.constexpr):
+        IMAGE: tl.constexpr = H * W * C
+        BLOCKS: tl.constexpr = (IMAGE + BLOCK - 1) // BLOCK
+        pid = tl.program_id(0)
+        n = pid // BLOCKS                                # the sample
+        local = (pid - n * BLOCKS) * BLOCK + tl.arange(0, BLOCK)
+        local = tl.max_contiguous(tl.multiple_of(local, BLOCK), BLOCK)
+        mask = local < IMAGE
+        base = n * IMAGE                                 # int32: the wrapper keeps numel < 2**31
+        c = local % C
+        scale = tl.where(c == 0, s0, s1)
+        shift = tl.where(c == 0, t0, t1)
+        if C > 2:
+            scale = tl.where(c == 2, s2, scale)
+            shift = tl.where(c == 2, t2, shift)
+        if C > 3:
+            scale = tl.where(c == 3, s3, scale)
+            shift = tl.where(c == 3, t3, shift)
+        flipped = tl.full([], 0, tl.int32)               # without a mask the branch folds away
         if HAS_FLIP:
-            flip = tl.load(flip_ptr + offs // image_len, mask=mask, other=0)
-            col = (offs % row_len) // C
-            src = tl.where(flip != 0, offs + (row_len // C - 1 - 2 * col) * C, offs)
-        x = tl.load(x_ptr + src, mask=mask, other=0).to(tl.float32)
-        scale = tl.load(scale_ptr + c, mask=mask, other=0.0)
-        shift = tl.load(shift_ptr + c, mask=mask, other=0.0)
-        tl.store(out_ptr + offs, (x * scale + shift).to(out_ptr.dtype.element_ty), mask=mask)
+            flipped = tl.load(flip_ptr + n).to(tl.int32)
+        if flipped != 0:
+            w = (local // C) % W                         # the output pixel's column
+            x = tl.load(x_ptr + base + local + (W - 1 - 2 * w) * C, mask=mask, other=0)
+            y = x.to(tl.float32) * scale + shift
+            tl.store(out_ptr + base + local, y.to(out_ptr.dtype.element_ty), mask=mask)
+        else:
+            x = tl.load(x_ptr + base + local, mask=mask, other=0)
+            y = x.to(tl.float32) * scale + shift
+            tl.store(out_ptr + base + local, y.to(out_ptr.dtype.element_ty), mask=mask)
 
     _kernel = (triton, normalize_kernel)
     return _kernel
 
 
 def _normalize_triton(images, scale, shift, dtype, flip=None):
+    """Launch the kernel: ``scale`` and ``shift`` are sequences of ``C`` (or
+    one) floats."""
     n, h, w, c = images.shape
     if images.dtype not in _KERNEL_IN:
         raise TypeError('normalize kernel takes uint8 or float32 images, got {}'.format(images.dtype))
@@ -99,6 +135,11 @@ def _normalize_triton(images, scale, shift, dtype, flip=None):
         raise TypeError('normalize kernel writes bf16 or f32, got {}'.format(dtype))
     if not images.is_contiguous():
         raise ValueError('normalize kernel needs contiguous NHWC images')
+    if not 1 <= c <= MAX_CHANNELS:
+        raise ValueError('normalize kernel takes 1 to {} channels, got {}'.format(MAX_CHANNELS, c))
+    if len(scale) not in (1, c) or len(shift) != len(scale):
+        raise ValueError('normalize kernel takes one mean and std or one per channel, '
+                         'got {} and {} for {} channels'.format(len(scale), len(shift), c))
     total = images.numel()
     if total >= 2 ** 31:
         raise ValueError('normalize kernel indexes with int32; {} elements is too many'.format(total))
@@ -110,12 +151,14 @@ def _normalize_triton(images, scale, shift, dtype, flip=None):
     out = torch.empty(images.shape, dtype=dtype, device=images.device)
     if total == 0:
         return out
+    pad = [0.0] * (MAX_CHANNELS - c)
+    scale = list(scale) * (c // len(scale)) + pad
+    shift = list(shift) * (c // len(shift)) + pad
     triton, kernel = _kernel or _build_kernel()
-    grid = (triton.cdiv(total, _BLOCK),)
+    grid = (n * triton.cdiv(h * w * c, _BLOCK),)
     with torch.cuda.device(images.device):
-        kernel[grid](images, out, scale, shift, flip if flip is not None else scale,
-                     total, h * w * c, w * c,
-                     C=c, HAS_FLIP=flip is not None, BLOCK=_BLOCK, num_warps=_NUM_WARPS)
+        kernel[grid](images, out, flip if flip is not None else images, *scale, *shift,
+                     H=h, W=w, C=c, HAS_FLIP=flip is not None, BLOCK=_BLOCK, num_warps=_NUM_WARPS)
     LAUNCHES['normalize_images'] += 1
     return out
 
@@ -131,10 +174,12 @@ def normalize_images(images, mean=IMAGENET_MEAN, std=IMAGENET_STD, dtype=torch.b
     """
     if images.ndim != 4:
         raise ValueError('Expected NHWC batch, got shape {}'.format(tuple(images.shape)))
-    scale, shift = _scale_shift(mean, std, images.device)
     if images.device.type == 'cuda':
-        return _normalize_triton(images, scale, shift, dtype, flip)
+        # The kernel takes the constants as scalars: their f32 values, from the host.
+        scale, shift = _scale_shift(mean, std, torch.device('cpu'))
+        return _normalize_triton(images, scale.tolist(), shift.tolist(), dtype, flip)
     if images.device.type == 'cpu':
+        scale, shift = _scale_shift(mean, std, images.device)
         return normalize_images_plain(images, scale, shift, dtype, flip)
     raise ValueError('normalize_images runs on cuda or cpu tensors, got {}'.format(images.device))
 

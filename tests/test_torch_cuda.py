@@ -37,15 +37,18 @@ def _within_bf16_ulp(got, want):
                  .clamp(min=1e-6)).all())
 
 
-@pytest.mark.parametrize('shape', [(5, 30, 30, 3), (3, 10, 10, 3), (2, 224, 224, 3)])
+@pytest.mark.parametrize('shape', [(5, 30, 30, 3), (3, 10, 10, 3), (2, 224, 224, 3),
+                                   (1, 7, 513, 3), (3, 224, 224, 3)])
 def test_normalize_kernel_matches_plain(dev, shape):
+    """Every variant, with rows that do not fill a block and samples that
+    span many; each sample is checked flipped and not."""
     g = torch.Generator(device=dev).manual_seed(0)
     x_u8 = torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
     flip = image_ops.sample_flip(shape[0], g, dev)
     scale, shift = image_ops._scale_shift(image_ops.IMAGENET_MEAN, image_ops.IMAGENET_STD, dev)
     for x in (x_u8, x_u8.float() + 0.25):
         for dtype in (torch.float32, torch.bfloat16):
-            for fl in (None, flip):
+            for fl in (None, flip, ~flip):
                 before = image_ops.LAUNCHES['normalize_images']
                 got = image_ops.normalize_images(x, dtype=dtype, flip=fl)
                 assert image_ops.LAUNCHES['normalize_images'] == before + 1
@@ -65,6 +68,11 @@ def test_normalize_kernel_rejects_what_it_cannot_take(dev):
         image_ops.normalize_images(x.transpose(1, 2))
     with pytest.raises(ValueError, match='flip'):
         image_ops.normalize_images(x, flip=torch.zeros(3, dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError, match='channels'):
+        image_ops.normalize_images(torch.zeros((2, 8, 8, 5), dtype=torch.uint8, device=dev),
+                                   mean=(0.5,) * 5, std=(0.5,) * 5)
+    with pytest.raises(ValueError, match='one per channel'):
+        image_ops.normalize_images(x, mean=(0.5, 0.5), std=(0.5, 0.5))
 
 
 def test_imagenet_augment_on_card_matches_cpu(dev):
@@ -149,7 +157,7 @@ def test_flash_kernels_match_plain(dev, dtype, causal, bh, t, d):
     for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
         assert fa.LAUNCHES[name] == before.get(name, 0) + 1
     sm90 = int(fa.kernel_route(dtype, d) == 'cuda-sm90')
-    for name in ('flash_fwd_sm90', 'flash_dkv_sm90'):
+    for name in ('flash_fwd_sm90', 'flash_dq_sm90', 'flash_dkv_sm90'):
         assert fa.LAUNCHES[name] == before.get(name, 0) + sm90
 
 
@@ -157,8 +165,8 @@ def test_flash_kernels_match_plain(dev, dtype, causal, bh, t, d):
 @pytest.mark.parametrize('d', [64, 128])
 @pytest.mark.parametrize('t,seq_len', [(1000, 1000), (1024, 1024), (2048, 2048), (1024, 777)])
 def test_sm90_flash_kernels_match_plain(dev, d, causal, t, seq_len):
-    """The Hopper forward and dK/dV (bf16, D 64 or 128) against the plain
-    versions on every row, T_pad included; seq_len < T_pad masks keys."""
+    """The Hopper forward, dQ and dK/dV (bf16, D 64 or 128) against the
+    plain versions on every row, T_pad included; seq_len < T_pad masks keys."""
     bq, bk, t_pad = fa._pad_plan(t, fa.DEFAULT_BLOCK, fa.DEFAULT_BLOCK)
     assert fa.kernel_route(torch.bfloat16, d) == 'cuda-sm90'
     g = torch.Generator(device=dev).manual_seed(seq_len + d)
@@ -169,13 +177,17 @@ def test_sm90_flash_kernels_match_plain(dev, d, causal, t, seq_len):
     out, lse = fa.flash_fwd_cuda(q, k, v, seq_len, causal, True)
     pout, plse = fa.flash_fwd_plain(q, k, v, seq_len, causal, bk)
     dd = (do.float() * pout.float()).sum(-1)
+    dq = fa.flash_dq_cuda(q, k, v, do, plse, dd, seq_len, causal)
+    pdq = fa.flash_dq_plain(q, k, v, do, plse, dd, seq_len, causal, bk)
     dk, dv = fa.flash_dkv_cuda(q, k, v, do, plse, dd, seq_len, causal)
     pdk, pdv = fa.flash_dkv_plain(q, k, v, do, plse, dd, seq_len, causal, bq)
     torch.cuda.synchronize()
-    for name, a, b in (('out', out, pout), ('lse', lse, plse), ('dk', dk, pdk), ('dv', dv, pdv)):
+    for name, a, b in (('out', out, pout), ('lse', lse, plse), ('dq', dq, pdq), ('dk', dk, pdk),
+                       ('dv', dv, pdv)):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         assert _flash_close(a, b, torch.float32 if name == 'lse' else torch.bfloat16), name
-    for name in ('flash_fwd', 'flash_fwd_sm90', 'flash_dkv', 'flash_dkv_sm90'):
+    for name in ('flash_fwd', 'flash_fwd_sm90', 'flash_dq', 'flash_dq_sm90', 'flash_dkv',
+                 'flash_dkv_sm90'):
         assert fa.LAUNCHES[name] == before.get(name, 0) + 1, name
 
 
@@ -188,10 +200,11 @@ def test_sm90_flash_forward_without_lse(dev):
 
 def test_sm90_kernels_fit_shared_memory(dev):
     lib = fa._library(fa._SM90_SOURCE)
-    for kernel in (0, 1):
+    for kernel in (0, 1, 2):             # flash_fwd_sm90, flash_dkv_sm90, flash_dq_sm90
         for d in fa.SM90_HEAD_DIMS:
             assert 0 < lib.flash_sm90_smem_bytes(kernel, d) <= 232448
         assert lib.flash_sm90_smem_bytes(kernel, 96) < 0
+    assert lib.flash_sm90_smem_bytes(3, 64) < 0
 
 
 def test_flash_wrappers_refuse_what_the_kernels_cannot_take(dev):

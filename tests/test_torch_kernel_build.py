@@ -1,8 +1,11 @@
 """The port's CUDA build and route choice, on the CPU (no nvcc, no card):
-a library is rebuilt when any file under ``csrc/`` changes, and the flash
+a library is rebuilt when any file under ``csrc/`` changes, every entry
+point the wrappers bind is a C function of its source, and the flash
 wrappers send each dtype and head dim to the kernels that take it."""
 
+import contextlib
 import os
+import re
 
 import pytest
 import torch
@@ -72,6 +75,64 @@ def test_both_flash_sources_are_in_the_package():
 ])
 def test_kernel_route_by_dtype_and_head_dim(dtype, head_dim, route):
     assert fa.kernel_route(dtype, head_dim) == route
+
+
+def _extern_c_functions(source):
+    """``{name: parameter count}`` of the functions in the ``extern "C"``
+    block of ``csrc/<source>``."""
+    with open(os.path.join(_cuda_build.CSRC, source)) as f:
+        text = f.read()
+    block = re.search(r'extern "C" \{(.*)\}\s*// extern "C"', text, re.S)
+    assert block, 'no extern "C" block in {}'.format(source)
+    return {name: len(params.split(','))
+            for name, params in re.findall(r'^int (\w+)\(([^)]*)\)\s*\{', block.group(1), re.M)}
+
+
+@pytest.mark.parametrize('source', sorted(fa._ARGTYPES))
+def test_bound_entry_points_are_c_functions_of_their_source(source):
+    """Each name ``_ARGTYPES`` binds is an ``extern "C"`` function of its
+    source with as many parameters as it has argument types, so a name or
+    signature that drifts fails here, before the card."""
+    functions = _extern_c_functions(source)
+    assert set(functions) == set(fa._ARGTYPES[source])
+    for name, argtypes in fa._ARGTYPES[source].items():
+        assert functions[name] == len(argtypes), name
+
+
+class _StubLibrary:
+    """Stands in for a kernel library: records each entry point called."""
+
+    def __init__(self, calls, source):
+        self._calls, self._source = calls, source
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self._calls.append((self._source, name, len(args)))
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize('dtype,head_dim,source,entry', [
+    (torch.bfloat16, 64, fa._SM90_SOURCE, 'flash_dq_sm90'),
+    (torch.bfloat16, 128, fa._SM90_SOURCE, 'flash_dq_sm90'),
+    (torch.bfloat16, 32, fa._SOURCE, 'flash_dq'),
+    (torch.float32, 64, fa._SOURCE, 'flash_dq'),
+])
+def test_flash_dq_picks_its_entry_point_by_route(monkeypatch, dtype, head_dim, source, entry):
+    """No kernel runs: the libraries are stubs, the device checks are off."""
+    calls = []
+    monkeypatch.setattr(fa, '_library', lambda src=fa._SOURCE: _StubLibrary(calls, src))
+    monkeypatch.setattr(fa, '_check_kernel_inputs', lambda *args: None)
+    monkeypatch.setattr(fa, '_stream', lambda x: None)
+    monkeypatch.setattr(torch.cuda, 'device', lambda device: contextlib.nullcontext())
+    fa.reset_launch_counts()
+    x = torch.zeros((2, 16, head_dim), dtype=dtype)
+    row = torch.zeros((2, 16))
+    dq = fa.flash_dq_cuda(x, x, x, x, row, row, 16, True)
+    assert dq.shape == x.shape and dq.dtype == dtype
+    assert calls == [(source, entry, len(fa._ARGTYPES[source][entry]))]
+    assert fa.LAUNCHES == ({'flash_dq': 1, 'flash_dq_sm90': 1} if entry == 'flash_dq_sm90'
+                           else {'flash_dq': 1})
 
 
 def test_cpu_tensors_never_reach_a_kernel_route():
