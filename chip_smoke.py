@@ -26,22 +26,53 @@ non-zero exit and no result line:
 3. checks: the loader's first batch against an independent decode of the
    store, the ResNet-50 forward on the card against the CPU, and the
    TransformerLM (f32, flash kernels, 2 layers) on the card against the CPU.
+   Also ``check_scan_graph``: ResNetTiny (bf16, K1 preprocess) and a
+   2-layer TransformerLM at the lm widths (flash, bf16, head dim 64), each
+   trained 3 calls of K = 4 steps from one state through the captured CUDA
+   graph of ``make_scan_train_step`` / ``make_lm_scan_train_step`` and as
+   K calls of the one-step trainer on the microbatch slices; losses and
+   params compared (LM: exact; ResNet: rtol 1e-2, atol 1e-3, cuDNN's
+   backward may sum with atomics), and call 2's metrics must survive call 3.
 4. imagenet: an ImageNet-shaped JPEG Parquet store (2048 rows, 224x224x3,
    q90, int64 label, 256-row groups) is written with the port's writer,
    read by ``make_tensor_reader`` (4 threads), loaded by ``TorchLoader``
    (batch 128, pinned arenas), augmented by ``imagenet_train_augment`` and
-   fed to ResNet-50 SGD steps (bf16 autocast, channels_last).
-5. lm: the bench's token store (``bench.py:130-157``: 2048 rows of 1025
+   fed to ResNet-50 SGD steps (bf16 autocast, channels_last), one eager
+   step a call.
+5. imagenet_scan: the bench's ``_child_imagenet`` protocol
+   (``bench.py:1792-1966``): the reader with ``cache_type='memory'``
+   (endless, seed 0), ``TorchLoader(batch=128, prefetch=8)``,
+   ``loader.superbatches(8)``, ResNet-50 through ``make_scan_train_step(8,
+   preprocess=K1 normalize -> bf16)``: call 1 eager, call 2 captures the
+   8-step CUDA graph, every later call replays it; 3 warm-up calls (more
+   than one epoch, so the cache is warm), then 5 measured.
+6. imagenet_hbm: ``_measure_device_cache`` (``bench.py:2109-2176``): a
+   one-epoch reader fills a ``DeviceDatasetCache``; superbatches of 8
+   carried across epoch boundaries through a scan step of its own (its own
+   capture) on the state imagenet_scan trained: epoch 1 warms up, epochs
+   2 to 17 are measured.
+7. lm: the bench's token store (``bench.py:130-157``: 2048 rows of 1025
    int32 tokens, vocab 32768, 256-row groups) is written with the port's
    writer, read and loaded (batch 8) and fed to SGD steps (lr 0.01,
    momentum 0.9) of ``TransformerLM`` (d 512, 8 heads, 8 layers, bf16,
    ``attention='flash'``), as the bench's ``lm`` child configures it; its
    attention (bf16, head dim 64) must run the Hopper forward, dQ and dK/dV,
    8 launches each a step.
+8. lm_scan: the ``lm`` child's protocol (``bench.py:160-306``): the token
+   reader with ``cache_type='memory'``, ``TorchLoader(batch=64)``, the same
+   model through ``make_lm_scan_train_step(8)`` (one CUDA graph replay a
+   call of 8 steps of batch 8); 2 warm-up calls, then 6 measured.
 
 Each path's kernel launch counts are zeroed just before it and read just
-after; then three more of its steps are traced with ``torch.profiler``
-(the card's busy time a step and idle share, ``trace`` in its line).
+after. On an eager path the wrappers count every launch, and three more
+calls are then traced with ``torch.profiler`` (the card's busy time a call
+and idle share, ``trace`` in its line). On a scan path a replay calls no
+wrapper, so the wrappers count only call 1 and the capture; the path's
+warm-up and measured calls therefore run under ``torch.profiler`` (CUDA
+activity), which counts by name every kernel that ran on the card in the
+window: K of K1, 8 x K of each flash kernel a call, or the phase fails.
+The measured calls' profile gives ``trace``; img/s, tokens/s, stall and
+device ms come from as many more calls, unprofiled, after the window.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.
@@ -68,6 +99,12 @@ IMAGE = 224
 ROWS = 2048
 ROWS_PER_GROUP = 256
 WARMUP_STEPS = 3
+# The bench's scan protocol (bench.py:1819-1821, 1855, 1859; 193-194, 260-269).
+SCAN_K = 8
+SCAN_PREFETCH = 8
+IMAGENET_SCAN_WARMUP, IMAGENET_SCAN_CALLS = 3, 5
+HBM_EPOCHS = max(6, 2 * SCAN_K)
+LM_SCAN_WARMUP, LM_SCAN_CALLS = 2, 6
 
 #: HBM bandwidth (bytes/s) by card, from NVIDIA's data sheets.
 HBM_BYTES_PER_S = {'H100 80GB HBM3': 3.35e12, 'H100 SXM': 3.35e12, 'H100 NVL': 3.9e12,
@@ -507,7 +544,8 @@ def check_flash(device, rate):
     for name, replaces, products, read, written, outputs, library_label, kernel, plain, previous in specs:
         bound_ms, bound_by = _bound(products, product, read + written, rate)
         entry = {
-            'name': name, 'route': 'cuda-sm90', 'source': source, 'replaces': replaces,
+            'name': name, 'route': 'cuda', 'kernel_route': 'cuda-sm90', 'source': source,
+            'replaces': replaces,
             'max_abs_err': max(errs[o] for o in outputs), 'tolerance': tolerance,
             'bound_ms': bound_ms, 'bound_by': bound_by, 'library': library_label,
             'flops': products * product, 'bytes_moved': read + written,
@@ -526,32 +564,47 @@ def check_flash(device, rate):
 # phases 3 to 5: checks and the two paths
 # --------------------------------------------------------------------------
 
-TRACED_STEPS = 3
+TRACED_CALLS = 3
 
 
-def trace_steps(step, step_ms):
-    """``TRACED_STEPS`` more calls of ``step`` (after the path's launch
-    counts are read) under ``torch.profiler``, CUDA activity only: the
-    card's busy time a step (kernels, copies and sets), its idle share
-    against ``step_ms`` (the path's unprofiled device step), and the five
-    kernels that take the most of it. Device numbers are None if the
-    profiler recorded no device time."""
+def device_profile(run):
+    """``run()`` under ``torch.profiler``, CUDA activity only: the
+    profile's events by name (``key_averages()``: kernels, copies, sets)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACED_STEPS):
-            step()
+        run()
         torch.cuda.synchronize()
-    events = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / TRACED_STEPS
+    return prof.key_averages()
+
+
+def kernels_ran(events, names):
+    """How many kernels whose name holds each of ``names`` a profile holds."""
+    return {name: sum(e.count for e in events if name in e.key) for name in names}
+
+
+def busy_trace(events, calls, call_ms):
+    """The card's busy time a call over ``calls`` profiled calls (kernels,
+    copies and sets), its idle share against ``call_ms`` (the unprofiled
+    device time of a call) and the five kernels that take the most of it;
+    None if the profiler recorded no device time."""
+    events = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / calls
     if busy_ms == 0:
-        return {'traced_steps': TRACED_STEPS, 'device_busy_ms_per_step': None,
+        return {'traced_calls': calls, 'device_busy_ms_per_call': None,
                 'device_idle_share': None}
-    return {'traced_steps': TRACED_STEPS, 'device_busy_ms_per_step': busy_ms,
-            'device_idle_share': 1 - busy_ms / step_ms,
-            'top_kernels_ms_per_step': [[e.key, e.self_device_time_total / 1e3 / TRACED_STEPS]
+    return {'traced_calls': calls, 'device_busy_ms_per_call': busy_ms,
+            'device_idle_share': 1 - busy_ms / call_ms,
+            'top_kernels_ms_per_call': [[e.key, e.self_device_time_total / 1e3 / calls]
                                         for e in events[:5]]}
+
+
+def trace_calls(call, call_ms):
+    """``TRACED_CALLS`` more calls of an eager path's step (after its
+    launch counts are read), traced: see :func:`busy_trace`."""
+    return busy_trace(device_profile(lambda: [call() for _ in range(TRACED_CALLS)]),
+                      TRACED_CALLS, call_ms)
 
 
 def write_store(path):
@@ -672,7 +725,7 @@ def run_imagenet(url, device, steps, card):
             launches = launch_counts()               # the path ends here
             stats = dict(loader.stats)
     device_step_ms = float(np.median([a.elapsed_time(b) for a, b in step_ms]))
-    trace = trace_steps(lambda: train_step(state, imagenet_train_augment(
+    trace = trace_calls(lambda: train_step(state, imagenet_train_augment(
         batch.image, aug_gen, IMAGE, IMAGE, dtype=torch.bfloat16), batch.label),
         float(np.median([a.elapsed_time(b) for a, b in aug_ms])) + device_step_ms)
     losses = [float(v) for v in losses]
@@ -802,7 +855,7 @@ def run_lm(url, device, steps, card):
             launches = launch_counts()               # the path ends here
             stats = dict(loader.stats)
     device_step_ms = float(np.median([a.elapsed_time(b) for a, b in step_ms]))
-    trace = trace_steps(lambda: train_step(state, tokens), device_step_ms)
+    trace = trace_calls(lambda: train_step(state, tokens), device_step_ms)
     losses = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError('non-finite loss: {}'.format(losses))
@@ -824,6 +877,414 @@ def run_lm(url, device, steps, card):
         'device_train_step_ms_median': device_step_ms,
         'peak_mem_GB': torch.cuda.max_memory_allocated(device) / 1e9,
         'rows_delivered': stats['rows'], 'launches': launches, 'trace': trace}
+
+
+# --------------------------------------------------------------------------
+# the scan paths: K steps a call as one CUDA graph replay
+# --------------------------------------------------------------------------
+
+def _max_diff(a, b):
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def _launch_diff(after, before):
+    return {name: count - before.get(name, 0) for name, count in after.items()
+            if count != before.get(name, 0)}
+
+
+def _eager_classifier(k, preprocess):
+    """The eager reference of a classifier scan step: K calls of the
+    one-step trainer on the microbatch slices, the metrics stacked and
+    averaged as the scan step's are."""
+    import torch
+    from petastorm_tpu_torch.models import make_train_step
+    train_step = make_train_step()
+
+    def run(state, images, labels):
+        micro = images.shape[0] // k
+        out = [train_step(state, preprocess(images[i * micro:(i + 1) * micro]),
+                          labels[i * micro:(i + 1) * micro]) for i in range(k)]
+        losses = torch.stack([m['loss'] for m in out])
+        return {'loss': losses.mean(), 'accuracy': torch.stack([m['accuracy'] for m in out]).mean(),
+                'last_loss': losses[-1]}
+
+    return run
+
+
+def _eager_lm(k):
+    """The eager reference of an LM scan step (see :func:`_eager_classifier`)."""
+    import torch
+    from petastorm_tpu_torch.models import make_lm_train_step
+    train_step = make_lm_train_step()
+
+    def run(state, tokens):
+        micro = tokens.shape[0] // k
+        return {'losses': torch.stack([train_step(state, tokens[i * micro:(i + 1) * micro])['loss']
+                                       for i in range(k)])}
+
+    return run
+
+
+def check_scan_graph(device):
+    """The captured graph of K steps against K calls of the one-step
+    trainer, from one state (a deep copy) on the same superbatches, three
+    calls each."""
+    import copy
+    import torch
+    from petastorm_tpu_torch.models import (ResNetTiny, TransformerLM, create_train_state,
+                                            make_lm_scan_train_step, make_scan_train_step)
+    from petastorm_tpu_torch.models import resnet, transformer
+    from petastorm_tpu_torch.ops import image_ops
+
+    k = 4
+
+    def tiny():
+        model = resnet.init_flax_like(ResNetTiny(num_classes=10, dtype=torch.bfloat16,
+                                                 device=device), torch.Generator().manual_seed(5))
+        return model.to(memory_format=torch.channels_last)
+
+    def lm():
+        model = TransformerLM(LM_VOCAB, LM_D, LM_HEADS, 2, LM_SEQ - 1, attention='flash',
+                              dtype=torch.bfloat16, device=device)
+        return transformer.init_flax_like(model, torch.Generator().manual_seed(6))
+
+    def images(call):
+        g = torch.Generator(device=device).manual_seed(call)
+        return (torch.randint(0, 256, (k * 16, 64, 64, 3), generator=g, device=device,
+                              dtype=torch.uint8),
+                torch.randint(0, 10, (k * 16,), generator=g, device=device))
+
+    def tokens(call):
+        g = torch.Generator(device=device).manual_seed(call)
+        return (torch.randint(0, LM_VOCAB, (k * 2, LM_SEQ), generator=g, device=device,
+                              dtype=torch.int32),)
+
+    def normalize(x):
+        return image_ops.normalize_images(x, dtype=torch.bfloat16)
+
+    cases = [
+        ('resnet_tiny_bf16_k1', tiny, lambda: make_scan_train_step(k, normalize),
+         lambda: _eager_classifier(k, normalize), images, 0.1, False),
+        ('transformer_lm_2_layers_bf16_flash', lm, lambda: make_lm_scan_train_step(k),
+         lambda: _eager_lm(k), tokens, 0.01, True),
+    ]
+    results = []
+    for name, build, make_scan, make_eager, inputs_of, lr, exact in cases:
+        model = build()
+        states = [create_train_state(m, learning_rate=lr, momentum=0.9)
+                  for m in (model, copy.deepcopy(model))]
+        steps = [make_eager(), make_scan()]
+        out = [[], []]
+        for call in range(3):
+            inputs = inputs_of(call)
+            out[0].append(steps[0](states[0], *inputs))
+            before = launch_counts()
+            out[1].append(steps[1](states[1], *inputs))
+            if call == 1:
+                captured = _launch_diff(launch_counts(), before)
+                kept = {key: v.clone() for key, v in out[1][1].items()}
+        torch.cuda.synchronize()
+        kept_ok = all(torch.equal(out[1][1][key], kept[key]) for key in kept)
+        metric_diff = max(_max_diff(a[key], b[key]) for a, b in zip(*out) for key in a)
+        pairs = list(zip(states[0].model.state_dict().values(),
+                         states[1].model.state_dict().values()))
+        param_diff = max(_max_diff(a, b) for a, b in pairs)
+        bit_equal = metric_diff == 0 and param_diff == 0
+        if exact:
+            tolerance = 'exact (deterministic kernels and products)'
+            ok = bit_equal
+        else:
+            tolerance = ('rtol 1e-2, atol 1e-3 on metrics, params and running stats '
+                         "(cuDNN's backward may sum with atomics)")
+            ok = (all(torch.allclose(b[key].float(), a[key].float(), rtol=1e-2, atol=1e-3)
+                      for a, b in zip(*out) for key in a)
+                  and all(torch.allclose(b.float(), a.float(), rtol=1e-2, atol=1e-3)
+                          for a, b in pairs))
+        checksums = [sum(float(v.double().sum()) for v in st.model.state_dict().values())
+                     for st in states]
+        entry = {'check': 'scan_graph_vs_eager', 'case': name, 'microbatches': k, 'calls': 3,
+                 'eager': 'K calls of the one-step trainer on the microbatch slices',
+                 'metrics_graph': [{key: v.tolist() for key, v in m.items()} for m in out[1]],
+                 'max_abs_diff_metrics': metric_diff, 'max_abs_diff_params': param_diff,
+                 'param_checksum_eager': checksums[0], 'param_checksum_graph': checksums[1],
+                 'bit_equal': bit_equal, 'tolerance': tolerance,
+                 'call2_metrics_kept_after_call3': kept_ok,
+                 'wrapper_launches_across_capture': captured}
+        if not (ok and kept_ok and steps[1].graph is not None):
+            raise AssertionError('scan graph disagrees with eager steps: {}'.format(entry))
+        results.append(entry)
+    return results
+
+
+def scan_window(train, state, next_inputs, warmup, calls, kernels):
+    """One scan path's counted window: the launch counts zeroed, ``warmup``
+    calls (call 1 eager, call 2 captures the graph and replays it, later
+    calls replay), then ``calls`` measured calls, each set under the
+    profiler, the counts read. A replay calls no wrapper, so the wrappers
+    count call 1 and the capture; the profiles count, by name, each of
+    ``kernels`` that ran on the card in the window. Returns (metrics of
+    each call, the wrappers' counts, their counts across the capturing
+    call, the kernels that ran, the measured calls' profile)."""
+    metrics, captured = [], {}
+
+    def run(n):
+        for _ in range(n):
+            capturing, before = train.graph is None and train.calls == 1, launch_counts()
+            metrics.append(train(state, *next_inputs()))
+            if capturing:
+                captured.update(_launch_diff(launch_counts(), before))
+
+    reset_launch_counts()                            # the path starts here
+    warm = device_profile(lambda: run(warmup))
+    measured = device_profile(lambda: run(calls))
+    launches = launch_counts()                       # the path ends here
+    ran = kernels_ran(warm, kernels)
+    for name, count in kernels_ran(measured, kernels).items():
+        ran[name] += count
+    return metrics, launches, captured, ran, measured
+
+
+def require_scan_launches(launches, captured, ran, wrappers, per_call, calls):
+    """Fail unless each wrapper counted ``per_call`` launches in call 1 and
+    as many in the capture, and each kernel ran ``per_call`` times in each
+    of the window's ``calls`` calls (call 1 eagerly, the others replays)."""
+    wrapped = {name: launches.get(name, 0) for name in wrappers}
+    if (wrapped != dict.fromkeys(wrappers, 2 * per_call)
+            or captured != dict.fromkeys(wrappers, per_call)
+            or ran != dict.fromkeys(ran, per_call * calls)):
+        raise AssertionError('scan path launches: wrappers {}, across the capture {}, ran on the '
+                             'card {}; expected {} a call in {} calls'.format(
+                                 wrapped, captured, ran, per_call, calls))
+
+
+def time_scan_calls(train, state, next_inputs, calls):
+    """``calls`` more calls, unprofiled, after the counted window: (wall
+    seconds, seconds blocked in ``next_inputs``, median device ms a call,
+    metrics)."""
+    import numpy as np
+    import torch
+    torch.cuda.synchronize()
+    metrics, events, wait_s = [], [], 0.0
+    t_start = time.perf_counter()
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        inputs = next_inputs()
+        wait_s += time.perf_counter() - t0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        metrics.append(train(state, *inputs))
+        ev[1].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    return wall, wait_s, float(np.median([a.elapsed_time(b) for a, b in events])), metrics
+
+
+def per_step(trace, k):
+    """``trace`` with the card's busy time a step of a K-step call."""
+    busy = trace['device_busy_ms_per_call']
+    return dict(trace, device_busy_ms_per_step=None if busy is None else busy / k)
+
+
+def _scan_launches(launches, captured, ran, calls):
+    return {'wrappers': launches, 'across_capture': captured, 'ran_on_card': ran,
+            'calls': calls}
+
+
+def _normalize_bf16(x):
+    import torch
+    from petastorm_tpu_torch.ops.image_ops import normalize_images
+    return normalize_images(x, dtype=torch.bfloat16)
+
+
+def run_imagenet_scan(url, device, card):
+    import torch
+    from petastorm_tpu_torch import TorchLoader, make_tensor_reader
+    from petastorm_tpu_torch.models import ResNet50, create_train_state, make_scan_train_step
+    from petastorm_tpu_torch.models.resnet import init_flax_like
+
+    torch.backends.cudnn.benchmark = True
+    model = init_flax_like(ResNet50(num_classes=1000, stem='conv7', dtype=torch.bfloat16,
+                                    device=device), torch.Generator().manual_seed(0))
+    model = model.to(memory_format=torch.channels_last)
+    state = create_train_state(model, learning_rate=0.1, momentum=0.9)
+    train = make_scan_train_step(SCAN_K, preprocess=_normalize_bf16)
+    counted = IMAGENET_SCAN_WARMUP + IMAGENET_SCAN_CALLS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    reader = make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
+                                workers_count=4, shuffle_row_groups=True, seed=0, num_epochs=None,
+                                cache_type='memory')
+    with reader:
+        with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH) as loader:
+            groups = loader.superbatches(SCAN_K)
+
+            def next_inputs():
+                sb = next(groups)
+                return sb.image, sb.label
+
+            metrics, launches, captured, ran, measured = scan_window(
+                train, state, next_inputs, IMAGENET_SCAN_WARMUP, IMAGENET_SCAN_CALLS,
+                ('normalize_kernel',))
+            stats0, cache0 = dict(loader.stats), reader.cache_stats()
+            wall, wait_s, call_ms, timed = time_scan_calls(train, state, next_inputs,
+                                                           IMAGENET_SCAN_CALLS)
+            stats, cache = dict(loader.stats), reader.cache_stats()
+    require_scan_launches(launches, captured, ran, ('normalize_images',), SCAN_K, counted)
+    losses = [[float(m['loss']), float(m['last_loss'])] for m in metrics + timed]
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        raise AssertionError('non-finite loss: {}'.format(losses))
+    rows = (counted + IMAGENET_SCAN_CALLS) * SCAN_K * BATCH
+    if stats['rows'] != rows:
+        raise AssertionError('loader delivered {} rows, expected {}'.format(stats['rows'], rows))
+    h2d_bytes = stats['h2d_bytes'] - stats0['h2d_bytes']
+    h2d_s = stats['h2d_s'] - stats0['h2d_s']
+    steps = IMAGENET_SCAN_CALLS * SCAN_K
+    result = {
+        'phase': 'imagenet_scan', 'card': card, 'model': 'resnet50', 'stem': 'conv7',
+        'classes': 1000, 'batch': BATCH, 'microbatches': SCAN_K, 'prefetch': SCAN_PREFETCH,
+        'cache_type': 'memory', 'warmup_calls': IMAGENET_SCAN_WARMUP,
+        'counted_calls': IMAGENET_SCAN_CALLS, 'timed_calls': IMAGENET_SCAN_CALLS,
+        'losses_mean_last': losses, 'img_per_s': steps * BATCH / wall,
+        'step_ms': wall / steps * 1e3, 'input_stall_frac': wait_s / wall,
+        'h2d_GBps': h2d_bytes / h2d_s / 1e9 if h2d_s else None,
+        'device_call_ms_median': call_ms, 'device_step_ms': call_ms / SCAN_K,
+        'cache_timed': {key: cache[key] - cache0[key] for key in ('hits', 'misses')},
+        'cache': cache, 'peak_mem_GB': torch.cuda.max_memory_allocated(device) / 1e9,
+        'peak_reserved_GB': torch.cuda.max_memory_reserved(device) / 1e9,
+        'rows_delivered': stats['rows'],
+        'launches': _scan_launches(launches, captured, ran, counted),
+        'trace': per_step(busy_trace(measured, IMAGENET_SCAN_CALLS, call_ms), SCAN_K)}
+    return result, state
+
+
+def run_imagenet_hbm(url, device, card, state):
+    """``_measure_device_cache`` through the port: epoch 0 fills the cache,
+    then superbatches of ``SCAN_K`` cached batches, carried across epoch
+    boundaries, through a scan step of its own (its own capture) on the
+    state ``imagenet_scan`` trained: epoch 1 warms up (call 1 eager, call 2
+    captures), epochs 2 to ``HBM_EPOCHS + 1`` are counted, and as many
+    more epochs are timed."""
+    import torch
+    from petastorm_tpu_torch import DeviceDatasetCache, TorchLoader, make_tensor_reader
+    from petastorm_tpu_torch.models import make_scan_train_step
+
+    torch.cuda.reset_peak_memory_stats(device)
+    reader = make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
+                                workers_count=4, num_epochs=1, seed=0, cache_type='memory')
+    t0 = time.perf_counter()
+    with reader:
+        with TorchLoader(reader, BATCH, device=device) as loader:
+            cache = DeviceDatasetCache(loader, shuffle=True, seed=0)
+            for _ in cache.epoch(0):
+                pass
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+
+    def superbatches():
+        group, epoch = [], 1
+        while True:
+            for b in cache.epoch(epoch):
+                group.append(b)
+                if len(group) == SCAN_K:
+                    yield type(b)(*(torch.cat(columns) for columns in zip(*group)))
+                    group = []
+            epoch += 1
+
+    stream = superbatches()
+
+    def next_inputs():
+        sb = next(stream)
+        return sb.image, sb.label
+
+    per_epoch = ROWS // BATCH // SCAN_K
+    warmup, calls = per_epoch, per_epoch * HBM_EPOCHS
+    train = make_scan_train_step(SCAN_K, preprocess=_normalize_bf16)
+    metrics, launches, captured, ran, measured = scan_window(
+        train, state, next_inputs, warmup, calls, ('normalize_kernel',))
+    wall, _, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
+    require_scan_launches(launches, captured, ran, ('normalize_images',), SCAN_K, warmup + calls)
+    losses = [float(m['loss']) for m in metrics + timed]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError('hbm path losses: {}'.format(losses))
+    steps = calls * SCAN_K
+    return {
+        'phase': 'imagenet_hbm', 'card': card, 'microbatches': SCAN_K,
+        'warmup_calls': warmup, 'counted_calls': calls, 'timed_calls': calls,
+        'epochs_counted': HBM_EPOCHS, 'epochs_timed': HBM_EPOCHS,
+        'img_per_s': steps * BATCH / wall, 'step_ms': wall / steps * 1e3,
+        'device_call_ms_median': call_ms, 'device_step_ms': call_ms / SCAN_K,
+        'hbm_cached_GB': cache.nbytes / 1e9, 'cache_stats': cache.stats(), 'fill_s': fill_s,
+        'loss_first_last': [losses[0], losses[-1]],
+        'peak_mem_GB': torch.cuda.max_memory_allocated(device) / 1e9,
+        'peak_reserved_GB': torch.cuda.max_memory_reserved(device) / 1e9,
+        'launches': _scan_launches(launches, captured, ran, warmup + calls),
+        'trace': per_step(busy_trace(measured, calls, call_ms), SCAN_K)}
+
+
+FLASH_WRAPPERS = ('flash_fwd', 'flash_dq', 'flash_dkv', 'flash_fwd_sm90', 'flash_dq_sm90',
+                  'flash_dkv_sm90')
+FLASH_KERNELS = ('flash_fwd_sm90_kernel', 'flash_dq_sm90_kernel', 'flash_dkv_sm90_kernel')
+
+
+def run_lm_scan(url, device, card):
+    import torch
+    from petastorm_tpu_torch import TorchLoader, make_tensor_reader
+    from petastorm_tpu_torch.models import (TransformerLM, create_train_state,
+                                            make_lm_scan_train_step)
+    from petastorm_tpu_torch.models.transformer import init_flax_like
+
+    t = LM_SEQ - 1
+    model = init_flax_like(
+        TransformerLM(LM_VOCAB, LM_D, LM_HEADS, LM_LAYERS, max_len=t, attention='flash',
+                      dtype=torch.bfloat16, device=device), torch.Generator().manual_seed(0))
+    state = create_train_state(model, learning_rate=0.01, momentum=0.9)
+    train = make_lm_scan_train_step(SCAN_K)
+    counted = LM_SCAN_WARMUP + LM_SCAN_CALLS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    reader = make_tensor_reader(url, schema_fields=['tokens'], reader_pool_type='thread',
+                                workers_count=2, shuffle_row_groups=True, seed=0, num_epochs=None,
+                                cache_type='memory')
+    with reader:
+        with TorchLoader(reader, LM_BATCH * SCAN_K, device=device, prefetch=2) as loader:
+            def next_inputs():
+                return (next(loader).tokens,)
+
+            metrics, launches, captured, ran, measured = scan_window(
+                train, state, next_inputs, LM_SCAN_WARMUP, LM_SCAN_CALLS, FLASH_KERNELS)
+            wall, wait_s, call_ms, timed = time_scan_calls(train, state, next_inputs,
+                                                           LM_SCAN_CALLS)
+            stats, cache = dict(loader.stats), reader.cache_stats()
+    require_scan_launches(launches, captured, ran, FLASH_WRAPPERS, LM_LAYERS * SCAN_K, counted)
+    losses = [float(v) for m in metrics + timed for v in m['losses']]
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError('lm scan losses did not fall: {}'.format(losses))
+    steps = LM_SCAN_CALLS * SCAN_K
+    return {
+        'phase': 'lm_scan', 'card': card, 'model': 'TransformerLM', 'layers': LM_LAYERS,
+        'seq': t, 'batch': LM_BATCH, 'microbatches': SCAN_K, 'cache_type': 'memory',
+        'warmup_calls': LM_SCAN_WARMUP, 'counted_calls': LM_SCAN_CALLS,
+        'timed_calls': LM_SCAN_CALLS, 'losses': losses,
+        'tokens_per_s': steps * LM_BATCH * t / wall, 'step_ms': wall / steps * 1e3,
+        'input_stall_frac': wait_s / wall, 'device_call_ms_median': call_ms,
+        'device_step_ms': call_ms / SCAN_K, 'cache': cache,
+        'peak_mem_GB': torch.cuda.max_memory_allocated(device) / 1e9,
+        'peak_reserved_GB': torch.cuda.max_memory_reserved(device) / 1e9,
+        'rows_delivered': stats['rows'],
+        'launches': _scan_launches(launches, captured, ran, counted),
+        'trace': per_step(busy_trace(measured, LM_SCAN_CALLS, call_ms), SCAN_K)}
+
+
+def _path_launches(result, wrapper, kernel):
+    """A kernel's launches on a scan path, each counted in that path's own
+    window: its wrapper's (call 1 and the capture), the wrapper's across
+    the capture (the kernels the graph holds), and the kernels that ran on
+    the card in the window's calls, counted by name in its profiles."""
+    launches = result['launches']
+    return {'wrapper': launches['wrappers'].get(wrapper, 0),
+            'across_capture': launches['across_capture'].get(wrapper, 0),
+            'ran_on_card': launches['ran_on_card'][kernel], 'calls': launches['calls']}
 
 
 def main():
@@ -891,18 +1352,35 @@ def main():
         record(dict(check_first_batch(url, device), phase='checks'))
         record(dict(check_model(device), phase='checks'))
         record(dict(check_lm_model(device), phase='checks'))
+        for entry in check_scan_graph(device):
+            record(dict(entry, phase='checks'))
         result = run_imagenet(url, device, args.steps, card)
         record(result)
         k1['launches'] = result['launches'].get('normalize_images', 0)
+        by_path = {'imagenet': k1['launches']}
+        result, state = run_imagenet_scan(url, device, card)
+        record(result)
+        by_path['imagenet_scan'] = _path_launches(result, 'normalize_images', 'normalize_kernel')
+        result = run_imagenet_hbm(url, device, card, state)
+        record(result)
+        by_path['imagenet_hbm'] = _path_launches(result, 'normalize_images', 'normalize_kernel')
+        k1['launches_by_path'] = by_path
+        del state
         result = run_lm(lm_url, device, args.steps, card)
         record(result)
+        scan = run_lm_scan(lm_url, device, card)
+        record(scan)
         for k in flash:
             k['launches'] = result['launches'].get(k['name'], 0)
+            k['launches_by_path'] = {
+                'lm': k['launches'],
+                'lm_scan': _path_launches(scan, k['name'], k['name'] + '_kernel')}
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
-    keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms', 'plain_ms',
-            'bound_ms', 'bound_by', 'library_ms', 'previous_ms', 'host_bound', 'ptxas', 'variant',
-            'shape', 'block', 'num_warps', 'variants')
+    keys = ('name', 'route', 'kernel_route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms',
+            'plain_ms',
+            'bound_ms', 'bound_by', 'library_ms', 'previous_ms', 'host_bound', 'launches_by_path',
+            'ptxas', 'variant', 'shape', 'block', 'num_warps', 'variants')
     record({'kernels': [{key: k[key] for key in keys if key in k} for k in [k1] + flash]})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

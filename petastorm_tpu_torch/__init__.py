@@ -1,15 +1,20 @@
 """petastorm_tpu_torch: the PyTorch/CUDA port of petastorm_tpu.
 
 It stands beside the JAX package and imports nothing of it: JPEG Parquet
--> decoded-columnar tensor reader -> pinned-arena H2D loader -> on-device
+-> decoded-columnar tensor reader (with an optional decoded-chunk memory
+cache) -> pinned-arena H2D loader (batches or superbatches) -> on-device
 augmentation ending in a hand-written normalize kernel -> ResNet training;
 and token Parquet -> the same reader and loader -> TransformerLM with
-hand-written CUDA flash attention -> SGD steps. Entry points take
+hand-written CUDA flash attention -> SGD steps, one at a time or K at a
+time as one replayed CUDA graph; and a device-resident dataset tier
+(``DeviceDatasetCache``) for data that fits the card. Entry points take
 ``device=`` and default to ``'cuda'``.
 """
 
+from petastorm_tpu_torch.cache import MemoryCache, NullCache  # noqa: F401
 from petastorm_tpu_torch.codecs import CompressedImageCodec, NdarrayCodec, ScalarCodec  # noqa: F401
 from petastorm_tpu_torch.device import resolve_device  # noqa: F401
+from petastorm_tpu_torch.device_cache import DeviceCacheOverflow, DeviceDatasetCache  # noqa: F401
 from petastorm_tpu_torch.etl import DatasetWriter, get_schema, write_dataset  # noqa: F401
 from petastorm_tpu_torch.loader import TorchLoader  # noqa: F401
 from petastorm_tpu_torch.reader import Reader, make_tensor_reader  # noqa: F401

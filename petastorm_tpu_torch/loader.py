@@ -60,9 +60,11 @@ def _sanitize_array(array):
 def iter_block_batches(reader, batch_size, batch_buffers=None, views_ok=True):
     """Fixed-size batches (dicts of numpy arrays) cut from column blocks.
 
-    A batch inside one chunk is a leading-dim view when ``views_ok``;
-    otherwise rows are collated into ``batch_buffers(spec)`` (a recycled
-    arena) or a fresh buffer. A last partial batch is dropped.
+    A batch inside one chunk is a leading-dim view when ``views_ok`` and
+    the chunk's blocks are writable; otherwise (and always for read-only
+    blocks, which a cache shares across epochs) rows are collated into
+    ``batch_buffers(spec)`` (a recycled arena) or a fresh buffer. A last
+    partial batch is dropped.
     """
     field_names = None
     chunks = []   # dicts name -> sanitized block, oldest first
@@ -84,7 +86,7 @@ def iter_block_batches(reader, batch_size, batch_buffers=None, views_ok=True):
         head = chunks[0]
         rows = len(head[field_names[0]])
         have -= n
-        if rows >= n and views_ok:
+        if rows >= n and views_ok and all(head[name].flags.writeable for name in field_names):
             if rows == n:
                 chunks.pop(0)
             else:
@@ -158,10 +160,11 @@ class TorchLoader(object):
         self.stats = {'batches': 0, 'rows': 0, 'wait_s': 0.0, 'h2d_bytes': 0, 'h2d_s': 0.0}
         # Arenas: those behind queued batches, in-flight copies, and the two
         # being filled and consumed.
-        arena_depth = max(2, self._prefetch) + INFLIGHT + 2
-        self._pool = ArenaPool(arena_depth, self._stop, pinned=self._cuda)
+        self._arena_depth = max(2, self._prefetch) + INFLIGHT + 2
+        self._pool = ArenaPool(self._arena_depth, self._stop, pinned=self._cuda)
         # Copying device (CUDA): every batch goes through a pinned arena.
-        # Aliasing device (CPU): views of the reader's blocks are cheapest.
+        # Aliasing device (CPU): views of the reader's blocks are cheapest,
+        # except of read-only (cached) blocks, which are copied.
         self._host_iter = iter_block_batches(reader, batch_size, batch_buffers=self._pool.get_buffers,
                                              views_ok=not self._cuda)
         self._queue = queue.Queue(maxsize=self._prefetch)
@@ -227,6 +230,42 @@ class TorchLoader(object):
             self._exhausted = True
             raise item
         return self._deliver(item)
+
+    def hold_batches(self, n):
+        """Say that the consumer keeps up to ``n`` delivered batches alive
+        at once. On the CPU a delivered batch may hold its host arena, so
+        the arena pool is deepened to cover them (else each batch past the
+        pool's depth waits for the pool to grow); on CUDA an arena is free
+        once its copy landed, and nothing changes."""
+        if not self._cuda:
+            self._pool.ensure_depth(self._arena_depth + n)
+
+    def superbatches(self, k):
+        """Yield batches of ``k * batch_size`` rows: ``k`` consecutive
+        batches concatenated on the device (``torch.cat`` on the consumer
+        stream), for :func:`~petastorm_tpu_torch.models.train.make_scan_train_step`
+        with ``microbatches=k``. Copies stay at the batch's size. A last
+        group of fewer than ``k`` batches is dropped, so every superbatch
+        has one shape. ``k <= 1`` yields the batches as they are.
+
+        The JAX package concatenates through ``replica_safe_concat`` only to
+        step around a replica-sum bug of its SPMD lowering; ``torch.cat``
+        has no such bug.
+        """
+        if k <= 1:
+            yield from self
+            return
+        self.hold_batches(k)
+        while True:
+            parts = []
+            try:
+                for _ in range(k):
+                    parts.append(next(self))
+            except StopIteration:
+                return
+            batch = type(parts[0])(*(torch.cat(columns) for columns in zip(*parts)))
+            del parts          # the parts (and on the CPU their arenas) go before the yield
+            yield batch
 
     def close(self):
         """Stop and join the staging threads (idempotent)."""

@@ -172,7 +172,10 @@ class ResNet(nn.Module):
         # NHWC -> an NCHW view with channels_last memory: no copy.
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         low_precision = self.dtype != torch.float32
-        with torch.autocast(x.device.type, dtype=self.dtype, enabled=low_precision):
+        # No cast cache: each weight is cast once a forward anyway, and a
+        # cache must stay off inside a captured CUDA graph.
+        with torch.autocast(x.device.type, dtype=self.dtype, enabled=low_precision,
+                            cache_enabled=False):
             x = F.relu(self.bn_init(self.conv_init(x)))
             x = F.max_pool2d(_pad_same(x, 3, 2, value=-math.inf), 3, stride=2)
             for block in self.blocks:

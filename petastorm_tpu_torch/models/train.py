@@ -1,11 +1,18 @@
-"""SGD training steps (counterparts of ``petastorm_tpu/models/train.py:34-61, 102-185``
-and of the LM step body in ``bench.py:216-240``).
+"""SGD training steps (counterparts of ``petastorm_tpu/models/train.py:34-61, 102-197``
+and of the LM step body in ``bench.py:216-244``).
 
 ``optax.sgd(lr, momentum)`` keeps ``t = g + momentum * t`` and steps
 ``-lr * t``; ``torch.optim.SGD(momentum=, dampening=0)`` is the same
 update, so one step of either moves the same params. Batch statistics
 update inside the train-mode forward, as flax's ``mutable=['batch_stats']``
-does. The scan (microbatched) trainer and the mesh paths come later.
+does.
+
+The scan trainers run K sequential SGD steps per call over a superbatch of
+K microbatches, as ``jax.jit(lax.scan(...))`` does: microbatch i+1 sees the
+params microbatch i updated. PyTorch's counterpart of the K-step loop
+compiled into one program is a CUDA graph of the K-step body, captured
+once and replayed (:class:`ScanStep`); on the CPU the same body runs
+eagerly. The mesh paths come later.
 """
 
 import torch
@@ -26,21 +33,45 @@ def create_train_state(model, learning_rate=1e-3, momentum=0.9):
                                              momentum=momentum))
 
 
+def _sgd(state, loss):
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.optimizer.step()
+
+
+def _classifier_step(state, images, labels):
+    """One SGD step of integer-label softmax cross entropy: ``(loss,
+    accuracy)``, 0-d tensors, no host synchronisation. The body that
+    :func:`make_train_step` and :func:`make_scan_train_step` share, as
+    ``make_train_step_fn`` is shared in the JAX package."""
+    state.model.train()
+    logits = state.model(images)
+    loss = F.cross_entropy(logits, labels)
+    _sgd(state, loss)
+    with torch.no_grad():
+        accuracy = (logits.argmax(-1) == labels).float().mean()
+    return loss.detach(), accuracy
+
+
+def _lm_step(state, tokens):
+    """One SGD step of next-token cross entropy over ``[B, T + 1]`` tokens
+    (the non-MoE body of ``bench.py:216-244``): ``(loss,)``."""
+    state.model.train()
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    logits = state.model(x)
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long())
+    _sgd(state, loss)
+    return (loss.detach(),)
+
+
 def make_train_step():
     """``step(state, images, labels) -> {'loss', 'accuracy'}`` (0-d
     tensors, not synchronised): integer-label softmax cross entropy."""
 
     def train_step(state, images, labels):
-        state.model.train()
-        logits = state.model(images)
-        loss = F.cross_entropy(logits, labels)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
+        loss, accuracy = _classifier_step(state, images, labels)
         state.step += 1
-        with torch.no_grad():
-            accuracy = (logits.argmax(-1) == labels).float().mean()
-        return {'loss': loss.detach(), 'accuracy': accuracy}
+        return {'loss': loss, 'accuracy': accuracy}
 
     return train_step
 
@@ -49,18 +80,185 @@ def make_lm_train_step():
     """``step(state, tokens) -> {'loss'}`` for a language model: ``tokens``
     is ``[B, T + 1]`` integer, the inputs ``tokens[:, :-1]`` predict
     ``tokens[:, 1:]``, the loss is the mean softmax cross entropy over
-    ``[B, T, vocab]`` f32 logits (the non-MoE body of ``bench.py:216-240``,
+    ``[B, T, vocab]`` f32 logits (the non-MoE body of ``bench.py:216-244``,
     one step per call). The loss is a 0-d tensor, not synchronised."""
 
     def train_step(state, tokens):
-        state.model.train()
-        x, y = tokens[:, :-1], tokens[:, 1:]
-        logits = state.model(x)
-        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long())
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
+        (loss,) = _lm_step(state, tokens)
         state.step += 1
-        return {'loss': loss.detach()}
+        return {'loss': loss}
 
     return train_step
+
+
+def make_eval_step():
+    """``eval_step(state, images, labels) -> {'loss', 'accuracy'}``: the
+    eval-mode forward (running batch statistics) under ``no_grad``
+    (``petastorm_tpu/models/train.py:188-197``)."""
+
+    def eval_step(state, images, labels):
+        state.model.eval()
+        with torch.no_grad():
+            logits = state.model(images)
+            return {'loss': F.cross_entropy(logits, labels),
+                    'accuracy': (logits.argmax(-1) == labels).float().mean()}
+
+    return eval_step
+
+
+def _optimizer_view(optimizer):
+    """What a captured graph holds fixed of ``optimizer``: each group's
+    hyperparameters (Python values, baked into the captured kernels'
+    arguments) and the addresses of its params and of their state tensors
+    (the momentum buffers the graph reads and writes)."""
+
+    def fixed(value):
+        return ('tensor', value.data_ptr()) if torch.is_tensor(value) else value
+
+    view = []
+    for group in optimizer.param_groups:
+        view.append(sorted((key, fixed(value)) for key, value in group.items() if key != 'params'))
+        view.extend((p.data_ptr(), sorted((key, fixed(value))
+                                          for key, value in optimizer.state.get(p, {}).items()))
+                    for p in group['params'])
+    return view
+
+
+class ScanStep(object):
+    """K sequential SGD steps a call over superbatches of K microbatches.
+
+    ``step(state, *inputs)``: each input's leading dim is K microbatches
+    of equal size (``ValueError`` if K does not divide it); ``body(state,
+    *microbatch_inputs)`` returns a tuple of 0-d metric tensors, stacked
+    into ``[K]`` tensors for ``finish``, which maps them to the result
+    dict. ``state.step`` advances by K.
+
+    On CPU tensors the K steps run eagerly. On CUDA tensors:
+
+    - the first call runs the K steps eagerly on the step's own side
+      stream: a real training call that also creates the optimizer's
+      momentum buffers, runs cuDNN's autotuning and compiles the Triton
+      kernel ahead of capture;
+    - the second call copies its inputs into static buffers, captures the
+      K-step body once into a ``torch.cuda.CUDAGraph`` (on the same side
+      stream; autograd, the gradients and the optimizer's update included)
+      and replays it;
+    - every later call copies its superbatch into the static buffers and
+      replays the graph, on the caller's stream.
+
+    A capture or replay that fails raises; nothing falls back to eager
+    execution. The graph replays what it captured: the state, the input
+    shapes and types, the optimizer's hyperparameters (``lr``,
+    ``momentum``, ...) and the addresses of the params and of the
+    optimizer's state. Before each replay the step checks them and raises
+    ``ValueError`` if any changed (another state, a new learning rate,
+    ``optimizer.load_state_dict`` with new buffers): make a new step then.
+    Results are cloned out of the graph's output tensors, so a caller's
+    metrics of one call are not overwritten by the next. Capture runs in
+    the ``thread_local`` error mode, so a loader's staging threads may keep
+    allocating and copying on their own streams meanwhile.
+    """
+
+    def __init__(self, body, finish, microbatches):
+        if microbatches < 1:
+            raise ValueError('microbatches must be >= 1, got {}'.format(microbatches))
+        self._body = body
+        self._finish = finish
+        self.microbatches = int(microbatches)
+        self.calls = 0
+        self.graph = None
+        self._stream = None
+        self._state = None
+        self._static_inputs = None
+        self._static_out = None
+        self._optimizer_view = None
+
+    def _run(self, state, inputs):
+        k = self.microbatches
+        micro = inputs[0].shape[0] // k
+        metrics = [self._body(state, *(x[i * micro:(i + 1) * micro] for x in inputs))
+                   for i in range(k)]
+        return self._finish(*(torch.stack(column) for column in zip(*metrics)))
+
+    def _check(self, state, inputs):
+        total = inputs[0].shape[0]
+        if total % self.microbatches or any(x.shape[0] != total for x in inputs):
+            raise ValueError('superbatch {} not divisible by microbatches {}'.format(
+                [tuple(x.shape) for x in inputs], self.microbatches))
+        if self._state is not None and state is not self._state:
+            raise ValueError('this scan step was captured for another TrainState; '
+                             'make a new step for each state')
+        if self._static_inputs is not None:
+            for got, want in zip(inputs, self._static_inputs):
+                if (got.shape, got.dtype, got.device) != (want.shape, want.dtype, want.device):
+                    raise ValueError('the CUDA graph was captured for {} {} on {}, got {} {} on '
+                                     '{}'.format(tuple(want.shape), want.dtype, want.device,
+                                                 tuple(got.shape), got.dtype, got.device))
+        if self.graph is not None and _optimizer_view(state.optimizer) != self._optimizer_view:
+            raise ValueError('the optimizer changed since the CUDA graph was captured (its '
+                             'hyperparameters, or the tensors of its params or state); the '
+                             'graph would replay the old ones: make a new step')
+
+    def __call__(self, state, *inputs):
+        self._check(state, inputs)
+        if inputs[0].device.type != 'cuda':
+            out = self._run(state, inputs)
+        elif self.calls == 0:
+            out = self._warm_up(state, inputs)
+        else:
+            if self.graph is None:
+                self._capture(state, inputs)
+            for static, x in zip(self._static_inputs, inputs):
+                static.copy_(x)
+            self.graph.replay()
+            out = {name: value.clone() for name, value in self._static_out.items()}
+        self.calls += 1
+        state.step += self.microbatches
+        return out
+
+    def _warm_up(self, state, inputs):
+        self._state = state
+        self._stream = torch.cuda.Stream(inputs[0].device)
+        caller = torch.cuda.current_stream(inputs[0].device)
+        self._stream.wait_stream(caller)
+        with torch.cuda.stream(self._stream):
+            out = self._run(state, inputs)
+        caller.wait_stream(self._stream)
+        for x in inputs:
+            x.record_stream(self._stream)
+        return {name: value.clone() for name, value in out.items()}
+
+    def _capture(self, state, inputs):
+        self._static_inputs = [torch.empty_like(x) for x in inputs]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self._stream, capture_error_mode='thread_local'):
+            self._static_out = self._run(state, self._static_inputs)
+        self._optimizer_view = _optimizer_view(state.optimizer)
+        self.graph = graph
+
+
+def _classifier_metrics(losses, accuracies):
+    return {'loss': losses.mean(), 'accuracy': accuracies.mean(), 'last_loss': losses[-1]}
+
+
+def make_scan_train_step(microbatches=8, preprocess=None):
+    """``step(state, images [K*B, ...], labels [K*B]) -> {'loss': mean,
+    'accuracy': mean, 'last_loss'}``: K = ``microbatches`` sequential SGD
+    steps a call (``petastorm_tpu/models/train.py:108-149``), one CUDA graph
+    replay on the card (:class:`ScanStep`). ``preprocess(images_microbatch)``
+    runs inside the body (and the graph), e.g. the K1 normalize. Metrics
+    are 0-d tensors, not synchronised."""
+
+    def body(state, images, labels):
+        if preprocess is not None:
+            images = preprocess(images)
+        return _classifier_step(state, images, labels)
+
+    return ScanStep(body, _classifier_metrics, microbatches)
+
+
+def make_lm_scan_train_step(microbatches=8):
+    """``step(state, tokens [K*B, T + 1]) -> {'losses': [K]}``: the scan
+    counterpart of :func:`make_lm_train_step`, the ``lax.scan`` of
+    ``bench.py:216-244`` (non-MoE); one CUDA graph replay on the card."""
+    return ScanStep(_lm_step, lambda losses: {'losses': losses}, microbatches)

@@ -1,4 +1,4 @@
-"""Fused on-device image normalization: uint8 or float NHWC -> bf16/f32.
+"""Fused on-device image normalization: uint8 or float NHWC -> f32/bf16/f16.
 
 Counterpart of ``petastorm_tpu/ops/image_ops.py:22-122``. On a CUDA tensor
 ``normalize_images`` launches a hand-written Triton kernel; on a CPU tensor
@@ -25,14 +25,16 @@ once; 2 flops per element). The design therefore does nothing but stream:
   of ``_BLOCK`` (16-byte vector loads and stores); the flipped path reads
   the mirrored pixel, ``offset + (W - 1 - 2 w) C``, with ``w`` from the
   offset by constant divisors;
-- scale and shift are ``C <= 4`` scalar arguments selected by the channel,
-  not a table gathered per element.
+- for ``C <= 4`` channels scale and shift are scalar arguments selected by
+  the channel; for more, each element reads them from a ``C``-entry f32
+  table at ``offset % C`` (a few hundred bytes, served from L1).
 
 The block of 2048 elements and 4 warps came from a sweep on the card at
 the main path's shape, where every block of 1024-4096 elements with 4 or
 8 warps ran within about 1% of the best (``PERF.md``). The kernel takes
-at most 4 channels; the wrapper raises on more. The TPU kernel's (8, 128)
-padding and int32 widening were Mosaic workarounds and are gone.
+uint8, f16, bf16 or f32 images and writes f32, bf16 or f16, as the JAX
+function does. The TPU kernel's (8, 128) padding and int32 widening were
+Mosaic workarounds and are gone.
 """
 
 import collections
@@ -48,9 +50,10 @@ LAUNCHES = collections.Counter()
 
 _BLOCK = 2048
 _NUM_WARPS = 4
-MAX_CHANNELS = 4
-_KERNEL_IN = (torch.uint8, torch.float32)
-_KERNEL_OUT = (torch.bfloat16, torch.float32)
+#: Channels up to which scale and shift are scalar arguments; past it, a table.
+_SCALAR_CHANNELS = 4
+_KERNEL_IN = (torch.uint8, torch.float16, torch.bfloat16, torch.float32)
+_KERNEL_OUT = (torch.float32, torch.bfloat16, torch.float16)
 _kernel = None
 _scale_shift_cache = {}
 
@@ -88,9 +91,10 @@ def _build_kernel():
     import triton.language as tl
 
     @triton.jit
-    def normalize_kernel(x_ptr, out_ptr, flip_ptr, s0, s1, s2, s3, t0, t1, t2, t3,
+    def normalize_kernel(x_ptr, out_ptr, flip_ptr, scale_ptr, shift_ptr,
+                         s0, s1, s2, s3, t0, t1, t2, t3,
                          H: tl.constexpr, W: tl.constexpr, C: tl.constexpr,
-                         HAS_FLIP: tl.constexpr, BLOCK: tl.constexpr):
+                         HAS_FLIP: tl.constexpr, BLOCK: tl.constexpr, TABLE: tl.constexpr):
         IMAGE: tl.constexpr = H * W * C
         BLOCKS: tl.constexpr = (IMAGE + BLOCK - 1) // BLOCK
         pid = tl.program_id(0)
@@ -100,14 +104,18 @@ def _build_kernel():
         mask = local < IMAGE
         base = n * IMAGE                                 # int32: the wrapper keeps numel < 2**31
         c = local % C
-        scale = tl.where(c == 0, s0, s1)
-        shift = tl.where(c == 0, t0, t1)
-        if C > 2:
-            scale = tl.where(c == 2, s2, scale)
-            shift = tl.where(c == 2, t2, shift)
-        if C > 3:
-            scale = tl.where(c == 3, s3, scale)
-            shift = tl.where(c == 3, t3, shift)
+        if TABLE:                                        # C > 4: per-channel table
+            scale = tl.load(scale_ptr + c)
+            shift = tl.load(shift_ptr + c)
+        else:
+            scale = tl.where(c == 0, s0, s1)
+            shift = tl.where(c == 0, t0, t1)
+            if C > 2:
+                scale = tl.where(c == 2, s2, scale)
+                shift = tl.where(c == 2, t2, shift)
+            if C > 3:
+                scale = tl.where(c == 3, s3, scale)
+                shift = tl.where(c == 3, t3, shift)
         flipped = tl.full([], 0, tl.int32)               # without a mask the branch folds away
         if HAS_FLIP:
             flipped = tl.load(flip_ptr + n).to(tl.int32)
@@ -125,21 +133,22 @@ def _build_kernel():
     return _kernel
 
 
-def _normalize_triton(images, scale, shift, dtype, flip=None):
-    """Launch the kernel: ``scale`` and ``shift`` are sequences of ``C`` (or
+def _normalize_triton(images, mean, std, dtype, flip=None):
+    """Launch the kernel; ``mean`` and ``std`` are sequences of ``C`` (or
     one) floats."""
     n, h, w, c = images.shape
     if images.dtype not in _KERNEL_IN:
-        raise TypeError('normalize kernel takes uint8 or float32 images, got {}'.format(images.dtype))
+        raise TypeError('normalize kernel takes uint8, float16, bfloat16 or float32 images, '
+                        'got {}'.format(images.dtype))
     if dtype not in _KERNEL_OUT:
-        raise TypeError('normalize kernel writes bf16 or f32, got {}'.format(dtype))
+        raise TypeError('normalize kernel writes float32, bfloat16 or float16, got {}'.format(dtype))
     if not images.is_contiguous():
         raise ValueError('normalize kernel needs contiguous NHWC images')
-    if not 1 <= c <= MAX_CHANNELS:
-        raise ValueError('normalize kernel takes 1 to {} channels, got {}'.format(MAX_CHANNELS, c))
-    if len(scale) not in (1, c) or len(shift) != len(scale):
+    if c < 1:
+        raise ValueError('normalize kernel needs at least one channel')
+    if len(mean) not in (1, c) or len(std) != len(mean):
         raise ValueError('normalize kernel takes one mean and std or one per channel, '
-                         'got {} and {} for {} channels'.format(len(scale), len(shift), c))
+                         'got {} and {} for {} channels'.format(len(mean), len(std), c))
     total = images.numel()
     if total >= 2 ** 31:
         raise ValueError('normalize kernel indexes with int32; {} elements is too many'.format(total))
@@ -151,14 +160,25 @@ def _normalize_triton(images, scale, shift, dtype, flip=None):
     out = torch.empty(images.shape, dtype=dtype, device=images.device)
     if total == 0:
         return out
-    pad = [0.0] * (MAX_CHANNELS - c)
-    scale = list(scale) * (c // len(scale)) + pad
-    shift = list(shift) * (c // len(shift)) + pad
+    mean, std = tuple(mean) * (c // len(mean)), tuple(std) * (c // len(std))
+    table = c > _SCALAR_CHANNELS
+    if table:
+        # The table lives on the card (cached, so a CUDA graph's capture
+        # copies nothing); the scalar arguments go unused.
+        scale_t, shift_t = _scale_shift(mean, std, images.device)
+        scalars = [0.0] * (2 * _SCALAR_CHANNELS)
+    else:
+        # The scalars are the tables' f32 values, taken on the host.
+        scale_t = shift_t = images
+        cpu_scale, cpu_shift = _scale_shift(mean, std, torch.device('cpu'))
+        pad = [0.0] * (_SCALAR_CHANNELS - c)
+        scalars = cpu_scale.tolist() + pad + cpu_shift.tolist() + pad
     triton, kernel = _kernel or _build_kernel()
     grid = (n * triton.cdiv(h * w * c, _BLOCK),)
     with torch.cuda.device(images.device):
-        kernel[grid](images, out, flip if flip is not None else images, *scale, *shift,
-                     H=h, W=w, C=c, HAS_FLIP=flip is not None, BLOCK=_BLOCK, num_warps=_NUM_WARPS)
+        kernel[grid](images, out, flip if flip is not None else images, scale_t, shift_t, *scalars,
+                     H=h, W=w, C=c, HAS_FLIP=flip is not None, BLOCK=_BLOCK, TABLE=table,
+                     num_warps=_NUM_WARPS)
     LAUNCHES['normalize_images'] += 1
     return out
 
@@ -167,7 +187,8 @@ def normalize_images(images, mean=IMAGENET_MEAN, std=IMAGENET_STD, dtype=torch.b
                      flip=None):
     """``[N, H, W, C]`` uint8 or float (on the [0, 255] scale) ->
     ``((x / 255) - mean) / std`` in ``dtype``, optionally W-flipping the
-    samples where the ``[N]`` bool ``flip`` mask is set.
+    samples where the ``[N]`` bool ``flip`` mask is set. ``mean`` and
+    ``std`` hold one value or one per channel.
 
     A CUDA tensor goes through the Triton kernel; a CPU tensor through
     :func:`normalize_images_plain`.
@@ -175,9 +196,7 @@ def normalize_images(images, mean=IMAGENET_MEAN, std=IMAGENET_STD, dtype=torch.b
     if images.ndim != 4:
         raise ValueError('Expected NHWC batch, got shape {}'.format(tuple(images.shape)))
     if images.device.type == 'cuda':
-        # The kernel takes the constants as scalars: their f32 values, from the host.
-        scale, shift = _scale_shift(mean, std, torch.device('cpu'))
-        return _normalize_triton(images, scale.tolist(), shift.tolist(), dtype, flip)
+        return _normalize_triton(images, mean, std, dtype, flip)
     if images.device.type == 'cpu':
         scale, shift = _scale_shift(mean, std, images.device)
         return normalize_images_plain(images, scale, shift, dtype, flip)

@@ -5,10 +5,15 @@
 numpy blocks per row-group, decoded by a thread pool. Row-groups are
 sharded by ``index % shard_count == cur_shard`` and, per epoch, shuffled by
 ``random.Random(seed)`` as in the JAX package, so one seed gives both
-packages the same row-group order. Cache tiers, process pools,
-``state_dict``/resume, health and autotune come in later slices.
+packages the same row-group order. Of the cache tiers, ``'null'`` and
+``'memory'`` are ported (``petastorm_tpu/reader.py:76-113``); the disk and
+chunk-store tiers, process pools, ``state_dict``/resume, health and
+autotune come in later slices.
 """
 
+import hashlib
+
+from petastorm_tpu_torch.cache import MemoryCache, NullCache
 from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormMetadataError
 from petastorm_tpu_torch.etl.dataset_metadata import get_schema
 from petastorm_tpu_torch.storage import ParquetStore
@@ -20,11 +25,25 @@ from petastorm_tpu_torch.workers.ventilator import ConcurrentVentilator
 
 #: Row-groups ventilated beyond the worker count, as in the JAX reader.
 _VENTILATE_EXTRA_ROWGROUPS = 2
+#: Tiers of the JAX package that are not ported yet.
+_NOT_PORTED_CACHES = ('local-disk', 'chunk-store')
+
+
+def _make_cache(cache_type, cache_size_limit):
+    if cache_type == 'null':
+        return NullCache()
+    if cache_type == 'memory':
+        return MemoryCache(size_limit_bytes=cache_size_limit)
+    if cache_type in _NOT_PORTED_CACHES:
+        raise ValueError('cache_type={!r} is not ported to petastorm_tpu_torch yet; '
+                         "use 'null' or 'memory'".format(cache_type))
+    raise ValueError('Unknown cache_type {!r}'.format(cache_type))
 
 
 def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
                        workers_count=10, results_queue_size=50, shuffle_row_groups=True,
-                       seed=None, num_epochs=1, cur_shard=None, shard_count=None):
+                       seed=None, num_epochs=1, cur_shard=None, shard_count=None,
+                       cache_type='null', cache_size_limit=None):
     """Reader of decoded column blocks, one namedtuple per row-group.
 
     :param schema_fields: fields or full-match regex patterns to read
@@ -33,10 +52,16 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
     :param num_epochs: epochs to read; ``None`` = endless.
     :param cur_shard/shard_count: read only row-groups ``i`` with
         ``i % shard_count == cur_shard``.
+    :param cache_type: ``'null'`` (decode every epoch) or ``'memory'``
+        (keep decoded row-groups in RAM: later epochs skip read and
+        decode). Other tiers raise ``ValueError``.
+    :param cache_size_limit: the memory cache's approximate byte cap
+        (``None`` = no cap).
     """
     if reader_pool_type != 'thread':
         raise ValueError("petastorm_tpu_torch has only reader_pool_type='thread' so far, "
                          'got {!r}'.format(reader_pool_type))
+    cache = _make_cache(cache_type, cache_size_limit)
     store = ParquetStore(dataset_url)
     try:
         stored_schema = get_schema(store)
@@ -50,14 +75,14 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
     validate_tensor_schema(view)
     return Reader(store, view, ThreadPool(workers_count, results_queue_size),
                   shuffle_row_groups=shuffle_row_groups, seed=seed, num_epochs=num_epochs,
-                  cur_shard=cur_shard, shard_count=shard_count)
+                  cur_shard=cur_shard, shard_count=shard_count, cache=cache)
 
 
 class Reader(object):
     """Iterates decoded row-group chunks off a worker pool."""
 
     def __init__(self, store, schema, pool, shuffle_row_groups=True, seed=None,
-                 num_epochs=1, cur_shard=None, shard_count=None):
+                 num_epochs=1, cur_shard=None, shard_count=None, cache=None):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -70,6 +95,7 @@ class Reader(object):
             raise NoDataAvailableError('No row-groups left after sharding; cannot create a Reader')
         self._row_groups = pieces
         self._pool = pool
+        self.cache = cache if cache is not None else NullCache()
         self._stopped = False
         self._ventilator = ConcurrentVentilator(
             ventilate_fn=None,   # bound by pool.start
@@ -78,7 +104,18 @@ class Reader(object):
             randomize_item_order=shuffle_row_groups,
             random_seed=seed,
             max_ventilation_queue_size=pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS)
-        pool.start(TensorWorker, {'row_groups': pieces, 'schema': schema}, self._ventilator)
+        pool.start(TensorWorker, {
+            'row_groups': pieces, 'schema': schema, 'cache': self.cache,
+            'dataset_path_hash': hashlib.md5(store.url.encode()).hexdigest()[:12],
+        }, self._ventilator)
+
+    def cache_stats(self):
+        """``{'type', 'hits', 'misses', 'nbytes'}`` of the row-group cache
+        (zeros for the null cache)."""
+        if isinstance(self.cache, MemoryCache):
+            return {'type': 'memory', 'hits': self.cache.hits, 'misses': self.cache.misses,
+                    'nbytes': self.cache.nbytes}
+        return {'type': 'null', 'hits': 0, 'misses': 0, 'nbytes': 0}
 
     def __iter__(self):
         return self

@@ -132,6 +132,12 @@ class ArenaPool(object):
             self._pending = arena
             return arena.buffers
 
+    def ensure_depth(self, depth):
+        """Keep at least ``depth`` arenas before a request waits."""
+        with self._cond:
+            self._depth = max(self._depth, depth)
+            self._cond.notify_all()
+
     def claim_pending(self):
         """The arena of the latest ``get_buffers`` call (or None)."""
         with self._cond:

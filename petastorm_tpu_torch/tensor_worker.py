@@ -6,10 +6,20 @@ worker straight into one contiguous ``[rows, ...field.shape]`` numpy block
 (images through OpenCV, whose decode releases the GIL). The worker
 publishes one small dict of big arrays per row-group, so decoded tensors
 never cross a per-row Python boundary on their way to the loader.
+
+With a cache (``cache_type='memory'``) the worker looks the row-group up
+ahead of the read, keyed by :func:`tensor_chunk_key`, and reads and decodes
+only on a miss. Cached blocks are shared by every later epoch, so they are
+published read-only: the loader copies out of them and never hands them to
+a caller that could write into them.
 """
+
+import hashlib
+import os
 
 import numpy as np
 
+from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.codecs import CompressedImageCodec, NdarrayCodec, ScalarCodec
 from petastorm_tpu_torch.errors import DecodeFieldError
 from petastorm_tpu_torch.workers.rowgroup_worker_base import RowGroupWorkerBase
@@ -26,15 +36,55 @@ def validate_tensor_schema(schema):
                 'shape {} (None = variable dim)'.format(name, field.shape))
 
 
+def _file_fingerprint(path):
+    """Size and mtime of the row-group's Parquet file: a store rewritten in
+    place misses instead of serving stale blocks."""
+    try:
+        st = os.stat(path)
+        return '{}-{}'.format(st.st_size, st.st_mtime_ns)
+    except (OSError, ValueError):
+        return 'nofp'
+
+
+def tensor_chunk_key(dataset_path_hash, piece_path, row_group, schema):
+    """The cache key of one decoded row-group (counterpart of
+    ``petastorm_tpu/chunk_store.py:121-133``): dataset, row-group, the
+    Parquet file's fingerprint and the hash of the field names read."""
+    schema_digest = hashlib.md5(','.join(sorted(schema.fields)).encode()).hexdigest()[:8]
+    return 'tensor:{}:{}:{}:{}:{}'.format(dataset_path_hash, piece_path, row_group,
+                                          _file_fingerprint(str(piece_path)), schema_digest)
+
+
+def _read_only(cols):
+    """Mark decoded blocks shared: writes into them raise."""
+    if cols is not None:
+        for block in cols.values():
+            block.flags.writeable = False
+    return cols
+
+
 class TensorWorker(RowGroupWorkerBase):
-    """Publishes ``{'cols': {name: block}}`` per row-group."""
+    """Publishes ``{'cols': {name: block}}`` per row-group. ``args`` also
+    holds ``cache`` (a :class:`~petastorm_tpu_torch.cache.CacheBase`) and
+    ``dataset_path_hash``."""
 
     def process(self, piece_index):
         piece = self.args['row_groups'][piece_index]
         schema = self.args['schema']
-        table = self._read_row_group(piece, list(schema.fields))
-        if table.num_rows:
-            self.publish_func({'cols': decode_table_to_blocks(table, schema)})
+
+        def load():
+            table = self._read_row_group(piece, list(schema.fields))
+            return decode_table_to_blocks(table, schema) if table.num_rows else None
+
+        cache = self.args['cache']
+        if isinstance(cache, NullCache):
+            cols = load()
+        else:
+            key = tensor_chunk_key(self.args['dataset_path_hash'], piece.path, piece.row_group,
+                                   schema)
+            cols = cache.get(key, lambda: _read_only(load()))
+        if cols is not None:
+            self.publish_func({'cols': cols})
 
 
 def decode_table_to_blocks(table, schema):

@@ -6,13 +6,18 @@ absent:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
-from petastorm_tpu_torch import (CompressedImageCodec, ScalarCodec, TorchLoader, Unischema,
-                                 UnischemaField, make_tensor_reader, write_dataset)
-from petastorm_tpu_torch.models import TransformerLM
+from petastorm_tpu_torch import (CompressedImageCodec, DeviceDatasetCache, ScalarCodec,
+                                 TorchLoader, Unischema, UnischemaField, make_tensor_reader,
+                                 write_dataset)
+from petastorm_tpu_torch.models import (TransformerLM, create_train_state,
+                                        make_lm_scan_train_step, make_lm_train_step,
+                                        make_scan_train_step, make_train_step)
 from petastorm_tpu_torch.models import transformer
 from petastorm_tpu_torch.models.resnet import ResNetTiny, init_flax_like
 from petastorm_tpu_torch.ops import augment, image_ops
@@ -62,17 +67,49 @@ def test_normalize_kernel_matches_plain(dev, shape):
 
 def test_normalize_kernel_rejects_what_it_cannot_take(dev):
     x = torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device=dev)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match='images'):
         image_ops.normalize_images(x.to(torch.int32))
+    with pytest.raises(TypeError, match='writes'):
+        image_ops.normalize_images(x, dtype=torch.float64)
     with pytest.raises(ValueError, match='contiguous'):
         image_ops.normalize_images(x.transpose(1, 2))
     with pytest.raises(ValueError, match='flip'):
         image_ops.normalize_images(x, flip=torch.zeros(3, dtype=torch.bool, device=dev))
-    with pytest.raises(ValueError, match='channels'):
-        image_ops.normalize_images(torch.zeros((2, 8, 8, 5), dtype=torch.uint8, device=dev),
-                                   mean=(0.5,) * 5, std=(0.5,) * 5)
     with pytest.raises(ValueError, match='one per channel'):
         image_ops.normalize_images(x, mean=(0.5, 0.5), std=(0.5, 0.5))
+
+
+def _within_half_ulp_bound(got, want):
+    """One f16 ulp (2^-10 of the value), at least 1e-6 where the formula cancels."""
+    return bool(((got - want).abs() <= (want.abs() * 2.0 ** -10).clamp(min=1e-6)).all())
+
+
+@pytest.mark.parametrize('c', [1, 3, 4, 5, 8])
+def test_normalize_kernel_takes_any_channels_and_the_jax_dtypes(dev, c):
+    """C <= 4 takes the scalar path, C > 4 the per-channel table; every
+    input type the JAX function takes, every output type, flipped and not,
+    against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(c)
+    shape = (3, 17, 33, c)
+    x_u8 = torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+    flip = image_ops.sample_flip(shape[0], g, dev)
+    mean = tuple(0.1 + 0.07 * i for i in range(c))
+    std = tuple(0.2 + 0.05 * i for i in range(c))
+    scale, shift = image_ops._scale_shift(mean, std, dev)
+    for x in (x_u8, x_u8.half(), x_u8.bfloat16(), x_u8.float() + 0.25):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for fl in (None, flip):
+                before = image_ops.LAUNCHES['normalize_images']
+                got = image_ops.normalize_images(x, mean, std, dtype=dtype, flip=fl)
+                assert image_ops.LAUNCHES['normalize_images'] == before + 1
+                want = image_ops.normalize_images_plain(x, scale, shift, dtype, fl)
+                assert got.dtype == dtype and got.shape == x.shape
+                if dtype == torch.float32:
+                    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+                elif dtype == torch.bfloat16:
+                    assert _within_bf16_ulp(got.float(), want.float())
+                else:
+                    assert _within_half_ulp_bound(got.float(), want.float())
 
 
 def test_imagenet_augment_on_card_matches_cpu(dev):
@@ -266,3 +303,253 @@ def test_lm_on_card_matches_cpu(dev):
                         model.blocks[0].attn.query.weight.grad.cpu()))
     for got, want in zip(results[1], results[0]):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _card_store(tmp_path, rows=60):
+    schema = Unischema('CardSchema', [
+        UnischemaField('image', np.uint8, (16, 16, 3), CompressedImageCodec('png')),
+        UnischemaField('label', np.int64, (), ScalarCodec(np.int64)),
+    ])
+    rng = np.random.default_rng(3)
+    url = 'file://' + str(tmp_path / 'store')
+    write_dataset(url, schema, ({'image': rng.integers(0, 256, (16, 16, 3), dtype=np.uint8),
+                                 'label': i} for i in range(rows)), rows_per_row_group=12)
+    return url
+
+
+def test_cuda_superbatches_and_device_cache_equal_the_cpu(dev, tmp_path):
+    url = _card_store(tmp_path)
+
+    def superbatches(device):
+        with make_tensor_reader(url, workers_count=1, shuffle_row_groups=False,
+                                cache_type='memory', num_epochs=2) as reader:
+            with TorchLoader(reader, 8, device=device) as loader:
+                return [(b.image.cpu(), b.label.cpu()) for b in loader.superbatches(3)]
+
+    on_host, on_card = superbatches('cpu'), superbatches(dev)
+    assert len(on_card) == len(on_host) == 120 // 8 // 3
+    for (image, label), (want_image, want_label) in zip(on_card, on_host):
+        assert torch.equal(image, want_image) and torch.equal(label, want_label)
+    with make_tensor_reader(url, workers_count=1, num_epochs=1) as reader:
+        with TorchLoader(reader, 8, device=dev) as loader:
+            cache = DeviceDatasetCache(loader, shuffle=True, seed=1, superbatch_batches=3)
+            first = [b.label.cpu() for b in cache.epoch(0)]
+    for epoch in (1, 2):
+        batches = list(cache.epoch(epoch))
+        assert all(b.label.is_cuda and b.image.is_cuda for b in batches)
+        labels = torch.cat([b.label.cpu() for b in batches])
+        assert sorted(labels.tolist()) == sorted(torch.cat(first).tolist())
+
+
+def _tiny_resnet(dev):
+    model = init_flax_like(ResNetTiny(num_classes=10, dtype=torch.bfloat16, device=dev),
+                           torch.Generator().manual_seed(0))
+    return model.to(memory_format=torch.channels_last)
+
+
+def _tiny_lm(dev):
+    model = TransformerLM(256, 128, 2, 2, 128, attention='flash', dtype=torch.bfloat16, device=dev)
+    return transformer.init_flax_like(model, torch.Generator().manual_seed(0))
+
+
+def _preprocess(images):
+    return image_ops.normalize_images(images, dtype=torch.bfloat16)
+
+
+def _image_superbatch(dev, seed, k):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randint(0, 256, (k * 8, 32, 32, 3), generator=g, device=dev, dtype=torch.uint8),
+            torch.randint(0, 10, (k * 8,), generator=g, device=dev))
+
+
+def _token_superbatch(dev, seed, k):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randint(0, 256, (k * 2, 129), generator=g, device=dev, dtype=torch.int32),)
+
+
+def _eager_resnet(k):
+    """K calls of the one-step trainer on the microbatch slices, metrics
+    stacked and averaged as the scan step does: its eager reference."""
+    train_step = make_train_step()
+
+    def run(state, images, labels):
+        micro = images.shape[0] // k
+        out = [train_step(state, _preprocess(images[i * micro:(i + 1) * micro]),
+                          labels[i * micro:(i + 1) * micro]) for i in range(k)]
+        losses = torch.stack([m['loss'] for m in out])
+        return {'loss': losses.mean(), 'accuracy': torch.stack([m['accuracy'] for m in out]).mean(),
+                'last_loss': losses[-1]}
+
+    return run
+
+
+def _eager_lm(k):
+    train_step = make_lm_train_step()
+
+    def run(state, tokens):
+        micro = tokens.shape[0] // k
+        return {'losses': torch.stack([train_step(state, tokens[i * micro:(i + 1) * micro])['loss']
+                                       for i in range(k)])}
+
+    return run
+
+
+CASES = {
+    'resnet': (_tiny_resnet, lambda k: make_scan_train_step(k, _preprocess), _eager_resnet,
+               _image_superbatch),
+    'lm': (_tiny_lm, make_lm_scan_train_step, _eager_lm, _token_superbatch),
+}
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_scan_graph_matches_eager_k_steps(dev, case):
+    """Three calls of K = 4 steps from one state, through the graph (call 1
+    warms up eagerly, call 2 captures and replays, call 3 replays) and as
+    K calls of the one-step trainer. The LM's kernels and products are
+    deterministic: exact equality. ResNet's cuDNN backward may sum with
+    atomics: rtol 1e-2, atol 1e-3 on the metrics and every param and
+    running statistic."""
+    build, make_step, make_eager, superbatch = CASES[case]
+    model = build(dev)
+    states = [create_train_state(m, learning_rate=0.05, momentum=0.9)
+              for m in (model, copy.deepcopy(model))]
+    steps = [make_eager(4), make_step(4)]
+    results = [[], []]
+    for call in range(3):
+        inputs = superbatch(dev, call, 4)
+        for i in (0, 1):
+            results[i].append(steps[i](states[i], *inputs))
+    torch.cuda.synchronize()
+    assert steps[1].graph is not None
+    assert states[0].step == states[1].step == 12
+    exact = case == 'lm'
+    for eager, graphed in zip(*results):
+        assert set(eager) == set(graphed)
+        for name in eager:
+            if exact:
+                assert torch.equal(eager[name], graphed[name]), name
+            else:
+                torch.testing.assert_close(graphed[name], eager[name], rtol=1e-2, atol=1e-3)
+    for (name, a), (_, b) in zip(states[0].model.state_dict().items(),
+                                 states[1].model.state_dict().items()):
+        if exact:
+            assert torch.equal(a, b), name
+        else:
+            torch.testing.assert_close(b.float(), a.float(), rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_scan_graph_replays_advance_and_keep_earlier_metrics(dev, case):
+    build, make_step, _, superbatch = CASES[case]
+    state = create_train_state(build(dev), learning_rate=0.05, momentum=0.9)
+    step = make_step(2)
+    inputs = superbatch(dev, 0, 2)
+    step(state, *inputs)
+    second = step(state, *inputs)
+    kept = {name: value.clone() for name, value in second.items()}
+    params = [p.detach().clone() for p in state.model.parameters()]
+    third = step(state, *inputs)
+    torch.cuda.synchronize()
+    for name in kept:
+        assert torch.equal(second[name], kept[name]), name        # not overwritten by call 3
+    assert any(not torch.equal(a, b) for a, b in zip(params, state.model.parameters()))
+    losses = [m['loss' if case == 'resnet' else 'losses'] for m in (second, third)]
+    assert not torch.equal(losses[0], losses[1])                  # the same data, later params
+    assert state.step == 6 and step.calls == 3
+    with pytest.raises(ValueError, match='captured for'):
+        step(state, *superbatch(dev, 0, 4))
+    with pytest.raises(ValueError, match='another TrainState'):
+        step(create_train_state(build(dev)), *inputs)
+
+
+def test_replay_refuses_a_changed_optimizer(dev):
+    """The graph holds the learning rate it captured and the addresses of
+    the momentum buffers: a new rate, or buffers that
+    ``load_state_dict`` replaced, raise before the replay."""
+    state = create_train_state(_tiny_lm(dev), learning_rate=0.05, momentum=0.9)
+    step = make_lm_scan_train_step(2)
+    inputs = _token_superbatch(dev, 0, 2)
+    step(state, *inputs)
+    step(state, *inputs)
+    state.optimizer.param_groups[0]['lr'] = 0.01
+    with pytest.raises(ValueError, match='optimizer changed'):
+        step(state, *inputs)
+    state.optimizer.param_groups[0]['lr'] = 0.05
+    step(state, *inputs)                                           # as captured: replays
+    state.optimizer.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+    with pytest.raises(ValueError, match='optimizer changed'):
+        step(state, *inputs)
+    assert state.step == 6 and step.calls == 3
+
+
+def _launch_counts():
+    return dict(image_ops.LAUNCHES, **fa.LAUNCHES)
+
+
+def _kernels_ran(run, names):
+    """How many kernels whose name holds each of ``names`` ran on the card
+    during ``run()``, counted by name in a profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return {name: sum(e.count for e in events if name in e.key) for name in names}
+
+
+def _capturing_call(step, state, inputs, names):
+    """Call 2 (capture, then the first replay) under the profiler: the
+    wrappers' counts across it (the kernels the graph holds; a replay
+    calls no wrapper) and the kernels that ran on the card."""
+    before = _launch_counts()
+    ran = _kernels_ran(lambda: step(state, *inputs), names)
+    captured = {name: count - before.get(name, 0) for name, count in _launch_counts().items()
+                if count != before.get(name, 0)}
+    return captured, ran
+
+
+def test_scan_graph_holds_and_replays_the_kernels(dev):
+    """A replay of the image graph runs K1 K times; of the LM graph, K2-K4
+    each once a layer a microbatch (here 2 x K), on the Hopper route (bf16,
+    head dim 64). The capture itself runs nothing: the capturing call's
+    trace holds its one replay's kernels, as a later replay's does."""
+    k = 4
+    state = create_train_state(_tiny_resnet(dev))
+    step = make_scan_train_step(k, _preprocess)
+    inputs = _image_superbatch(dev, 0, k)
+    step(state, *inputs)
+    names = ['normalize_kernel']
+    assert _capturing_call(step, state, inputs, names) == (
+        {'normalize_images': k}, {'normalize_kernel': k})
+    assert _kernels_ran(lambda: step(state, *inputs), names) == {'normalize_kernel': k}
+    lm = _tiny_lm(dev)
+    state = create_train_state(lm)
+    step = make_lm_scan_train_step(k)
+    inputs = _token_superbatch(dev, 0, k)
+    step(state, *inputs)
+    names = ['flash_fwd_sm90_kernel', 'flash_dq_sm90_kernel', 'flash_dkv_sm90_kernel']
+    wrappers = ('flash_fwd', 'flash_fwd_sm90', 'flash_dq', 'flash_dq_sm90', 'flash_dkv',
+                'flash_dkv_sm90')
+    assert _capturing_call(step, state, inputs, names) == (
+        dict.fromkeys(wrappers, 2 * k), dict.fromkeys(names, 2 * k))
+    assert _kernels_ran(lambda: step(state, *inputs), names) == dict.fromkeys(names, 2 * k)
+
+
+def test_capture_failure_raises_and_does_not_fall_back(dev):
+    """A body that reads a value on the host cannot be captured: the second
+    call raises, the state does not advance, and no later call runs eagerly."""
+    state = create_train_state(_tiny_resnet(dev))
+
+    def host_sync(images):
+        if float(images.float().mean()) < 0:            # a device -> host read
+            raise AssertionError('unreachable')
+        return _preprocess(images)
+
+    step = make_scan_train_step(2, host_sync)
+    inputs = _image_superbatch(dev, 0, 2)
+    step(state, *inputs)                                 # eager: fine
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            step(state, *inputs)
+        assert step.graph is None and state.step == 2 and step.calls == 1

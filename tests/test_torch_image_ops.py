@@ -94,3 +94,27 @@ def test_normalize_rejects_non_nhwc():
     with pytest.raises(ValueError, match='NHWC'):
         port.normalize_images(torch.zeros(8, 8, 3, dtype=torch.uint8))
 
+
+
+@pytest.mark.parametrize('out_dtype', ['float32', 'bfloat16'])
+def test_five_channels_match_jax_reference(out_dtype):
+    """The JAX function takes any channel count; so does the port."""
+    x = _images((3, 9, 7, 5), 'uint8', seed=5)
+    mean, std = (0.1, 0.2, 0.3, 0.4, 0.5), (0.5, 0.4, 0.3, 0.2, 0.25)
+    want = normalize_images_reference(jnp.asarray(x), mean, std, dtype=DTYPES[out_dtype][1])
+    got = port.normalize_images(torch.from_numpy(x), mean, std, dtype=DTYPES[out_dtype][0])
+    _assert_close(got.float().numpy(), want, out_dtype)
+
+
+def test_half_output_and_half_input_match_jax_reference():
+    """f16 and bf16 images in, f16 out: within one f16 ulp (2^-10 of the
+    value), at least 1e-6 where ``x * scale + shift`` cancels."""
+    x = _images((2, 6, 8, 3), 'float32', seed=6)
+    for in_dtype, jax_in in ((torch.float16, jnp.float16), (torch.bfloat16, jnp.bfloat16)):
+        xin = torch.from_numpy(x).to(in_dtype)
+        want = normalize_images_reference(jnp.asarray(xin.float().numpy()).astype(jax_in),
+                                          dtype=jnp.float16)
+        got = port.normalize_images(xin, dtype=torch.float16)
+        assert got.dtype == torch.float16
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=2.0 ** -10, atol=1e-6)
