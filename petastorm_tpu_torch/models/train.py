@@ -18,6 +18,8 @@ eagerly. The mesh paths come later.
 import torch
 import torch.nn.functional as F
 
+from petastorm_tpu_torch.models.moe import moe_aux_loss
+
 
 class TrainState(object):
     """The model and its optimizer (the counterpart of flax's TrainState)."""
@@ -53,15 +55,25 @@ def _classifier_step(state, images, labels):
     return loss.detach(), accuracy
 
 
+#: The weight of the Switch load-balance loss in the LM loss (``bench.py:223-233``).
+MOE_AUX_WEIGHT = 1e-2
+
+
 def _lm_step(state, tokens):
     """One SGD step of next-token cross entropy over ``[B, T + 1]`` tokens
-    (the non-MoE body of ``bench.py:216-244``): ``(loss,)``."""
+    (the body of ``bench.py:216-244``): ``(loss,)``, or ``(loss, aux)`` for
+    a model with :class:`~.moe.SwitchMoE` layers, whose loss is then
+    ``ce + 1e-2 * aux`` (``aux`` summed over the layers, as the bench sums
+    the sown intermediates)."""
     state.model.train()
     x, y = tokens[:, :-1], tokens[:, 1:]
     logits = state.model(x)
     loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long())
+    aux = moe_aux_loss(state.model)
+    if aux is not None:
+        loss = loss + MOE_AUX_WEIGHT * aux
     _sgd(state, loss)
-    return (loss.detach(),)
+    return (loss.detach(),) if aux is None else (loss.detach(), aux.detach())
 
 
 def make_train_step():
@@ -76,17 +88,22 @@ def make_train_step():
     return train_step
 
 
+def _lm_metrics(loss, aux=None):
+    return {'loss': loss} if aux is None else {'loss': loss, 'aux_loss': aux}
+
+
 def make_lm_train_step():
     """``step(state, tokens) -> {'loss'}`` for a language model: ``tokens``
     is ``[B, T + 1]`` integer, the inputs ``tokens[:, :-1]`` predict
     ``tokens[:, 1:]``, the loss is the mean softmax cross entropy over
-    ``[B, T, vocab]`` f32 logits (the non-MoE body of ``bench.py:216-244``,
-    one step per call). The loss is a 0-d tensor, not synchronised."""
+    ``[B, T, vocab]`` f32 logits (the body of ``bench.py:216-244``, one
+    step per call). A model with experts adds ``1e-2 * aux`` to the loss
+    and returns ``'aux_loss'`` too. 0-d tensors, not synchronised."""
 
     def train_step(state, tokens):
-        (loss,) = _lm_step(state, tokens)
+        metrics = _lm_metrics(*_lm_step(state, tokens))
         state.step += 1
-        return {'loss': loss}
+        return metrics
 
     return train_step
 
@@ -153,17 +170,23 @@ class ScanStep(object):
     optimizer's state. Before each replay the step checks them and raises
     ``ValueError`` if any changed (another state, a new learning rate,
     ``optimizer.load_state_dict`` with new buffers): make a new step then.
-    Results are cloned out of the graph's output tensors, so a caller's
-    metrics of one call are not overwritten by the next. Capture runs in
+    A ``generator`` the body draws from is registered with the graph
+    before capture: each replay then draws from its current state and
+    advances it, as an eager call would. Capture refuses a draw from any
+    other generator but the device's default one, so an unregistered
+    generator raises; nothing replays a captured draw. Results are cloned
+    out of the graph's output tensors, so a caller's metrics of one call
+    are not overwritten by the next. Capture runs in
     the ``thread_local`` error mode, so a loader's staging threads may keep
     allocating and copying on their own streams meanwhile.
     """
 
-    def __init__(self, body, finish, microbatches):
+    def __init__(self, body, finish, microbatches, generator=None):
         if microbatches < 1:
             raise ValueError('microbatches must be >= 1, got {}'.format(microbatches))
         self._body = body
         self._finish = finish
+        self._generator = generator
         self.microbatches = int(microbatches)
         self.calls = 0
         self.graph = None
@@ -231,6 +254,11 @@ class ScanStep(object):
     def _capture(self, state, inputs):
         self._static_inputs = [torch.empty_like(x) for x in inputs]
         graph = torch.cuda.CUDAGraph()
+        if self._generator is not None:
+            with torch.cuda.device(inputs[0].device):
+                # A replay then reads the generator's seed and offset and
+                # advances it, so every replay draws anew.
+                graph.register_generator_state(self._generator)
         with torch.cuda.graph(graph, stream=self._stream, capture_error_mode='thread_local'):
             self._static_out = self._run(state, self._static_inputs)
         self._optimizer_view = _optimizer_view(state.optimizer)
@@ -241,24 +269,36 @@ def _classifier_metrics(losses, accuracies):
     return {'loss': losses.mean(), 'accuracy': accuracies.mean(), 'last_loss': losses[-1]}
 
 
-def make_scan_train_step(microbatches=8, preprocess=None):
+def make_scan_train_step(microbatches=8, preprocess=None, generator=None):
     """``step(state, images [K*B, ...], labels [K*B]) -> {'loss': mean,
     'accuracy': mean, 'last_loss'}``: K = ``microbatches`` sequential SGD
     steps a call (``petastorm_tpu/models/train.py:108-149``), one CUDA graph
     replay on the card (:class:`ScanStep`). ``preprocess(images_microbatch)``
-    runs inside the body (and the graph), e.g. the K1 normalize. Metrics
-    are 0-d tensors, not synchronised."""
+    runs inside the body (and the graph), e.g. the K1 normalize; with a
+    ``generator`` it is called as ``preprocess(images_microbatch,
+    generator)`` and draws from it (a random augment), and the graph
+    registers the generator, so each replay draws anew. Metrics are 0-d
+    tensors, not synchronised."""
+    if generator is not None and preprocess is None:
+        raise ValueError('a generator is drawn from by the preprocess; none was given')
 
     def body(state, images, labels):
-        if preprocess is not None:
+        if generator is not None:
+            images = preprocess(images, generator)
+        elif preprocess is not None:
             images = preprocess(images)
         return _classifier_step(state, images, labels)
 
-    return ScanStep(body, _classifier_metrics, microbatches)
+    return ScanStep(body, _classifier_metrics, microbatches, generator)
+
+
+def _lm_scan_metrics(losses, aux=None):
+    return {'losses': losses} if aux is None else {'losses': losses, 'aux_losses': aux}
 
 
 def make_lm_scan_train_step(microbatches=8):
     """``step(state, tokens [K*B, T + 1]) -> {'losses': [K]}``: the scan
     counterpart of :func:`make_lm_train_step`, the ``lax.scan`` of
-    ``bench.py:216-244`` (non-MoE); one CUDA graph replay on the card."""
-    return ScanStep(_lm_step, lambda losses: {'losses': losses}, microbatches)
+    ``bench.py:216-244``; one CUDA graph replay on the card. A model with
+    experts also returns ``'aux_losses'`` ``[K]``."""
+    return ScanStep(_lm_step, _lm_scan_metrics, microbatches)

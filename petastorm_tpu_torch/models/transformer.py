@@ -5,8 +5,9 @@ blocks, with ``attention='dense'`` (:func:`..attention.dense_attention`) or
 ``'flash'`` (:func:`petastorm_tpu_torch.ops.flash_attention.flash_attention`,
 the hand-written CUDA kernels on the card). Params are f32; ``dtype`` is the
 compute type, and every layer casts its params and input to it, as flax's
-``dtype=`` does. ``'ring'``, ``'a2a'`` and ``moe_experts > 0`` are not
-ported yet and raise.
+``dtype=`` does. With ``moe_experts > 0`` a :class:`~.moe.SwitchMoE`
+replaces each block's MLP. ``'ring'`` and ``'a2a'`` are not ported yet and
+raise.
 
 Parity with flax, hazard by hazard:
 
@@ -33,6 +34,7 @@ from torch import nn
 
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.models.attention import dense_attention
+from petastorm_tpu_torch.models.moe import SwitchMoE
 
 LN_EPSILON = 1e-6
 _NOT_PORTED = ('ring', 'a2a')
@@ -108,19 +110,22 @@ class Block(nn.Module):
     def __init__(self, d_model, num_heads, mlp_ratio=4, attention='dense', causal=True,
                  moe_experts=0, dtype=torch.bfloat16):
         super().__init__()
-        if moe_experts > 0:
-            raise NotImplementedError('moe_experts > 0 (SwitchMoE) is not ported to '
-                                      'petastorm_tpu_torch yet')
         self.norm_attn = LayerNorm(d_model, dtype)
         self.attn = MultiHeadAttention(d_model, num_heads, attention, causal, dtype)
         self.norm_mlp = LayerNorm(d_model, dtype)
-        self.mlp_in = Dense(d_model, d_model * mlp_ratio, dtype)
-        self.mlp_out = Dense(d_model * mlp_ratio, d_model, dtype)
+        self.moe = None
+        if moe_experts > 0:
+            self.moe = SwitchMoE(d_model, moe_experts, mlp_ratio, dtype=dtype)
+        else:
+            self.mlp_in = Dense(d_model, d_model * mlp_ratio, dtype)
+            self.mlp_out = Dense(d_model * mlp_ratio, d_model, dtype)
 
     def forward(self, x):
         x = x + self.attn(self.norm_attn(x))
-        y = gelu(self.mlp_in(self.norm_mlp(x)))
-        return x + self.mlp_out(y)
+        y = self.norm_mlp(x)
+        if self.moe is not None:
+            return x + self.moe(y)
+        return x + self.mlp_out(gelu(self.mlp_in(y)))
 
 
 class TransformerLM(nn.Module):
@@ -158,18 +163,27 @@ class TransformerLM(nn.Module):
 
 def init_flax_like(model, generator):
     """Initialise as flax does, from ``generator``: dense kernels
-    lecun-normal (truncated at 2 sigma, fan-in = input width), biases 0,
-    embeddings normal with std ``1/sqrt(d_model)``, LayerNorm scale 1 and
-    bias 0. Draws are made on the generator's device and copied to the
-    model's, so one seed gives the same weights on the CPU and the card."""
+    lecun-normal (truncated at 2 sigma, fan-in = input width), expert
+    weights the same per expert (fan-in d or h, not E·d: flax's
+    ``batch_axis=(0,)``), biases 0, embeddings normal with std
+    ``1/sqrt(d_model)``, LayerNorm scale 1 and bias 0. Draws are made on the
+    generator's device and copied to the model's, so one seed gives the same
+    weights on the CPU and the card."""
+    def lecun(param, fan_in):
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        draw = torch.empty(param.shape, device=generator.device)
+        nn.init.trunc_normal_(draw, std=std, a=-2 * std, b=2 * std, generator=generator)
+        with torch.no_grad():
+            param.copy_(draw)
+
     for module in model.modules():
         if isinstance(module, nn.Linear):
-            std = math.sqrt(1.0 / module.in_features) / 0.87962566103423978
-            draw = torch.empty(module.weight.shape, device=generator.device)
-            nn.init.trunc_normal_(draw, std=std, a=-2 * std, b=2 * std, generator=generator)
+            lecun(module.weight, module.in_features)
             with torch.no_grad():
-                module.weight.copy_(draw)
                 module.bias.zero_()
+        elif isinstance(module, SwitchMoE):
+            lecun(module.w_up, module.w_up.shape[-2])
+            lecun(module.w_down, module.w_down.shape[-2])
         elif isinstance(module, nn.Embedding):
             draw = torch.randn(module.weight.shape, generator=generator, device=generator.device)
             with torch.no_grad():

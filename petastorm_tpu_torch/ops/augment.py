@@ -1,5 +1,4 @@
-"""On-device image augmentation (counterpart of
-``petastorm_tpu/ops/augment.py:22-146, 249-268``).
+"""On-device image augmentation (counterpart of ``petastorm_tpu/ops/augment.py``).
 
 Every op is split in two: ``sample_*`` draws its parameters from an explicit
 ``torch.Generator`` (never global RNG state), and ``apply_*`` applies given
@@ -12,7 +11,13 @@ The resize in ``apply_resized_crop`` rebuilds ``jax.image.scale_and_translate
 triangle-kernel weight matrix, the kernel widened by the downscale factor,
 normalised, with taps of samples outside the image zeroed; then two batched
 matmuls. ``F.interpolate(antialias=True)`` differs at the borders, so it is
-not used. No Pallas kernel computes any of this: it stays plain PyTorch.
+not used. No Pallas kernel computes any of this: it stays plain PyTorch,
+apart from the normalize kernel the recipes end in.
+
+Inside a captured CUDA graph the draws come from the generator the graph
+registered (``make_scan_train_step(generator=)``), so every replay draws
+anew; the ops copy nothing from the host once their constants are cached
+on the device (:func:`_gray_weights`).
 """
 
 import math
@@ -24,6 +29,15 @@ from petastorm_tpu_torch.ops.image_ops import (apply_flip, normalize_images,
                                                random_flip_and_normalize, sample_flip)
 
 _GRAY = (0.299, 0.587, 0.114)
+_gray_cache = {}
+
+
+def _gray_weights(device):
+    """The saturation term's luma weights, f32 on ``device``, made once per
+    device: a host-to-device copy in every call would stop a graph capture."""
+    if device not in _gray_cache:
+        _gray_cache[device] = torch.tensor(_GRAY, dtype=torch.float32).to(device)
+    return _gray_cache[device]
 
 
 def sample_crop(n, h, w, crop_h, crop_w, generator, device):
@@ -136,8 +150,7 @@ def apply_color_jitter(images, brightness, contrast, saturation, max_value=255.0
         mean = out.mean(dim=(1, 2, 3), keepdim=True)
         out = ((out - mean) * contrast.view(-1, 1, 1, 1) + mean).clamp(0.0, max_value)
     if saturation is not None:
-        gray = (out * torch.tensor(_GRAY, dtype=torch.float32, device=out.device)).sum(
-            dim=-1, keepdim=True)
+        gray = (out * _gray_weights(out.device)).sum(dim=-1, keepdim=True)
         out = (gray + (out - gray) * saturation.view(-1, 1, 1, 1)).clamp(0.0, max_value)
     return out
 
@@ -190,3 +203,103 @@ def train_augment(images_u8, generator, crop_h, crop_w, flip=True, normalize=Tru
     if normalize:
         return normalize_images(out, dtype=dtype)
     return out.to(dtype)
+
+
+def sample_beta(alpha, generator, device):
+    """One f32 draw of Beta(alpha, alpha), as ``X / (X + Y)`` with X and Y
+    drawn from Gamma(alpha, 1) by ``torch._standard_gamma`` (the sampler
+    behind ``torch.distributions.Gamma``) on ``generator``.
+    ``torch.distributions.Beta`` takes no generator, and the ops never draw
+    from global RNG state."""
+    gammas = torch._standard_gamma(torch.full((2,), float(alpha), device=device),
+                                   generator=generator)
+    return gammas[0] / gammas.sum()
+
+
+def _mix_labels(labels, lam, perm):
+    """``lam * labels + (1 - lam) * labels[perm]`` in the type JAX promotes
+    an f32 ``lam`` and ``labels`` to (f32 for bf16, f16 or integer labels)."""
+    labels = labels.to(torch.promote_types(labels.dtype, torch.float32))
+    return lam * labels + (1.0 - lam) * labels[perm]
+
+
+def sample_mixup(n, generator, device, alpha=0.2):
+    """``(lam, perm)``: one Beta(alpha, alpha) ``lam`` for the batch (f32,
+    0-d) and a partner permutation of ``n``."""
+    lam = sample_beta(alpha, generator, device)
+    return lam, torch.randperm(n, generator=generator, device=device)
+
+
+def apply_mixup(images, labels_onehot, lam, perm):
+    """Convex-combine each sample with its partner ``perm``: the images in
+    their own type (a bf16 pipeline stays bf16, ``augment.py:160-164``),
+    the soft labels as JAX promotes them."""
+    lam_i = lam.to(images.dtype)
+    mixed = lam_i * images + (1 - lam_i) * images[perm]
+    return mixed, _mix_labels(labels_onehot, lam, perm)
+
+
+def mixup(images, labels_onehot, generator, alpha=0.2):
+    """Batch mixup (Zhang et al. 2017): ``(mixed_images, mixed_labels)``."""
+    lam, perm = sample_mixup(images.shape[0], generator, images.device, alpha)
+    return apply_mixup(images, labels_onehot, lam, perm)
+
+
+def sample_cutmix(n, h, w, generator, device, alpha=1.0):
+    """``(lam, cy, cx, perm)``: one Beta(alpha, alpha) ``lam``, the box
+    centre uniform over the image in pixels (f32, 0-d each) and a partner
+    permutation."""
+    lam = sample_beta(alpha, generator, device)
+    cy = torch.rand((), generator=generator, device=device) * h
+    cx = torch.rand((), generator=generator, device=device) * w
+    return lam, cy, cx, torch.randperm(n, generator=generator, device=device)
+
+
+def apply_cutmix(images, labels_onehot, lam, cy, cx, perm):
+    """Paste the box of area ``1 - lam`` centred at ``(cy, cx)`` from each
+    sample's partner. The box edges are whole pixels, clipped to the image,
+    and the labels mix by the pixel area actually pasted
+    (``augment.py:183-203``)."""
+    _, h, w, _ = images.shape
+    cut = torch.sqrt(1.0 - lam)
+    bh, bw = cut * h, cut * w
+    y0 = torch.floor(torch.clamp(cy - bh / 2.0, 0, h))
+    y1 = torch.floor(torch.clamp(cy + bh / 2.0, 0, h))
+    x0 = torch.floor(torch.clamp(cx - bw / 2.0, 0, w))
+    x1 = torch.floor(torch.clamp(cx + bw / 2.0, 0, w))
+    ys = torch.arange(h, dtype=torch.float32, device=images.device)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=images.device)[None, :]
+    inside = (ys >= y0) & (ys < y1) & (xs >= x0) & (xs < x1)
+    mixed = torch.where(inside[None, :, :, None], images[perm], images)
+    lam_real = 1.0 - (y1 - y0) * (x1 - x0) / (h * w)
+    return mixed, _mix_labels(labels_onehot, lam_real, perm)
+
+
+def cutmix(images, labels_onehot, generator, alpha=1.0):
+    """Batch CutMix (Yun et al. 2019) on ``[N, H, W, C]`` float images:
+    ``(mixed_images, mixed_labels)``."""
+    n, h, w, _ = images.shape
+    return apply_cutmix(images, labels_onehot,
+                        *sample_cutmix(n, h, w, generator, images.device, alpha))
+
+
+def imagenet_eval_preprocess(images_u8, out_h=224, out_w=224, resize_ratio=256.0 / 224.0,
+                             dtype=torch.bfloat16):
+    """The deterministic eval recipe (``augment.py:206-246``): one resample
+    of a centred box keyed off the shorter side (resize-256 then
+    centre-crop-224, fused), then normalize, one normalize-kernel launch on
+    CUDA. uint8 ``[N, H, W, 3]`` in, ``dtype`` ``[N, out_h, out_w, 3]`` out.
+    Raises ``ValueError`` where the box would leave the image."""
+    n, h, w, _ = images_u8.shape
+    shorter = min(h, w)
+    ch = out_h * shorter / (resize_ratio * min(out_h, out_w))
+    cw = out_w * shorter / (resize_ratio * min(out_h, out_w))
+    if ch > h or cw > w:
+        raise ValueError(
+            'eval crop box {:.0f}x{:.0f} exceeds the {}x{} source: the output aspect {}x{} is '
+            'too far from the source aspect for resize_ratio={} (crop to a squarer output, or '
+            'lower the ratio)'.format(ch, cw, h, w, out_h, out_w, resize_ratio))
+    box = (torch.full((n,), value, dtype=torch.float32, device=images_u8.device)
+           for value in ((h - ch) / 2.0, (w - cw) / 2.0, ch, cw))
+    out = apply_resized_crop(images_u8, *box, out_h, out_w)
+    return normalize_images(out, dtype=dtype)

@@ -170,3 +170,136 @@ def test_same_generator_seed_same_augmentation():
     assert torch.equal(a, b) and not torch.equal(a, c)
     out = port.train_augment(x, torch.Generator().manual_seed(5), 16, 16)
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == (3, 16, 16, 3)
+
+
+def _jax_beta_perm(key, n, alpha, splits):
+    keys = jax.random.split(key, splits)
+    return keys, jax.random.beta(keys[0], alpha, alpha), jax.random.permutation(keys[-1], n)
+
+
+@pytest.mark.parametrize('dtype', [np.float32, jnp.bfloat16])
+def test_apply_mixup_matches_mixup_on_its_draws(dtype):
+    """The images blend in their own type (bf16 stays bf16); the soft
+    labels in f32."""
+    x = _images((6, 8, 10, 3), 15, np.float32) / 255.0
+    labels = np.eye(5, dtype=np.float32)[np.random.default_rng(16).integers(0, 5, 6)]
+    key = jax.random.PRNGKey(17)
+    _, lam, perm = _jax_beta_perm(key, 6, 0.2, 2)
+    jx = jnp.asarray(x, dtype)
+    want_images, want_labels = jax_aug.mixup(jx, jnp.asarray(labels), key, alpha=0.2)
+    tx = _t(np.asarray(jx, np.float32))
+    if dtype != np.float32:
+        tx = tx.to(torch.bfloat16)
+    got_images, got_labels = port.apply_mixup(tx, _t(labels), _t(lam), _t(perm))
+    assert got_images.dtype == tx.dtype and got_labels.dtype == torch.float32
+    np.testing.assert_allclose(got_images.float().numpy(), np.asarray(want_images, np.float32),
+                               atol=1e-6 if dtype == np.float32 else 2 ** -8, rtol=0)
+    np.testing.assert_allclose(got_labels.numpy(), np.asarray(want_labels), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_apply_cutmix_matches_cutmix_on_its_draws(seed):
+    """Integer box edges: the pasted pixels are exact, and the labels mix
+    by the realised pixel area."""
+    n, h, w = 5, 12, 18
+    x = _images((n, h, w, 3), 18 + seed, np.float32)
+    labels = np.eye(4, dtype=np.float32)[np.random.default_rng(seed).integers(0, 4, n)]
+    key = jax.random.PRNGKey(20 + seed)
+    keys, lam, perm = _jax_beta_perm(key, n, 1.0, 4)
+    cy, cx = jax.random.uniform(keys[1]) * h, jax.random.uniform(keys[2]) * w
+    want_images, want_labels = jax_aug.cutmix(jnp.asarray(x), jnp.asarray(labels), key)
+    got_images, got_labels = port.apply_cutmix(_t(x), _t(labels), _t(lam), _t(cy), _t(cx),
+                                               _t(perm))
+    np.testing.assert_array_equal(got_images.numpy(), np.asarray(want_images))
+    np.testing.assert_allclose(got_labels.numpy(), np.asarray(want_labels), atol=1e-6, rtol=0)
+
+
+def test_mixup_and_cutmix_draw_from_their_generator():
+    x = torch.from_numpy(_images((8, 6, 6, 3), 21, np.float32))
+    labels = torch.eye(8)
+    a = port.mixup(x, labels, torch.Generator().manual_seed(3))
+    b = port.mixup(x, labels, torch.Generator().manual_seed(3))
+    c = port.cutmix(x, labels, torch.Generator().manual_seed(3))
+    d = port.cutmix(x, labels, torch.Generator().manual_seed(3))
+    assert all(torch.equal(p, q) for p, q in zip(a + c, b + d))
+    lam, perm = port.sample_mixup(8, torch.Generator().manual_seed(4), 'cpu')
+    assert lam.dtype == torch.float32 and lam.ndim == 0 and 0.0 <= float(lam) <= 1.0
+    assert sorted(perm.tolist()) == list(range(8))
+    lam, cy, cx, perm = port.sample_cutmix(8, 10, 20, torch.Generator().manual_seed(5), 'cpu')
+    assert 0.0 <= float(cy) < 10 and 0.0 <= float(cx) < 20 and sorted(perm.tolist()) == list(range(8))
+    mixed, mixed_labels = port.cutmix(x, labels, torch.Generator().manual_seed(6))
+    torch.testing.assert_close(mixed_labels.sum(-1), torch.ones(8))     # still distributions
+
+
+@pytest.mark.parametrize('alpha', [0.2, 1.0, 2.0])
+def test_beta_draws_have_the_beta_mean_and_variance(alpha):
+    """Beta(a, a): mean 1/2, variance 1 / (4 (2a + 1)); 20000 draws, so the
+    sample mean's standard error is below 0.004 and the variance's below
+    ~0.003."""
+    g = torch.Generator().manual_seed(7)
+    draws = torch.stack([port.sample_beta(alpha, g, 'cpu') for _ in range(20000)]).double()
+    assert bool(((draws >= 0) & (draws <= 1)).all())
+    assert abs(float(draws.mean()) - 0.5) < 0.015
+    want_var = 1.0 / (4.0 * (2.0 * alpha + 1.0))
+    assert abs(float(draws.var()) - want_var) < 0.1 * want_var
+
+
+@pytest.mark.parametrize('shape,out_hw', [((3, 40, 56, 3), (32, 32)), ((2, 48, 36, 3), (24, 20)),
+                                          ((2, 24, 24, 3), (32, 32))])
+def test_imagenet_eval_preprocess_matches_jax(shape, out_hw):
+    """Deterministic, so compared directly: downscales and an upscale, a
+    non-square source and a non-square output."""
+    x = _images(shape, 22)
+    out_h, out_w = out_hw
+    want = jax_aug.imagenet_eval_preprocess(jnp.asarray(x), out_h, out_w, dtype=jnp.float32)
+    got = port.imagenet_eval_preprocess(_t(x), out_h, out_w, dtype=torch.float32)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (shape[0], out_h, out_w, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    want_bf16 = jax_aug.imagenet_eval_preprocess(jnp.asarray(x), out_h, out_w)
+    got_bf16 = port.imagenet_eval_preprocess(_t(x), out_h, out_w)
+    assert got_bf16.dtype == torch.bfloat16
+    np.testing.assert_allclose(got_bf16.float().numpy(), np.asarray(want_bf16, np.float32),
+                               atol=2 ** -6, rtol=0)      # one bf16 ulp at |x| < 4
+
+
+def test_imagenet_eval_preprocess_refuses_a_box_outside_the_image():
+    x = _images((1, 40, 40, 3), 23)
+    with pytest.raises(ValueError, match='exceeds'):
+        jax_aug.imagenet_eval_preprocess(jnp.asarray(x), 16, 64)
+    with pytest.raises(ValueError, match='exceeds'):
+        port.imagenet_eval_preprocess(_t(x), 16, 64)
+
+
+def test_scan_body_augment_equals_the_eager_augment_for_one_seed():
+    """``make_scan_train_step(preprocess=augment, generator=g)`` runs the
+    augment inside the K-step body on ``g``; K one-step calls on the
+    microbatch slices, augmenting on a generator with the same seed, give
+    the same metrics and params exactly."""
+    import copy
+
+    from petastorm_tpu_torch.models import (ResNetTiny, create_train_state,
+                                            make_scan_train_step, make_train_step)
+    from petastorm_tpu_torch.models.resnet import init_flax_like
+
+    def augment(images, generator):
+        return port.imagenet_train_augment(images, generator, 24, 24, dtype=torch.float32)
+
+    k, micro = 2, 4
+    model = init_flax_like(ResNetTiny(num_classes=5, dtype=torch.float32, device='cpu'),
+                           torch.Generator().manual_seed(0))
+    states = [create_train_state(m, learning_rate=0.1, momentum=0.9)
+              for m in (model, copy.deepcopy(model))]
+    scan = make_scan_train_step(k, augment, generator=torch.Generator().manual_seed(9))
+    single, g = make_train_step(), torch.Generator().manual_seed(9)
+    images = torch.from_numpy(_images((k * micro, 32, 40, 3), 24))
+    labels = torch.arange(k * micro) % 5
+    got = scan(states[0], images, labels)
+    want = [single(states[1], augment(images[i * micro:(i + 1) * micro], g),
+                   labels[i * micro:(i + 1) * micro]) for i in range(k)]
+    assert torch.equal(got['last_loss'], want[-1]['loss'])
+    assert torch.equal(got['loss'], torch.stack([m['loss'] for m in want]).mean())
+    for (name, a), b in zip(states[0].model.state_dict().items(),
+                            states[1].model.state_dict().values()):
+        assert torch.equal(a, b), name
+    with pytest.raises(ValueError, match='preprocess'):
+        make_scan_train_step(k, generator=g)

@@ -15,10 +15,10 @@ import torch
 from petastorm_tpu_torch import (CompressedImageCodec, DeviceDatasetCache, ScalarCodec,
                                  TorchLoader, Unischema, UnischemaField, make_tensor_reader,
                                  write_dataset)
-from petastorm_tpu_torch.models import (TransformerLM, create_train_state,
+from petastorm_tpu_torch.models import (SwitchMoE, TransformerLM, ViT, create_train_state,
                                         make_lm_scan_train_step, make_lm_train_step,
-                                        make_scan_train_step, make_train_step)
-from petastorm_tpu_torch.models import transformer
+                                        make_scan_train_step, make_train_step, moe_aux_loss)
+from petastorm_tpu_torch.models import transformer, vit
 from petastorm_tpu_torch.models.resnet import ResNetTiny, init_flax_like
 from petastorm_tpu_torch.ops import augment, image_ops
 from petastorm_tpu_torch.ops import flash_attention as fa
@@ -553,3 +553,127 @@ def test_capture_failure_raises_and_does_not_fall_back(dev):
         with pytest.raises(RuntimeError):
             step(state, *inputs)
         assert step.graph is None and state.step == 2 and step.calls == 1
+
+
+def _draw_augment(boxes):
+    """An augment for the scan body that keeps each call's crop offsets."""
+    def run(images, generator):
+        n, h, w, _ = images.shape
+        params = augment.sample_imagenet_train_augment(n, h, w, generator, images.device)
+        boxes.append(params['box'][0])
+        return augment.apply_imagenet_train_augment(images, params, 24, 24, dtype=torch.float32)
+
+    return run
+
+
+def test_augment_graph_replays_draw_anew_and_follow_the_generator(dev):
+    """The augment inside the captured graph: two replays draw different
+    boxes (the graph registered the generator, so each replay advances
+    it), and a generator re-seeded to one state replays the same draws."""
+    k, boxes = 2, []
+    g = torch.Generator(device=dev).manual_seed(1)
+    state = create_train_state(_tiny_resnet(dev))
+    step = make_scan_train_step(k, _draw_augment(boxes), generator=g)
+    inputs = _image_superbatch(dev, 0, k)
+    step(state, *inputs)                                 # eager
+    step(state, *inputs)                                 # capture, replay 1
+    assert step.graph is not None
+    captured = boxes[-1]                                 # the graph rewrites it each replay
+    first = captured.clone()
+    step(state, *inputs)                                 # replay 2
+    second = captured.clone()
+    assert not torch.equal(first, second)
+    replays = []
+    for _ in range(2):
+        g.manual_seed(5)
+        step(state, *inputs)
+        replays.append(captured.clone())
+    assert torch.equal(replays[0], replays[1]) and not torch.equal(replays[0], second)
+    assert len(boxes) == 2 * k                           # the body ran in call 1 and the capture
+
+
+def test_augment_graph_refuses_an_unregistered_generator(dev):
+    """A preprocess that draws from a generator the step was not given:
+    the capture raises, and nothing replays or falls back to eager."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    state = create_train_state(_tiny_resnet(dev))
+    step = make_scan_train_step(2, lambda images: augment.imagenet_train_augment(
+        images, g, 24, 24, dtype=torch.float32))
+    inputs = _image_superbatch(dev, 0, 2)
+    step(state, *inputs)
+    with pytest.raises(RuntimeError):
+        step(state, *inputs)
+    assert step.graph is None and state.step == 2
+
+
+def test_imagenet_eval_preprocess_on_card_matches_plain(dev):
+    x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (3, 60, 44, 3), dtype=np.uint8))
+    want = augment.imagenet_eval_preprocess(x, 32, 32, dtype=torch.float32)
+    before = image_ops.LAUNCHES['normalize_images']
+    got = augment.imagenet_eval_preprocess(x.to(dev), 32, 32, dtype=torch.float32)
+    assert image_ops.LAUNCHES['normalize_images'] == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+def test_vit_flash_on_card_matches_dense_on_card(dev):
+    """ViT in bf16 at patch 16 on 224x224 images: T = 197, non-causal, head
+    dim 64, through the Hopper route (forward, dQ, dK/dV a layer each),
+    against the dense attention on the same weights; logits within 2^-4
+    (two bf16 ulps at |x| < 8), the patch embedding's gradient within 2^-4
+    of its largest entry."""
+    results = []
+    x = torch.rand((2, 224, 224, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+    for attention in ('dense', 'flash'):
+        model = vit.init_flax_like(ViT(10, d_model=128, num_heads=2, num_layers=2,
+                                       attention=attention, dtype=torch.bfloat16, device=dev),
+                                   torch.Generator().manual_seed(0))
+        before = dict(fa.LAUNCHES)
+        logits = model(x)
+        logits.square().mean().backward()
+        torch.cuda.synchronize()
+        launched = {name: fa.LAUNCHES[name] - before.get(name, 0)
+                    for name in ('flash_fwd_sm90', 'flash_dq_sm90', 'flash_dkv_sm90')}
+        results.append((logits.detach().cpu(), model.patch_embed.weight.grad.float().cpu(),
+                        launched))
+    (dense, dense_grad, none), (flash, flash_grad, launched) = results
+    assert none == dict.fromkeys(none, 0) and launched == dict.fromkeys(launched, 2)
+    assert bool(torch.isfinite(flash).all()) and float(dense.abs().max()) < 8
+    torch.testing.assert_close(flash, dense, rtol=0, atol=2 ** -4)
+    assert float((flash_grad - dense_grad).abs().max()) <= 2 ** -4 * float(dense_grad.abs().max())
+
+
+def test_switch_moe_on_card_matches_cpu(dev):
+    """The layer (f32, TF32 off): out and aux loss against the CPU, and
+    overflow tokens come out zero on the card too (capacity factor 0.5)."""
+    x = torch.randn((4, 64, 32), generator=torch.Generator().manual_seed(2))
+    for capacity_factor in (1.25, 0.5):
+        layer = SwitchMoE(32, 4, capacity_factor=capacity_factor, dtype=torch.float32)
+        transformer.init_flax_like(layer, torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            want, want_aux = layer(x), layer.aux_loss
+            got = layer.to(dev)(x.to(dev))
+            got_aux = layer.aux_loss.cpu()
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(got_aux, want_aux, atol=1e-5, rtol=1e-5)
+    assert int((want.abs().sum(-1) == 0).sum()) > 0 and torch.equal(
+        got.cpu().abs().sum(-1) == 0, want.abs().sum(-1) == 0)
+
+
+def test_moe_lm_on_card_matches_cpu(dev):
+    def build(where):
+        model = TransformerLM(512, 64, 4, 2, 96, attention='flash', moe_experts=4,
+                              dtype=torch.float32, device=where)
+        return transformer.init_flax_like(model, torch.Generator().manual_seed(0))
+
+    tokens = torch.randint(0, 512, (2, 90), generator=torch.Generator().manual_seed(1))
+    results = []
+    for where in ('cpu', dev):
+        model = build(where)
+        logits = model(tokens.to(where))
+        aux = moe_aux_loss(model)
+        (logits.square().mean() + 1e-2 * aux).backward()
+        results.append((logits.detach().cpu(), aux.detach().cpu(),
+                        model.blocks[0].moe.router.weight.grad.cpu(),
+                        model.blocks[1].moe.w_up.grad.cpu()))
+    for got, want in zip(results[1], results[0]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)

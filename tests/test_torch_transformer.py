@@ -155,8 +155,9 @@ def test_what_is_not_ported_raises():
     for attention in ('ring', 'a2a'):
         with pytest.raises(NotImplementedError, match='not ported'):
             TransformerLM(VOCAB, D, HEADS, LAYERS, MAX_LEN, attention=attention, device='cpu')
-    with pytest.raises(NotImplementedError, match='SwitchMoE'):
-        TransformerLM(VOCAB, D, HEADS, LAYERS, MAX_LEN, moe_experts=4, device='cpu')
+    # Switch MoE is ported: each block's MLP becomes a SwitchMoE.
+    moe = TransformerLM(VOCAB, D, HEADS, LAYERS, MAX_LEN, moe_experts=4, device='cpu')
+    assert all(block.moe is not None and block.moe.num_experts == 4 for block in moe.blocks)
     with pytest.raises(ValueError, match='unknown attention'):
         TransformerLM(VOCAB, D, HEADS, LAYERS, MAX_LEN, attention='sparse', device='cpu')
 
