@@ -72,7 +72,7 @@ non-zero exit and no result line:
    attention, bf16) behind the bench's bare cast (``float() / 255``),
    batch 128, K = 8, SGD lr 0.1 momentum 0.9; streamed from the memory
    cache (2 warm-up and 2 measured calls), then from the HBM tier through a
-   scan step of its own (epoch 1 warm-up, ``VIT_HBM_EPOCHS`` counted).
+   scan step of its own (epoch 1 warm-up, 4 epochs counted).
 10. imagenet_aug: the ``imagenet_aug`` child (``bench.py:2553-2557``) on
    the HBM tier: the ResNet-50 state of imagenet_hbm trained (b) through
    the bare cast, from a copy of the state, and (a) through
@@ -88,7 +88,21 @@ non-zero exit and no result line:
    widths with 4 Switch-MoE experts and 4 layers, loss ``ce + 1e-2 * aux``,
    batch 8, K = 8, 2 warm-up and 2 measured calls; each flash kernel 32
    times a replay; the losses and the aux losses.
+13. pipeline: the bench's ``pipeline`` child (``bench.py:774-949``) on the
+   imagenet store: the host pipeline alone, no model (see
+   ``petastorm_tpu_torch.bench.run_pipeline``): median img/s of 3 reps of 32
+   batches, spread, cold rate, stage profile, the null/memory tier sweep.
+14. loader_surface: a small store through ``TorchLoader`` on the card (tensor
+   reader; row reader with ``CropTo``): ``prefetch=0``, ``prefetch=2,
+   inflight=1`` and ``prefetch=2, inflight=4, arena_depth=3`` bit-equal to
+   the default's batches; ``echo=2`` delivers each twice.
+15. examples: the imagenet example with ``augment=True`` at 224 from a ragged
+   store (K1 once a step), the long_context example at its defaults (K2-K4
+   once a layer a step), the mnist example (accuracy over 0.8).
 
+Phases 5 to 13 run the bench's protocol through the functions of
+``petastorm_tpu_torch/bench.py`` (``python -m petastorm_tpu_torch.bench``
+runs them as the bench's children); this script holds their launch counts.
 Each path's kernel launch counts are zeroed just before it and read just
 after. On an eager path the wrappers count every launch, and three more
 calls are then traced with ``torch.profiler`` (the card's busy time a call
@@ -120,22 +134,20 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(ROOT, '.torch_build')
 os.environ.setdefault('TRITON_CACHE_DIR', os.path.join(BUILD_DIR, 'triton'))
+sys.path.insert(0, ROOT)
+try:
+    # The bench's stores, widths and scan protocol live in the package's
+    # bench module; this script drives the same functions and holds their
+    # launch counts.
+    from petastorm_tpu_torch import bench
+    from petastorm_tpu_torch.bench import (BATCH, IMAGE, LM_BATCH, LM_D, LM_HEADS, LM_LAYERS,
+                                           LM_ROWS, LM_SEQ, LM_VOCAB, ROWS, ROWS_PER_GROUP,
+                                           launch_counts, reset_launch_counts, trace_calls)
+except ImportError:      # the script alone, without the package: main() refuses to run
+    bench = None
 
-BATCH = 128
-IMAGE = 224
-ROWS = 2048
-ROWS_PER_GROUP = 256
+#: Eager steps before the measured ones (the imagenet and lm eager paths).
 WARMUP_STEPS = 3
-# The bench's scan protocol (bench.py:1819-1821, 1855, 1859; 193-194, 260-269).
-SCAN_K = 8
-SCAN_PREFETCH = 8
-IMAGENET_SCAN_WARMUP, IMAGENET_SCAN_CALLS = 3, 5
-HBM_EPOCHS = max(6, 2 * SCAN_K)
-LM_SCAN_WARMUP, LM_SCAN_CALLS = 2, 6
-# The bench's imagenet_vit child (bench.py:2511-2515), streamed, then HBM epochs.
-VIT_WARMUP, VIT_CALLS, VIT_HBM_EPOCHS = 2, 2, 4
-# imagenet_aug (bench.py:2553-2557): HBM epochs counted (and as many timed), each variant.
-AUG_EPOCHS = 4
 
 #: HBM bandwidth (bytes/s) by card, from NVIDIA's data sheets.
 HBM_BYTES_PER_S = {'H100 80GB HBM3': 3.35e12, 'H100 SXM': 3.35e12, 'H100 NVL': 3.9e12,
@@ -149,21 +161,13 @@ BF16_TC_FLOPS = 989e12
 SPIN_CYCLES = 20_000_000
 MAX_SPIN_CYCLES = 16 * SPIN_CYCLES
 
-# The bench's lm child (bench.py:186-209): the flash kernels see
-# [B*H, T, D] = [64, 1024, 64] bf16, causal.
-LM_VOCAB, LM_D, LM_HEADS, LM_LAYERS, LM_SEQ = 32768, 512, 8, 8, 1025
-LM_BATCH, LM_ROWS = 8, 2048
 # The bench's flashattn child (bench.py:1610-1618): [B, T, H, D] = [4, 8192, 8, 128].
 FA_BATCH, FA_SEQ, FA_HEADS, FA_D = 4, 8192, 8, 128
 # The lm_long child (bench.py:2526-2530; store bench.py:141): 256 rows of 8193
 # tokens, batch 2, K 4, 16 measured steps: the flash kernels see [16, 8192, 64].
-LONG_SEQ, LONG_ROWS, LONG_BATCH, LONG_K, LONG_WARMUP, LONG_CALLS = 8193, 256, 2, 4, 2, 4
-# The lm_moe child (bench.py:2537-2540): 4 experts, 4 layers; batch 8, K 8.
-MOE_EXPERTS, MOE_LAYERS, MOE_WARMUP, MOE_CALLS = 4, 4, 2, 2
-
-
-def emit(obj):
-    print(json.dumps(obj), flush=True)
+LONG_SEQ, LONG_BATCH, LONG_K, LONG_STEPS = 8193, 2, 4, 16
+# The lm_moe child (bench.py:2537-2540): 4 experts, 4 layers; batch 8, K 8, 16 steps.
+MOE_EXPERTS, MOE_LAYERS, MOE_STEPS = 4, 4, 16
 
 
 def hbm_rate(name):
@@ -211,16 +215,6 @@ def time_into(entry, reps=30, **fns):
         entry[key], slow = time_ms(fn, reps=reps)
         if slow:
             host_bound.append(key)
-
-
-def synthetic_image(rng, size):
-    """A photo-like image: a low-frequency random field plus mild noise (the
-    bench's ImageNet stand-in, so JPEG sizes and decode costs are real)."""
-    import numpy as np
-    low = rng.integers(0, 255, (size // 16, size // 16, 3), dtype=np.uint8)
-    img = np.kron(low, np.ones((16, 16, 1), dtype=np.uint8))
-    noise = rng.integers(0, 24, (size, size, 3), dtype=np.uint8)
-    return np.clip(img.astype(np.int16) + noise - 12, 0, 255).astype(np.uint8)
 
 
 # --------------------------------------------------------------------------
@@ -606,64 +600,6 @@ def check_flash(device, rate):
 # phases 3 to 5: checks and the two paths
 # --------------------------------------------------------------------------
 
-TRACED_CALLS = 3
-
-
-def device_profile(run):
-    """``run()`` under ``torch.profiler``, CUDA activity only: the
-    profile's events by name (``key_averages()``: kernels, copies, sets)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    return prof.key_averages()
-
-
-def kernels_ran(events, names):
-    """How many kernels whose name holds each of ``names`` a profile holds."""
-    return {name: sum(e.count for e in events if name in e.key) for name in names}
-
-
-def busy_trace(events, calls, call_ms):
-    """The card's busy time a call over ``calls`` profiled calls (kernels,
-    copies and sets), its idle share against ``call_ms`` (the unprofiled
-    device time of a call) and the five kernels that take the most of it;
-    None if the profiler recorded no device time."""
-    events = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / calls
-    if busy_ms == 0:
-        return {'traced_calls': calls, 'device_busy_ms_per_call': None,
-                'device_idle_share': None}
-    return {'traced_calls': calls, 'device_busy_ms_per_call': busy_ms,
-            'device_idle_share': 1 - busy_ms / call_ms,
-            'top_kernels_ms_per_call': [[e.key, e.self_device_time_total / 1e3 / calls]
-                                        for e in events[:5]]}
-
-
-def trace_calls(call, call_ms):
-    """``TRACED_CALLS`` more calls of an eager path's step (after its
-    launch counts are read), traced: see :func:`busy_trace`."""
-    return busy_trace(device_profile(lambda: [call() for _ in range(TRACED_CALLS)]),
-                      TRACED_CALLS, call_ms)
-
-
-def write_store(path):
-    import numpy as np
-    from petastorm_tpu_torch import (CompressedImageCodec, ScalarCodec, Unischema,
-                                     UnischemaField, write_dataset)
-    schema = Unischema('ImagenetSchema', [
-        UnischemaField('image', np.uint8, (IMAGE, IMAGE, 3), CompressedImageCodec('jpeg', 90)),
-        UnischemaField('label', np.int64, (), ScalarCodec(np.int64)),
-    ])
-    rng = np.random.default_rng(7)
-    rows = ({'image': synthetic_image(rng, IMAGE), 'label': int(rng.integers(0, 1000))}
-            for _ in range(ROWS))
-    url = 'file://' + path
-    write_dataset(url, schema, rows, rows_per_row_group=ROWS_PER_GROUP)
-    return url
-
 
 def check_first_batch(url, device):
     """The loader's first batch of an unshuffled read equals the store's
@@ -725,7 +661,7 @@ def run_imagenet(url, device, steps, card):
     from petastorm_tpu_torch.models import make_train_step
     from petastorm_tpu_torch.ops.augment import imagenet_train_augment
 
-    state = _resnet50_state(device)
+    state = bench.resnet50_state(device)
     train_step = make_train_step()
     aug_gen = torch.Generator(device=device).manual_seed(0)
     total = WARMUP_STEPS + steps
@@ -785,30 +721,6 @@ def run_imagenet(url, device, steps, card):
         'device_train_step_ms_median': device_step_ms,
         'peak_mem_GB': torch.cuda.max_memory_allocated(device) / 1e9,
         'rows_delivered': stats['rows'], 'launches': launches, 'trace': trace}
-
-
-def reset_launch_counts():
-    from petastorm_tpu_torch.ops import flash_attention, image_ops
-    image_ops.reset_launch_counts()
-    flash_attention.reset_launch_counts()
-
-
-def launch_counts():
-    from petastorm_tpu_torch.ops import flash_attention, image_ops
-    return dict(image_ops.LAUNCHES, **flash_attention.LAUNCHES)
-
-
-def write_lm_store(path, rows=LM_ROWS, seq=LM_SEQ):
-    """The bench's token store (``bench.py:130-157``), with the port's writer."""
-    import numpy as np
-    from petastorm_tpu_torch import NdarrayCodec, Unischema, UnischemaField, write_dataset
-    schema = Unischema('LMBenchSchema', [
-        UnischemaField('tokens', np.int32, (seq,), NdarrayCodec(), False)])
-    rng = np.random.default_rng(11)
-    rows = ({'tokens': rng.integers(0, LM_VOCAB, seq, dtype=np.int32)} for _ in range(rows))
-    url = 'file://' + path
-    write_dataset(url, schema, rows, rows_per_row_group=ROWS_PER_GROUP)
-    return url
 
 
 def check_lm_model(device):
@@ -1003,11 +915,6 @@ def _max_diff(a, b):
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
-def _launch_diff(after, before):
-    return {name: count - before.get(name, 0) for name, count in after.items()
-            if count != before.get(name, 0)}
-
-
 def _eager_classifier(k, preprocess):
     """The eager reference of a classifier scan step: K calls of the
     one-step trainer on the microbatch slices, the metrics stacked and
@@ -1097,7 +1004,7 @@ def check_scan_graph(device):
             before = launch_counts()
             out[1].append(steps[1](states[1], *inputs))
             if call == 1:
-                captured = _launch_diff(launch_counts(), before)
+                captured = bench._launch_diff(launch_counts(), before)
                 kept = {key: v.clone() for key, v in out[1][1].items()}
         torch.cuda.synchronize()
         kept_ok = all(torch.equal(out[1][1][key], kept[key]) for key in kept)
@@ -1132,470 +1039,157 @@ def check_scan_graph(device):
     return results
 
 
-def scan_window(train, state, next_inputs, warmup, calls, kernels):
-    """One scan path's counted window: the launch counts zeroed, ``warmup``
-    calls (call 1 eager, call 2 captures the graph and replays it, later
-    calls replay), then ``calls`` measured calls, each set under the
-    profiler, the counts read. A replay calls no wrapper, so the wrappers
-    count call 1 and the capture; the profiles count, by name, each of
-    ``kernels`` that ran on the card in the window. Returns (metrics of
-    each call, the wrappers' counts, their counts across the capturing
-    call, the kernels that ran, the measured calls' profile)."""
-    metrics, captured = [], {}
+# --------------------------------------------------------------------------
+# the loader's surface and the examples on the card
+# --------------------------------------------------------------------------
 
-    def run(n):
-        for _ in range(n):
-            capturing, before = train.graph is None and train.calls == 1, launch_counts()
-            metrics.append(train(state, *next_inputs()))
-            if capturing:
-                captured.update(_launch_diff(launch_counts(), before))
-
-    reset_launch_counts()                            # the path starts here
-    warm = device_profile(lambda: run(warmup))
-    measured = device_profile(lambda: run(calls))
-    launches = launch_counts()                       # the path ends here
-    ran = kernels_ran(warm, kernels)
-    for name, count in kernels_ran(measured, kernels).items():
-        ran[name] += count
-    return metrics, launches, captured, ran, measured
-
-
-#: The share of a window's kernel records the profiler may lose: in one run
-#: on an H100 it reported 509 of the 512 flash dQ and dK/dV kernels of
-#: lm_scan's window while the forward's 512 and every other path's counts
-#: were exact, with no warning; more than this fails the path.
-PROFILER_LOSS = 0.01
-
-
-def require_scan_launches(launches, captured, ran, wrappers, per_call, calls):
-    """Fail unless each wrapper counted ``per_call`` launches in call 1 and
-    as many in the capture, and each kernel ran ``per_call`` times in each
-    of the window's ``calls`` calls (call 1 eagerly, the others replays),
-    up to ``PROFILER_LOSS`` of the records lost by the profiler and never
-    more than that."""
-    wrapped = {name: launches.get(name, 0) for name in wrappers}
-    expected = per_call * calls
-    if (wrapped != dict.fromkeys(wrappers, 2 * per_call)
-            or captured != dict.fromkeys(wrappers, per_call)
-            or not all((1 - PROFILER_LOSS) * expected <= count <= expected
-                       for count in ran.values())):
-        raise AssertionError('scan path launches: wrappers {}, across the capture {}, ran on the '
-                             'card {}; expected {} a call in {} calls'.format(
-                                 wrapped, captured, ran, per_call, calls))
-
-
-def time_scan_calls(train, state, next_inputs, calls):
-    """``calls`` more calls, unprofiled, after the counted window: (wall
-    seconds, seconds blocked in ``next_inputs``, median device ms a call,
-    metrics)."""
+def check_loader_surface(store_dir, device):
+    """A small store through ``TorchLoader`` on the card, tensor reader and
+    row reader (``CropTo`` on a ragged field), one worker, no shuffle: the
+    batches of ``prefetch=0``, of ``prefetch=2, inflight=1`` and of
+    ``prefetch=2, inflight=4, arena_depth=3`` must equal the default's bit
+    for bit, and ``echo=2`` must deliver each of them twice."""
     import numpy as np
     import torch
-    torch.cuda.synchronize()
-    metrics, events, wait_s = [], [], 0.0
-    t_start = time.perf_counter()
-    for _ in range(calls):
-        t0 = time.perf_counter()
-        inputs = next_inputs()
-        wait_s += time.perf_counter() - t0
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        metrics.append(train(state, *inputs))
-        ev[1].record()
-        events.append(ev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_start
-    return wall, wait_s, float(np.median([a.elapsed_time(b) for a, b in events])), metrics
+    from petastorm_tpu_torch import (CompressedImageCodec, CropTo, NdarrayCodec, ScalarCodec,
+                                     TorchLoader, Unischema, UnischemaField, make_reader,
+                                     make_tensor_reader, write_dataset)
+
+    rows, batch = 200, 24
+    schema = Unischema('SurfaceSchema', [
+        UnischemaField('id', np.int32, (), ScalarCodec(np.int32)),
+        UnischemaField('vec', np.float32, (5,), NdarrayCodec()),
+        UnischemaField('image', np.uint8, (40, 40, 3), CompressedImageCodec('png')),
+        UnischemaField('ragged', np.uint8, (None, None, 3), CompressedImageCodec('png')),
+    ])
+    rng = np.random.default_rng(5)
+    url = 'file://' + os.path.join(store_dir, 'surface')
+    write_dataset(url, schema, ({
+        'id': i, 'vec': rng.normal(size=5).astype(np.float32),
+        'image': rng.integers(0, 256, (40, 40, 3), dtype=np.uint8),
+        'ragged': rng.integers(0, 256, (int(rng.integers(20, 30)), int(rng.integers(20, 30)), 3),
+                               dtype=np.uint8)} for i in range(rows)), rows_per_row_group=16)
+    readers = {
+        'tensor': lambda: make_tensor_reader(url, schema_fields=['id', 'vec', 'image'],
+                                             workers_count=1, shuffle_row_groups=False),
+        'row': lambda: make_reader(url, schema_fields=['id', 'vec', 'ragged'], workers_count=1,
+                                   shuffle_row_groups=False)}
+    policies = {'tensor': None, 'row': {'ragged': CropTo((20, 20, 3))}}
+    configs = {'default': {}, 'prefetch=0': dict(prefetch=0),
+               'prefetch=2,inflight=1': dict(prefetch=2, inflight=1),
+               'prefetch=2,inflight=4,arena_depth=3': dict(prefetch=2, inflight=4, arena_depth=3),
+               'echo=2': dict(echo=2)}
+    result = {'check': 'loader_surface', 'rows': rows, 'batch': batch, 'configs': list(configs)}
+    for kind, factory in readers.items():
+        got = {}
+        for label, options in configs.items():
+            with factory() as reader:
+                with TorchLoader(reader, batch, device=device, shape_policies=policies[kind],
+                                 **options) as loader:
+                    batches = []
+                    for b in loader:
+                        if not all(t.is_cuda for t in b):
+                            raise AssertionError('{} {} handed out host tensors'.format(kind, label))
+                        batches.append([t.cpu() for t in b])
+                    stats = loader.stats
+            got[label] = batches
+            fresh = rows // batch
+            want_batches = fresh * options.get('echo', 1)
+            if stats['batches'] != want_batches or stats['rows'] != fresh * batch:
+                raise AssertionError('{} {}: stats {} batches, {} rows; expected {}, {}'.format(
+                    kind, label, stats['batches'], stats['rows'], want_batches, fresh * batch))
+        want = got['default']
+        echoed = [b for b in want for _ in range(2)]
+        for label, batches in got.items():
+            expect = echoed if label == 'echo=2' else want
+            if len(batches) != len(expect) or not all(
+                    all(torch.equal(a, b) for a, b in zip(x, y)) for x, y in zip(batches, expect)):
+                raise AssertionError('{} loader {} differs from the default'.format(kind, label))
+        result[kind] = {'batches': len(want), 'bit_equal': True}
+    return result
 
 
-def per_step(trace, k):
-    """``trace`` with the card's busy time a step of a K-step call."""
-    busy = trace['device_busy_ms_per_call']
-    return dict(trace, device_busy_ms_per_step=None if busy is None else busy / k)
+def _mnist_store(url):
+    """The mnist example's store: scikit-learn's digits where scikit-learn
+    is installed, else 1797 rows of noisy 8x8 class templates (seed 0) in
+    the same schema and split."""
+    import numpy as np
+    from petastorm_tpu_torch import write_dataset
+    from petastorm_tpu_torch.examples import mnist
+    try:
+        mnist.generate_mnist_dataset(url)
+        return 'sklearn load_digits'
+    except ImportError:
+        pass
+    rng = np.random.default_rng(0)
+    templates = rng.integers(0, 17, (10, 8, 8))
+    labels = rng.integers(0, 10, 1797)
+    images = np.clip(templates[labels] + rng.integers(-3, 4, (1797, 8, 8)), 0, 16).astype(np.uint8)
+    split = int(1797 * 0.8)
+    for name, lo, hi in (('train', 0, split), ('test', split, 1797)):
+        write_dataset(url + '/' + name, mnist.MnistSchema,
+                      ({'idx': i, 'digit': int(labels[i]), 'image': images[i]}
+                       for i in range(lo, hi)), rows_per_row_group=200)
+    return 'synthetic 8x8 class templates (scikit-learn absent)'
 
 
-def _scan_launches(launches, captured, ran, calls):
-    return {'wrappers': launches, 'across_capture': captured, 'ran_on_card': ran,
-            'calls': calls}
+def run_examples(store_dir, device, card):
+    """The three examples on the card. imagenet: ``augment=True`` at 224
+    from a ragged synthetic store (256-288 px a side), 4 steps of batch 32;
+    K1 must launch once a step. long_context: its defaults (d 256, 4 heads,
+    2 layers, T 2048, batch 8), 6 steps; K2-K4 must launch once a layer a
+    step. mnist: 3 epochs; accuracy over 0.8. Losses must be finite."""
+    import contextlib
+    import io
+    from petastorm_tpu_torch.examples import imagenet, long_context, mnist
 
-
-def _normalize_bf16(x):
-    import torch
-    from petastorm_tpu_torch.ops.image_ops import normalize_images
-    return normalize_images(x, dtype=torch.bfloat16)
-
-
-def stream_classifier_scan(url, device, train, state, warmup, calls, kernels):
-    """A classifier scan path streamed from the memory cache (the bench's
-    ``_child_imagenet`` loop): the reader with ``cache_type='memory'``
-    (endless, seed 0), ``TorchLoader(batch=128, prefetch=8)``,
-    ``superbatches(8)``; :func:`scan_window` over ``warmup`` + ``calls``
-    calls, then ``calls`` timed. Returns the path's line (without phase
-    and model keys) and its launch window."""
-    import torch
-    from petastorm_tpu_torch import TorchLoader, make_tensor_reader
-
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(device)
-    reader = make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
-                                workers_count=4, shuffle_row_groups=True, seed=0, num_epochs=None,
-                                cache_type='memory')
-    with reader:
-        with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH) as loader:
-            groups = loader.superbatches(SCAN_K)
-
-            def next_inputs():
-                sb = next(groups)
-                return sb.image, sb.label
-
-            metrics, launches, captured, ran, measured = scan_window(
-                train, state, next_inputs, warmup, calls, kernels)
-            stats0, cache0 = dict(loader.stats), reader.cache_stats()
-            wall, wait_s, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
-            stats, cache = dict(loader.stats), reader.cache_stats()
-    losses = [[float(m['loss']), float(m['last_loss'])] for m in metrics + timed]
-    if not all(math.isfinite(v) for pair in losses for v in pair):
-        raise AssertionError('non-finite loss: {}'.format(losses))
-    rows = (warmup + 2 * calls) * SCAN_K * BATCH
-    if stats['rows'] != rows:
-        raise AssertionError('loader delivered {} rows, expected {}'.format(stats['rows'], rows))
-    h2d_bytes = stats['h2d_bytes'] - stats0['h2d_bytes']
-    h2d_s = stats['h2d_s'] - stats0['h2d_s']
-    steps = calls * SCAN_K
-    result = {
-        'batch': BATCH, 'microbatches': SCAN_K, 'prefetch': SCAN_PREFETCH,
-        'cache_type': 'memory', 'warmup_calls': warmup, 'counted_calls': calls,
-        'timed_calls': calls, 'losses_mean_last': losses, 'img_per_s': steps * BATCH / wall,
-        'step_ms': wall / steps * 1e3, 'input_stall_frac': wait_s / wall,
-        'h2d_GBps': h2d_bytes / h2d_s / 1e9 if h2d_s else None,
-        'device_call_ms_median': call_ms, 'device_step_ms': call_ms / SCAN_K,
-        'cache_timed': {key: cache[key] - cache0[key] for key in ('hits', 'misses')},
-        'cache': cache, 'peak_mem_GB': torch.cuda.max_memory_allocated(device) / 1e9,
-        'peak_reserved_GB': torch.cuda.max_memory_reserved(device) / 1e9,
-        'rows_delivered': stats['rows'],
-        'launches': _scan_launches(launches, captured, ran, warmup + calls),
-        'trace': per_step(busy_trace(measured, calls, call_ms), SCAN_K)}
-    return result, (launches, captured, ran, warmup + calls)
-
-
-def _resnet50_state(device):
-    import torch
-    from petastorm_tpu_torch.models import ResNet50, create_train_state
-    from petastorm_tpu_torch.models.resnet import init_flax_like
-
-    torch.backends.cudnn.benchmark = True
-    model = init_flax_like(ResNet50(num_classes=1000, stem='conv7', dtype=torch.bfloat16,
-                                    device=device), torch.Generator().manual_seed(0))
-    return create_train_state(model.to(memory_format=torch.channels_last), learning_rate=0.1,
-                              momentum=0.9)
-
-
-def run_imagenet_scan(url, device, card):
-    from petastorm_tpu_torch.models import make_scan_train_step
-
-    state = _resnet50_state(device)
-    train = make_scan_train_step(SCAN_K, preprocess=_normalize_bf16)
-    result, window = stream_classifier_scan(url, device, train, state, IMAGENET_SCAN_WARMUP,
-                                            IMAGENET_SCAN_CALLS, ('normalize_kernel',))
-    require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
-    return dict({'phase': 'imagenet_scan', 'card': card, 'model': 'resnet50', 'stem': 'conv7',
-                 'classes': 1000}, **result), state
-
-
-def fill_device_cache(url, device):
-    """``_measure_device_cache``'s fill (``bench.py:2120-2130``): a
-    one-epoch reader into ``DeviceDatasetCache(shuffle=True, seed=0)``.
-    Returns (the cache, seconds)."""
-    import torch
-    from petastorm_tpu_torch import DeviceDatasetCache, TorchLoader, make_tensor_reader
-
-    reader = make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
-                                workers_count=4, num_epochs=1, seed=0, cache_type='memory')
+    out = {'phase': 'examples', 'card': card}
+    url = 'file://' + os.path.join(store_dir, 'example_imagenet')
+    imagenet.generate_synthetic(url, classes=4, images_per_class=40, height=256, width=256,
+                                ragged=32, rows_per_row_group=32)
+    steps = 4
+    reset_launch_counts()                            # the path starts here
     t0 = time.perf_counter()
-    with reader:
-        with TorchLoader(reader, BATCH, device=device) as loader:
-            cache = DeviceDatasetCache(loader, shuffle=True, seed=0)
-            for _ in cache.epoch(0):
-                pass
-    torch.cuda.synchronize()
-    return cache, time.perf_counter() - t0
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, losses = imagenet.train(url, batch_size=32, steps=steps, image_size=224, log_every=steps,
+                                   augment=True, device=device)
+    launches = launch_counts()                       # the path ends here
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError('imagenet example losses: {}'.format(losses))
+    if launches.get('normalize_images', 0) != steps:
+        raise AssertionError('imagenet example launched K1 {} times in {} steps'.format(
+            launches.get('normalize_images', 0), steps))
+    out['imagenet'] = {'augment': True, 'image_size': 224, 'canvas': 256, 'batch': 32,
+                       'steps': steps, 'losses': losses, 'seconds': time.perf_counter() - t0,
+                       'launches': launches}
 
+    url = 'file://' + os.path.join(store_dir, 'example_lm')
+    long_context.generate(url)
+    steps, layers = 6, 2
+    reset_launch_counts()                            # the path starts here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, losses = long_context.train(url, steps=steps, device=device)
+    launches = launch_counts()                       # the path ends here
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError('long_context example losses: {}'.format(losses))
+    if any(launches.get(name, 0) != layers * steps for name in bench.FLASH_WRAPPERS):
+        raise AssertionError('long_context example launches {} in {} steps of {} layers'.format(
+            launches, steps, layers))
+    out['long_context'] = {'steps': steps, 'layers': layers, 'seq': 2048, 'batch': 8,
+                           'losses': losses, 'seconds': time.perf_counter() - t0,
+                           'launches': launches}
 
-def hbm_scan(cache, train, state, epochs, kernels):
-    """Superbatches of ``SCAN_K`` cached batches, carried across epoch
-    boundaries, through ``train`` (a scan step of its own, its own
-    capture): epoch 1 warms up (call 1 eager, call 2 captures), the next
-    ``epochs`` are counted under the profiler, and as many more timed.
-    Returns the path's line (without phase keys) and its launch window."""
-    import torch
-
-    def superbatches():
-        group, epoch = [], 1
-        while True:
-            for b in cache.epoch(epoch):
-                group.append(b)
-                if len(group) == SCAN_K:
-                    yield type(b)(*(torch.cat(columns) for columns in zip(*group)))
-                    group = []
-            epoch += 1
-
-    stream = superbatches()
-
-    def next_inputs():
-        sb = next(stream)
-        return sb.image, sb.label
-
-    per_epoch = ROWS // BATCH // SCAN_K
-    warmup, calls = per_epoch, per_epoch * epochs
-    metrics, launches, captured, ran, measured = scan_window(
-        train, state, next_inputs, warmup, calls, kernels)
-    wall, _, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
-    losses = [float(m['loss']) for m in metrics + timed]
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError('hbm path losses: {}'.format(losses))
-    steps = calls * SCAN_K
-    result = {
-        'microbatches': SCAN_K, 'warmup_calls': warmup, 'counted_calls': calls,
-        'timed_calls': calls, 'epochs_counted': epochs, 'epochs_timed': epochs,
-        'img_per_s': steps * BATCH / wall, 'step_ms': wall / steps * 1e3,
-        'device_call_ms_median': call_ms, 'device_step_ms': call_ms / SCAN_K,
-        'hbm_cached_GB': cache.nbytes / 1e9, 'cache_stats': cache.stats(),
-        'loss_first_last': [losses[0], losses[-1]],
-        'peak_mem_GB': torch.cuda.max_memory_allocated() / 1e9,
-        'peak_reserved_GB': torch.cuda.max_memory_reserved() / 1e9,
-        'launches': _scan_launches(launches, captured, ran, warmup + calls),
-        'trace': per_step(busy_trace(measured, calls, call_ms), SCAN_K)}
-    return result, (launches, captured, ran, warmup + calls)
-
-
-def run_imagenet_hbm(url, device, card, state):
-    """``_measure_device_cache`` through the port on the state
-    ``imagenet_scan`` trained: see :func:`hbm_scan`."""
-    import torch
-    from petastorm_tpu_torch.models import make_scan_train_step
-
-    torch.cuda.reset_peak_memory_stats(device)
-    cache, fill_s = fill_device_cache(url, device)
-    train = make_scan_train_step(SCAN_K, preprocess=_normalize_bf16)
-    result, window = hbm_scan(cache, train, state, HBM_EPOCHS, ('normalize_kernel',))
-    require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
-    return dict({'phase': 'imagenet_hbm', 'card': card, 'fill_s': fill_s}, **result)
-
-
-FLASH_WRAPPERS = ('flash_fwd', 'flash_dq', 'flash_dkv', 'flash_fwd_sm90', 'flash_dq_sm90',
-                  'flash_dkv_sm90')
-FLASH_KERNELS = ('flash_fwd_sm90_kernel', 'flash_dq_sm90_kernel', 'flash_dkv_sm90_kernel')
-
-
-def lm_scan(url, device, model, batch, k, warmup, calls, layers):
-    """An LM scan path (the ``lm`` child's protocol, ``bench.py:160-306``):
-    the token reader with ``cache_type='memory'``, ``TorchLoader(batch=
-    batch * k)``, ``make_lm_scan_train_step(k)`` (SGD lr 0.01, momentum
-    0.9); :func:`scan_window` over ``warmup`` + ``calls`` calls, each flash
-    kernel ``layers * k`` times a call on the Hopper route, then ``calls``
-    timed; the losses must be finite and fall. Returns the path's line
-    (without phase and model keys) and the measured calls' profile."""
-    import torch
-    from petastorm_tpu_torch import TorchLoader, make_tensor_reader
-    from petastorm_tpu_torch.models import create_train_state, make_lm_scan_train_step
-
-    state = create_train_state(model, learning_rate=0.01, momentum=0.9)
-    train = make_lm_scan_train_step(k)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(device)
-    reader = make_tensor_reader(url, schema_fields=['tokens'], reader_pool_type='thread',
-                                workers_count=2, shuffle_row_groups=True, seed=0, num_epochs=None,
-                                cache_type='memory')
-    with reader:
-        with TorchLoader(reader, batch * k, device=device, prefetch=2) as loader:
-            def next_inputs():
-                return (next(loader).tokens,)
-
-            metrics, launches, captured, ran, measured = scan_window(
-                train, state, next_inputs, warmup, calls, FLASH_KERNELS)
-            wall, wait_s, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
-            stats, cache = dict(loader.stats), reader.cache_stats()
-    seq = model.max_len
-    require_scan_launches(launches, captured, ran, FLASH_WRAPPERS, layers * k, warmup + calls)
-    losses = [float(v) for m in metrics + timed for v in m['losses']]
-    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        raise AssertionError('lm scan losses did not fall: {}'.format(losses))
-    steps = calls * k
-    result = {
-        'layers': layers, 'seq': seq, 'batch': batch, 'microbatches': k, 'cache_type': 'memory',
-        'params': sum(p.numel() for p in model.parameters()),
-        'warmup_calls': warmup, 'counted_calls': calls, 'timed_calls': calls, 'losses': losses,
-        'tokens_per_s': steps * batch * seq / wall, 'step_ms': wall / steps * 1e3,
-        'input_stall_frac': wait_s / wall, 'device_call_ms_median': call_ms,
-        'device_step_ms': call_ms / k, 'cache': cache,
-        'peak_mem_GB': torch.cuda.max_memory_allocated(device) / 1e9,
-        'peak_reserved_GB': torch.cuda.max_memory_reserved(device) / 1e9,
-        'rows_delivered': stats['rows'],
-        'launches': _scan_launches(launches, captured, ran, warmup + calls),
-        'trace': per_step(busy_trace(measured, calls, call_ms), k)}
-    return result, metrics + timed, measured
-
-
-def _lm(device, layers, max_len, moe_experts=0):
-    """The bench's TransformerLM (``bench.py:186-209``) at the lm widths,
-    flash attention, bf16, weights from seed 0."""
-    import torch
-    from petastorm_tpu_torch.models import TransformerLM
-    from petastorm_tpu_torch.models.transformer import init_flax_like
-    model = TransformerLM(LM_VOCAB, LM_D, LM_HEADS, layers, max_len=max_len, attention='flash',
-                          moe_experts=moe_experts, dtype=torch.bfloat16, device=device)
-    return init_flax_like(model, torch.Generator().manual_seed(0))
-
-
-def run_lm_scan(url, device, card):
-    result, _, _ = lm_scan(url, device, _lm(device, LM_LAYERS, LM_SEQ - 1), LM_BATCH, SCAN_K,
-                           LM_SCAN_WARMUP, LM_SCAN_CALLS, LM_LAYERS)
-    return dict({'phase': 'lm_scan', 'card': card, 'model': 'TransformerLM'}, **result)
-
-
-def attention_share(events):
-    """The flash kernels' summed busy time over all the card's busy time
-    in a profile (kernels, copies, sets)."""
-    total = sum(e.self_device_time_total for e in events)
-    flash = sum(e.self_device_time_total for e in events
-                if any(name in e.key for name in FLASH_KERNELS))
-    return {'flash_ms': flash / 1e3, 'busy_ms': total / 1e3,
-            'share': flash / total if total else None}
-
-
-def run_lm_long(url, device, card):
-    """The ``lm_long`` child (``bench.py:2526-2530``): T = 8192, batch 2,
-    K = 4; 2 warm-up and 4 measured calls (16 steps); attention's share of
-    the traced step."""
-    result, _, measured = lm_scan(url, device, _lm(device, LM_LAYERS, LONG_SEQ - 1), LONG_BATCH,
-                                  LONG_K, LONG_WARMUP, LONG_CALLS, LM_LAYERS)
-    return dict({'phase': 'lm_long', 'card': card, 'model': 'TransformerLM',
-                 'attention_share': attention_share(measured)}, **result)
-
-
-def run_lm_moe(url, device, card):
-    """The ``lm_moe`` child (``bench.py:2537-2540``): the lm store and
-    widths with 4 Switch-MoE experts and 4 layers, loss ``ce + 1e-2 * aux``
-    (``bench.py:223-233``); batch 8, K 8, 2 warm-up and 2 measured calls."""
-    model = _lm(device, MOE_LAYERS, LM_SEQ - 1, MOE_EXPERTS)
-    result, metrics, _ = lm_scan(url, device, model, LM_BATCH, SCAN_K, MOE_WARMUP, MOE_CALLS,
-                                 MOE_LAYERS)
-    aux = [float(v) for m in metrics for v in m['aux_losses']]
-    if not all(math.isfinite(v) and v > 0 for v in aux):
-        raise AssertionError('lm_moe aux losses: {}'.format(aux))
-    capacity = model.blocks[0].moe.capacity(LM_SEQ - 1)
-    return dict({'phase': 'lm_moe', 'card': card, 'model': 'TransformerLM', 'experts': MOE_EXPERTS,
-                 'capacity': capacity, 'loss': 'ce + 1e-2 * aux', 'aux_losses': aux}, **result)
-
-
-def _bare_cast(images):
-    """The bench's preprocess without augment (``bench.py:1890-1895``)."""
-    return images.float() / 255.0
-
-
-def require_no_kernel(window):
-    """Fail unless no wrapper counted a launch and no listed kernel ran."""
-    launches, captured, ran, calls = window
-    if any(launches.values()) or captured or any(ran.values()):
-        raise AssertionError('a path without hand kernels launched {} (capture {}, ran {}) in {} '
-                             'calls'.format(launches, captured, ran, calls))
-
-
-def run_imagenet_vit(url, device, card):
-    """The ``imagenet_vit`` child (``bench.py:2511-2515``): ``ViT(num_classes
-    =1000)`` at its widths (patch 16, d 384, 6 heads, 8 layers, dense
-    attention, bf16) behind the bare cast, SGD lr 0.1 momentum 0.9; streamed
-    from the memory cache (2 warm-up, 2 measured calls), then from the HBM
-    tier through a scan step of its own. No hand kernel is on this path."""
-    import torch
-    from petastorm_tpu_torch.models import ViT, create_train_state, make_scan_train_step
-    from petastorm_tpu_torch.models.vit import init_flax_like
-
-    model = init_flax_like(ViT(num_classes=1000, image_size=IMAGE, device=device),
-                           torch.Generator().manual_seed(0))
-    state = create_train_state(model, learning_rate=0.1, momentum=0.9)
-    kernels = ('normalize_kernel',) + FLASH_KERNELS
-    streamed, window = stream_classifier_scan(
-        url, device, make_scan_train_step(SCAN_K, preprocess=_bare_cast), state, VIT_WARMUP,
-        VIT_CALLS, kernels)
-    require_no_kernel(window)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(device)
-    cache, fill_s = fill_device_cache(url, device)
-    hbm, window = hbm_scan(cache, make_scan_train_step(SCAN_K, preprocess=_bare_cast), state,
-                              VIT_HBM_EPOCHS, kernels)
-    require_no_kernel(window)
-    return {'phase': 'imagenet_vit', 'card': card, 'model': 'ViT', 'classes': 1000,
-            'patch': model.patch_size, 'tokens': model.num_patches + 1, 'd_model': 384,
-            'heads': 6, 'layers': len(model.blocks), 'attention': 'dense', 'dtype': 'bfloat16',
-            'params': sum(p.numel() for p in model.parameters()), 'preprocess': 'float() / 255',
-            'streamed': streamed, 'hbm': dict(hbm, fill_s=fill_s)}
-
-
-def run_imagenet_aug(url, device, card, state):
-    """The ``imagenet_aug`` child (``bench.py:2553-2557``, ``:1872-1889``,
-    ``:1975-2010``) on the HBM tier: the ResNet-50 state trained through
-    (b) the bare cast, from a copy of the state, and (a) the augment inside
-    the 8-step graph (``imagenet_train_augment``, f32 out; the graph
-    registers its generator), each through a scan step of its own;
-    ``aug_cost_frac = 1 - aug / bare``. K1 runs 8 times a replay of (a) and
-    never in (b); two more replays of (a) must draw different boxes."""
-    import copy
-    import torch
-    from petastorm_tpu_torch.models import make_scan_train_step
-    from petastorm_tpu_torch.ops.augment import (apply_imagenet_train_augment,
-                                                 sample_imagenet_train_augment)
-
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(device)
-    cache, fill_s = fill_device_cache(url, device)
-    bare_state = copy.deepcopy(state)
-    bare, window = hbm_scan(cache, make_scan_train_step(SCAN_K, preprocess=_bare_cast),
-                               bare_state, AUG_EPOCHS, ('normalize_kernel',))
-    require_no_kernel(window)
-    del bare_state
-    torch.cuda.empty_cache()
-
-    boxes = []
-
-    def augment(images, generator):
-        """``imagenet_train_augment`` (its two halves), keeping the boxes."""
-        n, h, w, _ = images.shape
-        params = sample_imagenet_train_augment(n, h, w, generator, images.device)
-        boxes.append(params['box'][0])
-        return apply_imagenet_train_augment(images, params, IMAGE, IMAGE, dtype=torch.float32)
-
-    train = make_scan_train_step(SCAN_K, preprocess=augment,
-                                 generator=torch.Generator(device=device).manual_seed(0))
-    aug, window = hbm_scan(cache, train, state, AUG_EPOCHS, ('normalize_kernel',))
-    require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
-    if len(boxes) != 2 * SCAN_K:
-        raise AssertionError('the augment ran {} times on the host; expected {} (call 1 and the '
-                             'capture)'.format(len(boxes), 2 * SCAN_K))
-    superbatch = [b for _, b in zip(range(SCAN_K), cache.epoch(1))]
-    inputs = [torch.cat(column) for column in zip(*superbatch)]
-    drawn = []
-    for _ in range(2):
-        train(state, *inputs)
-        drawn.append(boxes[-1].clone())                  # the graph rewrites it each replay
-    if torch.equal(*drawn):
-        raise AssertionError('two replays of the augment graph drew the same boxes')
-    return {'phase': 'imagenet_aug', 'card': card, 'model': 'resnet50', 'fill_s': fill_s,
-            'augment': 'imagenet_train_augment -> float32 (in the graph)',
-            'bare': 'float() / 255', 'bare_cast': bare, 'augmented': aug,
-            'aug_cost_frac': 1 - aug['img_per_s'] / bare['img_per_s'],
-            'replays_draw_anew': True,
-            'crop_y_offsets_two_replays': [v.tolist()[:4] for v in drawn]}
-
-
-def _path_launches(result, wrapper, kernel):
-    """A kernel's launches on a scan path, each counted in that path's own
-    window: its wrapper's (call 1 and the capture), the wrapper's across
-    the capture (the kernels the graph holds), and the kernels that ran on
-    the card in the window's calls, counted by name in its profiles."""
-    launches = result['launches']
-    return {'wrapper': launches['wrappers'].get(wrapper, 0),
-            'across_capture': launches['across_capture'].get(wrapper, 0),
-            'ran_on_card': launches['ran_on_card'][kernel], 'calls': launches['calls']}
+    url = 'file://' + os.path.join(store_dir, 'example_mnist')
+    source = _mnist_store(url)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        accuracy = mnist.train_and_test(url, epochs=3, device=device)
+    if not accuracy > 0.8:
+        raise AssertionError('mnist example accuracy {}'.format(accuracy))
+    out['mnist'] = {'store': source, 'epochs': 3, 'test_accuracy': accuracy,
+                    'seconds': time.perf_counter() - t0}
+    return out
 
 
 def main():
@@ -1611,13 +1205,15 @@ def main():
         print('chip_smoke: torch.cuda.is_available() is False; this script needs a GPU',
               file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
-    from petastorm_tpu_torch import resolve_device  # noqa: F401  fails outside the repo
+    if bench is None:
+        print('chip_smoke: petastorm_tpu_torch is not beside this script; run it from the '
+              'root of a checkout', file=sys.stderr)
+        return 2
 
     lines = []
 
     def record(obj):
-        emit(obj)
+        bench.emit(obj)
         lines.append(obj)
 
     device = torch.device('cuda', 0)
@@ -1653,11 +1249,11 @@ def main():
     store_dir = tempfile.mkdtemp(prefix='smoke_store_', dir=BUILD_DIR)
     try:
         t0 = time.perf_counter()
-        url = write_store(os.path.join(store_dir, 'imagenet'))
+        url = bench.write_imagenet_store(os.path.join(store_dir, 'imagenet'))
         record({'phase': 'store', 'path': 'imagenet', 'rows': ROWS, 'rows_per_group': ROWS_PER_GROUP,
                 'codec': 'jpeg q90', 'seconds': time.perf_counter() - t0})
         t0 = time.perf_counter()
-        lm_url = write_lm_store(os.path.join(store_dir, 'lm'))
+        lm_url = bench.write_lm_store(os.path.join(store_dir, 'lm'))
         record({'phase': 'store', 'path': 'lm', 'rows': LM_ROWS, 'rows_per_group': ROWS_PER_GROUP,
                 'codec': 'ndarray int32 ({},)'.format(LM_SEQ), 'seconds': time.perf_counter() - t0})
         record(dict(check_first_batch(url, device), phase='checks'))
@@ -1671,37 +1267,50 @@ def main():
         record(result)
         k1['launches'] = result['launches'].get('normalize_images', 0)
         by_path = {'imagenet': k1['launches']}
-        result, state = run_imagenet_scan(url, device, card)
+        result, state = bench.run_imagenet_scan(url, device, card)
         record(result)
-        by_path['imagenet_scan'] = _path_launches(result, 'normalize_images', 'normalize_kernel')
-        result = run_imagenet_hbm(url, device, card, state)
+        by_path['imagenet_scan'] = bench.path_launches(result, 'normalize_images',
+                                                       'normalize_kernel')
+        result = bench.run_imagenet_hbm(url, device, card, state)
         record(result)
-        by_path['imagenet_hbm'] = _path_launches(result, 'normalize_images', 'normalize_kernel')
+        by_path['imagenet_hbm'] = bench.path_launches(result, 'normalize_images',
+                                                      'normalize_kernel')
         k1['launches_by_path'] = by_path
-        result = run_lm(lm_url, device, args.steps, card)
-        record(result)
-        scans = {'lm_scan': run_lm_scan(lm_url, device, card)}
+        lm_result = run_lm(lm_url, device, args.steps, card)
+        record(lm_result)
+        scans = {'lm_scan': bench.run_lm_scan(lm_url, device, card)}
         record(scans['lm_scan'])
-        record(run_imagenet_vit(url, device, card))
-        aug = run_imagenet_aug(url, device, card, state)
+        record(bench.run_imagenet_vit(url, device, card))
+        aug = bench.run_imagenet_aug(url, device, card, state)
         record(aug)
-        by_path['imagenet_aug'] = _path_launches(aug['augmented'], 'normalize_images',
-                                                 'normalize_kernel')
+        by_path['imagenet_aug'] = bench.path_launches(aug['augmented'], 'normalize_images',
+                                                      'normalize_kernel')
         del state
         t0 = time.perf_counter()
-        long_url = write_lm_store(os.path.join(store_dir, 'lm_long'), LONG_ROWS, LONG_SEQ)
-        record({'phase': 'store', 'path': 'lm_long', 'rows': LONG_ROWS,
+        long_rows = bench.lm_rows(LONG_SEQ)
+        long_url = bench.write_lm_store(os.path.join(store_dir, 'lm_long'), long_rows, LONG_SEQ)
+        record({'phase': 'store', 'path': 'lm_long', 'rows': long_rows,
                 'rows_per_group': ROWS_PER_GROUP, 'codec': 'ndarray int32 ({},)'.format(LONG_SEQ),
                 'seconds': time.perf_counter() - t0})
-        scans['lm_long'] = run_lm_long(long_url, device, card)
+        scans['lm_long'] = bench.run_lm_scan(long_url, device, card, seq=LONG_SEQ,
+                                             batch=LONG_BATCH, k=LONG_K, steps=LONG_STEPS)
         record(scans['lm_long'])
-        scans['lm_moe'] = run_lm_moe(lm_url, device, card)
+        scans['lm_moe'] = bench.run_lm_scan(lm_url, device, card, steps=MOE_STEPS,
+                                            layers=MOE_LAYERS, moe_experts=MOE_EXPERTS)
         record(scans['lm_moe'])
+        workers = max(4, min(10, os.cpu_count() or 4))
+        pipeline = bench.run_pipeline(url, device, workers)
+        record(dict({'phase': 'pipeline', 'card': card}, **pipeline))
+        record(dict(check_loader_surface(store_dir, device), phase='loader_surface', card=card))
+        examples = run_examples(store_dir, device, card)
+        record(examples)
+        by_path['example_imagenet'] = examples['imagenet']['launches']['normalize_images']
         for k in flash:
-            k['launches'] = result['launches'].get(k['name'], 0)
+            k['launches'] = lm_result['launches'].get(k['name'], 0)
             k['launches_by_path'] = dict(
-                {'lm': k['launches']},
-                **{path: _path_launches(scan, k['name'], k['name'] + '_kernel')
+                {'lm': k['launches'],
+                 'example_long_context': examples['long_context']['launches'][k['name']]},
+                **{path: bench.path_launches(scan, k['name'], k['name'] + '_kernel')
                    for path, scan in scans.items()})
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
@@ -1716,8 +1325,8 @@ def main():
             for obj in lines:
                 f.write(json.dumps(obj) + '\n')
     print(smi.splitlines()[0], flush=True)
-    emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
-                                 'count': torch.cuda.device_count()}})
+    bench.emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
+                                       'count': torch.cuda.device_count()}})
     return 0
 
 

@@ -1,8 +1,9 @@
 """petastorm_tpu_torch: the PyTorch/CUDA port of petastorm_tpu.
 
 It stands beside the JAX package and imports nothing of it: JPEG Parquet
--> decoded-columnar tensor reader (with an optional decoded-chunk memory
-cache) -> pinned-arena H2D loader (batches or superbatches) -> on-device
+-> per-row or decoded-columnar reader (with an optional decoded-chunk
+memory cache) -> pinned-arena H2D loader (batches or superbatches; shape
+policies, a row-level shuffling buffer, echo) -> on-device
 augmentation ending in a hand-written normalize kernel -> ResNet training;
 and token Parquet -> the same reader and loader -> TransformerLM with
 hand-written CUDA flash attention -> SGD steps, one at a time or K at a
@@ -16,6 +17,7 @@ from petastorm_tpu_torch.codecs import CompressedImageCodec, NdarrayCodec, Scala
 from petastorm_tpu_torch.device import resolve_device  # noqa: F401
 from petastorm_tpu_torch.device_cache import DeviceCacheOverflow, DeviceDatasetCache  # noqa: F401
 from petastorm_tpu_torch.etl import DatasetWriter, get_schema, write_dataset  # noqa: F401
-from petastorm_tpu_torch.loader import TorchLoader  # noqa: F401
-from petastorm_tpu_torch.reader import Reader, make_tensor_reader  # noqa: F401
+from petastorm_tpu_torch.loader import (CropTo, PadTo, ShapePolicy, TorchLoader,  # noqa: F401
+                                        make_torch_loader)
+from petastorm_tpu_torch.reader import Reader, make_reader, make_tensor_reader  # noqa: F401
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField  # noqa: F401

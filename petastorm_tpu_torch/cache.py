@@ -13,11 +13,14 @@ from collections import OrderedDict
 def approx_nbytes(value):
     """The byte estimate of a cached value, as ``petastorm_tpu/membudget.py:220``
     makes it for the values cached here: a dict of arrays (each key's
-    ``sys.getsizeof`` plus each array's ``nbytes``), an array, or ``None``."""
+    ``sys.getsizeof`` plus each array's ``nbytes``), a list of row dicts,
+    an array, or ``None``."""
     if value is None:
         return 0
     if isinstance(value, dict):
         return sum(sys.getsizeof(k) + approx_nbytes(v) for k, v in value.items())
+    if isinstance(value, (list, tuple)):
+        return sys.getsizeof(value) + sum(approx_nbytes(v) for v in value)
     nbytes = getattr(value, 'nbytes', None)
     return int(nbytes) if nbytes is not None else sys.getsizeof(value)
 

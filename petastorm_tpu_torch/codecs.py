@@ -198,18 +198,41 @@ class CompressedImageCodec(DataframeColumnCodec):
         return buf.getvalue()
 
     def decode(self, field, encoded):
+        if any(dim is None for dim in field.shape):     # a ragged field: any size
+            image = self._imdecode(field, encoded)
+            try:
+                check_shape_compliance(field, image)
+            except ValueError as e:
+                raise DecodeFieldError(str(e)) from e
+            return image
         out = np.empty(field.shape, field.numpy_dtype)
         self.decode_into(field, encoded, out)
         return out
 
+    def _imdecode(self, field, encoded):
+        """One stream decoded into a new RGB (or 2-D gray) array."""
+        if cv2 is not None:
+            bgr = cv2.imdecode(np.frombuffer(encoded, dtype=np.uint8), self._cv2_flags(field))
+            if bgr is None:
+                raise DecodeFieldError('cv2.imdecode failed for field {!r}'.format(field.name))
+            return cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB) if bgr.ndim == 3 else bgr
+        from PIL import Image
+        img = Image.open(io.BytesIO(encoded))
+        if len(field.shape) == 3:
+            img = img.convert('RGB')
+        return np.asarray(img)
+
+    @staticmethod
+    def _cv2_flags(field):
+        flags = cv2.IMREAD_UNCHANGED if len(field.shape) == 2 else cv2.IMREAD_COLOR
+        if field.numpy_dtype != np.uint8:
+            flags |= cv2.IMREAD_ANYDEPTH
+        return flags
+
     def decode_into(self, field, encoded, out):
         """Decode one stream straight into ``out`` (a slot of a block)."""
         if cv2 is not None:
-            raw = np.frombuffer(encoded, dtype=np.uint8)
-            flags = cv2.IMREAD_UNCHANGED if len(field.shape) == 2 else cv2.IMREAD_COLOR
-            if field.numpy_dtype != np.uint8:
-                flags |= cv2.IMREAD_ANYDEPTH
-            bgr = cv2.imdecode(raw, flags)
+            bgr = cv2.imdecode(np.frombuffer(encoded, dtype=np.uint8), self._cv2_flags(field))
             if bgr is None:
                 raise DecodeFieldError('cv2.imdecode failed for field {!r}'.format(field.name))
             if bgr.shape != out.shape:
@@ -220,11 +243,7 @@ class CompressedImageCodec(DataframeColumnCodec):
             else:
                 out[...] = bgr
             return
-        from PIL import Image
-        img = Image.open(io.BytesIO(encoded))
-        if len(field.shape) == 3:
-            img = img.convert('RGB')
-        arr = np.asarray(img)
+        arr = self._imdecode(field, encoded)
         if arr.shape != out.shape:
             raise DecodeFieldError('Image of field {!r} decodes to shape {}, declared {}'.format(
                 field.name, arr.shape, out.shape))

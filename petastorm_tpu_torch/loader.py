@@ -1,41 +1,97 @@
-"""``TorchLoader``: fixed-size device batches off a tensor reader.
+"""``TorchLoader``: fixed-size device batches off a reader.
 
 Counterpart of ``petastorm_tpu/jax_loader.py`` (``JaxLoader`` at ``:705``,
-the block fast path ``_iter_block_batches`` at ``:431`` and the dtype table
-at ``:106-136``), single device.
+the shape policies at ``:60-101``, the per-row ``iter_numpy_batches`` at
+``:173``, the block fast path ``_iter_block_batches`` at ``:431`` and the
+dtype table at ``:106-136``), single device.
 
-Path of a batch on CUDA: the reader's decoded row-group blocks are cut into
-``batch_size`` rows and collated into a recycled pinned host arena (assemble
-thread); the dispatch thread issues ``dst.copy_(pinned_src,
-non_blocking=True)`` on a dedicated CUDA stream and records an event behind
-the copies; the consumer stream ``wait_event``s before it hands the batch
-out, and ``record_stream`` keeps the caching allocator from reusing the
-memory while the consumer's kernels still read it. The arena is recycled
-only after its event completed.
+Path of a batch on CUDA: the reader's rows (``make_reader``) or decoded
+row-group blocks (``make_tensor_reader``) are cut into ``batch_size`` rows
+and collated into a recycled pinned host arena (assemble thread); the
+dispatch thread issues ``dst.copy_(pinned_src, non_blocking=True)`` on a
+dedicated CUDA stream and records an event behind the copies; the consumer
+stream ``wait_event``s before it hands the batch out, and
+``record_stream`` keeps the caching allocator from reusing the memory while
+the consumer's kernels still read it. The arena is recycled only after its
+event completed. With ``prefetch=0`` there are no staging threads: the
+consumer's own thread collates and issues the copies, and an arena goes
+back to the pool only once its copy's event completed (a fence, not a
+synchronous copy: the copy still overlaps the consumer's next step).
 
 dtype table (the JAX package narrows 64-bit types; torch keeps them):
 bool, uint8, int8, int16, int32, int64, float16, float32 and float64 keep
 their type; uint16 widens to int32 and uint32 to int64 (values preserved);
 datetime64 becomes int64 nanoseconds; uint64, strings and objects cannot
-batch and are dropped with a warning. A last partial batch is dropped.
+batch and are dropped with a warning (``strict_fields=True`` raises).
 """
 
 import queue
 import threading
 import time
 import warnings
-from collections import namedtuple
+from collections import deque, namedtuple
 
 import numpy as np
 import torch
 
 from petastorm_tpu_torch.device import resolve_device
-from petastorm_tpu_torch.staging import INFLIGHT, ArenaPool, StagingEngine
+from petastorm_tpu_torch.shuffling_buffer import build_shuffling_buffer
+from petastorm_tpu_torch.staging import ArenaPool, MeteredReader, OverlapMeter, StagingEngine
 
 _WIDEN = {np.dtype('uint16'): np.dtype('int32'), np.dtype('uint32'): np.dtype('int64')}
 _KEEP = frozenset(np.dtype(t) for t in ('bool', 'uint8', 'int8', 'int16', 'int32', 'int64',
                                         'float16', 'float32', 'float64'))
+_LAST_BATCH = ('drop', 'pad', 'partial')
 
+
+# --------------------------------------------------------------------------
+# shape policies
+# --------------------------------------------------------------------------
+
+class ShapePolicy(object):
+    """How to give a ragged field a static shape."""
+
+    def apply(self, array):
+        raise NotImplementedError
+
+
+class PadTo(ShapePolicy):
+    """Pad (and clip) every sample to ``target_shape`` with ``fill_value``."""
+
+    def __init__(self, target_shape, fill_value=0):
+        self.target_shape = tuple(target_shape)
+        self.fill_value = fill_value
+
+    def apply(self, array):
+        array = np.asarray(array)
+        if array.shape == self.target_shape:
+            return array
+        out = np.full(self.target_shape, self.fill_value, dtype=array.dtype)
+        slices = tuple(slice(0, min(a, t)) for a, t in zip(array.shape, self.target_shape))
+        out[slices] = array[slices]
+        return out
+
+
+class CropTo(ShapePolicy):
+    """Center-crop every sample to ``target_shape`` (must fit)."""
+
+    def __init__(self, target_shape):
+        self.target_shape = tuple(target_shape)
+
+    def apply(self, array):
+        array = np.asarray(array)
+        if array.shape == self.target_shape:
+            return array
+        starts = [(a - t) // 2 for a, t in zip(array.shape, self.target_shape)]
+        if any(s < 0 for s in starts):
+            raise ValueError('CropTo{}: sample shape {} too small'.format(
+                self.target_shape, array.shape))
+        return array[tuple(slice(s, s + t) for s, t in zip(starts, self.target_shape))]
+
+
+# --------------------------------------------------------------------------
+# dtypes
+# --------------------------------------------------------------------------
 
 def sanitize_dtype(np_dtype):
     """The numpy dtype a field batches as on torch, or None if it cannot."""
@@ -57,15 +113,193 @@ def _sanitize_array(array):
     return np.ascontiguousarray(array.astype(target, copy=False))
 
 
-def iter_block_batches(reader, batch_size, batch_buffers=None, views_ok=True):
-    """Fixed-size batches (dicts of numpy arrays) cut from column blocks.
+def _batchable(probe, name, shape_policies):
+    """True if a sample (a row's value, or a block) can become a tensor,
+    possibly through its field's shape policy."""
+    if probe is None:
+        return False
+    kind = np.asarray(probe).dtype
+    if kind.kind in ('O', 'U', 'S'):
+        return name in shape_policies
+    return sanitize_dtype(kind) is not None
 
-    A batch inside one chunk is a leading-dim view when ``views_ok`` and
+
+def _select_fields(names, dropped, strict_fields):
+    if dropped:
+        if strict_fields:
+            raise ValueError(
+                'torch loader cannot batch fields: {} (nullable-declared or non-tensor). '
+                'Narrow schema_fields or pass strict_fields=False to drop them with a '
+                'warning.'.format(sorted(dropped)))
+        warnings.warn('torch loader dropping non-tensor fields: {}'.format(sorted(dropped)))
+    if not names:
+        raise ValueError('No batchable fields left (all dropped: {})'.format(sorted(dropped)))
+    return names
+
+
+def _stack_column(values, name, shape_policies, out=None):
+    """Rows of one field -> a sanitized ``[n, ...]`` array, stacked straight
+    into ``out`` (an arena buffer) when the rows already have its dtype and
+    shape."""
+    if any(v is None for v in values):
+        raise ValueError('Field {!r} contains None (nullable) values; fill or drop them '
+                         'before batching'.format(name))
+    policy = shape_policies.get(name)
+    rows = [np.asarray(policy.apply(v) if policy is not None else v) for v in values]
+    if (out is not None and len(rows) == out.shape[0]
+            and all(r.dtype == out.dtype and r.shape == out.shape[1:] for r in rows)):
+        np.stack(rows, out=out)
+        return out
+    try:
+        stacked = np.stack(rows)
+    except ValueError as e:
+        raise ValueError(
+            'Field {!r} has ragged shapes and no shape policy; pass '
+            "shape_policies={{'{}': PadTo(...)}} or CropTo(...): {}".format(name, name, e)) from e
+    sanitized = _sanitize_array(stacked)
+    if sanitized is None:
+        raise ValueError('Field {!r} dtype {} cannot batch on torch'.format(name, stacked.dtype))
+    return sanitized
+
+
+# --------------------------------------------------------------------------
+# host batch assembly
+# --------------------------------------------------------------------------
+
+def iter_numpy_batches(reader, batch_size, shape_policies=None, shuffling_queue_capacity=0,
+                       min_after_dequeue=None, seed=None, last_batch='drop', strict_fields=False,
+                       batch_buffers=None, views_ok=True):
+    """Yield dicts of numpy arrays with leading dim ``batch_size``.
+
+    Works over row readers (``make_reader``) and tensor readers
+    (``make_tensor_reader``). ``last_batch``: ``'drop'`` | ``'pad'``
+    (repeat the last row into a full batch) | ``'partial'`` (yield it
+    short). ``shuffling_queue_capacity > 0`` draws rows through a
+    :class:`~petastorm_tpu_torch.shuffling_buffer.RandomShufflingBuffer`
+    seeded with ``seed`` (floor ``min_after_dequeue``, default 4/5 of the
+    capacity). ``strict_fields=True`` raises instead of warn-and-drop when a
+    selected field cannot batch. ``batch_buffers``: a callable ``spec ->
+    dict of arrays or None`` (``spec``: ``{name: (shape, dtype)}``) giving
+    preallocated output buffers (the staging engine's arenas), which rows
+    are stacked into in place; ``views_ok=False`` also collates batches that
+    would be views of a chunk into those buffers.
+    """
+    for batch, _ in _iter_batches(reader, batch_size, shape_policies, shuffling_queue_capacity,
+                                  min_after_dequeue, seed, last_batch, strict_fields,
+                                  batch_buffers, views_ok):
+        yield batch
+
+
+def _iter_batches(reader, batch_size, shape_policies=None, shuffling_queue_capacity=0,
+                  min_after_dequeue=None, seed=None, last_batch='drop', strict_fields=False,
+                  batch_buffers=None, views_ok=True):
+    """:func:`iter_numpy_batches`, each batch paired with its count of
+    source rows (a padded batch holds fewer than it has)."""
+    if last_batch not in _LAST_BATCH:
+        raise ValueError('last_batch must be drop|pad|partial, got {!r}'.format(last_batch))
+    shape_policies = dict(shape_policies or {})
+    shuffler = None
+    if shuffling_queue_capacity and shuffling_queue_capacity > 0:
+        shuffler = build_shuffling_buffer(shuffling_queue_capacity, min_after_dequeue, seed)
+    batched = getattr(reader, 'batched_output', False)
+    if batched and shuffler is None:
+        yield from _iter_block_batches(reader, batch_size, shape_policies, last_batch,
+                                       strict_fields, batch_buffers, views_ok)
+        return
+
+    schema = getattr(reader, 'schema', None)
+    field_names = None
+    columns = {}
+    count = 0
+    batch_spec = None         # learned from the first emitted batch (the arena hookup)
+    arenas_effective = True   # until a whole batch proves un-stackable into its arena
+
+    def select(sample):
+        names, dropped = [], []
+        for name in sample._fields:
+            value = getattr(sample, name)
+            if batched:
+                column = np.asarray(value)
+                value = column[0] if (column.dtype.kind == 'O' and len(column)) else column
+            # A row reader's Unischema is authoritative: a nullable field
+            # cannot batch even while its values happen to be present.
+            nullable = (not batched and schema is not None and name in schema.fields
+                        and schema.fields[name].nullable)
+            (names if not nullable and _batchable(value, name, shape_policies)
+             else dropped).append(name)
+        return _select_fields(names, dropped, strict_fields)
+
+    def add(row):
+        nonlocal count
+        for name, value in zip(field_names, row):
+            columns.setdefault(name, []).append(value)
+        count += 1
+
+    def emit(final=False):
+        nonlocal columns, count, batch_spec, arenas_effective
+        while count >= batch_size:
+            out_bufs = (batch_buffers(batch_spec)
+                        if batch_buffers is not None and batch_spec and arenas_effective
+                        else None)
+            batch = {}
+            for name in field_names:
+                buf = out_bufs.get(name) if out_bufs is not None else None
+                batch[name] = _stack_column(columns[name][:batch_size], name, shape_policies,
+                                            out=buf)
+                columns[name] = columns[name][batch_size:]
+            count -= batch_size
+            if batch_spec is None:
+                batch_spec = {name: (arr.shape, arr.dtype) for name, arr in batch.items()}
+            elif out_bufs is not None:
+                # Rows that always need a conversion never stack into the
+                # arena: stop claiming one per batch.
+                arenas_effective = any(batch[name] is out_bufs[name] for name in field_names)
+            yield batch, batch_size
+        if final and count:
+            if last_batch != 'drop':
+                batch = {}
+                for name in field_names:
+                    col = columns[name]
+                    if last_batch == 'pad':
+                        col = col + [col[-1]] * (batch_size - len(col))
+                    batch[name] = _stack_column(col, name, shape_policies)
+                yield batch, count
+            columns, count = {}, 0
+
+    for sample in reader:
+        if field_names is None:
+            field_names = select(sample)
+        if batched:
+            rows = list(zip(*(getattr(sample, name) for name in field_names)))
+        else:
+            rows = [tuple(getattr(sample, name) for name in field_names)]
+        if shuffler is not None:
+            shuffler.add_many(rows)
+            while shuffler.can_retrieve():
+                add(shuffler.retrieve())
+                if count >= batch_size:
+                    yield from emit()
+        else:
+            for row in rows:
+                add(row)
+            yield from emit()
+    if shuffler is not None:
+        shuffler.finish()
+        while shuffler.can_retrieve():
+            add(shuffler.retrieve())
+    if field_names is not None:
+        yield from emit(final=True)
+
+
+def _iter_block_batches(reader, batch_size, shape_policies, last_batch, strict_fields,
+                        batch_buffers, views_ok):
+    """The block path of :func:`iter_numpy_batches`: fixed-size batches cut
+    from a tensor reader's column blocks, with no per-row Python. A batch
+    inside one chunk is a leading-dim view when ``views_ok`` and
     the chunk's blocks are writable; otherwise (and always for read-only
     blocks, which a cache shares across epochs) rows are collated into
-    ``batch_buffers(spec)`` (a recycled arena) or a fresh buffer. A last
-    partial batch is dropped.
-    """
+    ``batch_buffers(spec)`` (a recycled arena) or a fresh buffer. Yields
+    ``(batch, source rows)``."""
     field_names = None
     chunks = []   # dicts name -> sanitized block, oldest first
     have = 0
@@ -73,13 +307,26 @@ def iter_block_batches(reader, batch_size, batch_buffers=None, views_ok=True):
     def select(sample):
         names, dropped = [], []
         for name in sample._fields:
-            (names if sanitize_dtype(np.asarray(getattr(sample, name)).dtype) is not None
-             else dropped).append(name)
-        if dropped:
-            warnings.warn('torch loader dropping non-tensor fields: {}'.format(sorted(dropped)))
-        if not names:
-            raise ValueError('No batchable fields left (all dropped: {})'.format(sorted(dropped)))
-        return names
+            column = np.asarray(getattr(sample, name))
+            probe = column[0] if (column.dtype.kind == 'O' and len(column)) else column
+            (names if _batchable(probe, name, shape_policies) else dropped).append(name)
+        return _select_fields(names, dropped, strict_fields)
+
+    def densify(name, block):
+        """Apply the field's shape policy row by row (object columns of
+        ragged rows become dense)."""
+        block = np.asarray(block)
+        policy = shape_policies.get(name)
+        if policy is None:
+            return block
+        return _stack_column(list(block), name, shape_policies)
+
+    def out_buffers(n, head):
+        spec = {name: ((n,) + head[name].shape[1:], head[name].dtype) for name in field_names}
+        out = batch_buffers(spec) if batch_buffers is not None else None
+        if out is None:
+            out = {name: np.empty(shape, dtype) for name, (shape, dtype) in spec.items()}
+        return out
 
     def take(n):
         nonlocal have
@@ -92,10 +339,7 @@ def iter_block_batches(reader, batch_size, batch_buffers=None, views_ok=True):
             else:
                 chunks[0] = {name: head[name][n:] for name in field_names}
             return {name: head[name][:n] for name in field_names}
-        spec = {name: ((n,) + head[name].shape[1:], head[name].dtype) for name in field_names}
-        out = batch_buffers(spec) if batch_buffers is not None else None
-        if out is None:
-            out = {name: np.empty(shape, dtype) for name, (shape, dtype) in spec.items()}
+        out = out_buffers(n, head)
         pos = 0
         while pos < n:
             head = chunks[0]
@@ -112,19 +356,47 @@ def iter_block_batches(reader, batch_size, batch_buffers=None, views_ok=True):
     for sample in reader:
         if field_names is None:
             field_names = select(sample)
-        chunks.append({name: _sanitize_array(getattr(sample, name)) for name in field_names})
-        have += len(chunks[-1][field_names[0]])
+        chunk = {}
+        for name in field_names:
+            block = _sanitize_array(densify(name, getattr(sample, name)))
+            if block is None:
+                raise ValueError('Field {!r} cannot batch on torch'.format(name))
+            chunk[name] = block
+        chunks.append(chunk)
+        have += len(chunk[field_names[0]])
         while have >= batch_size:
-            yield take(batch_size)
+            yield take(batch_size), batch_size
 
+    if have and last_batch == 'partial':
+        source_rows = have
+        yield take(have), source_rows
+    elif have and last_batch == 'pad':
+        # Never in place: the tail may be a cache-shared (read-only) block.
+        out = out_buffers(batch_size, chunks[0])
+        pos = 0
+        for head in chunks:
+            k = len(head[field_names[0]])
+            for name in field_names:
+                np.copyto(out[name][pos:pos + k], head[name])
+            pos += k
+        for name in field_names:
+            out[name][pos:] = out[name][pos - 1]
+        yield out, have
+
+
+# --------------------------------------------------------------------------
+# device staging
+# --------------------------------------------------------------------------
 
 class _Staged(object):
-    """Device tensors of one batch plus the event recorded behind their copies."""
+    """Device tensors of one batch, its source rows, and the events
+    recorded around its copies."""
 
-    __slots__ = ('tensors', 'event', 'start', 'nbytes')
+    __slots__ = ('tensors', 'rows', 'event', 'start', 'nbytes')
 
-    def __init__(self, tensors, event=None, start=None, nbytes=0):
+    def __init__(self, tensors, rows, event=None, start=None, nbytes=0):
         self.tensors = tensors
+        self.rows = rows
         self.event = event
         self.start = start
         self.nbytes = nbytes
@@ -135,70 +407,163 @@ _END = object()
 
 class TorchLoader(object):
     """Iterates namedtuples (``TorchBatch``, fields sorted by name) of
-    device tensors off a tensor reader.
+    device tensors off a reader.
 
-    :param reader: a ``make_tensor_reader`` Reader. The loader does not own
-        it: stop the reader yourself.
+    :param reader: a ``make_reader`` or ``make_tensor_reader`` Reader; the
+        loader takes the per-row or the block path by its
+        ``batched_output``. The loader does not own it: stop the reader
+        yourself.
     :param batch_size: rows per batch.
     :param device: ``'cuda'`` (default; raises without a GPU) or ``'cpu'``.
-    :param prefetch: staged batches kept ahead of the consumer (>= 1); the
-        staging engine's assemble and dispatch threads fill them.
+    :param prefetch: staged batches kept ahead of the consumer. ``>= 1``
+        runs the staging engine's assemble and dispatch threads; ``0`` runs
+        none: the consumer's thread collates and issues the copy inline.
+    :param shape_policies: dict field -> :class:`ShapePolicy` for ragged
+        fields.
+    :param last_batch: ``'drop'`` | ``'pad'`` | ``'partial'``.
+    :param shuffling_queue_capacity: rows of the row-level shuffling buffer
+        (0 = none); ``min_after_dequeue`` its floor, ``seed`` its draws.
+    :param strict_fields: raise instead of dropping a field that cannot batch.
+    :param echo: deliver each staged batch ``echo`` times (data echoing).
+        ``stats['batches']`` counts the deliveries, ``stats['rows']`` each
+        source row once.
+    :param inflight: staged batches whose copies may be in flight before
+        the oldest is waited on (the window that lets the collate of batch
+        N+1 overlap the copy of batch N).
+    :param arena_depth: host arenas in the pool (default
+        ``max(2, prefetch) + inflight + 2``); an exhausted pool briefly
+        holds the assembler back, then grows.
     """
 
-    def __init__(self, reader, batch_size, device='cuda', prefetch=2):
+    def __init__(self, reader, batch_size, device='cuda', prefetch=2, shape_policies=None,
+                 last_batch='drop', shuffling_queue_capacity=0, min_after_dequeue=None,
+                 seed=None, strict_fields=False, echo=1, inflight=2, arena_depth=None):
         if batch_size < 1:
             raise ValueError('batch_size must be >= 1, got {}'.format(batch_size))
-        if prefetch < 1:
-            raise ValueError('prefetch must be >= 1, got {}'.format(prefetch))
+        if prefetch < 0:
+            raise ValueError('prefetch must be >= 0, got {}'.format(prefetch))
+        if echo < 1:
+            raise ValueError('echo must be >= 1, got {}'.format(echo))
+        if inflight < 1:
+            raise ValueError('inflight must be >= 1, got {}'.format(inflight))
+        if last_batch not in _LAST_BATCH:
+            raise ValueError('last_batch must be drop|pad|partial, got {!r}'.format(last_batch))
         self.device = resolve_device(device)
+        self._reader = reader
         self._cuda = self.device.type == 'cuda'
         self._prefetch = int(prefetch)
+        self._inflight = int(inflight)
+        self._echo = int(echo)
+        self._echo_left = 0
+        self._echo_item = None
         self._stop = threading.Event()
         self._h2d_stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._closed = False
         self._exhausted = False
-        self.stats = {'batches': 0, 'rows': 0, 'wait_s': 0.0, 'h2d_bytes': 0, 'h2d_s': 0.0}
+        self._stats_lock = threading.Lock()
+        self._reset_counters()
         # Arenas: those behind queued batches, in-flight copies, and the two
         # being filled and consumed.
-        self._arena_depth = max(2, self._prefetch) + INFLIGHT + 2
+        self._arena_depth = (int(arena_depth) if arena_depth is not None
+                             else max(2, self._prefetch) + self._inflight + 2)
         self._pool = ArenaPool(self._arena_depth, self._stop, pinned=self._cuda)
+        if self._echo > 1:
+            self._pool.ensure_depth(self._arena_depth + 1)   # the echoed batch's arena
+        self._meter = OverlapMeter()
+        self._metered = MeteredReader(reader, self._meter) if self._prefetch else None
         # Copying device (CUDA): every batch goes through a pinned arena.
         # Aliasing device (CPU): views of the reader's blocks are cheapest,
         # except of read-only (cached) blocks, which are copied.
-        self._host_iter = iter_block_batches(reader, batch_size, batch_buffers=self._pool.get_buffers,
-                                             views_ok=not self._cuda)
-        self._queue = queue.Queue(maxsize=self._prefetch)
-        self._engine = StagingEngine(
-            self._host_iter, self._stage, self._queue, self._stop, _END, self._pool,
-            ready_fn=self._wait_copied, holds_mode=not self._cuda).start()
+        self._host_iter = _iter_batches(
+            self._metered or reader, batch_size, shape_policies, shuffling_queue_capacity,
+            min_after_dequeue, seed, last_batch, strict_fields,
+            batch_buffers=self._pool.get_buffers, views_ok=not self._cuda)
+        self._engine = self._queue = None
+        self._inline = deque()    # prefetch=0: (staged, arena) whose copies may be in flight
+        if self._prefetch:
+            self._queue = queue.Queue(maxsize=self._prefetch)
+            self._engine = StagingEngine(
+                self._host_iter, self._stage, self._queue, self._stop, _END, self._pool,
+                ready_fn=self._wait_copied, holds_mode=not self._cuda,
+                inflight=self._inflight, meter=self._meter).start()
+
+    def _reset_counters(self):
+        with self._stats_lock:
+            self._batches = 0
+            self._rows = 0
+            self._wait_s = 0.0
+            self._first_get_t = None
+            self._stage_s = 0.0
+            self._h2d_bytes = 0
+            self._h2d_s = 0.0
 
     # -- staging -------------------------------------------------------------
 
-    def _stage(self, batch, arena):
-        sources = {name: (arena.tensors[name] if arena is not None else torch.from_numpy(arr))
+    def _stage(self, item, arena):
+        batch, rows = item
+        t0 = time.perf_counter()
+        # The copy source is the arena's pinned tensor where the field was
+        # collated into it; else the array itself (a view, or rows that
+        # needed a conversion). On the CPU every batch gets tensors of its
+        # own: their lifetime is the hold that returns the arena.
+        sources = {name: (arena.tensors[name]
+                          if self._cuda and arena is not None and arr is arena.buffers.get(name)
+                          else torch.from_numpy(arr))
                    for name, arr in batch.items()}
         if not self._cuda:
-            return _Staged(sources)
-        with torch.cuda.stream(self._h2d_stream):
-            start = torch.cuda.Event(enable_timing=True)
-            start.record(self._h2d_stream)
-            tensors = {}
-            for name, src in sources.items():
-                dst = torch.empty(src.shape, dtype=src.dtype, device=self.device)
-                dst.copy_(src, non_blocking=True)
-                tensors[name] = dst
-            event = torch.cuda.Event(enable_timing=True)
-            event.record(self._h2d_stream)
-        return _Staged(tensors, event, start, sum(t.nbytes for t in tensors.values()))
+            staged = _Staged(sources, rows)
+        else:
+            with torch.cuda.stream(self._h2d_stream):
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(self._h2d_stream)
+                tensors = {}
+                for name, src in sources.items():
+                    dst = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+                    dst.copy_(src, non_blocking=True)
+                    tensors[name] = dst
+                event = torch.cuda.Event(enable_timing=True)
+                event.record(self._h2d_stream)
+            staged = _Staged(tensors, rows, event, start, sum(t.nbytes for t in tensors.values()))
+        with self._stats_lock:
+            self._stage_s += time.perf_counter() - t0
+        return staged
 
     def _wait_copied(self, staged):
         """Block until the batch's copies landed; account the H2D time."""
         if staged.event is not None:
             staged.event.synchronize()
-            self.stats['h2d_s'] += staged.start.elapsed_time(staged.event) / 1e3
-            self.stats['h2d_bytes'] += staged.nbytes
+            with self._stats_lock:
+                self._h2d_s += staged.start.elapsed_time(staged.event) / 1e3
+                self._h2d_bytes += staged.nbytes
 
-    def _deliver(self, staged):
+    def _stage_inline(self):
+        """``prefetch=0``: the next batch collated and its copies issued on
+        this thread. Its arena joins the in-flight window and goes back to
+        the pool once its copy's event completed (waited on past
+        ``inflight``); on the CPU the staged tensors hold it instead."""
+        while self._inline and (self._inline[0][0].event is None
+                                or self._inline[0][0].event.query()):
+            staged, arena = self._inline.popleft()
+            self._wait_copied(staged)
+            arena.retire()
+        try:
+            item = next(self._host_iter)
+        except StopIteration:
+            return _END
+        arena = self._pool.claim_pending()
+        staged = self._stage(item, arena)
+        if arena is not None:
+            if not self._cuda:
+                for value in staged.tensors.values():
+                    arena.add_hold(value)
+            self._inline.append((staged, arena))
+            while len(self._inline) > self._inflight:
+                old, old_arena = self._inline.popleft()
+                self._wait_copied(old)
+                old_arena.retire()
+        return staged
+
+    def _deliver(self, staged, fresh):
         tensors = staged.tensors
         if self._cuda:
             consumer = torch.cuda.current_stream(self.device)
@@ -206,8 +571,9 @@ class TorchLoader(object):
             for t in tensors.values():
                 t.record_stream(consumer)
         names = tuple(sorted(tensors))
-        self.stats['batches'] += 1
-        self.stats['rows'] += len(tensors[names[0]])
+        self._batches += 1
+        if fresh:
+            self._rows += staged.rows
         return _batch_type(names)(**tensors)
 
     # -- iteration -----------------------------------------------------------
@@ -221,15 +587,30 @@ class TorchLoader(object):
         if self._exhausted:
             raise StopIteration
         t0 = time.perf_counter()
-        item = self._queue.get()
-        self.stats['wait_s'] += time.perf_counter() - t0
+        if self._first_get_t is None:
+            self._first_get_t = t0
+        fresh = self._echo_left == 0
+        if not fresh:
+            self._echo_left -= 1
+            item = self._echo_item
+        elif self._engine is None:
+            try:
+                item = self._stage_inline()
+            except Exception as e:  # noqa: BLE001 - raised below, as the staged path does
+                item = e
+        else:
+            item = self._queue.get()
+        self._wait_s += time.perf_counter() - t0
         if item is _END:
             self._exhausted = True
+            self._echo_item = None
             raise StopIteration
         if isinstance(item, Exception):
             self._exhausted = True
             raise item
-        return self._deliver(item)
+        if fresh and self._echo > 1:
+            self._echo_item, self._echo_left = item, self._echo - 1
+        return self._deliver(item, fresh)
 
     def hold_batches(self, n):
         """Say that the consumer keeps up to ``n`` delivered batches alive
@@ -238,7 +619,7 @@ class TorchLoader(object):
         pool's depth waits for the pool to grow); on CUDA an arena is free
         once its copy landed, and nothing changes."""
         if not self._cuda:
-            self._pool.ensure_depth(self._arena_depth + n)
+            self._pool.ensure_depth(self._arena_depth + n + (self._echo > 1))
 
     def superbatches(self, k):
         """Yield batches of ``k * batch_size`` rows: ``k`` consecutive
@@ -267,12 +648,56 @@ class TorchLoader(object):
             del parts          # the parts (and on the CPU their arenas) go before the yield
             yield batch
 
+    def reset_stats(self):
+        """Zero the counters: call after warm-up, so that ``stats`` covers
+        the steady state only."""
+        self._reset_counters()
+        if self._engine is not None:
+            self._engine.reset_stats()
+        self._pool.reset_stats()
+        if self._metered is not None:
+            self._metered.reader_wait_s = 0.0
+
+    @property
+    def stats(self):
+        """Delivered ``batches`` (echoes included) and source ``rows``;
+        ``wait_s`` blocked in ``next`` and ``input_stall_frac`` (over the
+        wall time since the first fetch); ``stage_dispatch_s`` issuing
+        copies; ``h2d_bytes``/``h2d_s`` of the completed copies; the
+        staging engine's ``assemble_s``, ``dispatch_s``, ``overlap_s``,
+        ``overlap_frac``, ``ready_wait_s`` (``prefetch >= 1``); the arena
+        pool's ``arena_alloc``, ``arena_reuse``, ``arena_wait_s``;
+        ``reader_wait_s``; and the reader's ``worker_stage_timings``."""
+        elapsed = (time.perf_counter() - self._first_get_t
+                   if self._first_get_t is not None else 0.0)
+        with self._stats_lock:
+            out = {'batches': self._batches, 'rows': self._rows, 'wait_s': self._wait_s,
+                   'input_stall_frac': self._wait_s / elapsed if elapsed else 0.0,
+                   'stage_dispatch_s': self._stage_s, 'h2d_bytes': self._h2d_bytes,
+                   'h2d_s': self._h2d_s}
+        if self._engine is not None:
+            out.update(self._engine.stats())
+        out.update(self._pool.stats())
+        if self._metered is not None:
+            out['reader_wait_s'] = self._metered.reader_wait_s
+        timings = getattr(self._reader, 'stage_timings', None)
+        if timings is not None:
+            out['worker_stage_timings'] = timings
+        return out
+
     def close(self):
         """Stop and join the staging threads (idempotent)."""
         if self._closed:
             return
         self._closed = True
         self._stop.set()
+        self._echo_item = None
+        while self._inline:
+            staged, arena = self._inline.popleft()
+            self._wait_copied(staged)
+            arena.retire()
+        if self._engine is None:
+            return
         while True:   # unblock a dispatch thread parked on a full queue
             try:
                 self._queue.get_nowait()
@@ -288,6 +713,12 @@ class TorchLoader(object):
     def __exit__(self, exc_type, exc, tb):
         self.close()
         return False
+
+
+def make_torch_loader(reader, batch_size, **kwargs):
+    """``TorchLoader(reader, batch_size, **kwargs)`` (counterpart of
+    ``make_jax_loader``, ``petastorm_tpu/jax_loader.py:2315``)."""
+    return TorchLoader(reader, batch_size, **kwargs)
 
 
 _BATCH_TYPES = {}

@@ -2,8 +2,9 @@
 engine that overlaps batch collate with host-to-device copies.
 
 Counterpart of ``petastorm_tpu/staging.py:149-600`` (``HostArena``,
-``ArenaPool``) and ``:1156-`` (``StagingEngine``), trimmed: no sharded
-layouts, sanitizer, health beats, metrics or autotune hooks.
+``ArenaPool``), ``:600-745`` (``OverlapMeter``, ``MeteredReader``) and
+``:1156-`` (``StagingEngine``), trimmed: no sharded layouts, sanitizer,
+health beats, metrics or autotune hooks.
 
 On CUDA an arena's buffers are ``torch.empty(..., pin_memory=True)``
 tensors, viewed as numpy for the collate; the dispatch stage copies them
@@ -20,14 +21,12 @@ import threading
 import time
 import weakref
 from collections import deque
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 
 THREAD_PREFIX = 'pstt-staging-'
-#: Staged batches whose copies may be in flight before the dispatch thread
-#: blocks on the oldest.
-INFLIGHT = 2
 _GROW_TIMEOUT_S = 0.5
 
 
@@ -106,6 +105,9 @@ class ArenaPool(object):
         self._spec = None
         self._allocated = 0
         self._pending = None
+        self._alloc = 0       # arenas allocated (the window's count)
+        self._reuse = 0       # requests served from the free list
+        self._wait_s = 0.0    # seconds a request waited for a free arena
 
     def get_buffers(self, spec):
         with self._cond:
@@ -120,15 +122,18 @@ class ArenaPool(object):
                 if self._free:
                     arena = self._free.pop()
                     arena._reclaimed = False
+                    self._reuse += 1
                     break
                 if self._allocated < self._depth or waited >= _GROW_TIMEOUT_S:
                     arena = HostArena(self, self._spec, self._pinned)
                     self._allocated += 1
+                    self._alloc += 1
                     self._depth = max(self._depth, self._allocated)
                     break
                 t0 = time.perf_counter()
                 self._cond.wait(timeout=min(max(_GROW_TIMEOUT_S - waited, 0.005), 0.25))
                 waited += time.perf_counter() - t0
+            self._wait_s += waited
             self._pending = arena
             return arena.buffers
 
@@ -156,6 +161,120 @@ class ArenaPool(object):
         with self._cond:
             self._cond.notify_all()
 
+    def stats(self):
+        """``arena_alloc`` (should stay flat after warm-up), ``arena_reuse``
+        (climbs), ``arena_wait_s`` (assembler backpressure) and the depth."""
+        with self._cond:
+            return {'arena_alloc': self._alloc, 'arena_reuse': self._reuse,
+                    'arena_wait_s': self._wait_s, 'arena_depth': self._depth,
+                    'arena_allocated': self._allocated, 'arena_pinned': self._pinned}
+
+    def reset_stats(self):
+        with self._cond:
+            self._alloc = self._reuse = 0
+            self._wait_s = 0.0
+
+
+class OverlapMeter(object):
+    """Wall-clock co-activity of named stages (assemble vs dispatch):
+    ``overlap_frac`` is the seconds both ran at once over the smaller
+    stage's busy seconds. ``reset()`` starts a new window; lifetime totals
+    survive it (``stats(total=True)``)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._active = 0
+        self._mark = None
+        self._busy = {}
+        self._overlap_s = 0.0
+        self._base_busy = {}
+        self._base_overlap = 0.0
+        self._live = {}       # token -> (stage, t0) of the spans open now
+
+    def _transition(self, delta):
+        now = time.perf_counter()
+        if self._active >= 2 and self._mark is not None:
+            self._overlap_s += now - self._mark
+        self._active += delta
+        self._mark = now
+        return now
+
+    def _snapshot(self, now):
+        busy = dict(self._busy)
+        for name, t0 in self._live.values():
+            busy[name] = busy.get(name, 0.0) + (now - t0)
+        overlap = self._overlap_s
+        if self._active >= 2 and self._mark is not None:
+            overlap += now - self._mark
+        return busy, overlap
+
+    @contextmanager
+    def track(self, name):
+        token = object()
+        with self._lock:
+            t0 = self._transition(+1)
+            self._live[token] = (name, t0)
+        try:
+            yield
+        finally:
+            with self._lock:
+                t1 = self._transition(-1)
+                self._live.pop(token, None)
+                self._busy[name] = self._busy.get(name, 0.0) + (t1 - t0)
+
+    @contextmanager
+    def pause(self, name):
+        """Suspend ``name`` inside its ``track`` span while it merely waits
+        (a reader pull): the wait counts neither as busy nor as overlap."""
+        with self._lock:
+            t0 = self._transition(-1)
+        try:
+            yield
+        finally:
+            with self._lock:
+                t1 = self._transition(+1)
+                self._busy[name] = self._busy.get(name, 0.0) - (t1 - t0)
+
+    def stats(self, total=False):
+        with self._lock:
+            busy, overlap = self._snapshot(time.perf_counter())
+            if not total:
+                busy = {k: v - self._base_busy.get(k, 0.0) for k, v in busy.items()}
+                overlap -= self._base_overlap
+        floor = min(busy.values()) if len(busy) >= 2 else 0.0
+        return {'busy_s': busy, 'overlap_s': overlap,
+                'overlap_frac': min(1.0, overlap / floor) if floor > 1e-9 else 0.0}
+
+    def reset(self):
+        with self._lock:
+            self._base_busy, self._base_overlap = self._snapshot(time.perf_counter())
+
+
+class MeteredReader(object):
+    """Iteration proxy that reports the time blocked in the reader as
+    *paused* assemble time, so ``assemble_s`` and the overlap cover collate
+    work only; ``reader_wait_s`` sums the blocked seconds."""
+
+    def __init__(self, reader, meter, stage='assemble'):
+        self._reader = reader
+        self._meter = meter
+        self._stage = stage
+        self.reader_wait_s = 0.0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        try:
+            with self._meter.pause(self._stage):
+                return next(self._reader)
+        finally:
+            self.reader_wait_s += time.perf_counter() - t0
+
+    def __getattr__(self, name):
+        return getattr(self._reader, name)
+
 
 class _StageError(object):
     def __init__(self, exc):
@@ -178,10 +297,17 @@ class StagingEngine(object):
         called before the arena behind it is recycled.
     :param holds_mode: staged tensors alias arena memory: an arena is
         recycled only once the consumer dropped them.
+    :param inflight: staged batches whose copies may be in flight before
+        the dispatch thread blocks on the oldest (>= 1).
+    :param meter: the :class:`OverlapMeter` the assemble and dispatch
+        stages are tracked on (a ``MeteredReader`` under ``host_iter``
+        pauses the same meter).
     """
 
     def __init__(self, host_iter, stage_fn, out_queue, stop_event, end_sentinel,
-                 pool, ready_fn=None, holds_mode=False):
+                 pool, ready_fn=None, holds_mode=False, inflight=2, meter=None):
+        if inflight < 1:
+            raise ValueError('inflight must be >= 1, got {}'.format(inflight))
         self._host_iter = host_iter
         self._stage_fn = stage_fn
         self._out = out_queue
@@ -190,6 +316,10 @@ class StagingEngine(object):
         self._pool = pool
         self._ready_fn = ready_fn or (lambda staged: None)
         self._holds_mode = holds_mode
+        self._inflight = int(inflight)
+        self.meter = meter if meter is not None else OverlapMeter()
+        self._stats_lock = threading.Lock()
+        self._ready_wait_s = 0.0
         self._stage_q = queue.Queue(maxsize=2)
         self._threads = [
             threading.Thread(target=self._assemble_loop, daemon=True,
@@ -227,8 +357,11 @@ class StagingEngine(object):
 
     def _assemble_loop(self):
         try:
-            for batch in self._host_iter:
-                if self._stop.is_set():
+            while not self._stop.is_set():
+                try:
+                    with self.meter.track('assemble'):
+                        batch = next(self._host_iter)
+                except StopIteration:
                     break
                 arena = self._pool.claim_pending()
                 if not self._put(self._stage_q, (batch, arena)):
@@ -245,7 +378,10 @@ class StagingEngine(object):
 
     def _retire(self, staged, arena, wait):
         if wait and not self._stop.is_set():
+            t0 = time.perf_counter()
             self._ready_fn(staged)
+            with self._stats_lock:
+                self._ready_wait_s += time.perf_counter() - t0
         arena.retire()
 
     def _dispatch_loop(self):
@@ -262,7 +398,8 @@ class StagingEngine(object):
                     self._put(self._out, self._end if item is _DONE else item.exc)
                     return
                 batch, arena = item
-                staged = self._stage_fn(batch, arena)
+                with self.meter.track('dispatch'):
+                    staged = self._stage_fn(batch, arena)
                 if arena is not None:
                     if self._holds_mode:
                         for value in staged.tensors.values():
@@ -273,7 +410,7 @@ class StagingEngine(object):
                 if not self._put(self._out, staged):
                     return
                 del staged
-                while len(inflight) > INFLIGHT:
+                while len(inflight) > self._inflight:
                     self._retire(*inflight.popleft(), wait=True)
         except Exception as e:  # noqa: BLE001 - delivered to the consumer
             self._put(self._out, e)
@@ -283,6 +420,23 @@ class StagingEngine(object):
                 arena.retire()
             while inflight:
                 self._retire(*inflight.popleft(), wait=False)
+
+    def stats(self):
+        """Per-stage busy seconds, their overlap, and the seconds the
+        dispatch thread waited on the oldest copy (``ready_wait_s``)."""
+        m = self.meter.stats()
+        with self._stats_lock:
+            ready_wait = self._ready_wait_s
+        return {'assemble_s': m['busy_s'].get('assemble', 0.0),
+                'dispatch_s': m['busy_s'].get('dispatch', 0.0),
+                'overlap_s': m['overlap_s'], 'overlap_frac': m['overlap_frac'],
+                'overlap_frac_total': self.meter.stats(total=True)['overlap_frac'],
+                'ready_wait_s': ready_wait}
+
+    def reset_stats(self):
+        self.meter.reset()
+        with self._stats_lock:
+            self._ready_wait_s = 0.0
 
     def stop(self, join_timeout_s=10):
         """Idempotent: set stop, unblock and join both threads. The caller

@@ -1,8 +1,8 @@
 """Ventilator: the in-flight-capped work feeder.
 
 Counterpart of ``petastorm_tpu/workers/ventilator.py:35-432`` without
-deterministic mode, backpressure signals and inline pumping. It runs on its
-own thread, keeps at most ``max_ventilation_queue_size`` items unprocessed,
+deterministic mode and backpressure signals. It runs on its own thread (or
+is pumped by a pool without threads), keeps at most ``max_ventilation_queue_size`` items unprocessed,
 and reshuffles the item order every epoch with ``random.Random(seed)``:
 the same generator and call sequence as the JAX package, so one seed gives
 both packages the same row-group order.
@@ -42,17 +42,33 @@ class ConcurrentVentilator(object):
         self._stop_event = threading.Event()
         self._wakeup = threading.Event()
         self._completed = threading.Event()
+        self._started = False
         self._thread = None
 
-    def start(self):
-        if self._thread is not None:
+    def start(self, threaded=True):
+        """Start ventilating: on a thread of its own, or (``threaded=False``,
+        a pool without worker threads) one item per :meth:`pump` call."""
+        if self._started:
             raise RuntimeError('Ventilator already started')
+        self._started = True
         if not self._items:
             self._completed.set()
             return
         self._new_epoch_order()
-        self._thread = threading.Thread(target=self._ventilate, daemon=True, name=THREAD_NAME)
-        self._thread.start()
+        if threaded:
+            self._thread = threading.Thread(target=self._ventilate, daemon=True,
+                                            name=THREAD_NAME)
+            self._thread.start()
+
+    def pump(self):
+        """Ventilate the next item on the caller's thread; False once every
+        epoch is out (or after ``stop``)."""
+        if self._stop_event.is_set() or not self._advance_epoch():
+            return False
+        item = self._items[self._position]
+        self._position += 1
+        self._ventilate_fn(**item)
+        return True
 
     def _new_epoch_order(self):
         if self._randomize:

@@ -1,0 +1,86 @@
+"""The port's bench on the CPU: the ``pipeline`` child on a tiny store
+prints the keys of ``bench.py``'s pipeline child, the median of its reps
+with their spread, its stage profile and the blocks it does not port; an
+unknown child and a CUDA request without a GPU raise."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from petastorm_tpu_torch import bench
+
+ROWS, PER_GROUP, BATCH = 64, 16, 8
+
+
+@pytest.fixture(scope='module')
+def workdir(tmp_path_factory):
+    """A bench workdir whose imagenet store is a tiny one of the bench's
+    schema (the bench uses a store it finds there)."""
+    from petastorm_tpu_torch import (CompressedImageCodec, ScalarCodec, Unischema,
+                                     UnischemaField, write_dataset)
+    schema = Unischema('ImagenetSchema', [
+        UnischemaField('image', np.uint8, (32, 32, 3), CompressedImageCodec('jpeg', 90)),
+        UnischemaField('label', np.int64, (), ScalarCodec(np.int64)),
+    ])
+    rng = np.random.default_rng(7)
+    path = tmp_path_factory.mktemp('bench')
+    write_dataset('file://' + str(path / 'imagenet'), schema,
+                  ({'image': bench.synthetic_image(rng, 32), 'label': i} for i in range(ROWS)),
+                  rows_per_row_group=PER_GROUP)
+    assert bench.ensure_imagenet_store(str(path)) == 'file://' + str(path / 'imagenet')
+    return str(path)
+
+
+def test_pipeline_child_prints_the_bench_keys(workdir, monkeypatch, capsys):
+    for key, value in (('BENCH_PIPELINE_BATCH', BATCH), ('BENCH_PIPELINE_BATCHES', 4),
+                       ('BENCH_PIPELINE_REPS', 3), ('BENCH_PIPELINE_TIER_BATCHES', 2),
+                       ('BENCH_PIPELINE_INFLIGHT', 1)):
+        monkeypatch.setenv(key, str(value))
+    assert bench.main(['--child', 'pipeline', '--device', 'cpu', '--workdir', workdir]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for key in ('pipeline_img_per_sec', 'pipeline_img_per_sec_reps', 'pipeline_img_per_sec_spread',
+                'pipeline_cold_img_per_sec', 'pipeline_batch', 'pipeline_prefetch',
+                'pipeline_load', 'pipeline_stage_profile', 'not_ported', 'platform',
+                'device_kind', 'n_devices'):
+        assert key in out, key
+    reps = out['pipeline_img_per_sec_reps']
+    assert len(reps) == 3 and out['pipeline_img_per_sec'] == sorted(reps)[1]
+    assert out['pipeline_img_per_sec_spread'] == max(reps) - min(reps)
+    assert out['pipeline_batch'] == BATCH and out['pipeline_inflight'] == 1
+    assert out['pipeline_warmup_batches'] == ROWS // BATCH + 2
+    assert out['platform'] == 'cpu' and out['child'] == 'pipeline'
+    profile = out['pipeline_stage_profile']
+    for key in ('read_s', 'decode_s', 'cache_s', 'stage_dispatch_s', 'consumer_wait_s', 'wall_s',
+                'assemble_s', 'dispatch_s', 'overlap_s', 'overlap_frac', 'ready_wait_s',
+                'arena_reuse', 'arena_alloc', 'arena_wait_s', 'rss_mb', 'rss_peak_mb'):
+        assert key in profile, key
+    assert profile['batches'] == 3 * 4 and profile['rows'] == 3 * 4 * BATCH
+    assert profile['cache']['hits'] > 0          # warmed through an epoch: served from RAM
+    assert sorted(profile['cache_tier_sweep']) == ['memory', 'null']
+    assert profile['cache_tier_sweep']['null']['cache']['type'] == 'null'
+    assert sorted(out['not_ported']) == sorted([
+        'determinism', 'lineage', 'autotune', 'mem', 'decode_path_sweep', 'per_device_stream',
+        'cache_tier_sweep[chunk-store]'])
+    assert all('ROADMAP' in item for item in out['not_ported'].values())
+
+
+def test_unknown_child_and_cuda_without_a_gpu_raise(workdir, tmp_path, monkeypatch):
+    with pytest.raises(ValueError, match='unknown child'):
+        bench.run_child('nope', 'cpu', str(tmp_path))
+    with pytest.raises(SystemExit):
+        bench.main(['--child', 'nope', '--device', 'cpu', '--workdir', str(tmp_path)])
+    with pytest.raises(ValueError, match='card only'):
+        bench.run_child('lm', 'cpu', str(tmp_path))
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='is_available'):
+        bench.main(['--child', 'pipeline', '--workdir', workdir])
+    with pytest.raises(RuntimeError, match='is_available'):
+        bench.main([])                         # the whole bench asks for the card too
+
+
+def test_children_follow_the_bench_order():
+    assert list(bench.CHILDREN) == ['imagenet', 'pipeline', 'imagenet_vit', 'lm', 'lm_long',
+                                    'lm_moe', 'flashattn', 'imagenet_aug']
+    assert bench.lm_rows(8193) == 256 and bench.lm_rows(1025) == 2048

@@ -677,3 +677,86 @@ def test_moe_lm_on_card_matches_cpu(dev):
                         model.blocks[1].moe.w_up.grad.cpu()))
     for got, want in zip(results[1], results[0]):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _surface_store(tmp_path, rows=120):
+    schema = Unischema('SurfaceCardSchema', [
+        UnischemaField('id', np.int32, (), ScalarCodec(np.int32)),
+        UnischemaField('image', np.uint8, (48, 48, 3), CompressedImageCodec('png')),
+        UnischemaField('ragged', np.uint8, (None, None, 3), CompressedImageCodec('png')),
+    ])
+    rng = np.random.default_rng(4)
+    url = 'file://' + str(tmp_path / 'surface')
+    write_dataset(url, schema, ({
+        'id': i, 'image': rng.integers(0, 256, (48, 48, 3), dtype=np.uint8),
+        'ragged': rng.integers(0, 256, (int(rng.integers(20, 30)), int(rng.integers(20, 30)), 3),
+                               dtype=np.uint8)} for i in range(rows)), rows_per_row_group=16)
+    return url
+
+
+def _surface_batches(url, kind, device, **options):
+    from petastorm_tpu_torch import CropTo, make_reader
+    if kind == 'row':
+        reader = make_reader(url, schema_fields=['id', 'ragged'], workers_count=1,
+                             shuffle_row_groups=False)
+        options['shape_policies'] = {'ragged': CropTo((20, 20, 3))}
+    else:
+        reader = make_tensor_reader(url, schema_fields=['id', 'image'], workers_count=1,
+                                    shuffle_row_groups=False)
+    with reader:
+        with TorchLoader(reader, 16, device=device, **options) as loader:
+            out = []
+            for batch in loader:
+                assert all(t.device.type == torch.device(device).type for t in batch)
+                out.append([t.cpu() for t in batch])
+            return out, loader.stats
+
+
+@pytest.mark.parametrize('kind', ['tensor', 'row'])
+def test_loader_options_equal_the_default_on_card(dev, tmp_path, kind):
+    """prefetch=0, the inflight window and a shallow arena pool give the
+    default's batches bit for bit on the card (and the CPU's); echo=2
+    delivers each twice and counts its rows once."""
+    url = _surface_store(tmp_path)
+    want, _ = _surface_batches(url, kind, 'cpu')
+    assert len(want) == 120 // 16
+    for options in ({}, dict(prefetch=0), dict(prefetch=2, inflight=1),
+                    dict(prefetch=2, inflight=4, arena_depth=3), dict(echo=2)):
+        got, stats = _surface_batches(url, kind, 'cuda', **options)
+        expect = [b for b in want for _ in range(options.get('echo', 1))]
+        assert len(got) == len(expect) == stats['batches'], options
+        assert stats['rows'] == len(want) * 16
+        for a, b in zip(got, expect):
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), options
+
+
+@pytest.mark.parametrize('inflight', [1, 3])
+def test_prefetch_zero_recycles_pinned_arenas_only_after_their_copy(dev, tmp_path, inflight):
+    """prefetch=0 collates into pinned arenas on the consumer's thread. Each
+    copy is held back behind a spin of the loader's copy stream and the
+    consumer is slow too (a spin on its own stream and a host sleep): if an
+    arena went back to the pool before its copy landed, the next collate
+    would overwrite rows still to be copied."""
+    import time
+    url = _surface_store(tmp_path, rows=160)
+    want, _ = _surface_batches(url, 'tensor', 'cpu')
+    with make_tensor_reader(url, schema_fields=['id', 'image'], workers_count=1,
+                            shuffle_row_groups=False) as reader:
+        with TorchLoader(reader, 16, device='cuda', prefetch=0, inflight=inflight,
+                         arena_depth=inflight + 1) as loader:
+            got = []
+            for _ in range(len(want)):
+                with torch.cuda.stream(loader._h2d_stream):
+                    torch.cuda._sleep(20_000_000)       # the next copy waits ~10 ms
+                batch = next(loader)
+                torch.cuda._sleep(5_000_000)            # the consumer's step
+                time.sleep(0.002)
+                got.append(batch)
+            with pytest.raises(StopIteration):
+                next(loader)
+            stats = loader.stats
+            torch.cuda.synchronize()
+            got = [[t.cpu() for t in b] for b in got]
+    assert all(all(torch.equal(x, y) for x, y in zip(a, b)) for a, b in zip(got, want))
+    assert stats['arena_pinned'] and stats['arena_reuse'] > 0
+    assert stats['arena_alloc'] <= inflight + 1 and stats['h2d_bytes'] > 0

@@ -109,8 +109,9 @@ def _port_threads():
 
 
 def test_loader_refuses_prefetch_below_one():
+    # prefetch=0 is consumer staging (no staging threads); below it is an error.
     with pytest.raises(ValueError, match='prefetch'):
-        TorchLoader(iter(()), 4, device='cpu', prefetch=0)
+        TorchLoader(iter(()), 4, device='cpu', prefetch=-1)
 
 
 @pytest.mark.parametrize('prefetch', [1, 2])

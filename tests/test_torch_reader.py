@@ -149,10 +149,19 @@ def test_schema_fields_view_and_errors(tmp_path):
         make_tensor_reader(url, reader_pool_type='process')
 
 
-def test_worker_error_surfaces_in_consumer(tmp_path):
+def test_worker_error_surfaces_in_consumer(tmp_path, monkeypatch):
     url = _write(tmp_path, 'port', 'png')
+    row_groups = ParquetStore.row_groups
+
+    def with_a_bad_piece(store):
+        pieces = row_groups(store)
+        pieces[1].row_group = 999               # an out-of-range row-group
+        return pieces
+
+    # The reader starts its workers as it is built: the bad piece must be
+    # there before the first read, not patched into a live reader.
+    monkeypatch.setattr(ParquetStore, 'row_groups', with_a_bad_piece)
     reader = make_tensor_reader(url, workers_count=2)
-    reader._row_groups[1].row_group = 999       # an out-of-range row-group
     with pytest.raises(Exception):
         for _ in reader:
             pass
