@@ -99,19 +99,29 @@ non-zero exit and no result line:
 15. examples: the imagenet example with ``augment=True`` at 224 from a ragged
    store (K1 once a step), the long_context example at its defaults (K2-K4
    once a layer a step), the mnist example (accuracy over 0.8).
+16. preemptible: ResNet-50 killed mid-epoch and resumed from a job
+   checkpoint (see :func:`run_preemptible`), three child processes on the
+   imagenet store, deterministic reader, lineage ledger, ``superbatches(8)``
+   and the 8-step scan trainer with K1 in its graph: U runs 6 calls (3
+   epochs); S1 saves after every call (async ``JobCheckpointer``) and is
+   SIGKILLed once the save of call 3 is durable; S2 restores and runs
+   calls 4-6. S2's per-batch ledger digests must equal U's, the restored
+   state S1's save bit for bit, S2's final loader state U's, and an S2
+   record must replay bit-identical (``verify_record``); losses within
+   ``PREEMPT_LOSS_RTOL``; K1 counted in S2's profiled window.
 
-Phases 5 to 13 run the bench's protocol through the functions of
+Phases 5 to 13 and 16 run the bench's protocol through the functions of
 ``petastorm_tpu_torch/bench.py`` (``python -m petastorm_tpu_torch.bench``
 runs them as the bench's children); this script holds their launch counts.
 Each path's kernel launch counts are zeroed just before it and read just
 after. On an eager path the wrappers count every launch, and three more
 calls are then traced with ``torch.profiler`` (the card's busy time a call
 and idle share, ``trace`` in its line). On a scan path a replay calls no
-wrapper, so the wrappers count only call 1 and the capture; the path's
-warm-up and measured calls therefore run under ``torch.profiler`` (CUDA
-activity), which counts by name every kernel that ran on the card in the
-window: K of K1, layers x K of each flash kernel a call (none of either
-on imagenet_vit and on imagenet_aug's bare cast), or the phase fails.
+wrapper, so the wrappers count only call 1 (eager) and the capture; the
+path's calls after the eager one therefore run under ``torch.profiler``
+(CUDA activity), which counts by name every kernel that ran on the card in
+them: K of K1, layers x K of each flash kernel a call (none of either on
+imagenet_vit and on imagenet_aug's bare cast), or the phase fails.
 The measured calls' profile gives ``trace``; img/s, tokens/s, stall and
 device ms come from as many more calls, unprofiled, after the window.
 
@@ -125,6 +135,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1040,6 +1051,230 @@ def check_scan_graph(device):
 
 
 # --------------------------------------------------------------------------
+# preemptible: ResNet-50 killed mid-epoch and resumed from a job checkpoint
+# --------------------------------------------------------------------------
+
+#: Scan calls of a whole run (3 epochs of the store in superbatches of
+#: SCAN_K batches), and the call after whose durable save S1 is killed.
+PREEMPT_EPOCHS, PREEMPT_KILL_AFTER = 3, 3
+#: S2's losses against U's (mean and last of each call): cuDNN's convolution
+#: backward may sum with atomics and cudnn.benchmark picks algorithms per
+#: process, so the runs are not bit-equal in their losses.
+PREEMPT_LOSS_RTOL = 1e-2
+PREEMPT_CHILD_TIMEOUT_S = 300
+
+
+def _state_digests(state):
+    """CRC32 of every parameter, buffer (BatchNorm statistics) and momentum
+    buffer of a ResNet TrainState, by name, and its step."""
+    import zlib
+
+    import torch
+
+    def crc(t):
+        return zlib.crc32(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy())
+
+    out = {'model.' + name: crc(t) for name, t in state.model.state_dict().items()}
+    for name, p in state.model.named_parameters():
+        out['momentum.' + name] = crc(state.optimizer.state[p]['momentum_buffer'])
+    out['step'] = state.step
+    return out
+
+
+def preemptible_role(role, url, workdir, launched, device='cuda'):
+    """One run of the preemptible phase, in a process of its own (``role``:
+    ``U`` uninterrupted, ``S1`` saves every call and waits to be killed,
+    ``S2`` restores the latest step and finishes). Prints one JSON line."""
+    import torch
+    from petastorm_tpu_torch import TorchLoader, lineage, make_tensor_reader
+    from petastorm_tpu_torch.job_checkpoint import JobCheckpointer
+    from petastorm_tpu_torch.models import make_scan_train_step
+
+    device = torch.device(device)
+    ckpt_dir = os.path.join(workdir, 'ckpt')
+    ledger_dir = os.path.join(workdir, 'ledger_' + role)
+    state = bench.resnet50_state(device)
+    out = {'role': role}
+    resume, first_call = None, 1
+    if role == 'S2':
+        t0 = time.perf_counter()
+        with JobCheckpointer(ckpt_dir) as ckpt:
+            job = ckpt.restore(state)
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+        out['restore_s'] = time.perf_counter() - t0
+        with open(os.path.join(workdir, 'digests.json')) as f:
+            saved = json.load(f)
+        got = _state_digests(state)
+        out['restored_step'] = job.step
+        out['restored_tensors'] = len(got) - 1
+        out['state_bit_equal'] = got == saved
+        out['state_mismatches'] = sorted(k for k in saved if saved[k] != got.get(k))[:10]
+        resume, first_call = job.loader_state, job.step + 1
+    reader = make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
+                                workers_count=4, shuffle_row_groups=True, seed=0,
+                                num_epochs=PREEMPT_EPOCHS, cache_type='memory',
+                                deterministic=True, resume_state=resume)
+    train = make_scan_train_step(bench.SCAN_K, preprocess=bench.normalize_bf16)
+    calls = PREEMPT_EPOCHS * ROWS // BATCH // bench.SCAN_K
+    with reader, TorchLoader(reader, BATCH, device=device, prefetch=2,
+                             lineage=ledger_dir) as loader:
+        groups = loader.superbatches(bench.SCAN_K)
+
+        def next_inputs():
+            sb = next(groups)
+            return sb.image, sb.label
+
+        if role == 'S1':
+            ckpt = JobCheckpointer(ckpt_dir, max_to_keep=2, async_save=True)
+            dispatch = []
+            for call in range(1, PREEMPT_KILL_AFTER + 1):
+                train(state, *next_inputs())
+                t0 = time.perf_counter()
+                ckpt.save(call, state, loader=loader)
+                dispatch.append(time.perf_counter() - t0)
+            ckpt.wait()
+            durable = time.perf_counter() - t0
+            with open(os.path.join(workdir, 'digests.json'), 'w') as f:
+                json.dump(_state_digests(state), f)
+            with JobCheckpointer(os.path.join(workdir, 'sync'), max_to_keep=1) as sync:
+                t0 = time.perf_counter()
+                sync.save(PREEMPT_KILL_AFTER, state, loader=loader)
+                sync_s = time.perf_counter() - t0
+            out.update(saves=PREEMPT_KILL_AFTER, async_save_dispatch_s=dispatch,
+                       async_save_durable_s=durable, sync_save_s=sync_s,
+                       checkpoint_bytes=ckpt.step_nbytes(PREEMPT_KILL_AFTER),
+                       steps_kept=ckpt.all_steps(), loader_state=loader.state_dict())
+            bench.emit(out)
+            print('READY', flush=True)
+            time.sleep(PREEMPT_CHILD_TIMEOUT_S)     # the parent kills it here
+            raise RuntimeError('S1 was not killed')
+        n = calls - first_call + 1
+        if role == 'S2':
+            # K1's launches in S2's window: call 4 eager, call 5 captures and replays.
+            metrics, launches, captured, ran, _, profiled = bench.scan_window(
+                train, state, next_inputs, 1, 1, ('normalize_kernel',))
+            out['process_start_to_first_replay_s'] = time.time() - launched
+            bench.require_scan_launches(launches, captured, ran, ('normalize_images',),
+                                        bench.SCAN_K, profiled)
+            out['launches'] = bench._scan_launches(launches, captured, ran, 2, profiled)
+        else:
+            metrics = [train(state, *next_inputs()) for _ in range(2)]
+        wall, _, call_ms, timed = bench.time_scan_calls(train, state, next_inputs, n - 2)
+        try:
+            next(groups)
+            raise AssertionError('{}: the loader delivered past {} calls'.format(role, calls))
+        except StopIteration:
+            pass
+        final_state = loader.state_dict()
+    _, records = lineage.read_ledger_file(lineage.read_ledger_dir(ledger_dir)[0][0])
+    ctx = lineage.read_ledger_dir(ledger_dir)[0][1]
+    if role == 'S2':
+        lineage.verify_record(records[0], ctx)
+        out['verify_record'] = {'batch_id': records[0]['batch_id'], 'ok': True}
+    out.update(
+        first_call=first_call, calls=n,
+        losses_mean_last=[[float(m['loss']), float(m['last_loss'])] for m in metrics + timed],
+        timed_calls=n - 2, img_per_s=(n - 2) * bench.SCAN_K * BATCH / wall,
+        device_call_ms_median=call_ms, final_loader_state=final_state,
+        digests=[r['digest'] for r in records], ledger_records=len(records),
+        tiers=sorted({s['tier'] for r in records for s in r['segments']}))
+    bench.emit(out)
+
+
+def preemptible_checks(u, s1, s2):
+    """The phase's checks over the three runs' lines; raises unless all
+    hold. Returns (the checks, S2's worst relative loss difference)."""
+    resumed_at = PREEMPT_KILL_AFTER * bench.SCAN_K
+    checks = {
+        'digests_equal_u': s2['digests'] == u['digests'][resumed_at:],
+        'state_bit_equal': s2['state_bit_equal'],
+        'final_loader_state_equal': s2['final_loader_state'] == u['final_loader_state'],
+        'verify_record': s2['verify_record']['ok'],
+        'restored_step': s2['restored_step'] == PREEMPT_KILL_AFTER,
+        'killed_by_sigkill': s1['killed_signal'] == signal.SIGKILL}
+    u_losses = u['losses_mean_last'][PREEMPT_KILL_AFTER:]
+    worst = max(abs(a - b) / abs(b) for got, want in zip(s2['losses_mean_last'], u_losses)
+                for a, b in zip(got, want))
+    checks['losses_within_rtol'] = (len(s2['losses_mean_last']) == len(u_losses)
+                                    and worst <= PREEMPT_LOSS_RTOL)
+    if not all(checks.values()):
+        raise AssertionError('preemptible checks failed: {} (S2 {} records, U {}; state '
+                             'mismatches {}; worst loss rel diff {})'.format(
+                                 checks, len(s2['digests']), len(u['digests']),
+                                 s2['state_mismatches'], worst))
+    return checks, worst
+
+
+def _role_line(proc, role):
+    for line in proc.stdout:
+        if line.startswith('{') and '"role"' in line:
+            return json.loads(line)
+    raise AssertionError('preemptible {} printed no result (exit {})'.format(role, proc.wait()))
+
+
+def run_preemptible(url, card):
+    """The preemptible phase: three child processes on the imagenet store
+    (``make_tensor_reader(deterministic=True, seed=0, workers_count=4,
+    cache_type='memory', num_epochs=3)``, ``TorchLoader(batch 128,
+    prefetch 2, lineage=<dir>)``, ``superbatches(8)``, the 8-step ResNet-50
+    scan trainer with K1 in its graph). U runs the 6 calls; S1 runs the
+    same with an async ``JobCheckpointer`` save after every call and is
+    SIGKILLed once the save of call 3 is durable, mid-epoch 2 with batches
+    in prefetch; S2, a fresh process, restores the latest step and its
+    loader state and runs calls 4-6. Fails unless S2's per-batch ledger
+    digests equal U's for those calls, the restored state is bit-equal to
+    what S1 saved, S2's final loader state equals U's, ``verify_record``
+    passes on an S2 record, S2's losses lie within ``PREEMPT_LOSS_RTOL`` of
+    U's, and K1 ran 8 times a call in S2's window."""
+    workdir = tempfile.mkdtemp(prefix='preempt_', dir=BUILD_DIR)
+    t_phase = time.perf_counter()
+    lines = {}
+    try:
+        for role in ('U', 'S1', 'S2'):
+            cmd = [sys.executable, os.path.abspath(__file__), '--preemptible-role', role,
+                   '--preemptible-url', url, '--preemptible-dir', workdir,
+                   '--preemptible-launched', repr(time.time())]
+            with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, cwd=ROOT) as proc:
+                try:
+                    lines[role] = _role_line(proc, role)
+                    if role == 'S1':
+                        if proc.stdout.readline().strip() != 'READY':
+                            raise AssertionError('S1 did not report its durable save')
+                        os.kill(proc.pid, signal.SIGKILL)
+                        lines[role]['killed_signal'] = -proc.wait(timeout=60)
+                    elif proc.wait(timeout=PREEMPT_CHILD_TIMEOUT_S) != 0:
+                        raise AssertionError('preemptible {} exited {}'.format(
+                            role, proc.returncode))
+                finally:
+                    if proc.poll() is None:
+                        proc.kill()
+        u, s1, s2 = lines['U'], lines['S1'], lines['S2']
+        checks, worst = preemptible_checks(u, s1, s2)
+        return {
+            'phase': 'preemptible', 'card': card, 'checks': checks,
+            'loss_rtol': PREEMPT_LOSS_RTOL, 'worst_loss_rel_diff': worst,
+            'cudnn_deterministic': False,
+            'k1_launches_s2_window': bench.path_launches(s2, 'normalize_images',
+                                                          'normalize_kernel'),
+            'checkpoint_bytes': s1['checkpoint_bytes'],
+            'async_save_dispatch_s': s1['async_save_dispatch_s'],
+            'async_save_durable_s': s1['async_save_durable_s'], 'sync_save_s': s1['sync_save_s'],
+            'restore_s': s2['restore_s'], 'restored_tensors': s2['restored_tensors'],
+            'steps_kept': s1['steps_kept'],
+            'process_start_to_first_replay_s': s2['process_start_to_first_replay_s'],
+            'img_per_s': {'U': u['img_per_s'], 'S2': s2['img_per_s']},
+            'timed_calls': {'U': u['timed_calls'], 'S2': s2['timed_calls']},
+            'ledger_records': {'U': u['ledger_records'], 'S2': s2['ledger_records']},
+            'tiers': {'U': u['tiers'], 'S2': s2['tiers']},
+            'losses_mean_last': {'U': u['losses_mean_last'], 'S2': s2['losses_mean_last']},
+            'saved_loader_state': s1['loader_state'],
+            'seconds': time.perf_counter() - t_phase}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
 # the loader's surface and the examples on the card
 # --------------------------------------------------------------------------
 
@@ -1196,6 +1431,11 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--steps', type=int, default=20, help='measured SGD steps (after 3 warm-up)')
     parser.add_argument('--out', default=None, help='also write every JSON line to this file')
+    # One run of the preemptible phase, started by the phase itself.
+    parser.add_argument('--preemptible-role', choices=('U', 'S1', 'S2'), help=argparse.SUPPRESS)
+    parser.add_argument('--preemptible-url', help=argparse.SUPPRESS)
+    parser.add_argument('--preemptible-dir', help=argparse.SUPPRESS)
+    parser.add_argument('--preemptible-launched', type=float, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.steps < 10:
         parser.error('--steps must be >= 10')
@@ -1209,6 +1449,10 @@ def main():
         print('chip_smoke: petastorm_tpu_torch is not beside this script; run it from the '
               'root of a checkout', file=sys.stderr)
         return 2
+    if args.preemptible_role:
+        preemptible_role(args.preemptible_role, args.preemptible_url, args.preemptible_dir,
+                         args.preemptible_launched)
+        return 0
 
     lines = []
 
@@ -1269,6 +1513,7 @@ def main():
         by_path = {'imagenet': k1['launches']}
         result, state = bench.run_imagenet_scan(url, device, card)
         record(result)
+        imagenet_scan_rate = result['img_per_s']
         by_path['imagenet_scan'] = bench.path_launches(result, 'normalize_images',
                                                        'normalize_kernel')
         result = bench.run_imagenet_hbm(url, device, card, state)
@@ -1302,6 +1547,10 @@ def main():
         pipeline = bench.run_pipeline(url, device, workers)
         record(dict({'phase': 'pipeline', 'card': card}, **pipeline))
         record(dict(check_loader_surface(store_dir, device), phase='loader_surface', card=card))
+        preempt = run_preemptible(url, card)
+        preempt['imagenet_scan_img_per_s'] = imagenet_scan_rate
+        record(preempt)
+        by_path['preemptible_s2'] = preempt['k1_launches_s2_window']
         examples = run_examples(store_dir, device, card)
         record(examples)
         by_path['example_imagenet'] = examples['imagenet']['launches']['normalize_images']

@@ -74,8 +74,6 @@ FLASH_KERNELS = ('flash_fwd_sm90_kernel', 'flash_dq_sm90_kernel', 'flash_dkv_sm9
 #: The pipeline child's blocks that wait on modules not yet ported, by the
 #: ROADMAP item that brings them.
 PIPELINE_NOT_PORTED = {
-    'determinism': 'ROADMAP §A5 (determinism, resume, lineage)',
-    'lineage': 'ROADMAP §A5 (determinism, resume, lineage)',
     'autotune': 'ROADMAP §A9 (autotune)',
     'mem': 'ROADMAP §A9 (membudget)',
     'decode_path_sweep': 'ROADMAP §A9 (the native decoders)',
@@ -239,12 +237,17 @@ def _launch_diff(after, before):
 def scan_window(train, state, next_inputs, warmup, calls, kernels):
     """One scan path's counted window: the launch counts zeroed, ``warmup``
     calls (call 1 eager, call 2 captures the graph and replays it, later
-    calls replay), then ``calls`` measured calls, each set under the
-    profiler, the counts read. A replay calls no wrapper, so the wrappers
-    count call 1 and the capture; the profiles count, by name, each of
-    ``kernels`` that ran on the card in the window. Returns (metrics of
-    each call, the wrappers' counts, their counts across the capturing
-    call, the kernels that ran, the measured calls' profile)."""
+    calls replay), then ``calls`` measured calls, the counts read. A replay
+    calls no wrapper, so the wrappers count call 1 and the capture. The
+    profiler counts, by name, each of ``kernels`` that ran on the card in
+    the calls after an eager first one (the rest of the warm-up under one
+    profile, the measured calls under another): a wrapper counts each
+    launch of the eager call itself, and in runs Y, AA and AC the profiler
+    lost 3-6 of the 512 backward flash records of lm_scan's window, whose
+    eager call launches its backward from autograd's own thread. Returns
+    (metrics of each call, the wrappers' counts, their counts across the
+    capturing call, the kernels that ran in the profiled calls, the
+    measured calls' profile, the number of profiled calls)."""
     metrics, captured = [], {}
 
     def run(n):
@@ -255,21 +258,23 @@ def scan_window(train, state, next_inputs, warmup, calls, kernels):
                 captured.update(_launch_diff(launch_counts(), before))
 
     reset_launch_counts()                            # the path starts here
-    warm = device_profile(lambda: run(warmup))
+    eager = 1 if train.calls == 0 and warmup else 0
+    run(eager)
+    warm = device_profile(lambda: run(warmup - eager))
     measured = device_profile(lambda: run(calls))
     launches = launch_counts()                       # the path ends here
     ran = kernels_ran(warm, kernels)
     for name, count in kernels_ran(measured, kernels).items():
         ran[name] += count
-    return metrics, launches, captured, ran, measured
+    return metrics, launches, captured, ran, measured, warmup + calls - eager
 
 
 def require_scan_launches(launches, captured, ran, wrappers, per_call, calls):
     """Fail unless each wrapper counted ``per_call`` launches in call 1 and
     as many in the capture, and each kernel ran ``per_call`` times in each
-    of the window's ``calls`` calls (call 1 eagerly, the others replays),
-    up to ``PROFILER_LOSS`` of the records lost by the profiler and never
-    more than that."""
+    of the window's ``calls`` profiled calls (the capturing call's replay
+    and the replays after it), up to ``PROFILER_LOSS`` of the records lost
+    by the profiler and never more than that."""
     wrapped = {name: launches.get(name, 0) for name in wrappers}
     expected = per_call * calls
     if (wrapped != dict.fromkeys(wrappers, 2 * per_call)
@@ -277,7 +282,7 @@ def require_scan_launches(launches, captured, ran, wrappers, per_call, calls):
             or not all((1 - PROFILER_LOSS) * expected <= count <= expected
                        for count in ran.values())):
         raise AssertionError('scan path launches: wrappers {}, across the capture {}, ran on the '
-                             'card {}; expected {} a call in {} calls'.format(
+                             'card {}; expected {} a call in {} profiled calls'.format(
                                  wrapped, captured, ran, per_call, calls))
 
 
@@ -311,20 +316,21 @@ def time_scan_calls(train, state, next_inputs, calls):
     return wall, wait_s, float(np.median([a.elapsed_time(b) for a, b in events])), metrics
 
 
-def _scan_launches(launches, captured, ran, calls):
+def _scan_launches(launches, captured, ran, calls, profiled):
     return {'wrappers': launches, 'across_capture': captured, 'ran_on_card': ran,
-            'calls': calls}
+            'calls': calls, 'profiled_calls': profiled}
 
 
 def path_launches(result, wrapper, kernel):
     """A kernel's launches on a scan path, each counted in that path's own
     window: its wrapper's (call 1 and the capture), the wrapper's across
     the capture (the kernels the graph holds), and the kernels that ran on
-    the card in the window's calls, counted by name in its profiles."""
+    the card in the window's profiled calls, counted by name."""
     launches = result['launches']
     return {'wrapper': launches['wrappers'].get(wrapper, 0),
             'across_capture': launches['across_capture'].get(wrapper, 0),
-            'ran_on_card': launches['ran_on_card'][kernel], 'calls': launches['calls']}
+            'ran_on_card': launches['ran_on_card'][kernel], 'calls': launches['calls'],
+            'profiled_calls': launches['profiled_calls']}
 
 
 def normalize_bf16(x):
@@ -408,7 +414,7 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels):
                 sb = next(groups)
                 return sb.image, sb.label
 
-            metrics, launches, captured, ran, measured = scan_window(
+            metrics, launches, captured, ran, measured, profiled = scan_window(
                 train, state, next_inputs, warmup, calls, kernels)
             stats0, cache0, timings0 = loader.stats, reader.cache_stats(), reader.stage_timings
             loader.reset_stats()
@@ -434,9 +440,9 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels):
         'peak_reserved_GB': torch.cuda.max_memory_reserved(device) / 1e9,
         'rows_delivered': stats0['rows'] + stats['rows'],
         'stage_profile': stage_profile(stats, timings0, timings, wall),
-        'launches': _scan_launches(launches, captured, ran, warmup + calls),
+        'launches': _scan_launches(launches, captured, ran, warmup + calls, profiled),
         'trace': per_step(busy_trace(measured, calls, call_ms), SCAN_K)}
-    return result, (launches, captured, ran, warmup + calls)
+    return result, (launches, captured, ran, profiled)
 
 
 def fill_device_cache(url, device):
@@ -484,7 +490,7 @@ def hbm_scan(cache, train, state, epochs, kernels):
 
     per_epoch = ROWS // BATCH // SCAN_K
     warmup, calls = per_epoch, per_epoch * epochs
-    metrics, launches, captured, ran, measured = scan_window(
+    metrics, launches, captured, ran, measured, profiled = scan_window(
         train, state, next_inputs, warmup, calls, kernels)
     wall, _, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
     losses = [float(m['loss']) for m in metrics + timed]
@@ -500,9 +506,9 @@ def hbm_scan(cache, train, state, epochs, kernels):
         'loss_first_last': [losses[0], losses[-1]],
         'peak_mem_GB': torch.cuda.max_memory_allocated() / 1e9,
         'peak_reserved_GB': torch.cuda.max_memory_reserved() / 1e9,
-        'launches': _scan_launches(launches, captured, ran, warmup + calls),
+        'launches': _scan_launches(launches, captured, ran, warmup + calls, profiled),
         'trace': per_step(busy_trace(measured, calls, call_ms), SCAN_K)}
-    return result, (launches, captured, ran, warmup + calls)
+    return result, (launches, captured, ran, profiled)
 
 
 def run_imagenet_scan(url, device, card, warmup=3, calls=5):
@@ -646,12 +652,12 @@ def lm_scan(url, device, model, batch, k, warmup, calls, layers):
             def next_inputs():
                 return (next(loader).tokens,)
 
-            metrics, launches, captured, ran, measured = scan_window(
+            metrics, launches, captured, ran, measured, profiled = scan_window(
                 train, state, next_inputs, warmup, calls, FLASH_KERNELS)
             wall, wait_s, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
             stats, cache = loader.stats, reader.cache_stats()
     seq = model.max_len
-    require_scan_launches(launches, captured, ran, FLASH_WRAPPERS, layers * k, warmup + calls)
+    require_scan_launches(launches, captured, ran, FLASH_WRAPPERS, layers * k, profiled)
     losses = [float(v) for m in metrics + timed for v in m['losses']]
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError('lm scan losses did not fall: {}'.format(losses))
@@ -666,7 +672,7 @@ def lm_scan(url, device, model, batch, k, warmup, calls, layers):
         'peak_mem_GB': torch.cuda.max_memory_allocated(device) / 1e9,
         'peak_reserved_GB': torch.cuda.max_memory_reserved(device) / 1e9,
         'rows_delivered': stats['rows'],
-        'launches': _scan_launches(launches, captured, ran, warmup + calls),
+        'launches': _scan_launches(launches, captured, ran, warmup + calls, profiled),
         'trace': per_step(busy_trace(measured, calls, call_ms), k)}
     return result, metrics + timed, measured
 
@@ -740,17 +746,68 @@ def _measure_cache_tier(url, device, workers, batch, warm, measure, tier):
                     'cache': reader.cache_stats()}
 
 
+def _lineage_summary(loader, ledger_dir):
+    """The ``lineage`` block (``bench.py:818-846``): records and dropped,
+    the write-behind lag, the ledger's bytes, and ``replay_self_check``:
+    the newest ring record re-read from the store and digest-verified (True,
+    or ``'failed: ...'``). Removes the throwaway ledger directory."""
+    from petastorm_tpu_torch import lineage
+
+    tracker = loader.lineage_tracker
+    out = dict(tracker.stats())
+    path = out.pop('ledger_path', None)
+    out['ledger_bytes'] = os.path.getsize(path) if path else 0
+    ring = tracker.ring()
+    check = None
+    if ring:
+        try:
+            lineage.verify_record(ring[-1], tracker.ctx)
+            check = True
+        except lineage.ReplayError as e:
+            check = 'failed: {!r}'.format(e)
+    out['replay_self_check'] = check
+    shutil.rmtree(ledger_dir, ignore_errors=True)
+    return out
+
+
+def _deterministic_rate(url, device, workers, batch, prefetch, inflight, warm_batches,
+                        measure_batches):
+    """The same pipeline with ``deterministic=True`` (``bench.py:860-884``):
+    img/s of ``measure_batches`` after the warm-up."""
+    from petastorm_tpu_torch import TorchLoader, make_tensor_reader
+
+    reader = make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
+                                workers_count=workers, num_epochs=None, shuffle_row_groups=True,
+                                seed=0, cache_type='memory', deterministic=True)
+    with reader:
+        with TorchLoader(reader, batch, device=device, prefetch=prefetch,
+                         inflight=inflight) as loader:
+            for _ in range(warm_batches):
+                b = next(loader)
+            _fence(b)
+            start = time.perf_counter()
+            for _ in range(measure_batches):
+                b = next(loader)
+            _fence(b)
+            return batch * measure_batches / (time.perf_counter() - start)
+
+
 def run_pipeline(url, device, workers):
     """Loader-only capacity: the imagenet child's reader and loader with no
     train step (``bench.py:774-949``). ``make_tensor_reader(cache_type=
     'memory', num_epochs=None, shuffle_row_groups=True, seed=0)``,
-    ``TorchLoader(batch, prefetch, inflight, arena_depth)`` (defaults 128,
-    2, 2, the loader's; ``BENCH_PIPELINE_*``); warm-up through one epoch
-    plus two batches, ``reset_stats()``, then ``reps`` (3) windows of 32
-    batches, each timed to the last batch's copy. The rate is the median,
-    the spread max - min; the stage profile spans all reps. Then the
+    ``TorchLoader(batch, prefetch, inflight, arena_depth, lineage=<a
+    throwaway ledger directory>)`` (defaults 128, 2, 2, the loader's;
+    ``BENCH_PIPELINE_*``); warm-up through one epoch plus two batches,
+    ``reset_stats()``, then ``reps`` (3) windows of 32 batches, each timed
+    to the last batch's copy. The rate is the median, the spread max - min;
+    the stage profile spans all reps. As in the bench, the lineage ledger is
+    armed during the reps, so each batch's fields are CRC32-digested on the
+    assemble thread. Then the same pipeline with ``deterministic=True``
+    (``determinism``; ``BENCH_PIPELINE_DETERMINISM=0`` skips it) and the
     cache-tier sweep (``null``, ``memory``)."""
     from petastorm_tpu_torch import TorchLoader, make_tensor_reader
+    from petastorm_tpu_torch.lineage import TEMP_DIR_PREFIX
 
     batch = _env_int('BENCH_PIPELINE_BATCH', BATCH)
     warm_batches = max(1, _env_int('BENCH_PIPELINE_WARMUP', _store_rows(url) // batch + 2))
@@ -762,12 +819,14 @@ def run_pipeline(url, device, workers):
     tiers = os.environ.get('BENCH_PIPELINE_CACHE_TIERS', 'null,memory')
 
     load_before = os.getloadavg()
+    ledger_dir = tempfile.mkdtemp(prefix=TEMP_DIR_PREFIX)
     reader = make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
                                 workers_count=workers, num_epochs=None, shuffle_row_groups=True,
                                 seed=0, cache_type='memory')
     with reader:
         with TorchLoader(reader, batch, device=device, prefetch=prefetch, inflight=inflight,
-                         arena_depth=int(arena_depth) if arena_depth else None) as loader:
+                         arena_depth=int(arena_depth) if arena_depth else None,
+                         lineage=ledger_dir) as loader:
             # Warm through one epoch: the memory cache fills, so the steady
             # state isolates the pipeline from first-epoch decode (the cold
             # rate below).
@@ -788,6 +847,10 @@ def run_pipeline(url, device, workers):
                 wall_s += elapsed
                 rates.append(batch * measure_batches / elapsed)
             stats, timings, cache = loader.stats, reader.stage_timings, reader.cache_stats()
+    det_rate = None
+    if os.environ.get('BENCH_PIPELINE_DETERMINISM', '1') == '1':
+        det_rate = _deterministic_rate(url, device, workers, batch, prefetch, inflight,
+                                       warm_batches, measure_batches)
     load_after = os.getloadavg()
     ranked = sorted(rates)
     middle = len(ranked) // 2
@@ -795,6 +858,10 @@ def run_pipeline(url, device, workers):
     profile = stage_profile(stats, timings0, timings, wall_s)
     profile.update(rss_mb=_rss_mb(), rss_peak_mb=_peak_rss_mb(), cache=cache,
                    batches=stats['batches'], rows=stats['rows'])
+    profile['lineage'] = _lineage_summary(loader, ledger_dir)
+    if det_rate is not None:
+        profile['determinism'] = {'img_per_sec': det_rate, 'default_img_per_sec': median,
+                                  'ratio_vs_default': det_rate / median if median else None}
     sweep = {}
     for tier in (t.strip() for t in tiers.split(',') if t.strip()):
         if tier not in ('null', 'memory'):

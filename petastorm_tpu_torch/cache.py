@@ -38,6 +38,9 @@ class CacheBase(object):
 class NullCache(CacheBase):
     """No cache: every ``get`` calls the fill function."""
 
+    #: Serving tier in provenance records: every get is a fresh decode.
+    lineage_tier = 'decode'
+
     def get(self, key, fill_cache_func):
         return fill_cache_func()
 
@@ -55,6 +58,9 @@ class MemoryCache(CacheBase):
     :param size_limit_bytes: evict least-recently-used entries while the
         total exceeds it (the newest entry always stays); ``None`` = no cap.
     """
+
+    #: Serving tier in provenance records of a hit.
+    lineage_tier = 'memory'
 
     def __init__(self, size_limit_bytes=None):
         self._entries = OrderedDict()   # key -> (value, nbytes)

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from petastorm_tpu_torch.device import resolve_device
+from petastorm_tpu_torch.lineage import LineageTracker, lineage_enabled, resolve_ledger_dir
 from petastorm_tpu_torch.shuffling_buffer import build_shuffling_buffer
 from petastorm_tpu_torch.staging import ArenaPool, MeteredReader, OverlapMeter, StagingEngine
 
@@ -192,19 +193,27 @@ def iter_numpy_batches(reader, batch_size, shape_policies=None, shuffling_queue_
 
 def _iter_batches(reader, batch_size, shape_policies=None, shuffling_queue_capacity=0,
                   min_after_dequeue=None, seed=None, last_batch='drop', strict_fields=False,
-                  batch_buffers=None, views_ok=True):
+                  batch_buffers=None, views_ok=True, lineage=None, shuffler=None,
+                  commit_rows=None):
     """:func:`iter_numpy_batches`, each batch paired with its count of
-    source rows (a padded batch holds fewer than it has)."""
+    source rows (a padded batch holds fewer than it has). ``lineage`` (a
+    :class:`~petastorm_tpu_torch.lineage.LineageCollector`) gets each
+    chunk's segment and each emitted batch, digested here on the assembled
+    host batch; a shuffling buffer makes its records inexact. ``shuffler``:
+    a prebuilt (possibly restored) shuffling buffer to use instead of one
+    built from ``shuffling_queue_capacity``; ``commit_rows(rows)`` then
+    adds each chunk's rows to it (the loader's checkpoint-atomic add)."""
     if last_batch not in _LAST_BATCH:
         raise ValueError('last_batch must be drop|pad|partial, got {!r}'.format(last_batch))
     shape_policies = dict(shape_policies or {})
-    shuffler = None
-    if shuffling_queue_capacity and shuffling_queue_capacity > 0:
+    if shuffler is None and shuffling_queue_capacity and shuffling_queue_capacity > 0:
         shuffler = build_shuffling_buffer(shuffling_queue_capacity, min_after_dequeue, seed)
+    if shuffler is not None and lineage is not None:
+        lineage.mark_inexact()     # the buffer breaks the chunk -> batch FIFO
     batched = getattr(reader, 'batched_output', False)
     if batched and shuffler is None:
         yield from _iter_block_batches(reader, batch_size, shape_policies, last_batch,
-                                       strict_fields, batch_buffers, views_ok)
+                                       strict_fields, batch_buffers, views_ok, lineage)
         return
 
     schema = getattr(reader, 'schema', None)
@@ -227,7 +236,11 @@ def _iter_batches(reader, batch_size, shape_policies=None, shuffling_queue_capac
                         and schema.fields[name].nullable)
             (names if not nullable and _batchable(value, name, shape_policies)
              else dropped).append(name)
-        return _select_fields(names, dropped, strict_fields)
+        names = _select_fields(names, dropped, strict_fields)
+        if shuffler is not None:
+            # Rides the checkpoint: a resumed reader may yield no sample.
+            shuffler.field_names = list(names)
+        return names
 
     def add(row):
         nonlocal count
@@ -254,6 +267,8 @@ def _iter_batches(reader, batch_size, shape_policies=None, shuffling_queue_capac
                 # Rows that always need a conversion never stack into the
                 # arena: stop claiming one per batch.
                 arenas_effective = any(batch[name] is out_bufs[name] for name in field_names)
+            if lineage is not None:
+                lineage.on_batch(batch_size, batch=batch)
             yield batch, batch_size
         if final and count:
             if last_batch != 'drop':
@@ -263,6 +278,9 @@ def _iter_batches(reader, batch_size, shape_policies=None, shuffling_queue_capac
                     if last_batch == 'pad':
                         col = col + [col[-1]] * (batch_size - len(col))
                     batch[name] = _stack_column(col, name, shape_policies)
+                if lineage is not None:
+                    lineage.on_batch(count, batch=batch,
+                                     padded=batch_size - count if last_batch == 'pad' else 0)
                 yield batch, count
             columns, count = {}, 0
 
@@ -273,8 +291,13 @@ def _iter_batches(reader, batch_size, shape_policies=None, shuffling_queue_capac
             rows = list(zip(*(getattr(sample, name) for name in field_names)))
         else:
             rows = [tuple(getattr(sample, name) for name in field_names)]
+        if lineage is not None:
+            lineage.on_chunk(getattr(reader, 'last_chunk_lineage', None), len(rows))
         if shuffler is not None:
-            shuffler.add_many(rows)
+            if commit_rows is not None:
+                commit_rows(rows)
+            else:
+                shuffler.add_many(rows)
             while shuffler.can_retrieve():
                 add(shuffler.retrieve())
                 if count >= batch_size:
@@ -285,6 +308,13 @@ def _iter_batches(reader, batch_size, shape_policies=None, shuffling_queue_capac
             yield from emit()
     if shuffler is not None:
         shuffler.finish()
+        if field_names is None and shuffler.can_retrieve():
+            # Every remaining row was buffered at the checkpoint: the
+            # snapshot carries the field order.
+            field_names = shuffler.field_names
+            if field_names is None:
+                raise ValueError('the restored shuffling buffer holds rows but carries no '
+                                 'field names, and the reader yielded no sample')
         while shuffler.can_retrieve():
             add(shuffler.retrieve())
     if field_names is not None:
@@ -292,7 +322,7 @@ def _iter_batches(reader, batch_size, shape_policies=None, shuffling_queue_capac
 
 
 def _iter_block_batches(reader, batch_size, shape_policies, last_batch, strict_fields,
-                        batch_buffers, views_ok):
+                        batch_buffers, views_ok, lineage=None):
     """The block path of :func:`iter_numpy_batches`: fixed-size batches cut
     from a tensor reader's column blocks, with no per-row Python. A batch
     inside one chunk is a leading-dim view when ``views_ok`` and
@@ -364,12 +394,21 @@ def _iter_block_batches(reader, batch_size, shape_policies, last_batch, strict_f
             chunk[name] = block
         chunks.append(chunk)
         have += len(chunk[field_names[0]])
+        if lineage is not None:
+            lineage.on_chunk(getattr(reader, 'last_chunk_lineage', None),
+                             len(chunk[field_names[0]]))
         while have >= batch_size:
-            yield take(batch_size), batch_size
+            batch = take(batch_size)
+            if lineage is not None:
+                lineage.on_batch(batch_size, batch=batch)
+            yield batch, batch_size
 
     if have and last_batch == 'partial':
         source_rows = have
-        yield take(have), source_rows
+        batch = take(have)
+        if lineage is not None:
+            lineage.on_batch(source_rows, batch=batch)
+        yield batch, source_rows
     elif have and last_batch == 'pad':
         # Never in place: the tail may be a cache-shared (read-only) block.
         out = out_buffers(batch_size, chunks[0])
@@ -381,6 +420,8 @@ def _iter_block_batches(reader, batch_size, shape_policies, last_batch, strict_f
             pos += k
         for name in field_names:
             out[name][pos:] = out[name][pos - 1]
+        if lineage is not None:
+            lineage.on_batch(have, batch=out, padded=batch_size - have)
         yield out, have
 
 
@@ -433,11 +474,30 @@ class TorchLoader(object):
     :param arena_depth: host arenas in the pool (default
         ``max(2, prefetch) + inflight + 2``); an exhausted pool briefly
         holds the assembler back, then grows.
+    :param lineage: batch provenance (:mod:`~petastorm_tpu_torch.lineage`):
+        ``True`` arms it (the ledger in ``PSTT_LINEAGE_DIR`` or a fresh
+        temporary directory), a string is the ledger's directory, a
+        :class:`~petastorm_tpu_torch.lineage.LineageTracker` is adopted as
+        it is (its owner closes it), ``None`` defers to
+        ``PSTT_LINEAGE_DIR``, ``False`` disarms. Each delivered batch's
+        record is ``last_provenance``; counters ride ``stats['lineage']``.
+    :param resume_state: the ``state_dict()`` this loader's reader was
+        resumed from (``make_tensor_reader(..., resume_state=state)``):
+        its ``shuffling_buffer`` snapshot refills the shuffling buffer.
+
+    Resume (``state_dict()``): without a shuffling buffer a tensor reader's
+    rows count as consumed when their batch is delivered, through
+    prefetch, ``inflight``, ``prefetch=0``, ``echo`` (each source row once)
+    and ``superbatches(k)`` (when the whole group is yielded), so a
+    checkpoint taken between batches resumes with no row lost or repeated.
+    With a shuffling buffer, the buffered and drawn-but-undelivered rows
+    ride the state. A per-row reader counts a row when it leaves the reader.
     """
 
     def __init__(self, reader, batch_size, device='cuda', prefetch=2, shape_policies=None,
                  last_batch='drop', shuffling_queue_capacity=0, min_after_dequeue=None,
-                 seed=None, strict_fields=False, echo=1, inflight=2, arena_depth=None):
+                 seed=None, strict_fields=False, echo=1, inflight=2, arena_depth=None,
+                 lineage=None, resume_state=None):
         if batch_size < 1:
             raise ValueError('batch_size must be >= 1, got {}'.format(batch_size))
         if prefetch < 0:
@@ -450,7 +510,12 @@ class TorchLoader(object):
             raise ValueError('last_batch must be drop|pad|partial, got {!r}'.format(last_batch))
         self.device = resolve_device(device)
         self._reader = reader
+        self._batch_size = int(batch_size)
         self._cuda = self.device.type == 'cuda'
+        self._init_resume(reader, shuffling_queue_capacity, min_after_dequeue, seed,
+                          resume_state)
+        self._init_lineage(reader, lineage, batch_size, last_batch, shape_policies,
+                           shuffling_queue_capacity)
         self._prefetch = int(prefetch)
         self._inflight = int(inflight)
         self._echo = int(echo)
@@ -477,7 +542,10 @@ class TorchLoader(object):
         self._host_iter = _iter_batches(
             self._metered or reader, batch_size, shape_policies, shuffling_queue_capacity,
             min_after_dequeue, seed, last_batch, strict_fields,
-            batch_buffers=self._pool.get_buffers, views_ok=not self._cuda)
+            batch_buffers=self._pool.get_buffers, views_ok=not self._cuda,
+            lineage=self._lineage.collector if self._lineage is not None else None,
+            shuffler=self._shuffler,
+            commit_rows=self._commit_rows if self._shuffler is not None else None)
         self._engine = self._queue = None
         self._inline = deque()    # prefetch=0: (staged, arena) whose copies may be in flight
         if self._prefetch:
@@ -486,6 +554,100 @@ class TorchLoader(object):
                 self._host_iter, self._stage, self._queue, self._stop, _END, self._pool,
                 ready_fn=self._wait_copied, holds_mode=not self._cuda,
                 inflight=self._inflight, meter=self._meter).start()
+
+    def _init_resume(self, reader, shuffling_queue_capacity, min_after_dequeue, seed,
+                     resume_state):
+        """Checkpoint accounting (``petastorm_tpu/jax_loader.py:925-977``)."""
+        # Without a row-level shuffle rows are consumed in delivery order, so
+        # a tensor reader's accounting waits for delivery (rows in prefetch
+        # at a checkpoint re-deliver on resume).
+        self._row_granular = False
+        self._defer_rows_consumed = False   # superbatches(): group accounting
+        self._pending_fresh_rows = 0
+        self._ckpt_lock = threading.Lock()
+        self._buffer_entry_ckpt = False
+        self._shuffler = None
+        snapshot = (resume_state or {}).get('shuffling_buffer')
+        if shuffling_queue_capacity and shuffling_queue_capacity > 0:
+            # The loader owns its buffer, so state_dict() can snapshot it.
+            self._shuffler = build_shuffling_buffer(shuffling_queue_capacity, min_after_dequeue,
+                                                    seed)
+            if snapshot:
+                self._shuffler.restore(snapshot)
+            self._shuffler.track_pending()
+            # The reader's cursor advances when a chunk's rows land in the
+            # buffer, under the same lock as the snapshot.
+            if hasattr(reader, 'enable_row_granular_checkpoint'):
+                self._buffer_entry_ckpt = reader.enable_row_granular_checkpoint()
+        elif snapshot and snapshot.get('rows'):
+            raise ValueError(
+                'resume_state carries a shuffling-buffer snapshot of {} row(s) but the loader '
+                'was rebuilt without shuffling_queue_capacity; those rows would be lost: resume '
+                'with the capacity the checkpoint was taken under'.format(len(snapshot['rows'])))
+        elif hasattr(reader, 'enable_row_granular_checkpoint'):
+            self._row_granular = reader.enable_row_granular_checkpoint()
+
+    def _init_lineage(self, reader, lineage, batch_size, last_batch, shape_policies,
+                      shuffling_queue_capacity):
+        """Batch provenance (``petastorm_tpu/jax_loader.py:1038-1064``)."""
+        self._lineage = None
+        self._lineage_owned = False
+        self._last_provenance = None
+        if isinstance(lineage, LineageTracker):
+            self._lineage = lineage
+        elif lineage_enabled(lineage):
+            ctx_fn = getattr(reader, 'lineage_context', None)
+            ctx = ctx_fn() if ctx_fn is not None else {'mode': None}
+            ctx.update(batch_size=int(batch_size), last_batch=last_batch,
+                       shape_policies=sorted(shape_policies) if shape_policies else None,
+                       shuffling_queue_capacity=int(shuffling_queue_capacity or 0))
+            self._lineage = LineageTracker(
+                ctx, ledger_dir=resolve_ledger_dir(lineage if isinstance(lineage, str) else None),
+                state_fn=getattr(reader, 'lineage_state', None))
+            self._lineage_owned = True
+
+    def _commit_rows(self, rows):
+        """One chunk's rows into the shuffling buffer and the reader's cursor
+        past them, as one step against ``state_dict()``."""
+        with self._ckpt_lock:
+            self._shuffler.add_many(rows)
+            if self._buffer_entry_ckpt:
+                self._reader.rows_consumed(len(rows))
+
+    def _account_delivery(self):
+        """A fresh batch reached the consumer: its rows are consumed."""
+        if self._row_granular:
+            if self._defer_rows_consumed:
+                self._pending_fresh_rows += self._batch_size
+            else:
+                self._reader.rows_consumed(self._batch_size)
+        elif self._shuffler is not None:
+            self._shuffler.mark_delivered(self._batch_size)
+
+    def state_dict(self):
+        """The position to resume from, taken between batches: the reader's
+        ``state_dict()``, plus ``shuffling_buffer`` (its rows and generator
+        state; pickle-safe, not JSON-safe) with a shuffling buffer. Rebuild
+        with ``make_*_reader(..., resume_state=state)`` and
+        ``TorchLoader(..., resume_state=state)``."""
+        if self._shuffler is not None:
+            with self._ckpt_lock:
+                state = dict(self._reader.state_dict())
+                state['shuffling_buffer'] = self._shuffler.state_dict()
+            return state
+        return self._reader.state_dict()
+
+    @property
+    def last_provenance(self):
+        """The provenance record of the latest delivered batch (None when
+        lineage is not armed)."""
+        return self._last_provenance
+
+    @property
+    def lineage_tracker(self):
+        """The loader's :class:`~petastorm_tpu_torch.lineage.LineageTracker`,
+        or None."""
+        return self._lineage
 
     def _reset_counters(self):
         with self._stats_lock:
@@ -574,6 +736,9 @@ class TorchLoader(object):
         self._batches += 1
         if fresh:
             self._rows += staged.rows
+            if self._lineage is not None:
+                self._last_provenance = self._lineage.deliver()
+            self._account_delivery()
         return _batch_type(names)(**tensors)
 
     # -- iteration -----------------------------------------------------------
@@ -629,6 +794,9 @@ class TorchLoader(object):
         group of fewer than ``k`` batches is dropped, so every superbatch
         has one shape. ``k <= 1`` yields the batches as they are.
 
+        Checkpoint accounting happens per yielded group: a dropped partial
+        group's rows are not counted consumed and re-deliver on resume.
+
         The JAX package concatenates through ``replica_safe_concat`` only to
         step around a replica-sum bug of its SPMD lowering; ``torch.cat``
         has no such bug.
@@ -641,9 +809,16 @@ class TorchLoader(object):
             parts = []
             try:
                 for _ in range(k):
-                    parts.append(next(self))
+                    self._defer_rows_consumed = True
+                    try:
+                        parts.append(next(self))
+                    finally:
+                        self._defer_rows_consumed = False
             except StopIteration:
                 return
+            if self._pending_fresh_rows:
+                self._reader.rows_consumed(self._pending_fresh_rows)
+                self._pending_fresh_rows = 0
             batch = type(parts[0])(*(torch.cat(columns) for columns in zip(*parts)))
             del parts          # the parts (and on the CPU their arenas) go before the yield
             yield batch
@@ -667,7 +842,9 @@ class TorchLoader(object):
         staging engine's ``assemble_s``, ``dispatch_s``, ``overlap_s``,
         ``overlap_frac``, ``ready_wait_s`` (``prefetch >= 1``); the arena
         pool's ``arena_alloc``, ``arena_reuse``, ``arena_wait_s``;
-        ``reader_wait_s``; and the reader's ``worker_stage_timings``."""
+        ``reader_wait_s``; the reader's ``worker_stage_timings``; and
+        ``lineage`` (records, dropped, pending, ring, ledger path and lag)
+        when armed."""
         elapsed = (time.perf_counter() - self._first_get_t
                    if self._first_get_t is not None else 0.0)
         with self._stats_lock:
@@ -683,10 +860,13 @@ class TorchLoader(object):
         timings = getattr(self._reader, 'stage_timings', None)
         if timings is not None:
             out['worker_stage_timings'] = timings
+        if self._lineage is not None:
+            out['lineage'] = self._lineage.stats()
         return out
 
     def close(self):
-        """Stop and join the staging threads (idempotent)."""
+        """Stop and join the staging threads, and close an owned lineage
+        ledger (an adopted one is flushed) (idempotent)."""
         if self._closed:
             return
         self._closed = True
@@ -696,14 +876,19 @@ class TorchLoader(object):
             staged, arena = self._inline.popleft()
             self._wait_copied(staged)
             arena.retire()
-        if self._engine is None:
-            return
-        while True:   # unblock a dispatch thread parked on a full queue
-            try:
-                self._queue.get_nowait()
-            except queue.Empty:
-                break
-        leaked = self._engine.stop()
+        leaked = []
+        if self._engine is not None:
+            while True:   # unblock a dispatch thread parked on a full queue
+                try:
+                    self._queue.get_nowait()
+                except queue.Empty:
+                    break
+            leaked = self._engine.stop()
+        if self._lineage is not None:
+            if self._lineage_owned:
+                self._lineage.close()
+            else:
+                self._lineage.flush()
         if leaked:
             raise RuntimeError('staging threads did not stop: {}'.format(leaked))
 

@@ -3,8 +3,8 @@
 Each row-group is read with pyarrow and every row's fields are decoded
 through the port's codecs into one dict of user-facing values per row:
 ndarrays, numpy scalars and strings, images of any size (a field with
-``None`` dims). The worker publishes ``{'rows': [...], 'timings': {...}}``
-per row-group; the reader hands the rows out one at a time.
+``None`` dims). The worker publishes the rows of each row-group with their
+chunk key and provenance segment; the reader hands them out one at a time.
 
 With a cache (``cache_type='memory'``) the row-group's decoded rows are
 kept and shared by every later epoch, so their arrays are published
@@ -18,8 +18,10 @@ import time
 import numpy as np
 
 from petastorm_tpu_torch.cache import NullCache
+from petastorm_tpu_torch.checkpoint import chunk_key
 from petastorm_tpu_torch.errors import DecodeFieldError
-from petastorm_tpu_torch.workers.rowgroup_worker_base import RowGroupWorkerBase
+from petastorm_tpu_torch.lineage import chunk_lineage
+from petastorm_tpu_torch.workers.rowgroup_worker_base import RowGroupWorkerBase, compute_row_slice
 
 
 def decode_table_to_rows(table, schema):
@@ -53,17 +55,23 @@ def _read_only(rows):
 
 
 class PyDictWorker(RowGroupWorkerBase):
-    """Publishes ``{'rows': [dict, ...], 'timings': {...}}`` per non-empty
-    row-group. ``args`` also holds ``cache`` and ``dataset_path_hash``."""
+    """Publishes ``{'key', 'rows': [dict, ...], 'lineage', 'timings'}`` per
+    non-empty row-group, plus ``'det'`` in deterministic mode (an empty
+    row-group publishes a hole marker then). ``args`` also holds ``cache``
+    and ``dataset_path_hash``."""
 
     batched_output = False
+    #: Reader mode of provenance contexts: replay decodes by it.
+    lineage_mode = 'py_dict'
 
-    def process(self, piece_index):
+    def process(self, piece_index, shuffle_row_drop_partition=None, pst_det=None):
         piece = self.args['row_groups'][piece_index]
         schema = self.args['schema']
         timings = {}
+        decoded = []
 
         def load():
+            decoded.append(True)
             t0 = time.perf_counter()
             table = self._read_row_group(piece, list(schema.fields))
             timings['read_s'] = time.perf_counter() - t0
@@ -83,5 +91,17 @@ class PyDictWorker(RowGroupWorkerBase):
             rows = cache.get(key, lambda: _read_only(load()))
             timings['cache_s'] = (time.perf_counter() - t0 - timings.get('read_s', 0.0)
                                   - timings.get('decode_s', 0.0))
-        if rows:
-            self.publish_func({'rows': rows, 'timings': timings})
+        row_slice = compute_row_slice(len(rows), shuffle_row_drop_partition)
+        if row_slice is not None:
+            rows = rows[row_slice[0]:row_slice[1]]
+        if not rows:
+            self._publish_hole(pst_det)
+            return
+        tier = 'decode' if decoded else cache.lineage_tier
+        payload = {'key': chunk_key(piece_index, shuffle_row_drop_partition), 'rows': rows,
+                   'lineage': chunk_lineage(piece, piece_index, shuffle_row_drop_partition,
+                                            len(rows), tier, worker_id=self.worker_id),
+                   'timings': timings}
+        if pst_det is not None:
+            payload['det'] = pst_det
+        self.publish_func(payload)

@@ -11,14 +11,27 @@ serves both, through its worker class. Row-groups are sharded by
 packages the same row-group order. Of the cache tiers, ``'null'`` and
 ``'memory'`` are ported (``petastorm_tpu/reader.py:76-113``); of the pools,
 ``'thread'`` and ``'dummy'``. The disk and chunk-store tiers, process
-pools, predicates, transforms, ``state_dict``/resume, health and autotune
-come in later slices (ROADMAP §A4, §A5, §A9).
+pools, predicates, transforms, health and autotune come in later slices
+(ROADMAP §A4, §A9).
+
+Resume (``petastorm_tpu/reader.py:711-790, 1291-1460``): ``state_dict()``
+is a JSON-safe position that a new reader built with ``resume_state=`` and
+the same configuration continues from, in either package: the config
+fingerprint and the cursors are the JAX package's key for key. The default
+mode tracks consumption per chunk (:mod:`~petastorm_tpu_torch.checkpoint`,
+multiset-exact); ``deterministic=True`` makes the stream a pure function of
+``(dataset, fields, seed, epoch, position)`` and its state a stream cursor
+(:mod:`~petastorm_tpu_torch.determinism`). Every chunk carries its
+provenance segment (:mod:`~petastorm_tpu_torch.lineage`).
 """
 
 import hashlib
+import warnings
 from collections import deque
 
+from petastorm_tpu_torch import determinism
 from petastorm_tpu_torch.cache import MemoryCache, NullCache
+from petastorm_tpu_torch.checkpoint import ConsumptionTracker, DeferredRowAccounting
 from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormMetadataError
 from petastorm_tpu_torch.etl.dataset_metadata import get_schema
 from petastorm_tpu_torch.py_dict_worker import PyDictWorker
@@ -71,7 +84,8 @@ def _stored_view(store, schema_fields, factory):
 def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread', workers_count=10,
                 results_queue_size=50, shuffle_row_groups=True, shuffle_row_drop_partitions=1,
                 seed=None, predicate=None, num_epochs=1, cur_shard=None, shard_count=None,
-                cache_type='null', cache_size_limit=None, transform_spec=None):
+                cache_type='null', cache_size_limit=None, transform_spec=None,
+                resume_state=None, deterministic=False):
     """Reader of decoded rows, one namedtuple per row.
 
     The arguments are ``make_tensor_reader``'s, plus ``predicate``,
@@ -89,13 +103,14 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread', work
     return Reader(store, _stored_view(store, schema_fields, 'make_reader'), pool,
                   worker_class=PyDictWorker, shuffle_row_groups=shuffle_row_groups, seed=seed,
                   num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
-                  cache=cache)
+                  cache=cache, resume_state=resume_state, deterministic=deterministic)
 
 
 def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
                        workers_count=10, results_queue_size=50, shuffle_row_groups=True,
                        seed=None, num_epochs=1, cur_shard=None, shard_count=None,
-                       cache_type='null', cache_size_limit=None):
+                       cache_type='null', cache_size_limit=None, resume_state=None,
+                       deterministic=False, shuffle_rows_in_chunk=False):
     """Reader of decoded column blocks, one namedtuple per row-group.
 
     :param schema_fields: fields or full-match regex patterns to read
@@ -104,13 +119,23 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
         the consumer's thread).
     :param num_epochs: epochs to read; ``None`` = endless.
     :param cur_shard/shard_count: read only row-groups ``i`` with
-        ``i % shard_count == cur_shard``.
+        ``i % shard_count == cur_shard`` (deterministic mode: every
+        ``shard_count``-th position of the global order).
     :param cache_type: ``'null'`` (decode every epoch) or ``'memory'``
         (keep decoded row-groups in RAM: later epochs skip read and
         decode). Other tiers raise ``ValueError``.
     :param cache_size_limit: the memory cache's approximate byte cap
         (``None`` = no cap).
+    :param resume_state: a ``state_dict()`` of a reader of the same
+        configuration (of either package) to continue from.
+    :param deterministic: seed-stable order and resequenced delivery: the
+        same stream for any worker count, pool or shard count, and a
+        stream cursor for ``state_dict()``.
+    :param shuffle_rows_in_chunk: not ported (ROADMAP §A9); True raises.
     """
+    if shuffle_rows_in_chunk:
+        raise ValueError('shuffle_rows_in_chunk is not ported to petastorm_tpu_torch yet '
+                         '(ROADMAP §A9)')
     cache = _make_cache(cache_type, cache_size_limit)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size)
     store = ParquetStore(dataset_url)
@@ -118,23 +143,58 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
     validate_tensor_schema(view)
     return Reader(store, view, pool, worker_class=TensorWorker,
                   shuffle_row_groups=shuffle_row_groups, seed=seed, num_epochs=num_epochs,
-                  cur_shard=cur_shard, shard_count=shard_count, cache=cache)
+                  cur_shard=cur_shard, shard_count=shard_count, cache=cache,
+                  resume_state=resume_state, deterministic=deterministic)
 
 
-class Reader(object):
+def _check_resume_state(resume_state, deterministic, fingerprint):
+    """The refusals and the config-drift warning of
+    ``petastorm_tpu/reader.py:732-767``."""
+    if not deterministic and resume_state.get('mode') == determinism.MODE:
+        raise ValueError('resume_state is a deterministic-mode stream cursor; build the resumed '
+                         'reader with deterministic=True (a multiset tracker would silently '
+                         'ignore it)')
+    if (deterministic and not resume_state.get('merged')
+            and int(resume_state.get('shard_count') or 1) > 1):
+        raise ValueError(
+            "resume_state is host {} of {}'s private cursor; a multi-host deterministic resume "
+            "must pass ALL hosts' cursors through determinism.merge_cursors() and give every "
+            'resuming host the single merged result'.format(
+                resume_state.get('cur_shard'), resume_state.get('shard_count')))
+    stored = resume_state.get('config')
+    if stored is not None:
+        # Only keys both sides know: a state of another version lacks some.
+        differing = sorted(k for k in set(stored) & set(fingerprint)
+                           if stored[k] != fingerprint[k])
+        if differing:
+            warnings.warn('resume_state was captured under a different reader configuration '
+                          '(differing: {}); resume positions may be meaningless'.format(differing))
+
+
+class Reader(DeferredRowAccounting):
     """Iterates decoded rows (``worker_class=PyDictWorker``) or row-group
     chunks (``TensorWorker``) off a worker pool. ``batched_output`` says
     which."""
 
     def __init__(self, store, schema, pool, worker_class=TensorWorker, shuffle_row_groups=True,
-                 seed=None, num_epochs=1, cur_shard=None, shard_count=None, cache=None):
+                 seed=None, num_epochs=1, cur_shard=None, shard_count=None, cache=None,
+                 resume_state=None, deterministic=False):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
             raise ValueError('cur_shard {} out of range [0, {})'.format(cur_shard, shard_count))
         self.schema = schema
+        self._store = store
+        self._deterministic = bool(deterministic)
+        self._seed = seed
+        self._cur_shard = cur_shard
+        self._shard_count = shard_count
+        self._num_epochs = num_epochs
+        self._lineage_mode = worker_class.lineage_mode
         pieces = store.row_groups()
-        if shard_count is not None:
+        # Deterministic mode strides the shard over the global order in the
+        # ventilator, so every host keeps the whole list.
+        if shard_count is not None and not self._deterministic:
             pieces = [p for i, p in enumerate(pieces) if i % shard_count == cur_shard]
         if not pieces:
             raise NoDataAvailableError('No row-groups left after sharding; cannot create a Reader')
@@ -145,13 +205,58 @@ class Reader(object):
         self._rows = deque()
         self._timings = {'read_s': 0.0, 'decode_s': 0.0, 'cache_s': 0.0, 'chunks': 0}
         self._stopped = False
+        self.last_row_consumed = False
+        self._last_lineage = None
+        self._config_fingerprint = {
+            'url': store.url,
+            'fields': sorted(schema.fields),
+            'num_epochs': num_epochs,
+            'cur_shard': None if self._deterministic else cur_shard,
+            'shard_count': None if self._deterministic else shard_count,
+            'deterministic': self._deterministic,
+            'shuffle_row_groups': bool(shuffle_row_groups),
+            'seed': seed if self._deterministic else None,
+            'shuffle_row_drop_partitions': 1,
+            'shuffle_rows_in_chunk': False,
+            'n_row_groups': len(pieces),
+            'predicate': None,
+            'selector': None,
+            'row_group_ids': [hashlib.md5('{}:{}'.format(p.path, p.row_group).encode())
+                              .hexdigest()[:8] for p in pieces],
+        }
+        if resume_state is not None:
+            _check_resume_state(resume_state, self._deterministic, self._config_fingerprint)
+        self._resequencer = None
+        if self._deterministic:
+            if not hasattr(pool, 'set_resequencer'):
+                raise ValueError('deterministic=True requires a pool that can resequence; {} '
+                                 'cannot'.format(type(pool).__name__))
+            self._tracker = determinism.DeterministicCursor(resume_state)
+            self._resequencer = determinism.Resequencer()
+            pool.set_resequencer(self._resequencer)
+        else:
+            self._tracker = ConsumptionTracker(resume_state, num_epochs=num_epochs)
+        items = [{'piece_index': i, 'shuffle_row_drop_partition': (0, 1)}
+                 for i in range(len(pieces))]
+        det_config = None
+        if self._deterministic:
+            if shard_count is not None and shard_count > len(items):
+                raise NoDataAvailableError(
+                    'deterministic shard stride needs at least one item per shard: {} items < '
+                    '{} shards'.format(len(items), shard_count))
+            self._tracker.normalize(len(items))
+            det_config = {'seed': seed, 'shuffle': bool(shuffle_row_groups),
+                          'cur_shard': cur_shard or 0, 'shard_count': shard_count or 1,
+                          'start_epoch': self._tracker.start_epoch,
+                          'start_pos': self._tracker.start_pos}
         self._ventilator = ConcurrentVentilator(
             ventilate_fn=None,   # bound by pool.start
-            items_to_ventilate=[{'piece_index': i} for i in range(len(pieces))],
+            items_to_ventilate=items,
             iterations=num_epochs,
-            randomize_item_order=shuffle_row_groups,
+            randomize_item_order=shuffle_row_groups and not self._deterministic,
             random_seed=seed,
-            max_ventilation_queue_size=pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS)
+            max_ventilation_queue_size=pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS,
+            deterministic=det_config)
         pool.start(worker_class, {
             'row_groups': pieces, 'schema': schema, 'cache': self.cache,
             'dataset_path_hash': hashlib.md5(store.url.encode()).hexdigest()[:12],
@@ -172,27 +277,123 @@ class Reader(object):
         cache's own bookkeeping), and ``chunks``."""
         return dict(self._timings)
 
+    @property
+    def last_chunk_lineage(self):
+        """Provenance segment of the chunk (or, per row, the row) most
+        recently returned: ``row_start`` is past any resume skip."""
+        return self._last_lineage
+
     def __iter__(self):
         return self
 
     def _next_chunk(self):
-        try:
-            chunk = self._pool.get_results()
-        except EmptyResultError:
-            raise StopIteration
-        for key, seconds in chunk['timings'].items():
-            self._timings[key] += seconds
-        self._timings['chunks'] += 1
-        return chunk
+        """The next non-hole chunk off the pool (in ventilation order in
+        deterministic mode), its timings added up."""
+        while True:
+            try:
+                chunk = self._pool.get_results()
+            except EmptyResultError:
+                self.last_row_consumed = True
+                raise StopIteration
+            if determinism.is_hole(chunk):
+                continue
+            for key, seconds in chunk['timings'].items():
+                self._timings[key] += seconds
+            self._timings['chunks'] += 1
+            return chunk
+
+    def _next_cols(self):
+        """The next chunk's column blocks, past any resume skip."""
+        while True:
+            chunk = self._next_chunk()
+            cols, key, det, lineage = chunk['cols'], chunk['key'], chunk.get('det'), \
+                chunk['lineage']
+            n_rows = len(next(iter(cols.values())))
+            skip = self._tracker.on_chunk(key, n_rows, det=det)
+            if skip:
+                cols = {k: v[skip:] for k, v in cols.items()}
+                n_rows -= skip
+                lineage = dict(lineage, row_start=lineage['row_start'] + skip)
+            if n_rows <= 0:
+                continue
+            self._record_chunk(key, n_rows)
+            self._last_lineage = lineage
+            return cols
 
     def __next__(self):
         if self._stopped:
             raise RuntimeError('Trying to iterate a stopped Reader')
         if self.batched_output:
-            return self.schema.make_namedtuple(**self._next_chunk()['cols'])
+            return self.schema.make_namedtuple(**self._next_cols())
         while not self._rows:
-            self._rows.extend(self._next_chunk()['rows'])
-        return self.schema.make_namedtuple(**self._rows.popleft())
+            chunk = self._next_chunk()
+            key, rows, det = chunk['key'], chunk['rows'], chunk.get('det')
+            skip = self._tracker.on_chunk(key, len(rows), det=det)
+            self._rows.extend((key, row, chunk['lineage'], skip + i)
+                              for i, row in enumerate(rows[skip:]))
+        key, row, lineage, row_index = self._rows.popleft()
+        self._last_lineage = dict(lineage, row_start=row_index)
+        self._tracker.rows_yielded(key, 1)
+        return self.schema.make_namedtuple(**row)
+
+    # -- checkpoint and provenance -----------------------------------------
+
+    def enable_row_granular_checkpoint(self):
+        """Defer the row accounting of chunks to :meth:`rows_consumed`, for a
+        loader that consumes rows in delivery order: rows it still holds at
+        a checkpoint re-deliver on resume. False for per-row readers, which
+        count each row as it leaves."""
+        if not self.batched_output:
+            return False
+        self.enable_deferred_rows()
+        return True
+
+    def state_dict(self):
+        """JSON-safe position for ``resume_state=`` (see the module
+        docstring): the tracker's state, the shard identity of a
+        deterministic cursor, and the config fingerprint."""
+        state = self._tracker.state_dict()
+        if self._deterministic:
+            state['cur_shard'] = self._cur_shard or 0
+            state['shard_count'] = self._shard_count or 1
+        state['config'] = self._config_fingerprint
+        return state
+
+    def lineage_context(self):
+        """The static facts a provenance record needs to be replayed
+        (JSON-safe; the JAX package's keys)."""
+        return {
+            'mode': self._lineage_mode,
+            'url': self._store.url,
+            'dataset_path_hash': hashlib.md5(self._store.url.encode()).hexdigest()[:12],
+            'fields': sorted(self.schema.fields),
+            'schema_hash': hashlib.md5(','.join(sorted(self.schema.fields)).encode())
+            .hexdigest()[:8],
+            'seed': self._seed,
+            'cur_shard': self._cur_shard,
+            'shard_count': self._shard_count,
+            'num_epochs': self._num_epochs,
+            'shuffle_rows_in_chunk': False,
+            'deterministic': self._deterministic,
+            'n_row_groups': len(self._row_groups),
+            'transform': None,
+            'predicate': None,
+            'ngram': False,
+        }
+
+    def lineage_state(self):
+        """The live shuffle state sampled into each provenance record."""
+        return self._ventilator.lineage_state()
+
+    def reset(self):
+        """Read another round of ``num_epochs`` once every row was consumed."""
+        if not self.last_row_consumed:
+            raise NotImplementedError('Currently reset() is supported only after all rows were '
+                                      'consumed')
+        self.last_row_consumed = False
+        if self._resequencer is not None:
+            self._resequencer.reset()   # before the ventilator restarts its seq at 0
+        self._ventilator.reset()
 
     def stop(self):
         self._pool.stop()

@@ -1,13 +1,15 @@
 """Bounded random shuffling buffer for row-level decorrelation.
 
-Counterpart of ``petastorm_tpu/shuffling_buffer.py:20-160`` without the
-checkpoint (``state_dict``/``restore``/pending rows) and the memory
-governor's hooks, which come with determinism and resume (ROADMAP §A5).
-The draws come from ``np.random.default_rng(seed)`` with the same call
-sequence as the JAX buffer, so one seed gives both packages the same row
-order: this is host data order, not a torch random stream.
+Counterpart of ``petastorm_tpu/shuffling_buffer.py:20-261`` without the
+memory governor's hooks (ROADMAP §A9). The draws come from
+``np.random.default_rng(seed)`` with the same call sequence as the JAX
+buffer, so one seed gives both packages the same row order: this is host
+data order, not a torch random stream. :class:`RandomShufflingBuffer` is
+checkpointable: ``state_dict()``/``restore()`` carry the buffered rows and
+the generator's state, so a resumed buffer replays the same draws.
 """
 
+import threading
 from collections import deque
 
 import numpy as np
@@ -59,26 +61,39 @@ class RandomShufflingBuffer(object):
         self._min_after_retrieve = min_after_retrieve
         self._extra_capacity = extra_capacity
         self._store = []
+        self._pending = None   # armed by track_pending()
+        #: Field order of the buffered row tuples (set by the batch
+        #: iterator): rides the checkpoint, since a resumed reader may yield
+        #: no sample to learn it from.
+        self.field_names = None
         self._done_adding = False
         self._rng = np.random.default_rng(seed)
+        # The assemble thread adds and draws while the training thread may
+        # take a snapshot.
+        self._lock = threading.Lock()
 
     def add_many(self, items):
-        if self._done_adding:
-            raise RuntimeError('Cannot add after finish()')
-        if len(self._store) + len(items) > self._capacity + self._extra_capacity:
-            raise RuntimeError(
-                'add_many of {} items would exceed capacity+extra ({}+{}); current size {}. '
-                'Check can_add() before adding.'.format(
-                    len(items), self._capacity, self._extra_capacity, len(self._store)))
-        self._store.extend(items)
+        with self._lock:
+            if self._done_adding:
+                raise RuntimeError('Cannot add after finish()')
+            if len(self._store) + len(items) > self._capacity + self._extra_capacity:
+                raise RuntimeError(
+                    'add_many of {} items would exceed capacity+extra ({}+{}); current size {}. '
+                    'Check can_add() before adding.'.format(
+                        len(items), self._capacity, self._extra_capacity, len(self._store)))
+            self._store.extend(items)
 
     def retrieve(self):
-        if not self.can_retrieve():
-            raise RuntimeError('Buffer below decorrelation floor; add more or finish()')
-        index = int(self._rng.integers(0, len(self._store)))
-        # O(1) random pop: swap with the last row.
-        self._store[index], self._store[-1] = self._store[-1], self._store[index]
-        return self._store.pop()
+        with self._lock:
+            if not self.can_retrieve():
+                raise RuntimeError('Buffer below decorrelation floor; add more or finish()')
+            index = int(self._rng.integers(0, len(self._store)))
+            # O(1) random pop: swap with the last row.
+            self._store[index], self._store[-1] = self._store[-1], self._store[index]
+            row = self._store.pop()
+            if self._pending is not None:
+                self._pending.append(row)
+            return row
 
     def can_add(self):
         return len(self._store) < self._capacity and not self._done_adding
@@ -98,6 +113,52 @@ class RandomShufflingBuffer(object):
 
     def finish(self):
         self._done_adding = True
+
+    # -- checkpoint ----------------------------------------------------------
+
+    STATE_VERSION = 1
+
+    def track_pending(self):
+        """Keep drawn rows until :meth:`mark_delivered` says their batch
+        reached the consumer; ``state_dict()`` then carries them too (else
+        rows drawn into staged, undelivered batches would be lost)."""
+        with self._lock:
+            if self._pending is None:
+                self._pending = deque()
+
+    def mark_delivered(self, n):
+        """Release the ``n`` oldest drawn rows (past the count: no-op)."""
+        with self._lock:
+            if self._pending is None:
+                return
+            for _ in range(min(int(n), len(self._pending))):
+                self._pending.popleft()
+
+    def state_dict(self):
+        """The undelivered rows (drawn-but-pending first, then buffered) and
+        the generator's state. The rows are arbitrary values: pickle-safe,
+        not JSON-safe (``JobCheckpointer`` pickles such a loader state)."""
+        with self._lock:
+            rows = list(self._pending or ()) + list(self._store)
+            return {'version': self.STATE_VERSION, 'rows': rows,
+                    'rng_state': self._rng.bit_generator.state,
+                    'field_names': list(self.field_names) if self.field_names is not None
+                    else None,
+                    'size': len(rows)}
+
+    def restore(self, state):
+        """Refill from a :meth:`state_dict` snapshot before iteration: the
+        rows come back and the generator continues the earlier draws."""
+        if state.get('version') != self.STATE_VERSION:
+            raise ValueError('Unsupported shuffling-buffer state version {!r}'.format(
+                state.get('version')))
+        with self._lock:
+            if self._store:
+                raise RuntimeError('restore() into a non-empty buffer')
+            self._store = list(state['rows'])
+            self._rng.bit_generator.state = state['rng_state']
+            if state.get('field_names'):
+                self.field_names = list(state['field_names'])
 
 
 def build_shuffling_buffer(capacity, min_after_dequeue, seed):

@@ -21,9 +21,11 @@ import time
 import numpy as np
 
 from petastorm_tpu_torch.cache import NullCache
+from petastorm_tpu_torch.checkpoint import chunk_key
 from petastorm_tpu_torch.codecs import CompressedImageCodec, NdarrayCodec, ScalarCodec
 from petastorm_tpu_torch.errors import DecodeFieldError
-from petastorm_tpu_torch.workers.rowgroup_worker_base import RowGroupWorkerBase
+from petastorm_tpu_torch.lineage import chunk_lineage
+from petastorm_tpu_torch.workers.rowgroup_worker_base import RowGroupWorkerBase, compute_row_slice
 
 
 def validate_tensor_schema(schema):
@@ -65,21 +67,28 @@ def _read_only(cols):
 
 
 class TensorWorker(RowGroupWorkerBase):
-    """Publishes ``{'cols': {name: block}, 'timings': {...}}`` per
-    row-group. ``args`` also holds ``cache`` (a
-    :class:`~petastorm_tpu_torch.cache.CacheBase`) and
+    """Publishes ``{'key', 'cols': {name: block}, 'lineage', 'timings'}``
+    per row-group, plus ``'det'`` in deterministic mode (an empty
+    row-group publishes a hole marker then). ``args`` also holds ``cache``
+    (a :class:`~petastorm_tpu_torch.cache.CacheBase`) and
     ``dataset_path_hash``. ``timings`` holds the seconds of this
     row-group's ``read_s`` and ``decode_s`` (on a miss) and ``cache_s``
-    (the cache's own bookkeeping, with a cache)."""
+    (the cache's own bookkeeping, with a cache). ``lineage`` is the
+    chunk's provenance segment; its tier is ``'decode'`` when this call
+    decoded, else the cache's tier (``'memory'``)."""
 
     batched_output = True
+    #: Reader mode of provenance contexts: replay decodes by it.
+    lineage_mode = 'tensor'
 
-    def process(self, piece_index):
+    def process(self, piece_index, shuffle_row_drop_partition=None, pst_det=None):
         piece = self.args['row_groups'][piece_index]
         schema = self.args['schema']
         timings = {}
+        decoded = []
 
         def load():
+            decoded.append(True)
             t0 = time.perf_counter()
             table = self._read_row_group(piece, list(schema.fields))
             timings['read_s'] = time.perf_counter() - t0
@@ -100,8 +109,22 @@ class TensorWorker(RowGroupWorkerBase):
             cols = cache.get(key, lambda: _read_only(load()))
             timings['cache_s'] = (time.perf_counter() - t0 - timings.get('read_s', 0.0)
                                   - timings.get('decode_s', 0.0))
-        if cols is not None:
-            self.publish_func({'cols': cols, 'timings': timings})
+        n_rows = len(next(iter(cols.values()))) if cols else 0
+        row_slice = compute_row_slice(n_rows, shuffle_row_drop_partition)
+        if row_slice is not None:
+            cols = {k: v[row_slice[0]:row_slice[1]] for k, v in cols.items()}
+            n_rows = max(0, row_slice[1] - row_slice[0])
+        if not n_rows:
+            self._publish_hole(pst_det)
+            return
+        tier = 'decode' if decoded else cache.lineage_tier
+        payload = {'key': chunk_key(piece_index, shuffle_row_drop_partition), 'cols': cols,
+                   'lineage': chunk_lineage(piece, piece_index, shuffle_row_drop_partition,
+                                            n_rows, tier, worker_id=self.worker_id),
+                   'timings': timings}
+        if pst_det is not None:
+            payload['det'] = pst_det
+        self.publish_func(payload)
 
 
 def decode_table_to_blocks(table, schema):

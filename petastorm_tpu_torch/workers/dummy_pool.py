@@ -2,14 +2,16 @@
 thread inside ``get_results()`` (counterpart of
 ``petastorm_tpu/workers/dummy_pool.py``, without quarantine). For
 debugging, deterministic tests and profiles of the whole path in one
-thread."""
+thread. Items run in ventilation order, so a resequencer set on it
+(deterministic mode) only checks the order."""
 
 from collections import deque
 
+from petastorm_tpu_torch.determinism import ResequencedReads
 from petastorm_tpu_torch.workers import EmptyResultError
 
 
-class DummyPool(object):
+class DummyPool(ResequencedReads):
     workers_count = 1
 
     def __init__(self):
@@ -30,7 +32,7 @@ class DummyPool(object):
     def ventilate(self, *args, **kwargs):
         self._ventilated.append((args, kwargs))
 
-    def get_results(self):
+    def _next_result(self):
         """The next result; a worker's exception raises here."""
         while not self._results:
             if self._stopped or (not self._ventilated and not self._ventilator.pump()):

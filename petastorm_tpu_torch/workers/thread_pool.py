@@ -4,12 +4,16 @@ Counterpart of ``petastorm_tpu/workers/thread_pool.py:36-461`` at a fixed
 size: no resize, backpressure watermark, quarantine, profiling or memory
 accounting. End of data is the results queue empty AND every ventilated
 item processed AND the ventilator completed. A worker's exception stops
-the pool and re-raises in the consumer.
+the pool and re-raises in the consumer. Results are dicts and pass through
+unchanged, each chunk's ``key``, ``det`` tag and ``lineage`` included; with a
+resequencer set (deterministic mode) ``get_results()`` releases them in
+ventilation order.
 """
 
 import queue
 import threading
 
+from petastorm_tpu_torch.determinism import ResequencedReads
 from petastorm_tpu_torch.workers import EmptyResultError, VentilatedItemProcessedMessage
 
 THREAD_PREFIX = 'pstt-pool-worker-'
@@ -48,7 +52,7 @@ class _Stopping(Exception):
     pass
 
 
-class ThreadPool(object):
+class ThreadPool(ResequencedReads):
     def __init__(self, workers_count, results_queue_size=50):
         if workers_count < 1:
             raise ValueError('workers_count must be >= 1, got {}'.format(workers_count))
@@ -104,7 +108,7 @@ class ThreadPool(object):
             except queue.Full:
                 continue
 
-    def get_results(self):
+    def _next_result(self):
         while True:
             try:
                 result = self._results_queue.get(timeout=_POLL_S)

@@ -1,7 +1,8 @@
 """The port's bench on the CPU: the ``pipeline`` child on a tiny store
 prints the keys of ``bench.py``'s pipeline child, the median of its reps
-with their spread, its stage profile and the blocks it does not port; an
-unknown child and a CUDA request without a GPU raise."""
+with their spread, its stage profile with the ``lineage`` block (a replay
+self-check that passes) and the ``determinism`` block, and the blocks it
+does not port; an unknown child and a CUDA request without a GPU raise."""
 
 import json
 
@@ -61,9 +62,16 @@ def test_pipeline_child_prints_the_bench_keys(workdir, monkeypatch, capsys):
     assert sorted(profile['cache_tier_sweep']) == ['memory', 'null']
     assert profile['cache_tier_sweep']['null']['cache']['type'] == 'null'
     assert sorted(out['not_ported']) == sorted([
-        'determinism', 'lineage', 'autotune', 'mem', 'decode_path_sweep', 'per_device_stream',
+        'autotune', 'mem', 'decode_path_sweep', 'per_device_stream',
         'cache_tier_sweep[chunk-store]'])
     assert all('ROADMAP' in item for item in out['not_ported'].values())
+    lineage = profile['lineage']
+    assert lineage['replay_self_check'] is True
+    assert lineage['records'] >= 3 * 4 and lineage['dropped'] == 0
+    assert lineage['ledger_bytes'] > 0 and 'ledger_lag' in lineage
+    det = profile['determinism']
+    assert det['img_per_sec'] > 0 and det['default_img_per_sec'] == out['pipeline_img_per_sec']
+    assert det['ratio_vs_default'] == det['img_per_sec'] / det['default_img_per_sec']
 
 
 def test_unknown_child_and_cuda_without_a_gpu_raise(workdir, tmp_path, monkeypatch):

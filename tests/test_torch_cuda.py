@@ -760,3 +760,93 @@ def test_prefetch_zero_recycles_pinned_arenas_only_after_their_copy(dev, tmp_pat
     assert all(all(torch.equal(x, y) for x, y in zip(a, b)) for a, b in zip(got, want))
     assert stats['arena_pinned'] and stats['arena_reuse'] > 0
     assert stats['arena_alloc'] <= inflight + 1 and stats['h2d_bytes'] > 0
+
+
+# -- resume and the job checkpointer on the card (PR 8) -------------------------------
+
+def test_job_checkpoint_round_trips_cuda_state(dev, tmp_path):
+    """A ResNetTiny state on the card after two SGD steps: DCP saves and
+    restores its params, BatchNorm buffers, momentum buffers and step bit
+    for bit, into a fresh state on the card, sync and async."""
+    from petastorm_tpu_torch.job_checkpoint import JobCheckpointer
+    state = create_train_state(_tiny_resnet(dev), learning_rate=0.1, momentum=0.9)
+    step = make_train_step()
+    for seed in (0, 1):
+        images, labels = _image_superbatch(dev, seed, 1)
+        step(state, _preprocess(images), labels)
+    for async_save in (False, True):
+        root = tmp_path / ('async' if async_save else 'sync')
+        with JobCheckpointer(str(root), async_save=async_save) as ckpt:
+            assert ckpt.save(2, state, extra={'epoch': 0})
+            ckpt.wait()
+        fresh = create_train_state(_tiny_resnet(dev), learning_rate=0.1, momentum=0.9)
+        with JobCheckpointer(str(root)) as ckpt:
+            job = ckpt.restore(fresh)
+        assert job.step == 2 and job.extra == {'epoch': 0} and fresh.step == 2
+        for (name, a), b in zip(state.model.state_dict().items(),
+                                fresh.model.state_dict().values()):
+            assert b.is_cuda and torch.equal(a, b), name
+        for p, q in zip(state.model.parameters(), fresh.model.parameters()):
+            assert torch.equal(state.optimizer.state[p]['momentum_buffer'],
+                               fresh.optimizer.state[q]['momentum_buffer'])
+
+
+def test_scan_step_across_a_restore(dev, tmp_path):
+    """``restore`` loads in place: restored into the state a ScanStep was
+    captured on, every tensor keeps its address and the graph replays from
+    the restored values, equal to eager steps from the checkpoint restored
+    into a fresh state. A resumed job restores into a new TrainState: the
+    old step raises there, and a new one captures and matches eager steps."""
+    from petastorm_tpu_torch.job_checkpoint import JobCheckpointer
+
+    def restored():
+        fresh = create_train_state(_tiny_resnet(dev), learning_rate=0.05, momentum=0.9)
+        with JobCheckpointer(str(tmp_path / 'ckpt')) as ckpt:
+            ckpt.restore(fresh)
+        return fresh
+
+    state = create_train_state(_tiny_resnet(dev), learning_rate=0.05, momentum=0.9)
+    old = make_scan_train_step(2, _preprocess)
+    old(state, *_image_superbatch(dev, 0, 2))
+    old(state, *_image_superbatch(dev, 1, 2))           # captured and replayed
+    with JobCheckpointer(str(tmp_path / 'ckpt')) as ckpt:
+        ckpt.save(state.step, state)
+        old(state, *_image_superbatch(dev, 2, 2))       # the state moves past the save
+        ckpt.restore(state)
+    eager = _eager_resnet(2)
+    reference = restored()
+    for seed in (3, 4):
+        inputs = _image_superbatch(dev, seed, 2)
+        torch.testing.assert_close(old(state, *inputs)['loss'],
+                                   eager(reference, *inputs)['loss'], rtol=1e-2, atol=1e-3)
+    resumed, reference = restored(), restored()
+    with pytest.raises(ValueError, match='another TrainState'):
+        old(resumed, *_image_superbatch(dev, 5, 2))
+    new = make_scan_train_step(2, _preprocess)
+    for seed in (6, 7, 8):
+        inputs = _image_superbatch(dev, seed, 2)
+        torch.testing.assert_close(new(resumed, *inputs)['loss'],
+                                   eager(reference, *inputs)['loss'], rtol=1e-2, atol=1e-3)
+    assert new.graph is not None
+
+
+def test_pinned_prefetching_loader_resume_loses_and_repeats_no_row(dev, tmp_path):
+    """A tensor reader through a pinned-arena loader with prefetch 2 on the
+    card, checkpointed after 3 batches while more sit staged: the resumed
+    loader delivers exactly the rows the first did not, once each, for the
+    default and the deterministic mode."""
+    url = _surface_store(tmp_path, rows=160)
+    for deterministic in (False, True):
+        kwargs = dict(schema_fields=['id', 'image'], workers_count=3, seed=1,
+                      deterministic=deterministic)
+        seen = []
+        with make_tensor_reader(url, **kwargs) as reader:
+            with TorchLoader(reader, 16, device='cuda', prefetch=2) as loader:
+                for _ in range(3):
+                    seen += next(loader).id.cpu().tolist()
+                state = loader.state_dict()
+        with make_tensor_reader(url, resume_state=state, **kwargs) as reader:
+            with TorchLoader(reader, 16, device='cuda', prefetch=2) as loader:
+                for batch in loader:
+                    seen += batch.id.cpu().tolist()
+        assert sorted(seen) == list(range(160)), deterministic
