@@ -50,56 +50,81 @@ non-zero exit and no result line:
    ``loader.superbatches(8)``, ResNet-50 through ``make_scan_train_step(8,
    preprocess=K1 normalize -> bf16)``: call 1 eager, call 2 captures the
    8-step CUDA graph, every later call replays it; 3 warm-up calls (more
-   than one epoch, so the cache is warm), then 5 measured.
+   than one epoch, so the cache is warm), then 11 measured (the bench: 5;
+   see ``SCAN_CALLS``).
 6. imagenet_hbm: ``_measure_device_cache`` (``bench.py:2109-2176``): a
    one-epoch reader fills a ``DeviceDatasetCache``; superbatches of 8
    carried across epoch boundaries through a scan step of its own (its own
    capture) on the state imagenet_scan trained: epoch 1 warms up, epochs
    2 to 17 are measured.
-7. lm: the bench's token store (``bench.py:130-157``: 2048 rows of 1025
+7. imagenet_chunkstore: imagenet_scan's protocol on the same state, the
+   reader with ``cache_type='chunk-store'`` (a fresh store under
+   ``.torch_build/``: epoch 0 decodes and spills, later epochs are read from
+   the mapped entries, whose writes are flushed before the timed calls);
+   img/s, ``decode_s`` of the timed calls (must be 0), the store's
+   counters, K1 8 times a replay. Then an in-order pass of a fresh store
+   (4 workers, resequenced): a new reader's epoch 1, served from the store,
+   must give epoch 0's (decoded) per-field CRC32 digests batch for batch;
+   and ``tools.transcode`` fills another store whose epoch 0 decodes
+   nothing.
+8. imagenet_hbm_partial: ``DeviceDatasetCache(partial=True, max_bytes=160e6,
+   superbatch_batches=4)`` filled from the transcoded store (deterministic
+   chunk-store reader), with ``loader_factory`` a fresh such reader and
+   loader: 8 of the 16 batches stay resident in two runs, 8 stream each
+   epoch. A memory governor is installed before the cache; after a
+   partial window (1 warm-up, 6 counted, 6 timed epochs through a scan
+   step of its own) a ballast pool drives one ``check()`` to degrade, which
+   evicts the coldest run (the card's allocated bytes fall by the run's),
+   and a second window trains on 4 resident batches. K1 8 times a replay
+   in each window; every epoch's multiset of per-row image digests equals
+   the fill epoch's.
+9. lm: the bench's token store (``bench.py:130-157``: 2048 rows of 1025
    int32 tokens, vocab 32768, 256-row groups) is written with the port's
    writer, read and loaded (batch 8) and fed to SGD steps (lr 0.01,
    momentum 0.9) of ``TransformerLM`` (d 512, 8 heads, 8 layers, bf16,
    ``attention='flash'``), as the bench's ``lm`` child configures it; its
    attention (bf16, head dim 64) must run the Hopper forward, dQ and dK/dV,
    8 launches each a step.
-8. lm_scan: the ``lm`` child's protocol (``bench.py:160-306``): the token
+10. lm_scan: the ``lm`` child's protocol (``bench.py:160-306``): the token
    reader with ``cache_type='memory'``, ``TorchLoader(batch=64)``, the same
    model through ``make_lm_scan_train_step(8)`` (one CUDA graph replay a
    call of 8 steps of batch 8); 2 warm-up calls, then 6 measured.
-9. imagenet_vit: the ``imagenet_vit`` child (``bench.py:2511-2515``):
+11. imagenet_vit: the ``imagenet_vit`` child (``bench.py:2511-2515``):
    ``ViT(num_classes=1000)`` (patch 16, d 384, 6 heads, 8 layers, dense
    attention, bf16) behind the bench's bare cast (``float() / 255``),
    batch 128, K = 8, SGD lr 0.1 momentum 0.9; streamed from the memory
    cache (2 warm-up and 2 measured calls), then from the HBM tier through a
    scan step of its own (epoch 1 warm-up, 4 epochs counted).
-10. imagenet_aug: the ``imagenet_aug`` child (``bench.py:2553-2557``) on
+12. imagenet_aug: the ``imagenet_aug`` child (``bench.py:2553-2557``) on
    the HBM tier: the ResNet-50 state of imagenet_hbm trained (b) through
    the bare cast, from a copy of the state, and (a) through
    ``imagenet_train_augment`` (f32 out) inside the 8-step graph, which
    registers the augment's generator; ``aug_cost_frac = 1 - aug / bare``.
    K1 runs 8 times a replay of (a), never in (b); two more replays of (a)
-   must draw different crop boxes.
-11. lm_long: the ``lm_long`` child (``bench.py:2526-2530``): a store of 256
+   must draw different crop boxes. Epoch 1 warms up, 6 are counted (the
+   bench: 4).
+13. lm_long: the ``lm_long`` child (``bench.py:2526-2530``): a store of 256
    rows of 8193 tokens (``bench.py:141``), ``TransformerLM(max_len=8192)``,
-   batch 2, K = 4, 2 warm-up and 4 measured calls; each flash kernel 32
+   batch 2, K = 4, 2 warm-up and 12 measured calls; each flash kernel 32
    times a replay; attention's share of the traced step.
-12. lm_moe: the ``lm_moe`` child (``bench.py:2537-2540``): the lm store and
+14. lm_moe: the ``lm_moe`` child (``bench.py:2537-2540``): the lm store and
    widths with 4 Switch-MoE experts and 4 layers, loss ``ce + 1e-2 * aux``,
-   batch 8, K = 8, 2 warm-up and 2 measured calls; each flash kernel 32
+   batch 8, K = 8, 2 warm-up and 12 measured calls; each flash kernel 32
    times a replay; the losses and the aux losses.
-13. pipeline: the bench's ``pipeline`` child (``bench.py:774-949``) on the
+15. pipeline: the bench's ``pipeline`` child (``bench.py:774-949``) on the
    imagenet store: the host pipeline alone, no model (see
    ``petastorm_tpu_torch.bench.run_pipeline``): median img/s of 3 reps of 32
-   batches, spread, cold rate, stage profile, the null/memory tier sweep.
-14. loader_surface: a small store through ``TorchLoader`` on the card (tensor
+   batches, spread, cold rate, stage profile, the null/memory/chunk-store
+   tier sweep, and, with ``PSTT_HOST_MEM_BUDGET=auto`` set for the phase,
+   the memory governor's ``mem`` block.
+16. loader_surface: a small store through ``TorchLoader`` on the card (tensor
    reader; row reader with ``CropTo``): ``prefetch=0``, ``prefetch=2,
    inflight=1`` and ``prefetch=2, inflight=4, arena_depth=3`` bit-equal to
    the default's batches; ``echo=2`` delivers each twice.
-15. examples: the imagenet example with ``augment=True`` at 224 from a ragged
+17. examples: the imagenet example with ``augment=True`` at 224 from a ragged
    store (K1 once a step), the long_context example at its defaults (K2-K4
    once a layer a step), the mnist example (accuracy over 0.8).
-16. preemptible: ResNet-50 killed mid-epoch and resumed from a job
+18. preemptible: ResNet-50 killed mid-epoch and resumed from a job
    checkpoint (see :func:`run_preemptible`), three child processes on the
    imagenet store, deterministic reader, lineage ledger, ``superbatches(8)``
    and the 8-step scan trainer with K1 in its graph: U runs 6 calls (3
@@ -110,7 +135,7 @@ non-zero exit and no result line:
    record must replay bit-identical (``verify_record``); losses within
    ``PREEMPT_LOSS_RTOL``; K1 counted in S2's profiled window.
 
-Phases 5 to 13 and 16 run the bench's protocol through the functions of
+Phases 5 to 15 and 18 run the bench's protocol through the functions of
 ``petastorm_tpu_torch/bench.py`` (``python -m petastorm_tpu_torch.bench``
 runs them as the bench's children); this script holds their launch counts.
 Each path's kernel launch counts are zeroed just before it and read just
@@ -174,11 +199,21 @@ MAX_SPIN_CYCLES = 16 * SPIN_CYCLES
 
 # The bench's flashattn child (bench.py:1610-1618): [B, T, H, D] = [4, 8192, 8, 128].
 FA_BATCH, FA_SEQ, FA_HEADS, FA_D = 4, 8192, 8, 128
+# The profiler drops kernel records now and then, and a window may lose
+# PROFILER_LOSS (1%) of its records; on an H100 it dropped about 1 of 1,000
+# K1 records on the ResNet paths and up to 1 of 100 flash records on lm_moe.
+# So each scan window here profiles at least 100 K1 records (13 calls) and
+# 400 records of each flash kernel, more calls than the bench's children.
 # The lm_long child (bench.py:2526-2530; store bench.py:141): 256 rows of 8193
-# tokens, batch 2, K 4, 16 measured steps: the flash kernels see [16, 8192, 64].
-LONG_SEQ, LONG_BATCH, LONG_K, LONG_STEPS = 8193, 2, 4, 16
-# The lm_moe child (bench.py:2537-2540): 4 experts, 4 layers; batch 8, K 8, 16 steps.
-MOE_EXPERTS, MOE_LAYERS, MOE_STEPS = 4, 4, 16
+# tokens, batch 2, K 4, 48 measured steps (the bench: 16): the flash kernels
+# see [16, 8192, 64].
+LONG_SEQ, LONG_BATCH, LONG_K, LONG_STEPS = 8193, 2, 4, 48
+# The lm_moe child (bench.py:2537-2540): 4 experts, 4 layers; batch 8, K 8, 96
+# steps (the bench: 16).
+MOE_EXPERTS, MOE_LAYERS, MOE_STEPS = 4, 4, 96
+# Measured calls of the streamed ResNet scan paths (the bench: 5) and the
+# imagenet_aug epochs (the bench: 4): 13 profiled calls, 104 K1 records.
+SCAN_CALLS, AUG_EPOCHS = 11, 6
 
 
 def hbm_rate(name):
@@ -1427,6 +1462,33 @@ def run_examples(store_dir, device, card):
     return out
 
 
+def run_pipeline_governed(url, device, workers):
+    """The pipeline child with ``PSTT_HOST_MEM_BUDGET=auto`` set for the
+    phase, so the pipeline arms the memory governor. Fails unless the
+    ``chunk-store`` row of the tier sweep served its window from the store
+    and the ``mem`` block reports an armed budget with no breach."""
+    from petastorm_tpu_torch import membudget
+    saved = os.environ.get(membudget.ENV_VAR)
+    os.environ[membudget.ENV_VAR] = 'auto'
+    try:
+        pipeline = bench.run_pipeline(url, device, workers)
+    finally:
+        if saved is None:
+            os.environ.pop(membudget.ENV_VAR, None)
+        else:
+            os.environ[membudget.ENV_VAR] = saved
+    profile = pipeline['pipeline_stage_profile']
+    row = profile['cache_tier_sweep'].get('chunk-store')
+    mem = profile.get('mem')
+    if (row is None or 'error' in row or 'not_ported' in row or row['decode_s'] != 0.0
+            or row['chunk_store']['hits'] == 0 or mem is None or not mem['budget_bytes']
+            or mem['breaches']):
+        raise AssertionError('pipeline: chunk-store row {}, mem block {}'.format(row, mem))
+    if membudget.get_governor().armed:
+        raise AssertionError('the pipeline left the memory governor armed')
+    return pipeline
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--steps', type=int, default=20, help='measured SGD steps (after 3 warm-up)')
@@ -1456,7 +1518,11 @@ def main():
 
     lines = []
 
+    started = time.perf_counter()
+
     def record(obj):
+        if 'phase' in obj:      # seconds since the script started, on each phase's line
+            obj = dict(obj, elapsed_s=time.perf_counter() - started)
         bench.emit(obj)
         lines.append(obj)
 
@@ -1511,7 +1577,7 @@ def main():
         record(result)
         k1['launches'] = result['launches'].get('normalize_images', 0)
         by_path = {'imagenet': k1['launches']}
-        result, state = bench.run_imagenet_scan(url, device, card)
+        result, state = bench.run_imagenet_scan(url, device, card, calls=SCAN_CALLS)
         record(result)
         imagenet_scan_rate = result['img_per_s']
         by_path['imagenet_scan'] = bench.path_launches(result, 'normalize_images',
@@ -1520,13 +1586,27 @@ def main():
         record(result)
         by_path['imagenet_hbm'] = bench.path_launches(result, 'normalize_images',
                                                       'normalize_kernel')
+        rates = {'imagenet_scan': imagenet_scan_rate, 'imagenet_hbm': result['img_per_s']}
+        chunk_dir = os.path.join(store_dir, 'chunks')
+        result = bench.run_imagenet_chunkstore(url, device, card, state, chunk_dir,
+                                               calls=SCAN_CALLS)
+        record(result)
+        by_path['imagenet_chunkstore'] = bench.path_launches(result, 'normalize_images',
+                                                             'normalize_kernel')
+        result = bench.run_imagenet_hbm_partial(url, device, card, state,
+                                                os.path.join(chunk_dir, 'transcoded'), rates)
+        record(result)
+        by_path['imagenet_hbm_partial'] = {
+            window: bench.path_launches(result[window], 'normalize_images', 'normalize_kernel')
+            for window in ('partial', 'after_eviction')}
+        shutil.rmtree(chunk_dir, ignore_errors=True)
         k1['launches_by_path'] = by_path
         lm_result = run_lm(lm_url, device, args.steps, card)
         record(lm_result)
         scans = {'lm_scan': bench.run_lm_scan(lm_url, device, card)}
         record(scans['lm_scan'])
         record(bench.run_imagenet_vit(url, device, card))
-        aug = bench.run_imagenet_aug(url, device, card, state)
+        aug = bench.run_imagenet_aug(url, device, card, state, epochs=AUG_EPOCHS)
         record(aug)
         by_path['imagenet_aug'] = bench.path_launches(aug['augmented'], 'normalize_images',
                                                       'normalize_kernel')
@@ -1544,7 +1624,7 @@ def main():
                                             layers=MOE_LAYERS, moe_experts=MOE_EXPERTS)
         record(scans['lm_moe'])
         workers = max(4, min(10, os.cpu_count() or 4))
-        pipeline = bench.run_pipeline(url, device, workers)
+        pipeline = run_pipeline_governed(url, device, workers)
         record(dict({'phase': 'pipeline', 'card': card}, **pipeline))
         record(dict(check_loader_surface(store_dir, device), phase='loader_surface', card=card))
         preempt = run_preemptible(url, card)

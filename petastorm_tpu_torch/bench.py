@@ -75,11 +75,11 @@ FLASH_KERNELS = ('flash_fwd_sm90_kernel', 'flash_dq_sm90_kernel', 'flash_dkv_sm9
 #: ROADMAP item that brings them.
 PIPELINE_NOT_PORTED = {
     'autotune': 'ROADMAP §A9 (autotune)',
-    'mem': 'ROADMAP §A9 (membudget)',
     'decode_path_sweep': 'ROADMAP §A9 (the native decoders)',
     'per_device_stream': 'ROADMAP §A6 (multi-GPU, per-device staging)',
-    'cache_tier_sweep[chunk-store]': 'ROADMAP §A4 (disk cache tiers)',
 }
+#: The cache tiers the pipeline child sweeps (``BENCH_PIPELINE_CACHE_TIERS``).
+PIPELINE_CACHE_TIERS = ('null', 'memory', 'chunk-store')
 
 
 def emit(obj):
@@ -391,13 +391,15 @@ def stage_profile(stats, timings0, timings, wall_s):
     return profile
 
 
-def stream_classifier_scan(url, device, train, state, warmup, calls, kernels):
-    """A classifier scan path streamed from the memory cache (the bench's
-    ``_child_imagenet`` loop): the reader with ``cache_type='memory'``
-    (endless, seed 0), ``TorchLoader(batch=128, prefetch=8)``,
+def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
+                           cache_type='memory', cache_location=None):
+    """A classifier scan path streamed from a cache tier (the bench's
+    ``_child_imagenet`` loop): the reader with ``cache_type`` (default
+    ``'memory'``; endless, seed 0), ``TorchLoader(batch=128, prefetch=8)``,
     ``superbatches(8)``; :func:`scan_window` over ``warmup`` + ``calls``
-    calls, then ``calls`` timed (the stage profile covers those). Returns
-    the path's line (without phase and model keys) and its launch window."""
+    calls, then ``calls`` timed (the stage profile covers those). A chunk
+    store's queued writes are flushed before the timed calls. Returns the
+    path's line (without phase and model keys) and its launch window."""
     import torch
     from petastorm_tpu_torch import TorchLoader, make_tensor_reader
 
@@ -405,7 +407,7 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels):
     torch.cuda.reset_peak_memory_stats(device)
     reader = make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
                                 workers_count=4, shuffle_row_groups=True, seed=0, num_epochs=None,
-                                cache_type='memory')
+                                cache_type=cache_type, cache_location=cache_location)
     with reader:
         with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH) as loader:
             groups = loader.superbatches(SCAN_K)
@@ -416,6 +418,9 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels):
 
             metrics, launches, captured, ran, measured, profiled = scan_window(
                 train, state, next_inputs, warmup, calls, kernels)
+            if reader.chunk_store is not None and not reader.chunk_store.flush(timeout_s=120):
+                raise RuntimeError('the chunk store did not drain its writes before the timed '
+                                   'calls')
             stats0, cache0, timings0 = loader.stats, reader.cache_stats(), reader.stage_timings
             loader.reset_stats()
             wall, wait_s, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
@@ -430,7 +435,7 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels):
     steps = calls * SCAN_K
     result = {
         'batch': BATCH, 'microbatches': SCAN_K, 'prefetch': SCAN_PREFETCH,
-        'cache_type': 'memory', 'warmup_calls': warmup, 'counted_calls': calls,
+        'cache_type': cache_type, 'warmup_calls': warmup, 'counted_calls': calls,
         'timed_calls': calls, 'losses_mean_last': losses, 'img_per_s': steps * BATCH / wall,
         'step_ms': wall / steps * 1e3, 'input_stall_frac': wait_s / wall,
         'h2d_GBps': stats['h2d_bytes'] / stats['h2d_s'] / 1e9 if stats['h2d_s'] else None,
@@ -464,18 +469,21 @@ def fill_device_cache(url, device):
     return cache, time.perf_counter() - t0
 
 
-def hbm_scan(cache, train, state, epochs, kernels):
+def hbm_scan(cache, train, state, epochs, kernels, first_epoch=1, observe=None):
     """Superbatches of ``SCAN_K`` cached batches, carried across epoch
     boundaries, through ``train`` (a scan step of its own, its own
-    capture): epoch 1 warms up (call 1 eager, call 2 captures), the next
-    ``epochs`` are counted under the profiler, and as many more timed.
-    Returns the path's line (without phase keys) and its launch window."""
+    capture): epoch ``first_epoch`` warms up (call 1 eager, call 2
+    captures), the next ``epochs`` are counted under the profiler, and as
+    many more timed. ``observe(epoch, batch)`` sees each batch. Returns the
+    path's line (without phase keys) and its launch window."""
     import torch
 
     def superbatches():
-        group, epoch = [], 1
+        group, epoch = [], first_epoch
         while True:
             for b in cache.epoch(epoch):
+                if observe is not None:
+                    observe(epoch, b)
                 group.append(b)
                 if len(group) == SCAN_K:
                     yield type(b)(*(torch.cat(columns) for columns in zip(*group)))
@@ -540,6 +548,243 @@ def run_imagenet_hbm(url, device, card, state):
     return dict({'phase': 'imagenet_hbm', 'card': card, 'fill_s': fill_s}, **result)
 
 
+def _epoch_digests(loader):
+    """Per-field CRC32 digests of each batch of ``loader``, on the host."""
+    from petastorm_tpu_torch.lineage import _digest_array
+    return [{name: _digest_array(getattr(b, name).cpu().numpy()) for name in b._fields}
+            for b in loader]
+
+
+def _store_epoch(url, device, store_dir):
+    """One epoch of the imagenet store through a chunk-store reader (in
+    order: 4 workers, resequenced) and ``TorchLoader`` on ``device``: (the
+    batches' digests, the workers' stage timings, the store's counters)."""
+    from petastorm_tpu_torch import TorchLoader, make_tensor_reader
+    reader = make_tensor_reader(url, schema_fields=['image', 'label'], workers_count=4,
+                                num_epochs=1, shuffle_row_groups=False, deterministic=True,
+                                cache_type='chunk-store', cache_location=store_dir)
+    with reader:
+        with TorchLoader(reader, BATCH, device=device) as loader:
+            digests = _epoch_digests(loader)
+        store = reader.chunk_store
+        if not store.flush(timeout_s=120):
+            raise RuntimeError('the chunk store did not drain its writes')
+        return digests, reader.stage_timings, store.stats()
+
+
+def run_imagenet_chunkstore(url, device, card, state, store_dir, warmup=3, calls=5):
+    """``imagenet_scan`` served from the decoded-chunk store: the reader
+    with ``cache_type='chunk-store'`` under ``store_dir`` (fresh), the
+    bench's scan protocol (:func:`stream_classifier_scan`) on ``state``
+    through a scan step of its own; K1 must run 8 times a replay and the
+    timed calls decode nothing. Then two checks: an in-order pass of a
+    fresh store (epoch 0 decoded, then a new reader's epoch 1 served from
+    the mapped entries) gives the same per-field CRC32 digests batch for
+    batch; and ``tools.transcode`` fills another store whose first epoch
+    decodes nothing."""
+    from petastorm_tpu_torch.models import make_scan_train_step
+    from petastorm_tpu_torch.tools.transcode import transcode_dataset
+
+    train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
+    result, window = stream_classifier_scan(url, device, train, state, warmup, calls,
+                                            ('normalize_kernel',), cache_type='chunk-store',
+                                            cache_location=os.path.join(store_dir, 'scan'))
+    require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
+    timed_decode = result['stage_profile']['decode_s']
+    if timed_decode != 0.0:
+        raise AssertionError('the timed calls decoded ({} s) instead of reading the store'.format(
+            timed_decode))
+    cache = result['cache']
+    if cache['writes'] != ROWS // ROWS_PER_GROUP or cache['corrupt_quarantined']:
+        raise AssertionError('chunk store counters: {}'.format(cache))
+
+    t0 = time.perf_counter()
+    decoded, decode_timings, fill = _store_epoch(url, device, os.path.join(store_dir, 'check'))
+    fill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served, serve_timings, serve = _store_epoch(url, device, os.path.join(store_dir, 'check'))
+    serve_s = time.perf_counter() - t0
+    if (served != decoded or len(served) != ROWS // BATCH or serve['misses']
+            or serve_timings['decode_s'] != 0.0 or decode_timings['decode_s'] == 0.0):
+        raise AssertionError('mmap-served epoch against the decoded one: {} of {} batches equal, '
+                             'store {}, decode_s {} then {}'.format(
+                                 sum(a == b for a, b in zip(served, decoded)), len(decoded),
+                                 serve, decode_timings['decode_s'], serve_timings['decode_s']))
+    t0 = time.perf_counter()
+    report = transcode_dataset(url, os.path.join(store_dir, 'transcoded'), workers_count=4)
+    transcode_s = time.perf_counter() - t0
+    transcoded, transcoded_timings, transcoded_stats = _store_epoch(
+        url, device, os.path.join(store_dir, 'transcoded'))
+    if (not report['complete'] or transcoded_timings['decode_s'] != 0.0
+            or transcoded_stats['misses'] or transcoded != decoded):
+        raise AssertionError('transcoded store: report {}, epoch 0 decode_s {}, store {}'.format(
+            report, transcoded_timings['decode_s'], transcoded_stats))
+    return dict({'phase': 'imagenet_chunkstore', 'card': card, 'model': 'resnet50',
+                 'stem': 'conv7', 'classes': 1000}, **result, **{
+        'decode_s_timed': timed_decode,
+        'store': {k: cache[k] for k in ('hits', 'misses', 'fills', 'writes', 'write_skipped',
+                                        'corrupt_quarantined', 'readaheads', 'bytes_written',
+                                        'bytes_mapped')},
+        'digest_check': {'batches': len(served), 'equal': True,
+                         'decoded_epoch_s': fill_s, 'served_epoch_s': serve_s,
+                         'decoded_img_per_s': ROWS / fill_s, 'served_img_per_s': ROWS / serve_s,
+                         'decode_s': [decode_timings['decode_s'], serve_timings['decode_s']]},
+        'transcode': dict(report, seconds=transcode_s,
+                          epoch0_decode_s=transcoded_timings['decode_s'],
+                          epoch0_hits=transcoded_stats['hits'])})
+
+
+#: The partial HBM tier's budget: 8 of the 16 batches of 19,268,608 bytes
+#: fit (154,148,864 bytes), the ninth does not.
+PARTIAL_MAX_BYTES = 160_000_000
+PARTIAL_RUN_BATCHES = 4
+#: Epochs counted (and as many timed) in each partial window, after its
+#: warm-up epoch: 13 profiled calls, 104 K1 records, so that the profiler's
+#: loss bound (``PROFILER_LOSS``) admits a dropped record (one window of 40
+#: lost 1 on an H100).
+PARTIAL_EPOCHS = 6
+
+
+def _row_digests(images):
+    """One int64 digest a row, computed on the card: the row's bytes against
+    fixed weights, exactly (no rounding), so equal rows give equal digests."""
+    import torch
+    flat = images.reshape(images.shape[0], -1)
+    weights = _row_digest_weights(flat.shape[1], flat.device)
+    return (flat.to(torch.int64) * weights).sum(dim=1)
+
+
+_ROW_WEIGHTS = {}
+
+
+def _row_digest_weights(n, device):
+    import torch
+    key = (n, str(device))
+    if key not in _ROW_WEIGHTS:
+        _ROW_WEIGHTS[key] = torch.randint(1, 1 << 20, (n,), dtype=torch.int64,
+                                          generator=torch.Generator().manual_seed(9)).to(device)
+    return _ROW_WEIGHTS[key]
+
+
+def run_imagenet_hbm_partial(url, device, card, state, store_dir, reference_rates):
+    """The partial HBM tier under ResNet-50 scan training: a
+    ``DeviceDatasetCache(partial=True, max_bytes=160e6,
+    superbatch_batches=4, shuffle=True)`` filled from a deterministic
+    chunk-store reader over ``store_dir`` (an in-order pass, 4 workers),
+    with ``loader_factory`` a fresh such reader and loader a pass. 8 of the
+    16 batches stay resident in two runs; each epoch streams the other 8.
+    Epoch 0 fills; :func:`hbm_scan` trains a partial window (its warm-up
+    epoch, ``PARTIAL_EPOCHS`` counted, as many timed) through a scan step
+    of its own; then a ballast pool drives one ``check()`` of a memory
+    governor (installed before the cache) to *degrade*, which evicts the
+    coldest run, and the card's allocated bytes must fall by the run's;
+    the ballast goes and a second ``check()`` returns the ladder to *ok*;
+    then a second window with a new scan step. K1 must run 8 times a replay
+    in each window, and every epoch's multiset of per-row image digests
+    must equal the fill epoch's."""
+    import torch
+    from petastorm_tpu_torch import DeviceDatasetCache, TorchLoader, make_tensor_reader, membudget
+    from petastorm_tpu_torch.models import make_scan_train_step
+
+    def reader():
+        return make_tensor_reader(url, schema_fields=['image', 'label'], workers_count=4,
+                                  num_epochs=1, shuffle_row_groups=False, deterministic=True,
+                                  cache_type='chunk-store', cache_location=store_dir)
+
+    def factory():
+        with reader() as r:
+            with TorchLoader(r, BATCH, device=device) as loader:
+                yield from loader
+
+    digests = {}
+
+    def observe(epoch, batch):
+        digests.setdefault(epoch, []).append(_row_digests(batch.image))
+
+    budget = 16 << 30
+    governor = membudget.MemoryGovernor(budget=budget,
+                                        config=membudget.GovernorConfig(interval_s=3600))
+    previous = membudget.set_governor(governor)
+    governor.arm(budget)          # the sampler waits an hour: this phase drives check()
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        with reader() as r:
+            with TorchLoader(r, BATCH, device=device) as loader:
+                cache = DeviceDatasetCache(loader, shuffle=True, seed=0, partial=True,
+                                           max_bytes=PARTIAL_MAX_BYTES,
+                                           superbatch_batches=PARTIAL_RUN_BATCHES,
+                                           loader_factory=factory)
+                for batch in cache.epoch(0):
+                    observe(0, batch)
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        filled = cache.stats()
+        run_bytes = PARTIAL_RUN_BATCHES * BATCH * (IMAGE * IMAGE * 3 + 8)
+        if (filled['cached_batches'] != 8 or filled['total_batches'] != ROWS // BATCH
+                or filled['superbatches'] != 2 or not filled['fill_stopped']):
+            raise AssertionError('partial fill: {}'.format(filled))
+        windows, freed = [], None
+        for first in (1, 2 + 2 * PARTIAL_EPOCHS):
+            if windows:
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated(device)
+                ballast = governor.register_pool(
+                    'ballast', lambda: int(0.88 * budget) - cache.nbytes)
+                state_after = governor.check()
+                torch.cuda.synchronize()
+                freed = before - torch.cuda.memory_allocated(device)
+                evicted = cache.stats()
+                # The relief: the advisory toggles (the cache's fill pause,
+                # the store's spill, unpinned arenas) end with the episode.
+                ballast.close()
+                if governor.check() != membudget.STATE_OK:
+                    raise AssertionError('the ladder did not recede: {}'.format(
+                        governor.probe()))
+                # The allocator may keep a run's block whole with its
+                # segment's tail (under 1 MiB for a large block), so up to
+                # 2 MiB a column more than the run's bytes may go.
+                if (state_after != membudget.STATE_DEGRADE or evicted['evictions'] != 1
+                        or evicted['cached_batches'] != 4
+                        or not run_bytes <= freed < run_bytes + (4 << 20)):
+                    raise AssertionError('eviction: state {}, cache {}, {} bytes freed of a {} '
+                                         'byte run'.format(state_after, evicted, freed, run_bytes))
+            train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
+            result, window = hbm_scan(cache, train, state, PARTIAL_EPOCHS, ('normalize_kernel',),
+                                      first_epoch=first, observe=observe)
+            require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
+            windows.append(result)
+        stats = cache.stats()
+        probe = governor.stats()
+    finally:
+        governor.release()
+        membudget.set_governor(previous)
+    reference = torch.sort(torch.cat(digests[0])).values
+    epochs = sorted(digests)
+    mismatched = [e for e in epochs if len(digests[e]) == ROWS // BATCH
+                  and not torch.equal(torch.sort(torch.cat(digests[e])).values, reference)]
+    complete = [e for e in epochs if len(digests[e]) == ROWS // BATCH]
+    if mismatched or len(complete) < 1 + 2 * (1 + 2 * PARTIAL_EPOCHS):
+        raise AssertionError('per-row image digests: epochs {} differ from the fill epoch; {} '
+                             'complete epochs'.format(mismatched, len(complete)))
+    cache.clear()
+    partial, evicted = windows
+    return {'phase': 'imagenet_hbm_partial', 'card': card, 'model': 'resnet50', 'stem': 'conv7',
+            'classes': 1000, 'max_bytes': PARTIAL_MAX_BYTES,
+            'superbatch_batches': PARTIAL_RUN_BATCHES, 'fill_s': fill_s,
+            'fill_img_per_s': ROWS / fill_s, 'fill_stats': filled,
+            'partial': partial, 'after_eviction': evicted,
+            'img_per_s': {'fill_epoch_no_training': ROWS / fill_s,
+                          'partial_8_of_16': partial['img_per_s'],
+                          'partial_4_of_16': evicted['img_per_s'],
+                          'imagenet_scan': reference_rates.get('imagenet_scan'),
+                          'imagenet_hbm': reference_rates.get('imagenet_hbm')},
+            'run_bytes': run_bytes, 'eviction_freed_bytes': freed, 'cache_stats': stats,
+            'governor': {key: probe[key] for key in ('budget_bytes', 'peak_state',
+                                                      'degrade_actions', 'breaches')},
+            'digest_epochs': len(complete), 'digests_equal': True}
+
+
 def run_imagenet_vit(url, device, card, warmup=2, calls=2):
     """The ``imagenet_vit`` child (``bench.py:2511-2515``): ``ViT(num_classes
     =1000)`` at its widths (patch 16, d 384, 6 heads, 8 layers, dense
@@ -571,14 +816,15 @@ def run_imagenet_vit(url, device, card, warmup=2, calls=2):
             'streamed': streamed, 'hbm': dict(hbm, fill_s=fill_s)}
 
 
-def run_imagenet_aug(url, device, card, state):
+def run_imagenet_aug(url, device, card, state, epochs=AUG_EPOCHS):
     """The ``imagenet_aug`` child (``bench.py:2553-2557``, ``:1872-1889``,
     ``:1975-2010``) on the HBM tier: the ResNet-50 ``state`` trained through
     (b) the bare cast, from a copy of the state, and (a) the augment inside
     the 8-step graph (``imagenet_train_augment``, f32 out; the graph
     registers its generator), each through a scan step of its own;
     ``aug_cost_frac = 1 - aug / bare``. K1 runs 8 times a replay of (a) and
-    never in (b); two more replays of (a) must draw different boxes."""
+    never in (b); two more replays of (a) must draw different boxes. Each
+    window: epoch 1 warms up, ``epochs`` are counted, as many timed."""
     import copy
     import torch
     from petastorm_tpu_torch.models import make_scan_train_step
@@ -590,7 +836,7 @@ def run_imagenet_aug(url, device, card, state):
     cache, fill_s = fill_device_cache(url, device)
     bare_state = copy.deepcopy(state)
     bare, window = hbm_scan(cache, make_scan_train_step(SCAN_K, preprocess=bare_cast),
-                            bare_state, AUG_EPOCHS, ('normalize_kernel',))
+                            bare_state, epochs, ('normalize_kernel',))
     require_no_kernel(window)
     del bare_state
     torch.cuda.empty_cache()
@@ -606,7 +852,7 @@ def run_imagenet_aug(url, device, card, state):
 
     train = make_scan_train_step(SCAN_K, preprocess=augment,
                                  generator=torch.Generator(device=device).manual_seed(0))
-    aug, window = hbm_scan(cache, train, state, AUG_EPOCHS, ('normalize_kernel',))
+    aug, window = hbm_scan(cache, train, state, epochs, ('normalize_kernel',))
     require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
     if len(boxes) != 2 * SCAN_K:
         raise AssertionError('the augment ran {} times on the host; expected {} (call 1 and the '
@@ -727,23 +973,76 @@ def _fence(batch):
 
 
 def _measure_cache_tier(url, device, workers, batch, warm, measure, tier):
+    """One row of the cache-tier sweep (``bench.py:581-650``): img/s of
+    ``measure`` batches after ``warm`` (an epoch and two batches), and the
+    process's RSS. The chunk store gets a fresh directory, filled first by
+    one pass of a reader of its own whose writes are flushed (``fill_s``):
+    the bench flushes after the warm-up instead, and row-groups that missed
+    before their first write landed, still in flight at the flush, would
+    decode inside the window. Its counters are reported."""
     from petastorm_tpu_torch import TorchLoader, make_tensor_reader
+    from petastorm_tpu_torch.chunk_store import TEMP_DIR_PREFIX
 
-    reader = make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
-                                workers_count=workers, num_epochs=None, shuffle_row_groups=True,
-                                seed=0, cache_type=tier)
-    with reader:
-        with TorchLoader(reader, batch, device=device, prefetch=2) as loader:
-            for _ in range(warm):
-                b = next(loader)
-            _fence(b)
-            t0 = time.perf_counter()
-            for _ in range(measure):
-                b = next(loader)
-            _fence(b)
-            return {'img_per_sec': batch * measure / (time.perf_counter() - t0),
-                    'rss_mb': _rss_mb(), 'rss_peak_mb': _peak_rss_mb(),
-                    'cache': reader.cache_stats()}
+    kwargs = dict(schema_fields=['image', 'label'], reader_pool_type='thread',
+                  workers_count=workers, shuffle_row_groups=True, seed=0, cache_type=tier)
+    store_dir = fill_s = None
+    if tier == 'chunk-store':
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        store_dir = tempfile.mkdtemp(prefix=TEMP_DIR_PREFIX, dir=BUILD_DIR)
+        kwargs['cache_location'] = store_dir
+        t0 = time.perf_counter()
+        with make_tensor_reader(url, num_epochs=1, **kwargs) as filler:
+            for _ in filler:
+                pass
+            if not filler.chunk_store.flush(timeout_s=120):
+                raise RuntimeError('the chunk store did not drain its writes')
+        fill_s = time.perf_counter() - t0
+    try:
+        reader = make_tensor_reader(url, num_epochs=None, **kwargs)
+        with reader:
+            with TorchLoader(reader, batch, device=device, prefetch=2) as loader:
+                for _ in range(warm):
+                    b = next(loader)
+                _fence(b)
+                store = reader.chunk_store
+                if store is not None and not store.flush(timeout_s=120):
+                    raise RuntimeError('the chunk store did not drain its writes before the '
+                                       'measured window')
+                timings0 = reader.stage_timings
+                t0 = time.perf_counter()
+                for _ in range(measure):
+                    b = next(loader)
+                _fence(b)
+                record = {'img_per_sec': batch * measure / (time.perf_counter() - t0),
+                          'rss_mb': _rss_mb(), 'rss_peak_mb': _peak_rss_mb(),
+                          'decode_s': reader.stage_timings['decode_s'] - timings0['decode_s'],
+                          'cache': reader.cache_stats()}
+                if store is not None:
+                    stats = store.stats()
+                    record['chunk_store'] = {k: stats[k] for k in (
+                        'hits', 'misses', 'fills', 'writes', 'corrupt_quarantined',
+                        'readaheads', 'bytes_mapped')}
+                    record['fill_s'] = fill_s
+                return record
+    finally:
+        if store_dir is not None:
+            shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def _mem_governor_summary():
+    """The ``mem`` block (``bench.py:538-555``) while the governor is armed:
+    budget and its source, the ladder's state and peaks, the pools' bytes
+    (sampled now: one pass of the sampler's own check), degrade actions,
+    breaches; else None."""
+    from petastorm_tpu_torch import membudget
+    governor = membudget.get_governor()
+    if not governor.armed:
+        return None
+    governor.check()
+    stats = governor.stats()
+    return {key: stats[key] for key in ('budget_bytes', 'budget_source', 'state', 'peak_state',
+                                        'peak_frac', 'accounted_bytes', 'pools',
+                                        'degrade_actions', 'breaches')}
 
 
 def _lineage_summary(loader, ledger_dir):
@@ -805,7 +1104,9 @@ def run_pipeline(url, device, workers):
     armed during the reps, so each batch's fields are CRC32-digested on the
     assemble thread. Then the same pipeline with ``deterministic=True``
     (``determinism``; ``BENCH_PIPELINE_DETERMINISM=0`` skips it) and the
-    cache-tier sweep (``null``, ``memory``)."""
+    cache-tier sweep (``null``, ``memory``, ``chunk-store``; a tier that
+    fails makes the child fail). With ``PSTT_HOST_MEM_BUDGET`` set the
+    pipeline arms the governor and the ``mem`` block reports it."""
     from petastorm_tpu_torch import TorchLoader, make_tensor_reader
     from petastorm_tpu_torch.lineage import TEMP_DIR_PREFIX
 
@@ -816,7 +1117,7 @@ def run_pipeline(url, device, workers):
     inflight = _env_int('BENCH_PIPELINE_INFLIGHT', 2)
     arena_depth = os.environ.get('BENCH_PIPELINE_ARENA_DEPTH')
     reps = max(1, _env_int('BENCH_PIPELINE_REPS', 3))
-    tiers = os.environ.get('BENCH_PIPELINE_CACHE_TIERS', 'null,memory')
+    tiers = os.environ.get('BENCH_PIPELINE_CACHE_TIERS', ','.join(PIPELINE_CACHE_TIERS))
 
     load_before = os.getloadavg()
     ledger_dir = tempfile.mkdtemp(prefix=TEMP_DIR_PREFIX)
@@ -847,6 +1148,7 @@ def run_pipeline(url, device, workers):
                 wall_s += elapsed
                 rates.append(batch * measure_batches / elapsed)
             stats, timings, cache = loader.stats, reader.stage_timings, reader.cache_stats()
+            mem = _mem_governor_summary()     # while this pipeline holds its arm
     det_rate = None
     if os.environ.get('BENCH_PIPELINE_DETERMINISM', '1') == '1':
         det_rate = _deterministic_rate(url, device, workers, batch, prefetch, inflight,
@@ -859,17 +1161,23 @@ def run_pipeline(url, device, workers):
     profile.update(rss_mb=_rss_mb(), rss_peak_mb=_peak_rss_mb(), cache=cache,
                    batches=stats['batches'], rows=stats['rows'])
     profile['lineage'] = _lineage_summary(loader, ledger_dir)
+    if mem is not None:
+        profile['mem'] = mem
     if det_rate is not None:
         profile['determinism'] = {'img_per_sec': det_rate, 'default_img_per_sec': median,
                                   'ratio_vs_default': det_rate / median if median else None}
     sweep = {}
-    for tier in (t.strip() for t in tiers.split(',') if t.strip()):
-        if tier not in ('null', 'memory'):
-            sweep[tier] = {'not_ported': PIPELINE_NOT_PORTED.get(
-                'cache_tier_sweep[{}]'.format(tier), 'unknown tier')}
-            continue
-        sweep[tier] = _measure_cache_tier(url, device, workers, batch, warm_batches,
-                                          _env_int('BENCH_PIPELINE_TIER_BATCHES', 16), tier)
+    # A PSTT_CHUNK_STORE in the environment would arm the 'null' row with a
+    # warm store; the sweep makes its own.
+    from petastorm_tpu_torch.chunk_store import ENV_VAR
+    saved = os.environ.pop(ENV_VAR, None)
+    try:
+        for tier in (t.strip() for t in tiers.split(',') if t.strip()):
+            sweep[tier] = _measure_cache_tier(url, device, workers, batch, warm_batches,
+                                              _env_int('BENCH_PIPELINE_TIER_BATCHES', 16), tier)
+    finally:
+        if saved is not None:
+            os.environ[ENV_VAR] = saved
     profile['cache_tier_sweep'] = sweep
     return {
         'pipeline_img_per_sec': median,

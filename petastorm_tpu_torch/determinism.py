@@ -263,6 +263,15 @@ class Resequencer(object):
                     'waiting_s': round(waiting, 3),
                     'out_of_order_total': self._out_of_order}
 
+    def buffered_nbytes(self):
+        """Estimated bytes of the chunks held behind a hole: the memory
+        governor's ``resequencer`` pool (the buffer is bounded by the
+        ventilator's window, so walking it a tick is cheap)."""
+        from petastorm_tpu_torch.membudget import approx_nbytes
+        with self._lock:
+            chunks = list(self._buffer.values())
+        return sum(approx_nbytes(chunk) for chunk in chunks)
+
     def reset(self):
         """Restart the sequence (``Reader.reset()``, before the ventilator's)."""
         with self._lock:

@@ -33,9 +33,10 @@ Replay
     checks the result against the record's digest bit for bit.
 
 A row-level shuffling buffer or shape policies make records inexact, and
-replay refuses them. Not ported (ROADMAP §A9): the metrics counters, the
-memory governor's shedding of the ledger, and the flight recorder's dump of
-the rings; the replay command line.
+replay refuses them. Under the memory governor's degrade rung the ledger
+spill is shed (the ring keeps every record; each shed one is counted in
+``pressure_dropped``). Not ported (ROADMAP §A9): the metrics counters and
+the flight recorder's dump of the rings; the replay command line.
 """
 
 import glob
@@ -52,6 +53,8 @@ import zlib
 from collections import deque
 
 import numpy as np
+
+from petastorm_tpu_torch import membudget
 
 logger = logging.getLogger(__name__)
 
@@ -231,10 +234,18 @@ class LineageTracker(object):
         self._next_batch_id = 0
         self.records = 0
         self.dropped = 0
+        self.pressure_dropped = 0   # records the memory governor shed
+        self._pressure_shed = False
         self.collector = LineageCollector(self, digest=digest)
         self._ledger = (LineageLedger(ledger_dir, self.ctx, max_records=max_records,
                                       queue_size=queue_size)
                         if ledger_dir is not None else None)
+        # The governor's lineage-queue pool: under degrade the ledger spill
+        # is shed, each record counted in pressure_dropped.
+        self._mem_handle = membudget.register_pool(
+            'lineage-queue', self.queued_nbytes,
+            degrade_fn=lambda: self.set_pressure_shedding(True),
+            degrade_release_fn=lambda: self.set_pressure_shedding(False))
         with _live_lock:
             _live_trackers.add(self)
 
@@ -260,10 +271,33 @@ class LineageTracker(object):
         with self._lock:
             self._ring.append(record)
             self.records += 1
-        if self._ledger is not None and not self._ledger.append(record):
-            with self._lock:
-                self.dropped += 1
+        if self._ledger is not None:
+            if self._pressure_shed:
+                with self._lock:
+                    self.dropped += 1
+                    self.pressure_dropped += 1
+            elif not self._ledger.append(record):
+                with self._lock:
+                    self.dropped += 1
         return record
+
+    def set_pressure_shedding(self, shed):
+        """The governor's degrade hook: while True, delivered batches still
+        get ring records but the ledger spill is shed, each skipped record
+        counted in ``pressure_dropped`` and ``dropped``. True when the flag
+        flipped."""
+        shed = bool(shed)
+        with self._lock:
+            changed = shed != self._pressure_shed
+            self._pressure_shed = shed
+        if changed:
+            logger.warning('lineage ledger spill %s under memory pressure',
+                           'shed' if shed else 'restored')
+        return changed
+
+    def queued_nbytes(self):
+        """Estimated bytes waiting in the ledger's write-behind queue."""
+        return self._ledger.queued_nbytes() if self._ledger is not None else 0
 
     def ring(self):
         with self._lock:
@@ -281,6 +315,7 @@ class LineageTracker(object):
     def stats(self):
         with self._lock:
             out = {'records': self.records, 'dropped': self.dropped,
+                   'pressure_dropped': self.pressure_dropped,
                    'pending': len(self._pending), 'ring': len(self._ring)}
         if self._ledger is not None:
             out['dropped'] += self._ledger.dropped
@@ -292,6 +327,7 @@ class LineageTracker(object):
         return self._ledger.flush(timeout_s) if self._ledger is not None else True
 
     def close(self):
+        self._mem_handle.close()
         with _live_lock:
             _live_trackers.discard(self)
         if self._ledger is not None:
@@ -314,6 +350,7 @@ class LineageLedger(object):
         self._failed = False
         self._closed = False
         self._file = None
+        self._record_bytes_ema = 0.0   # serialized size, kept by the writer
         self._queue = queue.Queue(maxsize=max(1, int(queue_size)))
         try:
             os.makedirs(directory, exist_ok=True)
@@ -335,6 +372,10 @@ class LineageLedger(object):
     @property
     def lag(self):
         return self._queue.qsize()
+
+    def queued_nbytes(self):
+        """Estimated queued bytes: depth x the serialized size's average."""
+        return int(self._queue.qsize() * self._record_bytes_ema)
 
     def append(self, record):
         """Queue one record; False when it was dropped (closed, failed,
@@ -358,7 +399,9 @@ class LineageLedger(object):
                     self.dropped += 1
                     continue
                 try:
-                    self._file.write(json.dumps(record, default=repr) + '\n')
+                    line = json.dumps(record, default=repr) + '\n'
+                    self._record_bytes_ema += 0.2 * (len(line) - self._record_bytes_ema)
+                    self._file.write(line)
                     self._written += 1
                 except (OSError, ValueError):
                     logger.warning('lineage ledger write failed; disabling', exc_info=True)

@@ -34,6 +34,7 @@ from collections import deque, namedtuple
 import numpy as np
 import torch
 
+from petastorm_tpu_torch import membudget
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.lineage import LineageTracker, lineage_enabled, resolve_ledger_dir
 from petastorm_tpu_torch.shuffling_buffer import build_shuffling_buffer
@@ -485,6 +486,16 @@ class TorchLoader(object):
         resumed from (``make_tensor_reader(..., resume_state=state)``):
         its ``shuffling_buffer`` snapshot refills the shuffling buffer.
 
+    Host memory: the loader registers its pools with the governor
+    (:mod:`~petastorm_tpu_torch.membudget`, ``petastorm_tpu/jax_loader.py:
+    1265-1344``): ``arena-pool`` (the advisory rung unpins new arenas),
+    ``prefetch-queue`` (host bytes of queued batches that live outside the
+    arenas) and ``shuffling-buffer`` (the degrade rung halves it, for a
+    reader that is not deterministic). It arms the governor when
+    ``PSTT_HOST_MEM_BUDGET`` is set, and a breach raises
+    :class:`~petastorm_tpu_torch.errors.HostMemoryExceededError` from
+    ``next``.
+
     Resume (``state_dict()``): without a shuffling buffer a tensor reader's
     rows count as consumed when their batch is delivered, through
     prefetch, ``inflight``, ``prefetch=0``, ``echo`` (each source row once)
@@ -508,6 +519,7 @@ class TorchLoader(object):
             raise ValueError('inflight must be >= 1, got {}'.format(inflight))
         if last_batch not in _LAST_BATCH:
             raise ValueError('last_batch must be drop|pad|partial, got {!r}'.format(last_batch))
+        membudget.validate_env_budget()
         self.device = resolve_device(device)
         self._reader = reader
         self._batch_size = int(batch_size)
@@ -554,6 +566,49 @@ class TorchLoader(object):
                 self._host_iter, self._stage, self._queue, self._stop, _END, self._pool,
                 ready_fn=self._wait_copied, holds_mode=not self._cuda,
                 inflight=self._inflight, meter=self._meter).start()
+        #: A DeviceDatasetCache over this loader attaches itself here.
+        self._device_cache = None
+        self._register_memory_pools(reader)
+
+    def _register_memory_pools(self, reader):
+        governor = membudget.get_governor()
+        self._breach_error = None
+        self._loose_batch_nbytes = 0   # host bytes of the latest batch outside an arena
+        pool = self._pool
+        self._pinned_before_advisory = False
+
+        def arena_advisory(active):
+            if active:
+                self._pinned_before_advisory = pool.pinned
+                pool.set_pinned(False)
+            elif self._pinned_before_advisory:
+                pool.set_pinned(True)
+
+        def prefetch_queue_nbytes():
+            # Arena-backed batches are the arena pool's; on CUDA a queued
+            # batch holds device memory only.
+            if self._queue is None or self._cuda:
+                return 0
+            return self._queue.qsize() * self._loose_batch_nbytes
+
+        self._mem_handles = [
+            governor.register_pool('arena-pool', lambda: pool.nbytes,
+                                   advisory_fn=arena_advisory),
+            governor.register_pool('prefetch-queue', prefetch_queue_nbytes)]
+        if self._shuffler is not None:
+            shuffler = self._shuffler
+            # Halving the buffer changes the draws: only a reader that says
+            # it is not deterministic gets the hook.
+            degrade = (shuffler.shrink_capacity
+                       if getattr(reader, 'deterministic', None) is False else None)
+            self._mem_handles.append(governor.register_pool(
+                'shuffling-buffer', lambda: shuffler.nbytes, degrade_fn=degrade))
+        self._mem_breach_sink = governor.add_breach_sink(self._deliver_breach)
+        self._mem_armed = membudget.maybe_arm_from_env()
+
+    def _deliver_breach(self, error):
+        """The governor's breach sink: ``next`` raises ``error``."""
+        self._breach_error = error
 
     def _init_resume(self, reader, shuffling_queue_capacity, min_after_dequeue, seed,
                      resume_state):
@@ -673,6 +728,9 @@ class TorchLoader(object):
                           else torch.from_numpy(arr))
                    for name, arr in batch.items()}
         if not self._cuda:
+            self._loose_batch_nbytes = sum(
+                arr.nbytes for name, arr in batch.items()
+                if arena is None or arr is not arena.buffers.get(name))
             staged = _Staged(sources, rows)
         else:
             with torch.cuda.stream(self._h2d_stream):
@@ -751,6 +809,9 @@ class TorchLoader(object):
             raise RuntimeError('Trying to iterate a closed TorchLoader')
         if self._exhausted:
             raise StopIteration
+        if self._breach_error is not None:
+            self._exhausted = True
+            raise self._breach_error
         t0 = time.perf_counter()
         if self._first_get_t is None:
             self._first_get_t = t0
@@ -764,7 +825,7 @@ class TorchLoader(object):
             except Exception as e:  # noqa: BLE001 - raised below, as the staged path does
                 item = e
         else:
-            item = self._queue.get()
+            item = self._get_staged()
         self._wait_s += time.perf_counter() - t0
         if item is _END:
             self._exhausted = True
@@ -776,6 +837,15 @@ class TorchLoader(object):
         if fresh and self._echo > 1:
             self._echo_item, self._echo_left = item, self._echo - 1
         return self._deliver(item, fresh)
+
+    def _get_staged(self):
+        """The next staged batch, or a memory breach delivered meanwhile."""
+        while True:
+            try:
+                return self._queue.get(timeout=0.05)
+            except queue.Empty:
+                if self._breach_error is not None:
+                    return self._breach_error
 
     def hold_batches(self, n):
         """Say that the consumer keeps up to ``n`` delivered batches alive
@@ -842,9 +912,12 @@ class TorchLoader(object):
         staging engine's ``assemble_s``, ``dispatch_s``, ``overlap_s``,
         ``overlap_frac``, ``ready_wait_s`` (``prefetch >= 1``); the arena
         pool's ``arena_alloc``, ``arena_reuse``, ``arena_wait_s``;
-        ``reader_wait_s``; the reader's ``worker_stage_timings``; and
+        ``reader_wait_s``; the reader's ``worker_stage_timings``;
         ``lineage`` (records, dropped, pending, ring, ledger path and lag)
-        when armed."""
+        when armed; ``chunk_store`` (the reader's store's counters) with a
+        chunk store; ``device_cache`` with a ``DeviceDatasetCache`` over the
+        loader; ``mem`` (the governor's stats) while the governor is
+        armed."""
         elapsed = (time.perf_counter() - self._first_get_t
                    if self._first_get_t is not None else 0.0)
         with self._stats_lock:
@@ -862,6 +935,14 @@ class TorchLoader(object):
             out['worker_stage_timings'] = timings
         if self._lineage is not None:
             out['lineage'] = self._lineage.stats()
+        store = getattr(self._reader, 'chunk_store', None)
+        if store is not None:
+            out['chunk_store'] = store.stats()
+        if self._device_cache is not None:
+            out['device_cache'] = self._device_cache.stats()
+        governor = membudget.get_governor()
+        if governor.armed:
+            out['mem'] = governor.stats()
         return out
 
     def close(self):
@@ -870,6 +951,13 @@ class TorchLoader(object):
         if self._closed:
             return
         self._closed = True
+        governor = membudget.get_governor()
+        for handle in self._mem_handles:
+            handle.close()
+        governor.remove_breach_sink(self._mem_breach_sink)
+        if self._mem_armed:
+            self._mem_armed = False
+            governor.release()
         self._stop.set()
         self._echo_item = None
         while self._inline:

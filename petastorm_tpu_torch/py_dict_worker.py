@@ -6,10 +6,11 @@ ndarrays, numpy scalars and strings, images of any size (a field with
 ``None`` dims). The worker publishes the rows of each row-group with their
 chunk key and provenance segment; the reader hands them out one at a time.
 
-With a cache (``cache_type='memory'``) the row-group's decoded rows are
-kept and shared by every later epoch, so their arrays are published
-read-only. Predicates, ``transform_spec``, row-drop partitions and NGram
-windows of the JAX worker are not ported.
+With a cache (``cache_type='memory'`` or ``'local-disk'``, where the rows
+are pickled) the row-group's decoded rows are kept and served to every
+later epoch, so their arrays are published read-only. Predicates,
+``transform_spec``, row-drop partitions and NGram windows of the JAX worker
+are not ported.
 """
 
 import hashlib
@@ -88,7 +89,7 @@ class PyDictWorker(RowGroupWorkerBase):
                 self.args['dataset_path_hash'], piece.path, piece.row_group,
                 hashlib.md5(','.join(schema.fields).encode()).hexdigest()[:8])
             t0 = time.perf_counter()
-            rows = cache.get(key, lambda: _read_only(load()))
+            rows = _read_only(cache.get(key, load))
             timings['cache_s'] = (time.perf_counter() - t0 - timings.get('read_s', 0.0)
                                   - timings.get('decode_s', 0.0))
         row_slice = compute_row_slice(len(rows), shuffle_row_drop_partition)

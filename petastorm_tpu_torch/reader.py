@@ -8,11 +8,21 @@ strings, nullable values); ``make_tensor_reader`` yields one namedtuple of
 serves both, through its worker class. Row-groups are sharded by
 ``index % shard_count == cur_shard`` and, per epoch, shuffled by
 ``random.Random(seed)`` as in the JAX package, so one seed gives both
-packages the same row-group order. Of the cache tiers, ``'null'`` and
-``'memory'`` are ported (``petastorm_tpu/reader.py:76-113``); of the pools,
-``'thread'`` and ``'dummy'``. The disk and chunk-store tiers, process
-pools, predicates, transforms, health and autotune come in later slices
-(ROADMAP §A4, §A9).
+packages the same row-group order. Every cache tier of
+``petastorm_tpu/reader.py:76-113`` is ported: ``'null'``, ``'memory'``,
+``'local-disk'`` (``cache_location``) and, on the tensor path,
+``'chunk-store'`` (:mod:`~petastorm_tpu_torch.chunk_store`, whose directory
+``PSTT_CHUNK_STORE`` can also give, and which that variable arms for the
+default ``cache_type=None``). Of the pools, ``'thread'`` and ``'dummy'``.
+Process pools, predicates, transforms, health and autotune come in later
+slices (ROADMAP §A9).
+
+Each reader registers its byte-holding pools with the host memory governor
+(:mod:`~petastorm_tpu_torch.membudget`, ``petastorm_tpu/reader.py:965-
+1050``): ``results-queue`` (its shed hook paces ventilation),
+``memory-cache``, ``chunk-store`` and ``resequencer``; it arms the governor
+when ``PSTT_HOST_MEM_BUDGET`` is set, and a breach raises
+:class:`~petastorm_tpu_torch.errors.HostMemoryExceededError` from ``next``.
 
 Resume (``petastorm_tpu/reader.py:711-790, 1291-1460``): ``state_dict()``
 is a JSON-safe position that a new reader built with ``resume_state=`` and
@@ -26,11 +36,13 @@ provenance segment (:mod:`~petastorm_tpu_torch.lineage`).
 """
 
 import hashlib
+import os
 import warnings
 from collections import deque
 
-from petastorm_tpu_torch import determinism
-from petastorm_tpu_torch.cache import MemoryCache, NullCache
+from petastorm_tpu_torch import chunk_store as chunk_store_mod
+from petastorm_tpu_torch import determinism, membudget
+from petastorm_tpu_torch.cache import LocalDiskCache, MemoryCache, NullCache
 from petastorm_tpu_torch.checkpoint import ConsumptionTracker, DeferredRowAccounting
 from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormMetadataError
 from petastorm_tpu_torch.etl.dataset_metadata import get_schema
@@ -45,18 +57,32 @@ from petastorm_tpu_torch.workers.ventilator import ConcurrentVentilator
 
 #: Row-groups ventilated beyond the worker count, as in the JAX reader.
 _VENTILATE_EXTRA_ROWGROUPS = 2
-#: Tiers of the JAX package that are not ported yet.
-_NOT_PORTED_CACHES = ('local-disk', 'chunk-store')
 
 
-def _make_cache(cache_type, cache_size_limit):
+def _make_cache(cache_type, cache_location, cache_size_limit, tensor_path=False, **extra):
+    """The row-group cache of ``petastorm_tpu/reader.py:76-113``."""
+    if cache_type is None:
+        # Only the default is armed by the variable: an explicit 'null'
+        # stays a genuine no-cache.
+        if tensor_path and os.environ.get(chunk_store_mod.ENV_VAR):
+            return chunk_store_mod.DecodedChunkStore(size_limit=cache_size_limit, **extra)
+        return NullCache()
     if cache_type == 'null':
         return NullCache()
+    if cache_type == 'local-disk':
+        if cache_location is None:
+            raise ValueError("cache_type='local-disk' requires cache_location")
+        return LocalDiskCache(cache_location, size_limit=cache_size_limit, **extra)
     if cache_type == 'memory':
         return MemoryCache(size_limit_bytes=cache_size_limit)
-    if cache_type in _NOT_PORTED_CACHES:
-        raise ValueError('cache_type={!r} is not ported to petastorm_tpu_torch yet; '
-                         "use 'null' or 'memory'".format(cache_type))
+    if cache_type == 'chunk-store':
+        if not tensor_path:
+            raise ValueError(
+                "cache_type='chunk-store' serves decoded tensor chunks: use make_tensor_reader "
+                "(make_reader/make_batch_reader values cannot be stored; use 'local-disk' "
+                'there)')
+        return chunk_store_mod.DecodedChunkStore(path=cache_location, size_limit=cache_size_limit,
+                                                 **extra)
     raise ValueError('Unknown cache_type {!r}'.format(cache_type))
 
 
@@ -84,20 +110,23 @@ def _stored_view(store, schema_fields, factory):
 def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread', workers_count=10,
                 results_queue_size=50, shuffle_row_groups=True, shuffle_row_drop_partitions=1,
                 seed=None, predicate=None, num_epochs=1, cur_shard=None, shard_count=None,
-                cache_type='null', cache_size_limit=None, transform_spec=None,
-                resume_state=None, deterministic=False):
+                cache_type=None, cache_location=None, cache_size_limit=None,
+                cache_extra_settings=None, transform_spec=None, resume_state=None,
+                deterministic=False):
     """Reader of decoded rows, one namedtuple per row.
 
     The arguments are ``make_tensor_reader``'s, plus ``predicate``,
     ``transform_spec`` and ``shuffle_row_drop_partitions``, which are not
     ported yet (ROADMAP §A9) and raise ``ValueError`` unless left at their
     defaults. Fields of any shape are read: an image field with ``None``
-    dims decodes at each row's own size.
+    dims decodes at each row's own size. ``cache_type='chunk-store'``
+    raises (rows cannot be stored in its layout; ``'local-disk'`` can).
     """
     if predicate is not None or transform_spec is not None or shuffle_row_drop_partitions != 1:
         raise ValueError('predicate, transform_spec and shuffle_row_drop_partitions are not '
                          'ported to petastorm_tpu_torch yet (ROADMAP §A9)')
-    cache = _make_cache(cache_type, cache_size_limit)
+    cache = _make_cache(cache_type, cache_location, cache_size_limit,
+                        **(cache_extra_settings or {}))
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size)
     store = ParquetStore(dataset_url)
     return Reader(store, _stored_view(store, schema_fields, 'make_reader'), pool,
@@ -109,8 +138,9 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread', work
 def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
                        workers_count=10, results_queue_size=50, shuffle_row_groups=True,
                        seed=None, num_epochs=1, cur_shard=None, shard_count=None,
-                       cache_type='null', cache_size_limit=None, resume_state=None,
-                       deterministic=False, shuffle_rows_in_chunk=False):
+                       cache_type=None, cache_location=None, cache_size_limit=None,
+                       cache_extra_settings=None, resume_state=None, deterministic=False,
+                       shuffle_rows_in_chunk=False):
     """Reader of decoded column blocks, one namedtuple per row-group.
 
     :param schema_fields: fields or full-match regex patterns to read
@@ -121,11 +151,18 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
     :param cur_shard/shard_count: read only row-groups ``i`` with
         ``i % shard_count == cur_shard`` (deterministic mode: every
         ``shard_count``-th position of the global order).
-    :param cache_type: ``'null'`` (decode every epoch) or ``'memory'``
-        (keep decoded row-groups in RAM: later epochs skip read and
-        decode). Other tiers raise ``ValueError``.
-    :param cache_size_limit: the memory cache's approximate byte cap
-        (``None`` = no cap).
+    :param cache_type: ``None`` (the default: the chunk store when
+        ``PSTT_CHUNK_STORE`` names a directory, else no cache), ``'null'``
+        (decode every epoch), ``'memory'`` (decoded row-groups in RAM),
+        ``'local-disk'`` (in files under ``cache_location``) or
+        ``'chunk-store'`` (mmapped decoded chunks under ``cache_location``
+        or ``PSTT_CHUNK_STORE``, shared across processes and with the JAX
+        package). With a cache, later epochs skip read and decode.
+    :param cache_location: the directory of the disk tiers.
+    :param cache_size_limit: the cache's approximate byte cap (``None`` =
+        no cap).
+    :param cache_extra_settings: keyword arguments of the cache's
+        constructor (the chunk store's ``writer_queue_depth``, ...).
     :param resume_state: a ``state_dict()`` of a reader of the same
         configuration (of either package) to continue from.
     :param deterministic: seed-stable order and resequenced delivery: the
@@ -136,7 +173,8 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
     if shuffle_rows_in_chunk:
         raise ValueError('shuffle_rows_in_chunk is not ported to petastorm_tpu_torch yet '
                          '(ROADMAP §A9)')
-    cache = _make_cache(cache_type, cache_size_limit)
+    cache = _make_cache(cache_type, cache_location, cache_size_limit, tensor_path=True,
+                        **(cache_extra_settings or {}))
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size)
     store = ParquetStore(dataset_url)
     view = _stored_view(store, schema_fields, 'make_tensor_reader')
@@ -179,6 +217,8 @@ class Reader(DeferredRowAccounting):
     def __init__(self, store, schema, pool, worker_class=TensorWorker, shuffle_row_groups=True,
                  seed=None, num_epochs=1, cur_shard=None, shard_count=None, cache=None,
                  resume_state=None, deterministic=False):
+        # A mistyped memory budget fails before any thread starts.
+        membudget.validate_env_budget()
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -257,17 +297,104 @@ class Reader(DeferredRowAccounting):
             random_seed=seed,
             max_ventilation_queue_size=pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS,
             deterministic=det_config)
+        dataset_path_hash = hashlib.md5(store.url.encode()).hexdigest()[:12]
+        if self.chunk_store is not None:
+            # The store's readahead rides the dispatch order: the moment a
+            # row-group is scheduled, its entry's pages are asked for.
+            readahead = self.chunk_store.readahead
+            keys = [chunk_store_mod.tensor_chunk_key(dataset_path_hash, p.path, p.row_group,
+                                                     schema) for p in pieces]
+
+            def on_ventilate(item):
+                readahead(keys[item['piece_index']])
+
+            self._ventilator.on_ventilate = on_ventilate
         pool.start(worker_class, {
             'row_groups': pieces, 'schema': schema, 'cache': self.cache,
-            'dataset_path_hash': hashlib.md5(store.url.encode()).hexdigest()[:12],
+            'dataset_path_hash': dataset_path_hash,
         }, self._ventilator)
+        self._register_memory_pools()
+
+    # -- host memory governor ----------------------------------------------
+
+    def _register_memory_pools(self):
+        """The reader's pools (``petastorm_tpu/reader.py:965-1012``): the
+        results queue (its shed hook paces ventilation), the memory cache
+        (degrade: LRU eviction), the chunk store (advisory: pause spill;
+        degrade: drop LRU mmaps), the resequencer. A breach is raised by
+        the next ``next()``, also from inside a wait on the pool."""
+        governor = membudget.get_governor()
+        self._mem_handles = []
+        self._mem_shed_saved_watermark = None
+        self._mem_shed_tight = None
+        self._mem_shed_active = False
+        self._stall_error = None
+        pool = self._pool
+        if hasattr(pool, 'results_nbytes'):
+            self._mem_handles.append(governor.register_pool(
+                'results-queue', pool.results_nbytes, shed_fn=self._shed_ventilation))
+        if isinstance(self.cache, MemoryCache):
+            cache = self.cache
+            self._mem_handles.append(governor.register_pool(
+                'memory-cache', lambda: cache.nbytes, degrade_fn=cache.evict))
+        if self.chunk_store is not None:
+            store = self.chunk_store
+            self._mem_handles.append(governor.register_pool(
+                'chunk-store', store.governed_nbytes, degrade_fn=store.close_lru_mmaps,
+                advisory_fn=store.set_spill_paused))
+        if self._resequencer is not None:
+            self._mem_handles.append(governor.register_pool(
+                'resequencer', self._resequencer.buffered_nbytes))
+
+        def deliver_breach(error):
+            self._stall_error = error
+            inject = getattr(self._pool, 'inject_consumer_error', None)
+            if inject is not None:
+                inject(error)
+
+        self._mem_breach_sink = governor.add_breach_sink(deliver_breach)
+        self._mem_armed = membudget.maybe_arm_from_env()
+
+    def _shed_ventilation(self, active):
+        """The shed rung: a tight results watermark (an eighth of the queue,
+        at least 2) makes the ventilator feed one item at a time; the
+        previous watermark comes back when the ladder recedes, unless
+        something else changed it meanwhile. Feeding order is unchanged."""
+        pool = self._pool
+        if active:
+            if self._mem_shed_active:
+                return
+            self._mem_shed_active = True
+            self._mem_shed_saved_watermark = pool.results_watermark
+            self._mem_shed_tight = max(2, (pool.results_capacity or 8) // 8)
+            pool.results_watermark = self._mem_shed_tight
+        elif self._mem_shed_active:
+            self._mem_shed_active = False
+            if pool.results_watermark == self._mem_shed_tight:
+                pool.results_watermark = self._mem_shed_saved_watermark
+
+    @property
+    def deterministic(self):
+        """True when built with ``deterministic=True``."""
+        return self._deterministic
+
+    @property
+    def chunk_store(self):
+        """The reader's :class:`~petastorm_tpu_torch.chunk_store.DecodedChunkStore`
+        (``cache_type='chunk-store'``, or ``PSTT_CHUNK_STORE``), else None."""
+        return self.cache if getattr(self.cache, 'is_chunk_store', False) else None
 
     def cache_stats(self):
         """``{'type', 'hits', 'misses', 'nbytes'}`` of the row-group cache
-        (zeros for the null cache)."""
-        if isinstance(self.cache, MemoryCache):
-            return {'type': 'memory', 'hits': self.cache.hits, 'misses': self.cache.misses,
-                    'nbytes': self.cache.nbytes}
+        (zeros for the null cache); the chunk store adds its own counters
+        (``fills``, ``writes``, ``corrupt_quarantined``, ``readaheads``,
+        ...), ``nbytes`` being the host bytes it holds."""
+        cache = self.cache
+        if self.chunk_store is not None:
+            return dict(cache.stats(), type='chunk-store', nbytes=cache.governed_nbytes())
+        if isinstance(cache, (MemoryCache, LocalDiskCache)):
+            return {'type': 'memory' if isinstance(cache, MemoryCache) else 'local-disk',
+                    'hits': cache.hits, 'misses': cache.misses, 'nbytes': cache.nbytes}
         return {'type': 'null', 'hits': 0, 'misses': 0, 'nbytes': 0}
 
     @property
@@ -323,6 +450,8 @@ class Reader(DeferredRowAccounting):
     def __next__(self):
         if self._stopped:
             raise RuntimeError('Trying to iterate a stopped Reader')
+        if self._stall_error is not None:
+            raise self._stall_error
         if self.batched_output:
             return self.schema.make_namedtuple(**self._next_cols())
         while not self._rows:
@@ -396,7 +525,20 @@ class Reader(DeferredRowAccounting):
         self._ventilator.reset()
 
     def stop(self):
+        """Stop the workers, unregister the memory pools (releasing the
+        governor's arm reference) and stop the chunk store's writer once its
+        queued writes are on disk. Idempotent."""
+        governor = membudget.get_governor()
+        for handle in self._mem_handles:
+            handle.close()
+        self._mem_handles = []
+        governor.remove_breach_sink(self._mem_breach_sink)
+        if self._mem_armed:
+            self._mem_armed = False
+            governor.release()
         self._pool.stop()
+        if self.chunk_store is not None:
+            self.chunk_store.close()
         self._stopped = True
 
     def join(self):

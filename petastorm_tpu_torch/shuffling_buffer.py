@@ -1,18 +1,22 @@
 """Bounded random shuffling buffer for row-level decorrelation.
 
-Counterpart of ``petastorm_tpu/shuffling_buffer.py:20-261`` without the
-memory governor's hooks (ROADMAP §A9). The draws come from
+Counterpart of ``petastorm_tpu/shuffling_buffer.py:20-261``. The draws come from
 ``np.random.default_rng(seed)`` with the same call sequence as the JAX
 buffer, so one seed gives both packages the same row order: this is host
 data order, not a torch random stream. :class:`RandomShufflingBuffer` is
 checkpointable: ``state_dict()``/``restore()`` carry the buffered rows and
-the generator's state, so a resumed buffer replays the same draws.
+the generator's state, so a resumed buffer replays the same draws. Its
+``nbytes`` is the memory governor's ``shuffling-buffer`` pool, and
+``shrink_capacity`` that pool's degrade hook (registered only for readers
+that are not deterministic: it changes the draws).
 """
 
 import threading
 from collections import deque
 
 import numpy as np
+
+from petastorm_tpu_torch.membudget import approx_nbytes
 
 
 class NoopShufflingBuffer(object):
@@ -61,6 +65,7 @@ class RandomShufflingBuffer(object):
         self._min_after_retrieve = min_after_retrieve
         self._extra_capacity = extra_capacity
         self._store = []
+        self._row_nbytes = None   # per-row estimate, a moving average of sampled rows
         self._pending = None   # armed by track_pending()
         #: Field order of the buffered row tuples (set by the batch
         #: iterator): rides the checkpoint, since a resumed reader may yield
@@ -81,6 +86,14 @@ class RandomShufflingBuffer(object):
                     'add_many of {} items would exceed capacity+extra ({}+{}); current size {}. '
                     'Check can_add() before adding.'.format(
                         len(items), self._capacity, self._extra_capacity, len(self._store)))
+            if len(items):
+                # One sampled row an add, averaged: rows of varying size
+                # would otherwise be weighed by the first forever.
+                sample = max(1, approx_nbytes(items[0]))
+                if self._row_nbytes is None:
+                    self._row_nbytes = sample
+                else:
+                    self._row_nbytes += 0.2 * (sample - self._row_nbytes)
             self._store.extend(items)
 
     def retrieve(self):
@@ -110,6 +123,30 @@ class RandomShufflingBuffer(object):
     @property
     def capacity(self):
         return self._capacity
+
+    @property
+    def nbytes(self):
+        """Estimated bytes of the buffered and drawn-but-undelivered rows."""
+        if self._row_nbytes is None:
+            return 0
+        pending = len(self._pending) if self._pending is not None else 0
+        return int((len(self._store) + pending) * self._row_nbytes)
+
+    def shrink_capacity(self, factor=2):
+        """Halve (by default) the capacity and the decorrelation floor: the
+        governor's degrade hook. The floor sets how many rows stay buffered,
+        so it shrinks too; the capacity never falls below the rows held (an
+        add past it would raise), and later ticks ratchet it down as the
+        buffer drains. No row is dropped. True when anything moved."""
+        factor = max(1, int(factor))
+        with self._lock:
+            new_min = max(1, self._min_after_retrieve // factor)
+            new_cap = max(new_min + 1, self._capacity // factor, len(self._store))
+            if new_cap >= self._capacity and new_min >= self._min_after_retrieve:
+                return False
+            self._capacity = min(new_cap, self._capacity)
+            self._min_after_retrieve = min(new_min, self._min_after_retrieve)
+            return True
 
     def finish(self):
         self._done_adding = True

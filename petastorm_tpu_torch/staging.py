@@ -137,6 +137,32 @@ class ArenaPool(object):
             self._pending = arena
             return arena.buffers
 
+    @property
+    def nbytes(self):
+        """Bytes of every allocated arena, free or out (the memory
+        governor's ``arena-pool`` pool; staged and in-flight batches live in
+        them, so this covers the staging window too)."""
+        with self._cond:
+            if self._spec is None:
+                return 0
+            per_arena = sum(int(np.prod(shape)) * np.dtype(dtype).itemsize
+                            for shape, dtype in self._spec.values())
+            return self._allocated * per_arena
+
+    def set_pinned(self, enabled):
+        """Pin (or not) the arenas allocated from now on; existing arenas
+        keep their memory. The governor's advisory rung unpins: pinned
+        pages are the ones the kernel cannot reclaim. A copy from an
+        unpinned arena is synchronous to the host, and the arena is still
+        recycled only after its event."""
+        with self._cond:
+            self._pinned = bool(enabled)
+
+    @property
+    def pinned(self):
+        with self._cond:
+            return self._pinned
+
     def ensure_depth(self, depth):
         """Keep at least ``depth`` arenas before a request waits."""
         with self._cond:

@@ -7,21 +7,23 @@ worker straight into one contiguous ``[rows, ...field.shape]`` numpy block
 publishes one small dict of big arrays per row-group, so decoded tensors
 never cross a per-row Python boundary on their way to the loader.
 
-With a cache (``cache_type='memory'``) the worker looks the row-group up
-ahead of the read, keyed by :func:`tensor_chunk_key`, and reads and decodes
-only on a miss. Cached blocks are shared by every later epoch, so they are
-published read-only: the loader copies out of them and never hands them to
-a caller that could write into them.
+With a cache (``cache_type='memory'``, ``'local-disk'`` or
+``'chunk-store'``) the worker looks the row-group up ahead of the read,
+keyed by :func:`~petastorm_tpu_torch.chunk_store.tensor_chunk_key` (the
+reader's readahead computes the same key), and reads and decodes only on a
+miss. Cached blocks are shared by every later epoch (a chunk-store hit is a
+view of a mapping the whole process shares), so they are published
+read-only, hits and fills alike: the loader copies out of them and never
+hands them to a caller that could write into them.
 """
 
-import hashlib
-import os
 import time
 
 import numpy as np
 
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.checkpoint import chunk_key
+from petastorm_tpu_torch.chunk_store import tensor_chunk_key
 from petastorm_tpu_torch.codecs import CompressedImageCodec, NdarrayCodec, ScalarCodec
 from petastorm_tpu_torch.errors import DecodeFieldError
 from petastorm_tpu_torch.lineage import chunk_lineage
@@ -37,25 +39,6 @@ def validate_tensor_schema(schema):
             raise ValueError(
                 'make_tensor_reader requires static shapes, but field {!r} has '
                 'shape {} (None = variable dim)'.format(name, field.shape))
-
-
-def _file_fingerprint(path):
-    """Size and mtime of the row-group's Parquet file: a store rewritten in
-    place misses instead of serving stale blocks."""
-    try:
-        st = os.stat(path)
-        return '{}-{}'.format(st.st_size, st.st_mtime_ns)
-    except (OSError, ValueError):
-        return 'nofp'
-
-
-def tensor_chunk_key(dataset_path_hash, piece_path, row_group, schema):
-    """The cache key of one decoded row-group (counterpart of
-    ``petastorm_tpu/chunk_store.py:121-133``): dataset, row-group, the
-    Parquet file's fingerprint and the hash of the field names read."""
-    schema_digest = hashlib.md5(','.join(sorted(schema.fields)).encode()).hexdigest()[:8]
-    return 'tensor:{}:{}:{}:{}:{}'.format(dataset_path_hash, piece_path, row_group,
-                                          _file_fingerprint(str(piece_path)), schema_digest)
 
 
 def _read_only(cols):
@@ -75,7 +58,8 @@ class TensorWorker(RowGroupWorkerBase):
     row-group's ``read_s`` and ``decode_s`` (on a miss) and ``cache_s``
     (the cache's own bookkeeping, with a cache). ``lineage`` is the
     chunk's provenance segment; its tier is ``'decode'`` when this call
-    decoded, else the cache's tier (``'memory'``)."""
+    decoded, else the cache's tier (``'memory'``, ``'disk'`` or
+    ``'chunk-store'``)."""
 
     batched_output = True
     #: Reader mode of provenance contexts: replay decodes by it.
@@ -106,7 +90,7 @@ class TensorWorker(RowGroupWorkerBase):
             key = tensor_chunk_key(self.args['dataset_path_hash'], piece.path, piece.row_group,
                                    schema)
             t0 = time.perf_counter()
-            cols = cache.get(key, lambda: _read_only(load()))
+            cols = _read_only(cache.get(key, load))
             timings['cache_s'] = (time.perf_counter() - t0 - timings.get('read_s', 0.0)
                                   - timings.get('decode_s', 0.0))
         n_rows = len(next(iter(cols.values()))) if cols else 0

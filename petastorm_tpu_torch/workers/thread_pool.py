@@ -1,19 +1,24 @@
 """In-process thread pool with a ventilator feed and a bounded results queue.
 
 Counterpart of ``petastorm_tpu/workers/thread_pool.py:36-461`` at a fixed
-size: no resize, backpressure watermark, quarantine, profiling or memory
-accounting. End of data is the results queue empty AND every ventilated
-item processed AND the ventilator completed. A worker's exception stops
-the pool and re-raises in the consumer. Results are dicts and pass through
-unchanged, each chunk's ``key``, ``det`` tag and ``lineage`` included; with a
-resequencer set (deterministic mode) ``get_results()`` releases them in
-ventilation order.
+size (no resize, quarantine or profiling). ``results_watermark`` arms the
+ventilator's backpressure: while that many results wait undelivered, no
+new item is fed (the memory governor's shed rung sets it).
+``results_nbytes()`` is the governor's ``results-queue`` pool, and
+``inject_consumer_error`` hands an error (a memory breach) to a consumer
+waiting in ``get_results()``. End of data is the results queue empty AND
+every ventilated item processed AND the ventilator completed. A worker's
+exception stops the pool and re-raises in the consumer. Results are dicts
+and pass through unchanged, each chunk's ``key``, ``det`` tag and
+``lineage`` included; with a resequencer set (deterministic mode)
+``get_results()`` releases them in ventilation order.
 """
 
 import queue
 import threading
 
 from petastorm_tpu_torch.determinism import ResequencedReads
+from petastorm_tpu_torch.membudget import approx_nbytes, get_governor
 from petastorm_tpu_torch.workers import EmptyResultError, VentilatedItemProcessedMessage
 
 THREAD_PREFIX = 'pstt-pool-worker-'
@@ -64,10 +69,40 @@ class ThreadPool(ResequencedReads):
         self._ventilator = None
         self._unprocessed = 0
         self._count_lock = threading.Lock()
+        #: Undelivered results at which the ventilator holds; None = unarmed.
+        self.results_watermark = None
+        #: Moving average of one published result's bytes, kept while the
+        #: governor is armed (the ``results-queue`` pool is depth x this).
+        self.result_nbytes_ema = 0.0
+        self._injected_error = None
 
     @property
     def workers_count(self):
         return self._workers_count
+
+    @property
+    def results_qsize(self):
+        return self._results_queue.qsize()
+
+    @property
+    def results_capacity(self):
+        return self._results_queue.maxsize
+
+    def results_nbytes(self):
+        """Estimated decoded bytes waiting in the results queue."""
+        return int(self.results_qsize * self.result_nbytes_ema)
+
+    def _results_backpressure(self):
+        watermark = self.results_watermark
+        if watermark is None:
+            return None
+        return self._results_queue.qsize() >= watermark
+
+    def inject_consumer_error(self, exc):
+        """Raise ``exc`` in the consumer's ``get_results()`` (it polls).
+        Unlike a worker's exception it stops nothing: the caller owns the
+        teardown."""
+        self._injected_error = exc
 
     def start(self, worker_class, worker_args, ventilator):
         if self._threads:
@@ -81,6 +116,7 @@ class ThreadPool(ResequencedReads):
             thread.start()
         self._ventilator = ventilator
         ventilator._ventilate_fn = self.ventilate
+        ventilator.backpressure_fn = self._results_backpressure
         ventilator.start()
 
     def ventilate(self, *args, **kwargs):
@@ -99,6 +135,8 @@ class ThreadPool(ResequencedReads):
 
     def _put_result(self, data):
         """Stop-aware bounded put: never blocks forever on a departed consumer."""
+        if isinstance(data, dict) and get_governor().armed:
+            self.result_nbytes_ema += 0.25 * (approx_nbytes(data) - self.result_nbytes_ema)
         while True:
             if self._stop_event.is_set():
                 raise _Stopping()
@@ -110,6 +148,10 @@ class ThreadPool(ResequencedReads):
 
     def _next_result(self):
         while True:
+            error = self._injected_error
+            if error is not None:
+                self._injected_error = None
+                raise error
             try:
                 result = self._results_queue.get(timeout=_POLL_S)
             except queue.Empty:

@@ -1,9 +1,9 @@
 """Ventilator: the in-flight-capped work feeder.
 
-Counterpart of ``petastorm_tpu/workers/ventilator.py:35-432`` without the
-backpressure signal. It runs on its own thread (or is pumped by a pool
-without threads), keeps at most ``max_ventilation_queue_size`` items
-unprocessed, and reshuffles the item order every epoch with
+Counterpart of ``petastorm_tpu/workers/ventilator.py:35-432``. It runs on
+its own thread (or is pumped by a pool without threads), keeps at most
+``max_ventilation_queue_size`` items unprocessed (fewer while the pool's
+results watermark holds it back), and reshuffles the item order every epoch with
 ``random.Random(seed)``: the same generator and call sequence as the JAX
 package, so one seed gives both packages the same row-group order.
 
@@ -71,6 +71,17 @@ class ConcurrentVentilator(object):
         self._started = False
         self._threaded = True
         self._thread = None
+        #: Observer ``(item) -> None`` called just before each item is fed,
+        #: in dispatch order (``max_ventilation_queue_size`` items ahead of
+        #: the workers): the reader hangs the chunk store's readahead here.
+        #: Its exceptions are swallowed: it is advice, not work.
+        self.on_ventilate = None
+        #: Saturation signal ``() -> None | bool``: None = unarmed (plain
+        #: feeding up to the cap), True = hold, False = armed but clear:
+        #: feed paced, one item per ack or per poll interval, so the signal
+        #: sees each item's results land before the next is fed. The
+        #: thread pool wires it to its results watermark.
+        self.backpressure_fn = None
 
     def start(self, threaded=True):
         """Start ventilating: on a thread of its own, or (``threaded=False``,
@@ -145,8 +156,30 @@ class ConcurrentVentilator(object):
         epoch is out (or after ``stop``)."""
         if self._stop_event.is_set() or not self._advance_epoch():
             return False
-        self._ventilate_fn(**self._next_item())
+        item = self._next_item()
+        self._observe(item)
+        self._ventilate_fn(**item)
         return True
+
+    def _observe(self, item):
+        observer = self.on_ventilate
+        if observer is not None:
+            try:
+                observer(item)
+            except Exception:  # noqa: BLE001 - advice must not stop the feed
+                pass
+
+    def _backpressured(self):
+        """None (no signal armed, or it failed), False (armed, clear) or
+        True (hold)."""
+        fn = self.backpressure_fn
+        if fn is None:
+            return None
+        try:
+            value = fn()
+        except Exception:  # noqa: BLE001 - a failing probe must not stop the feed
+            return None
+        return None if value is None else bool(value)
 
     def _advance_epoch(self):
         """Roll to the next epoch at the end of the list; False when done. A
@@ -200,10 +233,16 @@ class ConcurrentVentilator(object):
                 return
             with self._lock:
                 below_cap = self._in_flight < self._max_in_flight
-                if below_cap:
+            backpressure = self._backpressured() if below_cap else None
+            if below_cap and not backpressure:
+                with self._lock:
                     self._in_flight += 1
-            if below_cap:
-                self._ventilate_fn(**self._next_item())
+                item = self._next_item()
+                self._observe(item)
+                self._ventilate_fn(**item)
+                if backpressure is not None:
+                    self._wakeup.clear()
+                    self._wakeup.wait(_POLL_S)
             else:
                 self._wakeup.wait(_POLL_S)
                 self._wakeup.clear()

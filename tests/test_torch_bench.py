@@ -1,8 +1,10 @@
 """The port's bench on the CPU: the ``pipeline`` child on a tiny store
 prints the keys of ``bench.py``'s pipeline child, the median of its reps
 with their spread, its stage profile with the ``lineage`` block (a replay
-self-check that passes) and the ``determinism`` block, and the blocks it
-does not port; an unknown child and a CUDA request without a GPU raise."""
+self-check that passes), the ``determinism`` block, the cache-tier sweep
+with its ``chunk-store`` row and, with the governor armed, the ``mem``
+block, and the blocks it does not port; an unknown child and a CUDA
+request without a GPU raise."""
 
 import json
 
@@ -59,11 +61,17 @@ def test_pipeline_child_prints_the_bench_keys(workdir, monkeypatch, capsys):
         assert key in profile, key
     assert profile['batches'] == 3 * 4 and profile['rows'] == 3 * 4 * BATCH
     assert profile['cache']['hits'] > 0          # warmed through an epoch: served from RAM
-    assert sorted(profile['cache_tier_sweep']) == ['memory', 'null']
-    assert profile['cache_tier_sweep']['null']['cache']['type'] == 'null'
+    sweep = profile['cache_tier_sweep']
+    assert sorted(sweep) == ['chunk-store', 'memory', 'null']
+    assert sweep['null']['cache']['type'] == 'null'
+    store = sweep['chunk-store']['chunk_store']
+    # Filled by a pass of its own first: the measuring reader only hits.
+    assert store['misses'] == store['writes'] == 0 and store['hits'] > 0
+    assert sweep['chunk-store']['decode_s'] == 0.0 and store['corrupt_quarantined'] == 0
+    assert sweep['chunk-store']['fill_s'] > 0
+    assert 'mem' not in profile                # the governor is not armed here
     assert sorted(out['not_ported']) == sorted([
-        'autotune', 'mem', 'decode_path_sweep', 'per_device_stream',
-        'cache_tier_sweep[chunk-store]'])
+        'autotune', 'decode_path_sweep', 'per_device_stream'])
     assert all('ROADMAP' in item for item in out['not_ported'].values())
     lineage = profile['lineage']
     assert lineage['replay_self_check'] is True
@@ -72,6 +80,28 @@ def test_pipeline_child_prints_the_bench_keys(workdir, monkeypatch, capsys):
     det = profile['determinism']
     assert det['img_per_sec'] > 0 and det['default_img_per_sec'] == out['pipeline_img_per_sec']
     assert det['ratio_vs_default'] == det['img_per_sec'] / det['default_img_per_sec']
+
+
+def test_pipeline_child_reports_the_armed_governor(workdir, monkeypatch, capsys):
+    from petastorm_tpu_torch import membudget
+    for key, value in (('BENCH_PIPELINE_BATCH', BATCH), ('BENCH_PIPELINE_BATCHES', 2),
+                       ('BENCH_PIPELINE_REPS', 1), ('BENCH_PIPELINE_TIER_BATCHES', 2),
+                       ('BENCH_PIPELINE_DETERMINISM', 0),
+                       ('BENCH_PIPELINE_CACHE_TIERS', 'chunk-store'),
+                       (membudget.ENV_VAR, 'auto')):
+        monkeypatch.setenv(key, str(value))
+    previous = membudget.set_governor(membudget.MemoryGovernor())
+    try:
+        assert bench.main(['--child', 'pipeline', '--device', 'cpu', '--workdir', workdir]) == 0
+        assert not membudget.get_governor().armed     # every pipeline released its arm
+    finally:
+        membudget.set_governor(previous)
+    profile = json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        'pipeline_stage_profile']
+    mem = profile['mem']
+    assert mem['budget_bytes'] > 0 and mem['budget_source'] in ('cgroup', 'meminfo')
+    assert mem['breaches'] == 0 and 'arena-pool' in mem['pools']
+    assert sorted(profile['cache_tier_sweep']) == ['chunk-store']
 
 
 def test_unknown_child_and_cuda_without_a_gpu_raise(workdir, tmp_path, monkeypatch):

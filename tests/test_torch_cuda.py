@@ -850,3 +850,105 @@ def test_pinned_prefetching_loader_resume_loses_and_repeats_no_row(dev, tmp_path
                 for batch in loader:
                     seen += batch.id.cpu().tolist()
         assert sorted(seen) == list(range(160)), deterministic
+
+
+# -- the cache hierarchy on the card ---------------------------------------------------
+
+@pytest.fixture
+def governor(monkeypatch):
+    """A fresh process-wide memory governor (1 MB budget), armed without its
+    sampler: the test drives ``check()``."""
+    from petastorm_tpu_torch import membudget
+    monkeypatch.delenv(membudget.ENV_VAR, raising=False)
+    gov = membudget.MemoryGovernor(budget=1_000_000)
+    previous = membudget.set_governor(gov)
+    gov._arm_count += 1
+    try:
+        yield gov
+    finally:
+        while gov._arm_count > 0:
+            gov.release()
+        membudget.set_governor(previous)
+
+
+def test_chunk_store_batches_through_pinned_arenas_equal_the_cpu_path(dev, tmp_path):
+    """A store filled by a CPU pass serves the card's loader (every
+    row-group a hit, nothing decoded); its batches, copied from the mapped
+    entries into pinned arenas, equal the CPU path's decoded ones."""
+    url = _surface_store(tmp_path)
+    want, _ = _surface_batches(url, 'tensor', 'cpu')
+    store_dir = str(tmp_path / 'store')
+    with make_tensor_reader(url, schema_fields=['id', 'image'], workers_count=1,
+                            shuffle_row_groups=False, cache_type='chunk-store',
+                            cache_location=store_dir) as reader:
+        assert sum(len(c.id) for c in reader) == 120
+    for _ in range(2):
+        # Two workers, resequenced: chunks arrive in the CPU pass's order.
+        with make_tensor_reader(url, schema_fields=['id', 'image'], workers_count=2,
+                                shuffle_row_groups=False, deterministic=True,
+                                cache_type='chunk-store', cache_location=store_dir) as reader:
+            with TorchLoader(reader, 16, device='cuda') as loader:
+                got = [[t.cpu() for t in b] for b in loader]
+                stats = loader.stats
+        assert stats['arena_pinned'] and stats['chunk_store']['misses'] == 0
+        assert stats['worker_stage_timings']['decode_s'] == 0.0
+        assert len(got) == len(want)
+        assert all(all(torch.equal(x, y) for x, y in zip(a, b)) for a, b in zip(got, want))
+
+
+def test_partial_cache_on_card_evicts_under_a_ballast_pool(dev, tmp_path, governor):
+    """The partial cache on the card: a ballast pool drives one check to
+    degrade, which evicts the coldest run; the card's allocated bytes fall
+    by the run's, and the next epoch is still the whole streamed pass."""
+    url = _surface_store(tmp_path)
+
+    def factory():
+        with make_tensor_reader(url, schema_fields=['id', 'image'], workers_count=1,
+                                shuffle_row_groups=False) as reader:
+            with TorchLoader(reader, 16, device='cuda') as loader:
+                yield from loader
+
+    want = [[t.cpu() for t in b] for b in factory()]
+    batch_bytes = 16 * (4 + 48 * 48 * 3)     # int32 id, 48x48x3 uint8 image
+    reader = make_tensor_reader(url, schema_fields=['id', 'image'], workers_count=1,
+                                shuffle_row_groups=False)
+    loader = TorchLoader(reader, 16, device='cuda')
+    cache = DeviceDatasetCache(loader, shuffle=False, partial=True, superbatch_batches=2,
+                               max_bytes=4 * batch_bytes + 1, loader_factory=factory)
+    with reader, loader:
+        assert len(list(cache.epoch(0))) == len(want)
+    assert cache.stats()['cached_batches'] == 4 and cache.stats()['fill_stopped']
+    got = [[t.cpu() for t in b] for b in cache.epoch(1)]
+    assert all(all(torch.equal(x, y) for x, y in zip(a, b)) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    ballast = governor.register_pool('ballast', lambda: 860_000 - cache.nbytes)
+    assert governor.check() == 'degrade'
+    assert cache.stats()['evictions'] == 1 and cache.stats()['cached_batches'] == 2
+    freed = before - torch.cuda.memory_allocated(dev)
+    assert 2 * batch_bytes <= freed < 2 * batch_bytes + 4096
+    ballast.close()
+    got = [[t.cpu() for t in b] for b in cache.epoch(2)]
+    assert all(all(torch.equal(x, y) for x, y in zip(a, b)) for a, b in zip(got, want))
+    cache.clear()
+
+
+def test_arena_advisory_toggle_mid_stream_keeps_batches(dev, tmp_path, governor):
+    """The advisory rung unpins the loader's new arenas: a copy from them
+    is synchronous to the host, and the batches (arenas allocated unpinned
+    first, then pinned again after the relief) still equal the CPU's."""
+    url = _surface_store(tmp_path)
+    want, _ = _surface_batches(url, 'tensor', 'cpu')
+    ballast = governor.register_pool('ballast', lambda: 750_000)
+    assert governor.check() == 'advisory'
+    with make_tensor_reader(url, schema_fields=['id', 'image'], workers_count=1,
+                            shuffle_row_groups=False) as reader:
+        with TorchLoader(reader, 16, device='cuda', arena_depth=2) as loader:
+            assert not loader.stats['arena_pinned']    # joined the episode at registration
+            got = [[t.cpu() for t in next(loader)] for _ in range(3)]
+            ballast.close()
+            assert governor.check() == 'ok'
+            assert loader.stats['arena_pinned']
+            got += [[t.cpu() for t in b] for b in loader]
+    assert len(got) == len(want)
+    assert all(all(torch.equal(x, y) for x, y in zip(a, b)) for a, b in zip(got, want))

@@ -152,7 +152,7 @@ def test_stage_timings_of_the_tensor_reader(tmp_path):
     (dict(predicate=object()), 'predicate'),
     (dict(transform_spec=object()), 'transform_spec'),
     (dict(shuffle_row_drop_partitions=2), 'shuffle_row_drop_partitions'),
-    (dict(cache_type='local-disk'), 'not ported'),
+    (dict(cache_type='chunk-store'), 'make_tensor_reader'),
     (dict(reader_pool_type='process'), 'thread'),
 ])
 def test_arguments_not_ported_raise(store, kwargs, match):
