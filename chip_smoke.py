@@ -88,7 +88,8 @@ non-zero exit and no result line:
 10. lm_scan: the ``lm`` child's protocol (``bench.py:160-306``): the token
    reader with ``cache_type='memory'``, ``TorchLoader(batch=64)``, the same
    model through ``make_lm_scan_train_step(8)`` (one CUDA graph replay a
-   call of 8 steps of batch 8); 2 warm-up calls, then 6 measured.
+   call of 8 steps of batch 8); 2 warm-up calls, then 6 measured, as the
+   bench.
 11. imagenet_vit: the ``imagenet_vit`` child (``bench.py:2511-2515``):
    ``ViT(num_classes=1000)`` (patch 16, d 384, 6 heads, 8 layers, dense
    attention, bf16) behind the bench's bare cast (``float() / 255``),
@@ -133,7 +134,23 @@ non-zero exit and no result line:
    calls 4-6. S2's per-batch ledger digests must equal U's, the restored
    state S1's save bit for bit, S2's final loader state U's, and an S2
    record must replay bit-identical (``verify_record``); losses within
-   ``PREEMPT_LOSS_RTOL``; K1 counted in S2's profiled window.
+   ``PREEMPT_LOSS_RTOL``; K1 counted in S2's window.
+19. mesh: the multi-GPU paths at world size 1 (the machine has one card),
+   in a child process of their own that starts an NCCL process group from
+   a file (no fallback to gloo) and destroys it (see :func:`run_mesh`):
+   (a) ResNet-50 on ``{'data': 1, 'model': 1}`` through
+   ``make_pod_reader`` -> the mesh ``TorchLoader`` -> ``make_scan_train_step
+   (mesh=...)``, K1 and the gradient all-reduce (NCCL ``ReduceOp.AVG``,
+   whose one-rank reduction kernel runs) in the 8-step graph, each counted
+   by name among the graph's kernel nodes, 8 a replay in 13 replays; (c)
+   the sharded ``JobCheckpointer`` save
+   of (a)'s state through the group and its restore into a fresh state,
+   bit for bit; (b) the lm cell's TransformerLM on ``{'data': 1, 'sp': 1,
+   'model': 1}`` with ``attention='a2a'`` through the 8-step scan graph (K2-
+   K4 counted as lm_scan counts them) and ``attention='ring'`` for three
+   eager steps, each holding its first losses to ``attention='flash'``'s
+   within ``MESH_LOSS_ATOL``. No number of this phase measures
+   communication between two cards. It runs after lm_moe.
 
 Phases 5 to 15 and 18 run the bench's protocol through the functions of
 ``petastorm_tpu_torch/bench.py`` (``python -m petastorm_tpu_torch.bench``
@@ -143,12 +160,13 @@ after. On an eager path the wrappers count every launch, and three more
 calls are then traced with ``torch.profiler`` (the card's busy time a call
 and idle share, ``trace`` in its line). On a scan path a replay calls no
 wrapper, so the wrappers count only call 1 (eager) and the capture; the
-path's calls after the eager one therefore run under ``torch.profiler``
-(CUDA activity), which counts by name every kernel that ran on the card in
-them: K of K1, layers x K of each flash kernel a call (none of either on
-imagenet_vit and on imagenet_aug's bare cast), or the phase fails.
-The measured calls' profile gives ``trace``; img/s, tokens/s, stall and
-device ms come from as many more calls, unprofiled, after the window.
+kernels of the path's replays are counted by name among the captured
+graph's kernel nodes, read once through the CUDA driver's graph API
+(``bench.graph_kernels``), times the window's replays: K of K1, layers x K
+of each flash kernel a replay (none of either on imagenet_vit and on
+imagenet_aug's bare cast), or the phase fails. The measured calls run under
+``torch.profiler``, whose profile gives ``trace``; img/s, tokens/s, stall
+and device ms come from as many more calls, unprofiled, after the window.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.
@@ -199,11 +217,6 @@ MAX_SPIN_CYCLES = 16 * SPIN_CYCLES
 
 # The bench's flashattn child (bench.py:1610-1618): [B, T, H, D] = [4, 8192, 8, 128].
 FA_BATCH, FA_SEQ, FA_HEADS, FA_D = 4, 8192, 8, 128
-# The profiler drops kernel records now and then, and a window may lose
-# PROFILER_LOSS (1%) of its records; on an H100 it dropped about 1 of 1,000
-# K1 records on the ResNet paths and up to 1 of 100 flash records on lm_moe.
-# So each scan window here profiles at least 100 K1 records (13 calls) and
-# 400 records of each flash kernel, more calls than the bench's children.
 # The lm_long child (bench.py:2526-2530; store bench.py:141): 256 rows of 8193
 # tokens, batch 2, K 4, 48 measured steps (the bench: 16): the flash kernels
 # see [16, 8192, 64].
@@ -212,7 +225,8 @@ LONG_SEQ, LONG_BATCH, LONG_K, LONG_STEPS = 8193, 2, 4, 48
 # steps (the bench: 16).
 MOE_EXPERTS, MOE_LAYERS, MOE_STEPS = 4, 4, 96
 # Measured calls of the streamed ResNet scan paths (the bench: 5) and the
-# imagenet_aug epochs (the bench: 4): 13 profiled calls, 104 K1 records.
+# imagenet_aug epochs (the bench: 4): 13 replays counted, 104 K1 launches,
+# and as many calls timed.
 SCAN_CALLS, AUG_EPOCHS = 11, 6
 
 
@@ -1098,6 +1112,18 @@ PREEMPT_EPOCHS, PREEMPT_KILL_AFTER = 3, 3
 PREEMPT_LOSS_RTOL = 1e-2
 PREEMPT_CHILD_TIMEOUT_S = 300
 
+# The mesh phase: the lm cell's T as a whole-sequence field (the sequence-
+# parallel loss predicts token t + 1 of it), three eager ring steps, and
+# the losses of every step held to flash's within MESH_LOSS_ATOL: on an H100
+# the a2a scan's 8 and the ring's 3 stayed within 1.7e-4 of flash's (near
+# 10.9), so 2e-3 leaves a margin of about ten.
+MESH_SEQ, MESH_RING_STEPS, MESH_LOSS_ATOL = 1024, 3, 2e-3
+MESH_LM_CALLS, MESH_CHILD_TIMEOUT_S = 12, 600
+# NCCL's one-rank reduction kernel (ReduceOp.AVG; an in-place sum on one
+# rank enqueues nothing): the gradient all-reduce, counted by name among
+# the graph's kernel nodes.
+NCCL_KERNEL = 'oneRankReduce'
+
 
 def _state_digests(state):
     """CRC32 of every parameter, buffer (BatchNorm statistics) and momentum
@@ -1187,12 +1213,12 @@ def preemptible_role(role, url, workdir, launched, device='cuda'):
         n = calls - first_call + 1
         if role == 'S2':
             # K1's launches in S2's window: call 4 eager, call 5 captures and replays.
-            metrics, launches, captured, ran, _, profiled = bench.scan_window(
+            metrics, launches, captured, ran, _, replays = bench.scan_window(
                 train, state, next_inputs, 1, 1, ('normalize_kernel',))
             out['process_start_to_first_replay_s'] = time.time() - launched
             bench.require_scan_launches(launches, captured, ran, ('normalize_images',),
-                                        bench.SCAN_K, profiled)
-            out['launches'] = bench._scan_launches(launches, captured, ran, 2, profiled)
+                                        bench.SCAN_K, replays)
+            out['launches'] = bench._scan_launches(launches, captured, ran, 2, replays)
         else:
             metrics = [train(state, *next_inputs()) for _ in range(2)]
         wall, _, call_ms, timed = bench.time_scan_calls(train, state, next_inputs, n - 2)
@@ -1307,6 +1333,165 @@ def run_preemptible(url, card):
             'seconds': time.perf_counter() - t_phase}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
+# the mesh phase: the multi-GPU paths at world size 1, over NCCL
+# --------------------------------------------------------------------------
+
+def mesh_resnet(url, device):
+    """(a): ResNet-50 scan training on ``{'data': 1, 'model': 1}``; K1 8
+    times a call and the gradient all-reduce 8 times a call in the graph."""
+    from petastorm_tpu_torch.models import make_scan_train_step
+    from petastorm_tpu_torch.parallel import make_mesh
+    mesh = make_mesh({'data': 1, 'model': 1})
+    state = bench.resnet50_state(device, mesh=mesh)
+    train = make_scan_train_step(bench.SCAN_K, preprocess=bench.normalize_bf16, mesh=mesh)
+    result, (launches, captured, ran, replays) = bench.stream_classifier_scan(
+        url, device, train, state, 3, SCAN_CALLS, ('normalize_kernel', NCCL_KERNEL), mesh=mesh)
+    # K1 and the all-reduce, each 8 times a replay.
+    bench.require_scan_launches(launches, captured, ran, ('normalize_images',), bench.SCAN_K,
+                                replays)
+    reduced = ran[NCCL_KERNEL]
+    expected = bench.SCAN_K * replays
+    result.update(mesh={'data': 1, 'model': 1}, placements={
+        name: list(spec) for name, (spec, _) in state.placements.items()},
+        all_reduce_kernel={'name': NCCL_KERNEL, 'ran': reduced, 'expected': expected},
+        peak_mem_GB_rank0=result['peak_mem_GB'])
+    return result, state
+
+
+def mesh_checkpoint(state, workdir, device):
+    """(c): the sharded save of ``state`` through the group, and its
+    restore into a fresh ResNet-50 on the same mesh, bit for bit."""
+    import torch
+    from petastorm_tpu_torch.job_checkpoint import JobCheckpointer
+    root = os.path.join(workdir, 'checkpoint')
+    t0 = time.perf_counter()
+    with JobCheckpointer(root) as ckpt:
+        ckpt.save(state.step, state, loader={'rank': 0, 'world': 1})
+        nbytes = ckpt.step_nbytes(state.step)
+    save_s = time.perf_counter() - t0
+    fresh = bench.resnet50_state(device, mesh=state.mesh, seed=1)
+    t0 = time.perf_counter()
+    with JobCheckpointer(root) as ckpt:
+        job = ckpt.restore(fresh)
+    restore_s = time.perf_counter() - t0
+    want, got = state.model.state_dict(), fresh.model.state_dict()
+    unequal = [name for name in want if not torch.equal(want[name], got[name])]
+    unequal += ['momentum:' + name for (name, p), q in zip(state.model.named_parameters(),
+                                                            fresh.model.parameters())
+                if not torch.equal(state.optimizer.state[p]['momentum_buffer'],
+                                   fresh.optimizer.state[q]['momentum_buffer'])]
+    if unequal or job.step != state.step or job.loader_state != {'rank': 0, 'world': 1}:
+        raise AssertionError('the sharded restore differs: {} (step {} vs {}, loader {})'.format(
+            unequal[:5], job.step, state.step, job.loader_state))
+    return {'step': job.step, 'bytes': nbytes, 'save_s': save_s, 'restore_s': restore_s,
+            'files': sorted(os.listdir(os.path.join(root, str(job.step)))),
+            'dtensor_entries': sorted(state.placements), 'bit_equal': True,
+            'restored_tensors': len(want) + len(state.optimizer.state)}
+
+
+def _eager_lm_losses(device, mesh, attention, tokens, steps):
+    """Losses of ``steps`` eager SGD steps (lr 0.01, momentum 0.9, as the
+    scan's) of a fresh seed-0 lm model on the microbatches of ``tokens``."""
+    import torch
+    from petastorm_tpu_torch.models import create_train_state, make_lm_train_step
+    from petastorm_tpu_torch.models.train import transformer_param_spec
+    model = bench.lm_model(device, LM_LAYERS, MESH_SEQ, attention=attention, mesh=mesh,
+                           seq_axis='sp' if attention in ('ring', 'a2a') else None)
+    state = create_train_state(model, learning_rate=0.01, momentum=0.9, mesh=mesh,
+                               param_spec_fn=transformer_param_spec)
+    step = make_lm_train_step(mesh=mesh)
+    losses = [float(step(state, tokens[i * LM_BATCH:(i + 1) * LM_BATCH])['loss'])
+              for i in range(steps)]
+    del model, state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def mesh_lm(workdir, device):
+    """(b): the lm cell's TransformerLM on ``{'data': 1, 'sp': 1, 'model':
+    1}``: a2a through the scan graph, ring eagerly, both against flash."""
+    import torch
+    from petastorm_tpu_torch.parallel import make_mesh
+    url = bench.write_lm_store(os.path.join(workdir, 'lm'), LM_ROWS, MESH_SEQ)
+    mesh = make_mesh({'data': 1, 'sp': 1, 'model': 1})
+    first = []
+    model = bench.lm_model(device, LM_LAYERS, MESH_SEQ, attention='a2a', mesh=mesh,
+                           seq_axis='sp')
+    result, metrics, _ = bench.lm_scan(url, device, model, LM_BATCH, bench.SCAN_K, 2,
+                                       MESH_LM_CALLS, LM_LAYERS, mesh=mesh, first=first)
+    del model
+    torch.cuda.empty_cache()
+    a2a = [float(v) for v in metrics[0]['losses']]
+    flash = _eager_lm_losses(device, mesh, 'flash', first[0], bench.SCAN_K)
+    torch.cuda.reset_peak_memory_stats(device)
+    ring = _eager_lm_losses(device, mesh, 'ring', first[0], MESH_RING_STEPS)
+    ring_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    diffs = {'a2a': max(abs(a - f) for a, f in zip(a2a, flash)),
+             'ring': max(abs(r - f) for r, f in zip(ring, flash))}
+    if not all(d <= MESH_LOSS_ATOL for d in diffs.values()):
+        raise AssertionError('first losses off flash\'s: a2a {} ring {} flash {}'.format(
+            a2a, ring, flash))
+    result.update(mesh={'data': 1, 'sp': 1, 'model': 1}, attention='a2a', seq=MESH_SEQ,
+                  first_losses={'a2a_scan': a2a, 'ring_eager': ring, 'flash_eager': flash},
+                  loss_atol=MESH_LOSS_ATOL, max_loss_diff=diffs,
+                  ring_peak_mem_GB_rank0=ring_peak, peak_mem_GB_rank0=result['peak_mem_GB'])
+    return result
+
+
+def mesh_role(url, workdir):
+    """The mesh phase's child process: NCCL at world size 1 from a file,
+    (a), (c) and (b), one JSON line; the group is destroyed on the way out."""
+    import torch
+    import torch.distributed as dist
+    device = torch.device('cuda', 0)
+    torch.cuda.set_device(device)
+    t0 = time.perf_counter()
+    dist.init_process_group('nccl', init_method='file://' + os.path.join(workdir, 'init'),
+                            rank=0, world_size=1, device_id=device)
+    out = {'role': 'mesh', 'nccl_init_s': time.perf_counter() - t0,
+           'backend': dist.get_backend(), 'world_size': dist.get_world_size()}
+    try:
+        out['resnet'], state = mesh_resnet(url, device)
+        out['checkpoint'] = mesh_checkpoint(state, workdir, device)
+        del state
+        torch.cuda.empty_cache()
+        out['lm'] = mesh_lm(workdir, device)
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def run_mesh(url, card):
+    """Phase 19 in a child process (see :func:`mesh_role`): its line, to
+    which ``main`` adds the same run's single-GPU numbers."""
+    workdir = tempfile.mkdtemp(prefix='mesh_', dir=BUILD_DIR)
+    t0 = time.perf_counter()
+    try:
+        cmd = [sys.executable, os.path.abspath(__file__), '--mesh-role', '--mesh-url', url,
+               '--mesh-dir', workdir]
+        with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, cwd=ROOT) as proc:
+            try:
+                line = None
+                for text in proc.stdout:
+                    if text.startswith('{') and '"role": "mesh"' in text:
+                        line = json.loads(text)
+                code = proc.wait(timeout=MESH_CHILD_TIMEOUT_S)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+        if code != 0 or line is None:
+            raise AssertionError('the mesh child exited {} ({})'.format(
+                code, 'no result' if line is None else 'with a result'))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del line['role']
+    return dict({'phase': 'mesh', 'card': card, 'seconds': time.perf_counter() - t0,
+                 'cross_card_transfer': 'not measured: world size 1 on one card, so no number '
+                                        'here measures communication between two cards'},
+                **line)
 
 
 # --------------------------------------------------------------------------
@@ -1465,8 +1650,10 @@ def run_examples(store_dir, device, card):
 def run_pipeline_governed(url, device, workers):
     """The pipeline child with ``PSTT_HOST_MEM_BUDGET=auto`` set for the
     phase, so the pipeline arms the memory governor. Fails unless the
-    ``chunk-store`` row of the tier sweep served its window from the store
-    and the ``mem`` block reports an armed budget with no breach."""
+    ``chunk-store`` row of the tier sweep served its window from the store,
+    the ``mem`` block reports an armed budget with no breach, and the
+    ``per_device_stream`` block's one-rank NCCL group put tiles on its one
+    device."""
     from petastorm_tpu_torch import membudget
     saved = os.environ.get(membudget.ENV_VAR)
     os.environ[membudget.ENV_VAR] = 'auto'
@@ -1484,6 +1671,10 @@ def run_pipeline_governed(url, device, workers):
             or row['chunk_store']['hits'] == 0 or mem is None or not mem['budget_bytes']
             or mem['breaches']):
         raise AssertionError('pipeline: chunk-store row {}, mem block {}'.format(row, mem))
+    stream = profile['per_device_stream']
+    if ((stream['world_size'], stream['n_devices']) != (1, 1) or stream['shards_put'] == 0
+            or not stream['per_device_h2d_GBps'].get('cuda:0')):
+        raise AssertionError('pipeline: per_device_stream block {}'.format(stream))
     if membudget.get_governor().armed:
         raise AssertionError('the pipeline left the memory governor armed')
     return pipeline
@@ -1498,6 +1689,10 @@ def main():
     parser.add_argument('--preemptible-url', help=argparse.SUPPRESS)
     parser.add_argument('--preemptible-dir', help=argparse.SUPPRESS)
     parser.add_argument('--preemptible-launched', type=float, help=argparse.SUPPRESS)
+    # The mesh phase's child process.
+    parser.add_argument('--mesh-role', action='store_true', help=argparse.SUPPRESS)
+    parser.add_argument('--mesh-url', help=argparse.SUPPRESS)
+    parser.add_argument('--mesh-dir', help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.steps < 10:
         parser.error('--steps must be >= 10')
@@ -1514,6 +1709,9 @@ def main():
     if args.preemptible_role:
         preemptible_role(args.preemptible_role, args.preemptible_url, args.preemptible_dir,
                          args.preemptible_launched)
+        return 0
+    if args.mesh_role:
+        mesh_role(args.mesh_url, args.mesh_dir)
         return 0
 
     lines = []
@@ -1579,6 +1777,7 @@ def main():
         by_path = {'imagenet': k1['launches']}
         result, state = bench.run_imagenet_scan(url, device, card, calls=SCAN_CALLS)
         record(result)
+        imagenet_scan = result
         imagenet_scan_rate = result['img_per_s']
         by_path['imagenet_scan'] = bench.path_launches(result, 'normalize_images',
                                                        'normalize_kernel')
@@ -1623,6 +1822,15 @@ def main():
         scans['lm_moe'] = bench.run_lm_scan(lm_url, device, card, steps=MOE_STEPS,
                                             layers=MOE_LAYERS, moe_experts=MOE_EXPERTS)
         record(scans['lm_moe'])
+        mesh = run_mesh(url, card)
+        mesh['single_gpu'] = {
+            'imagenet_scan': {k: imagenet_scan[k] for k in (
+                'img_per_s', 'device_step_ms', 'peak_mem_GB')},
+            'lm_scan': {k: scans['lm_scan'][k] for k in (
+                'tokens_per_s', 'device_step_ms', 'peak_mem_GB')}}
+        record(mesh)
+        by_path['mesh_resnet'] = bench.path_launches(mesh['resnet'], 'normalize_images',
+                                                     'normalize_kernel')
         workers = max(4, min(10, os.cpu_count() or 4))
         pipeline = run_pipeline_governed(url, device, workers)
         record(dict({'phase': 'pipeline', 'card': card}, **pipeline))
@@ -1640,7 +1848,7 @@ def main():
                 {'lm': k['launches'],
                  'example_long_context': examples['long_context']['launches'][k['name']]},
                 **{path: bench.path_launches(scan, k['name'], k['name'] + '_kernel')
-                   for path, scan in scans.items()})
+                   for path, scan in dict(scans, mesh_lm_a2a=mesh['lm']).items()})
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
     keys = ('name', 'route', 'kernel_route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms',

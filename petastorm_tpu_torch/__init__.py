@@ -22,5 +22,6 @@ from petastorm_tpu_torch.device_cache import DeviceCacheOverflow, DeviceDatasetC
 from petastorm_tpu_torch.etl import DatasetWriter, get_schema, write_dataset  # noqa: F401
 from petastorm_tpu_torch.loader import (CropTo, PadTo, ShapePolicy, TorchLoader,  # noqa: F401
                                         make_torch_loader)
-from petastorm_tpu_torch.reader import Reader, make_reader, make_tensor_reader  # noqa: F401
+from petastorm_tpu_torch.reader import (Reader, make_pod_reader, make_reader,  # noqa: F401
+                                        make_tensor_reader)
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField  # noqa: F401

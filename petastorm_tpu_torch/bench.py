@@ -21,9 +21,9 @@ The variants are chosen through the ``BENCH_*`` environment variables that
 Children run on the card. The scan children follow the bench's protocol
 through the port: the memory cache, ``superbatches(8)``, the K-step scan
 trainer captured as one CUDA graph and replayed, the HBM tier. Their launch
-windows (:func:`scan_window`) count each hand kernel by name under
-``torch.profiler``; ``chip_smoke.py`` drives the same functions and holds
-the counts. ``--device cpu`` exists for the tests and runs the ``pipeline``
+windows (:func:`scan_window`) count each hand kernel by name among the
+captured graph's kernel nodes, times the replays; ``chip_smoke.py`` drives
+the same functions and holds the counts. ``--device cpu`` exists for the tests and runs the ``pipeline``
 child only. No MFU is reported (the bench's TPU peak table has no
 counterpart here): the children report device ms a step instead.
 """
@@ -62,11 +62,8 @@ AUG_EPOCHS = 4
 FLASH_SEQS = '2048,8192,16384'
 #: Profiled calls of an eager path after its launch counts are read.
 TRACED_CALLS = 3
-#: The share of a window's kernel records the profiler may lose: in one run
-#: on an H100 it reported 509 of the 512 flash dQ and dK/dV kernels of
-#: lm_scan's window while the forward's 512 and every other path's counts
-#: were exact, with no warning; more than this fails the path.
-PROFILER_LOSS = 0.01
+#: ``CUgraphNodeType`` (``cuda.h``): a kernel node and a child-graph node.
+_KERNEL_NODE, _CHILD_GRAPH_NODE = 0, 4
 FLASH_WRAPPERS = ('flash_fwd', 'flash_dq', 'flash_dkv', 'flash_fwd_sm90', 'flash_dq_sm90',
                   'flash_dkv_sm90')
 FLASH_KERNELS = ('flash_fwd_sm90_kernel', 'flash_dq_sm90_kernel', 'flash_dkv_sm90_kernel')
@@ -76,7 +73,6 @@ FLASH_KERNELS = ('flash_fwd_sm90_kernel', 'flash_dq_sm90_kernel', 'flash_dkv_sm9
 PIPELINE_NOT_PORTED = {
     'autotune': 'ROADMAP §A9 (autotune)',
     'decode_path_sweep': 'ROADMAP §A9 (the native decoders)',
-    'per_device_stream': 'ROADMAP §A6 (multi-GPU, per-device staging)',
 }
 #: The cache tiers the pipeline child sweeps (``BENCH_PIPELINE_CACHE_TIERS``).
 PIPELINE_CACHE_TIERS = ('null', 'memory', 'chunk-store')
@@ -181,11 +177,6 @@ def device_profile(run):
     return prof.key_averages()
 
 
-def kernels_ran(events, names):
-    """How many kernels whose name holds each of ``names`` a profile holds."""
-    return {name: sum(e.count for e in events if name in e.key) for name in names}
-
-
 def busy_trace(events, calls, call_ms):
     """The card's busy time a call over ``calls`` profiled calls (kernels,
     copies and sets), its idle share against ``call_ms`` (the unprofiled
@@ -234,20 +225,79 @@ def _launch_diff(after, before):
             if count != before.get(name, 0)}
 
 
+def graph_kernels(graph):
+    """The kernel nodes of a captured ``torch.cuda.CUDAGraph`` made with
+    ``keep_graph=True`` (as :class:`~petastorm_tpu_torch.models.train.
+    ScanStep` makes it), by kernel name: ``{name: nodes}``, child graphs
+    included. Read through the CUDA driver's graph API; each replay runs
+    every node once."""
+    import collections
+    import ctypes
+
+    driver = ctypes.CDLL('libcuda.so.1')
+
+    class KernelNodeParams(ctypes.Structure):      # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [('func', ctypes.c_void_p), ('grid', ctypes.c_uint * 3),
+                    ('block', ctypes.c_uint * 3), ('shared_mem_bytes', ctypes.c_uint),
+                    ('kernel_params', ctypes.c_void_p), ('extra', ctypes.c_void_p),
+                    ('kern', ctypes.c_void_p), ('ctx', ctypes.c_void_p)]
+
+    def call(name, *args):
+        result = getattr(driver, name)(*args)
+        if result != 0:
+            raise RuntimeError('{} failed with CUresult {}'.format(name, result))
+
+    def kernel_name(node):
+        params = KernelNodeParams()
+        call('cuGraphKernelNodeGetParams_v2', node, ctypes.byref(params))
+        name = ctypes.c_char_p()
+        if params.func:
+            call('cuFuncGetName', ctypes.byref(name), ctypes.c_void_p(params.func))
+        else:
+            call('cuKernelGetName', ctypes.byref(name), ctypes.c_void_p(params.kern))
+        return name.value.decode()
+
+    counts = collections.Counter()
+
+    def walk(handle):
+        n = ctypes.c_size_t(0)
+        call('cuGraphGetNodes', handle, None, ctypes.byref(n))
+        nodes = (ctypes.c_void_p * n.value)()
+        call('cuGraphGetNodes', handle, nodes, ctypes.byref(n))
+        for node in nodes:
+            node = ctypes.c_void_p(node)
+            kind = ctypes.c_int()
+            call('cuGraphNodeGetType', node, ctypes.byref(kind))
+            if kind.value == _KERNEL_NODE:
+                counts[kernel_name(node)] += 1
+            elif kind.value == _CHILD_GRAPH_NODE:
+                child = ctypes.c_void_p()
+                call('cuGraphChildGraphNodeGetGraph', node, ctypes.byref(child))
+                walk(child)
+
+    walk(ctypes.c_void_p(graph.raw_cuda_graph()))
+    return dict(counts)
+
+
+def graph_launches(train, kernels, replays):
+    """How many times each of ``kernels`` (a substring of kernel names) ran
+    in ``replays`` replays of ``train``'s captured graph: its kernel nodes
+    (:func:`graph_kernels`) times the replays."""
+    nodes = graph_kernels(train.graph) if train.graph is not None else {}
+    return {name: replays * sum(n for kernel, n in nodes.items() if name in kernel)
+            for name in kernels}
+
+
 def scan_window(train, state, next_inputs, warmup, calls, kernels):
     """One scan path's counted window: the launch counts zeroed, ``warmup``
     calls (call 1 eager, call 2 captures the graph and replays it, later
-    calls replay), then ``calls`` measured calls, the counts read. A replay
-    calls no wrapper, so the wrappers count call 1 and the capture. The
-    profiler counts, by name, each of ``kernels`` that ran on the card in
-    the calls after an eager first one (the rest of the warm-up under one
-    profile, the measured calls under another): a wrapper counts each
-    launch of the eager call itself, and in runs Y, AA and AC the profiler
-    lost 3-6 of the 512 backward flash records of lm_scan's window, whose
-    eager call launches its backward from autograd's own thread. Returns
-    (metrics of each call, the wrappers' counts, their counts across the
-    capturing call, the kernels that ran in the profiled calls, the
-    measured calls' profile, the number of profiled calls)."""
+    calls replay), then ``calls`` measured calls under ``torch.profiler``
+    (the path's trace), the counts read. A replay calls no wrapper, so the
+    wrappers count call 1 and the capture; each of ``kernels`` is counted
+    in the window's replays by :func:`graph_launches`. Returns (metrics of
+    each call, the wrappers' counts, their counts across the capturing
+    call, the kernels that ran in the window's replays, the measured calls'
+    profile, the number of replays)."""
     metrics, captured = [], {}
 
     def run(n):
@@ -258,32 +308,26 @@ def scan_window(train, state, next_inputs, warmup, calls, kernels):
                 captured.update(_launch_diff(launch_counts(), before))
 
     reset_launch_counts()                            # the path starts here
-    eager = 1 if train.calls == 0 and warmup else 0
-    run(eager)
-    warm = device_profile(lambda: run(warmup - eager))
+    replays = train.replays
+    run(warmup)
     measured = device_profile(lambda: run(calls))
     launches = launch_counts()                       # the path ends here
-    ran = kernels_ran(warm, kernels)
-    for name, count in kernels_ran(measured, kernels).items():
-        ran[name] += count
-    return metrics, launches, captured, ran, measured, warmup + calls - eager
+    replays = train.replays - replays
+    return (metrics, launches, captured, graph_launches(train, kernels, replays), measured,
+            replays)
 
 
-def require_scan_launches(launches, captured, ran, wrappers, per_call, calls):
+def require_scan_launches(launches, captured, ran, wrappers, per_call, replays):
     """Fail unless each wrapper counted ``per_call`` launches in call 1 and
     as many in the capture, and each kernel ran ``per_call`` times in each
-    of the window's ``calls`` profiled calls (the capturing call's replay
-    and the replays after it), up to ``PROFILER_LOSS`` of the records lost
-    by the profiler and never more than that."""
+    of the window's ``replays``."""
     wrapped = {name: launches.get(name, 0) for name in wrappers}
-    expected = per_call * calls
     if (wrapped != dict.fromkeys(wrappers, 2 * per_call)
             or captured != dict.fromkeys(wrappers, per_call)
-            or not all((1 - PROFILER_LOSS) * expected <= count <= expected
-                       for count in ran.values())):
-        raise AssertionError('scan path launches: wrappers {}, across the capture {}, ran on the '
-                             'card {}; expected {} a call in {} profiled calls'.format(
-                                 wrapped, captured, ran, per_call, calls))
+            or ran != dict.fromkeys(ran, per_call * replays)):
+        raise AssertionError('scan path launches: wrappers {}, across the capture {}, ran in the '
+                             'replays {}; expected {} a call in {} replays'.format(
+                                 wrapped, captured, ran, per_call, replays))
 
 
 def require_no_kernel(window):
@@ -316,21 +360,21 @@ def time_scan_calls(train, state, next_inputs, calls):
     return wall, wait_s, float(np.median([a.elapsed_time(b) for a, b in events])), metrics
 
 
-def _scan_launches(launches, captured, ran, calls, profiled):
+def _scan_launches(launches, captured, ran, calls, replays):
     return {'wrappers': launches, 'across_capture': captured, 'ran_on_card': ran,
-            'calls': calls, 'profiled_calls': profiled}
+            'calls': calls, 'replays': replays}
 
 
 def path_launches(result, wrapper, kernel):
     """A kernel's launches on a scan path, each counted in that path's own
     window: its wrapper's (call 1 and the capture), the wrapper's across
     the capture (the kernels the graph holds), and the kernels that ran on
-    the card in the window's profiled calls, counted by name."""
+    the card in the window's replays, counted by name in the graph."""
     launches = result['launches']
     return {'wrapper': launches['wrappers'].get(wrapper, 0),
             'across_capture': launches['across_capture'].get(wrapper, 0),
             'ran_on_card': launches['ran_on_card'][kernel], 'calls': launches['calls'],
-            'profiled_calls': launches['profiled_calls']}
+            'replays': launches['replays']}
 
 
 def normalize_bf16(x):
@@ -345,28 +389,32 @@ def bare_cast(images):
     return images.float() / 255.0
 
 
-def resnet50_state(device):
+def resnet50_state(device, mesh=None, seed=0):
     """The bench's ResNet-50 (``conv7`` stem, 1000 classes, bf16,
-    channels_last), weights from seed 0, SGD lr 0.1 momentum 0.9."""
+    channels_last), weights from ``seed``, SGD lr 0.1 momentum 0.9; on a
+    ``mesh`` (the head split over ``'model'``)."""
     import torch
     from petastorm_tpu_torch.models import ResNet50, create_train_state
     from petastorm_tpu_torch.models.resnet import init_flax_like
 
     torch.backends.cudnn.benchmark = True
     model = init_flax_like(ResNet50(num_classes=1000, stem='conv7', dtype=torch.bfloat16,
-                                    device=device), torch.Generator().manual_seed(0))
+                                    device=device), torch.Generator().manual_seed(seed))
     return create_train_state(model.to(memory_format=torch.channels_last), learning_rate=0.1,
-                              momentum=0.9)
+                              momentum=0.9, mesh=mesh)
 
 
-def lm_model(device, layers, max_len, moe_experts=0):
+def lm_model(device, layers, max_len, moe_experts=0, attention='flash', mesh=None,
+             seq_axis=None):
     """The bench's TransformerLM (``bench.py:186-209``) at the lm widths,
-    flash attention, bf16, weights from seed 0."""
+    bf16, weights from seed 0; flash attention, or ``'a2a'``/``'ring'`` over
+    ``seq_axis`` of ``mesh``."""
     import torch
     from petastorm_tpu_torch.models import TransformerLM
     from petastorm_tpu_torch.models.transformer import init_flax_like
-    model = TransformerLM(LM_VOCAB, LM_D, LM_HEADS, layers, max_len=max_len, attention='flash',
-                          moe_experts=moe_experts, dtype=torch.bfloat16, device=device)
+    model = TransformerLM(LM_VOCAB, LM_D, LM_HEADS, layers, max_len=max_len, attention=attention,
+                          moe_experts=moe_experts, dtype=torch.bfloat16, device=device, mesh=mesh,
+                          seq_axis=seq_axis)
     return init_flax_like(model, torch.Generator().manual_seed(0))
 
 
@@ -392,31 +440,35 @@ def stage_profile(stats, timings0, timings, wall_s):
 
 
 def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
-                           cache_type='memory', cache_location=None):
+                           cache_type='memory', cache_location=None, mesh=None):
     """A classifier scan path streamed from a cache tier (the bench's
     ``_child_imagenet`` loop): the reader with ``cache_type`` (default
     ``'memory'``; endless, seed 0), ``TorchLoader(batch=128, prefetch=8)``,
     ``superbatches(8)``; :func:`scan_window` over ``warmup`` + ``calls``
     calls, then ``calls`` timed (the stage profile covers those). A chunk
-    store's queued writes are flushed before the timed calls. Returns the
-    path's line (without phase and model keys) and its launch window."""
+    store's queued writes are flushed before the timed calls. On a ``mesh``
+    the reader is ``make_pod_reader``'s and the loader the mesh's (128 is
+    the global batch). Returns the path's line (without phase and model
+    keys) and its launch window."""
     import torch
-    from petastorm_tpu_torch import TorchLoader, make_tensor_reader
+    from petastorm_tpu_torch import TorchLoader, make_pod_reader
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    reader = make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
-                                workers_count=4, shuffle_row_groups=True, seed=0, num_epochs=None,
-                                cache_type=cache_type, cache_location=cache_location)
+    reader = make_pod_reader(url, mesh=mesh, pod_shard=None if mesh else (0, 1),
+                             schema_fields=['image', 'label'], reader_pool_type='thread',
+                             workers_count=4, shuffle_row_groups=True, seed=0, num_epochs=None,
+                             cache_type=cache_type, cache_location=cache_location)
     with reader:
-        with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH) as loader:
+        with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH,
+                         mesh=mesh) as loader:
             groups = loader.superbatches(SCAN_K)
 
             def next_inputs():
                 sb = next(groups)
                 return sb.image, sb.label
 
-            metrics, launches, captured, ran, measured, profiled = scan_window(
+            metrics, launches, captured, ran, measured, replays = scan_window(
                 train, state, next_inputs, warmup, calls, kernels)
             if reader.chunk_store is not None and not reader.chunk_store.flush(timeout_s=120):
                 raise RuntimeError('the chunk store did not drain its writes before the timed '
@@ -445,9 +497,9 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
         'peak_reserved_GB': torch.cuda.max_memory_reserved(device) / 1e9,
         'rows_delivered': stats0['rows'] + stats['rows'],
         'stage_profile': stage_profile(stats, timings0, timings, wall),
-        'launches': _scan_launches(launches, captured, ran, warmup + calls, profiled),
+        'launches': _scan_launches(launches, captured, ran, warmup + calls, replays),
         'trace': per_step(busy_trace(measured, calls, call_ms), SCAN_K)}
-    return result, (launches, captured, ran, profiled)
+    return result, (launches, captured, ran, replays)
 
 
 def fill_device_cache(url, device):
@@ -473,7 +525,7 @@ def hbm_scan(cache, train, state, epochs, kernels, first_epoch=1, observe=None):
     """Superbatches of ``SCAN_K`` cached batches, carried across epoch
     boundaries, through ``train`` (a scan step of its own, its own
     capture): epoch ``first_epoch`` warms up (call 1 eager, call 2
-    captures), the next ``epochs`` are counted under the profiler, and as
+    captures), the next ``epochs`` are counted (:func:`scan_window`), and as
     many more timed. ``observe(epoch, batch)`` sees each batch. Returns the
     path's line (without phase keys) and its launch window."""
     import torch
@@ -498,7 +550,7 @@ def hbm_scan(cache, train, state, epochs, kernels, first_epoch=1, observe=None):
 
     per_epoch = ROWS // BATCH // SCAN_K
     warmup, calls = per_epoch, per_epoch * epochs
-    metrics, launches, captured, ran, measured, profiled = scan_window(
+    metrics, launches, captured, ran, measured, replays = scan_window(
         train, state, next_inputs, warmup, calls, kernels)
     wall, _, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
     losses = [float(m['loss']) for m in metrics + timed]
@@ -514,9 +566,9 @@ def hbm_scan(cache, train, state, epochs, kernels, first_epoch=1, observe=None):
         'loss_first_last': [losses[0], losses[-1]],
         'peak_mem_GB': torch.cuda.max_memory_allocated() / 1e9,
         'peak_reserved_GB': torch.cuda.max_memory_reserved() / 1e9,
-        'launches': _scan_launches(launches, captured, ran, warmup + calls, profiled),
+        'launches': _scan_launches(launches, captured, ran, warmup + calls, replays),
         'trace': per_step(busy_trace(measured, calls, call_ms), SCAN_K)}
-    return result, (launches, captured, ran, profiled)
+    return result, (launches, captured, ran, replays)
 
 
 def run_imagenet_scan(url, device, card, warmup=3, calls=5):
@@ -639,9 +691,7 @@ def run_imagenet_chunkstore(url, device, card, state, store_dir, warmup=3, calls
 PARTIAL_MAX_BYTES = 160_000_000
 PARTIAL_RUN_BATCHES = 4
 #: Epochs counted (and as many timed) in each partial window, after its
-#: warm-up epoch: 13 profiled calls, 104 K1 records, so that the profiler's
-#: loss bound (``PROFILER_LOSS``) admits a dropped record (one window of 40
-#: lost 1 on an H100).
+#: warm-up epoch.
 PARTIAL_EPOCHS = 6
 
 
@@ -873,37 +923,51 @@ def run_imagenet_aug(url, device, card, state, epochs=AUG_EPOCHS):
             'crop_y_offsets_two_replays': [v.tolist()[:4] for v in drawn]}
 
 
-def lm_scan(url, device, model, batch, k, warmup, calls, layers):
+def lm_scan(url, device, model, batch, k, warmup, calls, layers, mesh=None, first=None):
     """An LM scan path (the ``lm`` child's protocol, ``bench.py:160-306``):
     the token reader with ``cache_type='memory'``, ``TorchLoader(batch=
     batch * k)``, ``make_lm_scan_train_step(k)`` (SGD lr 0.01, momentum
     0.9); :func:`scan_window` over ``warmup`` + ``calls`` calls, each flash
     kernel ``layers * k`` times a call on the Hopper route, then ``calls``
-    timed; the losses must be finite and fall. Returns the path's line
-    (without phase and model keys), the metrics of every call and the
-    measured calls' profile."""
+    timed; the losses must be finite and fall. On a ``mesh`` the reader is
+    ``make_pod_reader``'s, the loader the mesh's (the tokens split over the
+    model's ``seq_axis``) and the state's parameters split by
+    ``transformer_param_spec``; ``first`` (a list) receives a copy of the
+    first superbatch. Returns the path's line (without phase and model
+    keys), the metrics of every call and the measured calls' profile."""
     import torch
-    from petastorm_tpu_torch import TorchLoader, make_tensor_reader
+    from petastorm_tpu_torch import TorchLoader, make_pod_reader
     from petastorm_tpu_torch.models import create_train_state, make_lm_scan_train_step
+    from petastorm_tpu_torch.models.train import transformer_param_spec
+    from petastorm_tpu_torch.parallel.mesh import sequence_sharding
 
-    state = create_train_state(model, learning_rate=0.01, momentum=0.9)
-    train = make_lm_scan_train_step(k)
+    state = create_train_state(model, learning_rate=0.01, momentum=0.9, mesh=mesh,
+                               param_spec_fn=transformer_param_spec)
+    train = make_lm_scan_train_step(k, mesh=mesh)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    reader = make_tensor_reader(url, schema_fields=['tokens'], reader_pool_type='thread',
-                                workers_count=2, shuffle_row_groups=True, seed=0, num_epochs=None,
-                                cache_type='memory')
+    reader = make_pod_reader(url, mesh=mesh, pod_shard=None if mesh else (0, 1),
+                             schema_fields=['tokens'], reader_pool_type='thread',
+                             workers_count=2, shuffle_row_groups=True, seed=0, num_epochs=None,
+                             cache_type='memory')
+    sharding = None
+    if mesh is not None and model.seq_axis is not None:
+        sharding = {'tokens': sequence_sharding(mesh, seq_axis=model.seq_axis)}
     with reader:
-        with TorchLoader(reader, batch * k, device=device, prefetch=2) as loader:
+        with TorchLoader(reader, batch * k, device=device, prefetch=2, mesh=mesh,
+                         sharding=sharding) as loader:
             def next_inputs():
-                return (next(loader).tokens,)
+                tokens = next(loader).tokens
+                if first is not None and not first:
+                    first.append(tokens.clone())
+                return (tokens,)
 
-            metrics, launches, captured, ran, measured, profiled = scan_window(
+            metrics, launches, captured, ran, measured, replays = scan_window(
                 train, state, next_inputs, warmup, calls, FLASH_KERNELS)
             wall, wait_s, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
             stats, cache = loader.stats, reader.cache_stats()
     seq = model.max_len
-    require_scan_launches(launches, captured, ran, FLASH_WRAPPERS, layers * k, profiled)
+    require_scan_launches(launches, captured, ran, FLASH_WRAPPERS, layers * k, replays)
     losses = [float(v) for m in metrics + timed for v in m['losses']]
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError('lm scan losses did not fall: {}'.format(losses))
@@ -918,7 +982,7 @@ def lm_scan(url, device, model, batch, k, warmup, calls, layers):
         'peak_mem_GB': torch.cuda.max_memory_allocated(device) / 1e9,
         'peak_reserved_GB': torch.cuda.max_memory_reserved(device) / 1e9,
         'rows_delivered': stats['rows'],
-        'launches': _scan_launches(launches, captured, ran, warmup + calls, profiled),
+        'launches': _scan_launches(launches, captured, ran, warmup + calls, replays),
         'trace': per_step(busy_trace(measured, calls, call_ms), k)}
     return result, metrics + timed, measured
 
@@ -1091,6 +1155,60 @@ def _deterministic_rate(url, device, workers, batch, prefetch, inflight, warm_ba
             return batch * measure_batches / (time.perf_counter() - start)
 
 
+def _per_device_stream_probe(url, device, workers, batch):
+    """The ``per_device_stream`` block (``bench.py:718-770``): a short run
+    of ``make_pod_reader`` -> the mesh ``TorchLoader`` on ``{'data': world}``,
+    so ``h2d_overlap_frac`` is the overlap of the collate with the tile
+    copies of the mesh path. In a process without a group it starts a
+    one-rank group from a file (NCCL on the card, gloo on the CPU) and ends
+    it after; at world size 1 no number here is a transfer between cards.
+    A failure, a failed ``init_process_group`` included, raises."""
+    import torch
+    import torch.distributed as dist
+    from petastorm_tpu_torch import TorchLoader, make_pod_reader
+    from petastorm_tpu_torch.parallel import make_mesh
+
+    measure = _env_int('BENCH_PIPELINE_STREAM_BATCHES', 16)
+    started = not dist.is_initialized()
+    init_dir = tempfile.mkdtemp(prefix='pstt-group-')
+    try:
+        if started:
+            cuda = torch.device(device).type == 'cuda'
+            dist.init_process_group(
+                'nccl' if cuda else 'gloo', rank=0, world_size=1,
+                init_method='file://' + os.path.join(init_dir, 'init'),
+                **({'device_id': torch.device(device)} if cuda else {}))
+        mesh = make_mesh({'data': dist.get_world_size()}, device=torch.device(device).type)
+        reader = make_pod_reader(url, mesh=mesh, schema_fields=['image', 'label'],
+                                 reader_pool_type='thread', workers_count=workers,
+                                 num_epochs=None, shuffle_row_groups=True, seed=0,
+                                 cache_type='memory')
+        with reader:
+            with TorchLoader(reader, batch, mesh=mesh) as loader:
+                for _ in range(4):
+                    b = next(loader)
+                _fence(b)
+                loader.reset_stats()
+                t0 = time.perf_counter()
+                for _ in range(measure):
+                    b = next(loader)
+                _fence(b)
+                elapsed = time.perf_counter() - t0
+                stats = loader.stats
+        world = dist.get_world_size()
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(init_dir, ignore_errors=True)
+    put_s, put_bytes = stats['device_put_s'], stats['device_put_bytes']
+    return {'world_size': world, 'n_devices': stats['n_devices'],
+            'img_per_sec': batch * measure / elapsed, 'h2d_overlap_frac': stats['overlap_frac'],
+            'shards_put': stats['shards_put'],
+            'per_device_h2d_GBps': {dev: (put_bytes[dev] / sec / 1e9 if sec else None)
+                                    for dev, sec in put_s.items()},
+            'arena_pinned': stats['arena_pinned'], 'measure_batches': measure}
+
+
 def run_pipeline(url, device, workers):
     """Loader-only capacity: the imagenet child's reader and loader with no
     train step (``bench.py:774-949``). ``make_tensor_reader(cache_type=
@@ -1103,10 +1221,11 @@ def run_pipeline(url, device, workers):
     the stage profile spans all reps. As in the bench, the lineage ledger is
     armed during the reps, so each batch's fields are CRC32-digested on the
     assemble thread. Then the same pipeline with ``deterministic=True``
-    (``determinism``; ``BENCH_PIPELINE_DETERMINISM=0`` skips it) and the
+    (``determinism``; ``BENCH_PIPELINE_DETERMINISM=0`` skips it), the
     cache-tier sweep (``null``, ``memory``, ``chunk-store``; a tier that
-    fails makes the child fail). With ``PSTT_HOST_MEM_BUDGET`` set the
-    pipeline arms the governor and the ``mem`` block reports it."""
+    fails makes the child fail) and the mesh loader's ``per_device_stream``
+    block (its failure fails the child too). With ``PSTT_HOST_MEM_BUDGET``
+    set the pipeline arms the governor and the ``mem`` block reports it."""
     from petastorm_tpu_torch import TorchLoader, make_tensor_reader
     from petastorm_tpu_torch.lineage import TEMP_DIR_PREFIX
 
@@ -1179,6 +1298,7 @@ def run_pipeline(url, device, workers):
         if saved is not None:
             os.environ[ENV_VAR] = saved
     profile['cache_tier_sweep'] = sweep
+    profile['per_device_stream'] = _per_device_stream_probe(url, device, workers, batch)
     return {
         'pipeline_img_per_sec': median,
         'pipeline_img_per_sec_reps': rates,

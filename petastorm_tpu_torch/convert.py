@@ -181,3 +181,17 @@ def mlp_params_from_flax(params):
 def load_flax_mlp(model, params):
     """Load flax weights into ``model``; every tensor must be covered."""
     return _load_strict(model, mlp_params_from_flax(params), 'MLP')
+
+
+def sharded_state_from_flax(model, load_fn, *trees, mesh, param_spec_fn=None, batch_axis='data',
+                            **state_kwargs):
+    """A mesh ``TrainState`` of ``model`` holding this rank's shards of a flax
+    tree: ``load_fn(model, *trees)`` (e.g. :func:`load_flax_transformer`)
+    loads the whole tree on every rank, then
+    :func:`~petastorm_tpu_torch.models.train.create_train_state` keeps each
+    rank's shard under ``param_spec_fn``. Every rank passes the same numpy
+    arrays, as every JAX host places the same tree."""
+    from petastorm_tpu_torch.models.train import create_train_state
+    load_fn(model, *trees)
+    return create_train_state(model, mesh=mesh, param_spec_fn=param_spec_fn,
+                              batch_axis=batch_axis, **state_kwargs)

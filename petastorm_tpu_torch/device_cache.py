@@ -119,6 +119,15 @@ class DeviceDatasetCache(object):
     :param loader_factory: zero-argument callable returning a fresh
         iterable over the same deterministic batch stream (a new reader and
         loader); partial epochs walk it.
+
+    On a mesh (a ``TorchLoader(..., mesh=mesh)``, one cache a rank) each
+    rank keeps its own tile of every batch, and the permutations are drawn
+    from the same seeds on every rank, so the ranks keep visiting the same
+    global batch: a shuffled epoch permutes the superbatch order and the
+    rows within each rank's part of a superbatch, but never moves a row to
+    another rank (the JAX tier's gather may; ``device_cache.py:340-400``).
+    A tensor or sequence peer holds the same rows and draws the same
+    permutation.
     """
 
     def __init__(self, loader, shuffle=True, seed=0, max_bytes=None, partial=False,

@@ -4,10 +4,15 @@ loader's pinned arenas, and either the bare ``/255`` cast or, with
 ``augment=True``, the on-device Inception recipe (random resized crop,
 color jitter, flip) ending in the hand-written normalize kernel.
 Counterpart of ``examples/imagenet/jax_resnet_example.py`` and
-``generate_imagenet_dataset.py``, on one GPU (the mesh and
-``model_parallel`` wait on the multi-GPU port, ROADMAP §A6).
+``generate_imagenet_dataset.py``. With ``model_parallel`` it trains on a
+``{'data': world / model_parallel, 'model': model_parallel}`` mesh, one
+process a GPU: each rank reads its data shard (``make_pod_reader``,
+deterministic, so that the head's peers see one order), the batch is
+global, the classifier head is split over ``'model'`` and the gradients
+are averaged over ``'data'``.
 
     python -m petastorm_tpu_torch.examples.imagenet --generate --augment
+    torchrun --nproc-per-node=8 -m petastorm_tpu_torch.examples.imagenet --model-parallel 2
 """
 
 import argparse
@@ -17,7 +22,8 @@ import numpy as np
 import torch
 
 from petastorm_tpu_torch import (CompressedImageCodec, CropTo, ScalarCodec, TorchLoader, Unischema,
-                                 UnischemaField, make_reader, resolve_device, write_dataset)
+                                 UnischemaField, make_pod_reader, make_reader, resolve_device,
+                                 write_dataset)
 from petastorm_tpu_torch.models import ResNet50, create_train_state, make_train_step
 from petastorm_tpu_torch.models.resnet import init_flax_like
 from petastorm_tpu_torch.ops.augment import imagenet_train_augment
@@ -61,18 +67,27 @@ def generate_synthetic(output_url, classes=10, images_per_class=50, height=256, 
 
 
 def train(dataset_url, batch_size=256, steps=100, image_size=224, log_every=10, augment=False,
-          device='cuda', workers_count=10):
+          device='cuda', workers_count=10, model_parallel=None):
     """``steps`` SGD steps (lr 0.1, momentum 0.9) of ResNet-50 (bf16 on the
     card, f32 on the CPU); returns ``(state, losses)``. With ``augment``
     the loader stages a canvas of ``image_size * 8 // 7`` (the 256/224
     ratio) for the random resized crop to sample from; stored images must
-    be at least that big."""
+    be at least that big. ``model_parallel`` (on every rank of a started
+    process group) trains on the mesh of the module docstring, with
+    ``batch_size`` the global batch."""
     device = resolve_device(device)
     dtype = torch.bfloat16 if device.type == 'cuda' else torch.float32
+    mesh = None
+    if model_parallel is not None:
+        import torch.distributed as dist
+        from petastorm_tpu_torch.parallel import make_mesh
+        mesh = make_mesh({'data': dist.get_world_size() // model_parallel,
+                          'model': model_parallel}, device=device.type)
     model = init_flax_like(ResNet50(num_classes=1000, dtype=dtype, device=device),
                            torch.Generator().manual_seed(0))
-    state = create_train_state(model.to(memory_format=torch.channels_last), learning_rate=0.1)
-    step_fn = make_train_step()
+    state = create_train_state(model.to(memory_format=torch.channels_last), learning_rate=0.1,
+                               mesh=mesh)
+    step_fn = make_train_step(mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(42)
 
     def preprocess(images_u8):
@@ -82,9 +97,11 @@ def train(dataset_url, batch_size=256, steps=100, image_size=224, log_every=10, 
 
     canvas = image_size * 8 // 7 if augment else image_size
     losses, times = [], []
-    with make_reader(dataset_url, schema_fields=['image', 'label'], num_epochs=None,
-                     workers_count=workers_count, shuffle_row_groups=True, seed=0) as reader:
-        with TorchLoader(reader, batch_size, device=device,
+    with make_pod_reader(dataset_url, reader_factory=make_reader, mesh=mesh,
+                         pod_shard=None if mesh else (0, 1), schema_fields=['image', 'label'],
+                         num_epochs=None, workers_count=workers_count, shuffle_row_groups=True,
+                         seed=0, deterministic=mesh is not None) as reader:
+        with TorchLoader(reader, batch_size, device=device, mesh=mesh,
                          shape_policies={'image': CropTo((canvas, canvas, 3))}) as loader:
             prev = time.perf_counter()
             for step, batch in enumerate(loader, 1):
@@ -112,8 +129,17 @@ if __name__ == '__main__':
                         help='on-device Inception augmentation (random resized crop, flip, '
                              'color jitter)')
     parser.add_argument('--device', default='cuda')
+    parser.add_argument('--model-parallel', type=int, default=None,
+                        help="split the head over a 'model' axis of this size (run under "
+                             'torchrun: one process a GPU, the batch global)')
     args = parser.parse_args()
-    if args.generate:
-        generate_synthetic(args.dataset_url, ragged=32)
-    train(args.dataset_url, args.batch_size, args.steps, args.image_size, augment=args.augment,
-          device=args.device)
+    if args.model_parallel is None:
+        if args.generate:
+            generate_synthetic(args.dataset_url, ragged=32)
+        train(args.dataset_url, args.batch_size, args.steps, args.image_size,
+              augment=args.augment, device=args.device)
+    else:
+        from petastorm_tpu_torch.parallel.launch import init_from_env
+        with init_from_env(args.device) as device:
+            train(args.dataset_url, args.batch_size, args.steps, args.image_size,
+                  augment=args.augment, device=device, model_parallel=args.model_parallel)

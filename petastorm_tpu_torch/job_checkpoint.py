@@ -32,8 +32,21 @@ A restore loads in place: into a fresh ``TrainState`` (a resumed job), or
 into the one a :class:`~petastorm_tpu_torch.models.train.ScanStep` was
 captured on, whose graph then replays from the restored values (every
 tensor keeps its address). A step captured on another state refuses the
-restored one: build a new step. One process saves the whole state; the
-sharded multi-host save waits for multi-GPU (ROADMAP §A6, §A8).
+restored one: build a new step.
+
+Sharded (a ``TrainState`` on a mesh, every rank calling ``save`` and
+``restore`` alike): the split parameters and their momentum buffers are
+viewed as ``DTensor``s of their global shape
+(:func:`~petastorm_tpu_torch.parallel.tensor_parallel.to_dtensors`), so
+``dcp.save`` over the process group writes each rank's shards (a whole
+tensor once), as orbax writes ``NamedSharding`` leaves
+(``petastorm_tpu/job_checkpoint.py:120-126``). Each rank's loader state
+goes into a file of its own in the same step directory, and rank 0 writes
+the marker and renames the directory once every rank has written. A
+restore onto the same mesh loads each rank's shards in place, bit for bit;
+a restore onto one rank (a state without a mesh, the model whole)
+reshards every tensor to its global value and returns every rank's loader
+state in ``loader_states``. ``async_save`` is single-process only.
 """
 
 import base64
@@ -53,15 +66,20 @@ from torch.distributed.checkpoint.state_dict import get_state_dict, set_state_di
 FINISHED_MARKER = '_CHECKPOINT_FINISHED'
 _TMP_PREFIX = '.tmp-'
 _PICKLED_KEY = '__pst_pickled_b64__'
+_LOADER_FILE = 'loader-rank{}.json'
 
 
 class JobCheckpoint(object):
     """What :meth:`JobCheckpointer.restore` returns."""
 
-    def __init__(self, step, state, loader_state, extra):
+    def __init__(self, step, state, loader_state, extra, loader_states=None):
         self.step = step
         self.state = state
+        #: This rank's loader state (None when the restoring world differs
+        #: from the saving one).
         self.loader_state = loader_state
+        #: Every saving rank's loader state, by rank.
+        self.loader_states = loader_states if loader_states is not None else [loader_state]
         self.extra = extra
 
     def __repr__(self):
@@ -115,9 +133,14 @@ class JobCheckpointer(object):
             return False
         if os.path.exists(os.path.join(self._step_dir(step), FINISHED_MARKER)):
             raise FileExistsError('step {} is already saved in {}'.format(step, self.directory))
-        model_sd, optim_sd = get_state_dict(state.model, state.optimizer)
+        sharded = _sharded(state)
+        if sharded and self._async:
+            raise ValueError('async_save is single-process only; save a mesh state with '
+                             'async_save=False')
+        model_sd, optim_sd = _state_dicts(state)
+        loader_json = json.dumps(_encode_loader_state(_capture_loader_state(loader)))
         payload = {'model': model_sd, 'optim': optim_sd, 'step': int(state.step),
-                   'loader': json.dumps(_encode_loader_state(_capture_loader_state(loader))),
+                   'loader': '' if sharded else loader_json,
                    'extra': json.dumps(extra if extra is not None else {})}
         self._last_step = step if self._last_step is None else max(self._last_step, step)
         if self._async:
@@ -125,25 +148,43 @@ class JobCheckpointer(object):
             payload = _to_host(payload)
             self._pending.append(self._executor.submit(self._write, step, payload))
         else:
-            self._write(step, payload)
+            self._write(step, payload, loader_json if sharded else None)
         return True
 
-    def _write(self, step, payload):
+    def _write(self, step, payload, rank_loader=None):
+        """Write ``payload`` as the step; ``rank_loader`` (a sharded save) is
+        this rank's loader state, written beside it."""
         tmp = os.path.join(self.directory, '{}{}-{}'.format(_TMP_PREFIX, step, uuid.uuid4().hex))
+        group = rank_loader is not None
+        if group:
+            names = [tmp]
+            dist.broadcast_object_list(names, src=0)     # one directory for every rank
+            tmp = names[0]
         try:
             dcp.save(payload, checkpoint_id=tmp, no_dist=_no_dist())
-            with open(os.path.join(tmp, FINISHED_MARKER), 'w') as f:
-                json.dump({'step': step, 'time': time.time()}, f)
-                f.flush()
-                os.fsync(f.fileno())
-            final = self._step_dir(step)
-            if os.path.isdir(final):
-                shutil.rmtree(final)     # a torn directory of this step: no marker
-            os.replace(tmp, final)
+            if group:
+                with open(os.path.join(tmp, _LOADER_FILE.format(dist.get_rank())), 'w') as f:
+                    f.write(rank_loader)
+                dist.barrier()
+            if not group or dist.get_rank() == 0:
+                with open(os.path.join(tmp, FINISHED_MARKER), 'w') as f:
+                    # A sharded save's loader states are one file a rank.
+                    json.dump({'step': step, 'time': time.time(),
+                               'loader_ranks': dist.get_world_size() if group else 0}, f)
+                    f.flush()
+                    os.fsync(f.fileno())
+                final = self._step_dir(step)
+                if os.path.isdir(final):
+                    shutil.rmtree(final)     # a torn directory of this step: no marker
+                os.replace(tmp, final)
+                self._apply_retention()
         except BaseException:
-            shutil.rmtree(tmp, ignore_errors=True)
+            if not group or dist.get_rank() == 0:
+                shutil.rmtree(tmp, ignore_errors=True)
             raise
-        self._apply_retention()
+        finally:
+            if group:
+                dist.barrier()
 
     def _apply_retention(self):
         if self._max_to_keep is None:
@@ -197,15 +238,33 @@ class JobCheckpointer(object):
             step = steps[-1]
         elif int(step) not in steps:
             return None
+        root = self._step_dir(step)
         model_sd, optim_sd = get_state_dict(state_template.model, state_template.optimizer)
-        payload = {'model': model_sd, 'optim': optim_sd, 'step': 0, 'loader': '', 'extra': ''}
-        dcp.load(payload, checkpoint_id=self._step_dir(step), no_dist=_no_dist())
+        wrapped_model, wrapped_optim = _state_dicts(state_template, (model_sd, optim_sd))
+        payload = {'model': wrapped_model, 'optim': wrapped_optim, 'step': 0, 'loader': '',
+                   'extra': ''}
+        dcp.load(payload, checkpoint_id=root, no_dist=_no_dist())
+        # The DTensor views were loaded in place: the local tensors hold it.
         set_state_dict(state_template.model, state_template.optimizer,
-                       model_state_dict=payload['model'], optim_state_dict=payload['optim'])
+                       model_state_dict=model_sd,
+                       optim_state_dict=dict(optim_sd,
+                                             param_groups=payload['optim']['param_groups']))
         state_template.step = int(payload['step'])
-        loader_state = _decode_loader_state(json.loads(payload['loader'])) or None
+        with open(os.path.join(root, FINISHED_MARKER)) as f:
+            world = json.load(f).get('loader_ranks', 0)
+        if world:
+            loader_states = []
+            for rank in range(world):
+                with open(os.path.join(root, _LOADER_FILE.format(rank))) as f:
+                    loader_states.append(_decode_loader_state(json.loads(f.read())) or None)
+            here, rank = (1, 0) if _no_dist() else (dist.get_world_size(), dist.get_rank())
+            loader_state = loader_states[rank] if here == world else None
+        else:
+            loader_state = _decode_loader_state(json.loads(payload['loader'])) or None
+            loader_states = [loader_state]
         return JobCheckpoint(step=int(step), state=state_template, loader_state=loader_state,
-                             extra=json.loads(payload['extra']) or {})
+                             extra=json.loads(payload['extra']) or {},
+                             loader_states=loader_states)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -232,6 +291,30 @@ class JobCheckpointer(object):
     def __exit__(self, exc_type, exc, tb):
         self.close()
         return False
+
+
+def _sharded(state):
+    """A state on a mesh saves shard by shard, through the process group."""
+    return getattr(state, 'mesh', None) is not None and not _no_dist()
+
+
+def _state_dicts(state, dicts=None):
+    """DCP's model and optimizer state dicts of ``state`` (or ``dicts``),
+    with the split parameters and their optimizer state viewed as
+    ``DTensor``s on a mesh state."""
+    model_sd, optim_sd = dicts or get_state_dict(state.model, state.optimizer)
+    placements = getattr(state, 'placements', None)
+    if getattr(state, 'mesh', None) is None or not placements:
+        return model_sd, optim_sd
+    from petastorm_tpu_torch.parallel.tensor_parallel import to_dtensors
+    model_sd = to_dtensors(model_sd, state.mesh, placements)
+    optim_sd = dict(optim_sd)
+    optim_sd['state'] = {
+        fqn: to_dtensors(entry, state.mesh, {k: placements[fqn] for k in entry
+                                             if fqn in placements and torch.is_tensor(entry[k])
+                                             and entry[k].dim() > 0})
+        for fqn, entry in optim_sd['state'].items()}
+    return model_sd, optim_sd
 
 
 def _no_dist():

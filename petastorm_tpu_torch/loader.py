@@ -37,8 +37,12 @@ import torch
 from petastorm_tpu_torch import membudget
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.lineage import LineageTracker, lineage_enabled, resolve_ledger_dir
+from petastorm_tpu_torch.parallel.mesh import (Sharding, axis_names, axis_size,
+                                               batch_sharding, device_shard_plan, has_axis,
+                                               local_device)
 from petastorm_tpu_torch.shuffling_buffer import build_shuffling_buffer
-from petastorm_tpu_torch.staging import ArenaPool, MeteredReader, OverlapMeter, StagingEngine
+from petastorm_tpu_torch.staging import (ArenaPool, DevicePutMeter, MeteredReader, OverlapMeter,
+                                         StagingEngine)
 
 _WIDEN = {np.dtype('uint16'): np.dtype('int32'), np.dtype('uint32'): np.dtype('int64')}
 _KEEP = frozenset(np.dtype(t) for t in ('bool', 'uint8', 'int8', 'int16', 'int32', 'int64',
@@ -456,7 +460,8 @@ class TorchLoader(object):
         ``batched_output``. The loader does not own it: stop the reader
         yourself.
     :param batch_size: rows per batch.
-    :param device: ``'cuda'`` (default; raises without a GPU) or ``'cpu'``.
+    :param device: ``'cuda'`` (the default without a mesh; raises without a
+        GPU) or ``'cpu'``; with a mesh the default is the mesh's device.
     :param prefetch: staged batches kept ahead of the consumer. ``>= 1``
         runs the staging engine's assemble and dispatch threads; ``0`` runs
         none: the consumer's thread collates and issues the copy inline.
@@ -485,6 +490,24 @@ class TorchLoader(object):
     :param resume_state: the ``state_dict()`` this loader's reader was
         resumed from (``make_tensor_reader(..., resume_state=state)``):
         its ``shuffling_buffer`` snapshot refills the shuffling buffer.
+    :param mesh: a ``DeviceMesh`` (:func:`~petastorm_tpu_torch.parallel.
+        mesh.make_mesh`): ``batch_size`` is then the *global* batch, as in
+        the JAX loader, and this rank delivers its tile of it on its own
+        device, ``[batch_size / dp, ...]`` with ``dp`` the size of
+        ``batch_axis``. Read this rank's data shard
+        (:func:`~petastorm_tpu_torch.reader.make_pod_reader`). ``device``
+        defaults to the mesh's.
+    :param sharding: a :class:`~petastorm_tpu_torch.parallel.mesh.Sharding`
+        for every field, or a dict field -> ``Sharding`` (the rest take
+        ``batch_sharding(mesh, batch_axis)``); a sequence-sharded field
+        (``sequence_sharding``) arrives as ``[B/dp, T/sp, ...]``. Ranks that
+        share a data shard (peers on another axis) must see the same rows in
+        the same order, so on a mesh with peers the reader must be
+        ``deterministic=True``.
+    :param batch_axis: the mesh axis (or axes) the batch is split over.
+        A field split on the batch dim alone is copied as this rank's tile
+        (counted in ``stats['shards_put']``); a field split on another dim
+        too is copied as this rank's rows and cut on the device.
 
     Host memory: the loader registers its pools with the governor
     (:mod:`~petastorm_tpu_torch.membudget`, ``petastorm_tpu/jax_loader.py:
@@ -505,10 +528,10 @@ class TorchLoader(object):
     ride the state. A per-row reader counts a row when it leaves the reader.
     """
 
-    def __init__(self, reader, batch_size, device='cuda', prefetch=2, shape_policies=None,
+    def __init__(self, reader, batch_size, device=None, prefetch=2, shape_policies=None,
                  last_batch='drop', shuffling_queue_capacity=0, min_after_dequeue=None,
                  seed=None, strict_fields=False, echo=1, inflight=2, arena_depth=None,
-                 lineage=None, resume_state=None):
+                 lineage=None, resume_state=None, mesh=None, sharding=None, batch_axis='data'):
         if batch_size < 1:
             raise ValueError('batch_size must be >= 1, got {}'.format(batch_size))
         if prefetch < 0:
@@ -520,9 +543,13 @@ class TorchLoader(object):
         if last_batch not in _LAST_BATCH:
             raise ValueError('last_batch must be drop|pad|partial, got {!r}'.format(last_batch))
         membudget.validate_env_budget()
+        self._init_mesh(reader, mesh, sharding, batch_axis, batch_size, last_batch)
+        if device is None:
+            device = local_device(self._mesh) if self._mesh is not None else 'cuda'
         self.device = resolve_device(device)
         self._reader = reader
-        self._batch_size = int(batch_size)
+        self._batch_size = int(batch_size) // self._dp
+        batch_size = self._batch_size
         self._cuda = self.device.type == 'cuda'
         self._init_resume(reader, shuffling_queue_capacity, min_after_dequeue, seed,
                           resume_state)
@@ -569,6 +596,68 @@ class TorchLoader(object):
         #: A DeviceDatasetCache over this loader attaches itself here.
         self._device_cache = None
         self._register_memory_pools(reader)
+
+    def _init_mesh(self, reader, mesh, sharding, batch_axis, batch_size, last_batch):
+        """The mesh, the per-field shardings and this rank's share of the
+        batch (``petastorm_tpu/jax_loader.py:906-922``)."""
+        self._mesh = mesh
+        self._dp = 1
+        self._shardings = None
+        self._put_meter = None
+        if mesh is None and sharding is None:
+            return
+        if mesh is None:
+            mesh = (sharding if isinstance(sharding, Sharding)
+                    else next(iter(sharding.values()))).mesh
+        self._mesh = mesh
+        if last_batch == 'partial':
+            raise ValueError("last_batch='partial' breaks fixed global shapes on a mesh; "
+                             "use 'drop' or 'pad'")
+        if not has_axis(mesh, batch_axis):
+            raise ValueError('batch_axis {!r} is not an axis of the mesh {}'.format(
+                batch_axis, mesh.mesh_dim_names))
+        self._dp = axis_size(mesh, batch_axis)
+        peers = axis_size(mesh, tuple(a for a in mesh.mesh_dim_names
+                                      if a not in axis_names(batch_axis)))
+        if peers > 1 and getattr(reader, 'deterministic', False) is not True:
+            raise ValueError(
+                'the {} ranks of this rank\'s data shard (its tensor, sequence, expert or '
+                'pipeline peers) must read its rows in one order; build the reader with '
+                'deterministic=True'.format(peers))
+        if batch_size % self._dp:
+            raise ValueError('the global batch_size {} does not divide over {} = {} ranks'
+                             .format(batch_size, batch_axis, self._dp))
+        default = batch_sharding(mesh, batch_axis)
+        if sharding is None:
+            sharding = {}
+        if isinstance(sharding, Sharding):
+            sharding, default = {}, sharding
+        batch_spec = batch_sharding(mesh, batch_axis).spec[0]
+        for name, field_sharding in list(sharding.items()) + [('*', default)]:
+            lead = field_sharding.axis_of(0)
+            lead = (lead,) if isinstance(lead, str) else tuple(lead or ())
+            if lead != batch_spec:
+                raise ValueError('the sharding of field {!r} splits the batch over {}, the '
+                                 'loader over batch_axis={!r}'.format(name, lead, batch_axis))
+        self._shardings = (dict(sharding), default)
+        self._cuts = {}
+        self._put_meter = DevicePutMeter()
+
+    def _field_cut(self, name, local_shape):
+        """``(per_device, cut)`` for one field: whether its copy is this
+        rank's tile as it stands, and the slices of the non-batch dims
+        to take on the device (None: none). Computed once a field and shape."""
+        key = (name, local_shape)
+        if key not in self._cuts:
+            per_field, default = self._shardings
+            sharding = per_field.get(name, default)
+            global_shape = (local_shape[0] * self._dp,) + tuple(local_shape[1:])
+            cut = None
+            if any(d > 0 for d, _ in sharding.shard_dims()):
+                cut = (slice(None),) + sharding.index(global_shape)[1:]
+            plan = device_shard_plan(sharding, local_shape, self._dp)
+            self._cuts[key] = (plan is not None, cut)
+        return self._cuts[key]
 
     def _register_memory_pools(self, reader):
         governor = membudget.get_governor()
@@ -727,11 +816,21 @@ class TorchLoader(object):
                           if self._cuda and arena is not None and arr is arena.buffers.get(name)
                           else torch.from_numpy(arr))
                    for name, arr in batch.items()}
+        cuts = {}
+        if self._shardings is not None:
+            for name, src in sources.items():
+                per_device, cuts[name] = self._field_cut(name, tuple(src.shape))
+                if per_device:
+                    self._put_meter.issued()
         if not self._cuda:
             self._loose_batch_nbytes = sum(
                 arr.nbytes for name, arr in batch.items()
                 if arena is None or arr is not arena.buffers.get(name))
-            staged = _Staged(sources, rows)
+            tensors = {name: src if cuts.get(name) is None else src[cuts[name]].contiguous()
+                       for name, src in sources.items()}
+            staged = _Staged(tensors, rows, nbytes=sum(t.nbytes for t in tensors.values()))
+            if self._put_meter is not None:
+                self._put_meter.completed(self.device, time.perf_counter() - t0, staged.nbytes)
         else:
             with torch.cuda.stream(self._h2d_stream):
                 start = torch.cuda.Event(enable_timing=True)
@@ -740,6 +839,8 @@ class TorchLoader(object):
                 for name, src in sources.items():
                     dst = torch.empty(src.shape, dtype=src.dtype, device=self.device)
                     dst.copy_(src, non_blocking=True)
+                    if cuts.get(name) is not None:
+                        dst = dst[cuts[name]].contiguous()
                     tensors[name] = dst
                 event = torch.cuda.Event(enable_timing=True)
                 event.record(self._h2d_stream)
@@ -752,9 +853,12 @@ class TorchLoader(object):
         """Block until the batch's copies landed; account the H2D time."""
         if staged.event is not None:
             staged.event.synchronize()
+            seconds = staged.start.elapsed_time(staged.event) / 1e3
             with self._stats_lock:
-                self._h2d_s += staged.start.elapsed_time(staged.event) / 1e3
+                self._h2d_s += seconds
                 self._h2d_bytes += staged.nbytes
+            if self._put_meter is not None:
+                self._put_meter.completed(self.device, seconds, staged.nbytes)
 
     def _stage_inline(self):
         """``prefetch=0``: the next batch collated and its copies issued on
@@ -900,6 +1004,8 @@ class TorchLoader(object):
         if self._engine is not None:
             self._engine.reset_stats()
         self._pool.reset_stats()
+        if self._put_meter is not None:
+            self._put_meter.reset()
         if self._metered is not None:
             self._metered.reader_wait_s = 0.0
 
@@ -917,7 +1023,9 @@ class TorchLoader(object):
         when armed; ``chunk_store`` (the reader's store's counters) with a
         chunk store; ``device_cache`` with a ``DeviceDatasetCache`` over the
         loader; ``mem`` (the governor's stats) while the governor is
-        armed."""
+        armed; on a mesh ``n_devices`` (1: a rank copies to its own
+        device), ``shards_put`` and, by device,
+        ``device_put_s`` and ``device_put_bytes``."""
         elapsed = (time.perf_counter() - self._first_get_t
                    if self._first_get_t is not None else 0.0)
         with self._stats_lock:
@@ -928,6 +1036,8 @@ class TorchLoader(object):
         if self._engine is not None:
             out.update(self._engine.stats())
         out.update(self._pool.stats())
+        if self._put_meter is not None:
+            out.update(self._put_meter.stats([self.device]))
         if self._metered is not None:
             out['reader_wait_s'] = self._metered.reader_wait_s
         timings = getattr(self._reader, 'stage_timings', None)

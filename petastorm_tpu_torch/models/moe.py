@@ -7,8 +7,17 @@ layer captures into a CUDA graph. Routing is per group (one group per
 batch row); each expert has ``capacity`` slots a group, and the tokens
 past them drop: their expert contribution is zero and the block's residual
 carries them. No product here is a Pallas kernel in the JAX package, so
-they stay ``torch.einsum`` / ``torch.matmul``. Expert parallelism
-(``mesh``, ``expert_axis``, ``expert_param_spec``) is not ported.
+they stay ``torch.einsum`` / ``torch.matmul``.
+
+Expert parallelism (``mesh``, ``expert_axis``; the weights split by
+:func:`expert_param_spec`): each rank holds ``E/n`` experts and its own
+groups (the batch is split over the expert axis too). Routing stays
+group-local; the dispatched ``expert_in [E, G, C, d]`` goes to the expert
+ranks by an explicit ``all_to_all`` (what XLA derives from the JAX
+layer's sharding constraint, ``moe.py:87-94``), the local experts run on
+every rank's groups, and a second ``all_to_all`` brings the outputs back.
+The load-balance statistics are summed over the axes the groups are split
+over, so the loss is the one of the whole batch.
 
 Parity with flax, hazard by hazard:
 
@@ -33,6 +42,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from petastorm_tpu_torch.parallel import collectives
+from petastorm_tpu_torch.parallel.mesh import axis_group, axis_size
+from petastorm_tpu_torch.parallel.tensor_parallel import param_spec
+
 
 def _one_hot(index, n):
     """f32 one-hot of ``index`` over ``n`` classes; an index outside
@@ -44,10 +57,14 @@ class SwitchMoE(nn.Module):
     """Top-1 routed expert MLP: ``[G, S, d] -> [G, S, d]`` in ``dtype``."""
 
     def __init__(self, d_model, num_experts, mlp_ratio=4, capacity_factor=1.25,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, mesh=None, expert_axis=None, batch_axes=()):
         super().__init__()
         if num_experts < 1:
             raise ValueError('num_experts must be >= 1, got {}'.format(num_experts))
+        self.mesh = mesh
+        self.expert_axis = expert_axis
+        # The axes this rank's groups are a share of (statistics sum over them).
+        self.batch_axes = tuple(a for a in batch_axes if axis_size(mesh, a) > 1) if mesh else ()
         self.num_experts = num_experts
         self.capacity_factor = capacity_factor
         self.dtype = dtype
@@ -72,7 +89,13 @@ class SwitchMoE(nn.Module):
         expert_mask = _one_hot(expert_idx, e)
         # Switch load-balance loss: E * sum_e(frac_tokens_e * mean_prob_e),
         # the mask taken before the capacity cut.
-        self.aux_loss = e * torch.sum(expert_mask.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+        frac, mean_prob = expert_mask.mean(dim=(0, 1)), probs.mean(dim=(0, 1))
+        if self.batch_axes:
+            group = axis_group(self.mesh, self.batch_axes)
+            n = axis_size(self.mesh, self.batch_axes)
+            stats = collectives.all_reduce_sum(torch.stack((frac, mean_prob)), group) / n
+            frac, mean_prob = stats[0], stats[1]
+        self.aux_loss = e * torch.sum(frac * mean_prob)
 
         position_in_expert = (torch.cumsum(expert_mask, dim=1) - 1.0) * expert_mask
         expert_mask = expert_mask * (position_in_expert < capacity)
@@ -82,11 +105,46 @@ class SwitchMoE(nn.Module):
         combine = gate[..., None] * slot[:, :, None, :]
 
         expert_in = torch.einsum('gsec,gsd->egcd', dispatch, xf).to(self.dtype)
+        split = param_spec(self, 'w_up')
+        if split is not None:
+            expert_in = self._to_experts(expert_in, axis_group(self.mesh, split[0]))
         h = torch.einsum('egcd,edh->egch', expert_in, self.w_up.to(self.dtype))
         h = F.gelu(h, approximate='tanh')
         expert_out = torch.einsum('egch,ehd->egcd', h, self.w_down.to(self.dtype))
+        if split is not None:
+            expert_out = self._from_experts(expert_out, axis_group(self.mesh, split[0]))
         out = torch.einsum('gsec,egcd->gsd', combine, expert_out.float())
         return out.to(self.dtype)
+
+    @staticmethod
+    def _to_experts(expert_in, group):
+        """``[E, G, C, d]`` of this rank's groups -> ``[E/n, n*G, C, d]``:
+        every rank's groups (rank-major) for this rank's experts."""
+        n = collectives.group_size(group)
+        e, g, c, d = expert_in.shape
+        received = collectives.all_to_all(expert_in.reshape(n, e // n, g, c, d), group)
+        return received.permute(1, 0, 2, 3, 4).reshape(e // n, n * g, c, d)
+
+    @staticmethod
+    def _from_experts(expert_out, group):
+        """The inverse: ``[E/n, n*G, C, d]`` -> ``[E, G, C, d]``."""
+        n = collectives.group_size(group)
+        e_local, ng, c, d = expert_out.shape
+        chunks = expert_out.reshape(e_local, n, ng // n, c, d).permute(1, 0, 2, 3, 4)
+        return collectives.all_to_all(chunks, group).reshape(n * e_local, ng // n, c, d)
+
+
+def expert_param_spec(name, param, mesh, module=None):
+    """Expert weights (``w_up [E, d, h]``, ``w_down [E, h, d]``) split over
+    ``'expert'`` on dim 0 when E divides; every other parameter as
+    :func:`~petastorm_tpu_torch.models.train.transformer_param_spec`
+    (``moe.py:117-128``)."""
+    from petastorm_tpu_torch.models.train import transformer_param_spec
+    if (mesh is not None and 'expert' in (mesh.mesh_dim_names or ())
+            and name.rsplit('.', 1)[-1] in ('w_up', 'w_down')
+            and param.shape[0] % axis_size(mesh, 'expert') == 0):
+        return ('expert', None, None)
+    return transformer_param_spec(name, param, mesh, module)
 
 
 def moe_aux_loss(model):

@@ -16,6 +16,13 @@ Parity with flax, hazard by hazard:
   the *biased* batch variance; torch's ``momentum=0.1`` matches the mean,
   and :class:`BatchNorm` corrects torch's unbiased variance update.
 - The last BatchNorm of every block starts with a zero scale.
+
+On a mesh (``create_train_state(mesh=...)``) the batch statistics are
+those of the global batch, as under the JAX package's pjit: each
+BatchNorm sums its f32 sums and sums of squares over the batch axis
+(differentiably) before it normalises, with flax's fast variance
+``E[x^2] - E[x]^2``. The classifier head may be split over ``'model'``
+by column (:func:`~petastorm_tpu_torch.models.train._param_spec`).
 """
 
 import math
@@ -25,6 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from petastorm_tpu_torch.device import resolve_device
+from petastorm_tpu_torch.parallel import collectives
+from petastorm_tpu_torch.parallel.tensor_parallel import linear_forward
 
 
 def same_padding(size, kernel, stride):
@@ -67,10 +76,33 @@ class BatchNorm(nn.BatchNorm2d):
         super().__init__(channels, eps=1e-5, momentum=0.1)
         if zero_scale:
             nn.init.zeros_(self.weight)
+        #: The process group of the batch's split, set on a mesh whose
+        #: batch axis has more than one rank.
+        self.sync_group = None
+        self.sync_size = 1
+
+    def _synced(self, x):
+        """Train-mode BatchNorm over the batch of every rank of
+        ``sync_group``: flax's statistics of the global batch."""
+        xf = x.float()
+        count = x.numel() // x.shape[1] * self.sync_size
+        sums = torch.stack((xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))))
+        sums = collectives.all_reduce_sum(sums, self.sync_group)
+        mean = sums[0] / count
+        var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None, None]) * scale[None, :, None, None]
+        return (y + self.bias[None, :, None, None]).to(x.dtype)
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.sync_group is not None:
+            return self._synced(x)
         old_var = self.running_var.detach().clone()
         y = super().forward(x)
         # torch folded the unbiased variance vu in: new = 0.9 old + 0.1 vu.
@@ -128,6 +160,15 @@ class ResNetBlock(nn.Module):
         return F.relu(residual + y)
 
 
+class Head(nn.Linear):
+    """The classifier head; split by column over ``'model'`` (the only split
+    ``_param_spec`` makes of it), it runs ``nn.Linear`` on its shard and its
+    logits are gathered, so every rank of the axis computes the same loss."""
+
+    def forward(self, x):
+        return linear_forward(self, x, None, None, gather_output=True, whole=super().forward)
+
+
 class ResNet(nn.Module):
     """``[N, H, W, C]`` images -> ``[N, num_classes]`` f32 logits.
 
@@ -159,7 +200,7 @@ class ResNet(nn.Module):
                 blocks.append(block_cls(in_ch, filters, strides))
                 in_ch = filters * block_cls.expansion
         self.blocks = nn.ModuleList(blocks)
-        self.head = nn.Linear(in_ch, num_classes)
+        self.head = Head(in_ch, num_classes)
         self.to(device)
 
     def forward(self, x):

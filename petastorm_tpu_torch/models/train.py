@@ -12,33 +12,143 @@ K microbatches, as ``jax.jit(lax.scan(...))`` does: microbatch i+1 sees the
 params microbatch i updated. PyTorch's counterpart of the K-step loop
 compiled into one program is a CUDA graph of the K-step body, captured
 once and replayed (:class:`ScanStep`); on the CPU the same body runs
-eagerly. The mesh paths come later.
+eagerly.
+
+On a mesh (``create_train_state(mesh=...)``, one process per GPU) the
+state's parameters are this rank's shards (:func:`_param_spec`,
+:func:`transformer_param_spec`, ``moe.expert_param_spec``,
+``pipeline.pipeline_param_spec``), each rank computes on its tile of the
+batch, and its loss is the mean over its tile (the ranks' losses average
+to the JAX step's loss). The gradients are averaged over the axes the
+batch is split over (``sync_gradients``: one flattened ``all_reduce`` a
+group of axes) before the optimizer steps, inside a scan step's CUDA graph
+too; the metrics are the global ones.
 """
 
 import torch
 import torch.nn.functional as F
 
 from petastorm_tpu_torch.models.moe import moe_aux_loss
+from petastorm_tpu_torch.parallel.collectives import all_gather_plain
+from petastorm_tpu_torch.parallel.mesh import (axis_group, axis_index, axis_names, axis_size,
+                                               has_axis)
+from petastorm_tpu_torch.parallel.tensor_parallel import (mean_over, shard_parameters,
+                                                          sync_gradients)
 
 
 class TrainState(object):
-    """The model and its optimizer (the counterpart of flax's TrainState)."""
+    """The model and its optimizer (the counterpart of flax's TrainState);
+    on a mesh also the mesh, the placements of the split parameters
+    (``{name: (spec, global_shape)}``), the axes the batch is split over
+    (``batch_axes``) and those the gradients are averaged over
+    (``data_axes``: the batch's, the sequence's and the experts')."""
 
-    def __init__(self, model, optimizer):
+    def __init__(self, model, optimizer, mesh=None, placements=None, batch_axes=(),
+                 data_axes=()):
         self.model = model
         self.optimizer = optimizer
+        self.mesh = mesh
+        self.placements = dict(placements or {})
+        self.batch_axes = tuple(batch_axes)
+        self.data_axes = tuple(data_axes)
         self.step = 0
 
 
-def create_train_state(model, learning_rate=1e-3, momentum=0.9):
-    return TrainState(model, torch.optim.SGD(model.parameters(), lr=learning_rate,
-                                             momentum=momentum))
+def _param_spec(name, param, mesh, module=None):
+    """The classifier head by column over ``'model'`` (``train.py:23-31``;
+    its ``[out, in]`` weight on dim 0, its bias with it), everything else
+    whole. A head whose classes do not divide stays whole."""
+    del module
+    if mesh is None or not has_axis(mesh, 'model'):
+        return None
+    if name in ('head.weight', 'head.bias') and param.shape[0] % axis_size(mesh, 'model') == 0:
+        return ('model',) + (None,) * (param.ndim - 1)
+    return None
+
+
+def transformer_param_spec(name, param, mesh, module=None):
+    """Megatron tensor parallelism of :class:`~.transformer.TransformerLM`
+    over ``'model'`` (``train.py:64-99``), in the port's ``[out, in]``
+    layout: q/k/v by head and ``out`` by its head input, ``mlp_in``
+    (flax ``Dense_0``) by column and ``mlp_out`` (``Dense_1``) by row, the
+    head by vocabulary. A column-split layer's bias splits with it; a
+    row-split layer's bias stays whole (it is added after the sum). A
+    layer whose split does not divide (heads, ``4 d`` or vocabulary) stays
+    whole, as ``fits()`` leaves the leaf replicated."""
+    if mesh is None or not has_axis(mesh, 'model'):
+        return None
+    n = axis_size(mesh, 'model')
+    *path, owner, leaf = name.split('.')
+    column = (('model', None) if leaf == 'weight' else ('model',))
+    if path[-1:] == ['attn'] and owner in ('query', 'key', 'value'):
+        return column if module.heads % n == 0 else None
+    if path[-1:] == ['attn'] and owner == 'out':
+        return (None, 'model') if leaf == 'weight' and module.heads % n == 0 else None
+    if owner == 'mlp_in' and param.shape[0] % n == 0:
+        return column
+    if owner == 'mlp_out' and leaf == 'weight' and param.shape[1] % n == 0:
+        return (None, 'model')
+    if not path and owner == 'head' and param.shape[0] % n == 0:
+        return column
+    return None
+
+
+def create_train_state(model, learning_rate=1e-3, momentum=0.9, mesh=None, param_spec_fn=None,
+                       batch_axis='data', make_optimizer=None):
+    """The model and an SGD optimizer (``optax.sgd(lr, momentum)``), or
+    ``make_optimizer(params)``'s (the counterpart of ``tx=``), made over the
+    parameters as this rank holds them.
+
+    With a ``mesh`` (``train.py:34-61``): ``param_spec_fn(name, param, mesh,
+    module)`` (default :func:`_param_spec`) splits the parameters, each rank
+    keeping its shard of the model's current (global) values, so build the
+    model from one seed or one flax tree on every rank first; BatchNorm
+    takes the statistics of the batch of every rank of ``batch_axis``.
+    """
+    placements, batch_axes, data_axes = {}, (), ()
+    if mesh is not None:
+        placements = shard_parameters(model, mesh, param_spec_fn or _param_spec)
+        batch_axes = tuple(a for a in axis_names(batch_axis) if has_axis(mesh, a))
+        extra = tuple(a for a in (getattr(model, 'seq_axis', None),
+                                  getattr(model, 'expert_axis', None))
+                      if a is not None and has_axis(mesh, a) and a not in batch_axes)
+        data_axes = batch_axes + extra
+        if axis_size(mesh, batch_axes) > 1:
+            from petastorm_tpu_torch.models.resnet import BatchNorm
+            for module in model.modules():
+                if isinstance(module, BatchNorm):
+                    module.sync_group = axis_group(mesh, batch_axes)
+                    module.sync_size = axis_size(mesh, batch_axes)
+    if make_optimizer is None:
+        optimizer = torch.optim.SGD(model.parameters(), lr=learning_rate, momentum=momentum)
+    else:
+        optimizer = make_optimizer(model.parameters())
+    return TrainState(model, optimizer, mesh, placements, batch_axes, data_axes)
+
+
+def _check_mesh(state, mesh, batch_axis):
+    """A step made for ``mesh`` runs only on a state of that mesh, created
+    with the same ``batch_axis``."""
+    if mesh is None:
+        return
+    if state.mesh is not mesh:
+        raise ValueError('the step was made for another mesh than the state was created on')
+    if tuple(a for a in axis_names(batch_axis) if has_axis(mesh, a)) != state.batch_axes:
+        raise ValueError('the step splits the batch over {}, the state over {}'.format(
+            batch_axis, state.batch_axes))
 
 
 def _sgd(state, loss):
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if state.mesh is not None:
+        sync_gradients(state.model, state.mesh, state.data_axes, state.placements)
     state.optimizer.step()
+
+
+def _global(state, value):
+    """The global value of a metric from this rank's tile mean of it."""
+    return mean_over(value, state.mesh, state.data_axes) if state.mesh is not None else value
 
 
 def _classifier_step(state, images, labels):
@@ -52,7 +162,7 @@ def _classifier_step(state, images, labels):
     _sgd(state, loss)
     with torch.no_grad():
         accuracy = (logits.argmax(-1) == labels).float().mean()
-    return loss.detach(), accuracy
+    return _global(state, loss.detach()), _global(state, accuracy)
 
 
 #: The weight of the Switch load-balance loss in the LM loss (``bench.py:223-233``).
@@ -66,21 +176,49 @@ def _lm_step(state, tokens):
     ``ce + 1e-2 * aux`` (``aux`` summed over the layers, as the bench sums
     the sown intermediates)."""
     state.model.train()
-    x, y = tokens[:, :-1], tokens[:, 1:]
-    logits = state.model(x)
-    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long())
+    if getattr(state.model, 'seq_axis', None) is not None:
+        loss = _sequence_parallel_ce(state, tokens)
+    else:
+        x, y = tokens[:, :-1], tokens[:, 1:]
+        logits = state.model(x)
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long())
     aux = moe_aux_loss(state.model)
     if aux is not None:
         loss = loss + MOE_AUX_WEIGHT * aux
     _sgd(state, loss)
-    return (loss.detach(),) if aux is None else (loss.detach(), aux.detach())
+    loss = _global(state, loss.detach())
+    return (loss,) if aux is None else (loss, aux.detach())
 
 
-def make_train_step():
+def _sequence_parallel_ce(state, tokens):
+    """This rank's next-token loss over ``[B, T]`` tokens of which it holds
+    the ``[B/dp, T/sp]`` tile: the target of position ``t`` is token
+    ``t + 1`` of the whole sequence (it may sit on the next rank), and the
+    last position has none (the loss of the JAX package's sequence-parallel
+    LM, ``__graft_entry__.py:306-311``). Its sum is divided by the mean
+    count of a rank's targets, so the ranks' losses average to the global
+    mean."""
+    model, mesh = state.model, state.mesh
+    group = axis_group(mesh, model.seq_axis)
+    b, t = tokens.shape
+    sp, me = axis_size(mesh, model.seq_axis), axis_index(mesh, model.seq_axis)
+    whole = all_gather_plain(tokens, group).permute(1, 0, 2).reshape(b, sp * t)
+    targets = torch.roll(whole, -1, 1)[:, me * t:(me + 1) * t]
+    valid = (me * t + torch.arange(t, device=tokens.device)) < sp * t - 1
+    logits = model(tokens)
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1).long(),
+                         reduction='none').reshape(b, t)
+    return (ce * valid).sum() * sp / (b * (sp * t - 1))
+
+
+def make_train_step(mesh=None, batch_axis='data'):
     """``step(state, images, labels) -> {'loss', 'accuracy'}`` (0-d
-    tensors, not synchronised): integer-label softmax cross entropy."""
-
+    tensors, not synchronised): integer-label softmax cross entropy. On a
+    mesh the inputs are this rank's tile and the metrics the global batch's;
+    ``mesh`` (if given) must be the state's, whose ``batch_axis`` it was
+    created with."""
     def train_step(state, images, labels):
+        _check_mesh(state, mesh, batch_axis)
         loss, accuracy = _classifier_step(state, images, labels)
         state.step += 1
         return {'loss': loss, 'accuracy': accuracy}
@@ -92,15 +230,19 @@ def _lm_metrics(loss, aux=None):
     return {'loss': loss} if aux is None else {'loss': loss, 'aux_loss': aux}
 
 
-def make_lm_train_step():
+def make_lm_train_step(mesh=None, batch_axis='data'):
     """``step(state, tokens) -> {'loss'}`` for a language model: ``tokens``
     is ``[B, T + 1]`` integer, the inputs ``tokens[:, :-1]`` predict
     ``tokens[:, 1:]``, the loss is the mean softmax cross entropy over
     ``[B, T, vocab]`` f32 logits (the body of ``bench.py:216-244``, one
     step per call). A model with experts adds ``1e-2 * aux`` to the loss
-    and returns ``'aux_loss'`` too. 0-d tensors, not synchronised."""
+    and returns ``'aux_loss'`` too. 0-d tensors, not synchronised.
 
+    A sequence-parallel model (``seq_axis``) takes this rank's ``[B/dp,
+    T/sp]`` tile of ``[B, T]`` tokens instead, each position predicting the
+    next token of the whole sequence and the last predicting none."""
     def train_step(state, tokens):
+        _check_mesh(state, mesh, batch_axis)
         metrics = _lm_metrics(*_lm_step(state, tokens))
         state.step += 1
         return metrics
@@ -163,6 +305,10 @@ class ScanStep(object):
     - every later call copies its superbatch into the static buffers and
       replays the graph, on the caller's stream.
 
+    ``replays`` counts the replays. The captured graph is kept beside its
+    executable one (``keep_graph=True``), so its kernel nodes can be read
+    (:func:`petastorm_tpu_torch.bench.graph_kernels`).
+
     A capture or replay that fails raises; nothing falls back to eager
     execution. The graph replays what it captured: the state, the input
     shapes and types, the optimizer's hyperparameters (``lr``,
@@ -189,6 +335,7 @@ class ScanStep(object):
         self._generator = generator
         self.microbatches = int(microbatches)
         self.calls = 0
+        self.replays = 0
         self.graph = None
         self._stream = None
         self._state = None
@@ -234,6 +381,7 @@ class ScanStep(object):
             for static, x in zip(self._static_inputs, inputs):
                 static.copy_(x)
             self.graph.replay()
+            self.replays += 1
             out = {name: value.clone() for name, value in self._static_out.items()}
         self.calls += 1
         state.step += self.microbatches
@@ -253,7 +401,7 @@ class ScanStep(object):
 
     def _capture(self, state, inputs):
         self._static_inputs = [torch.empty_like(x) for x in inputs]
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         if self._generator is not None:
             with torch.cuda.device(inputs[0].device):
                 # A replay then reads the generator's seed and offset and
@@ -261,6 +409,7 @@ class ScanStep(object):
                 graph.register_generator_state(self._generator)
         with torch.cuda.graph(graph, stream=self._stream, capture_error_mode='thread_local'):
             self._static_out = self._run(state, self._static_inputs)
+        graph.instantiate()
         self._optimizer_view = _optimizer_view(state.optimizer)
         self.graph = graph
 
@@ -269,7 +418,8 @@ def _classifier_metrics(losses, accuracies):
     return {'loss': losses.mean(), 'accuracy': accuracies.mean(), 'last_loss': losses[-1]}
 
 
-def make_scan_train_step(microbatches=8, preprocess=None, generator=None):
+def make_scan_train_step(microbatches=8, preprocess=None, generator=None, mesh=None,
+                         batch_axis='data'):
     """``step(state, images [K*B, ...], labels [K*B]) -> {'loss': mean,
     'accuracy': mean, 'last_loss'}``: K = ``microbatches`` sequential SGD
     steps a call (``petastorm_tpu/models/train.py:108-149``), one CUDA graph
@@ -278,11 +428,14 @@ def make_scan_train_step(microbatches=8, preprocess=None, generator=None):
     ``generator`` it is called as ``preprocess(images_microbatch,
     generator)`` and draws from it (a random augment), and the graph
     registers the generator, so each replay draws anew. Metrics are 0-d
-    tensors, not synchronised."""
+    tensors, not synchronised. On a mesh (the state's; ``mesh``, if given,
+    must be it) the gradient all-reduce runs inside the captured graph: the
+    eager first call has made the process groups' communicators."""
     if generator is not None and preprocess is None:
         raise ValueError('a generator is drawn from by the preprocess; none was given')
 
     def body(state, images, labels):
+        _check_mesh(state, mesh, batch_axis)
         if generator is not None:
             images = preprocess(images, generator)
         elif preprocess is not None:
@@ -296,9 +449,14 @@ def _lm_scan_metrics(losses, aux=None):
     return {'losses': losses} if aux is None else {'losses': losses, 'aux_losses': aux}
 
 
-def make_lm_scan_train_step(microbatches=8):
+def make_lm_scan_train_step(microbatches=8, mesh=None, batch_axis='data'):
     """``step(state, tokens [K*B, T + 1]) -> {'losses': [K]}``: the scan
     counterpart of :func:`make_lm_train_step`, the ``lax.scan`` of
     ``bench.py:216-244``; one CUDA graph replay on the card. A model with
-    experts also returns ``'aux_losses'`` ``[K]``."""
-    return ScanStep(_lm_step, _lm_scan_metrics, microbatches)
+    experts also returns ``'aux_losses'`` ``[K]``. On a mesh as
+    :func:`make_scan_train_step`."""
+    def body(state, tokens):
+        _check_mesh(state, mesh, batch_axis)
+        return _lm_step(state, tokens)
+
+    return ScanStep(body, _lm_scan_metrics, microbatches)

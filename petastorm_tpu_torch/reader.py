@@ -185,6 +185,47 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
                   resume_state=resume_state, deterministic=deterministic)
 
 
+def make_pod_reader(dataset_url, reader_factory=None, pod_shard=None, mesh=None,
+                    batch_axis='data', **kwargs):
+    """A reader of this rank's data shard (``petastorm_tpu/reader.py:449-495``).
+
+    ``cur_shard``/``shard_count`` come from
+    :func:`~petastorm_tpu_torch.parallel.mesh.process_shard`: the rank's
+    coordinate along ``batch_axis`` of ``mesh`` and that axis's size, so
+    ranks that differ only on a tensor, sequence, expert or pipeline axis
+    read the same rows (without a mesh, the rank and world of the default
+    group). Every rank calls it alike; feed the result to a
+    ``TorchLoader(..., mesh=mesh)``.
+
+    :param reader_factory: the factory to wrap (default
+        :func:`make_tensor_reader`; :func:`make_reader` for rows).
+    :param pod_shard: ``(cur_shard, shard_count)`` overriding the mapping
+        (simulated ranks in one process, or a launcher with its own).
+    :param kwargs: forwarded to the factory; ``cur_shard`` or
+        ``shard_count`` among them raises, since the mapping owns them.
+
+    With ``deterministic=True`` the shards are strides of one global order,
+    so their round-robin interleave is the one-rank stream for every shard
+    count.
+    """
+    if 'cur_shard' in kwargs or 'shard_count' in kwargs:
+        raise ValueError(
+            'make_pod_reader owns cur_shard/shard_count (it maps them to the rank\'s '
+            'coordinate on the mesh\'s batch axis); pass pod_shard=(i, n) to override, or '
+            'call the underlying factory directly')
+    if reader_factory is None:
+        reader_factory = make_tensor_reader
+    if pod_shard is None:
+        from petastorm_tpu_torch.parallel.mesh import process_shard
+        pod_shard = process_shard(mesh, batch_axis)
+    cur_shard, shard_count = int(pod_shard[0]), int(pod_shard[1])
+    if shard_count > 1:
+        return reader_factory(dataset_url, cur_shard=cur_shard, shard_count=shard_count,
+                              **kwargs)
+    # A one-shard stride is the whole stream: no sharding arguments at all.
+    return reader_factory(dataset_url, **kwargs)
+
+
 def _check_resume_state(resume_state, deterministic, fingerprint):
     """The refusals and the config-drift warning of
     ``petastorm_tpu/reader.py:732-767``."""

@@ -201,6 +201,39 @@ class ArenaPool(object):
             self._wait_s = 0.0
 
 
+class DevicePutMeter(object):
+    """Per-device accounting of a mesh loader's tile copies (the counters
+    of ``petastorm_tpu/staging.py``'s ``DeviceStager``): ``shards_put``
+    copies, and per device the seconds and bytes of the completed ones.
+    One process drives one device, so a rank reports one entry."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self):
+        with self._lock:
+            self.shards_put = 0
+            self._seconds = {}
+            self._bytes = {}
+
+    def issued(self):
+        with self._lock:
+            self.shards_put += 1
+
+    def completed(self, device, seconds, nbytes):
+        key = str(device)
+        with self._lock:
+            self._seconds[key] = self._seconds.get(key, 0.0) + seconds
+            self._bytes[key] = self._bytes.get(key, 0) + nbytes
+
+    def stats(self, devices):
+        with self._lock:
+            return {'n_devices': len(devices), 'shards_put': self.shards_put,
+                    'device_put_s': {str(d): self._seconds.get(str(d), 0.0) for d in devices},
+                    'device_put_bytes': {str(d): self._bytes.get(str(d), 0) for d in devices}}
+
+
 class OverlapMeter(object):
     """Wall-clock co-activity of named stages (assemble vs dispatch):
     ``overlap_frac`` is the seconds both ran at once over the smaller

@@ -536,6 +536,31 @@ def test_scan_graph_holds_and_replays_the_kernels(dev):
     assert _kernels_ran(lambda: step(state, *inputs), names) == dict.fromkeys(names, 2 * k)
 
 
+def test_graph_kernels_reads_the_captured_kernel_nodes(dev):
+    """The captured graph's kernel nodes, read through the driver's graph
+    API, hold K1 K times (image graph) and each Hopper flash kernel 2 x K
+    times (LM graph, 2 layers), as many as the wrappers counted across the
+    capture."""
+    from petastorm_tpu_torch.bench import graph_kernels
+    k = 4
+    state = create_train_state(_tiny_resnet(dev))
+    step = make_scan_train_step(k, _preprocess)
+    inputs = _image_superbatch(dev, 0, k)
+    step(state, *inputs)
+    step(state, *inputs)
+    nodes = graph_kernels(step.graph)
+    assert sum(n for name, n in nodes.items() if 'normalize_kernel' in name) == k
+    assert step.replays == 1
+    state = create_train_state(_tiny_lm(dev))
+    step = make_lm_scan_train_step(k)
+    inputs = _token_superbatch(dev, 0, k)
+    step(state, *inputs)
+    step(state, *inputs)
+    nodes = graph_kernels(step.graph)
+    for kernel in ('flash_fwd_sm90_kernel', 'flash_dq_sm90_kernel', 'flash_dkv_sm90_kernel'):
+        assert sum(n for name, n in nodes.items() if kernel in name) == 2 * k, (kernel, nodes)
+
+
 def test_capture_failure_raises_and_does_not_fall_back(dev):
     """A body that reads a value on the host cannot be captured: the second
     call raises, the state does not advance, and no later call runs eagerly."""
@@ -952,3 +977,62 @@ def test_arena_advisory_toggle_mid_stream_keeps_batches(dev, tmp_path, governor)
             got += [[t.cpu() for t in b] for b in loader]
     assert len(got) == len(want)
     assert all(all(torch.equal(x, y) for x, y in zip(a, b)) for a, b in zip(got, want))
+
+
+# -- the mesh paths at world size 1, over NCCL ----------------------------------
+
+@pytest.fixture
+def nccl_world_of_one(dev, tmp_path):
+    """An NCCL process group of one rank, started from a file and destroyed
+    after the test (the card machine has one GPU)."""
+    import torch.distributed as dist
+    device = torch.device('cuda', torch.cuda.current_device())
+    dist.init_process_group('nccl', init_method='file://' + str(tmp_path / 'init'), rank=0,
+                            world_size=1, device_id=device)
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_scan_step_on_nccl_matches_the_single_gpu_step(nccl_world_of_one):
+    """ResNetTiny on ``{'data': 1, 'model': 1}``: three calls of K = 4
+    steps through the captured graph, with the gradient all-reduce and the
+    split head, against the same state without a mesh (rtol 1e-2, atol
+    1e-3: cuDNN's backward may sum with atomics)."""
+    from petastorm_tpu_torch.parallel import make_mesh
+    dev = nccl_world_of_one
+    mesh = make_mesh({'data': 1, 'model': 1})
+    model = _tiny_resnet(dev)
+    plain = create_train_state(copy.deepcopy(model), learning_rate=0.05, momentum=0.9)
+    meshed = create_train_state(model, learning_rate=0.05, momentum=0.9, mesh=mesh)
+    assert sorted(meshed.placements) == ['head.bias', 'head.weight']
+    steps = [make_scan_train_step(4, _preprocess), make_scan_train_step(4, _preprocess, mesh=mesh)]
+    for call in range(3):
+        inputs = _image_superbatch(dev, call, 4)
+        want, got = (step(state, *inputs) for step, state in zip(steps, (plain, meshed)))
+        for name in want:
+            torch.testing.assert_close(got[name], want[name], rtol=1e-2, atol=1e-3)
+    assert steps[1].graph is not None
+    for a, b in zip(plain.model.state_dict().values(), meshed.model.state_dict().values()):
+        torch.testing.assert_close(b.float(), a.float(), rtol=1e-2, atol=1e-3)
+
+
+def test_mesh_scan_graph_holds_the_gradient_all_reduce(nccl_world_of_one):
+    """NCCL's one-rank reduction kernel (``ReduceOp.AVG``) is a node of the
+    captured graph K times, beside K1's K: the all-reduce is inside the
+    graph, and each replay runs it K times."""
+    from petastorm_tpu_torch.bench import graph_launches
+    from petastorm_tpu_torch.parallel import make_mesh
+    dev = nccl_world_of_one
+    mesh = make_mesh({'data': 1, 'model': 1})
+    state = create_train_state(_tiny_resnet(dev), learning_rate=0.05, momentum=0.9, mesh=mesh)
+    step = make_scan_train_step(4, _preprocess, mesh=mesh)
+    for call in range(2):
+        step(state, *_image_superbatch(dev, call, 4))
+    inputs = _image_superbatch(dev, 2, 4)
+    for _ in range(10):
+        step(state, *inputs)
+    assert step.replays == 11
+    assert graph_launches(step, ('oneRankReduce', 'normalize_kernel'), step.replays) == {
+        'oneRankReduce': 44, 'normalize_kernel': 44}

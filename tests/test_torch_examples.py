@@ -34,3 +34,32 @@ def test_long_context_four_steps(tmp_path):
                                        num_heads=2, num_layers=1, log_every=2, device='cpu')
     assert len(losses) == 4 and all(math.isfinite(v) for v in losses)
     assert model.max_len == 64 and model.blocks[0].attn.attention == 'flash'
+
+
+@pytest.mark.timeout(200)
+def test_imagenet_model_parallel_on_two_ranks(tmp_path):
+    """``model_parallel=2`` on two gloo ranks: the head split over 'model',
+    both ranks reading the same rows and reporting the same losses."""
+    import torch_mesh_ranks
+    from petastorm_tpu_torch.parallel.launch import spawn
+    url = 'file://' + str(tmp_path / 'imagenet')
+    imagenet.generate_synthetic(url, classes=2, images_per_class=8, height=40, width=40,
+                                ragged=6, rows_per_row_group=5)
+    results = spawn(torch_mesh_ranks.example_imagenet_model_parallel, 2, (url,), timeout=150)
+    (losses, placements), (other, _) = results
+    assert len(losses) == 2 and all(math.isfinite(v) for v in losses) and losses == other
+    assert placements == {'head.weight': ('model', None), 'head.bias': ('model',)}
+
+
+@pytest.mark.timeout(200)
+def test_long_context_ring_attention_over_sp(tmp_path):
+    """``seq_parallel=2`` on two gloo ranks: ring attention over 'sp', each
+    rank holding half of the sequence, the same global losses on both."""
+    import torch_mesh_ranks
+    from petastorm_tpu_torch.parallel.launch import spawn
+    url = 'file://' + str(tmp_path / 'lm')
+    long_context.generate(url, num_docs=24, seq_len=64, vocab_size=512, rows_per_row_group=4)
+    results = spawn(torch_mesh_ranks.example_long_context_seq_parallel, 2, (url,), timeout=150)
+    (losses, attention), (other, _) = results
+    assert attention == 'ring' and len(losses) == 4 and losses == other
+    assert all(math.isfinite(v) for v in losses)

@@ -218,3 +218,85 @@ def test_preemptible_example_sees_every_row_like_jax(tmp_path):
                          len(losses))
     assert results['port'] == results['jax']
     assert results['port'][:3] == (2, list(range(128)), True)
+
+
+# -- sharded: a mesh state over two gloo ranks ----------------------------------
+
+SHARDED_AXES = {'data': 1, 'model': 2}
+
+
+@pytest.fixture(scope='module')
+def sharded_run(tmp_path_factory):
+    import torch_mesh_ranks
+    from petastorm_tpu_torch.parallel.launch import spawn
+    directory = str(tmp_path_factory.mktemp('sharded'))
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(4, 16, 16, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, 4).astype(np.int64)
+    return directory, spawn(torch_mesh_ranks.checkpoint_save, 2,
+                            (SHARDED_AXES, directory, x, labels), timeout=90)
+
+
+@pytest.mark.timeout(200)
+def test_sharded_save_writes_each_ranks_shards(sharded_run):
+    directory, results = sharded_run
+    assert results[0]['placements'] == {'head.weight': ('model', None),
+                                        'head.bias': ('model',)}
+    step_dir = os.path.join(directory, '1')
+    names = sorted(os.listdir(step_dir))
+    assert FINISHED_MARKER in names and '.metadata' in names
+    assert len([n for n in names if n.endswith('.distcp')]) == 2
+    with open(os.path.join(step_dir, FINISHED_MARKER)) as f:
+        assert json.load(f)['loader_ranks'] == 2
+
+
+@pytest.mark.timeout(200)
+def test_sharded_restore_on_the_same_mesh_is_bit_equal(sharded_run):
+    _, results = sharded_run
+    for rank, res in enumerate(results):
+        for name, value in res['state'].items():
+            np.testing.assert_array_equal(res['restored'][name], value, err_msg=name)
+        for name, value in res['momenta'].items():
+            np.testing.assert_array_equal(res['restored_momenta'][name], value, err_msg=name)
+        assert res['loader_state'] == {'rank': rank, 'pos': 10 + rank}
+        assert res['loader_states'] == [{'rank': 0, 'pos': 10}, {'rank': 1, 'pos': 11}]
+        assert (res['step'], res['extra']) == (1, {'tag': 'x'})
+
+
+@pytest.mark.timeout(200)
+def test_sharded_restore_on_one_rank_reshards_bit_equal(sharded_run):
+    """A state without a mesh (the whole model, one process) restores every
+    tensor at its global value: the shards concatenated."""
+    import torch_mesh_ranks
+    directory, results = sharded_run
+    state = _fresh_state()
+    with JobCheckpointer(directory) as ckpt:
+        job = ckpt.restore(state)
+    assert job.loader_state is None
+    assert job.loader_states == [{'rank': 0, 'pos': 10}, {'rank': 1, 'pos': 11}]
+    got = state.model.state_dict()
+    for name in got:
+        want = torch_mesh_ranks.full_from_shards(results, name, mesh_axes=SHARDED_AXES)
+        np.testing.assert_array_equal(got[name].numpy(), want, err_msg=name)
+    for name, p in state.model.named_parameters():
+        want = torch_mesh_ranks.full_from_shards(results, name, value_key='momenta',
+                                                 mesh_axes=SHARDED_AXES)
+        np.testing.assert_array_equal(state.optimizer.state[p]['momentum_buffer'].numpy(), want,
+                                      err_msg=name)
+
+
+@pytest.mark.timeout(200)
+def test_sharded_save_on_a_one_rank_group_round_trips(tmp_path):
+    """A mesh state in a group of one rank (the card's world size) takes the
+    sharded path: DTensor views, the per-rank loader file, bit-equal."""
+    import torch_mesh_ranks
+    from petastorm_tpu_torch.parallel.launch import spawn
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(2, 16, 16, 3)).astype(np.float32)
+    (res,) = spawn(torch_mesh_ranks.checkpoint_save, 1,
+                   ({'data': 1, 'model': 1}, str(tmp_path), x, rng.integers(0, 10, 2)),
+                   timeout=90)
+    assert os.path.exists(os.path.join(str(tmp_path), '1', 'loader-rank0.json'))
+    for name, value in res['state'].items():
+        np.testing.assert_array_equal(res['restored'][name], value, err_msg=name)
+    assert res['loader_state'] == {'rank': 0, 'pos': 10}

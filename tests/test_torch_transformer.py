@@ -152,8 +152,9 @@ def test_what_is_not_ported_raises():
     model = TransformerLM(VOCAB, D, HEADS, LAYERS, MAX_LEN, dtype=torch.float32, device='cpu')
     with pytest.raises(ValueError, match='exceeds max_len'):
         model(torch.zeros((1, MAX_LEN + 1), dtype=torch.int32))
+    # Sequence parallelism is ported; without a mesh it raises as JAX does.
     for attention in ('ring', 'a2a'):
-        with pytest.raises(NotImplementedError, match='not ported'):
+        with pytest.raises(ValueError, match='needs mesh= and seq_axis='):
             TransformerLM(VOCAB, D, HEADS, LAYERS, MAX_LEN, attention=attention, device='cpu')
     # Switch MoE is ported: each block's MLP becomes a SwitchMoE.
     moe = TransformerLM(VOCAB, D, HEADS, LAYERS, MAX_LEN, moe_experts=4, device='cpu')
