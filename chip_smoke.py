@@ -173,8 +173,25 @@ non-zero exit and no result line:
    fails), beside imagenet_scan's rate of this run. Last, the bench's
    reader metric ``hello_world_samples_per_sec`` (pools swept, median of 3)
    and its ``staging`` child, once, to the card.
+21. imagenet_filtered: row selection and transforms, run after the decode
+   phase on the same state (``bench.run_imagenet_filtered``):
+   imagenet_scan's model and protocol, the reader with
+   ``predicate=in_pseudorandom_split([0.9, 0.1], 0, 'label')``, a
+   ``TransformSpec`` mapping each kept label to a dense class id through a
+   1000-entry int64 table, ``shuffle_rows_in_chunk=True``,
+   ``deterministic=True``, seed 0, no cache (a predicate read decodes every
+   epoch), ``DECODE_WORKERS`` threads. Checks: K1's graph nodes times the
+   replays (104 of 104 in 13); one epoch's labels (a one-epoch reader of the
+   same arguments through a loader on the card) equal, as a multiset, an
+   independent reckoning (pyarrow reads ``label``, the split's md5 buckets
+   and the table in numpy); the first 16 batches' labels of the training
+   stream, copied back from the card, equal in order those of a
+   ``reader_pool_type='dummy'`` reader of the same arguments; every loss is
+   finite. Its line: img/s, device ms a step, stall, ``decode_s`` and
+   ``read_s``, rows kept per epoch of 2048, chunks and holes, beside
+   imagenet_scan's and imagenet_decode (a)'s numbers of this run.
 
-Phases 5 to 15, 18 and 20 run the bench's protocol through the functions of
+Phases 5 to 15, 18, 20 and 21 run the bench's protocol through the functions of
 ``petastorm_tpu_torch/bench.py`` (``python -m petastorm_tpu_torch.bench``
 runs them as the bench's children); this script holds their launch counts.
 Each path's kernel launch counts are zeroed just before it and read just
@@ -1664,6 +1681,28 @@ def run_decode(url, hello_url, device, card, state, imagenet_scan):
 
 
 # --------------------------------------------------------------------------
+# the filtered phase: row selection and transforms under scan training
+# --------------------------------------------------------------------------
+
+def run_filtered(url, device, card, state, imagenet_scan, worker_decode):
+    """Phase 21 (see the module docstring): the ``imagenet_filtered`` cell
+    on ``state``, beside imagenet_scan's and imagenet_decode (a)'s numbers
+    of this run. Returns the phase's line."""
+    t0 = time.perf_counter()
+    result = bench.run_imagenet_filtered(url, device, card, state, calls=SCAN_CALLS,
+                                         workers=DECODE_WORKERS)
+    profile = result['stage_profile']
+    result.update(
+        decode_s=profile['decode_s'], read_s=profile['read_s'],
+        beside={name: {'img_per_s': cell['img_per_s'], 'device_step_ms': cell['device_step_ms'],
+                       'input_stall_frac': cell['input_stall_frac']}
+                for name, cell in (('imagenet_scan', imagenet_scan),
+                                   ('imagenet_decode_worker_decode', worker_decode))},
+        seconds=time.perf_counter() - t0)
+    return result
+
+
+# --------------------------------------------------------------------------
 # the loader's surface and the examples on the card
 # --------------------------------------------------------------------------
 
@@ -1975,6 +2014,11 @@ def main():
         for variant in ('worker_decode', 'staging_decode'):
             by_path['imagenet_decode_' + variant] = bench.path_launches(
                 decode[variant], 'normalize_images', 'normalize_kernel')
+        result = run_filtered(url, device, card, state, imagenet_scan,
+                              decode['worker_decode'])
+        record(result)
+        by_path['imagenet_filtered'] = bench.path_launches(result, 'normalize_images',
+                                                           'normalize_kernel')
         k1['launches_by_path'] = by_path
         lm_result = run_lm(lm_url, device, args.steps, card)
         record(lm_result)

@@ -19,7 +19,8 @@ at the loader's staging step (``raw_image_fields``). Entry points take
 
 from petastorm_tpu_torch.cache import LocalDiskCache, MemoryCache, NullCache  # noqa: F401
 from petastorm_tpu_torch.chunk_store import DecodedChunkStore  # noqa: F401
-from petastorm_tpu_torch.codecs import CompressedImageCodec, NdarrayCodec, ScalarCodec  # noqa: F401
+from petastorm_tpu_torch.codecs import (CompressedImageCodec, CompressedNdarrayCodec,  # noqa: F401
+                                        NdarrayCodec, ScalarCodec)
 from petastorm_tpu_torch.decode_budget import DecodeThreadBudget, get_decode_budget  # noqa: F401
 from petastorm_tpu_torch.device import resolve_device  # noqa: F401
 from petastorm_tpu_torch.device_cache import DeviceCacheOverflow, DeviceDatasetCache  # noqa: F401

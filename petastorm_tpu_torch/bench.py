@@ -489,7 +489,7 @@ def stage_profile(stats, timings0, timings, wall_s):
 
 def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
                            cache_type='memory', cache_location=None, mesh=None, workers=4,
-                           reader_kwargs=None, loader_kwargs=None):
+                           reader_kwargs=None, loader_kwargs=None, observe=None):
     """A classifier scan path streamed from a cache tier (the bench's
     ``_child_imagenet`` loop): the reader with ``cache_type`` (default
     ``'memory'``; endless, seed 0), ``TorchLoader(batch=128, prefetch=8)``,
@@ -499,8 +499,9 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
     the reader is ``make_pod_reader``'s and the loader the mesh's (128 is
     the global batch). ``workers`` reader threads; ``reader_kwargs`` and
     ``loader_kwargs`` go to the reader and the loader (the decode cell's
-    ``raw_image_fields`` and ``on_device_augment``). Returns the path's line
-    (without phase and model keys) and its launch window."""
+    ``raw_image_fields`` and ``on_device_augment``). ``observe(superbatch)``
+    sees each superbatch before its call. Returns the path's line (without
+    phase and model keys) and its launch window."""
     import torch
     from petastorm_tpu_torch import TorchLoader, make_pod_reader
 
@@ -518,6 +519,8 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
 
             def next_inputs():
                 sb = next(groups)
+                if observe is not None:
+                    observe(sb)
                 return sb.image, sb.label
 
             metrics, launches, captured, ran, measured, replays = scan_window(
@@ -529,6 +532,7 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
             loader.reset_stats()
             wall, wait_s, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
             stats, cache, timings = loader.stats, reader.cache_stats(), reader.stage_timings
+            holes = reader.holes
     losses = [[float(m['loss']), float(m['last_loss'])] for m in metrics + timed]
     if not all(math.isfinite(v) for pair in losses for v in pair):
         raise AssertionError('non-finite loss: {}'.format(losses))
@@ -548,6 +552,7 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
         'cache': cache, 'peak_mem_GB': torch.cuda.max_memory_allocated(device) / 1e9,
         'peak_reserved_GB': torch.cuda.max_memory_reserved(device) / 1e9,
         'rows_delivered': stats0['rows'] + stats['rows'],
+        'reader_chunks': timings['chunks'], 'reader_holes': holes,
         'stage_profile': stage_profile(stats, timings0, timings, wall),
         'decoder': stats['decoder'],
         'launches': _scan_launches(launches, captured, ran, warmup + calls, replays),
@@ -666,6 +671,118 @@ def run_imagenet_decode(url, device, card, state, warmup=3, calls=5, workers=8):
         del train
         torch.cuda.empty_cache()
     return out
+
+
+class LabelRemap(object):
+    """The filtered cell's ``TransformSpec`` function: each kept label to a
+    dense class id through a 1000-entry int64 table (an unkept class maps to
+    -1), on the chunk's blocks; it edits no shape."""
+
+    def __init__(self, table):
+        self.table = np.asarray(table, dtype=np.int64)
+
+    def __call__(self, cols):
+        cols['label'] = self.table[cols['label']]
+        return cols
+
+
+def filtered_reader_kwargs(split, classes=1000):
+    """The filtered cell's reader arguments: the ``in_pseudorandom_split``
+    ``split`` (fractions, subset) on ``label``, the dense relabelling of
+    the classes it keeps, the in-chunk shuffle, deterministic order."""
+    from petastorm_tpu_torch.predicates import in_pseudorandom_split
+    from petastorm_tpu_torch.transform import TransformSpec
+
+    predicate = in_pseudorandom_split(split[0], split[1], 'label')
+    kept = [c for c in range(classes) if predicate.do_include({'label': np.int64(c)})]
+    table = np.full(classes, -1, dtype=np.int64)
+    table[kept] = np.arange(len(kept))
+    return {'predicate': predicate, 'transform_spec': TransformSpec(LabelRemap(table)),
+            'shuffle_rows_in_chunk': True, 'deterministic': True}, table
+
+
+def reckon_filtered_labels(url, split, table):
+    """The kept, relabelled labels of one epoch, reckoned apart from the
+    port: pyarrow reads the ``label`` column, the split is md5 of each
+    value's text in buckets of 10,000 (the JAX package's rule), ``table``
+    relabels. Returns the sorted labels."""
+    import hashlib
+
+    import pyarrow.parquet as pq
+    from petastorm_tpu_torch.fs import local_path
+
+    labels = pq.read_table(local_path(url)[1], columns=['label']).column('label').to_numpy()
+    bounds = np.cumsum([0.0] + list(split[0]))
+    low, high = int(bounds[split[1]] * 10000), int(bounds[split[1] + 1] * 10000)
+    buckets = np.array([int(hashlib.md5(str(np.int64(v)).encode()).hexdigest(), 16) % 10000
+                        for v in labels])
+    return np.sort(table[labels[(buckets >= low) & (buckets < high)]])
+
+
+def run_imagenet_filtered(url, device, card, state, warmup=3, calls=5, workers=8,
+                          split=((0.9, 0.1), 0), check_batches=16):
+    """The filtered cell: imagenet_scan's model and protocol on ``state``,
+    the reader with a train split (``in_pseudorandom_split`` on ``label``),
+    a dense relabelling ``TransformSpec``, ``shuffle_rows_in_chunk`` and
+    deterministic order, no cache (a predicate read decodes every epoch),
+    ``workers`` reader threads. Fails unless K1 ran 8 times a replay, one
+    epoch's label multiset (a one-epoch reader of the same arguments through
+    a loader on the card) equals :func:`reckon_filtered_labels`, the first
+    ``check_batches`` batches' labels of the training stream, copied back
+    from the card, equal in order a ``'dummy'`` reader's of the same
+    arguments, and every loss is finite. Returns the phase's line."""
+    import torch
+    from petastorm_tpu_torch import TorchLoader, make_tensor_reader
+    from petastorm_tpu_torch.models import make_scan_train_step
+
+    reader_kwargs, table = filtered_reader_kwargs(split)
+    seen = []
+
+    def observe(sb):
+        if len(seen) * SCAN_K < check_batches:
+            seen.append(sb.label.cpu().numpy())
+
+    train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
+    result, window = stream_classifier_scan(
+        url, device, train, state, warmup, calls, ('normalize_kernel',), cache_type=None,
+        workers=workers, reader_kwargs=reader_kwargs, observe=observe)
+    require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
+    del train
+    torch.cuda.empty_cache()
+    streamed = np.concatenate(seen)[:check_batches * BATCH]
+    # One epoch through a loader on the card, against the reckoning.
+    epoch, holes = [], 0
+    with make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
+                            workers_count=workers, seed=0, num_epochs=1,
+                            **reader_kwargs) as reader:
+        with TorchLoader(reader, BATCH, device=device, last_batch='partial') as loader:
+            for batch in loader:
+                epoch.append(batch.label.cpu().numpy())
+        chunks, holes = reader.stage_timings['chunks'], reader.holes
+    epoch = np.concatenate(epoch)
+    reckoned = reckon_filtered_labels(url, split, table)
+    if not np.array_equal(np.sort(epoch), reckoned):
+        raise AssertionError('the epoch\'s label multiset ({} rows) differs from the reckoning '
+                             '({} rows)'.format(len(epoch), len(reckoned)))
+    # The threaded, resequenced, permuted stream is the single-threaded one.
+    single = []
+    with make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='dummy',
+                            seed=0, num_epochs=None, **reader_kwargs) as reader:
+        while sum(len(c) for c in single) < check_batches * BATCH:
+            single.append(np.asarray(next(reader).label))
+    single = np.concatenate(single)[:check_batches * BATCH]
+    if len(streamed) != check_batches * BATCH or not np.array_equal(streamed, single):
+        raise AssertionError('the first {} batches\' labels differ from the dummy-pool '
+                             'reader\'s'.format(check_batches))
+    result['k1_graph'] = {'ran': window[2]['normalize_kernel'], 'expected': SCAN_K * window[3],
+                          'replays': window[3]}
+    result['checks'] = {'k1_per_replay': SCAN_K, 'epoch_labels_equal_reckoning': True,
+                        'first_batches_equal_dummy_pool': check_batches, 'losses_finite': True}
+    result['epoch'] = {'rows_kept': int(len(epoch)), 'rows': ROWS, 'chunks': chunks,
+                       'holes': holes, 'classes_kept': int((table >= 0).sum())}
+    result['split'] = {'fractions': list(split[0]), 'subset': split[1], 'field': 'label'}
+    return dict({'phase': 'imagenet_filtered', 'card': card, 'model': 'resnet50',
+                 'stem': 'conv7', 'classes': 1000}, **result)
 
 
 def run_imagenet_hbm(url, device, card, state):

@@ -189,6 +189,30 @@ class NdarrayCodec(DataframeColumnCodec):
 
 
 @register_codec
+class CompressedNdarrayCodec(DataframeColumnCodec):
+    """An ndarray zlib-compressed with ``np.savez_compressed`` into a bytes
+    cell (``petastorm_tpu/codecs.py:289-316``; the archive holds one entry,
+    ``arr``)."""
+
+    codec_name = 'compressed_ndarray'
+
+    def encode(self, field, value):
+        value = np.asarray(value)
+        check_shape_compliance(field, value)
+        _check_dtype(field, value)
+        memfile = io.BytesIO()
+        np.savez_compressed(memfile, arr=value)
+        return memfile.getvalue()
+
+    def decode(self, field, encoded):
+        with np.load(io.BytesIO(encoded), allow_pickle=False) as archive:
+            return archive['arr']
+
+    def arrow_type(self):
+        return pa.binary()
+
+
+@register_codec
 class CompressedImageCodec(DataframeColumnCodec):
     """png/jpeg image compression into a bytes cell (RGB or 2-D gray)."""
 

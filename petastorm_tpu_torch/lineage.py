@@ -505,9 +505,13 @@ def _check_replayable(ctx, record):
     if ctx is None:
         raise ReplayError('record has no reader context (ledger header missing or torn)')
     if not record.get('exact', False):
-        raise ReplayError('record {} is not exact (shuffling buffer, or a reader without '
-                          'lineage); replay would not be bit-identical'.format(
+        raise ReplayError('record {} is not exact (shuffling buffer, predicate, ngram, or a '
+                          'reader without lineage); replay would not be bit-identical'.format(
                               record.get('batch_id')))
+    if ctx.get('transform') is not None:
+        raise ReplayError('record was produced under a TransformSpec ({}); replay cannot re-run '
+                          'user transform code — re-materialize without it or replay upstream '
+                          'of the transform'.format(ctx['transform']))
     if ctx.get('shape_policies'):
         raise ReplayError('record was produced under shape policies {}; replay cannot '
                           'reconstruct them'.format(ctx['shape_policies']))
@@ -517,23 +521,28 @@ def _check_replayable(ctx, record):
 
 def _replay_segment(stored_schema, ctx, segment, fields, pieces):
     """One segment's rows as column blocks, decoded and sanitized as the
-    loader delivered them."""
+    loader delivered them: the row-group read (partition columns
+    appended), the drop-partition slice, then the in-chunk permutation
+    (``petastorm_tpu/lineage.py:785-830``)."""
     import pyarrow.parquet as pq
 
     from petastorm_tpu_torch.loader import _sanitize_array
     from petastorm_tpu_torch.py_dict_worker import decode_table_to_rows
     from petastorm_tpu_torch.tensor_worker import decode_table_to_blocks
+    from petastorm_tpu_torch.workers.rowgroup_worker_base import (chunk_row_permutation,
+                                                                  compute_row_slice,
+                                                                  with_partition_columns)
 
-    if segment.get('permuted'):
-        raise ReplayError('in-chunk row permutation is not ported')
     piece = pieces.get((str(segment['path']), int(segment['row_group'])))
     if piece is None:
         raise ReplayError('row-group {} of {} no longer exists in the dataset at {}'.format(
             segment['row_group'], segment['path'], ctx.get('url')))
     names = [f for f in ctx.get('fields') or fields if f in stored_schema.fields]
     view = stored_schema.create_schema_view(names) if names else stored_schema
+    stored = [n for n in view.fields if n not in piece.partition_values]
     with pq.ParquetFile(str(piece.path), memory_map=True) as pf:
-        table = pf.read_row_group(piece.row_group, columns=list(view.fields))
+        table = with_partition_columns(pf.read_row_group(piece.row_group, columns=stored),
+                                       piece, list(view.fields))
     if ctx.get('mode') == 'tensor':
         cols = decode_table_to_blocks(table, view)
     else:
@@ -542,10 +551,14 @@ def _replay_segment(stored_schema, ctx, segment, fields, pieces):
     n_rows = table.num_rows
     drop = segment.get('drop')
     if drop:
-        from petastorm_tpu_torch.workers.rowgroup_worker_base import compute_row_slice
         start, stop = compute_row_slice(n_rows, (drop[0], drop[1]))
         cols = {k: v[start:stop] for k, v in cols.items()}
         n_rows = stop - start
+    if segment.get('permuted'):
+        perm = chunk_row_permutation(ctx.get('seed'), ctx.get('dataset_path_hash'),
+                                     segment['path'], segment['row_group'],
+                                     (drop[0], drop[1]) if drop else None, n_rows)
+        cols = {k: v[perm] for k, v in cols.items()}
     if segment.get('chunk_rows') is not None and n_rows != segment['chunk_rows']:
         raise ReplayError('row-group {} of {} now decodes to {} rows; the record says {}'.format(
             segment['row_group'], segment['path'], n_rows, segment['chunk_rows']))

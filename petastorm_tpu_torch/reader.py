@@ -14,8 +14,18 @@ packages the same row-group order. Every cache tier of
 ``'chunk-store'`` (:mod:`~petastorm_tpu_torch.chunk_store`, whose directory
 ``PSTT_CHUNK_STORE`` can also give, and which that variable arms for the
 default ``cache_type=None``). Of the pools, ``'thread'`` and ``'dummy'``.
-Process pools, predicates, transforms, health and autotune come in later
-slices (ROADMAP §A9).
+Process pools, health and autotune come in later slices (ROADMAP §A9).
+
+Row selection and transforms (``petastorm_tpu/reader.py:116-345, 825-835,
+1192-1235``): a ``rowgroup_selector`` picks row-groups through a stored
+index (:mod:`~petastorm_tpu_torch.selectors`), a ``predicate`` on
+partition fields alone prunes row-groups and any other runs in the workers
+(:mod:`~petastorm_tpu_torch.predicates`), then the shard. Each row-group is
+ventilated ``shuffle_row_drop_partitions`` times, once a slice of its rows.
+A ``transform_spec`` (:mod:`~petastorm_tpu_torch.transform`) runs in the
+workers, ``shuffle_rows_in_chunk`` permutes each tensor chunk's rows the
+same way in every epoch, and ``make_reader(schema_fields=NGram(...))``
+yields windows of rows (:mod:`~petastorm_tpu_torch.ngram`).
 
 Decode (``petastorm_tpu/reader.py:789-818, 917``): a reader whose schema
 has an image field registers its pool's workers with the process's
@@ -58,9 +68,11 @@ from petastorm_tpu_torch.checkpoint import ConsumptionTracker, DeferredRowAccoun
 from petastorm_tpu_torch.codecs import CompressedImageCodec, decode_path, decoder_info
 from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormMetadataError
 from petastorm_tpu_torch.etl.dataset_metadata import get_schema
+from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.py_dict_worker import PyDictWorker
 from petastorm_tpu_torch.storage import ParquetStore
 from petastorm_tpu_torch.tensor_worker import TensorWorker, validate_tensor_schema
+from petastorm_tpu_torch.transform import TransformSpec, transform_schema
 from petastorm_tpu_torch.unischema import match_unischema_fields
 from petastorm_tpu_torch.workers import EmptyResultError
 from petastorm_tpu_torch.workers.dummy_pool import DummyPool
@@ -107,58 +119,120 @@ def _make_pool(reader_pool_type, workers_count, results_queue_size):
                      'got {!r}'.format(reader_pool_type))
 
 
-def _stored_view(store, schema_fields, factory):
+def _stored_schema(store, factory):
     try:
-        stored_schema = get_schema(store)
+        return get_schema(store)
     except PetastormMetadataError as e:
         raise RuntimeError('{} requires a petastorm_tpu (codec-materialized) dataset: '
                            '{}'.format(factory, e))
+
+
+def _view(stored_schema, schema_fields):
     if schema_fields is None:
         return stored_schema
     return stored_schema.create_schema_view(
         match_unischema_fields(stored_schema, schema_fields, allow_empty_match=False))
 
 
+def _check_selection_args(predicate, transform_spec, shuffle_row_drop_partitions):
+    """Refuse what the workers could not run, before any thread starts."""
+    if predicate is not None and not (callable(getattr(predicate, 'get_fields', None))
+                                      and callable(getattr(predicate, 'do_include', None))):
+        raise ValueError('predicate must have get_fields() and do_include(values) (a '
+                         'petastorm_tpu_torch.predicates class), got {!r}'.format(predicate))
+    if transform_spec is not None and not isinstance(transform_spec, TransformSpec):
+        raise ValueError('transform_spec must be a petastorm_tpu_torch.transform.TransformSpec, '
+                         'got {!r}'.format(transform_spec))
+    if not isinstance(shuffle_row_drop_partitions, int) or shuffle_row_drop_partitions < 1:
+        raise ValueError('shuffle_row_drop_partitions must be an int >= 1, got {!r}'.format(
+            shuffle_row_drop_partitions))
+
+
+def _describe_filter(obj):
+    """A JSON-safe descriptor of a predicate or selector for the resume
+    fingerprint and the provenance context: its type and fields, as the JAX
+    package describes it (``petastorm_tpu/reader.py:616-630``)."""
+    if obj is None:
+        return None
+    desc = {'type': type(obj).__name__}
+    get_fields = getattr(obj, 'get_fields', None)
+    if callable(get_fields):
+        try:
+            desc['fields'] = sorted(get_fields())
+        except Exception:  # noqa: BLE001 - a user predicate's own failure
+            pass
+    return desc
+
+
 def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread', workers_count=10,
                 results_queue_size=50, shuffle_row_groups=True, shuffle_row_drop_partitions=1,
-                seed=None, predicate=None, num_epochs=1, cur_shard=None, shard_count=None,
-                cache_type=None, cache_location=None, cache_size_limit=None,
-                cache_extra_settings=None, transform_spec=None, resume_state=None,
-                deterministic=False):
+                seed=None, predicate=None, rowgroup_selector=None, num_epochs=1,
+                cur_shard=None, shard_count=None, cache_type=None, cache_location=None,
+                cache_size_limit=None, cache_extra_settings=None, transform_spec=None,
+                resume_state=None, deterministic=False):
     """Reader of decoded rows, one namedtuple per row.
 
-    The arguments are ``make_tensor_reader``'s, plus ``predicate``,
-    ``transform_spec`` and ``shuffle_row_drop_partitions``, which are not
-    ported yet (ROADMAP §A9) and raise ``ValueError`` unless left at their
-    defaults. Fields of any shape are read: an image field with ``None``
-    dims decodes at each row's own size. ``cache_type='chunk-store'``
-    raises (rows cannot be stored in its layout; ``'local-disk'`` can).
+    The arguments are ``make_tensor_reader``'s, except
+    ``shuffle_rows_in_chunk`` and ``raw_image_fields``. Fields of any shape
+    are read: an image field with ``None`` dims decodes at each row's own
+    size. ``cache_type='chunk-store'`` raises (rows cannot be stored in its
+    layout; ``'local-disk'`` can). ``transform_spec.func`` takes and returns
+    one row's dict. ``schema_fields`` may be an
+    :class:`~petastorm_tpu_torch.ngram.NGram`: the reader then yields one
+    dict ``{offset: namedtuple}`` per window of consecutive rows (within a
+    row-group); non-overlapping windows with ``shuffle_row_drop_partitions
+    > 1`` raise ``NotImplementedError``.
     """
-    if predicate is not None or transform_spec is not None or shuffle_row_drop_partitions != 1:
-        raise ValueError('predicate, transform_spec and shuffle_row_drop_partitions are not '
-                         'ported to petastorm_tpu_torch yet (ROADMAP §A9)')
+    _check_selection_args(predicate, transform_spec, shuffle_row_drop_partitions)
+    store = ParquetStore(dataset_url)
+    stored_schema = _stored_schema(store, 'make_reader')
+    ngram = None
+    if isinstance(schema_fields, NGram):
+        ngram, schema_fields = schema_fields, None
+        if not ngram.timestamp_overlap and shuffle_row_drop_partitions > 1:
+            raise NotImplementedError('shuffle_row_drop_partitions with non-overlapping ngrams '
+                                      'is not supported')
+        ngram.resolve_regex_field_names(stored_schema)
+        schema_fields = [n for n in ngram.get_field_names_at_all_timesteps()
+                         if n in stored_schema.fields]
+    view = _view(stored_schema, schema_fields)
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         **(cache_extra_settings or {}))
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size)
-    store = ParquetStore(dataset_url)
-    return Reader(store, _stored_view(store, schema_fields, 'make_reader'), pool,
-                  worker_class=PyDictWorker, shuffle_row_groups=shuffle_row_groups, seed=seed,
-                  num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
-                  cache=cache, resume_state=resume_state, deterministic=deterministic)
+    return Reader(store, view, pool, worker_class=PyDictWorker, full_schema=stored_schema,
+                  shuffle_row_groups=shuffle_row_groups,
+                  shuffle_row_drop_partitions=shuffle_row_drop_partitions, seed=seed,
+                  predicate=predicate, rowgroup_selector=rowgroup_selector, num_epochs=num_epochs,
+                  cur_shard=cur_shard, shard_count=shard_count, cache=cache,
+                  transform_spec=transform_spec, ngram=ngram, resume_state=resume_state,
+                  deterministic=deterministic)
 
 
 def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
                        workers_count=10, results_queue_size=50, shuffle_row_groups=True,
-                       seed=None, num_epochs=1, cur_shard=None, shard_count=None,
+                       shuffle_row_drop_partitions=1, seed=None, predicate=None,
+                       rowgroup_selector=None, num_epochs=1, cur_shard=None, shard_count=None,
                        cache_type=None, cache_location=None, cache_size_limit=None,
-                       cache_extra_settings=None, resume_state=None, deterministic=False,
-                       shuffle_rows_in_chunk=False, raw_image_fields=None):
+                       cache_extra_settings=None, transform_spec=None, resume_state=None,
+                       deterministic=False, shuffle_rows_in_chunk=False,
+                       raw_image_fields=None):
     """Reader of decoded column blocks, one namedtuple per row-group.
 
     :param schema_fields: fields or full-match regex patterns to read
         (default: all).
     :param reader_pool_type: ``'thread'`` or ``'dummy'`` (the work runs on
         the consumer's thread).
+    :param shuffle_row_drop_partitions: ventilate each row-group this many
+        times, each time one contiguous slice of its rows, so a row-group's
+        rows spread over the epoch (1: whole row-groups).
+    :param predicate: a :mod:`~petastorm_tpu_torch.predicates` object on
+        scalar fields only. On partition fields alone it prunes row-groups;
+        otherwise the workers read and decode its fields first and the rest
+        of the kept rows only. A predicate read bypasses every cache tier.
+    :param rowgroup_selector: a :mod:`~petastorm_tpu_torch.selectors`
+        object; the row-groups it picks from the store's index (built by
+        either package's ``build_rowgroup_index``) are read, before pruning
+        and sharding.
     :param num_epochs: epochs to read; ``None`` = endless.
     :param cur_shard/shard_count: read only row-groups ``i`` with
         ``i % shard_count == cur_shard`` (deterministic mode: every
@@ -175,34 +249,57 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
         no cap).
     :param cache_extra_settings: keyword arguments of the cache's
         constructor (the chunk store's ``writer_queue_depth``, ...).
+    :param transform_spec: a :class:`~petastorm_tpu_torch.transform.
+        TransformSpec` whose ``func`` takes and returns the chunk's dict of
+        column blocks (numpy in, numpy out), run in the workers after the
+        drop-partition slice (on copies of cached blocks).
     :param resume_state: a ``state_dict()`` of a reader of the same
         configuration (of either package) to continue from.
     :param deterministic: seed-stable order and resequenced delivery: the
         same stream for any worker count, pool or shard count, and a
         stream cursor for ``state_dict()``.
-    :param shuffle_rows_in_chunk: not ported (ROADMAP §A9); True raises.
+    :param shuffle_rows_in_chunk: permute each chunk's rows in the worker,
+        after the transform, by a permutation of (seed, row-group, drop
+        partition): the same in every epoch and session (and in the JAX
+        package), so resume stays exact; the epochs differ by the row-group
+        order.
     :param raw_image_fields: image fields to ship encoded (the staging-step
         decode, ``petastorm_tpu/reader.py:273-313``): ``True`` takes every
         fixed-shape uint8 image-codec field, an iterable names them. The
         workers skip their decode and publish object columns of the JPEG/
         PNG bytes; a ``TorchLoader`` decodes them next to the copy to the
-        card. Another field, or ``True`` with no such field, raises
-        ``ValueError``.
+        card. Another field, ``True`` with no such field, or any together
+        with ``transform_spec`` raises ``ValueError``.
     """
-    if shuffle_rows_in_chunk:
-        raise ValueError('shuffle_rows_in_chunk is not ported to petastorm_tpu_torch yet '
-                         '(ROADMAP §A9)')
+    _check_selection_args(predicate, transform_spec, shuffle_row_drop_partitions)
+    if isinstance(schema_fields, NGram):
+        raise NotImplementedError('NGram is not supported with tensor readers; use make_reader')
     store = ParquetStore(dataset_url)
-    view = _stored_view(store, schema_fields, 'make_tensor_reader')
+    stored_schema = _stored_schema(store, 'make_tensor_reader')
+    view = _view(stored_schema, schema_fields)
     validate_tensor_schema(view)
     raw_image_fields = _resolve_raw_image_fields(view, raw_image_fields)
+    if raw_image_fields and transform_spec is not None:
+        raise ValueError('raw_image_fields is incompatible with transform_spec: tensor transforms '
+                         'operate on decoded column blocks, but raw fields ship encoded bytes '
+                         '(augment on the card through TorchLoader(on_device_augment=...) '
+                         'instead)')
+    if predicate is not None:
+        bad = [f for f in predicate.get_fields()
+               if f in stored_schema.fields and stored_schema.fields[f].shape != ()]
+        if bad:
+            raise ValueError('Tensor-reader predicates may only reference scalar fields; got '
+                             'tensor fields {}'.format(bad))
     cache = _make_cache(cache_type, cache_location, cache_size_limit, tensor_path=True,
                         **(cache_extra_settings or {}))
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size)
-    return Reader(store, view, pool, worker_class=TensorWorker,
-                  shuffle_row_groups=shuffle_row_groups, seed=seed, num_epochs=num_epochs,
-                  cur_shard=cur_shard, shard_count=shard_count, cache=cache,
-                  resume_state=resume_state, deterministic=deterministic,
+    return Reader(store, view, pool, worker_class=TensorWorker, full_schema=stored_schema,
+                  shuffle_row_groups=shuffle_row_groups,
+                  shuffle_row_drop_partitions=shuffle_row_drop_partitions, seed=seed,
+                  predicate=predicate, rowgroup_selector=rowgroup_selector,
+                  num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
+                  cache=cache, transform_spec=transform_spec, resume_state=resume_state,
+                  deterministic=deterministic, shuffle_rows_in_chunk=shuffle_rows_in_chunk,
                   raw_image_fields=raw_image_fields)
 
 
@@ -307,11 +404,15 @@ def _check_resume_state(resume_state, deterministic, fingerprint):
 class Reader(DeferredRowAccounting):
     """Iterates decoded rows (``worker_class=PyDictWorker``) or row-group
     chunks (``TensorWorker``) off a worker pool. ``batched_output`` says
-    which."""
+    which. ``schema`` is the view read; rows and chunks come out as
+    namedtuples of the view after ``transform_spec``, or, with an
+    ``ngram``, as dicts of per-offset namedtuples."""
 
     def __init__(self, store, schema, pool, worker_class=TensorWorker, shuffle_row_groups=True,
                  seed=None, num_epochs=1, cur_shard=None, shard_count=None, cache=None,
-                 resume_state=None, deterministic=False, raw_image_fields=()):
+                 resume_state=None, deterministic=False, raw_image_fields=(), full_schema=None,
+                 predicate=None, rowgroup_selector=None, shuffle_row_drop_partitions=1,
+                 transform_spec=None, shuffle_rows_in_chunk=False, ngram=None):
         # A mistyped memory budget fails before any thread starts.
         membudget.validate_env_budget()
         if (cur_shard is None) != (shard_count is None):
@@ -319,31 +420,41 @@ class Reader(DeferredRowAccounting):
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
             raise ValueError('cur_shard {} out of range [0, {})'.format(cur_shard, shard_count))
         self.schema = schema
+        self.ngram = ngram
+        self._transform_spec = transform_spec
+        self._output_schema = (transform_schema(schema, transform_spec)
+                               if transform_spec is not None else schema)
         self._store = store
         self._deterministic = bool(deterministic)
         self._seed = seed
         self._cur_shard = cur_shard
         self._shard_count = shard_count
         self._num_epochs = num_epochs
+        self._predicate = predicate
+        self._shuffle_rows_in_chunk = bool(shuffle_rows_in_chunk)
         self._lineage_mode = worker_class.lineage_mode
         self._raw_image_fields = tuple(raw_image_fields or ())
         self._decode_share = None
-        pieces = store.row_groups()
         # Deterministic mode strides the shard over the global order in the
         # ventilator, so every host keeps the whole list.
-        if shard_count is not None and not self._deterministic:
-            pieces = [p for i, p in enumerate(pieces) if i % shard_count == cur_shard]
-        if not pieces:
-            raise NoDataAvailableError('No row-groups left after sharding; cannot create a Reader')
+        pieces, worker_predicate = self._filter_row_groups(
+            store.row_groups(), predicate, rowgroup_selector,
+            None if self._deterministic else cur_shard,
+            None if self._deterministic else shard_count)
         self._row_groups = pieces
         self._pool = pool
         self.cache = cache if cache is not None else NullCache()
         self.batched_output = worker_class.batched_output
         self._rows = deque()
         self._timings = {'read_s': 0.0, 'decode_s': 0.0, 'cache_s': 0.0, 'chunks': 0}
+        #: Hole markers passed: items that a predicate or the drop slice left
+        #: empty (deterministic mode; elsewhere an empty item publishes none).
+        self.holes = 0
         self._stopped = False
         self.last_row_consumed = False
         self._last_lineage = None
+        # Checkpoint keys index the filtered row-group list, so whatever
+        # filters it is part of the fingerprint.
         self._config_fingerprint = {
             'url': store.url,
             'fields': sorted(schema.fields),
@@ -353,11 +464,11 @@ class Reader(DeferredRowAccounting):
             'deterministic': self._deterministic,
             'shuffle_row_groups': bool(shuffle_row_groups),
             'seed': seed if self._deterministic else None,
-            'shuffle_row_drop_partitions': 1,
-            'shuffle_rows_in_chunk': False,
+            'shuffle_row_drop_partitions': shuffle_row_drop_partitions,
+            'shuffle_rows_in_chunk': self._shuffle_rows_in_chunk,
             'n_row_groups': len(pieces),
-            'predicate': None,
-            'selector': None,
+            'predicate': _describe_filter(predicate),
+            'selector': _describe_filter(rowgroup_selector),
             'row_group_ids': [hashlib.md5('{}:{}'.format(p.path, p.row_group).encode())
                               .hexdigest()[:8] for p in pieces],
         }
@@ -374,8 +485,10 @@ class Reader(DeferredRowAccounting):
             pool.set_resequencer(self._resequencer)
         else:
             self._tracker = ConsumptionTracker(resume_state, num_epochs=num_epochs)
-        items = [{'piece_index': i, 'shuffle_row_drop_partition': (0, 1)}
-                 for i in range(len(pieces))]
+        # Pieces x drop partitions, in the JAX package's order.
+        items = [{'piece_index': i, 'worker_predicate': worker_predicate,
+                  'shuffle_row_drop_partition': (drop, shuffle_row_drop_partitions)}
+                 for i in range(len(pieces)) for drop in range(shuffle_row_drop_partitions)]
         det_config = None
         if self._deterministic:
             if shard_count is not None and shard_count > len(items):
@@ -396,9 +509,10 @@ class Reader(DeferredRowAccounting):
             max_ventilation_queue_size=pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS,
             deterministic=det_config)
         dataset_path_hash = hashlib.md5(store.url.encode()).hexdigest()[:12]
-        if self.chunk_store is not None:
+        if self.chunk_store is not None and worker_predicate is None:
             # The store's readahead rides the dispatch order: the moment a
-            # row-group is scheduled, its entry's pages are asked for.
+            # row-group is scheduled, its entry's pages are asked for (a
+            # predicate read bypasses the store).
             readahead = self.chunk_store.readahead
             keys = [chunk_store_mod.tensor_chunk_key(dataset_path_hash, p.path, p.row_group,
                                                      schema) for p in pieces]
@@ -408,8 +522,12 @@ class Reader(DeferredRowAccounting):
 
             self._ventilator.on_ventilate = on_ventilate
         pool.start(worker_class, {
-            'row_groups': pieces, 'schema': schema, 'cache': self.cache,
-            'dataset_path_hash': dataset_path_hash, 'raw_image_fields': self._raw_image_fields,
+            'row_groups': pieces, 'schema': schema,
+            'full_schema': full_schema if full_schema is not None else schema,
+            'cache': self.cache, 'dataset_path_hash': dataset_path_hash,
+            'raw_image_fields': self._raw_image_fields, 'ngram': ngram,
+            'transform_spec': transform_spec, 'transformed_schema': self._output_schema,
+            'shuffle_rows_in_chunk': self._shuffle_rows_in_chunk, 'shuffle_seed': seed,
         }, self._ventilator)
         # After every raise of the constructor: stop() is the only release.
         # A schema without an image field never decodes one, so its workers
@@ -417,6 +535,37 @@ class Reader(DeferredRowAccounting):
         if _has_image_fields(schema):
             self._decode_share = decode_budget.get_budget().register_pool(pool.workers_count)
         self._register_memory_pools()
+
+    # -- row selection ------------------------------------------------------
+
+    def _filter_row_groups(self, pieces, predicate, rowgroup_selector, cur_shard, shard_count):
+        """The selector's row-groups, pruned by a predicate on partition
+        fields alone (which then needs no worker), then the shard
+        (``petastorm_tpu/reader.py:1192-1225``). Returns (pieces, the
+        predicate the workers run or None)."""
+        # The stored index holds positions in the whole sorted list, so the
+        # selector comes first (``petastorm_tpu/reader.py:1227-1235``).
+        if rowgroup_selector is not None:
+            from petastorm_tpu_torch.etl.rowgroup_indexing import get_row_group_indexes
+            selected = set(rowgroup_selector.select_row_groups(get_row_group_indexes(self._store)))
+            pieces = [p for i, p in enumerate(pieces) if i in selected]
+        worker_predicate = predicate
+        if predicate is not None:
+            fields = set(predicate.get_fields())
+            if fields and fields <= set(self._store.partition_names):
+                pieces = [p for p in pieces
+                          if predicate.do_include({f: p.partition_values.get(f) for f in fields})]
+                worker_predicate = None
+        if shard_count is not None:
+            pieces = [p for i, p in enumerate(pieces) if i % shard_count == cur_shard]
+            if not pieces:
+                raise NoDataAvailableError(
+                    'No row-groups assigned to shard {} of {}. The dataset has too few '
+                    'row-groups for this shard count.'.format(cur_shard, shard_count))
+        if not pieces:
+            raise NoDataAvailableError('No row-groups left after filtering; cannot create a '
+                                       'Reader')
+        return pieces, worker_predicate
 
     # -- host memory governor ----------------------------------------------
 
@@ -554,6 +703,7 @@ class Reader(DeferredRowAccounting):
                 self.last_row_consumed = True
                 raise StopIteration
             if determinism.is_hole(chunk):
+                self.holes += 1
                 continue
             for key, seconds in chunk['timings'].items():
                 self._timings[key] += seconds
@@ -584,7 +734,7 @@ class Reader(DeferredRowAccounting):
         if self._stall_error is not None:
             raise self._stall_error
         if self.batched_output:
-            return self.schema.make_namedtuple(**self._next_cols())
+            return self._output_schema.make_namedtuple(**self._next_cols())
         while not self._rows:
             chunk = self._next_chunk()
             key, rows, det = chunk['key'], chunk['rows'], chunk.get('det')
@@ -592,9 +742,12 @@ class Reader(DeferredRowAccounting):
             self._rows.extend((key, row, chunk['lineage'], skip + i)
                               for i, row in enumerate(rows[skip:]))
         key, row, lineage, row_index = self._rows.popleft()
-        self._last_lineage = dict(lineage, row_start=row_index)
+        # An NGram chunk carries no lineage: a window is not a stored row.
+        self._last_lineage = None if lineage is None else dict(lineage, row_start=row_index)
         self._tracker.rows_yielded(key, 1)
-        return self.schema.make_namedtuple(**row)
+        if self.ngram is not None:
+            return self.ngram.make_namedtuple(self._output_schema, row)
+        return self._output_schema.make_namedtuple(**row)
 
     # -- checkpoint and provenance -----------------------------------------
 
@@ -621,7 +774,14 @@ class Reader(DeferredRowAccounting):
 
     def lineage_context(self):
         """The static facts a provenance record needs to be replayed
-        (JSON-safe; the JAX package's keys)."""
+        (JSON-safe; the JAX package's keys). A transform is described by its
+        ``version`` tag and its function's name: replay cannot run it."""
+        transform = None
+        if self._transform_spec is not None:
+            func = self._transform_spec.func
+            transform = {'version': self._transform_spec.version,
+                         'func': getattr(func, '__qualname__', None) if func is not None
+                         else None}
         return {
             'mode': self._lineage_mode,
             'url': self._store.url,
@@ -633,12 +793,12 @@ class Reader(DeferredRowAccounting):
             'cur_shard': self._cur_shard,
             'shard_count': self._shard_count,
             'num_epochs': self._num_epochs,
-            'shuffle_rows_in_chunk': False,
+            'shuffle_rows_in_chunk': self._shuffle_rows_in_chunk,
             'deterministic': self._deterministic,
             'n_row_groups': len(self._row_groups),
-            'transform': None,
-            'predicate': None,
-            'ngram': False,
+            'transform': transform,
+            'predicate': _describe_filter(self._predicate),
+            'ngram': self.ngram is not None,
         }
 
     def lineage_state(self):

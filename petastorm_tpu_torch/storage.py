@@ -3,7 +3,8 @@
 Counterpart of ``petastorm_tpu/storage.py:39-280`` for local (``file://``)
 stores. The metadata keys are the JAX package's, so either package reads a
 store the other wrote. The unit of reader work is the Parquet row-group
-(:class:`RowGroupPiece`).
+(:class:`RowGroupPiece`), which carries the hive partition values
+(``key=value`` directories) of its file.
 """
 
 import os
@@ -14,23 +15,26 @@ from petastorm_tpu_torch.fs import local_path
 
 UNISCHEMA_KEY = b'petastorm_tpu.unischema.v1'
 NUM_ROW_GROUPS_KEY = b'petastorm_tpu.num_row_groups_per_file.v1'
+ROWGROUP_INDEX_KEY = b'petastorm_tpu.rowgroups_index.v1'
 
 _METADATA_FILE = '_metadata'
 _COMMON_METADATA_FILE = '_common_metadata'
 
 
 class RowGroupPiece(object):
-    """One row-group of one Parquet file."""
+    """One row-group of one Parquet file, with its file's partition values."""
 
-    __slots__ = ('path', 'row_group', 'num_rows')
+    __slots__ = ('path', 'row_group', 'partition_values', 'num_rows')
 
-    def __init__(self, path, row_group, num_rows=None):
+    def __init__(self, path, row_group, partition_values=None, num_rows=None):
         self.path = path
         self.row_group = row_group
+        self.partition_values = partition_values or {}
         self.num_rows = num_rows
 
     def __repr__(self):
-        return 'RowGroupPiece({!r}, rg={}, rows={})'.format(self.path, self.row_group, self.num_rows)
+        return 'RowGroupPiece({!r}, rg={}, partitions={}, rows={})'.format(
+            self.path, self.row_group, self.partition_values, self.num_rows)
 
     def __eq__(self, other):
         return (isinstance(other, RowGroupPiece) and self.path == other.path
@@ -38,6 +42,23 @@ class RowGroupPiece(object):
 
     def __hash__(self):
         return hash((self.path, self.row_group))
+
+
+def _partition_values(root, file_path):
+    """The hive ``key=value`` directories of a file under ``root``, each
+    value an int, else a float, else the string (as the JAX package reads
+    them)."""
+    values = {}
+    for segment in os.path.relpath(file_path, root).split(os.sep)[:-1]:
+        if '=' in segment:
+            key, _, value = segment.partition('=')
+            for cast in (int, float, str):
+                try:
+                    values[key] = cast(value)
+                    break
+                except ValueError:
+                    continue
+    return values
 
 
 class ParquetStore(object):
@@ -64,6 +85,16 @@ class ParquetStore(object):
                                  if not n.startswith(('_', '.')) and not n.endswith('.crc'))
                 self._files = sorted(found)
         return self._files
+
+    @property
+    def partition_names(self):
+        """The hive partition keys of the store's files, in first-seen order."""
+        names = []
+        for path in self.files:
+            for key in _partition_values(self.path, path):
+                if key not in names:
+                    names.append(key)
+        return names
 
     def _metadata_path(self, name):
         return os.path.join(self.path, name)
@@ -92,6 +123,16 @@ class ParquetStore(object):
         md = self.read_common_metadata()
         return default if md is None else md.get(key, default)
 
+    def read_arrow_schema(self):
+        """Arrow schema of the data files (``_common_metadata``'s when it has
+        columns, else the first file's footer)."""
+        target = self._metadata_path(_COMMON_METADATA_FILE)
+        if os.path.exists(target):
+            schema = pq.read_schema(target)
+            if schema.names:
+                return schema
+        return pq.read_schema(self.files[0])
+
     def row_groups(self):
         """Every :class:`RowGroupPiece`, from the ``_metadata`` summary when
         there is one, else from the files' footers."""
@@ -100,7 +141,8 @@ class ParquetStore(object):
             pieces = []
             for path in self.files:
                 md = pq.read_metadata(path)
-                pieces.extend(RowGroupPiece(path, i, md.row_group(i).num_rows)
+                partitions = _partition_values(self.path, path)
+                pieces.extend(RowGroupPiece(path, i, partitions, md.row_group(i).num_rows)
                               for i in range(md.num_row_groups))
         return pieces
 
@@ -116,7 +158,7 @@ class ParquetStore(object):
             if not file_path:
                 return None
             per_file.setdefault(os.path.join(self.path, file_path), []).append(rg.num_rows)
-        return [RowGroupPiece(path, idx, num_rows)
+        return [RowGroupPiece(path, idx, _partition_values(self.path, path), num_rows)
                 for path in sorted(per_file)
                 for idx, num_rows in enumerate(per_file[path])]
 

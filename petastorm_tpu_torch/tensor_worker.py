@@ -31,11 +31,14 @@ import pyarrow as pa
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.checkpoint import chunk_key
 from petastorm_tpu_torch.chunk_store import tensor_chunk_key
-from petastorm_tpu_torch.codecs import (CompressedImageCodec, NdarrayCodec, ScalarCodec,
-                                        _native_image, decode_image_batch_into)
+from petastorm_tpu_torch.codecs import (CompressedImageCodec, CompressedNdarrayCodec,
+                                        NdarrayCodec, ScalarCodec, _native_image,
+                                        decode_image_batch_into)
 from petastorm_tpu_torch.errors import DecodeFieldError
 from petastorm_tpu_torch.lineage import chunk_lineage
-from petastorm_tpu_torch.workers.rowgroup_worker_base import RowGroupWorkerBase, compute_row_slice
+from petastorm_tpu_torch.workers.rowgroup_worker_base import (RowGroupWorkerBase,
+                                                              chunk_row_permutation,
+                                                              compute_row_slice)
 
 
 def validate_tensor_schema(schema):
@@ -59,22 +62,30 @@ def _read_only(cols):
 
 class TensorWorker(RowGroupWorkerBase):
     """Publishes ``{'key', 'cols': {name: block}, 'lineage', 'timings'}``
-    per row-group, plus ``'det'`` in deterministic mode (an empty
-    row-group publishes a hole marker then). ``args`` also holds ``cache``
-    (a :class:`~petastorm_tpu_torch.cache.CacheBase`) and
-    ``dataset_path_hash``. ``timings`` holds the seconds of this
-    row-group's ``read_s`` and ``decode_s`` (on a miss) and ``cache_s``
-    (the cache's own bookkeeping, with a cache). ``args`` may hold
-    ``raw_image_fields``. ``lineage`` is the
-    chunk's provenance segment; its tier is ``'decode'`` when this call
-    decoded, else the cache's tier (``'memory'``, ``'disk'`` or
-    ``'chunk-store'``)."""
+    per row-group item, plus ``'det'`` in deterministic mode (an item left
+    empty publishes a hole marker then). ``args`` also holds ``cache`` (a
+    :class:`~petastorm_tpu_torch.cache.CacheBase`), ``dataset_path_hash``,
+    ``full_schema`` (the stored schema, for predicate fields outside the
+    view), and may hold ``raw_image_fields``, ``transform_spec`` with
+    ``transformed_schema``, ``shuffle_rows_in_chunk`` and ``shuffle_seed``.
+    ``timings`` holds the seconds of this row-group's ``read_s`` and
+    ``decode_s`` (on a miss) and ``cache_s`` (the cache's own bookkeeping,
+    with a cache). ``lineage`` is the chunk's provenance segment; its tier
+    is ``'decode'`` when this call decoded, else the cache's tier
+    (``'memory'``, ``'disk'`` or ``'chunk-store'``).
+
+    The steps follow ``petastorm_tpu/tensor_worker.py:72-207``: the read
+    (with a worker predicate, two phases on decoded scalars, past every
+    cache), the drop-partition slice, the ``TransformSpec`` on the blocks
+    (on copies when the blocks came from a cache, so that an in-place
+    transform cannot reach a later epoch), then the in-chunk permutation."""
 
     batched_output = True
     #: Reader mode of provenance contexts: replay decodes by it.
     lineage_mode = 'tensor'
 
-    def process(self, piece_index, shuffle_row_drop_partition=None, pst_det=None):
+    def process(self, piece_index, worker_predicate=None, shuffle_row_drop_partition=None,
+                pst_det=None):
         piece = self.args['row_groups'][piece_index]
         schema = self.args['schema']
         timings = {}
@@ -83,9 +94,9 @@ class TensorWorker(RowGroupWorkerBase):
         def load():
             decoded.append(True)
             t0 = time.perf_counter()
-            table = self._read_row_group(piece, list(schema.fields))
+            table = self._load_table(piece, worker_predicate)
             timings['read_s'] = time.perf_counter() - t0
-            if not table.num_rows:
+            if table is None or not table.num_rows:
                 return None
             t0 = time.perf_counter()
             cols = decode_table_to_blocks(table, schema, self.args.get('raw_image_fields') or ())
@@ -93,31 +104,77 @@ class TensorWorker(RowGroupWorkerBase):
             return cols
 
         cache = self.args['cache']
-        if isinstance(cache, NullCache):
-            cols = load()
-        else:
+        # A predicate read bypasses the cache: its chunks hold only the kept
+        # rows, and are private.
+        cached = worker_predicate is None and not isinstance(cache, NullCache)
+        if cached:
             key = tensor_chunk_key(self.args['dataset_path_hash'], piece.path, piece.row_group,
                                    schema)
             t0 = time.perf_counter()
             cols = _read_only(cache.get(key, load))
             timings['cache_s'] = (time.perf_counter() - t0 - timings.get('read_s', 0.0)
                                   - timings.get('decode_s', 0.0))
-        n_rows = len(next(iter(cols.values()))) if cols else 0
+        else:
+            cols = load()
+        if cols is None:            # an empty row-group, or no row kept
+            self._publish_hole(pst_det)
+            return
+        n_rows = len(next(iter(cols.values())))
         row_slice = compute_row_slice(n_rows, shuffle_row_drop_partition)
         if row_slice is not None:
             cols = {k: v[row_slice[0]:row_slice[1]] for k, v in cols.items()}
             n_rows = max(0, row_slice[1] - row_slice[0])
+        transform_spec = self.args.get('transform_spec')
+        if n_rows and transform_spec is not None and transform_spec.func is not None:
+            if cached:
+                cols = {k: np.array(v) for k, v in cols.items()}
+            out = transform_spec.func(dict(cols))
+            for name in transform_spec.removed_fields:
+                out.pop(name, None)
+            keep = self.args['transformed_schema'].fields
+            cols = {k: np.asarray(v) for k, v in out.items() if k in keep}
+            n_rows = len(next(iter(cols.values()))) if cols else 0
+        permuted = bool(n_rows and self.args.get('shuffle_rows_in_chunk'))
+        if permuted:
+            perm = chunk_row_permutation(self.args.get('shuffle_seed'),
+                                         self.args['dataset_path_hash'], piece.path,
+                                         piece.row_group, shuffle_row_drop_partition, n_rows)
+            cols = {k: v[perm] for k, v in cols.items()}
         if not n_rows:
             self._publish_hole(pst_det)
             return
         tier = 'decode' if decoded else cache.lineage_tier
         payload = {'key': chunk_key(piece_index, shuffle_row_drop_partition), 'cols': cols,
                    'lineage': chunk_lineage(piece, piece_index, shuffle_row_drop_partition,
-                                            n_rows, tier, worker_id=self.worker_id),
+                                            n_rows, tier, permuted=permuted,
+                                            filtered=worker_predicate is not None,
+                                            worker_id=self.worker_id),
                    'timings': timings}
         if pst_det is not None:
             payload['det'] = pst_det
         self.publish_func(payload)
+
+    def _load_table(self, piece, predicate):
+        """The row-group's fields of the view, only the rows ``predicate``
+        keeps (None: every row, or None when it keeps none)."""
+        names = list(self.args['schema'].fields)
+        if predicate is None:
+            return self._read_fields(piece, names)
+        # Phase one: the predicate's fields, decoded as make_reader decodes
+        # them, so it tests numpy scalars and strings.
+        full_schema = self.args['full_schema']
+        fields = sorted(predicate.get_fields())
+        unknown = set(fields) - set(full_schema.fields)
+        if unknown:
+            raise ValueError('Predicate uses unknown fields: {}'.format(sorted(unknown)))
+        pred_table = self._read_fields(piece, fields)
+        pred_cols = decode_table_to_blocks(pred_table, full_schema.create_schema_view(fields))
+        mask = np.asarray([predicate.do_include({f: pred_cols[f][i] for f in fields})
+                           for i in range(pred_table.num_rows)], dtype=bool)
+        if not mask.any():
+            return None
+        # Phase two: the view's fields, only the kept rows.
+        return self._read_fields(piece, names).take(pa.array(np.flatnonzero(mask)))
 
 
 def decode_table_to_blocks(table, schema, raw_fields=()):
@@ -139,7 +196,7 @@ def decode_table_to_blocks(table, schema, raw_fields=()):
                     cols[name] = _raw_image_column(column)
                 else:
                     cols[name] = _decode_image_column(column, field)
-            elif isinstance(codec, NdarrayCodec):
+            elif isinstance(codec, (NdarrayCodec, CompressedNdarrayCodec)):
                 cols[name] = _decode_ndarray_column(column, field, codec)
             else:
                 cols[name] = _scalar_column_to_numpy(column, field)

@@ -1,7 +1,7 @@
 """Row-group worker base: row-groups read one at a time through an open
-handle per data file (counterpart of
-``petastorm_tpu/workers/rowgroup_worker_base.py:24-198`` without
-predicates and faults).
+handle per data file, the drop-partition slice and the in-chunk row
+permutation (counterpart of ``petastorm_tpu/workers/rowgroup_worker_base.py:
+24-223`` without fault injection).
 
 A columnar worker (the tensor worker) reads through the native C++ Parquet
 stage (:mod:`~petastorm_tpu_torch.native.parquet`) when it builds, as the
@@ -9,12 +9,15 @@ JAX package chooses it (``:27-76``); the per-row worker keeps pyarrow
 (``_prefer_native_parquet``). A stage that did not build, or a read it
 fails, leaves pyarrow.
 
-``chunk_row_permutation`` (``shuffle_rows_in_chunk``) is not ported
-(ROADMAP §A9): a reader asked for it raises.
+A piece's hive partition values are not stored in its file:
+:meth:`RowGroupWorkerBase._read_fields` reads the other fields and appends
+a constant column for each partition field asked for.
 """
 
+import hashlib
 import logging
 
+import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 
@@ -69,6 +72,12 @@ class RowGroupWorkerBase(WorkerBase):
                     self._native = False
         return self._file(piece.path).read_row_group(piece.row_group, columns=columns)
 
+    def _read_fields(self, piece, names):
+        """The row-group's ``names`` as a ``pa.Table``: the stored columns
+        read, then the piece's partition values appended."""
+        stored = [n for n in names if n not in piece.partition_values]
+        return with_partition_columns(self._read_row_group(piece, stored), piece, names)
+
     def _file(self, path, native=False):
         """The open handle of ``path``: a ``pq.ParquetFile`` or (``native``)
         a ``NativeParquetFile``, opened once a worker."""
@@ -95,13 +104,45 @@ class RowGroupWorkerBase(WorkerBase):
         self._files = {}
 
 
-def compute_row_slice(num_rows, shuffle_row_drop_partition):
+def with_partition_columns(table, piece, names):
+    """``table`` with a constant column for each of ``names`` that is one of
+    ``piece``'s partition keys and not a column yet."""
+    for name, value in piece.partition_values.items():
+        if name in names and name not in table.column_names:
+            table = table.append_column(name, pa.array([value] * table.num_rows))
+    return table
+
+
+def compute_row_slice(num_rows, shuffle_row_drop_partition, ngram=None):
     """``(start, stop)`` of one drop-partition of a row-group, or None when
-    the whole range is kept."""
+    the whole range is kept. With an NGram the slice reaches ``length - 1``
+    rows into the next partition, so the windows across the cut survive."""
     if shuffle_row_drop_partition is None:
         return None
     this_partition, num_partitions = shuffle_row_drop_partition
     if num_partitions <= 1:
         return None
     bounds = [int(round(i * num_rows / num_partitions)) for i in range(num_partitions + 1)]
-    return bounds[this_partition], bounds[this_partition + 1]
+    start, stop = bounds[this_partition], bounds[this_partition + 1]
+    if ngram is not None:
+        stop = min(num_rows, stop + ngram.length - 1)
+    return start, stop
+
+
+def chunk_row_permutation(seed, dataset_hash, piece_path, row_group, shuffle_row_drop_partition,
+                          n_rows):
+    """The row order of one chunk under ``shuffle_rows_in_chunk``: the same
+    for a chunk in every epoch and every session, so a resume skips the same
+    leading rows. The argsort of a splitmix64 hash of each row index, keyed
+    by an md5 of (seed, dataset, row-group, drop partition); pure uint64
+    arithmetic and a stable sort, so any numpy gives the JAX package's
+    order."""
+    drop_idx = shuffle_row_drop_partition[0] if shuffle_row_drop_partition else 0
+    digest = hashlib.md5('{}:{}:{}:{}:{}'.format(seed, dataset_hash, piece_path, row_group,
+                                                 drop_idx).encode()).digest()
+    z = np.arange(n_rows, dtype=np.uint64) + np.uint64(int.from_bytes(digest[:8], 'little'))
+    z = z + np.uint64(0x9E3779B97F4A7C15)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    z = z ^ (z >> np.uint64(31))
+    return np.argsort(z, kind='stable')

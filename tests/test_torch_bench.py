@@ -174,3 +174,28 @@ def test_hello_world_metric_sweeps_pools_and_takes_the_median(hello_workdir, mon
     assert metric['hello_world_cached_samples_per_sec'] > 0
     assert metric['hello_world_single_draw_max'] == max(config['rep_rates']
                                                         + [config['sweep_rates'][best]])
+
+
+@pytest.mark.parametrize('split', [((0.9, 0.1), 0), ((0.5, 0.5), 1)])
+def test_filtered_cell_checks_hold_on_the_cpu(workdir, split):
+    """The filtered cell's reader arguments on the CPU: one epoch through a
+    loader gives the independent reckoning's labels (a multiset), and the
+    threaded stream the dummy pool's, in order (the card phase's checks)."""
+    from petastorm_tpu_torch import TorchLoader, make_tensor_reader
+    url = bench.ensure_imagenet_store(workdir)
+    kwargs, table = bench.filtered_reader_kwargs(split)
+    assert sorted(table[table >= 0].tolist()) == list(range(int((table >= 0).sum())))
+    with make_tensor_reader(url, workers_count=3, num_epochs=1, seed=0, **kwargs) as reader:
+        with TorchLoader(reader, BATCH, device='cpu', last_batch='partial') as loader:
+            epoch = np.concatenate([b.label.numpy().copy() for b in loader])
+    reckoned = bench.reckon_filtered_labels(url, split, table)
+    assert 0 < len(reckoned) < ROWS
+    np.testing.assert_array_equal(np.sort(epoch), reckoned)
+    assert (reckoned >= 0).all()
+
+    def stream(pool):
+        with make_tensor_reader(url, reader_pool_type=pool, workers_count=3, num_epochs=2,
+                                seed=0, **bench.filtered_reader_kwargs(split)[0]) as reader:
+            return np.concatenate([np.asarray(c.label) for c in reader])
+
+    np.testing.assert_array_equal(stream('thread'), stream('dummy'))

@@ -1148,3 +1148,60 @@ def test_async_sharded_save_on_nccl_restores_bit_equal(nccl_world_of_one, tmp_pa
     for p, q in zip(state.model.parameters(), fresh.model.parameters()):
         assert torch.equal(state.optimizer.state[p]['momentum_buffer'],
                            fresh.optimizer.state[q]['momentum_buffer'])
+
+
+def _filtered_reader_kwargs():
+    from petastorm_tpu_torch.predicates import in_lambda
+    from petastorm_tpu_torch.transform import TransformSpec
+
+    def relabel(cols):
+        cols['label'] = cols['label'] * 10 + 1
+        return cols
+
+    # Keeps labels outside [12, 24) with label % 5 != 3: row-group 1 keeps
+    # none of its rows (a hole), the others keep uneven counts.
+    return dict(predicate=in_lambda(['label'], lambda v: not 12 <= v < 24 and v % 5 != 3),
+                transform_spec=TransformSpec(relabel), shuffle_rows_in_chunk=True,
+                shuffle_row_drop_partitions=2, deterministic=True, seed=4, workers_count=3)
+
+
+def test_filtered_permuted_transformed_loader_on_card_equals_the_cpu(dev, tmp_path):
+    """A predicate, a TransformSpec, drop partitions and the in-chunk
+    shuffle: the card's batches (pinned arenas, staging threads) equal a
+    ``device='cpu'`` loader's, as do the holes and uneven chunks' cuts."""
+    url = _card_store(tmp_path)
+
+    def batches(device):
+        with make_tensor_reader(url, num_epochs=2, **_filtered_reader_kwargs()) as reader:
+            with TorchLoader(reader, 8, device=device, last_batch='partial') as loader:
+                out = [(b.image.device.type, b.image.cpu(), b.label.cpu()) for b in loader]
+            return out, reader.holes
+
+    (on_card, holes), (on_host, _) = batches(dev), batches('cpu')
+    kept = [i for i in range(60) if not 12 <= i < 24 and i % 5 != 3]
+    assert holes == 2 * 2                  # row-group 1's two drop partitions, two epochs
+    assert len(on_card) == len(on_host) == -(-2 * len(kept) // 8)
+    for (where, image, label), (_, want_image, want_label) in zip(on_card, on_host):
+        assert where == 'cuda'
+        assert torch.equal(image, want_image) and torch.equal(label, want_label)
+    labels = torch.cat([label for _, _, label in on_card])
+    assert sorted(labels.tolist()) == sorted([i * 10 + 1 for i in kept] * 2)
+
+
+def test_superbatches_over_uneven_chunks_on_card_equal_the_cpu(dev, tmp_path):
+    """``superbatches(8)`` over the filtered stream's uneven chunks: each a
+    ``torch.cat`` of 8 batches on the card, equal to the CPU loader's, the
+    partial group dropped."""
+    url = _card_store(tmp_path, rows=120)
+
+    def groups(device):
+        with make_tensor_reader(url, num_epochs=3, **_filtered_reader_kwargs()) as reader:
+            with TorchLoader(reader, 4, device=device) as loader:
+                return [(g.image.cpu(), g.label.cpu()) for g in loader.superbatches(8)]
+
+    on_card, on_host = groups(dev), groups('cpu')
+    kept = [i for i in range(120) if not 12 <= i < 24 and i % 5 != 3]
+    assert len(on_card) == len(on_host) == 3 * len(kept) // 4 // 8
+    for (image, label), (want_image, want_label) in zip(on_card, on_host):
+        assert image.shape[0] == label.shape[0] == 32
+        assert torch.equal(image, want_image) and torch.equal(label, want_label)

@@ -422,8 +422,11 @@ def test_config_drift_warns_and_shuffle_rows_in_chunk_is_not_ported(store):
     with pytest.warns(UserWarning, match='different reader configuration'):
         make_tensor_reader(store, seed=1, num_epochs=2, reader_pool_type='dummy',
                            resume_state=state).stop()
-    with pytest.raises(ValueError, match='shuffle_rows_in_chunk'):
-        make_tensor_reader(store, shuffle_rows_in_chunk=True)
+    # shuffle_rows_in_chunk is ported: it is part of the fingerprint, so a
+    # resume that turns it on warns as drift.
+    with pytest.warns(UserWarning, match='shuffle_rows_in_chunk'):
+        make_tensor_reader(store, seed=1, reader_pool_type='dummy', resume_state=state,
+                           shuffle_rows_in_chunk=True).stop()
 
 
 # -- resharding ------------------------------------------------------------------------

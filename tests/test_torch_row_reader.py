@@ -1,7 +1,7 @@
 """The port's per-row ``make_reader`` against ``petastorm_tpu.make_reader`` on
 the same store: ndarray, scalar, string, JPEG and ragged PNG fields; epochs
 in the same seeded order; the shard union; memory-cache hits in epoch 2;
-the dummy pool; the stage timings; and the arguments that are not ported.
+the dummy pool; the stage timings; and the arguments that raise.
 
 JPEG fields go through different decoders (the JAX package's native one,
 OpenCV in the port) and are compared at max abs diff <= 2; every other
@@ -149,9 +149,11 @@ def test_stage_timings_of_the_tensor_reader(tmp_path):
 
 
 @pytest.mark.parametrize('kwargs,match', [
+    # Predicates, transforms and drop partitions are ported; what the
+    # workers could not run still raises before a thread starts.
     (dict(predicate=object()), 'predicate'),
     (dict(transform_spec=object()), 'transform_spec'),
-    (dict(shuffle_row_drop_partitions=2), 'shuffle_row_drop_partitions'),
+    (dict(shuffle_row_drop_partitions=0), 'shuffle_row_drop_partitions'),
     (dict(cache_type='chunk-store'), 'make_tensor_reader'),
     (dict(reader_pool_type='process'), 'thread'),
 ])
