@@ -63,6 +63,10 @@ LM_BATCH, LM_ROWS = 8, 2048
 SCAN_K = 8
 SCAN_PREFETCH = 8
 HBM_EPOCHS = max(6, 2 * SCAN_K)
+# imagenet_filtered: the train split (fractions, subset) on ``label``, and the
+# batches of its stream held in order against a single-threaded reader's.
+FILTERED_SPLIT = ((0.9, 0.1), 0)
+FILTERED_CHECK_BATCHES = 16
 # imagenet_vit (bench.py:2511-2515) and imagenet_aug (bench.py:2553-2557): HBM epochs.
 VIT_HBM_EPOCHS = 4
 AUG_EPOCHS = 4
@@ -719,22 +723,22 @@ def reckon_filtered_labels(url, split, table):
     return np.sort(table[labels[(buckets >= low) & (buckets < high)]])
 
 
-def run_imagenet_filtered(url, device, card, state, warmup=3, calls=5, workers=8,
-                          split=((0.9, 0.1), 0), check_batches=16):
+def run_imagenet_filtered(url, device, card, state, warmup=3, calls=5, workers=8):
     """The filtered cell: imagenet_scan's model and protocol on ``state``,
-    the reader with a train split (``in_pseudorandom_split`` on ``label``),
+    the reader with ``FILTERED_SPLIT`` (``in_pseudorandom_split`` on ``label``),
     a dense relabelling ``TransformSpec``, ``shuffle_rows_in_chunk`` and
     deterministic order, no cache (a predicate read decodes every epoch),
     ``workers`` reader threads. Fails unless K1 ran 8 times a replay, one
     epoch's label multiset (a one-epoch reader of the same arguments through
     a loader on the card) equals :func:`reckon_filtered_labels`, the first
-    ``check_batches`` batches' labels of the training stream, copied back
+    ``FILTERED_CHECK_BATCHES`` batches' labels of the training stream, copied back
     from the card, equal in order a ``'dummy'`` reader's of the same
     arguments, and every loss is finite. Returns the phase's line."""
     import torch
     from petastorm_tpu_torch import TorchLoader, make_tensor_reader
     from petastorm_tpu_torch.models import make_scan_train_step
 
+    split, check_batches = FILTERED_SPLIT, FILTERED_CHECK_BATCHES
     reader_kwargs, table = filtered_reader_kwargs(split)
     seen = []
 

@@ -160,17 +160,27 @@ class TensorWorker(RowGroupWorkerBase):
         names = list(self.args['schema'].fields)
         if predicate is None:
             return self._read_fields(piece, names)
-        # Phase one: the predicate's fields, decoded as make_reader decodes
-        # them, so it tests numpy scalars and strings.
+        # Phase one: the predicate's stored fields, decoded as make_reader
+        # decodes them, so it tests numpy scalars and strings; a partition
+        # field is its parsed directory value as a numpy array, whatever the
+        # field's dtype (``petastorm_tpu/tensor_worker.py:253-258``).
         full_schema = self.args['full_schema']
         fields = sorted(predicate.get_fields())
         unknown = set(fields) - set(full_schema.fields)
         if unknown:
             raise ValueError('Predicate uses unknown fields: {}'.format(sorted(unknown)))
-        pred_table = self._read_fields(piece, fields)
-        pred_cols = decode_table_to_blocks(pred_table, full_schema.create_schema_view(fields))
+        stored = [f for f in fields if f not in piece.partition_values]
+        if not stored:
+            raise ValueError('Predicate on partition values only should '
+                             'have been pruned before ventilation')
+        pred_table = self._read_row_group(piece, stored)
+        n = pred_table.num_rows
+        pred_cols = decode_table_to_blocks(pred_table, full_schema.create_schema_view(stored))
+        for name in fields:
+            if name in piece.partition_values:
+                pred_cols[name] = np.asarray([piece.partition_values[name]] * n)
         mask = np.asarray([predicate.do_include({f: pred_cols[f][i] for f in fields})
-                           for i in range(pred_table.num_rows)], dtype=bool)
+                           for i in range(n)], dtype=bool)
         if not mask.any():
             return None
         # Phase two: the view's fields, only the kept rows.

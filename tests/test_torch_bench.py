@@ -176,7 +176,7 @@ def test_hello_world_metric_sweeps_pools_and_takes_the_median(hello_workdir, mon
                                                         + [config['sweep_rates'][best]])
 
 
-@pytest.mark.parametrize('split', [((0.9, 0.1), 0), ((0.5, 0.5), 1)])
+@pytest.mark.parametrize('split', [bench.FILTERED_SPLIT, ((0.5, 0.5), 1)])
 def test_filtered_cell_checks_hold_on_the_cpu(workdir, split):
     """The filtered cell's reader arguments on the CPU: one epoch through a
     loader gives the independent reckoning's labels (a multiset), and the

@@ -180,3 +180,43 @@ def test_partitioned_store_and_mixed_predicate_equal_jax(partitioned_synthetic_d
     _assert_rows_equal(got, _rows_by_id(jax, url, predicate=make(jax_predicates), **kwargs))
     assert set(got) == {r['id'] for r in partitioned_synthetic_dataset.data
                         if r['partition_key'] != 'p_0' and r['id'] % 3 == 0}
+
+
+@pytest.fixture(scope='module')
+def numeric_partition_url(tmp_path_factory):
+    """A string field hive-partitioned on numeric-looking values (``year=2020``),
+    which both packages parse as ints."""
+    from petastorm_tpu.codecs import ScalarCodec
+    from petastorm_tpu.etl.writer import write_dataset
+    from petastorm_tpu.unischema import Unischema, UnischemaField
+    schema = Unischema('YearSchema', [
+        UnischemaField('id', np.int64, (), ScalarCodec(np.int64), False),
+        UnischemaField('year', np.str_, (), ScalarCodec(np.str_), False)])
+    url = 'file://' + str(tmp_path_factory.mktemp('numeric_partition') / 'dataset')
+    write_dataset(url, schema, [{'id': i, 'year': str(2020 + i % 2)} for i in range(40)],
+                  rows_per_row_group=5, partition_fields=('year',))
+    return url
+
+
+@pytest.mark.parametrize('port,jax,pool,fields', READERS)
+def test_numeric_partition_value_under_mixed_predicate_equals_jax(numeric_partition_url, port,
+                                                                  jax, pool, fields):
+    """The predicate sees a numeric partition value with the type the JAX
+    reader of the same kind hands it (the row readers decode it by the
+    field's dtype, the tensor readers pass the parsed value), so a
+    type-sensitive predicate keeps the same rows."""
+    kwargs = dict(reader_pool_type=pool, workers_count=2, shuffle_row_groups=False)
+
+    def make(m, seen):
+        def keep(year, i):
+            seen.add((type(year), year))
+            return year in (2020, '2021') and i % 3 != 0
+        return m.in_lambda(['year', 'id'], keep)
+
+    ours, theirs = set(), set()
+    got = _rows_by_id(port, numeric_partition_url, predicate=make(predicates, ours), **kwargs)
+    want = _rows_by_id(jax, numeric_partition_url, predicate=make(jax_predicates, theirs),
+                       **kwargs)
+    assert got
+    _assert_rows_equal(got, want)
+    assert ours == theirs and len(ours) == 2
