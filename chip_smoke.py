@@ -191,7 +191,37 @@ non-zero exit and no result line:
    ``read_s``, rows kept per epoch of 2048, chunks and holes, beside
    imagenet_scan's and imagenet_decode (a)'s numbers of this run.
 
-Phases 5 to 15, 18, 20 and 21 run the bench's protocol through the functions of
+22. lm_plain: plain Parquet, run after lm_scan (``bench.run_lm_plain``): two
+   stores written with ``pyarrow.parquet.write_table`` (no
+   ``_common_metadata``, one ``list<int32>`` column ``tokens``, 128-row
+   groups): A, the lm store's 2048 rows of 1025 tokens, and B, 1024 rows of
+   another seed. lm_scan's model and protocol (a fresh model, seed 0),
+   trained from (a) ``make_batch_reader(A, schema_fields=['tokens'],
+   cache_type='local-disk', deterministic=True, seed=0, num_epochs=None,
+   workers_count=2)`` and (b) ``WeightedSamplingReader([A, B], [0.7, 0.3],
+   seed=0)`` of two such readers, each through ``TorchLoader(batch=64)``.
+   Checks: K2-K4's graph nodes times the replays, 64 a replay; finite,
+   falling losses; an in-order epoch of A (which fills the Arrow cache:
+   16 misses, no hit) through a loader on the card equals
+   ``pyarrow.parquet.read_table(A)``'s column row for row; (a)'s reader
+   then counts hits only, and every batch of its training stream, copied
+   back from the card, equals in order a ``'dummy'``-pool reader's; (b)'s
+   per-chunk sources, read from the loader's lineage, equal
+   ``np.searchsorted(np.cumsum([0.7, 0.3]), np.random.default_rng(0).
+   random(n), side='right')`` and hold both sources. Then the adapters:
+   ``make_converter`` of B's table gives its rows on the card through
+   ``make_torch_loader``, a second call returns the same converter without
+   writing, ``delete()`` removes its store; a ``tools.copy_dataset`` copy of
+   the lm store whose ``_common_metadata`` holds only the reference's
+   pickled schema (``export_legacy_metadata``, the JSON key removed) reads
+   through ``make_tensor_reader`` to a first batch digest-equal to the lm
+   store's; ``reader_throughput(A)``'s samples/s, ``'python'`` and
+   ``'torch'``, 5 runs each of 8 epochs after an epoch of warm-up, with
+   their spread (RSS and CPU share only where psutil imports). A line for
+   (a), (b) and the adapters, the variants beside lm_scan's tokens/s, device
+   ms and trace of this run.
+
+Phases 5 to 15, 18, 20, 21 and 22 run the bench's protocol through the functions of
 ``petastorm_tpu_torch/bench.py`` (``python -m petastorm_tpu_torch.bench``
 runs them as the bench's children); this script holds their launch counts.
 Each path's kernel launch counts are zeroed just before it and read just
@@ -1499,8 +1529,10 @@ def mesh_lm(workdir, device):
     first = []
     model = bench.lm_model(device, LM_LAYERS, MESH_SEQ, attention='a2a', mesh=mesh,
                            seq_axis='sp')
-    result, metrics, _ = bench.lm_scan(url, device, model, LM_BATCH, bench.SCAN_K, 2,
-                                       MESH_LM_CALLS, LM_LAYERS, mesh=mesh, first=first)
+    result, metrics, _ = bench.lm_scan(
+        bench.lm_token_reader(url, mesh), device, model, LM_BATCH, bench.SCAN_K, 2,
+        MESH_LM_CALLS, LM_LAYERS, mesh=mesh,
+        observe=lambda tokens, loader: first or first.append(tokens.clone()))
     del model
     torch.cuda.empty_cache()
     a2a = [float(v) for v in metrics[0]['losses']]
@@ -1700,6 +1732,25 @@ def run_filtered(url, device, card, state, imagenet_scan, worker_decode):
                                    ('imagenet_decode_worker_decode', worker_decode))},
         seconds=time.perf_counter() - t0)
     return result
+
+
+def run_lm_plain(store_dir, lm_url, device, card, lm_scan):
+    """Phase 22 (see the module docstring): the two plain stores written,
+    then ``bench.run_lm_plain`` beside ``lm_scan``'s line. Returns the
+    phase's lines, the stores' first."""
+    t0 = time.perf_counter()
+    workdir = os.path.join(store_dir, 'lm_plain')
+    url_a, _ = bench.write_lm_plain_store(os.path.join(workdir, 'a'))
+    url_b, tokens_b = bench.write_lm_plain_store(os.path.join(workdir, 'b'),
+                                                 rows=bench.LM_PLAIN_B_ROWS,
+                                                 seed=bench.LM_PLAIN_B_SEED)
+    stores = {'phase': 'store', 'path': 'lm_plain', 'rows': [LM_ROWS, bench.LM_PLAIN_B_ROWS],
+              'rows_per_group': bench.LM_PLAIN_ROWS_PER_GROUP,
+              'codec': 'plain list<int32> ({},), no _common_metadata'.format(LM_SEQ),
+              'seconds': time.perf_counter() - t0}
+    lines = bench.run_lm_plain(url_a, url_b, tokens_b, lm_url, device, card, workdir, lm_scan)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return [stores] + lines
 
 
 # --------------------------------------------------------------------------
@@ -2024,6 +2075,10 @@ def main():
         record(lm_result)
         scans = {'lm_scan': bench.run_lm_scan(lm_url, device, card)}
         record(scans['lm_scan'])
+        for line in run_lm_plain(store_dir, lm_url, device, card, scans['lm_scan']):
+            record(line)
+            if line.get('variant') in ('batch_reader', 'mixture'):
+                scans['lm_plain_' + line['variant']] = line
         record(bench.run_imagenet_vit(url, device, card))
         aug = bench.run_imagenet_aug(url, device, card, state, epochs=AUG_EPOCHS)
         record(aug)

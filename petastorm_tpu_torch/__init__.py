@@ -17,16 +17,18 @@ at the loader's staging step (``raw_image_fields``). Entry points take
 ``device=`` and default to ``'cuda'``.
 """
 
-from petastorm_tpu_torch.cache import LocalDiskCache, MemoryCache, NullCache  # noqa: F401
+from petastorm_tpu_torch.cache import (LocalDiskArrowTableCache, LocalDiskCache,  # noqa: F401
+                                       MemoryCache, NullCache)
 from petastorm_tpu_torch.chunk_store import DecodedChunkStore  # noqa: F401
 from petastorm_tpu_torch.codecs import (CompressedImageCodec, CompressedNdarrayCodec,  # noqa: F401
                                         NdarrayCodec, ScalarCodec)
 from petastorm_tpu_torch.decode_budget import DecodeThreadBudget, get_decode_budget  # noqa: F401
 from petastorm_tpu_torch.device import resolve_device  # noqa: F401
 from petastorm_tpu_torch.device_cache import DeviceCacheOverflow, DeviceDatasetCache  # noqa: F401
-from petastorm_tpu_torch.etl import DatasetWriter, get_schema, write_dataset  # noqa: F401
+from petastorm_tpu_torch.etl import (DatasetWriter, get_schema, materialize_dataset,  # noqa: F401
+                                     write_dataset)
 from petastorm_tpu_torch.loader import (CropTo, PadTo, ShapePolicy, TorchLoader,  # noqa: F401
                                         make_torch_loader, register_device_decode)
-from petastorm_tpu_torch.reader import (Reader, make_pod_reader, make_reader,  # noqa: F401
-                                        make_tensor_reader)
+from petastorm_tpu_torch.reader import (Reader, make_batch_reader,  # noqa: F401
+                                        make_pod_reader, make_reader, make_tensor_reader)
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField  # noqa: F401

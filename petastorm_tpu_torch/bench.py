@@ -67,6 +67,12 @@ HBM_EPOCHS = max(6, 2 * SCAN_K)
 # batches of its stream held in order against a single-threaded reader's.
 FILTERED_SPLIT = ((0.9, 0.1), 0)
 FILTERED_CHECK_BATCHES = 16
+# lm_plain: the plain token stores' row-groups, B's rows and seed, the mixture.
+LM_PLAIN_ROWS_PER_GROUP = 128
+LM_PLAIN_B_ROWS, LM_PLAIN_B_SEED = 1024, 12
+LM_PLAIN_MIX = (0.7, 0.3)
+# lm_plain's reader_throughput(A): an epoch of warm-up, 8 epochs measured, 5 runs a method.
+LM_PLAIN_THROUGHPUT_EPOCHS, LM_PLAIN_THROUGHPUT_RUNS = 8, 5
 # imagenet_vit (bench.py:2511-2515) and imagenet_aug (bench.py:2553-2557): HBM epochs.
 VIT_HBM_EPOCHS = 4
 AUG_EPOCHS = 4
@@ -1126,20 +1132,34 @@ def run_imagenet_aug(url, device, card, state, epochs=AUG_EPOCHS):
             'crop_y_offsets_two_replays': [v.tolist()[:4] for v in drawn]}
 
 
-def lm_scan(url, device, model, batch, k, warmup, calls, layers, mesh=None, first=None):
+def lm_token_reader(url, mesh=None):
+    """The ``lm`` child's token reader (``bench.py:160-306``):
+    ``make_pod_reader`` of ``tokens``, 2 threads, shuffled row-groups (seed
+    0), endless, ``cache_type='memory'``; this host's whole store, or on a
+    ``mesh`` its share."""
+    from petastorm_tpu_torch import make_pod_reader
+    return make_pod_reader(url, mesh=mesh, pod_shard=None if mesh else (0, 1),
+                           schema_fields=['tokens'], reader_pool_type='thread',
+                           workers_count=2, shuffle_row_groups=True, seed=0,
+                           num_epochs=None, cache_type='memory')
+
+
+def lm_scan(reader, device, model, batch, k, warmup, calls, layers, mesh=None, lineage=None,
+            observe=None):
     """An LM scan path (the ``lm`` child's protocol, ``bench.py:160-306``):
-    the token reader with ``cache_type='memory'``, ``TorchLoader(batch=
-    batch * k)``, ``make_lm_scan_train_step(k)`` (SGD lr 0.01, momentum
-    0.9); :func:`scan_window` over ``warmup`` + ``calls`` calls, each flash
-    kernel ``layers * k`` times a call on the Hopper route, then ``calls``
-    timed; the losses must be finite and fall. On a ``mesh`` the reader is
-    ``make_pod_reader``'s, the loader the mesh's (the tokens split over the
-    model's ``seq_axis``) and the state's parameters split by
-    ``transformer_param_spec``; ``first`` (a list) receives a copy of the
-    first superbatch. Returns the path's line (without phase and model
-    keys), the metrics of every call and the measured calls' profile."""
+    ``reader`` (of ``tokens``; this function stops it; the ``lm`` child's is
+    :func:`lm_token_reader`), ``TorchLoader(batch=batch * k)``,
+    ``make_lm_scan_train_step(k)`` (SGD lr 0.01, momentum 0.9);
+    :func:`scan_window` over ``warmup`` + ``calls`` calls, each flash kernel
+    ``layers * k`` times a call on the Hopper route, then ``calls`` timed;
+    the losses must be finite and fall. On a ``mesh`` the loader is the
+    mesh's (the tokens split over the model's ``seq_axis``) and the state's
+    parameters are split by ``transformer_param_spec``. ``lineage`` is the
+    loader's; ``observe(tokens, loader)`` sees each superbatch before its
+    call. Returns the path's line (without phase and model keys), the
+    metrics of every call and the measured calls' profile."""
     import torch
-    from petastorm_tpu_torch import TorchLoader, make_pod_reader
+    from petastorm_tpu_torch import TorchLoader
     from petastorm_tpu_torch.models import create_train_state, make_lm_scan_train_step
     from petastorm_tpu_torch.models.train import transformer_param_spec
     from petastorm_tpu_torch.parallel.mesh import sequence_sharding
@@ -1149,26 +1169,23 @@ def lm_scan(url, device, model, batch, k, warmup, calls, layers, mesh=None, firs
     train = make_lm_scan_train_step(k, mesh=mesh)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    reader = make_pod_reader(url, mesh=mesh, pod_shard=None if mesh else (0, 1),
-                             schema_fields=['tokens'], reader_pool_type='thread',
-                             workers_count=2, shuffle_row_groups=True, seed=0, num_epochs=None,
-                             cache_type='memory')
     sharding = None
     if mesh is not None and model.seq_axis is not None:
         sharding = {'tokens': sequence_sharding(mesh, seq_axis=model.seq_axis)}
     with reader:
         with TorchLoader(reader, batch * k, device=device, prefetch=2, mesh=mesh,
-                         sharding=sharding) as loader:
+                         sharding=sharding, lineage=lineage) as loader:
             def next_inputs():
                 tokens = next(loader).tokens
-                if first is not None and not first:
-                    first.append(tokens.clone())
+                if observe is not None:
+                    observe(tokens, loader)
                 return (tokens,)
 
             metrics, launches, captured, ran, measured, replays = scan_window(
                 train, state, next_inputs, warmup, calls, FLASH_KERNELS)
             wall, wait_s, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
-            stats, cache = loader.stats, reader.cache_stats()
+            stats = loader.stats
+            cache = reader.cache_stats() if hasattr(reader, 'cache_stats') else None
     seq = model.max_len
     require_scan_launches(launches, captured, ran, FLASH_WRAPPERS, layers * k, replays)
     losses = [float(v) for m in metrics + timed for v in m['losses']]
@@ -1176,7 +1193,8 @@ def lm_scan(url, device, model, batch, k, warmup, calls, layers, mesh=None, firs
         raise AssertionError('lm scan losses did not fall: {}'.format(losses))
     steps = calls * k
     result = {
-        'layers': layers, 'seq': seq, 'batch': batch, 'microbatches': k, 'cache_type': 'memory',
+        'layers': layers, 'seq': seq, 'batch': batch, 'microbatches': k,
+        'cache_type': cache['type'] if cache else None,
         'params': sum(p.numel() for p in model.parameters()),
         'warmup_calls': warmup, 'counted_calls': calls, 'timed_calls': calls, 'losses': losses,
         'tokens_per_s': steps * batch * seq / wall, 'step_ms': wall / steps * 1e3,
@@ -1196,7 +1214,7 @@ def run_lm_scan(url, device, card, seq=LM_SEQ, batch=LM_BATCH, k=SCAN_K, steps=4
     ``k`` steps of ``batch`` rows of ``seq - 1`` tokens. ``lm_long`` adds
     attention's share of the traced step, ``lm_moe`` the aux losses."""
     model = lm_model(device, layers, seq - 1, moe_experts)
-    result, metrics, measured = lm_scan(url, device, model, batch, k, warmup,
+    result, metrics, measured = lm_scan(lm_token_reader(url), device, model, batch, k, warmup,
                                         max(1, steps // k), layers)
     line = dict({'phase': 'lm_scan', 'card': card, 'model': 'TransformerLM'}, **result)
     if seq > LM_SEQ:
@@ -1208,6 +1226,219 @@ def run_lm_scan(url, device, card, seq=LM_SEQ, batch=LM_BATCH, k=SCAN_K, steps=4
         line.update(phase='lm_moe', experts=moe_experts, loss='ce + 1e-2 * aux',
                     capacity=model.blocks[0].moe.capacity(seq - 1), aux_losses=aux)
     return line
+
+
+# --------------------------------------------------------------------------
+# lm_plain: the lm cell trained from plain Parquet and from a mixture
+# --------------------------------------------------------------------------
+
+def write_lm_plain_store(path, rows=LM_ROWS, seq=LM_SEQ, seed=11):
+    """The token store as plain Parquet, as Spark, pandas or pyarrow users
+    write it: ``pyarrow.parquet.write_table`` of one ``list<int32>`` column
+    ``tokens``, ``LM_PLAIN_ROWS_PER_GROUP``-row groups, no
+    ``_common_metadata``. Seed 11 draws :func:`write_lm_store`'s values.
+    Returns (the URL, the ``[rows, seq]`` tokens written)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    tokens = np.stack([rng.integers(0, LM_VOCAB, seq, dtype=np.int32) for _ in range(rows)])
+    offsets = pa.array(np.arange(0, rows * seq + 1, seq, dtype=np.int32))
+    column = pa.ListArray.from_arrays(offsets, pa.array(tokens.ravel()))
+    os.makedirs(path, exist_ok=True)
+    pq.write_table(pa.table({'tokens': column}), os.path.join(path, 'part-00000.parquet'),
+                   row_group_size=LM_PLAIN_ROWS_PER_GROUP)
+    return 'file://' + path, tokens
+
+
+def lm_plain_reader_kwargs(cache_dir):
+    """The lm_plain cell's batch reader arguments: the token field, the
+    local-disk Arrow cache under ``cache_dir``, deterministic order (seed
+    0), endless, 2 threads."""
+    return {'schema_fields': ['tokens'], 'cache_type': 'local-disk',
+            'cache_location': cache_dir, 'deterministic': True, 'seed': 0,
+            'num_epochs': None, 'workers_count': 2}
+
+
+def _rows_of(reader, n):
+    """The first ``n`` rows of a batch reader's ``tokens``."""
+    out, have = [], 0
+    while have < n:
+        block = np.asarray(next(reader).tokens)
+        out.append(block)
+        have += len(block)
+    return np.concatenate(out)[:n]
+
+
+def run_lm_plain(url_a, url_b, tokens_b, lm_url, device, card, workdir, lm_scan_line,
+                 warmup=2, calls=6):
+    """The lm cell's TransformerLM trained, with lm_scan's protocol
+    (:func:`lm_scan`), from (a) ``make_batch_reader`` over the plain store
+    A (:func:`lm_plain_reader_kwargs`) and (b) ``WeightedSamplingReader([A,
+    B], LM_PLAIN_MIX, seed=0)`` of two such readers; then the adapters on
+    the card: ``make_converter`` of B's table (``tokens_b``, its rows), a
+    reference petastorm copy of the lm store (``lm_url``), and
+    ``reader_throughput(A)``. ``lm_scan_line`` is lm_scan's line of the same
+    run, set beside. Fails unless every check of phase 22 of
+    ``chip_smoke.py`` passes. Returns the phase's three lines: (a), (b)
+    and the adapters'."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+    from petastorm_tpu_torch import TorchLoader, make_batch_reader, make_tensor_reader
+    from petastorm_tpu_torch.benchmark import reader_throughput
+    from petastorm_tpu_torch.converter import make_converter
+    from petastorm_tpu_torch.etl.legacy import LEGACY_UNISCHEMA_KEY, export_legacy_metadata
+    from petastorm_tpu_torch.fs import local_path
+    from petastorm_tpu_torch.lineage import _digest_array
+    from petastorm_tpu_torch.storage import UNISCHEMA_KEY, ParquetStore
+    from petastorm_tpu_torch.tools.copy_dataset import copy_dataset
+    from petastorm_tpu_torch.weighted_sampling_reader import WeightedSamplingReader
+
+    cache_dir = os.path.join(workdir, 'arrow_cache')
+    kwargs = lm_plain_reader_kwargs(cache_dir)
+    beside = {'lm_scan': {key: lm_scan_line[key] for key in (
+        'tokens_per_s', 'device_step_ms', 'input_stall_frac', 'peak_mem_GB')}}
+    beside['lm_scan']['trace'] = {key: lm_scan_line['trace'][key] for key in (
+        'device_busy_ms_per_step', 'device_idle_share')}
+
+    def line(variant, result, t0):
+        return dict({'phase': 'lm_plain', 'variant': variant, 'card': card,
+                     'model': 'TransformerLM', 'beside': beside,
+                     'tokens_per_s_vs_lm_scan': result['tokens_per_s']
+                     / lm_scan_line['tokens_per_s'],
+                     'seconds': time.perf_counter() - t0}, **result)
+
+    # Epoch 1, in storage order, fills the Arrow cache: a miss a row-group.
+    t0 = time.perf_counter()
+    groups = LM_ROWS // LM_PLAIN_ROWS_PER_GROUP
+    with make_batch_reader(url_a, shuffle_row_groups=False, **dict(kwargs, num_epochs=1)) as r:
+        with TorchLoader(r, LM_BATCH * SCAN_K, device=device, last_batch='partial') as loader:
+            epoch = torch.cat([b.tokens for b in loader]).cpu().numpy()
+        fill = r.cache_stats()
+    column = pq.read_table(local_path(url_a)[1]).column('tokens').to_pylist()
+    if not np.array_equal(epoch, np.array(column, dtype=np.int32)):
+        raise AssertionError('lm_plain (a): an in-order epoch differs from pyarrow\'s column')
+    if fill['misses'] != groups or fill['hits']:
+        raise AssertionError('lm_plain (a): epoch 1 counted {} misses and {} hits; expected {} '
+                             'misses'.format(fill['misses'], fill['hits'], groups))
+
+    # (a) the batch reader, served by the Arrow cache.
+    kept = []
+    reader = make_batch_reader(url_a, **kwargs)
+    result, _, _ = lm_scan(reader, device, lm_model(device, LM_LAYERS, LM_SEQ - 1), LM_BATCH,
+                           SCAN_K, warmup, calls, LM_LAYERS,
+                           observe=lambda tokens, loader: kept.append(tokens.clone()))
+    streamed = torch.cat(kept).cpu().numpy()
+    with make_batch_reader(url_a, reader_pool_type='dummy', **kwargs) as single:
+        if not np.array_equal(streamed, _rows_of(single, len(streamed))):
+            raise AssertionError('lm_plain (a): the training stream\'s {} batches differ from '
+                                 'the dummy-pool reader\'s'.format(len(kept)))
+    cache, chunks = result['cache'], len(streamed) // LM_PLAIN_ROWS_PER_GROUP
+    if cache['misses'] or cache['hits'] < chunks:
+        raise AssertionError('lm_plain (a): the Arrow cache counted {} misses and {} hits over '
+                             '{} delivered chunks; expected hits only'.format(
+                                 cache['misses'], cache['hits'], chunks))
+    result['epoch_1_cache'] = fill
+    result['checks'] = {'k2_k4_per_replay': LM_LAYERS * SCAN_K,
+                        'stream_equals_dummy_pool_batches': len(kept),
+                        'epoch_equals_pyarrow_rows': len(epoch),
+                        'cache_misses_epoch_1': groups, 'cache_hits_after': cache['hits'],
+                        'losses_finite_and_fall': True}
+    result['store'] = {'rows': LM_ROWS, 'rows_per_group': LM_PLAIN_ROWS_PER_GROUP,
+                       'column': 'list<int32>', 'common_metadata': False}
+    lines = [line('batch_reader', result, t0)]
+
+    # (b) the mixture of A and B.
+    t0 = time.perf_counter()
+    sources = []
+
+    def observe(tokens, loader):
+        for segment in loader.last_provenance['segments']:
+            if segment['row_start'] == 0:           # a chunk's first rows
+                sources.append(segment['source'])
+
+    mixture = WeightedSamplingReader([make_batch_reader(url_a, **kwargs),
+                                      make_batch_reader(url_b, **kwargs)],
+                                     list(LM_PLAIN_MIX), seed=0)
+    result, _, _ = lm_scan(mixture, device, lm_model(device, LM_LAYERS, LM_SEQ - 1), LM_BATCH,
+                           SCAN_K, warmup, calls, LM_LAYERS,
+                           lineage=os.path.join(workdir, 'ledger'), observe=observe)
+    reckoned = np.searchsorted(np.cumsum(LM_PLAIN_MIX),
+                               np.random.default_rng(0).random(len(sources)), side='right')
+    if list(reckoned) != sources or set(sources) != {0, 1}:
+        raise AssertionError('lm_plain (b): chunk sources {} against the reckoning {}'.format(
+            sources, list(reckoned)))
+    result['source_chunks'] = [sources.count(0), sources.count(1)]
+    result['sources_in_order'] = sources
+    result['mixture'] = {'probabilities': list(LM_PLAIN_MIX), 'seed': 0,
+                         'b_rows': len(tokens_b)}
+    result['checks'] = {'k2_k4_per_replay': LM_LAYERS * SCAN_K,
+                        'chunk_sources_equal_reckoning': len(sources),
+                        'both_sources_drawn': True, 'losses_finite_and_fall': True}
+    lines.append(line('mixture', result, t0))
+
+    # The adapters: the converter, a reference store, the throughput harness.
+    t0 = time.perf_counter()
+    conv_dir = os.path.join(workdir, 'converter')
+    table_b = pa.table({'tokens': pa.array(list(tokens_b), pa.list_(pa.int32()))})
+    converter = make_converter(table_b, parent_cache_dir_url=conv_dir)
+    with converter.make_torch_loader(batch_size=LM_BATCH * SCAN_K, device=device,
+                                     shuffle_row_groups=False, num_epochs=1) as loader:
+        first = [next(loader) for _ in range(2)]
+    got = torch.cat([b.tokens for b in first]).cpu().numpy()
+    if (first[0].tokens.device.type != torch.device(device).type
+            or not np.array_equal(got, tokens_b[:len(got)])):
+        raise AssertionError('lm_plain: the converter\'s first batches differ from B\'s rows')
+    entries = sorted(os.listdir(conv_dir))
+    if make_converter(table_b, parent_cache_dir_url=conv_dir) is not converter or \
+            sorted(os.listdir(conv_dir)) != entries:
+        raise AssertionError('lm_plain: a second make_converter of the same table wrote again')
+    converter.delete()
+    if os.path.exists(local_path(converter.dataset_url)[1]):
+        raise AssertionError('lm_plain: delete() left the converter\'s store')
+    legacy_url = 'file://' + os.path.join(workdir, 'legacy')
+    copied = copy_dataset(lm_url, legacy_url, rows_per_row_group=ROWS_PER_GROUP)
+    export_legacy_metadata(legacy_url)
+    store = ParquetStore(legacy_url)
+    metadata = {k: v for k, v in store.read_common_metadata().items() if k != UNISCHEMA_KEY}
+    pq.write_metadata(store.read_arrow_schema().with_metadata(metadata),
+                      os.path.join(store.path, '_common_metadata'))
+    if LEGACY_UNISCHEMA_KEY not in metadata:
+        raise AssertionError('lm_plain: the copy carries no reference schema')
+    digests = []
+    for url in (lm_url, legacy_url):
+        with make_tensor_reader(url, shuffle_row_groups=False, reader_pool_type='dummy') as r:
+            with TorchLoader(r, LM_BATCH * SCAN_K, device=device) as loader:
+                digests.append(_digest_array(next(loader).tokens.cpu().numpy()))
+    if digests[0] != digests[1]:
+        raise AssertionError('lm_plain: the reference copy\'s first batch differs from the '
+                             'lm store\'s')
+    rates = {}
+    for method in ('python', 'torch'):
+        runs = [reader_throughput(url_a, field_regex=['tokens'], read_method=method,
+                                  warmup_cycles_count=LM_ROWS,
+                                  measure_cycles_count=LM_PLAIN_THROUGHPUT_EPOCHS * LM_ROWS,
+                                  shuffling_queue_size=0, min_after_dequeue=0,
+                                  torch_batch_size=LM_BATCH * SCAN_K, device=device)
+                for _ in range(LM_PLAIN_THROUGHPUT_RUNS)]
+        per_s = [r.samples_per_second for r in runs]
+        median = float(np.median(per_s))
+        rates[method] = {'warmup_rows': LM_ROWS,
+                         'measured_rows': LM_PLAIN_THROUGHPUT_EPOCHS * LM_ROWS,
+                         'samples_per_second': per_s, 'median': median,
+                         'spread_frac': (max(per_s) - min(per_s)) / median,
+                         'memory_rss_mb': runs[-1].memory_rss_mb,
+                         'cpu_percent': [r.cpu_percent for r in runs]}
+    lines.append({'phase': 'lm_plain', 'variant': 'adapters', 'card': card,
+                  'converter': {'rows': len(tokens_b), 'first_batches_equal_b': len(first),
+                                'second_call_same_converter': True, 'deleted': True},
+                  'reference_store': {'rows_copied': copied, 'first_batch_digest_equal': True,
+                                      'digest': digests[0]},
+                  'reader_throughput_a': rates,
+                  'psutil': rates['python']['memory_rss_mb'] is not None,
+                  'seconds': time.perf_counter() - t0})
+    return lines
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,91 @@
+"""Reader throughput: samples a second of a reader configuration
+(counterpart of ``petastorm_tpu/benchmark/throughput.py``).
+
+``read_method``: ``'python'`` iterates the reader itself (rows of
+``make_reader``, or the rows of a plain store's ``make_batch_reader``
+chunks), ``'torch'`` the batches of a :class:`~petastorm_tpu_torch.loader.
+TorchLoader` over that reader, on the card unless ``device='cpu'`` (the JAX
+package's ``'jax'``).
+A store without a stored schema is read by ``make_batch_reader``, where the
+JAX harness's readers refuse it. ``warmup_cycles_count`` samples are
+consumed first, then ``measure_cycles_count`` are timed. The process's RSS
+and CPU share come from psutil, and are None where it is not installed.
+"""
+
+import time
+from collections import namedtuple
+
+from petastorm_tpu_torch.errors import PetastormMetadataError
+
+BenchmarkResult = namedtuple('BenchmarkResult',
+                             ['time_mean', 'samples_per_second', 'memory_rss_mb', 'cpu_percent'])
+
+READ_METHODS = ('python', 'torch')
+
+
+def _reader_factory(dataset_url):
+    from petastorm_tpu_torch.etl.dataset_metadata import get_schema
+    from petastorm_tpu_torch.reader import make_batch_reader, make_reader
+    from petastorm_tpu_torch.storage import ParquetStore
+    try:
+        get_schema(ParquetStore(dataset_url))
+    except PetastormMetadataError:
+        return make_batch_reader
+    return make_reader
+
+
+def reader_throughput(dataset_url, field_regex=None, warmup_cycles_count=200,
+                      measure_cycles_count=1000, pool_type='thread', loaders_count=3,
+                      read_method='python', shuffling_queue_size=500, min_after_dequeue=400,
+                      reader_extra_args=None, torch_batch_size=32, shape_policies=None,
+                      device='cuda'):
+    """Measure a reader configuration; returns a :class:`BenchmarkResult`.
+    ``shuffling_queue_size``/``min_after_dequeue`` are the loader's
+    shuffling buffer (``'torch'``)."""
+    if read_method not in READ_METHODS:
+        raise ValueError('read_method must be one of {}'.format(READ_METHODS))
+    extra = dict(reader_extra_args or {})
+    extra.setdefault('num_epochs', None)
+    factory = _reader_factory(dataset_url)
+    reader = factory(dataset_url, schema_fields=field_regex, reader_pool_type=pool_type,
+                     workers_count=loaders_count, **extra)
+    try:
+        import psutil
+        process = psutil.Process()
+    except ImportError:
+        process = None
+    loader = None
+    try:
+        if read_method == 'torch':
+            from petastorm_tpu_torch.loader import TorchLoader
+            loader = TorchLoader(reader, torch_batch_size, device=device,
+                                 shuffling_queue_capacity=shuffling_queue_size,
+                                 min_after_dequeue=min_after_dequeue,
+                                 shape_policies=shape_policies)
+            iterator, unit = iter(loader), torch_batch_size
+        else:
+            # A chunk of a batched reader counts its rows.
+            iterator, unit = iter(reader), (None if reader.batched_output else 1)
+
+        def consume(target):
+            done = 0
+            while done < target:
+                sample = next(iterator)
+                done += len(sample[0]) if unit is None else unit
+            return done
+
+        consume(max(1, warmup_cycles_count))
+        if process is not None:
+            process.cpu_percent()       # opens the CPU window
+        start = time.perf_counter()
+        samples = consume(max(1, measure_cycles_count))
+        elapsed = time.perf_counter() - start
+        cpu = process.cpu_percent() if process is not None else None
+        rss_mb = process.memory_info().rss / (1024 * 1024) if process is not None else None
+        return BenchmarkResult(time_mean=elapsed / samples, samples_per_second=samples / elapsed,
+                               memory_rss_mb=rss_mb, cpu_percent=cpu)
+    finally:
+        if loader is not None:
+            loader.close()
+        reader.stop()
+        reader.join()

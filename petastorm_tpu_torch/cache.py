@@ -2,9 +2,10 @@
 
 ``MemoryCache`` keeps decoded chunks in RAM and ``LocalDiskCache`` keeps
 them in files on local disk, so an epoch after the first skips the Parquet
-read and the decode. The mmapped decoded-chunk store is
-:mod:`petastorm_tpu_torch.chunk_store`. ``LocalDiskArrowTableCache`` waits
-for ``make_batch_reader`` (ROADMAP §A9).
+read and the decode. ``LocalDiskArrowTableCache`` (``petastorm_tpu/cache.py:
+277-292``) keeps ``make_batch_reader``'s Arrow tables on local disk in the
+Arrow IPC stream format. The mmapped decoded-chunk store is
+:mod:`petastorm_tpu_torch.chunk_store`.
 """
 
 import hashlib
@@ -14,6 +15,8 @@ import shutil
 import tempfile
 import threading
 from collections import OrderedDict
+
+import pyarrow as pa
 
 from petastorm_tpu_torch.errors import CorruptChunkError
 from petastorm_tpu_torch.membudget import approx_nbytes
@@ -240,3 +243,21 @@ class LocalDiskCache(CacheBase):
     def cleanup(self):
         if self._cleanup:
             shutil.rmtree(self._path, ignore_errors=True)
+
+
+class LocalDiskArrowTableCache(LocalDiskCache):
+    """:class:`LocalDiskCache` of ``pyarrow.Table`` values, stored in the
+    Arrow IPC stream format (no pickle), as the JAX package stores them: a
+    directory either package filled serves the other."""
+
+    @staticmethod
+    def _serialize(table):
+        sink = pa.BufferOutputStream()
+        with pa.ipc.new_stream(sink, table.schema) as writer:
+            writer.write_table(table)
+        return sink.getvalue().to_pybytes()
+
+    @staticmethod
+    def _deserialize(blob):
+        with pa.ipc.open_stream(pa.BufferReader(blob)) as reader:
+            return reader.read_all()

@@ -224,6 +224,14 @@ class CompressedImageCodec(DataframeColumnCodec):
         self._format = 'jpeg' if image_codec in ('jpeg', 'jpg') else 'png'
         self._quality = int(quality)
 
+    @property
+    def image_codec(self):
+        return self._format
+
+    @property
+    def quality(self):
+        return self._quality
+
     def encode(self, field, value):
         value = np.asarray(value)
         check_shape_compliance(field, value)

@@ -1,6 +1,9 @@
-"""Dataset writing, stored-schema access and row-group indexing."""
+"""Dataset writing, stored-schema access and inference, row-group indexing."""
 
-from petastorm_tpu_torch.etl.dataset_metadata import get_schema  # noqa: F401
+from petastorm_tpu_torch.etl.dataset_metadata import (get_schema,  # noqa: F401
+                                                      get_schema_from_dataset_url,
+                                                      infer_or_load_unischema,
+                                                      materialize_dataset)
 from petastorm_tpu_torch.etl.writer import DatasetWriter, write_dataset  # noqa: F401
 
 

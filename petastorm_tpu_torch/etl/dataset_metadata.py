@@ -1,25 +1,82 @@
-"""Stored-schema access (counterpart of ``petastorm_tpu/etl/dataset_metadata.py:31-53``).
+"""Stored-schema access and schema inference (counterpart of
+``petastorm_tpu/etl/dataset_metadata.py:31-119``).
 
 The schema lives as JSON under ``petastorm_tpu.unischema.v1`` in the
-store's ``_common_metadata``, the key the JAX package writes and reads.
+store's ``_common_metadata``, the key the JAX package writes and reads. A
+store written by the reference petastorm holds a pickled schema under
+``dataset-toolkit.unischema.v1`` instead, which :func:`get_schema` reads
+through :mod:`~petastorm_tpu_torch.etl.legacy`. A plain Parquet store has
+neither; :func:`infer_or_load_unischema` infers its schema from the Arrow
+schema (the ``make_batch_reader`` path).
 """
 
 import json
+import logging
 import os
+from contextlib import contextmanager
 
 from petastorm_tpu_torch.errors import PetastormMetadataError
-from petastorm_tpu_torch.storage import UNISCHEMA_KEY
+from petastorm_tpu_torch.storage import UNISCHEMA_KEY, ParquetStore
 from petastorm_tpu_torch.unischema import Unischema
+
+logger = logging.getLogger(__name__)
 
 
 def get_schema(store):
-    """The Unischema stored in ``_common_metadata``; raises if absent."""
+    """The Unischema stored in ``_common_metadata`` (the port's JSON, else
+    the reference's pickle); raises ``PetastormMetadataError`` if neither."""
     blob = store.common_metadata_value(UNISCHEMA_KEY)
     if blob is None:
+        from petastorm_tpu_torch.etl.legacy import LEGACY_UNISCHEMA_KEY, load_legacy_unischema
+        legacy_blob = store.common_metadata_value(LEGACY_UNISCHEMA_KEY)
+        if legacy_blob is not None:
+            return load_legacy_unischema(legacy_blob)
         if not os.path.exists(store.path):
             raise IOError('Dataset path does not exist: {}'.format(store.url))
         raise PetastormMetadataError(
-            'Dataset at {} has no petastorm_tpu schema metadata; write it with '
-            'DatasetWriter/write_dataset'.format(store.url))
+            'Dataset at {} has no petastorm_tpu schema metadata. Either materialize it with '
+            'DatasetWriter/materialize_dataset, regenerate its metadata with python -m '
+            'petastorm_tpu_torch.etl.metadata_cli, or read it with make_batch_reader (schema '
+            'inference).'.format(store.url))
     return Unischema.from_json(json.loads(blob.decode('utf-8')))
 
+
+def get_schema_from_dataset_url(dataset_url):
+    """:func:`get_schema` of the store at ``dataset_url``."""
+    return get_schema(ParquetStore(dataset_url))
+
+
+def infer_or_load_unischema(store, omit_unsupported_fields=True):
+    """The stored schema if there is one, else one inferred from the Arrow
+    schema, hive partition columns included."""
+    try:
+        return get_schema(store)
+    except PetastormMetadataError:
+        logger.debug('Dataset %s has no stored unischema; inferring from Arrow schema',
+                     store.url)
+        return Unischema.from_arrow_schema(store.read_arrow_schema(),
+                                           partition_columns=store.partition_names,
+                                           omit_unsupported_fields=omit_unsupported_fields)
+
+
+@contextmanager
+def materialize_dataset(dataset_url, schema, row_group_size_mb=None, rows_per_row_group=None,
+                        partition_fields=()):
+    """Yields a :class:`~petastorm_tpu_torch.etl.writer.DatasetWriter` of
+    ``schema`` at ``dataset_url`` (the JAX package's URL flavour)::
+
+        with materialize_dataset('file:///tmp/ds', schema, rows_per_row_group=64) as w:
+            w.write({'id': 0, 'image': ...})
+
+    The metadata is written only when the body ends without an exception:
+    a store left half-written is not blessed as complete.
+    """
+    from petastorm_tpu_torch.etl.writer import DatasetWriter
+
+    if schema is None:
+        raise ValueError('materialize_dataset(url, schema) requires a schema')
+    writer = DatasetWriter(dataset_url, schema, row_group_size_mb=row_group_size_mb,
+                           rows_per_row_group=rows_per_row_group,
+                           partition_fields=partition_fields)
+    yield writer
+    writer.close()

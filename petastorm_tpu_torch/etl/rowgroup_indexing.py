@@ -3,7 +3,8 @@
 
 The indexes are JSON under ``petastorm_tpu.rowgroups_index.v1``, the JAX
 package's key, so a store indexed by either package is selected by the
-other's :mod:`~petastorm_tpu_torch.selectors`. Row-groups are read on a
+other's :mod:`~petastorm_tpu_torch.selectors`; the reference petastorm's
+pickled indexes are read too. Row-groups are read on a
 thread pool (no Spark) and indexed in order.
 """
 
@@ -61,11 +62,18 @@ def build_rowgroup_index(dataset_url, indexers, max_workers=10):
 
 
 def get_row_group_indexes(dataset_url_or_store):
-    """The stored payload ``{index_name: {'type', 'field', 'values'}}``."""
+    """The stored payload ``{index_name: {'type', 'field', 'values'}}``; a
+    store of the reference petastorm's pickled indexes is read through
+    :mod:`~petastorm_tpu_torch.etl.legacy`."""
     store = (dataset_url_or_store if isinstance(dataset_url_or_store, ParquetStore)
              else ParquetStore(dataset_url_or_store))
     blob = store.common_metadata_value(ROWGROUP_INDEX_KEY)
     if blob is None:
+        from petastorm_tpu_torch.etl.legacy import (LEGACY_ROWGROUP_INDEX_KEY,
+                                                    load_legacy_row_group_indexes)
+        legacy_blob = store.common_metadata_value(LEGACY_ROWGROUP_INDEX_KEY)
+        if legacy_blob is not None:
+            return load_legacy_row_group_indexes(legacy_blob)
         raise ValueError('Dataset {} has no row-group index; run build_rowgroup_index '
                          'first'.format(store.url))
     return json.loads(blob.decode('utf-8'))

@@ -1,12 +1,13 @@
 """Pyarrow dataset writer: encode rows via codecs into Parquet row-groups.
 
-Counterpart of ``petastorm_tpu/etl/writer.py:30-202``, trimmed to
-unpartitioned local stores with an explicit ``rows_per_row_group``. On close
-it writes the ``_metadata`` summary footer and the ``_common_metadata``
-schema JSON and row-group index, in the JAX package's layout.
+Counterpart of ``petastorm_tpu/etl/writer.py:30-202`` for local stores,
+hive partitions included. On close it writes the ``_metadata`` summary
+footer and the ``_common_metadata`` schema JSON and row-group counts, in
+the JAX package's layout (:func:`finalize_dataset_metadata`).
 """
 
 import json
+import logging
 import os
 import tempfile
 
@@ -16,60 +17,95 @@ import pyarrow.parquet as pq
 from petastorm_tpu_torch.storage import NUM_ROW_GROUPS_KEY, UNISCHEMA_KEY, ParquetStore
 from petastorm_tpu_torch.unischema import encode_row
 
+logger = logging.getLogger(__name__)
+
+#: Rows a row-group when neither ``rows_per_row_group`` nor
+#: ``row_group_size_mb`` is given.
+DEFAULT_ROWS_PER_ROW_GROUP = 256
+
 
 class DatasetWriter(object):
-    """Writes encoded rows into one Parquet file of a local store::
+    """Writes encoded rows into a (hive-partitioned) local store::
 
         with DatasetWriter('file:///tmp/ds', schema, rows_per_row_group=100) as w:
             for row in rows:
                 w.write(row)   # row: dict of user-facing values
+
+    ``row_group_size_mb`` sizes row-groups from the first 8 buffered rows'
+    encoded bytes, as the JAX writer does; ``partition_fields`` (scalar
+    fields) become ``name=value`` directories, one file each.
     """
 
-    def __init__(self, dataset_url, schema, rows_per_row_group=256):
-        if rows_per_row_group < 1:
+    def __init__(self, dataset_url, schema, rows_per_row_group=None, row_group_size_mb=None,
+                 partition_fields=()):
+        if rows_per_row_group is not None and rows_per_row_group < 1:
             raise ValueError('rows_per_row_group must be >= 1, got {}'.format(rows_per_row_group))
+        if rows_per_row_group is None and row_group_size_mb is None:
+            rows_per_row_group = DEFAULT_ROWS_PER_ROW_GROUP
         self._store = ParquetStore(dataset_url)
         self._schema = schema
-        self._rows_per_row_group = int(rows_per_row_group)
-        self._arrow_schema = schema.arrow_schema()
-        self._buffer = []
-        os.makedirs(self._store.path, exist_ok=True)
-        self._file_path = os.path.join(self._store.path, 'part-00000-00000.parquet')
-        self._writer = pq.ParquetWriter(self._file_path, self._arrow_schema, compression='snappy')
+        self._partition_fields = tuple(partition_fields)
+        for name in self._partition_fields:
+            if name not in schema.fields:
+                raise ValueError('Partition field {!r} not in schema'.format(name))
+            if not schema.fields[name].is_scalar:
+                raise ValueError('Partition field {!r} must be scalar'.format(name))
+        self._rows_per_row_group = rows_per_row_group
+        self._row_group_size_mb = row_group_size_mb
+        self._arrow_schema = schema.arrow_schema(self._partition_fields)
+        self._buffers = {}      # partition values -> encoded rows
+        self._writers = {}      # partition values -> (pq.ParquetWriter, file path)
         self._closed = False
+        os.makedirs(self._store.path, exist_ok=True)
 
     def write(self, row_dict):
-        self._buffer.append(encode_row(self._schema, row_dict))
-        if len(self._buffer) >= self._rows_per_row_group:
-            self._flush()
+        encoded = encode_row(self._schema, row_dict)
+        key = tuple(encoded.pop(name) for name in self._partition_fields)
+        buf = self._buffers.setdefault(key, [])
+        buf.append(encoded)
+        if len(buf) >= self._rows_per_group(buf):
+            self._flush(key)
 
-    def _flush(self):
-        if not self._buffer:
+    def _rows_per_group(self, sample_rows):
+        if self._rows_per_row_group is None:
+            if len(sample_rows) < 8:
+                return 8        # a sample to estimate the row size from
+            total = sum(len(v) if isinstance(v, (bytes, bytearray, str)) else 8
+                        for row in sample_rows for v in row.values())
+            avg = max(1, total // len(sample_rows))
+            self._rows_per_row_group = max(1, self._row_group_size_mb * 1024 * 1024 // avg)
+        return self._rows_per_row_group
+
+    def _flush(self, key):
+        rows = self._buffers.get(key)
+        if not rows:
             return
-        rows, self._buffer = self._buffer, []
+        self._buffers[key] = []
         columns = {f.name: pa.array([r[f.name] for r in rows], type=f.type)
                    for f in self._arrow_schema}
-        self._writer.write_table(pa.Table.from_pydict(columns, schema=self._arrow_schema))
+        writer = self._writers.get(key)
+        if writer is None:
+            directory = os.path.join(self._store.path, *('{}={}'.format(name, value) for name, value
+                                                         in zip(self._partition_fields, key)))
+            os.makedirs(directory, exist_ok=True)
+            path = os.path.join(directory, 'part-00000-{:05d}.parquet'.format(len(self._writers)))
+            writer = (pq.ParquetWriter(path, self._arrow_schema, compression='snappy'), path)
+            self._writers[key] = writer
+        writer[0].write_table(pa.Table.from_pydict(columns, schema=self._arrow_schema))
 
     def close(self):
         if self._closed:
             return
         self._closed = True
-        self._flush()
-        self._writer.close()
-        md = pq.read_metadata(self._file_path)
-        md.set_file_path(os.path.relpath(self._file_path, self._store.path))
-        # pq.write_metadata re-reads its sink when given a collector: write
-        # to a temp file, then move it into the store.
-        with tempfile.NamedTemporaryFile(prefix='_', suffix='.parquet', dir=self._store.path,
-                                         delete=False) as tmp:
-            tmp_name = tmp.name
-        pq.write_metadata(self._arrow_schema, tmp_name, metadata_collector=[md])
-        os.replace(tmp_name, os.path.join(self._store.path, '_metadata'))
-        self._store.write_common_metadata(self._arrow_schema, {
-            UNISCHEMA_KEY: json.dumps(self._schema.to_json()),
-            NUM_ROW_GROUPS_KEY: json.dumps(self._store.num_row_groups_per_file()),
-        })
+        for key in list(self._buffers):
+            self._flush(key)
+        collector = []
+        for pq_writer, path in self._writers.values():
+            pq_writer.close()
+            md = pq.read_metadata(path)
+            md.set_file_path(os.path.relpath(path, self._store.path))
+            collector.append(md)
+        finalize_dataset_metadata(self._store, self._schema, collector, self._partition_fields)
 
     def __enter__(self):
         return self
@@ -78,12 +114,35 @@ class DatasetWriter(object):
         if exc_type is None:
             self.close()
         else:
-            self._writer.close()
+            for pq_writer, _ in self._writers.values():
+                pq_writer.close()
         return False
 
 
-def write_dataset(dataset_url, schema, rows, rows_per_row_group=256):
+def finalize_dataset_metadata(store, schema, metadata_collector=None, partition_fields=()):
+    """Write the ``_metadata`` summary (when given the files' footers) and
+    ``_common_metadata``: the schema JSON and the row-group counts
+    (``petastorm_tpu/etl/writer.py:170-190``)."""
+    arrow_schema = schema.arrow_schema(partition_fields)
+    if metadata_collector:
+        # pq.write_metadata re-reads its sink when given a collector: write
+        # to a temp file, then move it into the store.
+        with tempfile.NamedTemporaryFile(prefix='_', suffix='.parquet', dir=store.path,
+                                         delete=False) as tmp:
+            tmp_name = tmp.name
+        pq.write_metadata(arrow_schema, tmp_name, metadata_collector=list(metadata_collector))
+        os.replace(tmp_name, os.path.join(store.path, '_metadata'))
+    store.write_common_metadata(arrow_schema, {
+        UNISCHEMA_KEY: json.dumps(schema.to_json()),
+        NUM_ROW_GROUPS_KEY: json.dumps(store.num_row_groups_per_file()),
+    })
+
+
+def write_dataset(dataset_url, schema, rows, rows_per_row_group=None, row_group_size_mb=None,
+                  partition_fields=()):
     """One-shot convenience: write an iterable of row dicts as a dataset."""
-    with DatasetWriter(dataset_url, schema, rows_per_row_group=rows_per_row_group) as writer:
+    with DatasetWriter(dataset_url, schema, rows_per_row_group=rows_per_row_group,
+                       row_group_size_mb=row_group_size_mb,
+                       partition_fields=partition_fields) as writer:
         for row in rows:
             writer.write(row)

@@ -515,17 +515,34 @@ def _check_replayable(ctx, record):
     if ctx.get('shape_policies'):
         raise ReplayError('record was produced under shape policies {}; replay cannot '
                           'reconstruct them'.format(ctx['shape_policies']))
-    if ctx.get('mode') not in ('tensor', 'py_dict'):
+    if ctx.get('mode') not in ('tensor', 'py_dict', 'arrow', 'mixture'):
         raise ReplayError('unsupported reader mode {!r}'.format(ctx.get('mode')))
 
 
+def _segment_ctx(ctx, segment):
+    """The reader context a segment was read under: a mixture's is its
+    source's, by the segment's ``source`` index
+    (``petastorm_tpu/lineage.py:737-750``)."""
+    if ctx.get('mode') != 'mixture':
+        return ctx
+    sources = ctx.get('sources') or []
+    idx = segment.get('source')
+    if idx is None or not 0 <= idx < len(sources):
+        raise ReplayError('mixture segment carries no valid source index')
+    if sources[idx].get('transform') is not None:
+        raise ReplayError('mixture source {} was read under a TransformSpec; replay cannot '
+                          're-run user transform code'.format(idx))
+    return sources[idx]
+
+
 def _replay_segment(stored_schema, ctx, segment, fields, pieces):
-    """One segment's rows as column blocks, decoded and sanitized as the
-    loader delivered them: the row-group read (partition columns
-    appended), the drop-partition slice, then the in-chunk permutation
-    (``petastorm_tpu/lineage.py:785-830``)."""
+    """One segment's rows as column blocks, decoded (a batch reader's
+    converted from Arrow) and sanitized as the loader delivered them: the
+    row-group read (partition columns appended), the drop-partition slice,
+    then the in-chunk permutation (``petastorm_tpu/lineage.py:785-830``)."""
     import pyarrow.parquet as pq
 
+    from petastorm_tpu_torch.arrow_worker import arrow_table_to_columns, restack_list_columns
     from petastorm_tpu_torch.loader import _sanitize_array
     from petastorm_tpu_torch.py_dict_worker import decode_table_to_rows
     from petastorm_tpu_torch.tensor_worker import decode_table_to_blocks
@@ -545,6 +562,8 @@ def _replay_segment(stored_schema, ctx, segment, fields, pieces):
                                        piece, list(view.fields))
     if ctx.get('mode') == 'tensor':
         cols = decode_table_to_blocks(table, view)
+    elif ctx.get('mode') == 'arrow':
+        cols = arrow_table_to_columns(table, view)
     else:
         rows = decode_table_to_rows(table, view)
         cols = {name: np.asarray([row[name] for row in rows]) for name in view.fields}
@@ -566,7 +585,10 @@ def _replay_segment(stored_schema, ctx, segment, fields, pieces):
     for name in fields:
         if name not in cols:
             raise ReplayError('field {!r} is no longer readable from the dataset'.format(name))
-        arr = _sanitize_array(cols[name][segment['row_start']:segment['row_stop']])
+        arr = cols[name][segment['row_start']:segment['row_stop']]
+        if ctx.get('mode') == 'arrow':      # ragged list rows the batch stacked
+            arr = restack_list_columns({name: arr})[name]
+        arr = _sanitize_array(arr)
         if arr is None:
             raise ReplayError('field {!r} cannot batch as the loader did'.format(name))
         out[name] = arr
@@ -576,20 +598,32 @@ def _replay_segment(stored_schema, ctx, segment, fields, pieces):
 def replay_record(record, ctx):
     """The recorded batch re-materialized: ``{field: np.ndarray}`` with the
     bytes the loader assembled (before the device copy)."""
-    from petastorm_tpu_torch.etl.dataset_metadata import get_schema
+    from petastorm_tpu_torch.etl.dataset_metadata import get_schema, infer_or_load_unischema
     from petastorm_tpu_torch.storage import ParquetStore
 
     _check_replayable(ctx, record)
     fields = record.get('fields')
     if not fields:
         raise ReplayError('record carries no field list')
-    if ctx.get('url') is None:
-        raise ReplayError('record context carries no dataset url')
-    store = ParquetStore(ctx['url'])
-    schema = get_schema(store)
-    pieces = {(str(p.path), int(p.row_group)): p for p in store.row_groups()}
-    parts = [_replay_segment(schema, ctx, segment, fields, pieces)
-             for segment in record.get('segments') or []]
+    stores = {}
+
+    def store_for(seg_ctx):
+        url = seg_ctx.get('url')
+        if url is None:
+            raise ReplayError('record context carries no dataset url')
+        if url not in stores:
+            store = ParquetStore(url)
+            schema = (infer_or_load_unischema(store) if seg_ctx.get('mode') == 'arrow'
+                      else get_schema(store))
+            stores[url] = schema, {(str(p.path), int(p.row_group)): p
+                                   for p in store.row_groups()}
+        return stores[url]
+
+    parts = []
+    for segment in record.get('segments') or []:
+        seg_ctx = _segment_ctx(ctx, segment)
+        schema, pieces = store_for(seg_ctx)
+        parts.append(_replay_segment(schema, seg_ctx, segment, fields, pieces))
     if not parts:
         raise ReplayError('record {} has no segments'.format(record.get('batch_id')))
     batch = {name: (parts[0][name] if len(parts) == 1

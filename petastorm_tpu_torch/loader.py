@@ -219,8 +219,10 @@ def iter_numpy_batches(reader, batch_size, shape_policies=None, shuffling_queue_
                        batch_buffers=None, views_ok=True, raw_fields=None):
     """Yield dicts of numpy arrays with leading dim ``batch_size``.
 
-    Works over row readers (``make_reader``) and tensor readers
-    (``make_tensor_reader``). ``last_batch``: ``'drop'`` | ``'pad'``
+    Works over row readers (``make_reader``), tensor readers
+    (``make_tensor_reader``) and batch readers (``make_batch_reader``: a
+    list column's ``[rows, L]`` blocks batch as any block; an object column
+    of ragged or null rows needs a shape policy, or raises). ``last_batch``: ``'drop'`` | ``'pad'``
     (repeat the last row into a full batch) | ``'partial'`` (yield it
     short). ``shuffling_queue_capacity > 0`` draws rows through a
     :class:`~petastorm_tpu_torch.shuffling_buffer.RandomShufflingBuffer`
@@ -414,15 +416,20 @@ def _iter_block_batches(reader, batch_size, shape_policies, last_batch, strict_f
                 continue
             column = np.asarray(getattr(sample, name))
             probe = column[0] if (column.dtype.kind == 'O' and len(column)) else column
-            (names if _batchable(probe, name, shape_policies) else dropped).append(name)
+            # A field with a shape policy is kept even when its first row is
+            # None: densify then refuses the None, as the JAX loader does.
+            keep = ((probe is None and name in shape_policies)
+                    or _batchable(probe, name, shape_policies))
+            (names if keep else dropped).append(name)
         return _select_fields(names, dropped, strict_fields)
 
     def densify(name, block):
-        """Apply the field's shape policy row by row (object columns of
-        ragged rows become dense)."""
+        """Apply the field's shape policy row by row, and stack an object
+        column of per-row arrays (a batch reader's ragged or nullable list
+        column) into a block: a ``None`` row or ragged rows without a
+        policy raise, as in ``petastorm_tpu/jax_loader.py:469-490``."""
         block = np.asarray(block)
-        policy = shape_policies.get(name)
-        if policy is None:
+        if name not in shape_policies and block.dtype.kind != 'O':
             return block
         return _stack_column(list(block), name, shape_policies)
 

@@ -1,20 +1,26 @@
-"""Readers: per-row (``make_reader``) and decoded-columnar
-(``make_tensor_reader``); counterparts of ``petastorm_tpu/reader.py:116-343``
+"""Readers: per-row (``make_reader``), decoded-columnar
+(``make_tensor_reader``) and columnar over any Parquet store
+(``make_batch_reader``); counterparts of ``petastorm_tpu/reader.py:116-446``
 and of the ``Reader`` at ``:633-1536``.
 
 ``make_reader`` yields one namedtuple per row (any field: ragged images,
 strings, nullable values); ``make_tensor_reader`` yields one namedtuple of
-``[rows, ...field.shape]`` numpy blocks per row-group. One :class:`Reader`
-serves both, through its worker class. Row-groups are sharded by
+``[rows, ...field.shape]`` numpy blocks per row-group; ``make_batch_reader``
+yields one namedtuple of column arrays per row-group of a store that any
+Parquet writer made, its schema inferred from the Arrow schema when the
+store carries none (:func:`~petastorm_tpu_torch.etl.dataset_metadata.
+infer_or_load_unischema`). One :class:`Reader` serves all three, through
+its worker class. Row-groups are sharded by
 ``index % shard_count == cur_shard`` and, per epoch, shuffled by
 ``random.Random(seed)`` as in the JAX package, so one seed gives both
 packages the same row-group order. Every cache tier of
 ``petastorm_tpu/reader.py:76-113`` is ported: ``'null'``, ``'memory'``,
-``'local-disk'`` (``cache_location``) and, on the tensor path,
-``'chunk-store'`` (:mod:`~petastorm_tpu_torch.chunk_store`, whose directory
+``'local-disk'`` (``cache_location``; Arrow tables in IPC files for the
+batch reader) and, on the tensor path, ``'chunk-store'``
+(:mod:`~petastorm_tpu_torch.chunk_store`, whose directory
 ``PSTT_CHUNK_STORE`` can also give, and which that variable arms for the
 default ``cache_type=None``). Of the pools, ``'thread'`` and ``'dummy'``.
-Process pools, health and autotune come in later slices (ROADMAP §A9).
+Health (ROADMAP §A9f), process pools (§A9g) and autotune (§A9h) come in later slices.
 
 Row selection and transforms (``petastorm_tpu/reader.py:116-345, 825-835,
 1192-1235``): a ``rowgroup_selector`` picks row-groups through a stored
@@ -63,11 +69,13 @@ import numpy as np
 
 from petastorm_tpu_torch import chunk_store as chunk_store_mod
 from petastorm_tpu_torch import decode_budget, determinism, membudget
-from petastorm_tpu_torch.cache import LocalDiskCache, MemoryCache, NullCache
+from petastorm_tpu_torch.arrow_worker import ArrowWorker, restack_list_columns
+from petastorm_tpu_torch.cache import (LocalDiskArrowTableCache, LocalDiskCache, MemoryCache,
+                                       NullCache)
 from petastorm_tpu_torch.checkpoint import ConsumptionTracker, DeferredRowAccounting
 from petastorm_tpu_torch.codecs import CompressedImageCodec, decode_path, decoder_info
 from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormMetadataError
-from petastorm_tpu_torch.etl.dataset_metadata import get_schema
+from petastorm_tpu_torch.etl.dataset_metadata import get_schema, infer_or_load_unischema
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.py_dict_worker import PyDictWorker
 from petastorm_tpu_torch.storage import ParquetStore
@@ -83,8 +91,11 @@ from petastorm_tpu_torch.workers.ventilator import ConcurrentVentilator
 _VENTILATE_EXTRA_ROWGROUPS = 2
 
 
-def _make_cache(cache_type, cache_location, cache_size_limit, tensor_path=False, **extra):
-    """The row-group cache of ``petastorm_tpu/reader.py:76-113``."""
+def _make_cache(cache_type, cache_location, cache_size_limit, tensor_path=False,
+                arrow_cache=False, **extra):
+    """The row-group cache of ``petastorm_tpu/reader.py:76-113``
+    (``arrow_cache``: the batch reader's, whose local-disk tier stores Arrow
+    tables)."""
     if cache_type is None:
         # Only the default is armed by the variable: an explicit 'null'
         # stays a genuine no-cache.
@@ -96,7 +107,8 @@ def _make_cache(cache_type, cache_location, cache_size_limit, tensor_path=False,
     if cache_type == 'local-disk':
         if cache_location is None:
             raise ValueError("cache_type='local-disk' requires cache_location")
-        return LocalDiskCache(cache_location, size_limit=cache_size_limit, **extra)
+        cls = LocalDiskArrowTableCache if arrow_cache else LocalDiskCache
+        return cls(cache_location, size_limit=cache_size_limit, **extra)
     if cache_type == 'memory':
         return MemoryCache(size_limit_bytes=cache_size_limit)
     if cache_type == 'chunk-store':
@@ -123,8 +135,8 @@ def _stored_schema(store, factory):
     try:
         return get_schema(store)
     except PetastormMetadataError as e:
-        raise RuntimeError('{} requires a petastorm_tpu (codec-materialized) dataset: '
-                           '{}'.format(factory, e))
+        raise RuntimeError('{} requires a petastorm_tpu (codec-materialized) dataset. Use '
+                           'make_batch_reader for plain Parquet stores: {}'.format(factory, e))
 
 
 def _view(stored_schema, schema_fields):
@@ -303,6 +315,55 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
                   raw_image_fields=raw_image_fields)
 
 
+def make_batch_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
+                      workers_count=10, results_queue_size=50, shuffle_row_groups=True,
+                      shuffle_row_drop_partitions=1, seed=None, predicate=None,
+                      rowgroup_selector=None, num_epochs=1, cur_shard=None, shard_count=None,
+                      cache_type='null', cache_location=None, cache_size_limit=None,
+                      cache_row_size_estimate=None, cache_extra_settings=None,
+                      transform_spec=None, resume_state=None, shuffle_rows_in_chunk=False,
+                      deterministic=False):
+    """Reader of column arrays, one namedtuple per row-group, over any
+    Parquet store (``petastorm_tpu/reader.py:382-446``).
+
+    The schema is the store's when it has one (a petastorm store: a warning
+    says that its columns come out encoded), else inferred from the Arrow
+    schema: a list column is a ``(None,)`` field that arrives as a ``[rows,
+    L]`` block when a row-group's rows have one length, strings, binary and
+    decimals as object arrays. The arguments are ``make_tensor_reader``'s,
+    except that ``schema_fields`` takes field names or full-match regexes
+    only, a ``predicate`` tests rows of a pandas DataFrame (any field), a
+    ``transform_spec.func`` takes and returns a pandas DataFrame, and
+    ``cache_type='local-disk'`` stores each row-group's Arrow table in the
+    IPC format (``'chunk-store'`` raises). ``cache_row_size_estimate`` is
+    accepted and unused, as in the JAX package. A ``resume_state`` of
+    either package's batch reader resumes the other.
+    """
+    _check_selection_args(predicate, transform_spec, shuffle_row_drop_partitions)
+    store = ParquetStore(dataset_url)
+    try:
+        get_schema(store)
+        warnings.warn('Dataset at {} is a petastorm_tpu store: consider using make_reader for '
+                      'codec-decoded rows. make_batch_reader will return raw (encoded) '
+                      'columns.'.format(dataset_url))
+    except PetastormMetadataError:
+        pass
+    stored_schema = infer_or_load_unischema(store)
+    if schema_fields is not None and not all(isinstance(f, str) for f in schema_fields):
+        raise ValueError('make_batch_reader schema_fields must be field-name strings/regexes')
+    view = _view(stored_schema, schema_fields)
+    cache = _make_cache(cache_type, cache_location, cache_size_limit, arrow_cache=True,
+                        **(cache_extra_settings or {}))
+    pool = _make_pool(reader_pool_type, workers_count, results_queue_size)
+    return Reader(store, view, pool, worker_class=ArrowWorker, full_schema=stored_schema,
+                  shuffle_row_groups=shuffle_row_groups,
+                  shuffle_row_drop_partitions=shuffle_row_drop_partitions, seed=seed,
+                  predicate=predicate, rowgroup_selector=rowgroup_selector,
+                  num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
+                  cache=cache, transform_spec=transform_spec, resume_state=resume_state,
+                  deterministic=deterministic, shuffle_rows_in_chunk=shuffle_rows_in_chunk)
+
+
 def _resolve_raw_image_fields(view, raw_image_fields):
     """``raw_image_fields`` checked and expanded to a tuple of names, with
     the JAX package's errors (``petastorm_tpu/reader.py:346-380``)."""
@@ -349,7 +410,8 @@ def make_pod_reader(dataset_url, reader_factory=None, pod_shard=None, mesh=None,
     ``TorchLoader(..., mesh=mesh)``.
 
     :param reader_factory: the factory to wrap (default
-        :func:`make_tensor_reader`; :func:`make_reader` for rows).
+        :func:`make_tensor_reader`; :func:`make_reader` for rows,
+        :func:`make_batch_reader` for a plain Parquet store).
     :param pod_shard: ``(cur_shard, shard_count)`` overriding the mapping
         (simulated ranks in one process, or a launcher with its own).
     :param kwargs: forwarded to the factory; ``cur_shard`` or
@@ -403,7 +465,7 @@ def _check_resume_state(resume_state, deterministic, fingerprint):
 
 class Reader(DeferredRowAccounting):
     """Iterates decoded rows (``worker_class=PyDictWorker``) or row-group
-    chunks (``TensorWorker``) off a worker pool. ``batched_output`` says
+    chunks (``TensorWorker``, ``ArrowWorker``) off a worker pool. ``batched_output`` says
     which. ``schema`` is the view read; rows and chunks come out as
     namedtuples of the view after ``transform_spec``, or, with an
     ``ngram``, as dicts of per-offset namedtuples."""
@@ -631,6 +693,11 @@ class Reader(DeferredRowAccounting):
         return self._deterministic
 
     @property
+    def transformed_schema(self):
+        """The schema of what the reader yields (after a ``transform_spec``)."""
+        return self._output_schema
+
+    @property
     def raw_image_fields(self):
         """Image fields this reader ships encoded (object columns of their
         bytes) for the loader's staging step to decode; empty otherwise."""
@@ -724,6 +791,8 @@ class Reader(DeferredRowAccounting):
                 lineage = dict(lineage, row_start=lineage['row_start'] + skip)
             if n_rows <= 0:
                 continue
+            if skip and self._lineage_mode == ArrowWorker.lineage_mode:
+                cols = restack_list_columns(cols)
             self._record_chunk(key, n_rows)
             self._last_lineage = lineage
             return cols

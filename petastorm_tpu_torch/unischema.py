@@ -1,9 +1,12 @@
 """Unischema: a framework-neutral dataset schema with per-field codecs.
 
-Counterpart of ``petastorm_tpu/unischema.py:30-280``, trimmed to what the
-tensor-reader slice needs. The JSON form (``to_json``/``from_json``) is the
-same as the JAX package's, so a store written by either package carries a
-schema the other reads.
+Counterpart of ``petastorm_tpu/unischema.py:30-429``. The JSON form
+(``to_json``/``from_json``) is the same as the JAX package's, so a store
+written by either package carries a schema the other reads.
+:meth:`Unischema.from_arrow_schema` infers a schema from a plain Parquet
+store's Arrow schema, as ``make_batch_reader`` needs it: lists become
+``(None,)`` fields, strings, binary and decimals objects, timestamps and
+dates ``datetime64[ns]``, dictionary types their value type.
 """
 
 import re
@@ -97,7 +100,7 @@ class Unischema(object):
         self._name = name
         self._fields = OrderedDict((f.name, f) for f in sorted(fields, key=lambda f: f.name))
         for f in self._fields.values():
-            if re.match(r'^[A-Za-z_][A-Za-z0-9_]*$', f.name) is None:
+            if not _valid_attr_name(f.name):
                 raise SchemaError('Field name {!r} is not a valid identifier'.format(f.name))
 
     @property
@@ -145,10 +148,105 @@ class Unischema(object):
     def from_json(cls, spec):
         return cls(spec['name'], [UnischemaField.from_json(f) for f in spec['fields']])
 
-    def arrow_schema(self):
-        """Arrow schema of the encoded representation (the write path)."""
+    def arrow_schema(self, partition_fields=()):
+        """Arrow schema of the encoded representation (the write path);
+        ``partition_fields`` are left out (they become directory names)."""
         return pa.schema([pa.field(f.name, f.resolved_codec().arrow_type(), nullable=True)
-                          for f in self._fields.values()])
+                          for f in self._fields.values() if f.name not in partition_fields])
+
+    @classmethod
+    def from_arrow_schema(cls, arrow_schema, schema_name='inferred_schema',
+                          partition_columns=(), omit_unsupported_fields=False):
+        """A schema inferred from a plain Parquet store's Arrow schema
+        (``petastorm_tpu/unischema.py:201-225``): one codec-less field a
+        column, nullable as the column is, and an object field for each
+        hive partition column the files do not hold. A column of a type
+        with no numpy counterpart (a struct, a fixed-size list) raises
+        ``SchemaError``, or is left out with ``omit_unsupported_fields``."""
+        fields = []
+        for name in arrow_schema.names:
+            arrow_field = arrow_schema.field(name)
+            try:
+                np_dtype, shape = _arrow_to_numpy_dtype(arrow_field.type)
+            except SchemaError:
+                if omit_unsupported_fields:
+                    continue
+                raise
+            fields.append(UnischemaField(name, np_dtype, shape, codec=None,
+                                         nullable=arrow_field.nullable))
+        for name in partition_columns:
+            if not any(f.name == name for f in fields):
+                fields.append(UnischemaField(name, np.dtype('O'), (), codec=None, nullable=False))
+        return cls(schema_name, fields)
+
+
+def _valid_attr_name(name):
+    return re.match(r'^[A-Za-z_][A-Za-z0-9_]*$', name) is not None
+
+
+def _arrow_to_numpy_dtype(arrow_type):
+    """``(numpy dtype, shape)`` of an Arrow type; a list is a ``(None,)``
+    field of its item type (``petastorm_tpu/unischema.py:230-253``)."""
+    if pa.types.is_list(arrow_type) or pa.types.is_large_list(arrow_type):
+        inner, inner_shape = _arrow_to_numpy_dtype(arrow_type.value_type)
+        if inner_shape != ():
+            raise SchemaError('Nested lists are not supported: {}'.format(arrow_type))
+        return inner, (None,)
+    if (pa.types.is_string(arrow_type) or pa.types.is_large_string(arrow_type)
+            or pa.types.is_binary(arrow_type) or pa.types.is_large_binary(arrow_type)
+            or pa.types.is_decimal(arrow_type)):
+        return np.dtype('O'), ()
+    if pa.types.is_timestamp(arrow_type) or pa.types.is_date(arrow_type):
+        return np.dtype('datetime64[ns]'), ()
+    if pa.types.is_dictionary(arrow_type):
+        return _arrow_to_numpy_dtype(arrow_type.value_type)
+    primitive = arrow_primitive_dtype(arrow_type)
+    if primitive is not None:
+        return primitive, ()
+    if _object_typed(arrow_type):
+        return np.dtype('O'), ()
+    if _unsupported(arrow_type):
+        raise SchemaError('Unsupported Arrow type: {}'.format(arrow_type))
+    try:
+        return np.dtype(arrow_type.to_pandas_dtype()), ()
+    except NotImplementedError:
+        raise SchemaError('Unsupported Arrow type: {}'.format(arrow_type))
+
+
+_FLOAT_DTYPES = {'halffloat': np.dtype('float16'), 'float': np.dtype('float32'),
+                 'double': np.dtype('float64')}
+
+
+def arrow_primitive_dtype(arrow_type):
+    """The numpy dtype of an integer, float, bool or duration Arrow type
+    (what ``to_pandas_dtype`` gives, without the pandas that pyarrow's
+    version consults), else None."""
+    if pa.types.is_integer(arrow_type):
+        return np.dtype(str(arrow_type))
+    if pa.types.is_floating(arrow_type):
+        return _FLOAT_DTYPES[str(arrow_type)]
+    if pa.types.is_boolean(arrow_type):
+        return np.dtype(bool)
+    if pa.types.is_duration(arrow_type):
+        return np.dtype('timedelta64[{}]'.format(arrow_type.unit))
+    return None
+
+
+def _unsupported(arrow_type):
+    """The types ``to_pandas_dtype`` refuses (the JAX package's
+    ``SchemaError``), told apart without pandas."""
+    return any(check(arrow_type) for check in (
+        pa.types.is_time, pa.types.is_struct, pa.types.is_fixed_size_list,
+        pa.types.is_interval, pa.types.is_union, pa.types.is_list_view,
+        pa.types.is_large_list_view, pa.types.is_run_end_encoded))
+
+
+def _object_typed(arrow_type):
+    """The types ``to_pandas_dtype`` maps to object, told apart without
+    pandas."""
+    return any(check(arrow_type) for check in (
+        pa.types.is_null, pa.types.is_map, pa.types.is_fixed_size_binary,
+        pa.types.is_string_view, pa.types.is_binary_view))
 
 
 def match_unischema_fields(schema, fields_or_patterns, allow_empty_match=True):

@@ -1205,3 +1205,77 @@ def test_superbatches_over_uneven_chunks_on_card_equal_the_cpu(dev, tmp_path):
     for (image, label), (want_image, want_label) in zip(on_card, on_host):
         assert image.shape[0] == label.shape[0] == 32
         assert torch.equal(image, want_image) and torch.equal(label, want_label)
+
+
+# --------------------------------------------------------------------------
+# plain Parquet and the adapters
+# --------------------------------------------------------------------------
+
+def _plain_token_store(tmp_path, rows=96, seq=17, per_group=16):
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    tokens = np.random.default_rng(3).integers(0, 1000, (rows, seq), dtype=np.int32)
+    path = tmp_path / 'plain'
+    path.mkdir()
+    pq.write_table(pa.table({'tokens': pa.array(list(tokens), pa.list_(pa.int32())),
+                             'id': np.arange(rows)}),
+                   str(path / 'part.parquet'), row_group_size=per_group)
+    return 'file://' + str(path), tokens
+
+
+@pytest.mark.parametrize('pool', ['thread', 'dummy'])
+def test_batch_reader_on_card_equals_pyarrow(dev, tmp_path, pool):
+    """A plain store's ``list<int32>`` column through ``make_batch_reader``
+    (local-disk Arrow cache, an epoch that fills it, then two epochs it
+    serves) and ``TorchLoader`` to the card, row for row pyarrow's."""
+    from petastorm_tpu_torch import make_batch_reader
+    url, tokens = _plain_token_store(tmp_path)
+    caches = []
+    for epochs in (1, 2):
+        with make_batch_reader(url, schema_fields=['tokens', 'id'], reader_pool_type=pool,
+                               shuffle_row_groups=False, deterministic=True,
+                               num_epochs=epochs, cache_type='local-disk',
+                               cache_location=str(tmp_path / 'c')) as r:
+            with TorchLoader(r, 8, device=dev) as loader:
+                batches = list(loader)
+            caches.append(r.cache_stats())
+        assert all(b.tokens.is_cuda and b.tokens.dtype == torch.int32 for b in batches)
+        got = torch.cat([b.tokens for b in batches]).cpu().numpy()
+        assert np.array_equal(got, np.concatenate([tokens] * epochs))
+    assert (caches[0]['misses'], caches[0]['hits']) == (6, 0)
+    assert (caches[1]['misses'], caches[1]['hits']) == (0, 12)
+
+
+def test_converter_loader_on_card(dev, tmp_path):
+    import pyarrow as pa
+    from petastorm_tpu_torch.converter import make_converter
+    _, tokens = _plain_token_store(tmp_path)
+    conv = make_converter(pa.table({'tokens': pa.array(list(tokens), pa.list_(pa.int32())),
+                                    'x': np.arange(len(tokens), dtype=np.float64)}),
+                          parent_cache_dir_url=str(tmp_path / 'conv'))
+    try:
+        with conv.make_torch_loader(batch_size=32, device=dev, num_epochs=1,
+                                    shuffle_row_groups=False) as loader:
+            batches = list(loader)
+    finally:
+        conv.delete()
+    assert [b.x.dtype for b in batches] == [torch.float32] * 3 and batches[0].x.is_cuda
+    assert np.array_equal(torch.cat([b.tokens for b in batches]).cpu().numpy(), tokens)
+
+
+def test_data_loader_on_card_equals_cpu(dev, tmp_path):
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.pytorch import DataLoader
+    url, _ = _plain_token_store(tmp_path)
+
+    def batches(device):
+        reader = make_batch_reader(url, reader_pool_type='dummy', shuffle_row_groups=False)
+        with DataLoader(reader, batch_size=10, shuffling_queue_capacity=30, seed=2,
+                        device=device) as loader:
+            return list(loader)
+
+    on_card, on_host = batches(dev), batches('cpu')
+    assert len(on_card) == len(on_host) == 10
+    for a, b in zip(on_card, on_host):
+        assert a.tokens.is_cuda and a.id.is_cuda
+        assert torch.equal(a.tokens.cpu(), b.tokens) and torch.equal(a.id.cpu(), b.id)

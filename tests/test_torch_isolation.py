@@ -92,6 +92,45 @@ def test_cuda_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
         resolve_device('meta')
 
 
+def test_plain_parquet_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
+    """The batch reader's loaders, the converter's, the ``DataLoader`` and
+    the throughput harness's ``'torch'`` method default to the card and
+    raise without one; ``device='cpu'`` runs them."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.benchmark import reader_throughput
+    from petastorm_tpu_torch.converter import make_converter
+    from petastorm_tpu_torch.pytorch import DataLoader
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    (tmp_path / 'plain').mkdir()
+    pq.write_table(pa.table({'x': np.arange(16)}), str(tmp_path / 'plain' / 'x.parquet'),
+                   row_group_size=8)
+    url = 'file://' + str(tmp_path / 'plain')
+    with make_batch_reader(url, reader_pool_type='dummy') as reader:
+        with pytest.raises(RuntimeError, match='is_available'):
+            TorchLoader(reader, 4)
+        with pytest.raises(RuntimeError, match='is_available'):
+            DataLoader(reader)
+        with DataLoader(reader, batch_size=4, device='cpu') as loader:
+            assert next(iter(loader)).x.device.type == 'cpu'
+    with pytest.raises(RuntimeError, match='is_available'):
+        reader_throughput(url, read_method='torch', warmup_cycles_count=1,
+                          measure_cycles_count=1)
+    conv = make_converter(pa.table({'x': np.arange(16)}),
+                          parent_cache_dir_url=str(tmp_path / 'conv'))
+    try:
+        for make in (conv.make_torch_loader, conv.make_jax_loader, conv.make_torch_dataloader):
+            with pytest.raises(RuntimeError, match='is_available'):
+                with make(batch_size=4):
+                    pass
+            with make(batch_size=4, device='cpu', num_epochs=1) as loader:
+                assert next(iter(loader)).x.device.type == 'cpu'
+    finally:
+        conv.delete()
+
+
 def _store(tmp_path):
     schema = Unischema('ThreadSchema', [
         UnischemaField('image', np.uint8, (8, 8, 3), CompressedImageCodec('png')),
