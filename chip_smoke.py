@@ -221,7 +221,35 @@ non-zero exit and no result line:
    (a), (b) and the adapters, the variants beside lm_scan's tokens/s, device
    ms and trace of this run.
 
-Phases 5 to 15, 18, 20, 21 and 22 run the bench's protocol through the functions of
+23. imagenet_faults: storage beyond local paths and the failure model, run
+   after imagenet_filtered on the same state (``bench.run_imagenet_faults``):
+   the imagenet store's files copied into fsspec's ``memory://pstt-imagenet``
+   (no operating-system path: every read is an fsspec file object through
+   pyarrow, and the native Parquet stage must not be chosen), imagenet_scan's
+   model and protocol from ``make_tensor_reader('memory://pstt-imagenet',
+   cache_type='null', deterministic=True, seed=0, num_epochs=None,
+   workers_count=DECODE_WORKERS, error_budget=2)``, with ``PSTT_FAULTS``
+   set for the phase only (``decode-corrupt`` on one row-group,
+   ``fs-read-error`` on another, each picked by a seed that selects exactly
+   one row-group and ``match=`` the store's file; ``fs-read-delay:delay=
+   0.02`` on every read) and a fresh metrics registry. Checks: K1's graph
+   nodes times the replays (104 of 104 in 13); ``diagnostics()
+   ['quarantined_rowgroups']`` names exactly the two row-groups that
+   ``FaultInjector.selected`` picks, each seen at least once an epoch over
+   more than ten epochs, and ``pst_rowgroups_quarantined_total`` is 2; one
+   epoch through a loader on the card gives pyarrow's labels less those two
+   row-groups (1,536 of 2,048 rows) as a multiset; the first 16 batches'
+   labels, copied back from the card, equal in order a ``'dummy'`` reader's
+   of the same arguments and faults; the registry's ``render_text`` and one
+   scrape of ``start_http_exporter(port=0)`` on 127.0.0.1 show the
+   quarantine, decode and loader counters; every loss is finite; a budget of
+   1 raises ``RowGroupQuarantinedError`` within one epoch; the injector is
+   inactive afterwards. Its line: img/s, device ms a step and stall beside
+   imagenet_scan's and imagenet_decode (a)'s of this run, the store's bytes,
+   rows kept per epoch, ``read_s`` and ``decode_s``, the quarantine records
+   and the counters.
+
+Phases 5 to 15, 18, 20, 21, 22 and 23 run the bench's protocol through the functions of
 ``petastorm_tpu_torch/bench.py`` (``python -m petastorm_tpu_torch.bench``
 runs them as the bench's children); this script holds their launch counts.
 Each path's kernel launch counts are zeroed just before it and read just
@@ -1734,6 +1762,28 @@ def run_filtered(url, device, card, state, imagenet_scan, worker_decode):
     return result
 
 
+# --------------------------------------------------------------------------
+# the faults phase: an object-store URL and poison row-groups under training
+# --------------------------------------------------------------------------
+
+def run_faults(url, device, card, state, imagenet_scan, worker_decode):
+    """Phase 23 (see the module docstring): the ``imagenet_faults`` cell on
+    ``state``, beside imagenet_scan's and imagenet_decode (a)'s numbers of
+    this run. Returns the phase's line."""
+    t0 = time.perf_counter()
+    result = bench.run_imagenet_faults(url, device, card, state, calls=SCAN_CALLS,
+                                       workers=DECODE_WORKERS, min_epochs=10)
+    result['beside'] = {
+        name: {'img_per_s': cell['img_per_s'], 'device_step_ms': cell['device_step_ms'],
+               'input_stall_frac': cell['input_stall_frac']}
+        for name, cell in (('imagenet_scan', imagenet_scan),
+                           ('imagenet_decode_worker_decode', worker_decode))}
+    result['img_per_s_vs_decode_worker_decode'] = (result['img_per_s']
+                                                   / worker_decode['img_per_s'])
+    result['seconds'] = time.perf_counter() - t0
+    return result
+
+
 def run_lm_plain(store_dir, lm_url, device, card, lm_scan):
     """Phase 22 (see the module docstring): the two plain stores written,
     then ``bench.run_lm_plain`` beside ``lm_scan``'s line. Returns the
@@ -2070,6 +2120,10 @@ def main():
         record(result)
         by_path['imagenet_filtered'] = bench.path_launches(result, 'normalize_images',
                                                            'normalize_kernel')
+        result = run_faults(url, device, card, state, imagenet_scan, decode['worker_decode'])
+        record(result)
+        by_path['imagenet_faults'] = bench.path_launches(result, 'normalize_images',
+                                                         'normalize_kernel')
         k1['launches_by_path'] = by_path
         lm_result = run_lm(lm_url, device, args.steps, card)
         record(lm_result)

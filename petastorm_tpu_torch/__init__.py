@@ -13,8 +13,11 @@ time as one replayed CUDA graph; and a device-resident dataset tier
 governor (``membudget``) accounts the pipeline's pools against one budget.
 Images decode through a native C++ codec, one call a row-group, fanned over
 a process-wide decode-thread budget (``decode_budget``), in the workers or
-at the loader's staging step (``raw_image_fields``). Entry points take
-``device=`` and default to ``'cuda'``.
+at the loader's staging step (``raw_image_fields``). Stores are any fsspec
+URL (``storage_options``); a reader with an ``error_budget`` quarantines
+poison row-groups (``faults`` injects them: ``PSTT_FAULTS``), and the
+``metrics`` registry counts the pipeline. Entry points take ``device=`` and
+default to ``'cuda'``.
 """
 
 from petastorm_tpu_torch.cache import (LocalDiskArrowTableCache, LocalDiskCache,  # noqa: F401
@@ -25,10 +28,14 @@ from petastorm_tpu_torch.codecs import (CompressedImageCodec, CompressedNdarrayC
 from petastorm_tpu_torch.decode_budget import DecodeThreadBudget, get_decode_budget  # noqa: F401
 from petastorm_tpu_torch.device import resolve_device  # noqa: F401
 from petastorm_tpu_torch.device_cache import DeviceCacheOverflow, DeviceDatasetCache  # noqa: F401
+from petastorm_tpu_torch.errors import (HostMemoryExceededError,  # noqa: F401
+                                        RowGroupQuarantinedError)
 from petastorm_tpu_torch.etl import (DatasetWriter, get_schema, materialize_dataset,  # noqa: F401
                                      write_dataset)
 from petastorm_tpu_torch.loader import (CropTo, PadTo, ShapePolicy, TorchLoader,  # noqa: F401
                                         make_torch_loader, register_device_decode)
+from petastorm_tpu_torch.metrics import (MetricsExporter, MetricsRegistry,  # noqa: F401
+                                         start_http_exporter)
 from petastorm_tpu_torch.reader import (Reader, make_batch_reader,  # noqa: F401
                                         make_pod_reader, make_reader, make_tensor_reader)
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField  # noqa: F401

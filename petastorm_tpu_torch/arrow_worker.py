@@ -33,6 +33,7 @@ import pyarrow as pa
 
 from petastorm_tpu_torch.checkpoint import chunk_key
 from petastorm_tpu_torch.errors import DecodeFieldError
+from petastorm_tpu_torch.faults import maybe_inject, rowgroup_fault_key
 from petastorm_tpu_torch.lineage import chunk_lineage
 from petastorm_tpu_torch.unischema import arrow_primitive_dtype
 from petastorm_tpu_torch.workers.rowgroup_worker_base import (RowGroupWorkerBase,
@@ -53,6 +54,7 @@ class ArrowWorker(RowGroupWorkerBase):
     def process(self, piece_index, worker_predicate=None, shuffle_row_drop_partition=None,
                 pst_det=None):
         piece = self.args['row_groups'][piece_index]
+        maybe_inject('decode-corrupt', key=rowgroup_fault_key(piece.path, piece.row_group))
         timings = {}
         table, read_fresh = self._load_table(piece, worker_predicate, timings)
         if table is None or not table.num_rows:

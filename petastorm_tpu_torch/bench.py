@@ -127,6 +127,22 @@ def synthetic_image(rng, size):
     return np.clip(img.astype(np.int16) + noise - 12, 0, 255).astype(np.uint8)
 
 
+def read_store_column(url, column, storage_options=None):
+    """One column of a store, its files in the store's order, read with
+    pyarrow through the store's filesystem (a reckoning apart from the
+    readers)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from petastorm_tpu_torch.storage import ParquetStore
+
+    store = ParquetStore(url, storage_options)
+    tables = []
+    for path in store.files:
+        with store.fs.open(path, 'rb') as f:
+            tables.append(pq.read_table(f, columns=[column]))
+    return pa.concat_tables(tables).column(column)
+
+
 def write_imagenet_store(path, rows=ROWS, size=IMAGE):
     """The bench's ImageNet store (``bench.py:95-127``) with the port's
     writer: 224x224x3 JPEG q90, int64 label, 256-row groups, seed 7."""
@@ -543,6 +559,7 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
             wall, wait_s, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
             stats, cache, timings = loader.stats, reader.cache_stats(), reader.stage_timings
             holes = reader.holes
+            diagnostics = reader.diagnostics()
     losses = [[float(m['loss']), float(m['last_loss'])] for m in metrics + timed]
     if not all(math.isfinite(v) for pair in losses for v in pair):
         raise AssertionError('non-finite loss: {}'.format(losses))
@@ -563,6 +580,7 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
         'peak_reserved_GB': torch.cuda.max_memory_reserved(device) / 1e9,
         'rows_delivered': stats0['rows'] + stats['rows'],
         'reader_chunks': timings['chunks'], 'reader_holes': holes,
+        'quarantined_rowgroups': diagnostics['quarantined_rowgroups'],
         'stage_profile': stage_profile(stats, timings0, timings, wall),
         'decoder': stats['decoder'],
         'launches': _scan_launches(launches, captured, ran, warmup + calls, replays),
@@ -718,10 +736,7 @@ def reckon_filtered_labels(url, split, table):
     relabels. Returns the sorted labels."""
     import hashlib
 
-    import pyarrow.parquet as pq
-    from petastorm_tpu_torch.fs import local_path
-
-    labels = pq.read_table(local_path(url)[1], columns=['label']).column('label').to_numpy()
+    labels = read_store_column(url, 'label').to_numpy()
     bounds = np.cumsum([0.0] + list(split[0]))
     low, high = int(bounds[split[1]] * 10000), int(bounds[split[1] + 1] * 10000)
     buckets = np.array([int(hashlib.md5(str(np.int64(v)).encode()).hexdigest(), 16) % 10000
@@ -793,6 +808,238 @@ def run_imagenet_filtered(url, device, card, state, warmup=3, calls=5, workers=8
     result['split'] = {'fractions': list(split[0]), 'subset': split[1], 'field': 'label'}
     return dict({'phase': 'imagenet_filtered', 'card': card, 'model': 'resnet50',
                  'stem': 'conv7', 'classes': 1000}, **result)
+
+
+#: The faults cell's store, in fsspec's in-process filesystem: no OS path.
+FAULTS_URL = 'memory://pstt-imagenet'
+#: Its budget of quarantined row-group items, and the delay of every read.
+FAULTS_BUDGET, FAULTS_READ_DELAY_S = 2, 0.02
+FAULTS_CHECK_BATCHES = 16
+
+
+def copy_store(src_url, dst_url):
+    """Copy every file of the store at ``src_url`` (data and metadata) to
+    ``dst_url`` through both filesystems; returns the bytes copied."""
+    from petastorm_tpu_torch.storage import ParquetStore
+
+    src, dst = ParquetStore(src_url), ParquetStore(dst_url)
+    nbytes = 0
+    for path in src.fs.find(src.path):
+        rel = path[len(src.path.rstrip('/')) + 1:]
+        with src.fs.open(path, 'rb') as f:
+            data = f.read()
+        dst.fs.pipe_file(dst.path.rstrip('/') + '/' + rel, data)
+        nbytes += len(data)
+    return nbytes
+
+
+def pick_fault_seed(site, keys, p, avoid=()):
+    """The least seed under which ``site`` with probability ``p`` selects
+    exactly one of ``keys``, not one of ``avoid``: ``(seed, key)``."""
+    from petastorm_tpu_torch.faults import FaultInjector
+
+    for seed in range(10000):
+        injector = FaultInjector.from_string('{}:p={}:seed={}'.format(site, p, seed))
+        chosen = [k for k in keys if injector.selected(site, k)]
+        if len(chosen) == 1 and chosen[0] not in avoid:
+            return seed, chosen[0]
+    raise ValueError('no seed selects exactly one of {} keys'.format(len(keys)))
+
+
+def faults_spec(url):
+    """The faults cell's ``PSTT_FAULTS`` over the store at ``url``: one
+    row-group poisoned at decode (``decode-corrupt``), another failing its
+    read (``fs-read-error``), each chosen by a seed that selects exactly one
+    row-group and ``match=`` the store's file, and ``fs-read-delay`` on
+    every read. Returns (spec, the two selected pieces)."""
+    from petastorm_tpu_torch.faults import rowgroup_fault_key
+    from petastorm_tpu_torch.storage import ParquetStore
+
+    pieces = ParquetStore(url).row_groups()
+    keys = [rowgroup_fault_key(p.path, p.row_group) for p in pieces]
+    p = 1.0 / len(pieces)
+    seed_a, key_a = pick_fault_seed('decode-corrupt', keys, p)
+    seed_b, key_b = pick_fault_seed('fs-read-error', keys, p, avoid=(key_a,))
+    spec = ';'.join([
+        'decode-corrupt:p={}:seed={}:match={}'.format(p, seed_a, key_a.rsplit(':', 1)[0]),
+        'fs-read-error:p={}:seed={}:match={}'.format(p, seed_b, key_b.rsplit(':', 1)[0]),
+        'fs-read-delay:delay={}'.format(FAULTS_READ_DELAY_S)])
+    chosen = [pieces[keys.index(key_a)], pieces[keys.index(key_b)]]
+    return spec, chosen
+
+
+def run_imagenet_faults(url, device, card, state, warmup=3, calls=5, workers=8, min_epochs=1):
+    """The faults cell: imagenet_scan's model and protocol on ``state`` from
+    a copy of the store at ``url`` in ``memory://`` (every read an fsspec
+    file object through pyarrow; the native Parquet stage must not be
+    chosen), a ``null`` cache (every epoch reads and decodes again),
+    deterministic order, ``error_budget=FAULTS_BUDGET``, under
+    :func:`faults_spec` set in ``PSTT_FAULTS`` for the cell only and a fresh
+    metrics registry. Fails unless: K1 ran 8 times a replay; the training
+    reader quarantined exactly the two row-groups ``FaultInjector.selected``
+    picks, each seen at least once an epoch, over more than ``min_epochs``
+    epochs, and ``pst_rowgroups_quarantined_total`` is 2; one epoch through
+    a loader on the card gives pyarrow's labels less those two row-groups,
+    as a multiset; the first ``FAULTS_CHECK_BATCHES`` batches' labels equal
+    in order a ``'dummy'`` reader's; the registry's text and one scrape of
+    the HTTP exporter show the quarantine, decode and loader counters; every
+    loss is finite; a budget of 1 raises ``RowGroupQuarantinedError``
+    within one epoch; and the fault spec is gone afterwards. Returns the
+    phase's line."""
+    import urllib.request
+
+    import pyarrow.parquet as pq
+    import torch
+    from petastorm_tpu_torch import TorchLoader, faults, make_tensor_reader, metrics
+    from petastorm_tpu_torch.errors import RowGroupQuarantinedError
+    from petastorm_tpu_torch.models import make_scan_train_step
+    from petastorm_tpu_torch.storage import ParquetStore
+
+    mem = ParquetStore(FAULTS_URL)
+    if mem.fs.exists(mem.path):
+        mem.fs.rm(mem.path, recursive=True)
+    t0 = time.perf_counter()
+    store_bytes = copy_store(url, FAULTS_URL)
+    copy_s = time.perf_counter() - t0
+    spec, chosen = faults_spec(FAULTS_URL)
+    kwargs = {'cache_type': 'null', 'deterministic': True, 'error_budget': FAULTS_BUDGET}
+    previous_spec = os.environ.get(faults.ENV_VAR)
+    previous_registry = metrics.set_registry(metrics.MetricsRegistry())
+    os.environ[faults.ENV_VAR] = spec
+    try:
+        registry = metrics.get_registry()
+        seen = []
+
+        def observe(sb):
+            if len(seen) * SCAN_K < FAULTS_CHECK_BATCHES:
+                seen.append(sb.label.cpu().numpy())
+
+        train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
+        result, window = stream_classifier_scan(
+            FAULTS_URL, device, train, state, warmup, calls, ('normalize_kernel',),
+            cache_type='null', workers=workers,
+            reader_kwargs={'deterministic': True, 'error_budget': FAULTS_BUDGET},
+            observe=observe)
+        require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
+        del train
+        torch.cuda.empty_cache()
+        if result['decoder']['parquet'] != 'pyarrow':
+            raise AssertionError('the native Parquet stage was chosen for a memory:// store')
+        quarantined = result['quarantined_rowgroups']
+        expected = sorted((p.path, p.row_group) for p in chosen)
+        got = sorted((q.get('path'), q.get('row_group')) for q in quarantined)
+        if got != expected:
+            raise AssertionError('quarantined {} ; the injector selects {}'.format(got, expected))
+        rows_epoch = ROWS - sum(p.num_rows for p in chosen)
+        epochs_read = result['rows_delivered'] // rows_epoch
+        if epochs_read <= min_epochs or \
+                min(q['occurrences'] for q in quarantined) < epochs_read:
+            raise AssertionError('{} epochs read; occurrences {}'.format(
+                epochs_read, [q['occurrences'] for q in quarantined]))
+        counters = _counter_values(registry)
+        if counters.get('pst_rowgroups_quarantined_total') != 2:
+            raise AssertionError('pst_rowgroups_quarantined_total is {}, expected 2'.format(
+                counters.get('pst_rowgroups_quarantined_total')))
+        # One epoch through a loader on the card, against pyarrow.
+        epoch = []
+        with make_tensor_reader(FAULTS_URL, schema_fields=['image', 'label'], seed=0,
+                                workers_count=workers, num_epochs=1, **kwargs) as reader:
+            with TorchLoader(reader, BATCH, device=device, last_batch='partial') as loader:
+                for batch in loader:
+                    epoch.append(batch.label.cpu().numpy())
+        epoch = np.concatenate(epoch)
+        reckoned = []
+        skip = {(p.path, p.row_group) for p in chosen}
+        for piece in mem.row_groups():
+            if (piece.path, piece.row_group) not in skip:
+                with mem.fs.open(piece.path, 'rb') as f:
+                    reckoned.append(pq.ParquetFile(f).read_row_group(
+                        piece.row_group, columns=['label']).column('label').to_numpy())
+        reckoned = np.concatenate(reckoned)
+        if len(epoch) != rows_epoch or not np.array_equal(np.sort(epoch), np.sort(reckoned)):
+            raise AssertionError('the epoch\'s {} labels differ from pyarrow\'s {} less the '
+                                 'quarantined row-groups'.format(len(epoch), len(reckoned)))
+        # The threaded, resequenced stream past the holes is the dummy pool's.
+        rows = FAULTS_CHECK_BATCHES * BATCH
+        single = []
+        with make_tensor_reader(FAULTS_URL, schema_fields=['image', 'label'], seed=0,
+                                reader_pool_type='dummy', num_epochs=None, **kwargs) as reader:
+            while sum(len(c) for c in single) < rows:
+                single.append(np.asarray(next(reader).label))
+        streamed = np.concatenate(seen)[:rows]
+        if len(streamed) != rows or not np.array_equal(streamed, np.concatenate(single)[:rows]):
+            raise AssertionError('the first {} batches\' labels differ from the dummy-pool '
+                                 'reader\'s'.format(FAULTS_CHECK_BATCHES))
+        # The registry, rendered and scraped once over HTTP on 127.0.0.1.
+        text = registry.render_text()
+        exporter = metrics.start_http_exporter(port=0, registry=registry)
+        try:
+            with urllib.request.urlopen(exporter.address, timeout=10) as response:
+                scraped = response.read().decode()
+        finally:
+            exporter.stop()
+        shown = ('pst_rowgroups_quarantined_total', 'pst_decode_batch_calls_total',
+                 'pst_decode_batch_images_total', 'pst_decode_seconds_count',
+                 'pst_loader_batches_total')
+        missing = [name for name in shown if name not in text or name not in scraped]
+        if missing:
+            raise AssertionError('the registry\'s text or its scrape lacks {}'.format(missing))
+        # A budget of one item raises within one epoch.
+        raised = None
+        try:
+            with make_tensor_reader(FAULTS_URL, schema_fields=['image', 'label'], seed=0,
+                                    workers_count=workers, num_epochs=1, cache_type='null',
+                                    deterministic=True, error_budget=1) as reader:
+                for _ in reader:
+                    pass
+        except RowGroupQuarantinedError as e:
+            raised = len(e.quarantined)
+        if raised != 2:
+            raise AssertionError('error_budget=1 did not raise within one epoch')
+        counters_after = _counter_values(registry)
+    finally:
+        if previous_spec is None:
+            os.environ.pop(faults.ENV_VAR, None)
+        else:
+            os.environ[faults.ENV_VAR] = previous_spec
+        metrics.set_registry(previous_registry)
+        if mem.fs.exists(mem.path):
+            mem.fs.rm(mem.path, recursive=True)
+    if faults.get_injector().active_sites:
+        raise AssertionError('the fault spec outlived the cell: {}'.format(
+            faults.get_injector().active_sites))
+    profile = result['stage_profile']
+    result['k1_graph'] = {'ran': window[2]['normalize_kernel'], 'expected': SCAN_K * window[3],
+                          'replays': window[3]}
+    result['checks'] = {
+        'k1_per_replay': SCAN_K, 'quarantined_equal_selected': True, 'epochs_read': epochs_read,
+        'quarantined_counter': 2, 'epoch_labels_equal_pyarrow': True,
+        'first_batches_equal_dummy_pool': FAULTS_CHECK_BATCHES, 'registry_text_and_scrape': True,
+        'losses_finite': True, 'budget_1_raises': True, 'faults_restored': True}
+    result['store'] = {'url': FAULTS_URL, 'bytes': store_bytes, 'copy_s': copy_s,
+                       'rows': ROWS, 'rows_kept_per_epoch': int(len(epoch))}
+    result['faults'] = {'spec': spec, 'error_budget': FAULTS_BUDGET,
+                        'selected': [{'path': p.path, 'row_group': p.row_group,
+                                      'rows': p.num_rows} for p in chosen]}
+    result['read_s'], result['decode_s'] = profile['read_s'], profile['decode_s']
+    result['counters'] = {'after_training': counters, 'after_checks': counters_after}
+    return dict({'phase': 'imagenet_faults', 'card': card, 'model': 'resnet50',
+                 'stem': 'conv7', 'classes': 1000}, **result)
+
+
+def _counter_values(registry):
+    """``{name: value}`` of the registry's unlabelled counters, the
+    histograms' observation counts as ``<name>_count``."""
+    out = {}
+    for name, metric in registry.collect().items():
+        for sample in metric['samples']:
+            if sample.get('labels'):
+                continue
+            if metric['type'] == 'counter':
+                out[name] = sample['value']
+            elif metric['type'] == 'histogram':
+                out[name + '_count'] = sample['count']
+    return out
 
 
 def run_imagenet_hbm(url, device, card, state):
@@ -1289,7 +1536,7 @@ def run_lm_plain(url_a, url_b, tokens_b, lm_url, device, card, workdir, lm_scan_
     from petastorm_tpu_torch.benchmark import reader_throughput
     from petastorm_tpu_torch.converter import make_converter
     from petastorm_tpu_torch.etl.legacy import LEGACY_UNISCHEMA_KEY, export_legacy_metadata
-    from petastorm_tpu_torch.fs import local_path
+    from petastorm_tpu_torch.fs import FilesystemResolver
     from petastorm_tpu_torch.lineage import _digest_array
     from petastorm_tpu_torch.storage import UNISCHEMA_KEY, ParquetStore
     from petastorm_tpu_torch.tools.copy_dataset import copy_dataset
@@ -1316,7 +1563,7 @@ def run_lm_plain(url_a, url_b, tokens_b, lm_url, device, card, workdir, lm_scan_
         with TorchLoader(r, LM_BATCH * SCAN_K, device=device, last_batch='partial') as loader:
             epoch = torch.cat([b.tokens for b in loader]).cpu().numpy()
         fill = r.cache_stats()
-    column = pq.read_table(local_path(url_a)[1]).column('tokens').to_pylist()
+    column = read_store_column(url_a, 'tokens').to_pylist()
     if not np.array_equal(epoch, np.array(column, dtype=np.int32)):
         raise AssertionError('lm_plain (a): an in-order epoch differs from pyarrow\'s column')
     if fill['misses'] != groups or fill['hits']:
@@ -1395,15 +1642,17 @@ def run_lm_plain(url_a, url_b, tokens_b, lm_url, device, card, workdir, lm_scan_
             sorted(os.listdir(conv_dir)) != entries:
         raise AssertionError('lm_plain: a second make_converter of the same table wrote again')
     converter.delete()
-    if os.path.exists(local_path(converter.dataset_url)[1]):
+    resolver = FilesystemResolver(converter.dataset_url)
+    if resolver.filesystem().exists(resolver.get_dataset_path()):
         raise AssertionError('lm_plain: delete() left the converter\'s store')
     legacy_url = 'file://' + os.path.join(workdir, 'legacy')
     copied = copy_dataset(lm_url, legacy_url, rows_per_row_group=ROWS_PER_GROUP)
     export_legacy_metadata(legacy_url)
     store = ParquetStore(legacy_url)
     metadata = {k: v for k, v in store.read_common_metadata().items() if k != UNISCHEMA_KEY}
-    pq.write_metadata(store.read_arrow_schema().with_metadata(metadata),
-                      os.path.join(store.path, '_common_metadata'))
+    schema = store.read_arrow_schema().with_metadata(metadata)   # before the file is truncated
+    with store.fs.open(store.path + '/_common_metadata', 'wb') as f:
+        pq.write_metadata(schema, f)
     if LEGACY_UNISCHEMA_KEY not in metadata:
         raise AssertionError('lm_plain: the copy carries no reference schema')
     digests = []

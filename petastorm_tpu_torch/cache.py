@@ -5,7 +5,10 @@ them in files on local disk, so an epoch after the first skips the Parquet
 read and the decode. ``LocalDiskArrowTableCache`` (``petastorm_tpu/cache.py:
 277-292``) keeps ``make_batch_reader``'s Arrow tables on local disk in the
 Arrow IPC stream format. The mmapped decoded-chunk store is
-:mod:`petastorm_tpu_torch.chunk_store`.
+:mod:`petastorm_tpu_torch.chunk_store`. The disk tiers live in a local
+directory, whatever store the data comes from: a bare path or a
+``file://`` URL; another scheme raises (:func:`local_cache_dir`), where the
+JAX package would make a local directory named after the URL.
 """
 
 import hashlib
@@ -19,7 +22,21 @@ from collections import OrderedDict
 import pyarrow as pa
 
 from petastorm_tpu_torch.errors import CorruptChunkError
+from petastorm_tpu_torch.fs import local_path
 from petastorm_tpu_torch.membudget import approx_nbytes
+
+
+def local_cache_dir(location, what):
+    """The operating-system directory of a disk cache tier: ``location``
+    as it is, or the path of a ``file://`` URL; ``ValueError`` for any other
+    scheme (an ``mmap`` or an ``os`` call needs a local path)."""
+    if '://' not in str(location):
+        return location
+    try:
+        return local_path(location)[1]
+    except ValueError:
+        raise ValueError('{} keeps its files on local disk; cache_location {!r} is not a local '
+                         'directory or file:// URL'.format(what, location))
 
 
 class CacheBase(object):
@@ -146,6 +163,7 @@ class LocalDiskCache(CacheBase):
     lineage_tier = 'disk'
 
     def __init__(self, path, size_limit=None, cleanup=False):
+        path = local_cache_dir(path, type(self).__name__)
         self._path = path
         self._size_limit = size_limit
         self._cleanup = cleanup

@@ -2,9 +2,12 @@
 
 Counterpart of ``petastorm_tpu/chunk_store.py:1-881``, in the same on-disk
 format byte for byte, so either package serves a store the other filled.
-Left out (ROADMAP §A9): the ``store-read-corrupt`` fault site, the metrics
-counters, the trace counters and the autotuner's throttle listener (the
-throttle itself is here).
+Its counters are the ``pst_chunk_store_*_total`` family of the metrics
+registry too, and the ``store-read-corrupt`` fault site (``:500-502``)
+makes an entry read fail its check, so the entry is quarantined and
+refilled. Left out: the trace counters and the autotuner's throttle
+listener (the throttle itself is here). The store's directory is local: a
+``cache_location`` URL of another scheme than ``file`` raises.
 
 The tiers before it leave a gap: the device cache needs the dataset on the
 card, ``MemoryCache`` needs it in RAM once per process, and a cache of
@@ -59,8 +62,10 @@ from collections import OrderedDict
 
 import numpy as np
 
-from petastorm_tpu_torch.cache import CacheBase
+from petastorm_tpu_torch import metrics
+from petastorm_tpu_torch.cache import CacheBase, local_cache_dir
 from petastorm_tpu_torch.errors import CorruptChunkError
+from petastorm_tpu_torch.faults import get_injector
 
 logger = logging.getLogger(__name__)
 
@@ -296,6 +301,7 @@ class DecodedChunkStore(CacheBase):
         if not path:
             raise ValueError('DecodedChunkStore needs a directory: pass cache_location or set '
                              'the {} environment variable'.format(ENV_VAR))
+        path = local_cache_dir(path, 'the decoded-chunk store')
         self._config = {'path': path, 'size_limit': size_limit,
                         'writer_queue_depth': writer_queue_depth,
                         'throttle_delay_s': throttle_delay_s, 'cleanup': cleanup}
@@ -333,6 +339,11 @@ class DecodedChunkStore(CacheBase):
         self.bytes_mapped = 0
         self.readaheads = 0
         self.unstorable = 0
+        self._m = {name: metrics.counter(
+            'pst_chunk_store_{}_total'.format(name),
+            'Decoded-chunk store {} count'.format(name.replace('_', ' ')))
+            for name in ('hits', 'misses', 'fills', 'writes', 'write_skipped', 'corrupt',
+                         'bytes_written', 'bytes_mapped', 'readaheads', 'unstorable')}
 
     def _sweep_stale_scratch(self):
         """Remove ``*.tmp``/``*.lock`` files older than ``_STALE_SCRATCH_S``:
@@ -403,10 +414,14 @@ class DecodedChunkStore(CacheBase):
         with self._lock:
             validate = digest not in self._validated
         try:
+            if get_injector().should_fire('store-read-corrupt', key=str(key)):
+                raise CorruptChunkError('{}: injected fault store-read-corrupt (key={!r})'.format(
+                    path, key))
             entry = _OpenEntry.open(path, validate=validate)
         except CorruptChunkError as e:
             with self._lock:
                 self.corrupt += 1
+                self._m['corrupt'].inc()
                 self._validated.discard(digest)
             self._quarantine(path, e)
             return None
@@ -421,6 +436,7 @@ class DecodedChunkStore(CacheBase):
             self._entries[digest] = entry
             self._validated.add(digest)
             self.bytes_mapped += entry.nbytes
+            self._m['bytes_mapped'].inc(entry.nbytes)
             while len(self._entries) > _MAX_OPEN_ENTRIES:
                 # Dropped, not closed: live views keep the mapping alive.
                 self._entries.popitem(last=False)
@@ -453,6 +469,7 @@ class DecodedChunkStore(CacheBase):
             mm.close()   # nothing exported; the pages stay in the page cache
         with self._lock:
             self.readaheads += 1
+            self._m['readaheads'].inc()
         return True
 
     # -- CacheBase ---------------------------------------------------------
@@ -462,20 +479,24 @@ class DecodedChunkStore(CacheBase):
         if entry is not None:
             with self._lock:
                 self.hits += 1
+                self._m['hits'].inc()
             # A fresh dict per hit: a caller may slice or pop its copy.
             return dict(entry.views)
         with self._lock:
             self.misses += 1
+            self._m['misses'].inc()
         value = fill_cache_func()
         if value is None:
             return None
         with self._lock:
             self.fills += 1
+            self._m['fills'].inc()
         if conforms_tensor_chunk(value):
             self._enqueue_write(key, value)
         else:
             with self._lock:
                 self.unstorable += 1
+                self._m['unstorable'].inc()
         return value
 
     def has(self, key):
@@ -490,6 +511,7 @@ class DecodedChunkStore(CacheBase):
         if not conforms_tensor_chunk(cols):
             with self._lock:
                 self.unstorable += 1
+                self._m['unstorable'].inc()
             return False
         self._write_entry(key, cols)
         return True
@@ -502,6 +524,7 @@ class DecodedChunkStore(CacheBase):
                 return
             if self._spill_paused:
                 self.write_skipped += 1
+                self._m['write_skipped'].inc()
                 return
             if self._writer is None:
                 self._writeq = queue.Queue(maxsize=self._queue_depth)
@@ -516,6 +539,7 @@ class DecodedChunkStore(CacheBase):
                 # Never block the decode on the disk: drop; the next epoch's
                 # miss re-queues the chunk.
                 self.write_skipped += 1
+                self._m['write_skipped'].inc()
 
     def set_spill_paused(self, paused):
         """The governor's advisory hook: while True new spill work is
@@ -595,6 +619,8 @@ class DecodedChunkStore(CacheBase):
         with self._lock:
             self.writes += 1
             self.bytes_written += nbytes
+            self._m['writes'].inc()
+            self._m['bytes_written'].inc(nbytes)
         self._maybe_evict(nbytes)
 
     def _maybe_evict(self, new_bytes=0):

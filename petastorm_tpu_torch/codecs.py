@@ -14,7 +14,11 @@ The worker fast path is :func:`decode_image_batch_into`: one native call per
 (row-group, field), fanned over the process's decode-thread budget
 (:mod:`~petastorm_tpu_torch.decode_budget`), each image decoded straight
 into its slot of the block. ``PSTT_DECODE_PATH=scalar`` takes one call per
-image instead, with identical output.
+image instead, with identical output. Each batched call bumps
+``pst_decode_batch_calls_total`` and ``pst_decode_batch_images_total``, and
+its per-slot fallbacks ``pst_decode_batch_fallbacks_total``
+(``petastorm_tpu/codecs.py:581-616``); the ``decode-corrupt-batch`` fault
+site poisons one slot of a call (``:545``).
 """
 
 import io
@@ -371,7 +375,22 @@ def _decode_cell_into(out, i, field, codec, blob, native_error=None):
     out[i] = value
 
 
-def decode_image_batch_into(field, out, blob_fn, ptrs=None, lens=None, decode_threads=None):
+#: What the ``decode-corrupt-batch`` fault site puts in slot 0 of a batch.
+_CORRUPT_BLOB = b'\xde\xad not-an-image \xbe\xef'
+
+
+def _count_batch_call(n):
+    from petastorm_tpu_torch import metrics
+    metrics.counter('pst_decode_batch_calls_total',
+                    'Batched native image decode calls (one per '
+                    '(row-group, field) on the fast path)').inc()
+    metrics.counter('pst_decode_batch_images_total',
+                    'Images decoded through the batched native fast '
+                    'path').inc(n)
+
+
+def decode_image_batch_into(field, out, blob_fn, ptrs=None, lens=None, decode_threads=None,
+                            fault_key=None):
     """Decode ``len(out)`` JPEG/PNG streams into the slots ``out[i]``.
 
     :param field: the image field (shape, dtype and codec).
@@ -385,6 +404,9 @@ def decode_image_batch_into(field, out, blob_fn, ptrs=None, lens=None, decode_th
     :param decode_threads: threads of the batched call, C++ ones (OpenCV's
         without the native codec); ``None``: the current fair share of
         ``PSTT_DECODE_THREADS``.
+    :param fault_key: the row-group's key of the ``decode-corrupt-batch``
+        fault site: when it fires, slot 0 gets a stream that is no image,
+        so exactly this call (and its row-group) fails.
 
     Returns the number of per-slot fallbacks (0 on the pure fast path). A
     slot the batched call fails (an RGBA stream in an RGB slot, a gray
@@ -393,12 +415,20 @@ def decode_image_batch_into(field, out, blob_fn, ptrs=None, lens=None, decode_th
     native error string (``native_error``). ``PSTT_DECODE_PATH=scalar``, a
     missing native codec and a non-uint8 field take the per-image loop,
     with identical output; without the native codec the batched path runs
-    that loop on ``decode_threads`` threads (OpenCV releases the GIL).
+    that loop on ``decode_threads`` threads (OpenCV releases the GIL), and
+    counts as a batched call.
     """
     n = len(out)
     if n == 0:
         return 0
     codec = field.resolved_codec()
+    poisoned = False
+    if fault_key is not None:
+        from petastorm_tpu_torch.faults import get_injector
+        if get_injector().should_fire('decode-corrupt-batch', key=fault_key):
+            poisoned = True
+            real_blob_fn = blob_fn
+            blob_fn = lambda i: _CORRUPT_BLOB if i == 0 else real_blob_fn(i)  # noqa: E731
     native = _native_image()
     batched = decode_path() == 'batched'
     threads = _resolve_decode_threads(decode_threads)
@@ -409,18 +439,28 @@ def decode_image_batch_into(field, out, blob_fn, ptrs=None, lens=None, decode_th
             for _ in pool.map(lambda i: _decode_cell_into(out, i, field, codec, blob_fn(i)),
                               range(n)):
                 pass
+        _count_batch_call(n)
         return 0
     if native is None or not batched or out.dtype != np.uint8:
         for i in range(n):
             _decode_cell_into(out, i, field, codec, blob_fn(i))
+        if native is None and batched:
+            _count_batch_call(n)    # the OpenCV route of the batched path
         return 0
     keepalive = None
     if ptrs is None or lens is None:
         keepalive = [np.frombuffer(blob_fn(i), dtype=np.uint8) for i in range(n)]
         ptrs = [view.ctypes.data for view in keepalive]    # the views alias the bytes
         lens = [len(view) for view in keepalive]
+    elif poisoned:
+        keepalive = [np.frombuffer(_CORRUPT_BLOB, dtype=np.uint8)]
+        ptrs = np.array(ptrs, dtype=np.int64)
+        lens = np.array(lens, dtype=np.int64)
+        ptrs[0] = keepalive[0].ctypes.data
+        lens[0] = len(_CORRUPT_BLOB)
     results, chs, hs, ws = native.decode_batch_into(ptrs, lens, out, num_threads=threads)
     del keepalive
+    _count_batch_call(n)
     want_ch = field.shape[2] if len(field.shape) == 3 else 1
     want_h, want_w = field.shape[0], field.shape[1]
     fallbacks = 0
@@ -438,4 +478,9 @@ def decode_image_batch_into(field, out, blob_fn, ptrs=None, lens=None, decode_th
             out[i] = CompressedImageCodec.conform_channels(native.decode_image(blob_fn(i)),
                                                            field)
             fallbacks += 1
+    if fallbacks:
+        from petastorm_tpu_torch import metrics
+        metrics.counter('pst_decode_batch_fallbacks_total',
+                        'Per-image fallback decodes after a batched call '
+                        '(failed or channel-mismatched slots)').inc(fallbacks)
     return fallbacks

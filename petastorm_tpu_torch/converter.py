@@ -26,7 +26,6 @@ import hashlib
 import json
 import logging
 import os
-import shutil
 import tempfile
 import threading
 import uuid
@@ -35,7 +34,7 @@ from contextlib import contextmanager
 import pyarrow as pa
 import pyarrow.parquet as pq
 
-from petastorm_tpu_torch.fs import local_path
+from petastorm_tpu_torch.fs import FilesystemResolver
 from petastorm_tpu_torch.storage import NUM_ROW_GROUPS_KEY, ParquetStore
 
 logger = logging.getLogger(__name__)
@@ -119,8 +118,10 @@ def _fingerprint(table):
 class Converter(object):
     """A table materialized as a cached Parquet store at :attr:`dataset_url`."""
 
-    def __init__(self, cache_url, num_rows, fingerprint):
+    def __init__(self, cache_url, num_rows, fingerprint, storage_options=None):
         self.dataset_url = cache_url
+        #: The fsspec options of the store, passed on to its readers.
+        self.storage_options = dict(storage_options or {})
         self._num_rows = num_rows
         self._fingerprint = fingerprint
         self._deleted = False
@@ -141,6 +142,7 @@ class Converter(object):
         from petastorm_tpu_torch.loader import TorchLoader
         from petastorm_tpu_torch.reader import make_batch_reader
 
+        reader_kwargs.setdefault('storage_options', self.storage_options)
         with make_batch_reader(self.dataset_url, reader_pool_type=reader_pool_type,
                                workers_count=workers_count, num_epochs=num_epochs, seed=seed,
                                shuffle_row_groups=shuffle_row_groups, **reader_kwargs) as reader:
@@ -163,6 +165,7 @@ class Converter(object):
         from petastorm_tpu_torch.pytorch import DataLoader
         from petastorm_tpu_torch.reader import make_batch_reader
 
+        reader_kwargs.setdefault('storage_options', self.storage_options)
         with make_batch_reader(self.dataset_url, reader_pool_type=reader_pool_type,
                                workers_count=workers_count, num_epochs=num_epochs, seed=seed,
                                shuffle_row_groups=shuffle_row_groups, **reader_kwargs) as reader:
@@ -178,11 +181,18 @@ class Converter(object):
         self._deleted = True
         with _cache_lock:
             _conversion_cache.pop(self._fingerprint, None)
-        _delete_dataset_url(self.dataset_url)
+        _delete_dataset_url(self.dataset_url, self.storage_options)
 
 
-def _delete_dataset_url(url):
-    shutil.rmtree(local_path(url)[1], ignore_errors=True)
+def _delete_dataset_url(url, storage_options=None):
+    """Remove a store through its filesystem (best effort)."""
+    try:
+        resolver = FilesystemResolver(url, storage_options)
+        fs, path = resolver.filesystem(), resolver.get_dataset_path()
+        if fs.exists(path):
+            fs.rm(path, recursive=True)
+    except Exception:  # noqa: BLE001 - cleanup must not raise at exit
+        logger.warning('Failed to remove converter cache %s', url, exc_info=True)
 
 
 def _cleanup_all():
@@ -191,20 +201,24 @@ def _cleanup_all():
         _conversion_cache.clear()
     for conv in converters:
         conv._deleted = True
-        _delete_dataset_url(conv.dataset_url)
+        _delete_dataset_url(conv.dataset_url, conv.storage_options)
 
 
 atexit.register(_cleanup_all)
 
 
 def make_converter(df, parent_cache_dir_url=None, precision=32, rows_per_row_group=None,
-                   row_group_size_mb=None):
+                   row_group_size_mb=None, storage_options=None):
     """``df`` (a pandas DataFrame or a pyarrow Table) written as a plain
     Parquet store under the cache directory, as a :class:`Converter`.
 
+    :param parent_cache_dir_url: a local directory or any store URL
+        (``gs://bucket/cache``, ``memory://cache``, ...).
     :param precision: 32 narrows float64 columns to float32; 64 keeps them.
     :param rows_per_row_group: rows a row-group; else ``row_group_size_mb``
         of the table's average row, else the whole table up to 64Ki rows.
+    :param storage_options: the fsspec driver's keyword arguments, kept for
+        the converter's readers.
     """
     table = _narrow_precision(_to_arrow_table(df), precision)
     parent = _parent_cache_dir(parent_cache_dir_url)
@@ -218,28 +232,31 @@ def make_converter(df, parent_cache_dir_url=None, precision=32, rows_per_row_gro
         if cached is not None:
             logger.info('Converter cache hit for fingerprint %s', content_hash[:12])
             return cached
-    parent_path = local_path(parent)[1] if '://' in parent else os.path.abspath(parent)
-    path = os.path.join(parent_path,
-                        'conv_{}_{}'.format(content_hash[:16], uuid.uuid4().hex[:8]))
-    os.makedirs(path, exist_ok=True)
-    cache_url = 'file://' + path
+    sub = 'conv_{}_{}'.format(content_hash[:16], uuid.uuid4().hex[:8])
+    if '://' in parent:
+        cache_url = parent.rstrip('/') + '/' + sub
+    else:
+        cache_url = 'file://' + os.path.join(os.path.abspath(parent), sub)
+    resolver = FilesystemResolver(cache_url, storage_options)
+    fs, path = resolver.filesystem(), resolver.get_dataset_path()
+    fs.makedirs(path, exist_ok=True)
     if rows_per_row_group is None:
         if row_group_size_mb is not None:
             approx_row = max(1, table.nbytes // max(1, table.num_rows))
             rows_per_row_group = max(1, row_group_size_mb * 1024 * 1024 // approx_row)
         else:
             rows_per_row_group = min(max(1, table.num_rows), 64 * 1024)
-    pq.write_table(table, os.path.join(path, 'part-00000.parquet'),
-                   row_group_size=rows_per_row_group)
+    with fs.open(path + '/part-00000.parquet', 'wb') as f:
+        pq.write_table(table, f, row_group_size=rows_per_row_group)
     # A plain store with the row-group counts, as the JAX package writes it.
-    store = ParquetStore(cache_url)
+    store = ParquetStore(cache_url, storage_options)
     store.write_common_metadata(
         table.schema, {NUM_ROW_GROUPS_KEY: json.dumps(store.num_row_groups_per_file())})
-    converter = Converter(cache_url, table.num_rows, fingerprint)
+    converter = Converter(cache_url, table.num_rows, fingerprint, storage_options)
     with _cache_lock:
         existing = _conversion_cache.get(fingerprint)
         if existing is not None:     # lost a race: keep the first
-            _delete_dataset_url(cache_url)
+            _delete_dataset_url(cache_url, storage_options)
             return existing
         _conversion_cache[fingerprint] = converter
     logger.info('Materialized converter cache %s (%d rows)', cache_url, table.num_rows)

@@ -28,9 +28,12 @@ ventilator: host ``h`` of ``M`` feeds the positions ``p`` with
 is the single-host stream for every ``M``, and a job checkpointed on N
 hosts resumes on M through :func:`merge_cursors`.
 
-The JAX package also registers the resequencer as a watchdog probe, whose
+A quarantined item (a reader with an ``error_budget``) never publishes a
+chunk: the reader's quarantine sink calls :meth:`Resequencer.mark_satisfied`
+with its sequence number, and the release goes on past the hole. The JAX
+package also registers the resequencer as a watchdog probe, whose
 ``stats()`` then classify a stalled hole; that waits for the port of
-``health.py`` (ROADMAP §A9). ``stats()`` is here already.
+``health.py`` (ROADMAP §A9f). ``stats()`` is here already.
 """
 
 import hashlib
@@ -150,11 +153,14 @@ class ResequencedReads(object):
         self._resequencer = resequencer
         self._arrivals = _Arrivals(self._next_result)
 
-    def get_results(self):
-        """The next chunk; end of data raises ``EmptyResultError``."""
+    def get_results(self, timeout=None):
+        """The next chunk; end of data raises ``EmptyResultError``, and a
+        ``timeout`` (seconds) without a result ``TimeoutWaitingForResultError``."""
         if self._resequencer is not None:
-            return self._resequencer.next_chunk(self._arrivals)
-        return self._next_result()
+            arrivals = (self._arrivals if timeout is None
+                        else _Arrivals(lambda: self._next_result(timeout)))
+            return self._resequencer.next_chunk(arrivals)
+        return self._next_result(timeout)
 
 
 class _Arrivals(object):
@@ -174,20 +180,23 @@ class _Arrivals(object):
 class Resequencer(object):
     """Bounded reorder buffer releasing chunks strictly in ventilation order.
 
-    Driven by the consumer's thread (:meth:`next_chunk`); :meth:`stats` may
-    be read from another, hence the lock (one acquisition a chunk). The JAX
-    package's ``mark_satisfied`` (a quarantined row-group's hole) waits for
-    the port of quarantine (ROADMAP §A9).
-    ``max_buffer`` is a safety net far above the ventilator's in-flight cap.
-    When the pool declares the end of data with chunks still held behind a
-    hole, the verdict is re-polled for ``end_grace_s`` before it raises:
-    the pool's end signal samples several counters without one lock.
+    Driven by the consumer's thread (:meth:`next_chunk`); a quarantine sink
+    fills the hole of an item that will never publish
+    (:meth:`mark_satisfied`, ``petastorm_tpu/determinism.py:352``), and
+    :meth:`stats` may be read from another thread, hence the lock (one
+    acquisition a chunk). ``max_buffer`` is a safety net far above the
+    ventilator's in-flight cap. When the pool declares the end of data with
+    chunks still held behind a hole, the verdict is re-polled for
+    ``end_grace_s`` before it raises (``:247-300``): the pool's end signal
+    samples several counters without one lock, and a late quarantine
+    record may still fill the hole.
     """
 
     def __init__(self, max_buffer=4096, end_grace_s=2.0):
         self._lock = threading.Lock()
         self._expected = 0
         self._buffer = {}
+        self._satisfied = set()   # seqs that will publish no chunk (quarantined)
         self._wait_since = None   # when the current hole opened
         self._max_buffer = max_buffer
         self._out_of_order = 0
@@ -243,6 +252,9 @@ class Resequencer(object):
                             len(self._buffer), self._expected))
 
     def _pop_ready_locked(self):
+        while self._expected in self._satisfied:
+            self._satisfied.discard(self._expected)
+            self._expected += 1
         chunk = self._buffer.pop(self._expected, _MISSING)
         if chunk is not _MISSING:
             self._advance_locked()
@@ -250,7 +262,19 @@ class Resequencer(object):
 
     def _advance_locked(self):
         self._expected += 1
+        while self._expected in self._satisfied:
+            self._satisfied.discard(self._expected)
+            self._expected += 1
         self._wait_since = time.monotonic() if self._buffer else None
+
+    def mark_satisfied(self, seq):
+        """``seq`` will never publish a chunk (its row-group was
+        quarantined): release goes on past it instead of waiting."""
+        with self._lock:
+            if seq == self._expected:
+                self._advance_locked()
+            elif seq > self._expected:
+                self._satisfied.add(seq)
 
     def stats(self):
         """How long the stream has been held at a hole and how much waits
@@ -277,6 +301,7 @@ class Resequencer(object):
         with self._lock:
             self._expected = 0
             self._buffer.clear()
+            self._satisfied.clear()
             self._wait_since = None
 
 

@@ -19,7 +19,9 @@ when a run is evicted mid-epoch. The cache registers the memory governor's
 ``device-cache`` pool (:mod:`~petastorm_tpu_torch.membudget`); in partial
 mode the degrade rung evicts the coldest run and the advisory rung pauses
 the fill. On the card the pool counts device bytes against the host
-budget, as the JAX package counts HBM bytes on a TPU.
+budget, as the JAX package counts HBM bytes on a TPU. The resident bytes
+and the batches served from them are ``pst_device_cache_bytes`` and
+``pst_device_cache_hits_total`` (``device_cache.py:155-161``).
 
 Epochs reshuffle on the device, in two levels: the order in which the
 superbatches are visited, and the rows within each superbatch, each drawn
@@ -48,7 +50,7 @@ import weakref
 
 import torch
 
-from petastorm_tpu_torch import membudget
+from petastorm_tpu_torch import membudget, metrics
 
 logger = logging.getLogger(__name__)
 
@@ -156,6 +158,13 @@ class DeviceDatasetCache(object):
         self._materialized = False
         self._overflow_msg = None
         self._cleared = False
+        self._m_bytes = metrics.gauge(
+            'pst_device_cache_bytes',
+            'Global logical bytes resident in the device dataset cache '
+            'across all caches (inc/dec per superbatch lifetime)')
+        self._m_hits = metrics.counter(
+            'pst_device_cache_hits_total',
+            'Batches served from the HBM-resident dataset tier')
         # Accounting always; eviction and the fill pause only in partial
         # mode, where an epoch need not be the whole cache. The hooks hold
         # the cache weakly and the pool closes when the cache is collected:
@@ -211,6 +220,7 @@ class DeviceDatasetCache(object):
             self._superbatches.remove(coldest)
             self._bytes -= coldest.nbytes
             self._evictions += 1
+        self._m_bytes.dec(coldest.nbytes)
         logger.info('device cache evicted superbatch [%d, %d) under memory pressure (%.2f GB '
                     'freed)', coldest.start, coldest.start + coldest.n_batches,
                     coldest.nbytes / 1e9)
@@ -317,6 +327,7 @@ class DeviceDatasetCache(object):
             self._superbatches.append(sb)
             self._superbatches.sort(key=lambda s: s.start)
             self._bytes += sb.nbytes
+        self._m_bytes.inc(sb.nbytes)
 
     def _covering(self, batch_index):
         """The resident run covering ``batch_index`` (a hit), or None. The
@@ -329,6 +340,7 @@ class DeviceDatasetCache(object):
                     sb.last_hit = self._hit_clock
                     sb.hits += 1
                     self._hits += 1
+                    self._m_hits.inc()
                     return sb
         return None
 
@@ -426,8 +438,11 @@ class DeviceDatasetCache(object):
 
     def _drop_all(self):
         with self._lock:
+            freed = self._bytes
             self._superbatches = []
             self._bytes = 0
+        if freed:
+            self._m_bytes.dec(freed)
 
     def clear(self):
         """Free the cached tensors and unregister the governor's pool. The

@@ -22,6 +22,18 @@ class DecodeFieldError(PetastormTorchError):
         self.native_error = native_error
 
 
+class RowGroupQuarantinedError(PetastormTorchError):
+    """Poison row-group failures went past the reader's ``error_budget``.
+
+    ``quarantined`` holds the records gathered before the budget ran out
+    (``Reader.diagnostics()['quarantined_rowgroups']`` has them while the
+    budget holds)."""
+
+    def __init__(self, message, quarantined=None):
+        super(RowGroupQuarantinedError, self).__init__(message)
+        self.quarantined = list(quarantined or [])
+
+
 class NoDataAvailableError(PetastormTorchError):
     """Filtering or sharding left a reader with no row-groups."""
 
@@ -52,3 +64,10 @@ class HostMemoryExceededError(PetastormTorchError):
         self.budget = budget
         self.accounted = accounted
         self.ranking = list(ranking or [])
+
+
+#: Failures a worker may quarantine (skip the row-group and record it)
+#: instead of ending the epoch, when the reader has an ``error_budget``:
+#: data and IO problems; a programming error (TypeError, KeyError, ...)
+#: always surfaces.
+QUARANTINE_EXCEPTION_TYPES = (DecodeFieldError, IOError, OSError)

@@ -12,7 +12,6 @@ schema (the ``make_batch_reader`` path).
 
 import json
 import logging
-import os
 from contextlib import contextmanager
 
 from petastorm_tpu_torch.errors import PetastormMetadataError
@@ -31,7 +30,7 @@ def get_schema(store):
         legacy_blob = store.common_metadata_value(LEGACY_UNISCHEMA_KEY)
         if legacy_blob is not None:
             return load_legacy_unischema(legacy_blob)
-        if not os.path.exists(store.path):
+        if not store.fs.exists(store.path):
             raise IOError('Dataset path does not exist: {}'.format(store.url))
         raise PetastormMetadataError(
             'Dataset at {} has no petastorm_tpu schema metadata. Either materialize it with '
@@ -41,9 +40,10 @@ def get_schema(store):
     return Unischema.from_json(json.loads(blob.decode('utf-8')))
 
 
-def get_schema_from_dataset_url(dataset_url):
-    """:func:`get_schema` of the store at ``dataset_url``."""
-    return get_schema(ParquetStore(dataset_url))
+def get_schema_from_dataset_url(dataset_url, storage_options=None):
+    """:func:`get_schema` of the store at ``dataset_url`` (``storage_options``:
+    the fsspec driver's keyword arguments)."""
+    return get_schema(ParquetStore(dataset_url, storage_options))
 
 
 def infer_or_load_unischema(store, omit_unsupported_fields=True):
@@ -61,7 +61,7 @@ def infer_or_load_unischema(store, omit_unsupported_fields=True):
 
 @contextmanager
 def materialize_dataset(dataset_url, schema, row_group_size_mb=None, rows_per_row_group=None,
-                        partition_fields=()):
+                        partition_fields=(), storage_options=None):
     """Yields a :class:`~petastorm_tpu_torch.etl.writer.DatasetWriter` of
     ``schema`` at ``dataset_url`` (the JAX package's URL flavour)::
 
@@ -77,6 +77,6 @@ def materialize_dataset(dataset_url, schema, row_group_size_mb=None, rows_per_ro
         raise ValueError('materialize_dataset(url, schema) requires a schema')
     writer = DatasetWriter(dataset_url, schema, row_group_size_mb=row_group_size_mb,
                            rows_per_row_group=rows_per_row_group,
-                           partition_fields=partition_fields)
+                           partition_fields=partition_fields, storage_options=storage_options)
     yield writer
     writer.close()

@@ -20,13 +20,13 @@ from petastorm_tpu_torch.storage import ROWGROUP_INDEX_KEY, ParquetStore
 logger = logging.getLogger(__name__)
 
 
-def build_rowgroup_index(dataset_url, indexers, max_workers=10):
+def build_rowgroup_index(dataset_url, indexers, storage_options=None, max_workers=10):
     """Index every row-group with ``indexers`` and store the payloads (merged
     into any the store holds). Returns the stored payload."""
     from petastorm_tpu_torch.py_dict_worker import decode_table_to_rows
     from petastorm_tpu_torch.workers.rowgroup_worker_base import with_partition_columns
 
-    store = ParquetStore(dataset_url)
+    store = ParquetStore(dataset_url, storage_options)
     schema = get_schema(store)
     pieces = store.row_groups()
     needed = sorted({c for ix in indexers for c in ix.column_names})
@@ -39,8 +39,8 @@ def build_rowgroup_index(dataset_url, indexers, max_workers=10):
 
     def read(item):
         piece_index, piece = item
-        with pq.ParquetFile(piece.path) as pf:
-            table = pf.read_row_group(piece.row_group, columns=physical)
+        with store.open_file(piece.path) as f:
+            table = pq.ParquetFile(f).read_row_group(piece.row_group, columns=physical)
         return piece_index, with_partition_columns(table, piece, needed)
 
     # Row-groups are read in parallel and indexed in order.
@@ -61,12 +61,12 @@ def build_rowgroup_index(dataset_url, indexers, max_workers=10):
     return payload
 
 
-def get_row_group_indexes(dataset_url_or_store):
+def get_row_group_indexes(dataset_url_or_store, storage_options=None):
     """The stored payload ``{index_name: {'type', 'field', 'values'}}``; a
     store of the reference petastorm's pickled indexes is read through
     :mod:`~petastorm_tpu_torch.etl.legacy`."""
     store = (dataset_url_or_store if isinstance(dataset_url_or_store, ParquetStore)
-             else ParquetStore(dataset_url_or_store))
+             else ParquetStore(dataset_url_or_store, storage_options))
     blob = store.common_metadata_value(ROWGROUP_INDEX_KEY)
     if blob is None:
         from petastorm_tpu_torch.etl.legacy import (LEGACY_ROWGROUP_INDEX_KEY,

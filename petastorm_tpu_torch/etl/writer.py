@@ -1,14 +1,16 @@
 """Pyarrow dataset writer: encode rows via codecs into Parquet row-groups.
 
-Counterpart of ``petastorm_tpu/etl/writer.py:30-202`` for local stores,
-hive partitions included. On close it writes the ``_metadata`` summary
-footer and the ``_common_metadata`` schema JSON and row-group counts, in
-the JAX package's layout (:func:`finalize_dataset_metadata`).
+Counterpart of ``petastorm_tpu/etl/writer.py:30-202``, hive partitions
+included, on any store the reader reads: directories and files are made
+through the store's fsspec filesystem (``storage_options``: the driver's
+keyword arguments). On close it writes the ``_metadata`` summary footer and
+the ``_common_metadata`` schema JSON and row-group counts, in the JAX
+package's layout (:func:`finalize_dataset_metadata`).
 """
 
 import json
 import logging
-import os
+import posixpath
 import tempfile
 
 import pyarrow as pa
@@ -25,7 +27,7 @@ DEFAULT_ROWS_PER_ROW_GROUP = 256
 
 
 class DatasetWriter(object):
-    """Writes encoded rows into a (hive-partitioned) local store::
+    """Writes encoded rows into a (hive-partitioned) store::
 
         with DatasetWriter('file:///tmp/ds', schema, rows_per_row_group=100) as w:
             for row in rows:
@@ -37,12 +39,12 @@ class DatasetWriter(object):
     """
 
     def __init__(self, dataset_url, schema, rows_per_row_group=None, row_group_size_mb=None,
-                 partition_fields=()):
+                 partition_fields=(), storage_options=None):
         if rows_per_row_group is not None and rows_per_row_group < 1:
             raise ValueError('rows_per_row_group must be >= 1, got {}'.format(rows_per_row_group))
         if rows_per_row_group is None and row_group_size_mb is None:
             rows_per_row_group = DEFAULT_ROWS_PER_ROW_GROUP
-        self._store = ParquetStore(dataset_url)
+        self._store = ParquetStore(dataset_url, storage_options)
         self._schema = schema
         self._partition_fields = tuple(partition_fields)
         for name in self._partition_fields:
@@ -54,9 +56,9 @@ class DatasetWriter(object):
         self._row_group_size_mb = row_group_size_mb
         self._arrow_schema = schema.arrow_schema(self._partition_fields)
         self._buffers = {}      # partition values -> encoded rows
-        self._writers = {}      # partition values -> (pq.ParquetWriter, file path)
+        self._writers = {}      # partition values -> (pq.ParquetWriter, file path, sink)
         self._closed = False
-        os.makedirs(self._store.path, exist_ok=True)
+        self._store.fs.makedirs(self._store.path, exist_ok=True)
 
     def write(self, row_dict):
         encoded = encode_row(self._schema, row_dict)
@@ -85,11 +87,13 @@ class DatasetWriter(object):
                    for f in self._arrow_schema}
         writer = self._writers.get(key)
         if writer is None:
-            directory = os.path.join(self._store.path, *('{}={}'.format(name, value) for name, value
-                                                         in zip(self._partition_fields, key)))
-            os.makedirs(directory, exist_ok=True)
-            path = os.path.join(directory, 'part-00000-{:05d}.parquet'.format(len(self._writers)))
-            writer = (pq.ParquetWriter(path, self._arrow_schema, compression='snappy'), path)
+            directory = posixpath.join(self._store.path, *(
+                '{}={}'.format(name, value) for name, value in zip(self._partition_fields, key)))
+            self._store.fs.makedirs(directory, exist_ok=True)
+            path = posixpath.join(directory,
+                                  'part-00000-{:05d}.parquet'.format(len(self._writers)))
+            sink = self._store.fs.open(path, 'wb')
+            writer = (pq.ParquetWriter(sink, self._arrow_schema, compression='snappy'), path, sink)
             self._writers[key] = writer
         writer[0].write_table(pa.Table.from_pydict(columns, schema=self._arrow_schema))
 
@@ -100,10 +104,12 @@ class DatasetWriter(object):
         for key in list(self._buffers):
             self._flush(key)
         collector = []
-        for pq_writer, path in self._writers.values():
+        for pq_writer, path, sink in self._writers.values():
             pq_writer.close()
-            md = pq.read_metadata(path)
-            md.set_file_path(os.path.relpath(path, self._store.path))
+            sink.close()
+            with self._store.fs.open(path, 'rb') as f:
+                md = pq.read_metadata(f)
+            md.set_file_path(posixpath.relpath(path, self._store.path))
             collector.append(md)
         finalize_dataset_metadata(self._store, self._schema, collector, self._partition_fields)
 
@@ -114,8 +120,9 @@ class DatasetWriter(object):
         if exc_type is None:
             self.close()
         else:
-            for pq_writer, _ in self._writers.values():
+            for pq_writer, _, sink in self._writers.values():
                 pq_writer.close()
+                sink.close()
         return False
 
 
@@ -126,12 +133,11 @@ def finalize_dataset_metadata(store, schema, metadata_collector=None, partition_
     arrow_schema = schema.arrow_schema(partition_fields)
     if metadata_collector:
         # pq.write_metadata re-reads its sink when given a collector: write
-        # to a temp file, then move it into the store.
-        with tempfile.NamedTemporaryFile(prefix='_', suffix='.parquet', dir=store.path,
-                                         delete=False) as tmp:
-            tmp_name = tmp.name
-        pq.write_metadata(arrow_schema, tmp_name, metadata_collector=list(metadata_collector))
-        os.replace(tmp_name, os.path.join(store.path, '_metadata'))
+        # to a local temp file, then put it into the store.
+        with tempfile.NamedTemporaryFile(suffix='.parquet') as tmp:
+            pq.write_metadata(arrow_schema, tmp.name,
+                              metadata_collector=list(metadata_collector))
+            store.fs.put(tmp.name, posixpath.join(store.path, '_metadata'))
     store.write_common_metadata(arrow_schema, {
         UNISCHEMA_KEY: json.dumps(schema.to_json()),
         NUM_ROW_GROUPS_KEY: json.dumps(store.num_row_groups_per_file()),
@@ -139,10 +145,10 @@ def finalize_dataset_metadata(store, schema, metadata_collector=None, partition_
 
 
 def write_dataset(dataset_url, schema, rows, rows_per_row_group=None, row_group_size_mb=None,
-                  partition_fields=()):
+                  partition_fields=(), storage_options=None):
     """One-shot convenience: write an iterable of row dicts as a dataset."""
     with DatasetWriter(dataset_url, schema, rows_per_row_group=rows_per_row_group,
-                       row_group_size_mb=row_group_size_mb,
-                       partition_fields=partition_fields) as writer:
+                       row_group_size_mb=row_group_size_mb, partition_fields=partition_fields,
+                       storage_options=storage_options) as writer:
         for row in rows:
             writer.write(row)

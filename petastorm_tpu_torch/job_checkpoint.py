@@ -54,7 +54,10 @@ state in ``loader_states``. An async sharded save (orbax's background save
 of ``NamedSharding`` leaves, ``petastorm_tpu/job_checkpoint.py:50-69``)
 coordinates its background writes over a gloo group of its own, made at its
 first save, so they never interleave with the training's collectives (and
-an NCCL job gets the CPU backend ``dcp.async_save`` needs).
+an NCCL job gets the CPU backend ``dcp.async_save`` needs). Saves, restores
+and save seconds are ``pst_checkpoint_saves_total``,
+``pst_checkpoint_restore_total`` and ``pst_checkpoint_save_seconds``
+(``petastorm_tpu/job_checkpoint.py:74-82``).
 """
 
 import base64
@@ -70,6 +73,8 @@ import uuid
 import torch
 import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
+
+from petastorm_tpu_torch import metrics
 from torch.distributed.checkpoint.staging import AsyncStager
 from torch.distributed.checkpoint.state_dict import get_state_dict, set_state_dict
 
@@ -126,6 +131,15 @@ class JobCheckpointer(object):
         self._closed = False
         #: Seconds the latest ``save`` call held the caller's thread.
         self.save_seconds = None
+        self._m_saves = metrics.counter(
+            'pst_checkpoint_saves_total',
+            'Job checkpoints actually saved (interval skips excluded)')
+        self._m_restores = metrics.counter(
+            'pst_checkpoint_restore_total',
+            'Job checkpoints restored')
+        self._m_save_seconds = metrics.histogram(
+            'pst_checkpoint_save_seconds',
+            'JobCheckpointer.save latency (dispatch only under async_save)')
 
     # -- save --------------------------------------------------------------
 
@@ -179,6 +193,8 @@ class JobCheckpointer(object):
                 raise
             self._commit(step, tmp, rank_loader)
         self.save_seconds = time.perf_counter() - t0
+        self._m_saves.inc()
+        self._m_save_seconds.observe(self.save_seconds)
         return True
 
     def _async_group(self):
@@ -305,6 +321,7 @@ class JobCheckpointer(object):
         else:
             loader_state = _decode_loader_state(json.loads(payload['loader'])) or None
             loader_states = [loader_state]
+        self._m_restores.inc()
         return JobCheckpoint(step=int(step), state=state_template, loader_state=loader_state,
                              extra=json.loads(payload['extra']) or {},
                              loader_states=loader_states)

@@ -35,8 +35,12 @@ Replay
 A row-level shuffling buffer or shape policies make records inexact, and
 replay refuses them. Under the memory governor's degrade rung the ledger
 spill is shed (the ring keeps every record; each shed one is counted in
-``pressure_dropped``). Not ported (ROADMAP §A9): the metrics counters and
-the flight recorder's dump of the rings; the replay command line.
+``pressure_dropped``). The records, the drops and each ledger's queue depth
+are also ``pst_lineage_records_total``, ``pst_lineage_dropped_total`` and
+``pst_lineage_ledger_lag{ledger}``. :func:`replay_record` reads the store
+through its filesystem (``storage_options`` for a store that is not local).
+Not ported (ROADMAP §A9f): the flight recorder's dump of the rings; the
+replay command line.
 """
 
 import glob
@@ -54,7 +58,7 @@ from collections import deque
 
 import numpy as np
 
-from petastorm_tpu_torch import membudget
+from petastorm_tpu_torch import membudget, metrics
 
 logger = logging.getLogger(__name__)
 
@@ -237,6 +241,13 @@ class LineageTracker(object):
         self.pressure_dropped = 0   # records the memory governor shed
         self._pressure_shed = False
         self.collector = LineageCollector(self, digest=digest)
+        self._m_records = metrics.counter(
+            'pst_lineage_records_total',
+            'Batch provenance records committed (ring + ledger)')
+        self._m_dropped = metrics.counter(
+            'pst_lineage_dropped_total',
+            'Provenance records lost (writer queue overflow, ledger line '
+            'bound, or batches dropped before delivery)')
         self._ledger = (LineageLedger(ledger_dir, self.ctx, max_records=max_records,
                                       queue_size=queue_size)
                         if ledger_dir is not None else None)
@@ -271,14 +282,17 @@ class LineageTracker(object):
         with self._lock:
             self._ring.append(record)
             self.records += 1
+        self._m_records.inc()
         if self._ledger is not None:
             if self._pressure_shed:
                 with self._lock:
                     self.dropped += 1
                     self.pressure_dropped += 1
+                self._m_dropped.inc()
             elif not self._ledger.append(record):
                 with self._lock:
                     self.dropped += 1
+                self._m_dropped.inc()
         return record
 
     def set_pressure_shedding(self, shed):
@@ -352,10 +366,21 @@ class LineageLedger(object):
         self._file = None
         self._record_bytes_ema = 0.0   # serialized size, kept by the writer
         self._queue = queue.Queue(maxsize=max(1, int(queue_size)))
+        # One label child a ledger: two pipelines in a process keep their
+        # own lag, and close() removes the child.
+        self._label = '{}-{}'.format(os.getpid(), uuid.uuid4().hex[:8])
+        self._m_lag = metrics.gauge(
+            'pst_lineage_ledger_lag',
+            'Provenance records accepted but not yet durable in the '
+            'ledger (write-behind queue depth)', labelnames=('ledger',))
+        self._m_lag.labels(self._label).set_function(self._queue.qsize)
+        self._m_dropped = metrics.counter(
+            'pst_lineage_dropped_total',
+            'Provenance records lost (writer queue overflow, ledger line '
+            'bound, or batches dropped before delivery)')
         try:
             os.makedirs(directory, exist_ok=True)
-            self.path = os.path.join(directory, 'ledger-{}-{}.jsonl'.format(
-                os.getpid(), uuid.uuid4().hex[:8]))
+            self.path = os.path.join(directory, 'ledger-{}.jsonl'.format(self._label))
             # One flush a line: whole lines survive a SIGKILL.
             self._file = open(self.path, 'w', buffering=1)
             self._file.write(json.dumps({_HEADER_KEY: 1, 'pid': os.getpid(),
@@ -397,6 +422,7 @@ class LineageLedger(object):
                     return
                 if self._failed or self._written >= self._max_records:
                     self.dropped += 1
+                    self._m_dropped.inc()
                     continue
                 try:
                     line = json.dumps(record, default=repr) + '\n'
@@ -407,6 +433,7 @@ class LineageLedger(object):
                     logger.warning('lineage ledger write failed; disabling', exc_info=True)
                     self._failed = True
                     self.dropped += 1
+                    self._m_dropped.inc()
             finally:
                 self._queue.task_done()
 
@@ -429,6 +456,7 @@ class LineageLedger(object):
         f, self._file = self._file, None
         if f is not None:
             f.close()
+        self._m_lag.remove(self._label)
 
 
 # --------------------------------------------------------------------------
@@ -535,7 +563,7 @@ def _segment_ctx(ctx, segment):
     return sources[idx]
 
 
-def _replay_segment(stored_schema, ctx, segment, fields, pieces):
+def _replay_segment(store, stored_schema, ctx, segment, fields, pieces):
     """One segment's rows as column blocks, decoded (a batch reader's
     converted from Arrow) and sanitized as the loader delivered them: the
     row-group read (partition columns appended), the drop-partition slice,
@@ -557,9 +585,13 @@ def _replay_segment(stored_schema, ctx, segment, fields, pieces):
     names = [f for f in ctx.get('fields') or fields if f in stored_schema.fields]
     view = stored_schema.create_schema_view(names) if names else stored_schema
     stored = [n for n in view.fields if n not in piece.partition_values]
-    with pq.ParquetFile(str(piece.path), memory_map=True) as pf:
-        table = with_partition_columns(pf.read_row_group(piece.row_group, columns=stored),
-                                       piece, list(view.fields))
+    if store.is_local:
+        with pq.ParquetFile(str(piece.path), memory_map=True) as pf:
+            table = pf.read_row_group(piece.row_group, columns=stored)
+    else:
+        with store.open_file(piece.path) as f:
+            table = pq.ParquetFile(f).read_row_group(piece.row_group, columns=stored)
+    table = with_partition_columns(table, piece, list(view.fields))
     if ctx.get('mode') == 'tensor':
         cols = decode_table_to_blocks(table, view)
     elif ctx.get('mode') == 'arrow':
@@ -595,9 +627,10 @@ def _replay_segment(stored_schema, ctx, segment, fields, pieces):
     return out
 
 
-def replay_record(record, ctx):
+def replay_record(record, ctx, storage_options=None):
     """The recorded batch re-materialized: ``{field: np.ndarray}`` with the
-    bytes the loader assembled (before the device copy)."""
+    bytes the loader assembled (before the device copy). ``storage_options``
+    are the fsspec driver's keyword arguments of the recorded store."""
     from petastorm_tpu_torch.etl.dataset_metadata import get_schema, infer_or_load_unischema
     from petastorm_tpu_torch.storage import ParquetStore
 
@@ -612,18 +645,18 @@ def replay_record(record, ctx):
         if url is None:
             raise ReplayError('record context carries no dataset url')
         if url not in stores:
-            store = ParquetStore(url)
+            store = ParquetStore(url, storage_options)
             schema = (infer_or_load_unischema(store) if seg_ctx.get('mode') == 'arrow'
                       else get_schema(store))
-            stores[url] = schema, {(str(p.path), int(p.row_group)): p
+            stores[url] = store, schema, {(str(p.path), int(p.row_group)): p
                                    for p in store.row_groups()}
         return stores[url]
 
     parts = []
     for segment in record.get('segments') or []:
         seg_ctx = _segment_ctx(ctx, segment)
-        schema, pieces = store_for(seg_ctx)
-        parts.append(_replay_segment(schema, seg_ctx, segment, fields, pieces))
+        store, schema, pieces = store_for(seg_ctx)
+        parts.append(_replay_segment(store, schema, seg_ctx, segment, fields, pieces))
     if not parts:
         raise ReplayError('record {} has no segments'.format(record.get('batch_id')))
     batch = {name: (parts[0][name] if len(parts) == 1
@@ -638,10 +671,10 @@ def replay_record(record, ctx):
     return batch
 
 
-def verify_record(record, ctx):
+def verify_record(record, ctx, storage_options=None):
     """:func:`replay_record` and a digest check: the replayed batch, or
     :class:`ReplayMismatchError` naming the fields whose bytes differ."""
-    batch = replay_record(record, ctx)
+    batch = replay_record(record, ctx, storage_options)
     digest = record.get('digest')
     if not digest:
         raise ReplayError('record {} carries no content digest; replay succeeded but cannot be '

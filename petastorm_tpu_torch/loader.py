@@ -28,6 +28,13 @@ call a field, straight into the batch's pinned arena where the shapes allow.
 ``TorchLoader(on_device_augment=fn)`` then applies ``fn`` to each staged
 device batch on the copy stream, before the batch's ready event is recorded.
 
+Instruments (``petastorm_tpu/jax_loader.py:1069-1079``): each delivered
+batch bumps ``pst_loader_batches_total`` and observes its blocked time in
+``pst_batch_wait_seconds``; the staging step adds its host bytes to
+``pst_staged_bytes_total``, and passes the ``device-put-delay`` fault site
+first (``:1785-1786``). The staging engine and arena pool have theirs
+(:mod:`~petastorm_tpu_torch.staging`).
+
 dtype table (the JAX package narrows 64-bit types; torch keeps them):
 bool, uint8, int8, int16, int32, int64, float16, float32 and float64 keep
 their type; uint16 widens to int32 and uint32 to int64 (values preserved);
@@ -45,8 +52,9 @@ from collections import deque, namedtuple
 import numpy as np
 import torch
 
-from petastorm_tpu_torch import membudget
+from petastorm_tpu_torch import membudget, metrics
 from petastorm_tpu_torch.device import resolve_device
+from petastorm_tpu_torch.faults import maybe_inject
 from petastorm_tpu_torch.lineage import LineageTracker, lineage_enabled, resolve_ledger_dir
 from petastorm_tpu_torch.parallel.mesh import (Sharding, axis_names, axis_size,
                                                batch_sharding, device_shard_plan, has_axis,
@@ -669,6 +677,15 @@ class TorchLoader(object):
         self._exhausted = False
         self._stats_lock = threading.Lock()
         self._reset_counters()
+        self._m_batches = metrics.counter(
+            'pst_loader_batches_total', 'Device batches delivered to the '
+            'training loop (echoed re-deliveries included)')
+        self._m_batch_wait = metrics.histogram(
+            'pst_batch_wait_seconds', 'Consumer-side blocked time per '
+            'fetch (the input-stall signal; includes the end-of-stream '
+            'fetch)')
+        self._m_staged_bytes = metrics.counter(
+            'pst_staged_bytes_total', 'Host bytes handed to device staging')
         # Arenas: those behind queued batches, in-flight copies, and the two
         # being filled and consumed.
         self._arena_depth = (int(arena_depth) if arena_depth is not None
@@ -980,6 +997,7 @@ class TorchLoader(object):
         return torch.from_numpy(arr)
 
     def _stage(self, item, arena):
+        maybe_inject('device-put-delay')
         batch, rows = item
         t0 = time.perf_counter()
         if self._raw_specs:
@@ -1030,6 +1048,7 @@ class TorchLoader(object):
             staged = _Staged(tensors, rows, event, start, sum(t.nbytes for t in tensors.values()))
         with self._stats_lock:
             self._stage_s += time.perf_counter() - t0
+        self._m_staged_bytes.inc(staged.nbytes)
         return staged
 
     def _wait_copied(self, staged):
@@ -1079,6 +1098,7 @@ class TorchLoader(object):
                 t.record_stream(consumer)
         names = tuple(sorted(tensors))
         self._batches += 1
+        self._m_batches.inc()
         if fresh:
             self._rows += staged.rows
             if self._lineage is not None:
@@ -1113,7 +1133,9 @@ class TorchLoader(object):
                 item = e
         else:
             item = self._get_staged()
-        self._wait_s += time.perf_counter() - t0
+        waited = time.perf_counter() - t0
+        self._wait_s += waited
+        self._m_batch_wait.observe(waited)
         if item is _END:
             self._exhausted = True
             self._echo_item = None

@@ -1,9 +1,14 @@
 """Host memory governor: one byte account over the pipeline's pools, a
 pressure ladder, and a typed error instead of the kernel's OOM kill.
 
-Counterpart of ``petastorm_tpu/membudget.py:1-887`` without its metrics,
-trace instants, fault site, flight-recorder dump, watchdog class and
-autotuner bias (ROADMAP §A9).
+Counterpart of ``petastorm_tpu/membudget.py:1-887`` without its trace
+instants, flight-recorder dump, watchdog class (ROADMAP §A9f) and autotuner
+bias (§A9h). Its instruments are the JAX package's (``:382-397``):
+``pst_mem_budget_bytes``, ``pst_mem_accounted_bytes{pool}``,
+``pst_mem_pressure_state``, ``pst_mem_degrade_actions_total{action}`` and
+``pst_mem_breaches_total``. The ``mem-pressure`` fault site (``:571-580``)
+inflates the bytes a pool reports by ``bytes=`` (default: one whole budget)
+every tick, so a test parks the ladder on any rung without allocating.
 
 Each byte-holding part of the pipeline (the results queue, the arenas, the
 prefetch queue, the shuffling buffer, the resequencer, the lineage queue,
@@ -54,6 +59,7 @@ import threading
 import time
 from collections import deque
 
+from petastorm_tpu_torch import faults, metrics
 from petastorm_tpu_torch.errors import HostMemoryExceededError
 
 logger = logging.getLogger(__name__)
@@ -307,6 +313,24 @@ class MemoryGovernor(object):
         self._transitions = deque(maxlen=self.config.transitions_log)
         self._t0 = None
         self._degrade_actions = {}
+        self._m_budget = metrics.gauge(
+            'pst_mem_budget_bytes',
+            'Host memory budget the governor enforces (0 = unarmed)')
+        self._m_accounted = metrics.gauge(
+            'pst_mem_accounted_bytes',
+            'Bytes currently held, by accountable pool',
+            labelnames=('pool',))
+        self._m_state = metrics.gauge(
+            'pst_mem_pressure_state',
+            'Pressure-ladder position (0 ok, 1 advisory, 2 degrade, '
+            '3 shed, 4 breach)')
+        self._m_actions = metrics.counter(
+            'pst_mem_degrade_actions_total',
+            'Degradation actions the governor ran, by action',
+            labelnames=('action',))
+        self._m_breaches = metrics.counter(
+            'pst_mem_breaches_total',
+            'Hard budget breaches (flight dump + HostMemoryExceededError)')
 
     # -- pool registry -----------------------------------------------------
 
@@ -389,6 +413,7 @@ class MemoryGovernor(object):
                 self._thread = (thread, stop)
         if thread is not None:
             thread.start()
+        self._m_budget.set(self._budget)
         logger.info('memory governor armed: budget %d bytes (%s)', self._budget,
                     self._budget_source)
         return True
@@ -409,6 +434,10 @@ class MemoryGovernor(object):
                 thread.join(timeout=5)
         if last:
             self._reset_ladder()
+            # '0 = unarmed': nothing else resets the gauges once the
+            # sampler is gone.
+            self._m_budget.set(0)
+            self._m_state.set(0)
 
     def _reset_ladder(self):
         """Back to ``ok`` when the last owner releases, through the normal
@@ -445,7 +474,10 @@ class MemoryGovernor(object):
 
     def _sample_pools(self):
         """``{name: bytes}`` summed over the handles; a failing
-        ``nbytes_fn`` counts its last good sample."""
+        ``nbytes_fn`` counts its last good sample. The ``mem-pressure``
+        fault site then inflates each selected pool name (not each handle:
+        two same-named pools must not double the injected pressure)."""
+        spec = faults.get_injector().spec('mem-pressure')
         with self._lock:
             handles = list(self._pools)
         sampled = {}
@@ -455,8 +487,18 @@ class MemoryGovernor(object):
             except Exception:  # noqa: BLE001 - a dying pool must not kill the tick
                 logger.debug('pool %s nbytes_fn failed', handle.name, exc_info=True)
                 nbytes = handle.last_nbytes
+            # The fallback keeps the sample before inflation, or a failing
+            # pool under the fault would compound it every tick.
             handle.last_nbytes = nbytes
             sampled[handle.name] = sampled.get(handle.name, 0) + nbytes
+        if spec is not None:
+            inflate = spec.inflate_bytes
+            if inflate is None:
+                inflate = self._budget or 0
+            injector = faults.get_injector()
+            for name in list(sampled):
+                if injector.selected('mem-pressure', name):
+                    sampled[name] += int(inflate)
         return sampled
 
     def check(self, now=None):
@@ -477,6 +519,9 @@ class MemoryGovernor(object):
         rss = process_rss_bytes()
         if rss:
             self._peak_rss = max(self._peak_rss, rss)
+        for name, nbytes in pools.items():
+            self._m_accounted.labels(name).set(nbytes)
+        self._m_state.set(STATE_LEVELS[state])
         if frac > self._peak_frac:
             self._peak_frac = frac
         if STATE_LEVELS[state] > self._peak_level:
@@ -504,6 +549,7 @@ class MemoryGovernor(object):
             logger.exception('%s toggle for pool %s failed', rung, pool_name)
 
     def _count_action(self, action):
+        self._m_actions.labels(action).inc()
         with self._lock:
             self._degrade_actions[action] = self._degrade_actions.get(action, 0) + 1
 
@@ -558,6 +604,7 @@ class MemoryGovernor(object):
 
     def _fire_breach(self):
         self.breaches += 1
+        self._m_breaches.inc()
         ranking = self.pool_ranking()
         top = ranking[0] if ranking else {'pool': 'none', 'nbytes': 0}
         message = ('host memory budget breached: {} accounted bytes of {} budget ({:.0%}); top '

@@ -22,6 +22,7 @@ import pyarrow as pa
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.checkpoint import chunk_key
 from petastorm_tpu_torch.errors import DecodeFieldError
+from petastorm_tpu_torch.faults import maybe_inject, rowgroup_fault_key
 from petastorm_tpu_torch.lineage import chunk_lineage
 from petastorm_tpu_torch.workers.rowgroup_worker_base import RowGroupWorkerBase, compute_row_slice
 
@@ -80,6 +81,7 @@ class PyDictWorker(RowGroupWorkerBase):
     def process(self, piece_index, worker_predicate=None, shuffle_row_drop_partition=None,
                 pst_det=None):
         piece = self.args['row_groups'][piece_index]
+        maybe_inject('decode-corrupt', key=rowgroup_fault_key(piece.path, piece.row_group))
         schema = self.args['schema']
         ngram = self.args.get('ngram')
         timings = {}

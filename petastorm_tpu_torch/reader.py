@@ -20,7 +20,26 @@ batch reader) and, on the tensor path, ``'chunk-store'``
 (:mod:`~petastorm_tpu_torch.chunk_store`, whose directory
 ``PSTT_CHUNK_STORE`` can also give, and which that variable arms for the
 default ``cache_type=None``). Of the pools, ``'thread'`` and ``'dummy'``.
-Health (ROADMAP §A9f), process pools (§A9g) and autotune (§A9h) come in later slices.
+Health (the second half of ROADMAP §A9f), process pools (§A9g) and
+autotune (§A9h) come in later slices.
+
+Storage (``petastorm_tpu/reader.py:177, 1528-1536``): ``dataset_url`` is
+any store :mod:`~petastorm_tpu_torch.fs` resolves (``file://``, ``gs://``,
+``s3://``, ``memory://``, ``hdfs://``, ...) and ``storage_options`` the
+fsspec driver's keyword arguments; the workers open their files through a
+picklable ``_StoreFactory`` of both.
+
+Failure model (``petastorm_tpu/reader.py:525-612, 821-854, 1492-1510``):
+with ``error_budget`` set, a worker whose row-group fails to read or decode
+(``errors.QUARANTINE_EXCEPTION_TYPES``) skips it and reports it; the
+reader's :class:`QuarantineLog` records each distinct item once (a poison
+row-group read again in a later epoch bumps its ``occurrences``), counts
+``pst_rowgroups_quarantined_total`` and raises
+:class:`~petastorm_tpu_torch.errors.RowGroupQuarantinedError` from ``next``
+once more items than the budget were quarantined. In deterministic mode the
+quarantined item's sequence hole is filled first
+(``Resequencer.mark_satisfied``), so the stream goes on in order.
+:meth:`Reader.diagnostics` lists the records.
 
 Row selection and transforms (``petastorm_tpu/reader.py:116-345, 825-835,
 1192-1235``): a ``rowgroup_selector`` picks row-groups through a stored
@@ -61,20 +80,23 @@ provenance segment (:mod:`~petastorm_tpu_torch.lineage`).
 """
 
 import hashlib
+import logging
 import os
+import threading
 import warnings
 from collections import deque
 
 import numpy as np
 
 from petastorm_tpu_torch import chunk_store as chunk_store_mod
-from petastorm_tpu_torch import decode_budget, determinism, membudget
+from petastorm_tpu_torch import decode_budget, determinism, faults, membudget, metrics
 from petastorm_tpu_torch.arrow_worker import ArrowWorker, restack_list_columns
 from petastorm_tpu_torch.cache import (LocalDiskArrowTableCache, LocalDiskCache, MemoryCache,
                                        NullCache)
 from petastorm_tpu_torch.checkpoint import ConsumptionTracker, DeferredRowAccounting
 from petastorm_tpu_torch.codecs import CompressedImageCodec, decode_path, decoder_info
-from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormMetadataError
+from petastorm_tpu_torch.errors import (NoDataAvailableError, PetastormMetadataError,
+                                        RowGroupQuarantinedError)
 from petastorm_tpu_torch.etl.dataset_metadata import get_schema, infer_or_load_unischema
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.py_dict_worker import PyDictWorker
@@ -86,6 +108,8 @@ from petastorm_tpu_torch.workers import EmptyResultError
 from petastorm_tpu_torch.workers.dummy_pool import DummyPool
 from petastorm_tpu_torch.workers.thread_pool import ThreadPool
 from petastorm_tpu_torch.workers.ventilator import ConcurrentVentilator
+
+logger = logging.getLogger(__name__)
 
 #: Row-groups ventilated beyond the worker count, as in the JAX reader.
 _VENTILATE_EXTRA_ROWGROUPS = 2
@@ -181,7 +205,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread', work
                 seed=None, predicate=None, rowgroup_selector=None, num_epochs=1,
                 cur_shard=None, shard_count=None, cache_type=None, cache_location=None,
                 cache_size_limit=None, cache_extra_settings=None, transform_spec=None,
-                resume_state=None, deterministic=False):
+                resume_state=None, deterministic=False, storage_options=None,
+                error_budget=None):
     """Reader of decoded rows, one namedtuple per row.
 
     The arguments are ``make_tensor_reader``'s, except
@@ -196,7 +221,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread', work
     > 1`` raise ``NotImplementedError``.
     """
     _check_selection_args(predicate, transform_spec, shuffle_row_drop_partitions)
-    store = ParquetStore(dataset_url)
+    store = ParquetStore(dataset_url, storage_options)
     stored_schema = _stored_schema(store, 'make_reader')
     ngram = None
     if isinstance(schema_fields, NGram):
@@ -217,7 +242,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread', work
                   predicate=predicate, rowgroup_selector=rowgroup_selector, num_epochs=num_epochs,
                   cur_shard=cur_shard, shard_count=shard_count, cache=cache,
                   transform_spec=transform_spec, ngram=ngram, resume_state=resume_state,
-                  deterministic=deterministic)
+                  deterministic=deterministic, error_budget=error_budget)
 
 
 def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
@@ -227,7 +252,7 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
                        cache_type=None, cache_location=None, cache_size_limit=None,
                        cache_extra_settings=None, transform_spec=None, resume_state=None,
                        deterministic=False, shuffle_rows_in_chunk=False,
-                       raw_image_fields=None):
+                       raw_image_fields=None, storage_options=None, error_budget=None):
     """Reader of decoded column blocks, one namedtuple per row-group.
 
     :param schema_fields: fields or full-match regex patterns to read
@@ -282,11 +307,18 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
         PNG bytes; a ``TorchLoader`` decodes them next to the copy to the
         card. Another field, ``True`` with no such field, or any together
         with ``transform_spec`` raises ``ValueError``.
+    :param storage_options: the fsspec driver's keyword arguments for a
+        store that is not local (credentials, project, endpoint).
+    :param error_budget: ``None`` (a row-group that fails to read or decode
+        ends the epoch), an int >= 0 (that many distinct row-group items may
+        be quarantined: skipped and recorded; one more raises
+        ``RowGroupQuarantinedError``) or a float in (0, 1) (that fraction of
+        the epoch's items). ``bool`` and floats >= 1 raise ``ValueError``.
     """
     _check_selection_args(predicate, transform_spec, shuffle_row_drop_partitions)
     if isinstance(schema_fields, NGram):
         raise NotImplementedError('NGram is not supported with tensor readers; use make_reader')
-    store = ParquetStore(dataset_url)
+    store = ParquetStore(dataset_url, storage_options)
     stored_schema = _stored_schema(store, 'make_tensor_reader')
     view = _view(stored_schema, schema_fields)
     validate_tensor_schema(view)
@@ -312,7 +344,7 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
                   num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
                   cache=cache, transform_spec=transform_spec, resume_state=resume_state,
                   deterministic=deterministic, shuffle_rows_in_chunk=shuffle_rows_in_chunk,
-                  raw_image_fields=raw_image_fields)
+                  raw_image_fields=raw_image_fields, error_budget=error_budget)
 
 
 def make_batch_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
@@ -322,7 +354,7 @@ def make_batch_reader(dataset_url, schema_fields=None, reader_pool_type='thread'
                       cache_type='null', cache_location=None, cache_size_limit=None,
                       cache_row_size_estimate=None, cache_extra_settings=None,
                       transform_spec=None, resume_state=None, shuffle_rows_in_chunk=False,
-                      deterministic=False):
+                      deterministic=False, storage_options=None, error_budget=None):
     """Reader of column arrays, one namedtuple per row-group, over any
     Parquet store (``petastorm_tpu/reader.py:382-446``).
 
@@ -340,7 +372,7 @@ def make_batch_reader(dataset_url, schema_fields=None, reader_pool_type='thread'
     either package's batch reader resumes the other.
     """
     _check_selection_args(predicate, transform_spec, shuffle_row_drop_partitions)
-    store = ParquetStore(dataset_url)
+    store = ParquetStore(dataset_url, storage_options)
     try:
         get_schema(store)
         warnings.warn('Dataset at {} is a petastorm_tpu store: consider using make_reader for '
@@ -361,7 +393,8 @@ def make_batch_reader(dataset_url, schema_fields=None, reader_pool_type='thread'
                   predicate=predicate, rowgroup_selector=rowgroup_selector,
                   num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
                   cache=cache, transform_spec=transform_spec, resume_state=resume_state,
-                  deterministic=deterministic, shuffle_rows_in_chunk=shuffle_rows_in_chunk)
+                  deterministic=deterministic, shuffle_rows_in_chunk=shuffle_rows_in_chunk,
+                  error_budget=error_budget)
 
 
 def _resolve_raw_image_fields(view, raw_image_fields):
@@ -463,6 +496,106 @@ def _check_resume_state(resume_state, deterministic, fingerprint):
                           '(differing: {}); resume positions may be meaningless'.format(differing))
 
 
+class _CallableDict(dict):
+    """A dict that also answers ``()`` with itself: ``Reader.diagnostics``
+    reads as a mapping and as a call, as in the JAX package."""
+
+    def __call__(self):
+        return self
+
+
+class QuarantineLog(object):
+    """The consumer's record of quarantined row-group items and the error
+    budget (``petastorm_tpu/reader.py:525-612``).
+
+    The budget counts distinct ventilated items (row-group x drop
+    partition): a poison row-group read again in a later epoch bumps its
+    record's ``occurrences`` and spends nothing more. ``budget`` is ``None``
+    (quarantine off: the workers raise), an int >= 0 (that many items
+    absorbed, one more raises) or a float in (0, 1) (that fraction of the
+    epoch's items); ``bool`` and floats >= 1 (is 1.0 one item or all of
+    them?) are refused."""
+
+    def __init__(self, budget, total_items, row_groups):
+        self._lock = threading.Lock()
+        self._row_groups = row_groups
+        self._records = []
+        self._by_item = {}
+        self.enabled = budget is not None
+        if budget is None:
+            self._max = 0
+        elif isinstance(budget, bool):
+            raise ValueError('error_budget must be None, an int >= 0, or a fraction in (0, 1); '
+                             'got {!r}'.format(budget))
+        elif isinstance(budget, int) and budget >= 0:
+            self._max = budget
+        elif isinstance(budget, float) and 0 < budget < 1:
+            self._max = int(budget * total_items)
+        else:
+            raise ValueError('error_budget must be None, an int >= 0, or a fraction in (0, 1); '
+                             'got {!r}'.format(budget))
+        self.budget = self._max
+
+    def record(self, quarantine):
+        """The pools' sink: record the quarantine; raise
+        ``RowGroupQuarantinedError`` once past the budget."""
+        entry = {'worker_id': quarantine.worker_id, 'error': quarantine.error,
+                 'occurrences': 1}
+        if quarantine.decode_error is not None:
+            entry['decode_error'] = quarantine.decode_error
+        item = quarantine.item if isinstance(quarantine.item, dict) else {}
+        piece_index = item.get('piece_index')
+        entry['piece_index'] = piece_index
+        if 'shuffle_row_drop_partition' in item:
+            entry['shuffle_row_drop_partition'] = item['shuffle_row_drop_partition']
+        if piece_index is not None and 0 <= piece_index < len(self._row_groups):
+            piece = self._row_groups[piece_index]
+            entry['path'] = piece.path
+            entry['row_group'] = piece.row_group
+        item_key = (piece_index, item.get('shuffle_row_drop_partition'))
+        with self._lock:
+            known = self._by_item.get(item_key) if piece_index is not None else None
+            if known is not None:
+                known['occurrences'] += 1
+                return      # the same poison item in another epoch: already spent
+            self._records.append(entry)
+            if piece_index is not None:
+                self._by_item[item_key] = entry
+            over_budget = len(self._records) > self._max
+            snapshot = list(self._records)
+        metrics.counter('pst_rowgroups_quarantined_total',
+                        'Distinct poison row-group items quarantined under '
+                        'the error budget').inc()
+        logger.warning('Quarantined row-group %s (%d/%d of error budget used)',
+                       entry.get('path', piece_index), len(snapshot), self._max)
+        if over_budget:
+            raise RowGroupQuarantinedError(
+                'error_budget exhausted: {} row-group item(s) quarantined, budget is {}. '
+                'Latest: {} ({})'.format(len(snapshot), self._max,
+                                         entry.get('path', piece_index), entry['error']),
+                quarantined=snapshot)
+
+    def snapshot(self):
+        with self._lock:
+            return [dict(e) for e in self._records]
+
+
+class _StoreFactory(object):
+    """Picklable :class:`ParquetStore` factory of the workers
+    (``petastorm_tpu/reader.py:1528-1536``); a store built on an explicit
+    filesystem is handed over as it is."""
+
+    def __init__(self, store):
+        self._url = store.url
+        self._storage_options = store.storage_options
+        self._store = store if store.scheme is None else None
+
+    def __call__(self):
+        if self._store is not None:
+            return self._store
+        return ParquetStore(self._url, self._storage_options)
+
+
 class Reader(DeferredRowAccounting):
     """Iterates decoded rows (``worker_class=PyDictWorker``) or row-group
     chunks (``TensorWorker``, ``ArrowWorker``) off a worker pool. ``batched_output`` says
@@ -474,9 +607,12 @@ class Reader(DeferredRowAccounting):
                  seed=None, num_epochs=1, cur_shard=None, shard_count=None, cache=None,
                  resume_state=None, deterministic=False, raw_image_fields=(), full_schema=None,
                  predicate=None, rowgroup_selector=None, shuffle_row_drop_partitions=1,
-                 transform_spec=None, shuffle_rows_in_chunk=False, ngram=None):
-        # A mistyped memory budget fails before any thread starts.
+                 transform_spec=None, shuffle_rows_in_chunk=False, ngram=None,
+                 error_budget=None):
+        # A mistyped memory budget or fault spec fails before any thread
+        # starts (a worker thread that met it would die without a word).
         membudget.validate_env_budget()
+        faults.get_injector()
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -551,6 +687,10 @@ class Reader(DeferredRowAccounting):
         items = [{'piece_index': i, 'worker_predicate': worker_predicate,
                   'shuffle_row_drop_partition': (drop, shuffle_row_drop_partitions)}
                  for i in range(len(pieces)) for drop in range(shuffle_row_drop_partitions)]
+        # Before any thread starts: a refused budget leaves nothing to stop.
+        self._quarantine_log = QuarantineLog(error_budget, len(items), pieces)
+        if error_budget is not None:
+            pool.quarantine_sink = self._quarantine_sink
         det_config = None
         if self._deterministic:
             if shard_count is not None and shard_count > len(items):
@@ -584,6 +724,8 @@ class Reader(DeferredRowAccounting):
 
             self._ventilator.on_ventilate = on_ventilate
         pool.start(worker_class, {
+            'store_factory': _StoreFactory(store),
+            'quarantine_poison_rowgroups': error_budget is not None,
             'row_groups': pieces, 'schema': schema,
             'full_schema': full_schema if full_schema is not None else schema,
             'cache': self.cache, 'dataset_path_hash': dataset_path_hash,
@@ -597,6 +739,16 @@ class Reader(DeferredRowAccounting):
         if _has_image_fields(schema):
             self._decode_share = decode_budget.get_budget().register_pool(pool.workers_count)
         self._register_memory_pools()
+
+    def _quarantine_sink(self, record):
+        """A quarantined item never publishes a chunk: in deterministic mode
+        its sequence hole is filled first (the stream must not wedge even
+        when the budget raise follows), then the log records it."""
+        det = record.item.get('pst_det') if isinstance(record.item, dict) else None
+        if self._resequencer is not None and isinstance(det, dict) \
+                and det.get('seq') is not None:
+            self._resequencer.mark_satisfied(det['seq'])
+        self._quarantine_log.record(record)
 
     # -- row selection ------------------------------------------------------
 
@@ -715,7 +867,10 @@ class Reader(DeferredRowAccounting):
         image = decoder_info()
         parquet, parquet_error = 'pyarrow', None
         if self.batched_output:
-            if native_pq.is_available():
+            if not self._store.is_local:
+                parquet_error = ('the store is not local ({}); the native stage opens '
+                                 'operating-system paths'.format(self._store.url))
+            elif native_pq.is_available():
                 parquet = 'native'
             else:
                 parquet_error = native_pq.load_error()
@@ -743,6 +898,25 @@ class Reader(DeferredRowAccounting):
             return {'type': 'memory' if isinstance(cache, MemoryCache) else 'local-disk',
                     'hits': cache.hits, 'misses': cache.misses, 'nbytes': cache.nbytes}
         return {'type': 'null', 'hits': 0, 'misses': 0, 'nbytes': 0}
+
+    @property
+    def diagnostics(self):
+        """The pool's queues, the quarantine records (``quarantined_rowgroups``)
+        and ``error_budget`` (None without one), the chunk store's and the
+        resequencer's counters, and the memory governor's when armed. Reads
+        as a mapping and as a call (``reader.diagnostics()['...']``)."""
+        diag = _CallableDict(self._pool.diagnostics)
+        if self.chunk_store is not None:
+            diag['chunk_store'] = self.chunk_store.stats()
+        diag['quarantined_rowgroups'] = self._quarantine_log.snapshot()
+        diag['error_budget'] = (self._quarantine_log.budget if self._quarantine_log.enabled
+                                else None)
+        if self._resequencer is not None:
+            diag['resequencer'] = self._resequencer.stats()
+        governor = membudget.get_governor()
+        if governor.armed:
+            diag['mem'] = governor.stats()
+        return diag
 
     @property
     def stage_timings(self):

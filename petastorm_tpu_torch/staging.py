@@ -4,7 +4,11 @@ engine that overlaps batch collate with host-to-device copies.
 Counterpart of ``petastorm_tpu/staging.py:149-600`` (``HostArena``,
 ``ArenaPool``), ``:600-745`` (``OverlapMeter``, ``MeteredReader``) and
 ``:1156-`` (``StagingEngine``), trimmed: no sharded layouts, sanitizer,
-health beats, metrics or autotune hooks.
+health beats or autotune hooks. The instruments are the JAX package's:
+``pst_assemble_seconds`` and ``pst_dispatch_seconds`` (one observation a
+batch), ``pst_arena_wait_seconds`` (a request that waited for an arena),
+``pst_arena_pinned_bytes`` (pinned arenas alive) and, for a mesh loader's
+per-device copies, ``pst_device_put_seconds{device}``.
 
 On CUDA an arena's buffers are ``torch.empty(..., pin_memory=True)``
 tensors, viewed as numpy for the collate; the dispatch stage copies them
@@ -25,6 +29,8 @@ from contextlib import contextmanager
 
 import numpy as np
 import torch
+
+from petastorm_tpu_torch import metrics
 
 THREAD_PREFIX = 'pstt-staging-'
 _GROW_TIMEOUT_S = 0.5
@@ -108,6 +114,13 @@ class ArenaPool(object):
         self._alloc = 0       # arenas allocated (the window's count)
         self._reuse = 0       # requests served from the free list
         self._wait_s = 0.0    # seconds a request waited for a free arena
+        self._m_wait = metrics.histogram(
+            'pst_arena_wait_seconds',
+            'Assembler blocked time per arena acquisition (backpressure)')
+        self._m_pinned = metrics.gauge(
+            'pst_arena_pinned_bytes',
+            'Host bytes in live pinned (page-aligned/mlocked) arena slabs '
+            'across all pools (inc/dec per slab lifetime)')
 
     def get_buffers(self, spec):
         with self._cond:
@@ -126,6 +139,10 @@ class ArenaPool(object):
                     break
                 if self._allocated < self._depth or waited >= _GROW_TIMEOUT_S:
                     arena = HostArena(self, self._spec, self._pinned)
+                    if self._pinned:
+                        nbytes = sum(t.nbytes for t in arena.tensors.values())
+                        self._m_pinned.inc(nbytes)
+                        weakref.finalize(arena, self._m_pinned.dec, nbytes)
                     self._allocated += 1
                     self._alloc += 1
                     self._depth = max(self._depth, self._allocated)
@@ -134,6 +151,8 @@ class ArenaPool(object):
                 self._cond.wait(timeout=min(max(_GROW_TIMEOUT_S - waited, 0.005), 0.25))
                 waited += time.perf_counter() - t0
             self._wait_s += waited
+            if waited:
+                self._m_wait.observe(waited)
             self._pending = arena
             return arena.buffers
 
@@ -209,6 +228,10 @@ class DevicePutMeter(object):
 
     def __init__(self):
         self._lock = threading.Lock()
+        self._m_put = metrics.histogram(
+            'pst_device_put_seconds',
+            'Per-device shard device_put latency (issue time; window '
+            'fences are reported separately)', labelnames=('device',))
         self.reset()
 
     def reset(self):
@@ -223,6 +246,7 @@ class DevicePutMeter(object):
 
     def completed(self, device, seconds, nbytes):
         key = str(device)
+        self._m_put.labels(key).observe(seconds)
         with self._lock:
             self._seconds[key] = self._seconds.get(key, 0.0) + seconds
             self._bytes[key] = self._bytes.get(key, 0) + nbytes
@@ -379,6 +403,11 @@ class StagingEngine(object):
         self.meter = meter if meter is not None else OverlapMeter()
         self._stats_lock = threading.Lock()
         self._ready_wait_s = 0.0
+        self._m_assemble = metrics.histogram(
+            'pst_assemble_seconds', 'Host-batch collate latency per batch')
+        self._m_dispatch = metrics.histogram(
+            'pst_dispatch_seconds', 'Device staging dispatch latency per '
+            'batch (put issue time, not transfer completion)')
         self._stage_q = queue.Queue(maxsize=2)
         self._threads = [
             threading.Thread(target=self._assemble_loop, daemon=True,
@@ -418,8 +447,10 @@ class StagingEngine(object):
         try:
             while not self._stop.is_set():
                 try:
+                    t0 = time.perf_counter()
                     with self.meter.track('assemble'):
                         batch = next(self._host_iter)
+                    self._m_assemble.observe(time.perf_counter() - t0)
                 except StopIteration:
                     break
                 arena = self._pool.claim_pending()
@@ -457,8 +488,10 @@ class StagingEngine(object):
                     self._put(self._out, self._end if item is _DONE else item.exc)
                     return
                 batch, arena = item
+                t0 = time.perf_counter()
                 with self.meter.track('dispatch'):
                     staged = self._stage_fn(batch, arena)
+                self._m_dispatch.observe(time.perf_counter() - t0)
                 if arena is not None:
                     if self._holds_mode:
                         for value in staged.tensors.values():

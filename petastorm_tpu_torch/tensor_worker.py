@@ -13,6 +13,13 @@ boundary on their way to the loader. ``raw_image_fields`` (in ``args``)
 are published encoded instead, as object columns of the JPEG/PNG bytes,
 for the loader's staging step to decode.
 
+Failure model (``petastorm_tpu/tensor_worker.py:74-111``): the
+``decode-corrupt`` fault site fires before the row-group is looked up, keyed
+by :func:`~petastorm_tpu_torch.faults.rowgroup_fault_key`, and the batched
+image decode carries the same key for ``decode-corrupt-batch``. A decode's
+seconds go to the ``pst_decode_seconds`` histogram, one observation a
+row-group.
+
 With a cache (``cache_type='memory'``, ``'local-disk'`` or
 ``'chunk-store'``) the worker looks the row-group up ahead of the read,
 keyed by :func:`~petastorm_tpu_torch.chunk_store.tensor_chunk_key` (the
@@ -28,6 +35,7 @@ import time
 import numpy as np
 import pyarrow as pa
 
+from petastorm_tpu_torch import metrics
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.checkpoint import chunk_key
 from petastorm_tpu_torch.chunk_store import tensor_chunk_key
@@ -35,6 +43,7 @@ from petastorm_tpu_torch.codecs import (CompressedImageCodec, CompressedNdarrayC
                                         NdarrayCodec, ScalarCodec, _native_image,
                                         decode_image_batch_into)
 from petastorm_tpu_torch.errors import DecodeFieldError
+from petastorm_tpu_torch.faults import maybe_inject, rowgroup_fault_key
 from petastorm_tpu_torch.lineage import chunk_lineage
 from petastorm_tpu_torch.workers.rowgroup_worker_base import (RowGroupWorkerBase,
                                                               chunk_row_permutation,
@@ -88,6 +97,8 @@ class TensorWorker(RowGroupWorkerBase):
                 pst_det=None):
         piece = self.args['row_groups'][piece_index]
         schema = self.args['schema']
+        fault_key = rowgroup_fault_key(piece.path, piece.row_group)
+        maybe_inject('decode-corrupt', key=fault_key)
         timings = {}
         decoded = []
 
@@ -99,8 +110,12 @@ class TensorWorker(RowGroupWorkerBase):
             if table is None or not table.num_rows:
                 return None
             t0 = time.perf_counter()
-            cols = decode_table_to_blocks(table, schema, self.args.get('raw_image_fields') or ())
+            cols = decode_table_to_blocks(table, schema, self.args.get('raw_image_fields') or (),
+                                          fault_key=fault_key)
             timings['decode_s'] = time.perf_counter() - t0
+            metrics.histogram('pst_decode_seconds',
+                              'Row-group decode latency inside workers').observe(
+                                  timings['decode_s'])
             return cols
 
         cache = self.args['cache']
@@ -187,12 +202,13 @@ class TensorWorker(RowGroupWorkerBase):
         return self._read_fields(piece, names).take(pa.array(np.flatnonzero(mask)))
 
 
-def decode_table_to_blocks(table, schema, raw_fields=()):
+def decode_table_to_blocks(table, schema, raw_fields=(), fault_key=None):
     """Arrow table -> dict of contiguous per-field numpy blocks, decoded
     (``petastorm_tpu/tensor_worker.py:365-470``); an image column's call
     takes the worker's live share of the decode budget. ``raw_fields``
     names image columns that come out as object columns of their encoded
-    bytes instead."""
+    bytes instead. ``fault_key`` is the row-group's key of the
+    ``decode-corrupt-batch`` fault site."""
     cols = {}
     for name, field in schema.fields.items():
         column = table.column(name).combine_chunks()
@@ -205,7 +221,7 @@ def decode_table_to_blocks(table, schema, raw_fields=()):
                 if name in raw_fields:
                     cols[name] = _raw_image_column(column)
                 else:
-                    cols[name] = _decode_image_column(column, field)
+                    cols[name] = _decode_image_column(column, field, fault_key)
             elif isinstance(codec, (NdarrayCodec, CompressedNdarrayCodec)):
                 cols[name] = _decode_ndarray_column(column, field, codec)
             else:
@@ -227,14 +243,15 @@ def _binary_column_view(column):
     return buffers[2].address + offsets[:-1], np.diff(offsets)
 
 
-def _decode_image_column(column, field):
+def _decode_image_column(column, field, fault_key=None):
     """One ``[N, ...field.shape]`` block, by one native call over the
     column's value buffer (the column stays alive for the call)."""
     out = np.empty((len(column),) + tuple(field.shape), dtype=field.numpy_dtype)
     ptrs = lens = None
     if _native_image() is not None and out.dtype == np.uint8:
         ptrs, lens = _binary_column_view(column)
-    decode_image_batch_into(field, out, lambda i: column[i].as_py(), ptrs=ptrs, lens=lens)
+    decode_image_batch_into(field, out, lambda i: column[i].as_py(), ptrs=ptrs, lens=lens,
+                            fault_key=fault_key)
     return out
 
 

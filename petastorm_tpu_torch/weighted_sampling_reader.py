@@ -10,12 +10,13 @@ packages the same source sequence. Provenance passes each source's segment
 through, tagged with its ``source`` index, under a ``mode='mixture'``
 context; ``state_dict()`` carries the draw generator's state and each
 source's own state, in the JAX package's layout, so a state of either
-package resumes the other. The per-source counter
-``pst_weighted_reader_draws_total`` (``:66-71``) waits for the port's
-metrics registry (ROADMAP §A9f).
+package resumes the other. Each draw bumps the per-source counter
+``pst_weighted_reader_draws_total{source}`` (``:66-71``).
 """
 
 import numpy as np
+
+from petastorm_tpu_torch import metrics
 
 STATE_VERSION = 1
 
@@ -58,6 +59,11 @@ class WeightedSamplingReader(object):
             if (first.ngram is None) != (other.ngram is None):
                 raise ValueError('Cannot mix ngram and non-ngram readers')
         self.last_row_consumed = False
+        draws = metrics.counter(
+            'pst_weighted_reader_draws_total',
+            'Samples drawn from each source of a WeightedSamplingReader',
+            labelnames=('source',))
+        self._m_draws = [draws.labels(str(i)) for i in range(len(readers))]
 
     @property
     def batched_output(self):
@@ -116,6 +122,7 @@ class WeightedSamplingReader(object):
             self.last_row_consumed = True
             raise
         self._last_source = chosen
+        self._m_draws[chosen].inc()
         return row
 
     def state_dict(self):

@@ -1,13 +1,22 @@
 """Row-group worker base: row-groups read one at a time through an open
 handle per data file, the drop-partition slice and the in-chunk row
 permutation (counterpart of ``petastorm_tpu/workers/rowgroup_worker_base.py:
-24-223`` without fault injection).
+24-223``).
 
-A columnar worker (the tensor worker) reads through the native C++ Parquet
-stage (:mod:`~petastorm_tpu_torch.native.parquet`) when it builds, as the
-JAX package chooses it (``:27-76``); the per-row worker keeps pyarrow
-(``_prefer_native_parquet``). A stage that did not build, or a read it
-fails, leaves pyarrow.
+The files are opened through the store's filesystem: ``args['store_factory']``
+(the reader's picklable ``_StoreFactory``) builds the worker's
+:class:`~petastorm_tpu_torch.storage.ParquetStore` at its first read. A
+local (``file``) store hands pyarrow the operating-system path; any other
+store (``memory://``, an object store, HDFS) an fsspec file object. A
+columnar worker (the tensor worker) of a local store reads through the
+native C++ Parquet stage (:mod:`~petastorm_tpu_torch.native.parquet`) when
+it builds, as the JAX package chooses it (``:58-82``): the stage opens
+operating-system paths, so any other store reads through pyarrow. The
+per-row worker keeps pyarrow (``_prefer_native_parquet``). A stage that did
+not build, or a read it fails, leaves pyarrow.
+
+Each read passes the ``fs-read-delay`` and ``fs-read-error`` fault sites,
+keyed by :func:`~petastorm_tpu_torch.faults.rowgroup_fault_key` (``:108-111``).
 
 A piece's hive partition values are not stored in its file:
 :meth:`RowGroupWorkerBase._read_fields` reads the other fields and appends
@@ -22,14 +31,16 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.determinism import hole_marker
+from petastorm_tpu_torch.faults import maybe_inject, rowgroup_fault_key
 from petastorm_tpu_torch.workers import WorkerBase
 
 logger = logging.getLogger(__name__)
 
 
 class RowGroupWorkerBase(WorkerBase):
-    """``args``: ``row_groups`` (list of RowGroupPiece) and ``schema`` (the
-    reader's view)."""
+    """``args``: ``row_groups`` (list of RowGroupPiece), ``schema`` (the
+    reader's view) and ``store_factory`` (a zero-argument callable giving
+    the store's :class:`~petastorm_tpu_torch.storage.ParquetStore`)."""
 
     #: Whether this worker class reads through the native stage: a columnar
     #: worker gains from its export without a copy; the per-row worker
@@ -39,19 +50,29 @@ class RowGroupWorkerBase(WorkerBase):
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
         self._files = {}
+        self._store = None           # built at the first read
         self._native = None          # resolved at the first read
         self._leaf_indices = {}
+
+    @property
+    def store(self):
+        if self._store is None:
+            self._store = self.args['store_factory']()
+        return self._store
 
     def _native_enabled(self):
         if self._native is None:
             self._native = False
-            if self._prefer_native_parquet:
+            if self._prefer_native_parquet and self.store.is_local:
                 from petastorm_tpu_torch.native import parquet as native_pq
                 self._native = native_pq.is_available()
         return self._native
 
     def _read_row_group(self, piece, columns):
         """One row-group as a ``pa.Table`` of ``columns``, in that order."""
+        fault_key = rowgroup_fault_key(piece.path, piece.row_group)
+        maybe_inject('fs-read-delay', key=fault_key)
+        maybe_inject('fs-read-error', key=fault_key)
         if self._native_enabled():
             from petastorm_tpu_torch.native import parquet as native_pq
             key = (piece.path, tuple(columns))
@@ -79,16 +100,19 @@ class RowGroupWorkerBase(WorkerBase):
         return with_partition_columns(self._read_row_group(piece, stored), piece, names)
 
     def _file(self, path, native=False):
-        """The open handle of ``path``: a ``pq.ParquetFile`` or (``native``)
-        a ``NativeParquetFile``, opened once a worker."""
+        """The open handle of ``path``: a ``pq.ParquetFile`` (over the OS path
+        of a local store, else over the store's file object) or
+        (``native``) a ``NativeParquetFile``, opened once a worker."""
         key = (path, native)
         handle = self._files.get(key)
         if handle is None:
             if native:
                 from petastorm_tpu_torch.native import parquet as native_pq
                 handle = native_pq.NativeParquetFile(path)
-            else:
+            elif self.store.is_local:
                 handle = pq.ParquetFile(path)
+            else:
+                handle = _RemoteParquetFile(self.store.open_file(path))
             self._files[key] = handle
         return handle
 
@@ -102,6 +126,19 @@ class RowGroupWorkerBase(WorkerBase):
         for handle in self._files.values():
             handle.close()
         self._files = {}
+
+
+class _RemoteParquetFile(pq.ParquetFile):
+    """A ``pq.ParquetFile`` over a file object of the store's filesystem,
+    which it closes with itself."""
+
+    def __init__(self, fobj):
+        super().__init__(fobj)
+        self._fobj = fobj
+
+    def close(self, force=False):
+        super().close(force=force)
+        self._fobj.close()
 
 
 def with_partition_columns(table, piece, names):

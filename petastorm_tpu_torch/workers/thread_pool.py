@@ -1,14 +1,20 @@
 """In-process thread pool with a ventilator feed and a bounded results queue.
 
 Counterpart of ``petastorm_tpu/workers/thread_pool.py:36-461`` at a fixed
-size (no resize, quarantine or profiling). ``results_watermark`` arms the
+size (no resize or profiling). ``results_watermark`` arms the
 ventilator's backpressure: while that many results wait undelivered, no
 new item is fed (the memory governor's shed rung sets it).
 ``results_nbytes()`` is the governor's ``results-queue`` pool, and
 ``inject_consumer_error`` hands an error (a memory breach) to a consumer
 waiting in ``get_results()``. End of data is the results queue empty AND
 every ventilated item processed AND the ventilator completed. A worker's
-exception stops the pool and re-raises in the consumer. Results are dicts
+exception stops the pool and re-raises in the consumer, unless the worker
+turned it into a :class:`~petastorm_tpu_torch.workers.RowGroupQuarantined`
+record (a reader with an ``error_budget``): that counts as the item's
+processed ack and goes to ``quarantine_sink``. ``get_results(timeout=)``
+raises ``TimeoutWaitingForResultError`` naming the live and dead workers
+and the items in flight. Every published result passes the
+``queue-stall`` fault site. Results are dicts
 and pass through unchanged, each chunk's ``key``, ``det`` tag and
 ``lineage`` included; with a resequencer set (deterministic mode)
 ``get_results()`` releases them in ventilation order.
@@ -16,10 +22,15 @@ and pass through unchanged, each chunk's ``key``, ``det`` tag and
 
 import queue
 import threading
+import time
 
 from petastorm_tpu_torch.determinism import ResequencedReads
+from petastorm_tpu_torch.faults import maybe_inject
 from petastorm_tpu_torch.membudget import approx_nbytes, get_governor
-from petastorm_tpu_torch.workers import EmptyResultError, VentilatedItemProcessedMessage
+from petastorm_tpu_torch.workers import (EmptyResultError, RowGroupQuarantined,
+                                         TimeoutWaitingForResultError,
+                                         VentilatedItemProcessedMessage, deliver_quarantine,
+                                         quarantine_record_for)
 
 THREAD_PREFIX = 'pstt-pool-worker-'
 _POLL_S = 0.01
@@ -45,8 +56,9 @@ class _WorkerThread(threading.Thread):
                 except _Stopping:
                     return
                 except Exception as e:  # noqa: BLE001 - surfaces in the consumer
+                    record = quarantine_record_for(self._worker, e, args, kwargs)
                     try:
-                        pool._put_result(e)
+                        pool._put_result(record if record is not None else e)
                     except _Stopping:
                         return
         finally:
@@ -75,6 +87,9 @@ class ThreadPool(ResequencedReads):
         #: governor is armed (the ``results-queue`` pool is depth x this).
         self.result_nbytes_ema = 0.0
         self._injected_error = None
+        #: Set by a reader with an ``error_budget``: receives each
+        #: ``RowGroupQuarantined`` record and raises past the budget.
+        self.quarantine_sink = None
 
     @property
     def workers_count(self):
@@ -87,6 +102,19 @@ class ThreadPool(ResequencedReads):
     @property
     def results_capacity(self):
         return self._results_queue.maxsize
+
+    @property
+    def diagnostics(self):
+        """Queue depths, items in flight and live worker threads."""
+        with self._count_lock:
+            in_flight = self._unprocessed
+        return {'output_queue_size': self._results_queue.qsize(),
+                'ventilation_queue_size': (self._ventilator_queue.qsize()
+                                           if self._ventilator_queue is not None else 0),
+                'ventilated_unprocessed': in_flight,
+                'workers_count': self._workers_count,
+                'live_worker_threads': sum(1 for t in self._threads if t.is_alive()),
+                'results_watermark': self.results_watermark}
 
     def results_nbytes(self):
         """Estimated decoded bytes waiting in the results queue."""
@@ -135,6 +163,7 @@ class ThreadPool(ResequencedReads):
 
     def _put_result(self, data):
         """Stop-aware bounded put: never blocks forever on a departed consumer."""
+        maybe_inject('queue-stall')
         if isinstance(data, dict) and get_governor().armed:
             self.result_nbytes_ema += 0.25 * (approx_nbytes(data) - self.result_nbytes_ema)
         while True:
@@ -146,7 +175,8 @@ class ThreadPool(ResequencedReads):
             except queue.Full:
                 continue
 
-    def _next_result(self):
+    def _next_result(self, timeout=None):
+        deadline = time.monotonic() + timeout if timeout is not None else None
         while True:
             error = self._injected_error
             if error is not None:
@@ -157,17 +187,36 @@ class ThreadPool(ResequencedReads):
             except queue.Empty:
                 if self._all_done():
                     raise EmptyResultError()
+                if deadline is not None and time.monotonic() > deadline:
+                    raise TimeoutWaitingForResultError(self._timeout_details(timeout))
                 continue
-            if isinstance(result, VentilatedItemProcessedMessage):
+            if isinstance(result, (VentilatedItemProcessedMessage, RowGroupQuarantined)):
                 with self._count_lock:
                     self._unprocessed -= 1
                 self._ventilator.processed_item()
+                if isinstance(result, RowGroupQuarantined):
+                    # Skipped, not retried; the sink holds the budget.
+                    try:
+                        deliver_quarantine(self, result)
+                    except Exception:
+                        self.stop()
+                        self.join()
+                        raise
                 continue
             if isinstance(result, Exception):
                 self.stop()
                 self.join()
                 raise result
             return result
+
+    def _timeout_details(self, timeout):
+        alive = [t.name for t in self._threads if t.is_alive()]
+        dead = [t.name for t in self._threads if not t.is_alive()]
+        with self._count_lock:
+            in_flight = self._unprocessed
+        return ('No results for {}s. Workers alive: {}; dead: {}. Items in flight: {}. '
+                'Respawns used: 0/0 (threads are not respawned).'.format(timeout, alive, dead,
+                                                                          in_flight))
 
     def _all_done(self):
         # Observe `completed` first: after it is set no more ventilation can

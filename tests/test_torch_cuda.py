@@ -1279,3 +1279,78 @@ def test_data_loader_on_card_equals_cpu(dev, tmp_path):
     for a, b in zip(on_card, on_host):
         assert a.tokens.is_cuda and a.id.is_cuda
         assert torch.equal(a.tokens.cpu(), b.tokens) and torch.equal(a.id.cpu(), b.id)
+
+
+def _memory_image_store(rows=64, per_group=8):
+    """A JPEG image/label store in fsspec's ``memory://`` (a fresh name)."""
+    import uuid
+    schema = Unischema('MemSchema', [
+        UnischemaField('image', np.uint8, (16, 16, 3), CompressedImageCodec('jpeg', 90)),
+        UnischemaField('label', np.int64, (), ScalarCodec(np.int64)),
+    ])
+    rng = np.random.default_rng(3)
+    url = 'memory://pstt-card-{}'.format(uuid.uuid4().hex[:8])
+    write_dataset(url, schema, ({'image': rng.integers(0, 256, (16, 16, 3), dtype=np.uint8),
+                                 'label': i} for i in range(rows)), rows_per_row_group=per_group)
+    return url
+
+
+def _drop_memory_store(url):
+    import fsspec
+    fs = fsspec.filesystem('memory')
+    name = url[len('memory://'):]
+    if fs.exists(name):
+        fs.rm(name, recursive=True)
+
+
+def test_quarantining_loader_on_card_over_a_memory_store(dev, monkeypatch):
+    """A loader on the card over a ``memory://`` store with one
+    ``decode-corrupt`` row-group under ``error_budget=1`` delivers every other
+    row, and the CPU path delivers the same ones."""
+    from petastorm_tpu_torch import faults
+    from petastorm_tpu_torch.bench import pick_fault_seed
+    from petastorm_tpu_torch.storage import ParquetStore
+    url = _memory_image_store()
+    try:
+        pieces = ParquetStore(url).row_groups()
+        keys = [faults.rowgroup_fault_key(p.path, p.row_group) for p in pieces]
+        seed, key = pick_fault_seed('decode-corrupt', keys, 1.0 / len(keys))
+        poisoned = pieces[keys.index(key)]
+        monkeypatch.setenv(faults.ENV_VAR, 'decode-corrupt:p={}:seed={}'.format(
+            1.0 / len(keys), seed))
+        labels = {}
+        for device in (dev, torch.device('cpu')):
+            with make_tensor_reader(url, workers_count=3, error_budget=1, num_epochs=1,
+                                    deterministic=True, seed=0) as reader:
+                with TorchLoader(reader, 8, device=device, last_batch='partial') as loader:
+                    batches = [(b.image.device.type, b.label.cpu().numpy().copy())
+                               for b in loader]
+                records = reader.diagnostics()['quarantined_rowgroups']
+            assert {d for d, _ in batches} == {device.type}
+            labels[device.type] = np.concatenate([b for _, b in batches])
+            assert [(r['path'], r['row_group']) for r in records] == \
+                [(poisoned.path, poisoned.row_group)]
+        lost = set(range(poisoned.row_group * 8, poisoned.row_group * 8 + 8))
+        assert sorted(labels['cuda']) == sorted(set(range(64)) - lost)
+        assert np.array_equal(labels['cuda'], labels['cpu'])
+    finally:
+        _drop_memory_store(url)
+
+
+def test_loader_instruments_count_batches_and_staged_bytes_on_card(dev):
+    from petastorm_tpu_torch import metrics
+    url = _memory_image_store()
+    previous = metrics.set_registry(metrics.MetricsRegistry())
+    try:
+        with make_tensor_reader(url, workers_count=2, num_epochs=1) as reader:
+            with TorchLoader(reader, 8, device=dev) as loader:
+                delivered = [b.image.nbytes + b.label.nbytes for b in loader]
+                snap = metrics.get_registry().collect()     # the arenas still live
+    finally:
+        metrics.set_registry(previous)
+        _drop_memory_store(url)
+    assert snap['pst_loader_batches_total']['samples'][0]['value'] == len(delivered) == 8
+    assert snap['pst_staged_bytes_total']['samples'][0]['value'] == sum(delivered)
+    assert snap['pst_batch_wait_seconds']['samples'][0]['count'] == len(delivered) + 1
+    assert snap['pst_dispatch_seconds']['samples'][0]['count'] == len(delivered)
+    assert snap['pst_arena_pinned_bytes']['samples'][0]['value'] > 0

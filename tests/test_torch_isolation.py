@@ -208,3 +208,62 @@ def test_native_decode_budget_and_bench_run_without_the_jax_package(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith('ok')
+
+
+def test_storage_and_failure_model_run_without_the_jax_package(tmp_path):
+    """A ``memory://`` store written and read with a fault spec, the
+    quarantine, the retrying filesystem, HDFS resolution on a mock and the
+    metrics exporter run in a process that never loads JAX or the JAX
+    package; the exporter's thread is the port's and ends on ``stop()``."""
+    code = (
+        'import os, sys, threading, urllib.request, numpy as np\n'
+        'from petastorm_tpu_torch import (CompressedImageCodec, ScalarCodec, Unischema,\n'
+        '    UnischemaField, faults, make_tensor_reader, metrics, retry, write_dataset)\n'
+        'from petastorm_tpu_torch.fs import RetryingFilesystemWrapper, get_filesystem_and_path\n'
+        'from petastorm_tpu_torch.hdfs import HdfsNamenodeResolver\n'
+        'schema = Unischema("S", [UnischemaField("id", np.int64, (), ScalarCodec(np.int64)),\n'
+        '    UnischemaField("image", np.uint8, (8, 8, 3), CompressedImageCodec("png"))])\n'
+        'rng = np.random.default_rng(0)\n'
+        'write_dataset("memory://pstt-iso", schema, ({{"id": i, "image": rng.integers(0, 256,\n'
+        '    (8, 8, 3), dtype=np.uint8)}} for i in range(32)), rows_per_row_group=8)\n'
+        'os.environ[faults.ENV_VAR] = "decode-corrupt:p=1:match=parquet"\n'
+        'with make_tensor_reader("memory://pstt-iso", error_budget=4, workers_count=2) as r:\n'
+        '    assert list(r) == [] and len(r.diagnostics()["quarantined_rowgroups"]) == 4\n'
+        'del os.environ[faults.ENV_VAR]\n'
+        'fs, path = get_filesystem_and_path("memory://pstt-iso", retries=1)\n'
+        'assert isinstance(fs, RetryingFilesystemWrapper) and fs.exists(path)\n'
+        'assert HdfsNamenodeResolver({{}}).resolve_hdfs_name_service("x") is None\n'
+        'assert retry.RetryPolicy(jitter="none").compute_delay(1) == 0.2\n'
+        'exporter = metrics.start_http_exporter(port=0)\n'
+        'assert "pst_rowgroups_quarantined_total 4" in urllib.request.urlopen(\n'
+        '    exporter.address, timeout=5).read().decode()\n'
+        'assert any(t.name == "pstt-metrics-exporter" for t in threading.enumerate())\n'
+        'exporter.stop()\n'
+        'assert not any(t.name.startswith("pstt-") for t in threading.enumerate())\n'
+        'bad = sorted(m for m in sys.modules if m.split(".")[0] in {banned!r}\n'
+        '             or m == "petastorm_tpu" or m.startswith("petastorm_tpu."))\n'
+        'assert not bad, bad\n'
+        'print("ok")\n'
+    ).format(banned=BANNED_ROOTS)
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith('ok')
+
+
+@pytest.mark.parametrize('module', ['metrics', 'faults', 'retry', 'fs', 'hdfs', 'storage'])
+def test_new_modules_stand_alone(module):
+    """Each module of the storage and failure-model slice imports alone in a
+    fresh process without JAX or the JAX package, and reads no variable of
+    the JAX package's."""
+    path = os.path.join(PACKAGE, module + '.py')
+    with open(path) as f:
+        assert 'PETASTORM_TPU_' not in f.read()
+    code = ('import sys, importlib\n'
+            'importlib.import_module("petastorm_tpu_torch.{}")\n'
+            'bad = sorted(m for m in sys.modules if m.split(".")[0] in {!r}\n'
+            '             or m == "petastorm_tpu" or m.startswith("petastorm_tpu."))\n'
+            'assert not bad, bad\n').format(module, BANNED_ROOTS)
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
