@@ -249,7 +249,40 @@ non-zero exit and no result line:
    rows kept per epoch, ``read_s`` and ``decode_s``, the quarantine records
    and the counters.
 
-Phases 5 to 15, 18, 20, 21, 22 and 23 run the bench's protocol through the functions of
+24. imagenet_health: pipeline health and observability, run after
+   imagenet_faults on the same state (``bench.run_imagenet_health``). (a)
+   imagenet_scan's protocol (memory cache, ``superbatches(8)``, K1 in the
+   8-step graph; 3 warm-up, 11 counted and 11 timed calls, the counted ones
+   unprofiled: the profiler's processing would keep the training loop from
+   the loader past the deadline) with
+   ``TorchLoader(watchdog=True, stall_timeout_s=10, tracer=...)``, the tracer
+   also the global one (the workers' spans), ``PSTT_FLIGHT_RECORDER`` and the
+   lineage ledger under the phase's directory. Checks: K1's graph nodes
+   times the replays (104 of 104 in 13); the watchdog alive with no stall
+   episode, no hard stall and the six stage heartbeats (``ventilator``,
+   ``reader-handoff``, ``worker-pool``, ``assemble``, ``dispatch``,
+   ``consumer``); the tracer's summary holds ``read``, ``decode``,
+   ``handoff``, ``assemble``, ``dispatch``, ``stage`` and ``wait``; the
+   exported Chrome trace parses with its process and thread names; img/s at
+   least 0.95 of imagenet_scan's of this run; ``python -m
+   petastorm_tpu_torch.tools.replay --verify`` exits 0 for one batch of
+   epoch 1 and one of the timed calls. (b) the same reader, its memory cache
+   filled by one epoch through a plain loader, and the same loader under
+   ``PSTT_FAULTS=device-put-delay:delay=3:max=1`` with
+   ``stall_timeout_s=0.3``: ``next`` raises ``PipelineStallError`` within 5
+   s of the fault's trace instant, classified ``dispatch-hung`` at
+   ``dispatch``, its flight dump holds the six files and ``stacks.txt`` the
+   sleeping staging dispatch thread,
+   ``pst_watchdog_hard_stalls_total{classification="dispatch-hung"}`` is 1,
+   no ``pstt-`` thread outlives the loader, and a fresh loader trains one
+   more call to a finite loss. Its line: img/s, device ms a step and stall
+   beside imagenet_scan's, every span's count, total, p50 and p99, the
+   consumer's ``wait`` over the timed calls as a share of their wall time,
+   the watchdog's counts and heartbeats, (b)'s seconds from the fault to the
+   error, and the dump's files and bytes. Spans are host time: a ``stage``
+   or ``dispatch`` span covers the issue of asynchronous copies.
+
+Phases 5 to 15, 18, 20, 21, 22, 23 and 24 run the bench's protocol through the functions of
 ``petastorm_tpu_torch/bench.py`` (``python -m petastorm_tpu_torch.bench``
 runs them as the bench's children); this script holds their launch counts.
 Each path's kernel launch counts are zeroed just before it and read just
@@ -1784,6 +1817,24 @@ def run_faults(url, device, card, state, imagenet_scan, worker_decode):
     return result
 
 
+# --------------------------------------------------------------------------
+# the health phase: heartbeats, the watchdog, spans, the flight recorder
+# --------------------------------------------------------------------------
+
+def run_health(url, device, card, state, imagenet_scan, workdir):
+    """Phase 24 (see the module docstring): the ``imagenet_health`` cell on
+    ``state``, beside imagenet_scan's numbers of this run. Returns the
+    phase's line."""
+    t0 = time.perf_counter()
+    result = bench.run_imagenet_health(url, device, card, state, workdir, calls=SCAN_CALLS,
+                                       reference_rate=imagenet_scan['img_per_s'])
+    result['beside'] = {'imagenet_scan': {
+        'img_per_s': imagenet_scan['img_per_s'], 'device_step_ms': imagenet_scan['device_step_ms'],
+        'input_stall_frac': imagenet_scan['input_stall_frac']}}
+    result['seconds'] = time.perf_counter() - t0
+    return result
+
+
 def run_lm_plain(store_dir, lm_url, device, card, lm_scan):
     """Phase 22 (see the module docstring): the two plain stores written,
     then ``bench.run_lm_plain`` beside ``lm_scan``'s line. Returns the
@@ -2123,6 +2174,11 @@ def main():
         result = run_faults(url, device, card, state, imagenet_scan, decode['worker_decode'])
         record(result)
         by_path['imagenet_faults'] = bench.path_launches(result, 'normalize_images',
+                                                         'normalize_kernel')
+        result = run_health(url, device, card, state, imagenet_scan,
+                            os.path.join(store_dir, 'health'))
+        record(result)
+        by_path['imagenet_health'] = bench.path_launches(result, 'normalize_images',
                                                          'normalize_kernel')
         k1['launches_by_path'] = by_path
         lm_result = run_lm(lm_url, device, args.steps, card)

@@ -16,8 +16,12 @@ a process-wide decode-thread budget (``decode_budget``), in the workers or
 at the loader's staging step (``raw_image_fields``). Stores are any fsspec
 URL (``storage_options``); a reader with an ``error_budget`` quarantines
 poison row-groups (``faults`` injects them: ``PSTT_FAULTS``), and the
-``metrics`` registry counts the pipeline. Entry points take ``device=`` and
-default to ``'cuda'``.
+``metrics`` registry counts the pipeline. Each stage beats a heartbeat
+that a watchdog (``health``, ``watchdog=True`` or ``PSTT_WATCHDOG``) turns
+into a diagnosed ``PipelineStallError`` and a flight-recorder dump
+(``PSTT_FLIGHT_RECORDER``); ``trace.Tracer`` records the stages' host spans
+as a Chrome trace. Entry points take ``device=`` and default to
+``'cuda'``.
 """
 
 from petastorm_tpu_torch.cache import (LocalDiskArrowTableCache, LocalDiskCache,  # noqa: F401
@@ -29,7 +33,7 @@ from petastorm_tpu_torch.decode_budget import DecodeThreadBudget, get_decode_bud
 from petastorm_tpu_torch.device import resolve_device  # noqa: F401
 from petastorm_tpu_torch.device_cache import DeviceCacheOverflow, DeviceDatasetCache  # noqa: F401
 from petastorm_tpu_torch.errors import (HostMemoryExceededError,  # noqa: F401
-                                        RowGroupQuarantinedError)
+                                        PipelineStallError, RowGroupQuarantinedError)
 from petastorm_tpu_torch.etl import (DatasetWriter, get_schema, materialize_dataset,  # noqa: F401
                                      write_dataset)
 from petastorm_tpu_torch.loader import (CropTo, PadTo, ShapePolicy, TorchLoader,  # noqa: F401
@@ -38,4 +42,5 @@ from petastorm_tpu_torch.metrics import (MetricsExporter, MetricsRegistry,  # no
                                          start_http_exporter)
 from petastorm_tpu_torch.reader import (Reader, make_batch_reader,  # noqa: F401
                                         make_pod_reader, make_reader, make_tensor_reader)
+from petastorm_tpu_torch.trace import Tracer  # noqa: F401
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField  # noqa: F401

@@ -23,6 +23,10 @@ the tensor worker's payload (``key``, ``cols``, ``lineage``, ``timings``,
 are the tensor path's; the JAX worker carries the same facts in the
 table's ``pst.*`` schema metadata, which an in-process pool does not need.
 pandas is imported only by a transform and a predicate.
+
+Spans (the global tracer's, ``:37-94``): the ``decode`` span covers that
+conversion (the worker's ``decode_s``), where the JAX package's covers the
+table's load, the ``read`` span nested; the publish is a ``handoff`` span.
 """
 
 import hashlib
@@ -35,6 +39,7 @@ from petastorm_tpu_torch.checkpoint import chunk_key
 from petastorm_tpu_torch.errors import DecodeFieldError
 from petastorm_tpu_torch.faults import maybe_inject, rowgroup_fault_key
 from petastorm_tpu_torch.lineage import chunk_lineage
+from petastorm_tpu_torch.trace import get_global_tracer
 from petastorm_tpu_torch.unischema import arrow_primitive_dtype
 from petastorm_tpu_torch.workers.rowgroup_worker_base import (RowGroupWorkerBase,
                                                               chunk_row_permutation,
@@ -77,7 +82,8 @@ class ArrowWorker(RowGroupWorkerBase):
             self._publish_hole(pst_det)
             return
         t0 = time.perf_counter()
-        cols = arrow_table_to_columns(table, self.args['transformed_schema'])
+        with get_global_tracer().span('decode', 'worker'):
+            cols = arrow_table_to_columns(table, self.args['transformed_schema'])
         timings['decode_s'] = time.perf_counter() - t0
         tier = 'decode' if read_fresh else self.args['cache'].lineage_tier
         payload = {'key': chunk_key(piece_index, shuffle_row_drop_partition), 'cols': cols,
@@ -88,7 +94,8 @@ class ArrowWorker(RowGroupWorkerBase):
                    'timings': timings}
         if pst_det is not None:
             payload['det'] = pst_det
-        self.publish_func(payload)
+        with get_global_tracer().span('handoff', 'worker'):
+            self.publish_func(payload)
 
     def _apply_transform(self, table, transform_spec):
         """The pandas transform of ``petastorm_tpu/arrow_worker.py:111-121``:

@@ -360,11 +360,12 @@ def graph_launches(train, kernels, replays):
             for name in kernels}
 
 
-def scan_window(train, state, next_inputs, warmup, calls, kernels):
+def scan_window(train, state, next_inputs, warmup, calls, kernels, profile=True):
     """One scan path's counted window: the launch counts zeroed, ``warmup``
     calls (call 1 eager, call 2 captures the graph and replays it, later
     calls replay), then ``calls`` measured calls under ``torch.profiler``
-    (the path's trace), the counts read. A replay calls no wrapper, so the
+    (the path's trace; ``profile=False`` runs them unprofiled and returns
+    no profile), the counts read. A replay calls no wrapper, so the
     wrappers count call 1 and the capture; each of ``kernels`` is counted
     in the window's replays by :func:`graph_launches`. Returns (metrics of
     each call, the wrappers' counts, their counts across the capturing
@@ -382,7 +383,11 @@ def scan_window(train, state, next_inputs, warmup, calls, kernels):
     reset_launch_counts()                            # the path starts here
     replays = train.replays
     run(warmup)
-    measured = device_profile(lambda: run(calls))
+    if profile:
+        measured = device_profile(lambda: run(calls))
+    else:
+        run(calls)
+        measured = None
     launches = launch_counts()                       # the path ends here
     replays = train.replays - replays
     return (metrics, launches, captured, graph_launches(train, kernels, replays), measured,
@@ -515,7 +520,8 @@ def stage_profile(stats, timings0, timings, wall_s):
 
 def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
                            cache_type='memory', cache_location=None, mesh=None, workers=4,
-                           reader_kwargs=None, loader_kwargs=None, observe=None):
+                           reader_kwargs=None, loader_kwargs=None, observe=None, hooks=None,
+                           profile=True):
     """A classifier scan path streamed from a cache tier (the bench's
     ``_child_imagenet`` loop): the reader with ``cache_type`` (default
     ``'memory'``; endless, seed 0), ``TorchLoader(batch=128, prefetch=8)``,
@@ -526,8 +532,11 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
     the global batch). ``workers`` reader threads; ``reader_kwargs`` and
     ``loader_kwargs`` go to the reader and the loader (the decode cell's
     ``raw_image_fields`` and ``on_device_augment``). ``observe(superbatch)``
-    sees each superbatch before its call. Returns the path's line (without
-    phase and model keys) and its launch window."""
+    sees each superbatch before its call. ``hooks(stage, loader, reader)`` is
+    called with ``'timed'`` just before the timed calls and ``'close'`` just
+    after them, while the loader still runs. ``profile=False`` leaves the
+    counted calls unprofiled (``trace`` is then None). Returns the path's
+    line (without phase and model keys) and its launch window."""
     import torch
     from petastorm_tpu_torch import TorchLoader, make_pod_reader
 
@@ -550,13 +559,17 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
                 return sb.image, sb.label
 
             metrics, launches, captured, ran, measured, replays = scan_window(
-                train, state, next_inputs, warmup, calls, kernels)
+                train, state, next_inputs, warmup, calls, kernels, profile=profile)
             if reader.chunk_store is not None and not reader.chunk_store.flush(timeout_s=120):
                 raise RuntimeError('the chunk store did not drain its writes before the timed '
                                    'calls')
             stats0, cache0, timings0 = loader.stats, reader.cache_stats(), reader.stage_timings
             loader.reset_stats()
+            if hooks is not None:
+                hooks('timed', loader, reader)
             wall, wait_s, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
+            if hooks is not None:
+                hooks('close', loader, reader)
             stats, cache, timings = loader.stats, reader.cache_stats(), reader.stage_timings
             holes = reader.holes
             diagnostics = reader.diagnostics()
@@ -584,7 +597,8 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
         'stage_profile': stage_profile(stats, timings0, timings, wall),
         'decoder': stats['decoder'],
         'launches': _scan_launches(launches, captured, ran, warmup + calls, replays),
-        'trace': per_step(busy_trace(measured, calls, call_ms), SCAN_K)}
+        'trace': (per_step(busy_trace(measured, calls, call_ms), SCAN_K)
+                  if measured is not None else None)}
     return result, (launches, captured, ran, replays)
 
 
@@ -1040,6 +1054,275 @@ def _counter_values(registry):
             elif metric['type'] == 'histogram':
                 out[name + '_count'] = sample['count']
     return out
+
+
+# imagenet_health: the watchdog, the tracer, the flight recorder and the
+# replay tool under imagenet_scan's protocol.
+HEALTH_STALL_TIMEOUT_S = 10.0
+#: The injected stall: a copy issue that sleeps several times the 0.6 s at
+#: which a 0.3 s deadline escalates.
+HEALTH_FAULT_DELAY_S, HEALTH_FAULT_TIMEOUT_S = 3.0, 0.3
+HEALTH_STAGES = ('ventilator', 'reader-handoff', 'worker-pool', 'assemble', 'dispatch',
+                 'consumer')
+HEALTH_SPANS = ('read', 'decode', 'handoff', 'assemble', 'dispatch', 'stage', 'wait')
+HEALTH_DUMP_FILES = ('diagnosis.json', 'lineage.json', 'metrics.prom', 'metrics_ring.json',
+                     'stacks.txt', 'trace.json')
+
+
+def _replay_verify(ledger_dir, batch_ids):
+    """``python -m petastorm_tpu_torch.tools.replay --verify`` of each batch,
+    the processes run at once: ``{batch_id: (exit code, the summary or the
+    error)}``."""
+    procs = {batch_id: subprocess.Popen(
+        [sys.executable, '-m', 'petastorm_tpu_torch.tools.replay', '--ledger', ledger_dir,
+         '--batch-id', str(batch_id), '--verify'], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for batch_id in batch_ids}
+    out = {}
+    for batch_id, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        out[batch_id] = (proc.returncode, json.loads(stdout) if proc.returncode == 0
+                         else stderr.strip()[-2000:])
+    return out
+
+
+def _span_window(tracer, name, start_us, end_us):
+    """Seconds of ``name`` spans that began in ``[start_us, end_us)``."""
+    return sum(e['dur'] for e in tracer.events
+               if e.get('ph') == 'X' and e['name'] == name and start_us <= e['ts'] < end_us) / 1e6
+
+
+def _hard_stall_counts(registry):
+    metric = registry.collect().get('pst_watchdog_hard_stalls_total') or {'samples': []}
+    return {sample['labels'].get('classification'): sample['value']
+            for sample in metric['samples'] if sample.get('labels')}
+
+
+def run_imagenet_health(url, device, card, state, workdir, warmup=3, calls=5, workers=4,
+                        reference_rate=None):
+    """The health cell on ``state``: (a) imagenet_scan's protocol (memory
+    cache, seed 0, endless; ``TorchLoader(batch=128, prefetch=8)``,
+    ``superbatches(8)``, ResNet-50 through ``make_scan_train_step(8,
+    preprocess=K1)``) with ``watchdog=True``, ``stall_timeout_s=10``, a
+    :class:`~petastorm_tpu_torch.trace.Tracer` on the loader and as the
+    global tracer, ``PSTT_FLIGHT_RECORDER`` and the lineage ledger under
+    ``workdir``; its counted calls run unprofiled (the profiler's
+    processing after them keeps the training loop away from the loader
+    longer than the 10 s deadline, which the watchdog rightly reports as a
+    consumer that stopped draining), and K1 is counted among the graph's
+    nodes as in every scan path; (b) the same reader, its memory cache
+    filled by one epoch through a plain loader (so that no cold decode
+    starves the 0.3 s deadline before the fault), and the same loader under
+    ``PSTT_FAULTS=device-put-delay:delay=3:max=1`` with
+    ``stall_timeout_s=0.3`` and a fresh metrics registry, then one more
+    call from a fresh loader. Fails unless: (a) K1 ran 8 times a replay; the
+    watchdog ran with no stall episode, no hard stall and the six stage
+    heartbeats; the tracer's summary holds every span of
+    :data:`HEALTH_SPANS`; the exported Chrome trace parses with its
+    ``process_name`` and ``thread_name`` metadata; img/s is at least 0.95 of
+    ``reference_rate`` (when given); the replay tool verifies one batch of
+    epoch 1 and one of the timed calls, exit 0; (b) ``next`` raises
+    ``PipelineStallError`` within 5 s of the fault's instant, classified
+    ``dispatch-hung`` at ``dispatch``, with a flight dump of the six files
+    whose ``stacks.txt`` shows the staging dispatch thread asleep;
+    ``pst_watchdog_hard_stalls_total{classification="dispatch-hung"}`` is 1;
+    no thread of the port outlives the loader; the fresh loader's call
+    gives a finite loss. Returns the phase's line."""
+    import threading
+
+    from petastorm_tpu_torch import (TorchLoader, faults, flight_recorder, make_tensor_reader,
+                                     metrics)
+    from petastorm_tpu_torch.errors import PipelineStallError
+    from petastorm_tpu_torch.models import make_scan_train_step
+    from petastorm_tpu_torch.trace import Tracer, set_global_tracer
+
+    flight_dir = os.path.join(workdir, 'flight')
+    ledger_dir = os.path.join(workdir, 'ledger')
+    previous_env = {name: os.environ.get(name)
+                    for name in (flight_recorder.ENV_VAR, faults.ENV_VAR)}
+    os.environ[flight_recorder.ENV_VAR] = flight_dir
+    tracer = Tracer(spill_dir=False)
+    previous_tracer = set_global_tracer(tracer)
+    train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
+    seen = {}
+
+    def hooks(stage, loader, reader):
+        seen[stage + '_us'] = (time.perf_counter() - tracer._t0) * 1e6
+        if stage == 'close':
+            seen['watchdog'] = loader.stats['watchdog']
+            seen['stall_frac'] = loader.stats['input_stall_frac']
+
+    try:
+        # (a) the healthy run.
+        result, window = stream_classifier_scan(
+            url, device, train, state, warmup, calls, ('normalize_kernel',), workers=workers,
+            loader_kwargs={'tracer': tracer, 'watchdog': True,
+                           'stall_timeout_s': HEALTH_STALL_TIMEOUT_S, 'lineage': ledger_dir},
+            hooks=hooks, profile=False)
+        require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
+        watchdog = seen['watchdog']
+        missing_beats = sorted(set(HEALTH_STAGES) - set(watchdog['beats']))
+        if not watchdog['alive'] or watchdog['stalls_detected'] or watchdog['hard_stalls'] \
+                or missing_beats:
+            raise AssertionError('the healthy run\'s watchdog: alive {}, {} stall episode(s), {} '
+                                 'hard, heartbeats missing {}; last stall {}'.format(
+                                     watchdog['alive'], watchdog['stalls_detected'],
+                                     watchdog['hard_stalls'], missing_beats,
+                                     watchdog['last_stall']))
+        summary = tracer.summary()
+        empty = [name for name in HEALTH_SPANS if summary.get(name, {}).get('count', 0) == 0]
+        if empty:
+            raise AssertionError('the tracer recorded no {} span'.format(empty))
+        trace_path = tracer.export_chrome_trace(os.path.join(workdir, 'trace.json'))
+        with open(trace_path) as f:
+            doc = json.load(f)
+        meta = {e['name'] for e in doc['traceEvents'] if e.get('ph') == 'M'}
+        if not {'process_name', 'thread_name'} <= meta:
+            raise AssertionError('the Chrome trace lacks process or thread names: {}'.format(meta))
+        if reference_rate is not None and result['img_per_s'] < 0.95 * reference_rate:
+            raise AssertionError("img/s {} below 0.95 of imagenet_scan's {}".format(
+                result['img_per_s'], reference_rate))
+        batches_per_epoch = ROWS // BATCH
+        replay_ids = (batches_per_epoch // 2, (warmup + calls + calls // 2) * SCAN_K)
+        replayed = _replay_verify(ledger_dir, replay_ids)
+        failed = {k: v for k, v in replayed.items() if v[0] != 0}
+        if failed:
+            raise AssertionError('the replay tool did not verify {}'.format(failed))
+        window_us = seen['close_us'] - seen['timed_us']
+        healthy = {
+            'watchdog': {k: watchdog[k] for k in ('alive', 'stalls_detected', 'soft_recoveries',
+                                                  'hard_stalls', 'episode_active')},
+            'heartbeats': {name: {k: beat[k] for k in ('state', 'beats', 'stall_timeout_s')}
+                           for name, beat in watchdog['beats'].items()},
+            'spans': summary, 'trace_events': len(tracer.events),
+            'trace_bytes': os.path.getsize(trace_path),
+            'timed_window': {
+                'wait_s': _span_window(tracer, 'wait', seen['timed_us'], seen['close_us']),
+                'wall_s': window_us / 1e6,
+                'loader_input_stall_frac': seen['stall_frac'],
+                'spans_s': {name: _span_window(tracer, name, seen['timed_us'], seen['close_us'])
+                            for name in ('assemble', 'dispatch', 'stage', 'wait')}},
+            'replayed': {str(k): v[1]['verified'] for k, v in replayed.items()}}
+        healthy['timed_window']['wait_share'] = (healthy['timed_window']['wait_s']
+                                                 / healthy['timed_window']['wall_s'])
+
+        # (b) the injected stall.
+        registry = metrics.MetricsRegistry()
+        previous_registry = metrics.set_registry(registry)
+        stall_tracer = Tracer(spill_dir=False)
+        set_global_tracer(stall_tracer)
+        before = {t.ident for t in threading.enumerate()}
+        error = raised_at = None
+        try:
+            reader = make_tensor_reader(url, schema_fields=['image', 'label'],
+                                        reader_pool_type='thread', workers_count=workers,
+                                        shuffle_row_groups=True, seed=0, num_epochs=None,
+                                        cache_type='memory')
+            try:
+                t_warm = time.perf_counter()
+                with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH) as warm:
+                    for _ in range(ROWS // BATCH):
+                        next(warm)
+                warm_s = time.perf_counter() - t_warm
+                os.environ[faults.ENV_VAR] = 'device-put-delay:delay={}:max=1'.format(
+                    HEALTH_FAULT_DELAY_S)
+                loader = TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH,
+                                     tracer=stall_tracer, watchdog=True,
+                                     stall_timeout_s=HEALTH_FAULT_TIMEOUT_S)
+                try:
+                    next(loader.superbatches(SCAN_K))
+                except PipelineStallError as e:
+                    error, raised_at = e, time.perf_counter()
+                finally:
+                    t_close = time.perf_counter()
+                    loader.close()
+                    close_s = time.perf_counter() - t_close
+            finally:
+                reader.stop()
+                reader.join()
+        finally:
+            os.environ.pop(faults.ENV_VAR, None)
+            metrics.set_registry(previous_registry)
+        if error is None:
+            raise AssertionError('the injected stall raised no PipelineStallError')
+        fired = [e for e in stall_tracer.events if e['name'] == 'fault:device-put-delay']
+        if len(fired) != 1:
+            raise AssertionError('the fault fired {} times'.format(len(fired)))
+        to_error_s = raised_at - (stall_tracer._t0 + fired[0]['ts'] / 1e6)
+        diagnosis = error.diagnosis
+        dump = diagnosis.get('flight_dump')
+        files = sorted(os.listdir(dump)) if dump and os.path.isdir(dump) else []
+        stacks = ''
+        if 'stacks.txt' in files:
+            with open(os.path.join(dump, 'stacks.txt')) as f:
+                stacks = f.read()
+        dispatch_stack = stacks.split('Thread pstt-staging-dispatch ')[-1].split('\nThread ')[0] \
+            if 'Thread pstt-staging-dispatch ' in stacks else ''
+        hard = _hard_stall_counts(registry)
+        leaked = sorted(t.name for t in threading.enumerate()
+                        if t.name.startswith('pstt-') and t.ident not in before)
+        problems = []
+        if not 0 <= to_error_s < 5.0:
+            problems.append('raised {} s after the fault'.format(to_error_s))
+        if (diagnosis.get('classification'), diagnosis.get('stage')) != ('dispatch-hung',
+                                                                          'dispatch'):
+            problems.append('classified {} at {}'.format(diagnosis.get('classification'),
+                                                       diagnosis.get('stage')))
+        if files != sorted(HEALTH_DUMP_FILES):
+            problems.append('the flight dump {} holds {}'.format(dump, files))
+        if 'sleep' not in dispatch_stack:
+            problems.append('stacks.txt shows no sleeping staging dispatch thread')
+        if hard != {'dispatch-hung': 1}:
+            problems.append('pst_watchdog_hard_stalls_total {}'.format(hard))
+        if leaked:
+            problems.append('threads left behind: {}'.format(leaked))
+        if problems:
+            raise AssertionError('the injected stall: ' + '; '.join(problems))
+        stall = {'spec': 'device-put-delay:delay={}:max=1'.format(HEALTH_FAULT_DELAY_S),
+                 'stall_timeout_s': HEALTH_FAULT_TIMEOUT_S, 'fault_to_error_s': to_error_s,
+                 'cache_warm_s': warm_s, 'close_s': close_s,
+                 'classification': diagnosis['classification'],
+                 'stage': diagnosis['stage'], 'detail': diagnosis['detail'],
+                 'hard_stalls_total': hard, 'flight_dump': {
+                     'files': {name: os.path.getsize(os.path.join(dump, name)) for name in files},
+                     'bytes': sum(os.path.getsize(os.path.join(dump, name)) for name in files)}}
+
+        # One more call from a fresh loader.
+        set_global_tracer(previous_tracer)
+        with make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
+                                workers_count=workers, shuffle_row_groups=True, seed=0,
+                                num_epochs=None, cache_type='memory') as reader:
+            with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH) as loader:
+                sb = next(loader.superbatches(SCAN_K))
+                metrics_after = train(state, sb.image, sb.label)
+                loss_after = float(metrics_after['loss'])
+        if not math.isfinite(loss_after):
+            raise AssertionError('the call after the stall gave loss {}'.format(loss_after))
+        stall['loss_after'] = loss_after
+    finally:
+        set_global_tracer(previous_tracer)
+        for name, value in previous_env.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+    result['k1_graph'] = {'ran': window[2]['normalize_kernel'], 'expected': SCAN_K * window[3],
+                          'replays': window[3]}
+    result['healthy'] = healthy
+    result['injected_stall'] = stall
+    result['checks'] = {
+        'k1_per_replay': SCAN_K, 'watchdog_alive_no_stall': True,
+        'heartbeats': list(HEALTH_STAGES), 'spans': list(HEALTH_SPANS),
+        'chrome_trace_metadata': True, 'img_per_s_vs_reference': (
+            None if reference_rate is None else result['img_per_s'] / reference_rate),
+        'replay_verified': [int(i) for i in replay_ids], 'stall_raised_within_5_s': True,
+        'dispatch_hung': True, 'flight_dump_files': list(HEALTH_DUMP_FILES),
+        'hard_stalls_counter': 1, 'no_thread_left': True, 'loss_after_finite': True}
+    return dict({'phase': 'imagenet_health', 'card': card, 'model': 'resnet50',
+                 'stem': 'conv7', 'classes': 1000}, **result)
 
 
 def run_imagenet_hbm(url, device, card, state):

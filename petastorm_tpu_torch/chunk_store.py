@@ -5,8 +5,10 @@ format byte for byte, so either package serves a store the other filled.
 Its counters are the ``pst_chunk_store_*_total`` family of the metrics
 registry too, and the ``store-read-corrupt`` fault site (``:500-502``)
 makes an entry read fail its check, so the entry is quarantined and
-refilled. Left out: the trace counters and the autotuner's throttle
-listener (the throttle itself is here). The store's directory is local: a
+refilled. The global tracer gets a ``chunk_store_quarantine`` instant for
+each quarantined entry and the ``chunk_store_hits``/``chunk_store_writes``
+counters (``:477-478, 574-575, 749-750``). Left out: the autotuner's
+throttle listener (the throttle itself is here). The store's directory is local: a
 ``cache_location`` URL of another scheme than ``file`` raises.
 
 The tiers before it leave a gap: the device cache needs the dataset on the
@@ -66,6 +68,7 @@ from petastorm_tpu_torch import metrics
 from petastorm_tpu_torch.cache import CacheBase, local_cache_dir
 from petastorm_tpu_torch.errors import CorruptChunkError
 from petastorm_tpu_torch.faults import get_injector
+from petastorm_tpu_torch.trace import get_global_tracer
 
 logger = logging.getLogger(__name__)
 
@@ -395,6 +398,7 @@ class DecodedChunkStore(CacheBase):
                 os.unlink(path)
             except OSError:
                 pass
+        get_global_tracer().instant('chunk_store_quarantine', cat='fault')
 
     def _open_entry(self, key):
         """The validated entry of ``key``, opened on first touch, or
@@ -479,7 +483,9 @@ class DecodedChunkStore(CacheBase):
         if entry is not None:
             with self._lock:
                 self.hits += 1
+                hits = self.hits
                 self._m['hits'].inc()
+            get_global_tracer().counter('chunk_store_hits', hits, 'chunk-store')
             # A fresh dict per hit: a caller may slice or pop its copy.
             return dict(entry.views)
         with self._lock:
@@ -619,8 +625,10 @@ class DecodedChunkStore(CacheBase):
         with self._lock:
             self.writes += 1
             self.bytes_written += nbytes
+            writes = self.writes
             self._m['writes'].inc()
             self._m['bytes_written'].inc(nbytes)
+        get_global_tracer().counter('chunk_store_writes', writes, 'chunk-store')
         self._maybe_evict(nbytes)
 
     def _maybe_evict(self, new_bytes=0):

@@ -30,10 +30,11 @@ hosts resumes on M through :func:`merge_cursors`.
 
 A quarantined item (a reader with an ``error_budget``) never publishes a
 chunk: the reader's quarantine sink calls :meth:`Resequencer.mark_satisfied`
-with its sequence number, and the release goes on past the hole. The JAX
-package also registers the resequencer as a watchdog probe, whose
-``stats()`` then classify a stalled hole; that waits for the port of
-``health.py`` (ROADMAP §A9f). ``stats()`` is here already.
+with its sequence number, and the release goes on past the hole. The
+reader registers :meth:`Resequencer.stats` as the watchdog's
+``resequencer`` probe: chunks buffered behind a hole while the handoff goes
+quiet classify ``resequencer-stalled``
+(:func:`~petastorm_tpu_torch.health.classify_stall`).
 """
 
 import hashlib

@@ -56,14 +56,32 @@ class HostMemoryExceededError(PetastormTorchError):
     OOM killer end the process without a word.
 
     ``ranking`` is the per-pool byte ranking (``[{'pool', 'nbytes'}, ...]``,
-    biggest first); ``budget``/``accounted`` are the bytes of the breach.
+    biggest first); ``budget``/``accounted`` are the bytes of the breach;
+    ``flight_dump`` the flight-recorder dump's directory (``None`` when even
+    its creation failed).
     """
 
-    def __init__(self, message, budget=None, accounted=None, ranking=None):
+    def __init__(self, message, budget=None, accounted=None, ranking=None, flight_dump=None):
         super(HostMemoryExceededError, self).__init__(message)
         self.budget = budget
         self.accounted = accounted
         self.ranking = list(ranking or [])
+        self.flight_dump = flight_dump
+
+
+class PipelineStallError(PetastormTorchError):
+    """The health watchdog (:mod:`petastorm_tpu_torch.health`) diagnosed a
+    stalled pipeline stage and its soft recovery did not clear it
+    (``petastorm_tpu/errors.py:105-116``).
+
+    The message names the stage and the classification and holds the
+    all-thread stack dump; ``diagnosis`` is the structured report
+    (classification, stage, detail, the last-beat table, probe snapshots,
+    stacks and, with a flight recorder, ``flight_dump``)."""
+
+    def __init__(self, message, diagnosis=None):
+        super(PipelineStallError, self).__init__(message)
+        self.diagnosis = diagnosis or {}
 
 
 #: Failures a worker may quarantine (skip the row-group and record it)

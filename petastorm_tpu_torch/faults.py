@@ -57,7 +57,8 @@ Params (all optional):
 * ``match`` — a substring the key must contain.
 * ``bytes`` — the ``mem-pressure`` inflation (``k``/``m``/``g`` suffixes).
 
-Every fire logs a warning.
+Every fire logs a warning and records a ``fault:<site>`` instant on the
+global tracer (:func:`petastorm_tpu_torch.trace.get_global_tracer`).
 """
 
 import hashlib
@@ -258,6 +259,8 @@ class FaultInjector(object):
             return
         if not self.should_fire(site, key):
             return
+        from petastorm_tpu_torch.trace import get_global_tracer
+        get_global_tracer().instant('fault:{}'.format(site), cat='fault')
         spec = self._specs[site]
         if site in _DELAY_SITES:
             logger.warning('fault injection: %s key=%r sleeping %.3fs',

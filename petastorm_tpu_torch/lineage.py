@@ -39,8 +39,10 @@ spill is shed (the ring keeps every record; each shed one is counted in
 are also ``pst_lineage_records_total``, ``pst_lineage_dropped_total`` and
 ``pst_lineage_ledger_lag{ledger}``. :func:`replay_record` reads the store
 through its filesystem (``storage_options`` for a store that is not local).
-Not ported (ROADMAP §A9f): the flight recorder's dump of the rings; the
-replay command line.
+Every live tracker registers itself process-wide: :func:`live_rings` is what
+the flight recorder (:mod:`~petastorm_tpu_torch.flight_recorder`) dumps as
+``lineage.json``, and ``python -m petastorm_tpu_torch.tools.replay``
+re-materialises a ledgered batch from the command line.
 """
 
 import glob

@@ -35,6 +35,21 @@ batch bumps ``pst_loader_batches_total`` and observes its blocked time in
 first (``:1785-1786``). The staging engine and arena pool have theirs
 (:mod:`~petastorm_tpu_torch.staging`).
 
+Health and tracing (``petastorm_tpu/jax_loader.py:856-872, 1005-1037,
+1210-1263, 1893-1910, 2174-2178``): ``tracer=`` records the ``stage`` span
+(the copy issue, inside the engine's ``dispatch`` span), the engine's
+``assemble`` span and the consumer's ``wait`` span; every span is host
+time, and a ``stage`` span on the card covers the issue of asynchronous
+copies, not the copies. ``watchdog=``/``stall_timeout_s=`` arm one
+:class:`~petastorm_tpu_torch.health.HealthMonitor` for the whole pipeline:
+the ``consumer`` heartbeat and probe, the reader's stages
+(``Reader.attach_health``), the engine's ``assemble`` and ``dispatch``
+heartbeats and ``staging`` probe, the ``arena-pool`` and ``memory``
+probes; the watchdog starts once every stage registered. A hard stall is
+delivered into the staging queue, so ``next`` raises the diagnosed
+:class:`~petastorm_tpu_torch.errors.PipelineStallError`;
+``stats['watchdog']`` holds the counts, the last diagnosis and the beats.
+
 dtype table (the JAX package narrows 64-bit types; torch keeps them):
 bool, uint8, int8, int16, int32, int64, float16, float32 and float64 keep
 their type; uint16 widens to int32 and uint32 to int64 (values preserved);
@@ -55,6 +70,7 @@ import torch
 from petastorm_tpu_torch import membudget, metrics
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.faults import maybe_inject
+from petastorm_tpu_torch.health import PipelineSupervisor
 from petastorm_tpu_torch.lineage import LineageTracker, lineage_enabled, resolve_ledger_dir
 from petastorm_tpu_torch.parallel.mesh import (Sharding, axis_names, axis_size,
                                                batch_sharding, device_shard_plan, has_axis,
@@ -62,6 +78,7 @@ from petastorm_tpu_torch.parallel.mesh import (Sharding, axis_names, axis_size,
 from petastorm_tpu_torch.shuffling_buffer import build_shuffling_buffer
 from petastorm_tpu_torch.staging import (ArenaPool, DevicePutMeter, MeteredReader, OverlapMeter,
                                          StagingEngine)
+from petastorm_tpu_torch.trace import NullTracer
 
 logger = logging.getLogger(__name__)
 
@@ -617,6 +634,15 @@ class TorchLoader(object):
         workers decode none) or a fair share of it. The raw fields need the
         block path: a shuffling buffer or a shape policy on one raises.
         ``stats['stage_decode_s']`` sums the decode's seconds.
+    :param tracer: a :class:`~petastorm_tpu_torch.trace.Tracer` for the
+        ``assemble``, ``dispatch``, ``stage`` and ``wait`` spans (host time)
+        and the staging counters.
+    :param watchdog: ``True`` arms the pipeline's health watchdog, ``False``
+        keeps it off, ``None`` defers to ``PSTT_WATCHDOG`` (off by default).
+    :param stall_timeout_s: the stages' stall deadline in seconds (a number,
+        or a dict stage -> seconds with an optional ``'default'``); a stall
+        past twice its deadline raises ``PipelineStallError`` from ``next``
+        (a consumer that stops draining is only recorded).
 
     Host memory: the loader registers its pools with the governor
     (:mod:`~petastorm_tpu_torch.membudget`, ``petastorm_tpu/jax_loader.py:
@@ -641,7 +667,7 @@ class TorchLoader(object):
                  last_batch='drop', shuffling_queue_capacity=0, min_after_dequeue=None,
                  seed=None, strict_fields=False, echo=1, inflight=2, arena_depth=None,
                  lineage=None, resume_state=None, mesh=None, sharding=None, batch_axis='data',
-                 on_device_augment=None):
+                 on_device_augment=None, tracer=None, watchdog=None, stall_timeout_s=None):
         if batch_size < 1:
             raise ValueError('batch_size must be >= 1, got {}'.format(batch_size))
         if prefetch < 0:
@@ -675,6 +701,7 @@ class TorchLoader(object):
         self._h2d_stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._closed = False
         self._exhausted = False
+        self._tracer = tracer if tracer is not None else NullTracer()
         self._stats_lock = threading.Lock()
         self._reset_counters()
         self._m_batches = metrics.counter(
@@ -690,11 +717,19 @@ class TorchLoader(object):
         # being filled and consumed.
         self._arena_depth = (int(arena_depth) if arena_depth is not None
                              else max(2, self._prefetch) + self._inflight + 2)
-        self._pool = ArenaPool(self._arena_depth, self._stop, pinned=self._cuda)
+        self._queue = queue.Queue(maxsize=self._prefetch) if self._prefetch else None
+        self._init_health(reader, watchdog, stall_timeout_s)
+        registry = self._health.registry if self._health is not None else None
+        hb_assemble = registry.register('assemble') if registry is not None else None
+        self._pool = ArenaPool(self._arena_depth, self._stop, pinned=self._cuda,
+                               tracer=self._tracer, heartbeat=hb_assemble)
+        if registry is not None:
+            registry.register_probe('arena-pool', self._pool.stats)
         if self._echo > 1:
             self._pool.ensure_depth(self._arena_depth + 1)   # the echoed batch's arena
         self._meter = OverlapMeter()
-        self._metered = MeteredReader(reader, self._meter) if self._prefetch else None
+        self._metered = (MeteredReader(reader, self._meter, heartbeat=hb_assemble)
+                         if self._prefetch else None)
         # Copying device (CUDA): every batch goes through a pinned arena.
         # Aliasing device (CPU): views of the reader's blocks are cheapest,
         # except of read-only (cached) blocks, which are copied.
@@ -706,17 +741,61 @@ class TorchLoader(object):
             shuffler=self._shuffler,
             commit_rows=self._commit_rows if self._shuffler is not None else None,
             raw_fields={name: tuple(field.shape) for name, field in self._raw_specs.items()})
-        self._engine = self._queue = None
+        self._engine = None
         self._inline = deque()    # prefetch=0: (staged, arena) whose copies may be in flight
         if self._prefetch:
-            self._queue = queue.Queue(maxsize=self._prefetch)
             self._engine = StagingEngine(
                 self._host_iter, self._stage, self._queue, self._stop, _END, self._pool,
                 ready_fn=self._wait_copied, holds_mode=not self._cuda,
-                inflight=self._inflight, meter=self._meter).start()
+                inflight=self._inflight, meter=self._meter, tracer=self._tracer,
+                health=registry).start()
+        # The watchdog starts once every stage registered its heartbeat.
+        self._supervisor.start_health()
         #: A DeviceDatasetCache over this loader attaches itself here.
         self._device_cache = None
         self._register_memory_pools(reader)
+
+    def _init_health(self, reader, watchdog, stall_timeout_s):
+        """The pipeline's health monitor, armed with its start deferred: the
+        consumer's heartbeat and probe, the reader's stages and the memory
+        probe are registered here, the staging stages after."""
+        self._supervisor = PipelineSupervisor()
+        self._hb_consumer = None
+        self._stall_error = None
+
+        def attach_stages(registry):
+            self._hb_consumer = registry.register('consumer')
+            registry.register_probe('consumer', lambda: {
+                'queue_depth': self._queue.qsize() if self._queue is not None else 0,
+                'queue_capacity': self._prefetch, 'exhausted': self._exhausted})
+            attach = getattr(reader, 'attach_health', None)
+            if attach is not None:
+                attach(registry)
+            registry.register_probe('memory', membudget.get_governor().probe)
+
+        self._health = self._supervisor.arm_health(watchdog, stall_timeout_s, self._deliver_stall,
+                                                   tracer=self._tracer, attach_fn=attach_stages,
+                                                   start=False)
+
+    def _deliver_stall(self, error):
+        """The watchdog's hard-stall sink (its thread): the error rides the
+        staging queue, where the consumer waits; a full queue (a consumer
+        that stopped draining) gives up its oldest batch for it. With
+        ``prefetch=0`` it is raised at the next ``next``."""
+        self._stall_error = error
+        if self._queue is None:
+            return
+        for _ in range(2):
+            try:
+                self._queue.put_nowait(error)
+                return
+            except queue.Full:
+                try:
+                    self._queue.get_nowait()
+                except queue.Empty:
+                    pass
+        logger.error('could not deliver PipelineStallError into the staging queue; it will '
+                     'surface on the next __next__ call')
 
     def _init_staging_decode(self, reader, shuffling_queue_capacity, on_device_augment):
         """The raw image fields the staging step decodes and the augment it
@@ -998,6 +1077,10 @@ class TorchLoader(object):
 
     def _stage(self, item, arena):
         maybe_inject('device-put-delay')
+        with self._tracer.span('stage', 'device'):
+            return self._stage_traced(item, arena)
+
+    def _stage_traced(self, item, arena):
         batch, rows = item
         t0 = time.perf_counter()
         if self._raw_specs:
@@ -1072,11 +1155,17 @@ class TorchLoader(object):
             staged, arena = self._inline.popleft()
             self._wait_copied(staged)
             arena.retire()
+        hb = self._hb_consumer
+        if hb is not None:
+            hb.beat('reader-wait')
         try:
-            item = next(self._host_iter)
+            with self._tracer.span('assemble', 'host'):
+                item = next(self._host_iter)
         except StopIteration:
             return _END
         arena = self._pool.claim_pending()
+        if hb is not None:
+            hb.beat('device_put')
         staged = self._stage(item, arena)
         if arena is not None:
             if not self._cuda:
@@ -1104,6 +1193,13 @@ class TorchLoader(object):
             if self._lineage is not None:
                 self._last_provenance = self._lineage.deliver()
             self._account_delivery()
+        if self._hb_consumer is not None:
+            # Stale in 'delivered': the training loop took the batch and has
+            # not come back (consumer-not-draining, never escalated).
+            self._hb_consumer.beat('delivered')
+        # A delivered batch is recovery: a hard stall diagnosed meanwhile
+        # must not end a pipeline that came back.
+        self._stall_error = None
         return _batch_type(names)(**tensors)
 
     # -- iteration -----------------------------------------------------------
@@ -1119,6 +1215,13 @@ class TorchLoader(object):
         if self._breach_error is not None:
             self._exhausted = True
             raise self._breach_error
+        if self._stall_error is not None and self._queue is None:
+            # Inline staging: the watchdog's diagnosis surfaces here.
+            self._exhausted = True
+            error, self._stall_error = self._stall_error, None
+            raise error
+        if self._hb_consumer is not None:
+            self._hb_consumer.beat('queue-wait')
         t0 = time.perf_counter()
         if self._first_get_t is None:
             self._first_get_t = t0
@@ -1132,13 +1235,16 @@ class TorchLoader(object):
             except Exception as e:  # noqa: BLE001 - raised below, as the staged path does
                 item = e
         else:
-            item = self._get_staged()
+            with self._tracer.span('wait', 'consumer'):
+                item = self._get_staged()
         waited = time.perf_counter() - t0
         self._wait_s += waited
         self._m_batch_wait.observe(waited)
         if item is _END:
             self._exhausted = True
             self._echo_item = None
+            if self._hb_consumer is not None:
+                self._hb_consumer.beat('idle')    # exhausted, not stalled
             raise StopIteration
         if isinstance(item, Exception):
             self._exhausted = True
@@ -1235,7 +1341,9 @@ class TorchLoader(object):
         loader; ``mem`` (the governor's stats) while the governor is
         armed; on a mesh ``n_devices`` (1: a rank copies to its own
         device), ``shards_put`` and, by device,
-        ``device_put_s`` and ``device_put_bytes``."""
+        ``device_put_s`` and ``device_put_bytes``; ``watchdog`` (stall episodes,
+        soft recoveries, hard stalls, the last diagnosis without its stacks,
+        ``alive``, the flight dumps and the beat table) when armed."""
         elapsed = (time.perf_counter() - self._first_get_t
                    if self._first_get_t is not None else 0.0)
         with self._stats_lock:
@@ -1268,6 +1376,8 @@ class TorchLoader(object):
         governor = membudget.get_governor()
         if governor.armed:
             out['mem'] = governor.stats()
+        if self._health is not None:
+            out['watchdog'] = self._health.stats()
         return out
 
     def close(self):
@@ -1276,6 +1386,9 @@ class TorchLoader(object):
         if self._closed:
             return
         self._closed = True
+        # The watchdog first: it would read the stages' deliberate quiet as
+        # a stall. ``_health`` stays referenced, so ``stats`` still shows it.
+        self._supervisor.stop()
         governor = membudget.get_governor()
         for handle in self._mem_handles:
             handle.close()

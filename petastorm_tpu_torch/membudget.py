@@ -1,9 +1,15 @@
 """Host memory governor: one byte account over the pipeline's pools, a
 pressure ladder, and a typed error instead of the kernel's OOM kill.
 
-Counterpart of ``petastorm_tpu/membudget.py:1-887`` without its trace
-instants, flight-recorder dump, watchdog class (ROADMAP §A9f) and autotuner
-bias (§A9h). Its instruments are the JAX package's (``:382-397``):
+Counterpart of ``petastorm_tpu/membudget.py:1-887`` without its autotuner
+bias (ROADMAP §A9h). Each ladder transition is a ``mem-pressure:<state>``
+instant of the global tracer (``:646-647``); a breach dumps the flight
+recorder (:mod:`~petastorm_tpu_torch.flight_recorder`, ``:761-776``) under
+``PSTT_FLIGHT_RECORDER``, else the temporary directory, before it raises;
+:meth:`MemoryGovernor.probe` is the watchdog's ``memory`` probe, whose
+state turns a starvation-shaped stall into the soft ``memory-pressure``
+(:func:`~petastorm_tpu_torch.health.classify_stall`). Its instruments are
+the JAX package's (``:382-397``):
 ``pst_mem_budget_bytes``, ``pst_mem_accounted_bytes{pool}``,
 ``pst_mem_pressure_state``, ``pst_mem_degrade_actions_total{action}`` and
 ``pst_mem_breaches_total``. The ``mem-pressure`` fault site (``:571-580``)
@@ -55,6 +61,7 @@ import contextlib
 import logging
 import os
 import sys
+import tempfile
 import threading
 import time
 from collections import deque
@@ -535,6 +542,8 @@ class MemoryGovernor(object):
                        else logging.INFO,
                        'memory pressure %s -> %s: %d of %s budget bytes (%.0f%%)',
                        previous, state, accounted, budget, 100 * frac)
+            from petastorm_tpu_torch.trace import get_global_tracer
+            get_global_tracer().instant('mem-pressure:{}'.format(state), cat='membudget')
         self._apply_rung(state, previous, pools)
         return state
 
@@ -606,13 +615,21 @@ class MemoryGovernor(object):
         self.breaches += 1
         self._m_breaches.inc()
         ranking = self.pool_ranking()
+        with self._lock:
+            transitions = list(self._transitions)
+        diagnosis = {'budget_bytes': self._budget, 'budget_source': self._budget_source,
+                     'accounted_bytes': self._accounted, 'frac': round(self._frac, 4),
+                     'rss_bytes': process_rss_bytes(), 'peak_rss_bytes': self._peak_rss,
+                     'pool_ranking': ranking, 'transitions': transitions}
+        dump_path = self._dump_flight(diagnosis)
         top = ranking[0] if ranking else {'pool': 'none', 'nbytes': 0}
         message = ('host memory budget breached: {} accounted bytes of {} budget ({:.0%}); top '
-                   'pool {!r} holds {} bytes. Raising before the kernel OOM killer does it '
-                   'without a diagnosis.'.format(self._accounted, self._budget, self._frac,
-                                                 top['pool'], top['nbytes']))
+                   'pool {!r} holds {} bytes. Flight dump: {}. Raising before the kernel OOM '
+                   'killer does it without a diagnosis.'.format(
+                       self._accounted, self._budget, self._frac, top['pool'], top['nbytes'],
+                       dump_path or '<unavailable>'))
         error = HostMemoryExceededError(message, budget=self._budget, accounted=self._accounted,
-                                        ranking=ranking)
+                                        ranking=ranking, flight_dump=dump_path)
         self.last_breach = error
         logger.error('%s', message)
         with self._lock:
@@ -623,10 +640,27 @@ class MemoryGovernor(object):
             except Exception:  # noqa: BLE001 - delivery is best-effort per sink
                 logger.exception('memory breach delivery failed')
 
+    def _dump_flight(self, diagnosis):
+        """The breach's flight-recorder dump (trace ring, metrics, the pool
+        ranking) under ``PSTT_FLIGHT_RECORDER``, else the temporary
+        directory: a breach post-mortem exists even where no stall recorder
+        was armed. Best-effort: returns the path or None."""
+        try:
+            from petastorm_tpu_torch import flight_recorder
+            from petastorm_tpu_torch.trace import get_global_tracer
+            base_dir = os.environ.get(flight_recorder.ENV_VAR, '').strip() \
+                or tempfile.gettempdir()
+            recorder = flight_recorder.FlightRecorder(base_dir, tracer=get_global_tracer())
+            return recorder.dump(diagnosis, reason='mem-breach')
+        except Exception:  # noqa: BLE001 - a failed dump must not mask the breach
+            logger.exception('memory breach flight dump failed')
+            return None
+
     # -- observability -----------------------------------------------------
 
     def probe(self):
-        """The last sample, without a new walk."""
+        """The last sample, without a new walk (the watchdog's ``memory``
+        probe)."""
         return {'state': self._state, 'level': STATE_LEVELS[self._state], 'armed': self.armed,
                 'frac': round(self._frac, 4), 'budget_bytes': self._budget,
                 'accounted_bytes': self._accounted, 'pools': dict(self._last_pools)}

@@ -6,7 +6,9 @@ ndarrays, numpy scalars and strings, images of any size (a field with
 ``None`` dims). The worker publishes the rows of each row-group with their
 chunk key and provenance segment; the reader hands them out one at a time.
 A worker predicate, ``transform_spec``, row-drop partitions and NGram
-windows run here, in the JAX worker's order (:class:`PyDictWorker`).
+windows run here, in the JAX worker's order (:class:`PyDictWorker`). The
+decode runs in a ``decode`` span and the publish in a ``handoff`` span of
+the process's global tracer (``:78-140``).
 
 With a cache (``cache_type='memory'`` or ``'local-disk'``, where the rows
 are pickled) the row-group's decoded rows are kept and served to every
@@ -24,6 +26,7 @@ from petastorm_tpu_torch.checkpoint import chunk_key
 from petastorm_tpu_torch.errors import DecodeFieldError
 from petastorm_tpu_torch.faults import maybe_inject, rowgroup_fault_key
 from petastorm_tpu_torch.lineage import chunk_lineage
+from petastorm_tpu_torch.trace import get_global_tracer
 from petastorm_tpu_torch.workers.rowgroup_worker_base import RowGroupWorkerBase, compute_row_slice
 
 
@@ -93,7 +96,8 @@ class PyDictWorker(RowGroupWorkerBase):
             table = self._read_fields(piece, list(schema.fields))
             timings['read_s'] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            rows = decode_table_to_rows(table, schema)
+            with get_global_tracer().span('decode', 'worker'):
+                rows = decode_table_to_rows(table, schema)
             timings['decode_s'] = time.perf_counter() - t0
             return rows
 
@@ -142,7 +146,8 @@ class PyDictWorker(RowGroupWorkerBase):
                    'lineage': lineage, 'timings': timings}
         if pst_det is not None:
             payload['det'] = pst_det
-        self.publish_func(payload)
+        with get_global_tracer().span('handoff', 'worker'):
+            self.publish_func(payload)
 
     def _load_rows_with_predicate(self, piece, predicate, timings):
         """The decoded rows ``predicate`` keeps

@@ -20,8 +20,21 @@ batch reader) and, on the tensor path, ``'chunk-store'``
 (:mod:`~petastorm_tpu_torch.chunk_store`, whose directory
 ``PSTT_CHUNK_STORE`` can also give, and which that variable arms for the
 default ``cache_type=None``). Of the pools, ``'thread'`` and ``'dummy'``.
-Health (the second half of ROADMAP §A9f), process pools (§A9g) and
-autotune (§A9h) come in later slices.
+Process pools (ROADMAP §A9g) and autotune (§A9h) come in later slices.
+
+Health (``petastorm_tpu/reader.py:135-167, 922-972, 1130-1185, 1508-1509``):
+``watchdog=``/``stall_timeout_s=`` (or ``PSTT_WATCHDOG``) arm a
+:class:`~petastorm_tpu_torch.health.HealthMonitor`.
+:meth:`Reader.attach_health` registers the ``ventilator``,
+``reader-handoff`` and ``worker-pool`` heartbeats, the ``worker-pool``,
+``memory`` and (deterministic mode) ``resequencer`` probes, and a soft
+recovery that wakes the ventilator on ``reader-starved`` and
+``worker-pool-dead``. A ``TorchLoader`` over the reader attaches it to its
+own registry (one watchdog for the pipeline; the reader's own stops); a
+reader used alone owns its monitor, whose hard stall is raised by ``next``
+as a :class:`~petastorm_tpu_torch.errors.PipelineStallError`, also from
+inside a wait on the pool. ``diagnostics()['watchdog']`` holds its
+counts, its last diagnosis and the beat table.
 
 Storage (``petastorm_tpu/reader.py:177, 1528-1536``): ``dataset_url`` is
 any store :mod:`~petastorm_tpu_torch.fs` resolves (``file://``, ``gs://``,
@@ -96,8 +109,10 @@ from petastorm_tpu_torch.cache import (LocalDiskArrowTableCache, LocalDiskCache,
 from petastorm_tpu_torch.checkpoint import ConsumptionTracker, DeferredRowAccounting
 from petastorm_tpu_torch.codecs import CompressedImageCodec, decode_path, decoder_info
 from petastorm_tpu_torch.errors import (NoDataAvailableError, PetastormMetadataError,
-                                        RowGroupQuarantinedError)
+                                        PipelineStallError, RowGroupQuarantinedError)
 from petastorm_tpu_torch.etl.dataset_metadata import get_schema, infer_or_load_unischema
+from petastorm_tpu_torch.health import (READER_STARVED, WORKER_POOL_DEAD,
+                                        PipelineSupervisor)
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.py_dict_worker import PyDictWorker
 from petastorm_tpu_torch.storage import ParquetStore
@@ -206,7 +221,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread', work
                 cur_shard=None, shard_count=None, cache_type=None, cache_location=None,
                 cache_size_limit=None, cache_extra_settings=None, transform_spec=None,
                 resume_state=None, deterministic=False, storage_options=None,
-                error_budget=None):
+                error_budget=None, watchdog=None, stall_timeout_s=None):
     """Reader of decoded rows, one namedtuple per row.
 
     The arguments are ``make_tensor_reader``'s, except
@@ -242,7 +257,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread', work
                   predicate=predicate, rowgroup_selector=rowgroup_selector, num_epochs=num_epochs,
                   cur_shard=cur_shard, shard_count=shard_count, cache=cache,
                   transform_spec=transform_spec, ngram=ngram, resume_state=resume_state,
-                  deterministic=deterministic, error_budget=error_budget)
+                  deterministic=deterministic, error_budget=error_budget, watchdog=watchdog,
+                  stall_timeout_s=stall_timeout_s)
 
 
 def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
@@ -252,7 +268,8 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
                        cache_type=None, cache_location=None, cache_size_limit=None,
                        cache_extra_settings=None, transform_spec=None, resume_state=None,
                        deterministic=False, shuffle_rows_in_chunk=False,
-                       raw_image_fields=None, storage_options=None, error_budget=None):
+                       raw_image_fields=None, storage_options=None, error_budget=None,
+                       watchdog=None, stall_timeout_s=None):
     """Reader of decoded column blocks, one namedtuple per row-group.
 
     :param schema_fields: fields or full-match regex patterns to read
@@ -314,6 +331,13 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
         be quarantined: skipped and recorded; one more raises
         ``RowGroupQuarantinedError``) or a float in (0, 1) (that fraction of
         the epoch's items). ``bool`` and floats >= 1 raise ``ValueError``.
+    :param watchdog: ``True`` arms the health watchdog of a reader used
+        alone (a ``TorchLoader`` over it supervises it anyway when the
+        loader's is armed), ``False`` keeps it off, ``None`` defers to
+        ``PSTT_WATCHDOG`` (off by default).
+    :param stall_timeout_s: the stages' stall deadline in seconds (a number
+        or a dict stage -> seconds); a stall past twice it raises
+        ``PipelineStallError`` from ``next``.
     """
     _check_selection_args(predicate, transform_spec, shuffle_row_drop_partitions)
     if isinstance(schema_fields, NGram):
@@ -344,7 +368,8 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
                   num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
                   cache=cache, transform_spec=transform_spec, resume_state=resume_state,
                   deterministic=deterministic, shuffle_rows_in_chunk=shuffle_rows_in_chunk,
-                  raw_image_fields=raw_image_fields, error_budget=error_budget)
+                  raw_image_fields=raw_image_fields, error_budget=error_budget,
+                  watchdog=watchdog, stall_timeout_s=stall_timeout_s)
 
 
 def make_batch_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
@@ -354,7 +379,8 @@ def make_batch_reader(dataset_url, schema_fields=None, reader_pool_type='thread'
                       cache_type='null', cache_location=None, cache_size_limit=None,
                       cache_row_size_estimate=None, cache_extra_settings=None,
                       transform_spec=None, resume_state=None, shuffle_rows_in_chunk=False,
-                      deterministic=False, storage_options=None, error_budget=None):
+                      deterministic=False, storage_options=None, error_budget=None,
+                      watchdog=None, stall_timeout_s=None):
     """Reader of column arrays, one namedtuple per row-group, over any
     Parquet store (``petastorm_tpu/reader.py:382-446``).
 
@@ -394,7 +420,7 @@ def make_batch_reader(dataset_url, schema_fields=None, reader_pool_type='thread'
                   num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
                   cache=cache, transform_spec=transform_spec, resume_state=resume_state,
                   deterministic=deterministic, shuffle_rows_in_chunk=shuffle_rows_in_chunk,
-                  error_budget=error_budget)
+                  error_budget=error_budget, watchdog=watchdog, stall_timeout_s=stall_timeout_s)
 
 
 def _resolve_raw_image_fields(view, raw_image_fields):
@@ -447,8 +473,9 @@ def make_pod_reader(dataset_url, reader_factory=None, pod_shard=None, mesh=None,
         :func:`make_batch_reader` for a plain Parquet store).
     :param pod_shard: ``(cur_shard, shard_count)`` overriding the mapping
         (simulated ranks in one process, or a launcher with its own).
-    :param kwargs: forwarded to the factory; ``cur_shard`` or
-        ``shard_count`` among them raises, since the mapping owns them.
+    :param kwargs: forwarded to the factory (``watchdog`` and
+        ``stall_timeout_s`` among them); ``cur_shard`` or ``shard_count``
+        among them raises, since the mapping owns them.
 
     With ``deterministic=True`` the shards are strides of one global order,
     so their round-robin interleave is the one-rank stream for every shard
@@ -608,7 +635,7 @@ class Reader(DeferredRowAccounting):
                  resume_state=None, deterministic=False, raw_image_fields=(), full_schema=None,
                  predicate=None, rowgroup_selector=None, shuffle_row_drop_partitions=1,
                  transform_spec=None, shuffle_rows_in_chunk=False, ngram=None,
-                 error_budget=None):
+                 error_budget=None, watchdog=None, stall_timeout_s=None):
         # A mistyped memory budget or fault spec fails before any thread
         # starts (a worker thread that met it would die without a word).
         membudget.validate_env_budget()
@@ -739,6 +766,63 @@ class Reader(DeferredRowAccounting):
         if _has_image_fields(schema):
             self._decode_share = decode_budget.get_budget().register_pool(pool.workers_count)
         self._register_memory_pools()
+        # A reader used alone owns its monitor; a loader over it calls
+        # attach_health with its own registry instead.
+        self._supervisor = PipelineSupervisor()
+        self._health = None
+        self._health_registry = None
+        self._hb_handoff = None
+        self._watchdog_error = None
+        try:
+            self._health = self._supervisor.arm_health(watchdog, stall_timeout_s,
+                                                       self._deliver_stall,
+                                                       attach_fn=self.attach_health)
+        except Exception:
+            self.stop()     # a refused deadline leaves no thread running
+            raise
+
+    def _deliver_stall(self, error):
+        """The watchdog's hard stall: raised at the next ``next``, and handed
+        to a consumer parked in the pool's wait."""
+        self._watchdog_error = error
+        inject = getattr(self._pool, 'inject_consumer_error', None)
+        if inject is not None:
+            inject(error)
+
+    def attach_health(self, registry):
+        """Register this reader's stages with ``registry`` (a
+        :class:`~petastorm_tpu_torch.health.HeartbeatRegistry`; called by a
+        wrapping loader, or at construction for a reader's own monitor):
+        the ``ventilator``, ``reader-handoff`` and ``worker-pool``
+        heartbeats, the ``worker-pool``, ``memory`` and ``resequencer``
+        probes, and the ventilator's wake-up as the soft recovery of
+        ``reader-starved`` and ``worker-pool-dead``. A loader's registry
+        replaces the reader's own monitor, which stops."""
+        if self._health is not None and registry is not self._health.registry:
+            self._health.stop()
+            self._health = None
+            self._supervisor.health = None
+        self._health_registry = registry
+        self._ventilator.heartbeat = registry.register('ventilator')
+        self._hb_handoff = registry.register('reader-handoff')
+        pool = self._pool
+        pool.health_heartbeat = registry.register('worker-pool')
+        # Thread pools have no worker processes to find dead (§A9g).
+        registry.register_probe('worker-pool', lambda: dict(pool.diagnostics))
+        registry.register_probe('memory', membudget.get_governor().probe)
+        if self._resequencer is not None:
+            # The resequencer-stalled signature: chunks held behind a hole
+            # while the handoff goes quiet.
+            registry.register_probe('resequencer', self._resequencer.stats)
+        ventilator = self._ventilator
+
+        def nudge_reader(diagnosis):
+            # Safe from the watchdog's thread: wake a parked ventilator.
+            ventilator._wakeup.set()
+            return True
+
+        registry.register_recovery(READER_STARVED, nudge_reader)
+        registry.register_recovery(WORKER_POOL_DEAD, nudge_reader)
 
     def _quarantine_sink(self, record):
         """A quarantined item never publishes a chunk: in deterministic mode
@@ -913,6 +997,10 @@ class Reader(DeferredRowAccounting):
                                 else None)
         if self._resequencer is not None:
             diag['resequencer'] = self._resequencer.stats()
+        if self._health is not None:
+            diag['watchdog'] = self._health.stats()
+        elif self._health_registry is not None:
+            diag['heartbeats'] = self._health_registry.beat_table()
         governor = membudget.get_governor()
         if governor.armed:
             diag['mem'] = governor.stats()
@@ -942,6 +1030,11 @@ class Reader(DeferredRowAccounting):
                 chunk = self._pool.get_results()
             except EmptyResultError:
                 self.last_row_consumed = True
+                if self._hb_handoff is not None:
+                    self._hb_handoff.beat('idle')      # exhausted, not stalled
+                    pool_hb = getattr(self._pool, 'health_heartbeat', None)
+                    if pool_hb is not None:
+                        pool_hb.beat('idle')
                 raise StopIteration
             if determinism.is_hole(chunk):
                 self.holes += 1
@@ -976,6 +1069,29 @@ class Reader(DeferredRowAccounting):
             raise RuntimeError('Trying to iterate a stopped Reader')
         if self._stall_error is not None:
             raise self._stall_error
+        if self._watchdog_error is not None:
+            error, self._watchdog_error = self._watchdog_error, None
+            raise error
+        hb = self._hb_handoff
+        if hb is None:
+            return self._next_value()
+        # 'poll': waiting on the workers (stale = reader-starved);
+        # 'handoff': delivered (stale = the consumer stopped pulling).
+        hb.beat('poll')
+        try:
+            value = self._next_value()
+        except PipelineStallError as error:
+            # The pool raised the injected copy: do not raise it again.
+            if error is self._watchdog_error:
+                self._watchdog_error = None
+            raise
+        hb.beat('handoff')
+        # A delivered value is recovery: a stall diagnosed while the consumer
+        # waited must not end a pipeline that came back.
+        self._watchdog_error = None
+        return value
+
+    def _next_value(self):
         if self.batched_output:
             return self._output_schema.make_namedtuple(**self._next_cols())
         while not self._rows:
@@ -1061,7 +1177,10 @@ class Reader(DeferredRowAccounting):
     def stop(self):
         """Stop the workers, unregister the memory pools (releasing the
         governor's arm reference) and stop the chunk store's writer once its
-        queued writes are on disk. Idempotent."""
+        queued writes are on disk. Idempotent. The watchdog stops first (it
+        would read the stopped stages as a stall); ``diagnostics`` keeps its
+        section."""
+        self._supervisor.stop()
         governor = membudget.get_governor()
         for handle in self._mem_handles:
             handle.close()

@@ -3,8 +3,8 @@ engine that overlaps batch collate with host-to-device copies.
 
 Counterpart of ``petastorm_tpu/staging.py:149-600`` (``HostArena``,
 ``ArenaPool``), ``:600-745`` (``OverlapMeter``, ``MeteredReader``) and
-``:1156-`` (``StagingEngine``), trimmed: no sharded layouts, sanitizer,
-health beats or autotune hooks. The instruments are the JAX package's:
+``:1156-`` (``StagingEngine``), trimmed: no sharded layouts, sanitizer
+or autotune hooks. The instruments are the JAX package's:
 ``pst_assemble_seconds`` and ``pst_dispatch_seconds`` (one observation a
 batch), ``pst_arena_wait_seconds`` (a request that waited for an arena),
 ``pst_arena_pinned_bytes`` (pinned arenas alive) and, for a mesh loader's
@@ -18,8 +18,24 @@ the CUDA event recorded behind its copy completed (the JAX package's
 staged tensors alias the arena (``torch.from_numpy``), so an arena returns
 to the pool only once the consumer dropped every such tensor
 (``holds_mode``, the GC-hold rule of ``staging.py:88``).
+
+Health and tracing (``petastorm_tpu/staging.py:1221-1233, 1287-1430``): with
+a :class:`~petastorm_tpu_torch.health.HeartbeatRegistry` the engine beats
+an ``assemble`` heartbeat (``'collate'``, ``'reader-wait'`` through the
+:class:`MeteredReader`, ``'arena-wait'`` through the :class:`ArenaPool`,
+``'stageq-put'``) and a ``dispatch`` one (``'stageq-get'``, ``'device_put'``
+before the stage function, so before the loader's ``device-put-delay``
+site and its copy issue, ``'ready-wait'`` before it waits on a copy's
+event, ``'out-put'``), ``'idle'`` when a thread ends, and registers its
+``stats`` as the ``staging`` probe. With a tracer it records the
+``assemble`` and ``dispatch`` spans (host time: a dispatch span covers the
+issue of the copies, not the copies) and the ``staging_inflight`` and
+``arena_pool_free`` counters. A thread that outlives ``stop``'s join is
+recorded in ``stats()['leaked_threads']``, traced as a
+``staging-leaked-thread:<name>`` instant and logged with every stack.
 """
 
+import logging
 import queue
 import threading
 import time
@@ -31,6 +47,9 @@ import numpy as np
 import torch
 
 from petastorm_tpu_torch import metrics
+from petastorm_tpu_torch.trace import NullTracer
+
+logger = logging.getLogger(__name__)
 
 THREAD_PREFIX = 'pstt-staging-'
 _GROW_TIMEOUT_S = 0.5
@@ -98,14 +117,18 @@ class ArenaPool(object):
     aware) while every arena is out and grows past ``depth`` after
     ``_GROW_TIMEOUT_S`` rather than deadlocking a consumer that holds many
     batches. Specs other than the pool's first get ``None``: the caller
-    then allocates plainly."""
+    then allocates plainly. ``heartbeat`` (the assemble stage's) reads
+    ``'arena-wait'`` while a request waits; ``tracer`` gets the
+    ``arena_pool_free`` counter."""
 
-    def __init__(self, depth, stop_event, pinned):
+    def __init__(self, depth, stop_event, pinned, tracer=None, heartbeat=None):
         if depth < 1:
             raise ValueError('ArenaPool depth must be >= 1, got {}'.format(depth))
         self._depth = depth
         self._stop = stop_event
         self._pinned = pinned
+        self._tracer = tracer if tracer is not None else NullTracer()
+        self._heartbeat = heartbeat
         self._cond = threading.Condition()
         self._free = []
         self._spec = None
@@ -129,6 +152,7 @@ class ArenaPool(object):
             elif spec != self._spec:
                 return None
             waited = 0.0
+            waiting_hb = False
             while True:
                 if self._stop.is_set():
                     return None
@@ -147,13 +171,21 @@ class ArenaPool(object):
                     self._alloc += 1
                     self._depth = max(self._depth, self._allocated)
                     break
+                if self._heartbeat is not None and not waiting_hb:
+                    # One beat on entry, then the age accrues: a wedged pool
+                    # reads as a stale 'arena-wait'.
+                    self._heartbeat.beat('arena-wait')
+                    waiting_hb = True
                 t0 = time.perf_counter()
                 self._cond.wait(timeout=min(max(_GROW_TIMEOUT_S - waited, 0.005), 0.25))
                 waited += time.perf_counter() - t0
+            if waiting_hb:
+                self._heartbeat.beat('collate')
             self._wait_s += waited
             if waited:
                 self._m_wait.observe(waited)
             self._pending = arena
+            self._tracer.counter('arena_pool_free', len(self._free), 'staging')
             return arena.buffers
 
     @property
@@ -201,6 +233,7 @@ class ArenaPool(object):
             else:
                 self._allocated -= 1
             self._cond.notify_all()
+            self._tracer.counter('arena_pool_free', len(self._free), 'staging')
 
     def wake(self):
         with self._cond:
@@ -336,24 +369,32 @@ class OverlapMeter(object):
 class MeteredReader(object):
     """Iteration proxy that reports the time blocked in the reader as
     *paused* assemble time, so ``assemble_s`` and the overlap cover collate
-    work only; ``reader_wait_s`` sums the blocked seconds."""
+    work only; ``reader_wait_s`` sums the blocked seconds. ``heartbeat``
+    (the assemble stage's) reads ``'reader-wait'`` during a pull and
+    ``'collate'`` after it."""
 
-    def __init__(self, reader, meter, stage='assemble'):
+    def __init__(self, reader, meter, stage='assemble', heartbeat=None):
         self._reader = reader
         self._meter = meter
         self._stage = stage
+        self._hb = heartbeat
         self.reader_wait_s = 0.0
 
     def __iter__(self):
         return self
 
     def __next__(self):
+        hb = self._hb
+        if hb is not None:
+            hb.beat('reader-wait')
         t0 = time.perf_counter()
         try:
             with self._meter.pause(self._stage):
                 return next(self._reader)
         finally:
             self.reader_wait_s += time.perf_counter() - t0
+            if hb is not None:
+                hb.beat('collate')
 
     def __getattr__(self, name):
         return getattr(self._reader, name)
@@ -385,12 +426,25 @@ class StagingEngine(object):
     :param meter: the :class:`OverlapMeter` the assemble and dispatch
         stages are tracked on (a ``MeteredReader`` under ``host_iter``
         pauses the same meter).
+    :param tracer: records the ``assemble``/``dispatch`` spans and the
+        ``staging_inflight`` counter.
+    :param health: a :class:`~petastorm_tpu_torch.health.HeartbeatRegistry`:
+        the ``assemble`` and ``dispatch`` heartbeats and the ``staging``
+        probe are registered there.
     """
 
     def __init__(self, host_iter, stage_fn, out_queue, stop_event, end_sentinel,
-                 pool, ready_fn=None, holds_mode=False, inflight=2, meter=None):
+                 pool, ready_fn=None, holds_mode=False, inflight=2, meter=None, tracer=None,
+                 health=None):
         if inflight < 1:
             raise ValueError('inflight must be >= 1, got {}'.format(inflight))
+        self._tracer = tracer if tracer is not None else NullTracer()
+        self._leaked_threads = []
+        self._hb_assemble = self._hb_dispatch = None
+        if health is not None:
+            self._hb_assemble = health.register('assemble')
+            self._hb_dispatch = health.register('dispatch')
+            health.register_probe('staging', self.stats)
         self._host_iter = host_iter
         self._stage_fn = stage_fn
         self._out = out_queue
@@ -444,16 +498,28 @@ class StagingEngine(object):
         return None
 
     def _assemble_loop(self):
+        hb = self._hb_assemble
+        try:
+            self._assemble_body(hb)
+        finally:
+            if hb is not None:
+                hb.beat('idle')     # done, stopped or failed: quiet is no stall
+
+    def _assemble_body(self, hb):
         try:
             while not self._stop.is_set():
+                if hb is not None:
+                    hb.beat('collate')
                 try:
                     t0 = time.perf_counter()
-                    with self.meter.track('assemble'):
+                    with self.meter.track('assemble'), self._tracer.span('assemble', 'host'):
                         batch = next(self._host_iter)
                     self._m_assemble.observe(time.perf_counter() - t0)
                 except StopIteration:
                     break
                 arena = self._pool.claim_pending()
+                if hb is not None:
+                    hb.beat('stageq-put')
                 if not self._put(self._stage_q, (batch, arena)):
                     if arena is not None:
                         arena.retire()
@@ -468,6 +534,8 @@ class StagingEngine(object):
 
     def _retire(self, staged, arena, wait):
         if wait and not self._stop.is_set():
+            if self._hb_dispatch is not None:
+                self._hb_dispatch.beat('ready-wait')
             t0 = time.perf_counter()
             self._ready_fn(staged)
             with self._stats_lock:
@@ -475,10 +543,20 @@ class StagingEngine(object):
         arena.retire()
 
     def _dispatch_loop(self):
+        hb = self._hb_dispatch
+        try:
+            self._dispatch_body(hb)
+        finally:
+            if hb is not None:
+                hb.beat('idle')
+
+    def _dispatch_body(self, hb):
         inflight = deque()
         arena = None
         try:
             while True:
+                if hb is not None:
+                    hb.beat('stageq-get')
                 item = self._get()
                 if item is None:
                     return
@@ -488,8 +566,10 @@ class StagingEngine(object):
                     self._put(self._out, self._end if item is _DONE else item.exc)
                     return
                 batch, arena = item
+                if hb is not None:
+                    hb.beat('device_put')
                 t0 = time.perf_counter()
-                with self.meter.track('dispatch'):
+                with self.meter.track('dispatch'), self._tracer.span('dispatch', 'device'):
                     staged = self._stage_fn(batch, arena)
                 self._m_dispatch.observe(time.perf_counter() - t0)
                 if arena is not None:
@@ -498,7 +578,10 @@ class StagingEngine(object):
                             arena.add_hold(value)
                     inflight.append((staged, arena))
                     arena = None
+                    self._tracer.counter('staging_inflight', len(inflight), 'staging')
                 del batch
+                if hb is not None:
+                    hb.beat('out-put')
                 if not self._put(self._out, staged):
                     return
                 del staged
@@ -514,16 +597,19 @@ class StagingEngine(object):
                 self._retire(*inflight.popleft(), wait=False)
 
     def stats(self):
-        """Per-stage busy seconds, their overlap, and the seconds the
-        dispatch thread waited on the oldest copy (``ready_wait_s``)."""
+        """Per-stage busy seconds, their overlap, the seconds the dispatch
+        thread waited on the oldest copy (``ready_wait_s``) and the threads
+        a ``stop`` left alive (``leaked_threads``). Reads counters only, so
+        the watchdog's ``staging`` probe never waits on the card."""
         m = self.meter.stats()
         with self._stats_lock:
             ready_wait = self._ready_wait_s
+            leaked = list(self._leaked_threads)
         return {'assemble_s': m['busy_s'].get('assemble', 0.0),
                 'dispatch_s': m['busy_s'].get('dispatch', 0.0),
                 'overlap_s': m['overlap_s'], 'overlap_frac': m['overlap_frac'],
                 'overlap_frac_total': self.meter.stats(total=True)['overlap_frac'],
-                'ready_wait_s': ready_wait}
+                'ready_wait_s': ready_wait, 'leaked_threads': leaked}
 
     def reset_stats(self):
         self.meter.reset()
@@ -532,11 +618,23 @@ class StagingEngine(object):
 
     def stop(self, join_timeout_s=10):
         """Idempotent: set stop, unblock and join both threads. The caller
-        drains ``out_queue``. Returns the names of threads still alive."""
+        drains ``out_queue``. Returns the names of the threads this call
+        left alive (a copy hung on a wedged card), which are also recorded
+        in ``stats()['leaked_threads']``, traced and logged with every
+        thread's stack."""
         self._stop.set()
         self._pool.wake()
         for t in self._threads:
             t.join(timeout=join_timeout_s)
+        leaked = [t.name for t in self._threads if t.is_alive()]
+        if leaked:
+            from petastorm_tpu_torch.health import dump_all_stacks
+            with self._stats_lock:
+                self._leaked_threads.extend(n for n in leaked if n not in self._leaked_threads)
+            for name in leaked:
+                self._tracer.instant('staging-leaked-thread:{}'.format(name), cat='watchdog')
+            logger.warning('StagingEngine.stop: thread(s) %s still alive after %.1fs join. Thread '
+                           'stacks:\n%s', leaked, join_timeout_s, dump_all_stacks())
         while True:
             try:
                 item = self._stage_q.get_nowait()
@@ -544,4 +642,4 @@ class StagingEngine(object):
                 break
             if isinstance(item, tuple) and item[1] is not None:
                 item[1].retire()
-        return [t.name for t in self._threads if t.is_alive()]
+        return leaked

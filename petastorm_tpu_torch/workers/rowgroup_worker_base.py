@@ -16,7 +16,8 @@ per-row worker keeps pyarrow (``_prefer_native_parquet``). A stage that did
 not build, or a read it fails, leaves pyarrow.
 
 Each read passes the ``fs-read-delay`` and ``fs-read-error`` fault sites,
-keyed by :func:`~petastorm_tpu_torch.faults.rowgroup_fault_key` (``:108-111``).
+keyed by :func:`~petastorm_tpu_torch.faults.rowgroup_fault_key` (``:108-111``),
+inside a ``read`` span of the process's global tracer (``:103-104``).
 
 A piece's hive partition values are not stored in its file:
 :meth:`RowGroupWorkerBase._read_fields` reads the other fields and appends
@@ -32,6 +33,7 @@ import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.determinism import hole_marker
 from petastorm_tpu_torch.faults import maybe_inject, rowgroup_fault_key
+from petastorm_tpu_torch.trace import get_global_tracer
 from petastorm_tpu_torch.workers import WorkerBase
 
 logger = logging.getLogger(__name__)
@@ -70,6 +72,10 @@ class RowGroupWorkerBase(WorkerBase):
 
     def _read_row_group(self, piece, columns):
         """One row-group as a ``pa.Table`` of ``columns``, in that order."""
+        with get_global_tracer().span('read', 'worker'):
+            return self._read_row_group_traced(piece, columns)
+
+    def _read_row_group_traced(self, piece, columns):
         fault_key = rowgroup_fault_key(piece.path, piece.row_group)
         maybe_inject('fs-read-delay', key=fault_key)
         maybe_inject('fs-read-error', key=fault_key)

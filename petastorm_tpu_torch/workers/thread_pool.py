@@ -5,8 +5,11 @@ size (no resize or profiling). ``results_watermark`` arms the
 ventilator's backpressure: while that many results wait undelivered, no
 new item is fed (the memory governor's shed rung sets it).
 ``results_nbytes()`` is the governor's ``results-queue`` pool, and
-``inject_consumer_error`` hands an error (a memory breach) to a consumer
-waiting in ``get_results()``. End of data is the results queue empty AND
+``inject_consumer_error`` hands an error (a memory breach, a watchdog's
+stall) to a consumer waiting in ``get_results()``: it raises while no result
+is there, and a result that arrives first clears it (the pipeline
+recovered). ``health_heartbeat`` (set by ``Reader.attach_health``) beats
+``'poll'`` on each pass of the consumer's wait (``:350-351``). End of data is the results queue empty AND
 every ventilated item processed AND the ventilator completed. A worker's
 exception stops the pool and re-raises in the consumer, unless the worker
 turned it into a :class:`~petastorm_tpu_torch.workers.RowGroupQuarantined`
@@ -90,6 +93,8 @@ class ThreadPool(ResequencedReads):
         #: Set by a reader with an ``error_budget``: receives each
         #: ``RowGroupQuarantined`` record and raises past the budget.
         self.quarantine_sink = None
+        #: The consumer's health heartbeat, or None.
+        self.health_heartbeat = None
 
     @property
     def workers_count(self):
@@ -179,9 +184,12 @@ class ThreadPool(ResequencedReads):
         deadline = time.monotonic() + timeout if timeout is not None else None
         while True:
             error = self._injected_error
-            if error is not None:
+            if error is not None and self._results_queue.empty():
                 self._injected_error = None
                 raise error
+            heartbeat = self.health_heartbeat
+            if heartbeat is not None:
+                heartbeat.beat('poll')
             try:
                 result = self._results_queue.get(timeout=_POLL_S)
             except queue.Empty:
@@ -207,6 +215,7 @@ class ThreadPool(ResequencedReads):
                 self.stop()
                 self.join()
                 raise result
+            self._injected_error = None     # results flow again: recovered
             return result
 
     def _timeout_details(self, timeout):

@@ -14,6 +14,11 @@ fast-forwards to its cursor instead of replaying generator history, the
 shard becomes a stride over the global order, and every fed item carries a
 ``pst_det`` tag (host-local ``seq``, absolute ``epoch``, global ``pos``)
 that the workers echo on their chunks for the resequencer.
+
+With a :class:`~petastorm_tpu_torch.health.Heartbeat` in ``heartbeat`` (set
+by ``Reader.attach_health``) the feeder beats ``'ventilating'`` when it
+feeds, ``'backpressure'`` when it holds and ``'idle'`` once every epoch is
+out (``petastorm_tpu/workers/ventilator.py:139-143, 321-375``).
 """
 
 import hashlib
@@ -82,6 +87,8 @@ class ConcurrentVentilator(object):
         #: sees each item's results land before the next is fed. The
         #: thread pool wires it to its results watermark.
         self.backpressure_fn = None
+        #: The feeder's health heartbeat, or None.
+        self.heartbeat = None
 
     def start(self, threaded=True):
         """Start ventilating: on a thread of its own, or (``threaded=False``,
@@ -154,8 +161,13 @@ class ConcurrentVentilator(object):
     def pump(self):
         """Ventilate the next item on the caller's thread; False once every
         epoch is out (or after ``stop``)."""
+        heartbeat = self.heartbeat
         if self._stop_event.is_set() or not self._advance_epoch():
+            if heartbeat is not None:
+                heartbeat.beat('idle')
             return False
+        if heartbeat is not None:
+            heartbeat.beat('ventilating')
         item = self._next_item()
         self._observe(item)
         self._ventilate_fn(**item)
@@ -229,12 +241,17 @@ class ConcurrentVentilator(object):
 
     def _ventilate(self):
         while not self._stop_event.is_set():
+            heartbeat = self.heartbeat
             if not self._advance_epoch():
+                if heartbeat is not None:
+                    heartbeat.beat('idle')      # every epoch fed: quiet is not a stall
                 return
             with self._lock:
                 below_cap = self._in_flight < self._max_in_flight
             backpressure = self._backpressured() if below_cap else None
             if below_cap and not backpressure:
+                if heartbeat is not None:
+                    heartbeat.beat('ventilating')
                 with self._lock:
                     self._in_flight += 1
                 item = self._next_item()
@@ -244,6 +261,8 @@ class ConcurrentVentilator(object):
                     self._wakeup.clear()
                     self._wakeup.wait(_POLL_S)
             else:
+                if heartbeat is not None:
+                    heartbeat.beat('backpressure')
                 self._wakeup.wait(_POLL_S)
                 self._wakeup.clear()
 

@@ -1354,3 +1354,71 @@ def test_loader_instruments_count_batches_and_staged_bytes_on_card(dev):
     assert snap['pst_batch_wait_seconds']['samples'][0]['count'] == len(delivered) + 1
     assert snap['pst_dispatch_seconds']['samples'][0]['count'] == len(delivered)
     assert snap['pst_arena_pinned_bytes']['samples'][0]['value'] > 0
+
+
+# -- pipeline health and tracing on the card -----------------------------------
+
+def test_watchdog_check_returns_during_a_card_sleep(dev, tmp_path):
+    """The watchdog's probes read counters only: a check (every heartbeat
+    made stale, so every probe runs) and the loader's stats return within
+    50 ms while the card sleeps 2 s."""
+    import time
+    url = _card_store(tmp_path)
+    with make_tensor_reader(url, workers_count=2, num_epochs=None, seed=0) as reader:
+        with TorchLoader(reader, 8, device=dev, watchdog=True, stall_timeout_s=30) as loader:
+            next(loader)
+            dog = loader._health.watchdog
+            torch.cuda._sleep(4_000_000_000)      # ~2 s at the H100's ~1.98 GHz
+            t0 = time.perf_counter()
+            diagnosis = dog.check(now=time.monotonic() + 1000.0)
+            check_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            stats = loader.stats
+            stats_s = time.perf_counter() - t0
+            busy = not torch.cuda.current_stream(dev).query()
+            torch.cuda.synchronize(dev)
+    assert busy, 'the card finished its sleep before the check ran'
+    assert diagnosis is not None and {'staging', 'arena-pool', 'consumer', 'memory'} <= \
+        set(diagnosis['probes'])
+    assert check_s < 0.05 and stats_s < 0.05, (check_s, stats_s)
+    assert stats['watchdog']['stalls_detected'] == 1
+
+
+def test_device_put_delay_on_card_classifies_dispatch_hung(dev, tmp_path, monkeypatch):
+    import time
+    from petastorm_tpu_torch import faults
+    from petastorm_tpu_torch.errors import PipelineStallError
+    url = _card_store(tmp_path)
+    monkeypatch.setenv(faults.ENV_VAR, 'device-put-delay:delay=1.5:max=1')
+    with make_tensor_reader(url, workers_count=2, num_epochs=1, seed=0) as reader:
+        with TorchLoader(reader, 8, device=dev, watchdog=True, stall_timeout_s=0.3) as loader:
+            t0 = time.monotonic()
+            with pytest.raises(PipelineStallError) as raised:
+                for _ in loader:
+                    pass
+            assert time.monotonic() - t0 < 5.0
+            assert loader.stats['watchdog']['hard_stalls'] == 1
+    assert (raised.value.diagnosis['classification'], raised.value.diagnosis['stage']) == \
+        ('dispatch-hung', 'dispatch')
+
+
+def test_loader_spans_on_card(dev, tmp_path):
+    """The loader's and the workers' spans on the card: one ``dispatch`` and
+    one ``stage`` span a batch (the copy issue), a ``wait`` a fetch."""
+    from petastorm_tpu_torch.trace import Tracer, set_global_tracer
+    url = _card_store(tmp_path)
+    tracer = Tracer(spill_dir=False)
+    previous = set_global_tracer(tracer)
+    try:
+        with make_tensor_reader(url, workers_count=2, num_epochs=1, seed=0) as reader:
+            with TorchLoader(reader, 8, device=dev, tracer=tracer) as loader:
+                batches = [b.label.cpu() for b in loader]
+    finally:
+        set_global_tracer(previous)
+    summary = tracer.summary()
+    assert set(summary) == {'read', 'decode', 'handoff', 'assemble', 'dispatch', 'stage', 'wait'}
+    assert summary['dispatch']['count'] == summary['stage']['count'] == len(batches) == 7
+    assert summary['wait']['count'] == len(batches) + 1
+    assert summary['read']['count'] == summary['decode']['count'] == 5
+    counters = {e['name'] for e in tracer.events if e['ph'] == 'C'}
+    assert counters == {'arena_pool_free', 'staging_inflight'}

@@ -170,6 +170,24 @@ def test_no_port_thread_survives_close(tmp_path, prefetch):
         next(loader)
 
 
+@pytest.mark.parametrize('prefetch', [0, 2])
+def test_no_watchdog_thread_survives_close(tmp_path, prefetch):
+    """The watchdog (``pstt-watchdog``) runs while its loader lives and its
+    reader's own stops when the loader takes over."""
+    url = _store(tmp_path)
+    reader = make_tensor_reader(url, workers_count=2, num_epochs=None, seed=1, watchdog=True)
+    assert _port_threads().count('pstt-watchdog') == 1
+    loader = TorchLoader(reader, 5, device='cpu', prefetch=prefetch, watchdog=True)
+    next(loader)
+    assert _port_threads().count('pstt-watchdog') == 1
+    assert loader.stats['watchdog']['alive']
+    loader.close()
+    reader.stop()
+    reader.join()
+    assert _port_threads() == []
+    assert not loader.stats['watchdog']['alive']
+
+
 def test_native_decode_budget_and_bench_run_without_the_jax_package(tmp_path):
     """The native codec and Parquet stage, the decode budget, the staging-
     step decode and the bench's new reader code run in a process that never

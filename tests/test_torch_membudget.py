@@ -44,11 +44,12 @@ def url(tmp_path_factory):
 
 
 @pytest.fixture
-def governor(monkeypatch):
+def governor(monkeypatch, tmp_path):
     """A fresh process-wide governor (1 MB budget, armed without its
     sampler so that the test drives ``check()``); the previous one comes
-    back afterwards."""
+    back afterwards. A breach's flight dump lands under ``tmp_path``."""
     monkeypatch.delenv(membudget.ENV_VAR, raising=False)
+    monkeypatch.setenv('PSTT_FLIGHT_RECORDER', str(tmp_path / 'flight'))
     gov = MemoryGovernor(budget=1_000_000, config=GovernorConfig())
     previous = membudget.set_governor(gov)
     gov._arm_count += 1
@@ -106,6 +107,7 @@ def _walk(governor_cls, config_cls):
 def test_governor_walks_the_jax_ladder_tick_for_tick(tmp_path, monkeypatch):
     from petastorm_tpu import membudget as jax_membudget
     monkeypatch.setenv('PETASTORM_TPU_FLIGHT_RECORDER', str(tmp_path))
+    monkeypatch.setenv('PSTT_FLIGHT_RECORDER', str(tmp_path))
     ours, our_stats = _walk(MemoryGovernor, GovernorConfig)
     theirs, their_stats = _walk(jax_membudget.MemoryGovernor, jax_membudget.GovernorConfig)
     assert ours == theirs

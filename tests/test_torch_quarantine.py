@@ -319,6 +319,7 @@ def test_mem_pressure_moves_the_governor_to_the_jax_rung(monkeypatch, tmp_path, 
     from petastorm_tpu import membudget as jax_membudget
     from petastorm_tpu_torch import membudget
     monkeypatch.setenv('PETASTORM_TPU_FLIGHT_RECORDER', str(tmp_path))
+    monkeypatch.setenv('PSTT_FLIGHT_RECORDER', str(tmp_path))
     text = 'mem-pressure:match=results' + ('' if inflate is None else ':bytes={}'.format(inflate))
     _set_spec(monkeypatch, text)
     seen = []
