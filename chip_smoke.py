@@ -282,7 +282,35 @@ non-zero exit and no result line:
    error, and the dump's files and bytes. Spans are host time: a ``stage``
    or ``dispatch`` span covers the issue of asynchronous copies.
 
-Phases 5 to 15, 18, 20, 21, 22, 23 and 24 run the bench's protocol through the functions of
+25. imagenet_process: the process pools, run after imagenet_health on the
+   same state (``bench.run_imagenet_process``), imagenet_decode (a)'s
+   protocol (``null`` cache, ``DECODE_WORKERS`` workers, 3 + 11 + 11 calls,
+   the counted ones unprofiled, K1 in the 8-step graph) decoded in worker
+   processes. (a)
+   ``reader_pool_type='process'`` with ``shm_result_ring_bytes`` sized to
+   what ``os.statvfs('/dev/shm')`` says fits ``workers x 2`` rings, at most
+   64 MiB (printed); the phase fails unless the pool runs on shared memory.
+   (b) ``'process-zmq'`` with the same protocol when pyzmq imports (else the
+   line says ``pyzmq: absent``). (c) ``deterministic=True``: the first 16
+   batches' labels, copied back from the card, equal a ``'thread'``
+   reader's in order. (d) ``PSTT_FAULTS=worker-kill:token=<file>``: exactly
+   one worker is SIGKILLed while the epoch runs; the epoch, trained through
+   (a)'s graph, still yields pyarrow's 2,048 labels as a multiset,
+   ``pst_worker_deaths_total`` and ``pst_worker_respawns_total`` are 1 and
+   every loss is finite. Checks in (a) and (b): K1 104 of 104 in 13
+   replays; no worker pid among ``nvidia-smi --query-compute-apps=pid`` and
+   none mapping the CUDA driver; after ``stop()`` no segment of the script
+   left in ``/dev/shm`` and no worker alive. Its line: img/s, device ms a
+   step and stall beside imagenet_scan's and imagenet_decode (a)'s of this
+   run, ``decode_s``, the decoder, the ring's and ``/dev/shm``'s bytes, the
+   workers' start-up seconds, and whether dill and pyzmq import.
+
+``python3 chip_smoke.py --decode-turns N`` instead runs the device line,
+the imagenet store and imagenet_scan (for its state), then N turns of
+imagenet_decode (a) on the thread pool and on ``'process'``, in the order
+thread, process, process, thread, ..., each a line, and the ok line.
+
+Phases 5 to 15, 18, 20, 21, 22, 23, 24 and 25 run the bench's protocol through the functions of
 ``petastorm_tpu_torch/bench.py`` (``python -m petastorm_tpu_torch.bench``
 runs them as the bench's children); this script holds their launch counts.
 Each path's kernel launch counts are zeroed just before it and read just
@@ -1835,6 +1863,58 @@ def run_health(url, device, card, state, imagenet_scan, workdir):
     return result
 
 
+# --------------------------------------------------------------------------
+# the process phase: the reader's workers in processes of their own
+# --------------------------------------------------------------------------
+
+def run_process(url, device, card, state, imagenet_scan, worker_decode, workdir):
+    """Phase 25 (see the module docstring): the ``imagenet_process`` cell on
+    ``state``, beside imagenet_scan's and imagenet_decode (a)'s numbers of
+    this run. Returns the phase's line."""
+    result = bench.run_imagenet_process(url, device, card, state, workdir, calls=SCAN_CALLS,
+                                        workers=DECODE_WORKERS)
+    result['beside'] = {
+        name: {'img_per_s': cell['img_per_s'], 'device_step_ms': cell['device_step_ms'],
+               'input_stall_frac': cell['input_stall_frac']}
+        for name, cell in (('imagenet_scan', imagenet_scan),
+                           ('imagenet_decode_worker_decode', worker_decode))}
+    result['img_per_s_vs_decode_worker_decode'] = (result['img_per_s']
+                                                   / worker_decode['img_per_s'])
+    return result
+
+
+def run_decode_turns(url, device, card, state, turns, record):
+    """``--decode-turns``: imagenet_decode (a) on the thread pool and on
+    ``'process'`` in turns (thread, process, process, thread, ...), one line
+    a run."""
+    from petastorm_tpu_torch.models import make_scan_train_step
+    import torch
+
+    ring = bench.process_ring_bytes(DECODE_WORKERS)
+    order = [('thread', 'process') if i % 2 == 0 else ('process', 'thread')
+             for i in range(turns)]
+    for turn, pools in enumerate(order):
+        for pool in pools:
+            kwargs = {'reader_pool_type': pool}
+            if pool == 'process':
+                kwargs['shm_result_ring_bytes'] = ring
+            train = make_scan_train_step(bench.SCAN_K, preprocess=bench.normalize_bf16)
+            t0 = time.perf_counter()
+            result, window = bench.stream_classifier_scan(
+                url, device, train, state, 3, SCAN_CALLS, ('normalize_kernel',),
+                cache_type='null', workers=DECODE_WORKERS, reader_kwargs=kwargs)
+            bench.require_scan_launches(*window[:3], ('normalize_images',), bench.SCAN_K,
+                                        window[3])
+            record({'phase': 'decode_turn', 'card': card, 'turn': turn, 'pool': pool,
+                    'img_per_s': result['img_per_s'], 'device_step_ms': result['device_step_ms'],
+                    'input_stall_frac': result['input_stall_frac'],
+                    'decode_s': result['stage_profile']['decode_s'],
+                    'decoder': result['decoder']['image'], 'ring_bytes': ring,
+                    'seconds': time.perf_counter() - t0})
+            del train
+            torch.cuda.empty_cache()
+
+
 def run_lm_plain(store_dir, lm_url, device, card, lm_scan):
     """Phase 22 (see the module docstring): the two plain stores written,
     then ``bench.run_lm_plain`` beside ``lm_scan``'s line. Returns the
@@ -2053,6 +2133,9 @@ def main():
     parser.add_argument('--mesh-role', action='store_true', help=argparse.SUPPRESS)
     parser.add_argument('--mesh-url', help=argparse.SUPPRESS)
     parser.add_argument('--mesh-dir', help=argparse.SUPPRESS)
+    parser.add_argument('--decode-turns', type=int, default=0,
+                        help='only measure imagenet_decode (a) on the thread and the process '
+                             'pool in this many turns')
     args = parser.parse_args()
     if args.steps < 10:
         parser.error('--steps must be >= 10')
@@ -2091,6 +2174,21 @@ def main():
     card = '{} ({})'.format(name, smi.splitlines()[0])
     record({'phase': 'device', 'name': name, 'count': torch.cuda.device_count(),
             'nvidia_smi': smi, 'torch': torch.__version__, 'cuda': torch.version.cuda})
+
+    if args.decode_turns:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        store_dir = tempfile.mkdtemp(prefix='smoke_store_', dir=BUILD_DIR)
+        try:
+            url = bench.write_imagenet_store(os.path.join(store_dir, 'imagenet'))
+            result, state = bench.run_imagenet_scan(url, device, card, calls=SCAN_CALLS)
+            record(result)
+            run_decode_turns(url, device, card, state, args.decode_turns, record)
+        finally:
+            shutil.rmtree(store_dir, ignore_errors=True)
+        print(smi.splitlines()[0], flush=True)
+        bench.emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
+                                           'count': torch.cuda.device_count()}})
+        return 0
 
     # nvcc builds both flash libraries in the background, at once, while
     # K1's Triton kernel compiles and runs.
@@ -2180,6 +2278,14 @@ def main():
         record(result)
         by_path['imagenet_health'] = bench.path_launches(result, 'normalize_images',
                                                          'normalize_kernel')
+        result = run_process(url, device, card, state, imagenet_scan, decode['worker_decode'],
+                             os.path.join(store_dir, 'process'))
+        record(result)
+        by_path['imagenet_process'] = bench.path_launches(result['process_shm'],
+                                                          'normalize_images', 'normalize_kernel')
+        if isinstance(result['process_zmq'], dict):
+            by_path['imagenet_process_zmq'] = bench.path_launches(
+                result['process_zmq'], 'normalize_images', 'normalize_kernel')
         k1['launches_by_path'] = by_path
         lm_result = run_lm(lm_url, device, args.steps, card)
         record(lm_result)

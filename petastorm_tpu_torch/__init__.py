@@ -22,25 +22,50 @@ into a diagnosed ``PipelineStallError`` and a flight-recorder dump
 (``PSTT_FLIGHT_RECORDER``); ``trace.Tracer`` records the stages' host spans
 as a Chrome trace. Entry points take ``device=`` and default to
 ``'cuda'``.
+
+The public names resolve lazily (PEP 562): importing the package imports
+none of its modules, so a worker process of a process pool, which imports
+only the reader's workers and what they need, loads no ``torch`` and can
+never make a CUDA context.
 """
 
-from petastorm_tpu_torch.cache import (LocalDiskArrowTableCache, LocalDiskCache,  # noqa: F401
-                                       MemoryCache, NullCache)
-from petastorm_tpu_torch.chunk_store import DecodedChunkStore  # noqa: F401
-from petastorm_tpu_torch.codecs import (CompressedImageCodec, CompressedNdarrayCodec,  # noqa: F401
-                                        NdarrayCodec, ScalarCodec)
-from petastorm_tpu_torch.decode_budget import DecodeThreadBudget, get_decode_budget  # noqa: F401
-from petastorm_tpu_torch.device import resolve_device  # noqa: F401
-from petastorm_tpu_torch.device_cache import DeviceCacheOverflow, DeviceDatasetCache  # noqa: F401
-from petastorm_tpu_torch.errors import (HostMemoryExceededError,  # noqa: F401
-                                        PipelineStallError, RowGroupQuarantinedError)
-from petastorm_tpu_torch.etl import (DatasetWriter, get_schema, materialize_dataset,  # noqa: F401
-                                     write_dataset)
-from petastorm_tpu_torch.loader import (CropTo, PadTo, ShapePolicy, TorchLoader,  # noqa: F401
-                                        make_torch_loader, register_device_decode)
-from petastorm_tpu_torch.metrics import (MetricsExporter, MetricsRegistry,  # noqa: F401
-                                         start_http_exporter)
-from petastorm_tpu_torch.reader import (Reader, make_batch_reader,  # noqa: F401
-                                        make_pod_reader, make_reader, make_tensor_reader)
-from petastorm_tpu_torch.trace import Tracer  # noqa: F401
-from petastorm_tpu_torch.unischema import Unischema, UnischemaField  # noqa: F401
+import importlib
+
+_EXPORTS = {
+    'petastorm_tpu_torch.cache': ('LocalDiskArrowTableCache', 'LocalDiskCache', 'MemoryCache',
+                                  'NullCache'),
+    'petastorm_tpu_torch.chunk_store': ('DecodedChunkStore',),
+    'petastorm_tpu_torch.codecs': ('CompressedImageCodec', 'CompressedNdarrayCodec',
+                                   'NdarrayCodec', 'ScalarCodec'),
+    'petastorm_tpu_torch.decode_budget': ('DecodeThreadBudget', 'get_decode_budget'),
+    'petastorm_tpu_torch.device': ('resolve_device',),
+    'petastorm_tpu_torch.device_cache': ('DeviceCacheOverflow', 'DeviceDatasetCache'),
+    'petastorm_tpu_torch.errors': ('HostMemoryExceededError', 'PipelineStallError',
+                                   'RowGroupQuarantinedError', 'WorkerLostError'),
+    'petastorm_tpu_torch.etl': ('DatasetWriter', 'get_schema', 'materialize_dataset',
+                                'write_dataset'),
+    'petastorm_tpu_torch.loader': ('CropTo', 'PadTo', 'ShapePolicy', 'TorchLoader',
+                                   'make_torch_loader', 'register_device_decode'),
+    'petastorm_tpu_torch.metrics': ('MetricsExporter', 'MetricsRegistry', 'start_http_exporter'),
+    'petastorm_tpu_torch.reader': ('Reader', 'make_batch_reader', 'make_pod_reader',
+                                   'make_reader', 'make_tensor_reader'),
+    'petastorm_tpu_torch.trace': ('Tracer',),
+    'petastorm_tpu_torch.unischema': ('Unischema', 'UnischemaField'),
+}
+_MODULE_OF = {name: module for module, names in _EXPORTS.items() for name in names}
+__all__ = sorted(_MODULE_OF)
+
+
+def __getattr__(name):
+    module = _MODULE_OF.get(name)
+    if module is None:
+        # An AttributeError lets ``from petastorm_tpu_torch import <submodule>``
+        # import the submodule.
+        raise AttributeError('module {!r} has no attribute {!r}'.format(__name__, name))
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

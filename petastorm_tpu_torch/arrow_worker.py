@@ -20,8 +20,9 @@ arrays (``None`` for a null row), a string, binary or decimal column an
 object array, any other column ``to_numpy``'s array. The worker publishes
 the tensor worker's payload (``key``, ``cols``, ``lineage``, ``timings``,
 ``det``), so the reader's resume accounting, resequencer and provenance
-are the tensor path's; the JAX worker carries the same facts in the
-table's ``pst.*`` schema metadata, which an in-process pool does not need.
+are the tensor path's, over every pool kind (a process pool pickles the
+payload, its arrays out of band); the JAX worker carries the same facts in
+the table's ``pst.*`` schema metadata and ships the table over Arrow IPC.
 pandas is imported only by a transform and a predicate.
 
 Spans (the global tracer's, ``:37-94``): the ``decode`` span covers that

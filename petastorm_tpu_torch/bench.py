@@ -531,7 +531,8 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
     the reader is ``make_pod_reader``'s and the loader the mesh's (128 is
     the global batch). ``workers`` reader threads; ``reader_kwargs`` and
     ``loader_kwargs`` go to the reader and the loader (the decode cell's
-    ``raw_image_fields`` and ``on_device_augment``). ``observe(superbatch)``
+    ``raw_image_fields`` and ``on_device_augment``; the process cell's
+    ``reader_pool_type``, which replaces ``'thread'``). ``observe(superbatch)``
     sees each superbatch before its call. ``hooks(stage, loader, reader)`` is
     called with ``'timed'`` just before the timed calls and ``'close'`` just
     after them, while the loader still runs. ``profile=False`` leaves the
@@ -542,11 +543,11 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    reader = make_pod_reader(url, mesh=mesh, pod_shard=None if mesh else (0, 1),
-                             schema_fields=['image', 'label'], reader_pool_type='thread',
-                             workers_count=workers, shuffle_row_groups=True, seed=0,
-                             num_epochs=None, cache_type=cache_type,
-                             cache_location=cache_location, **(reader_kwargs or {}))
+    reader_args = dict(schema_fields=['image', 'label'], reader_pool_type='thread',
+                       workers_count=workers, shuffle_row_groups=True, seed=0, num_epochs=None,
+                       cache_type=cache_type, cache_location=cache_location)
+    reader_args.update(reader_kwargs or {})
+    reader = make_pod_reader(url, mesh=mesh, pod_shard=None if mesh else (0, 1), **reader_args)
     with reader:
         with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH,
                          mesh=mesh, **(loader_kwargs or {})) as loader:
@@ -1323,6 +1324,222 @@ def run_imagenet_health(url, device, card, state, workdir, warmup=3, calls=5, wo
         'hard_stalls_counter': 1, 'no_thread_left': True, 'loss_after_finite': True}
     return dict({'phase': 'imagenet_health', 'card': card, 'model': 'resnet50',
                  'stem': 'conv7', 'classes': 1000}, **result)
+
+
+# imagenet_process: imagenet_decode (a)'s protocol, decoded in worker processes.
+
+#: The process cell's largest result ring (the shm pool's default).
+PROCESS_RING_MAX_BYTES = 64 << 20
+#: Batches of the process cell's in-order check.
+PROCESS_CHECK_BATCHES = 16
+
+
+def process_ring_bytes(workers):
+    """The result ring for ``workers`` workers: what ``os.statvfs`` says
+    fits ``workers`` x 2 rings in ``/dev/shm``'s free bytes, at most
+    :data:`PROCESS_RING_MAX_BYTES`, a multiple of 4096 (0 without a mount)."""
+    from petastorm_tpu_torch.native import shm_ring
+    free = shm_ring.shm_free_bytes() or 0
+    return min(PROCESS_RING_MAX_BYTES, free // (2 * workers) // 4096 * 4096)
+
+
+def cuda_compute_pids():
+    """The pids ``nvidia-smi`` lists with a compute context on a card."""
+    out = subprocess.run(['nvidia-smi', '--query-compute-apps=pid', '--format=csv,noheader'],
+                         check=True, capture_output=True, text=True, timeout=60).stdout
+    return sorted(int(x) for x in out.split() if x.strip().isdigit())
+
+
+def maps_cuda_driver(pid):
+    """Whether process ``pid`` has the CUDA driver library mapped (any
+    context needs it), or None when its maps cannot be read."""
+    try:
+        with open('/proc/{}/maps'.format(pid)) as f:
+            return 'libcuda' in f.read()
+    except OSError:
+        return None
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def _process_variant(url, device, train, state, warmup, calls, workers, reader_kwargs):
+    """One variant of the process cell: imagenet_decode (a)'s protocol with
+    ``reader_kwargs``, its counted calls unprofiled (the phase has no
+    trace, and the profiler's processing would double the variant's
+    time); while the loader still runs, the pool's transport,
+    its workers' pids and start-up seconds, the card's compute pids and
+    whether a worker maps the CUDA driver. Fails unless K1 ran 8 times a
+    replay, no worker is among the card's compute pids or maps the driver,
+    and after the reader stopped no worker is alive and no segment of this
+    process is left in ``/dev/shm``. Returns the variant's line."""
+    from petastorm_tpu_torch.native import shm_ring
+
+    seen = {}
+
+    def hooks(stage, loader, reader):
+        if stage == 'close':
+            pool = reader._pool
+            pids = pool.worker_pids()
+            seen.update(transport=pool.transport, worker_pids=pids,
+                        worker_startup_s=pool.startup_s,
+                        respawns=pool.diagnostics['worker_respawns'],
+                        card_compute_pids=cuda_compute_pids(),
+                        workers_mapping_cuda=[p for p in pids if maps_cuda_driver(p)],
+                        main_maps_cuda=maps_cuda_driver(os.getpid()))
+
+    result, window = stream_classifier_scan(
+        url, device, train, state, warmup, calls, ('normalize_kernel',), cache_type='null',
+        workers=workers, reader_kwargs=reader_kwargs, hooks=hooks, profile=False)
+    require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
+    result['k1_graph'] = {'ran': window[2]['normalize_kernel'], 'expected': SCAN_K * window[3],
+                          'replays': window[3]}
+    on_card = sorted(set(seen['worker_pids']) & set(seen['card_compute_pids']))
+    if on_card or seen['workers_mapping_cuda']:
+        raise AssertionError('worker processes hold the card: {} listed by nvidia-smi, {} map '
+                             'the CUDA driver'.format(on_card, seen['workers_mapping_cuda']))
+    left = shm_ring.list_segments('{}{}_'.format(shm_ring.SEGMENT_PREFIX, os.getpid()))
+    alive = [p for p in seen['worker_pids'] if _pid_alive(p)]
+    if left or alive:
+        raise AssertionError('after stop: segments {} left, workers {} alive'.format(left, alive))
+    seen.update(main_listed_by_nvidia_smi=os.getpid() in seen['card_compute_pids'],
+                segments_left=left, workers_alive_after_stop=alive)
+    result['workers_seen'] = seen
+    return result
+
+
+def _first_labels(url, device, workers, reader_pool_type, batches, ring_bytes=None):
+    """The labels of a deterministic null-cache reader's first ``batches``
+    batches through a loader on the card, copied back."""
+    from petastorm_tpu_torch import TorchLoader, make_tensor_reader
+
+    extra = {'shm_result_ring_bytes': ring_bytes} if ring_bytes else {}
+    labels = []
+    with make_tensor_reader(url, schema_fields=['image', 'label'], deterministic=True, seed=0,
+                            num_epochs=None, cache_type='null', workers_count=workers,
+                            reader_pool_type=reader_pool_type, **extra) as reader:
+        with TorchLoader(reader, BATCH, device=device) as loader:
+            for batch in loader:
+                labels.append(batch.label.cpu().numpy())
+                if len(labels) == batches:
+                    break
+    return np.concatenate(labels)
+
+
+def run_imagenet_process(url, device, card, state, workdir, warmup=3, calls=5, workers=8):
+    """The process cell: imagenet_decode (a)'s protocol (a ``null`` cache,
+    so every epoch decodes; ``workers`` workers; K1 in the 8-step graph) on
+    ``state``, decoded in worker processes. (a) ``reader_pool_type=
+    'process'`` with the result ring of :func:`process_ring_bytes`; fails
+    unless the pool runs on shared memory. (b) ``'process-zmq'``, when
+    pyzmq imports (else its entry says so). (c) A deterministic
+    ``'process'`` reader's first 16 batches' labels, copied back from the
+    card, equal a ``'thread'`` reader's in order. (d) Under
+    ``PSTT_FAULTS=worker-kill:token=<file>`` and a fresh metrics registry,
+    one epoch of a ``'process'`` reader trains through (a)'s graph: exactly
+    one worker is SIGKILLed, the epoch's labels equal pyarrow's 2,048 as a
+    multiset, ``pst_worker_deaths_total`` and ``pst_worker_respawns_total``
+    are 1, and every loss is finite. Each variant of (a) and (b) is checked
+    by :func:`_process_variant`. Returns the phase's line."""
+    import torch
+    from petastorm_tpu_torch import TorchLoader, faults, make_tensor_reader, metrics
+    from petastorm_tpu_torch.models import make_scan_train_step
+    from petastorm_tpu_torch.native import shm_ring
+    from petastorm_tpu_torch.workers.exec_in_new_process import PICKLER
+    from petastorm_tpu_torch.workers.process_pool import zmq_available
+
+    t0 = time.perf_counter()
+    ring = process_ring_bytes(workers)
+    shm = {'ring_bytes': ring, 'dev_shm_bytes': shm_ring.shm_total_bytes(),
+           'dev_shm_free_bytes': shm_ring.shm_free_bytes()}
+    emit({'phase': 'imagenet_process', 'step': 'ring', 'shm': shm})
+    out = {'phase': 'imagenet_process', 'card': card, 'model': 'resnet50', 'stem': 'conv7',
+           'classes': 1000, 'cache_type': 'null', 'workers': workers, 'shm': shm,
+           'dill': PICKLER == 'dill', 'pyzmq': zmq_available()}
+    train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
+    # (a) the shared-memory pool.
+    line = _process_variant(url, device, train, state, warmup, calls, workers,
+                            {'reader_pool_type': 'process', 'shm_result_ring_bytes': ring})
+    if line['workers_seen']['transport'] != 'shm_ring':
+        raise AssertionError("reader_pool_type='process' ran on {}, not shared memory".format(
+            line['workers_seen']['transport']))
+    out['process_shm'] = line
+    # (b) the zmq pool.
+    if out['pyzmq']:
+        del train
+        torch.cuda.empty_cache()
+        train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
+        out['process_zmq'] = _process_variant(url, device, train, state, warmup, calls, workers,
+                                              {'reader_pool_type': 'process-zmq'})
+    else:
+        out['process_zmq'] = 'pyzmq: absent'
+    # (c) the deterministic stream against the thread pool's.
+    rows = PROCESS_CHECK_BATCHES * BATCH
+    by_process = _first_labels(url, device, workers, 'process', PROCESS_CHECK_BATCHES, ring)
+    by_thread = _first_labels(url, device, workers, 'thread', PROCESS_CHECK_BATCHES)
+    if len(by_process) != rows or not np.array_equal(by_process, by_thread):
+        raise AssertionError('the deterministic process reader\'s first {} batches\' labels '
+                             'differ from the thread reader\'s'.format(PROCESS_CHECK_BATCHES))
+    out['deterministic'] = {'batches': PROCESS_CHECK_BATCHES, 'labels_equal_thread_pool': True}
+    # (d) a worker killed by the fault site, one epoch trained through.
+    token = os.path.join(workdir, 'worker-kill.token')
+    os.makedirs(workdir, exist_ok=True)
+    previous_spec = os.environ.get(faults.ENV_VAR)
+    previous_registry = metrics.set_registry(metrics.MetricsRegistry())
+    os.environ[faults.ENV_VAR] = 'worker-kill:token={}'.format(token)
+    labels, losses = [], []
+    try:
+        registry = metrics.get_registry()
+        with make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='process',
+                                workers_count=workers, cache_type='null', num_epochs=1, seed=0,
+                                shm_result_ring_bytes=ring) as reader:
+            with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH) as loader:
+                for sb in loader.superbatches(SCAN_K):
+                    labels.append(sb.label.cpu().numpy())
+                    metrics_ = train(state, sb.image, sb.label)
+                    losses.append([float(metrics_['loss']), float(metrics_['last_loss'])])
+            respawns = reader.diagnostics()['worker_respawns']
+        counters = _counter_values(registry)
+    finally:
+        if previous_spec is None:
+            os.environ.pop(faults.ENV_VAR, None)
+        else:
+            os.environ[faults.ENV_VAR] = previous_spec
+        metrics.set_registry(previous_registry)
+    labels = np.concatenate(labels)
+    reckoned = read_store_column(url, 'label')
+    deaths = counters.get('pst_worker_deaths_total')
+    respawned = counters.get('pst_worker_respawns_total')
+    if not os.path.exists(token) or deaths != 1 or respawned != 1 or respawns != 1:
+        raise AssertionError('worker-kill: token {}, deaths {}, respawns {} (pool: {})'.format(
+            os.path.exists(token), deaths, respawned, respawns))
+    if len(labels) != ROWS or not np.array_equal(np.sort(labels), np.sort(reckoned)):
+        raise AssertionError('the epoch across the kill gave {} labels, not pyarrow\'s {} as a '
+                             'multiset'.format(len(labels), len(reckoned)))
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        raise AssertionError('non-finite loss across the kill: {}'.format(losses))
+    out['worker_kill'] = {'deaths': deaths, 'respawns': respawned, 'rows': int(len(labels)),
+                          'labels_equal_pyarrow': True, 'losses_mean_last': losses}
+    del train
+    torch.cuda.empty_cache()
+    a = out['process_shm']
+    out.update(img_per_s=a['img_per_s'], device_step_ms=a['device_step_ms'],
+               input_stall_frac=a['input_stall_frac'],
+               decode_s=a['stage_profile']['decode_s'], decoder=a['decoder'],
+               worker_startup_s=a['workers_seen']['worker_startup_s'],
+               k1_graph=a['k1_graph'], launches=a['launches'],
+               checks={'k1_per_replay': SCAN_K, 'shm_transport': True,
+                       'no_worker_on_card': True, 'nothing_left_after_stop': True,
+                       'zmq_variant': bool(out['pyzmq']),
+                       'deterministic_labels_equal_thread': PROCESS_CHECK_BATCHES,
+                       'worker_kill_exactly_once': True, 'losses_finite': True},
+               seconds=time.perf_counter() - t0)
+    return out
 
 
 def run_imagenet_hbm(url, device, card, state):

@@ -2,6 +2,8 @@
 ``petastorm_tpu/benchmark/cli.py``)::
 
     python -m petastorm_tpu_torch.benchmark.cli URL [-d python|torch] [--device cpu]
+        [-p thread|process|process-shm|process-zmq|dummy] [--spawn-new-process]
+        [--profile-threads]
 """
 
 import argparse
@@ -17,13 +19,18 @@ def main(argv=None):
                         help='read only fields matching these regexes')
     parser.add_argument('--warmup-cycles', '-w', type=int, default=200)
     parser.add_argument('--measure-cycles', '-m', type=int, default=1000)
-    parser.add_argument('--pool-type', '-p', choices=['thread', 'dummy'], default='thread')
+    parser.add_argument('--pool-type', '-p', default='thread',
+                        choices=['thread', 'process', 'process-shm', 'process-zmq', 'dummy'])
     parser.add_argument('--loaders-count', '-l', type=int, default=3)
     parser.add_argument('--read-method', '-d', choices=READ_METHODS, default='python')
     parser.add_argument('--shuffling-queue-size', '-q', type=int, default=500)
     parser.add_argument('--min-after-dequeue', type=int, default=400)
     parser.add_argument('--torch-batch-size', type=int, default=32)
     parser.add_argument('--device', default='cuda', help="'torch' batches' device")
+    parser.add_argument('--spawn-new-process', action='store_true',
+                        help='measure in a fresh interpreter (clean memory numbers)')
+    parser.add_argument('--profile-threads', action='store_true',
+                        help="print the thread pool's workers' cProfile at the end")
     args = parser.parse_args(argv)
     result = reader_throughput(
         args.dataset_url, field_regex=args.field_regex, warmup_cycles_count=args.warmup_cycles,
@@ -31,7 +38,8 @@ def main(argv=None):
         loaders_count=args.loaders_count, read_method=args.read_method,
         shuffling_queue_size=args.shuffling_queue_size,
         min_after_dequeue=args.min_after_dequeue, torch_batch_size=args.torch_batch_size,
-        device=args.device)
+        device=args.device, spawn_new_process=args.spawn_new_process,
+        profile_threads=args.profile_threads)
     rss = 'n/a' if result.memory_rss_mb is None else '{:.1f} MB'.format(result.memory_rss_mb)
     cpu = 'n/a' if result.cpu_percent is None else '{:.1f}%'.format(result.cpu_percent)
     print('samples/sec: {:.2f}  time/sample: {:.6f}s  rss: {}  cpu: {}'.format(

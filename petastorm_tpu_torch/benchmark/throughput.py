@@ -10,8 +10,14 @@ A store without a stored schema is read by ``make_batch_reader``, where the
 JAX harness's readers refuse it. ``warmup_cycles_count`` samples are
 consumed first, then ``measure_cycles_count`` are timed. The process's RSS
 and CPU share come from psutil, and are None where it is not installed.
+``spawn_new_process=True`` measures in a fresh interpreter (clean memory
+numbers; ``petastorm_tpu/benchmark/throughput.py:23-52``), and
+``profile_threads=True`` prints the thread pool's workers' profile.
 """
 
+import json
+import os
+import tempfile
 import time
 from collections import namedtuple
 
@@ -37,18 +43,45 @@ def _reader_factory(dataset_url):
 def reader_throughput(dataset_url, field_regex=None, warmup_cycles_count=200,
                       measure_cycles_count=1000, pool_type='thread', loaders_count=3,
                       read_method='python', shuffling_queue_size=500, min_after_dequeue=400,
-                      reader_extra_args=None, torch_batch_size=32, shape_policies=None,
-                      device='cuda'):
+                      spawn_new_process=False, reader_extra_args=None, torch_batch_size=32,
+                      shape_policies=None, device='cuda', profile_threads=False):
     """Measure a reader configuration; returns a :class:`BenchmarkResult`.
-    ``shuffling_queue_size``/``min_after_dequeue`` are the loader's
-    shuffling buffer (``'torch'``)."""
+    ``pool_type`` is any ``reader_pool_type``. ``shuffling_queue_size``/
+    ``min_after_dequeue`` are the loader's shuffling buffer (``'torch'``)."""
     if read_method not in READ_METHODS:
         raise ValueError('read_method must be one of {}'.format(READ_METHODS))
+    args = (dataset_url, field_regex, warmup_cycles_count, measure_cycles_count, pool_type,
+            loaders_count, read_method, shuffling_queue_size, min_after_dequeue,
+            reader_extra_args, torch_batch_size, shape_policies, device, profile_threads)
+    if not spawn_new_process:
+        return _measure(*args)
+    from petastorm_tpu_torch.workers.exec_in_new_process import exec_in_new_process
+    fd, out_path = tempfile.mkstemp(suffix='.json')
+    os.close(fd)
+    try:
+        process = exec_in_new_process(_measure_into, out_path, *args)
+        if process.wait() != 0:
+            raise RuntimeError('the measuring process exited with code {}'.format(
+                process.returncode))
+        with open(out_path) as f:
+            return BenchmarkResult(**json.load(f))
+    finally:
+        os.unlink(out_path)
+
+
+def _measure_into(out_path, *args):
+    with open(out_path, 'w') as f:
+        json.dump(_measure(*args)._asdict(), f)
+
+
+def _measure(dataset_url, field_regex, warmup_cycles_count, measure_cycles_count, pool_type,
+             loaders_count, read_method, shuffling_queue_size, min_after_dequeue,
+             reader_extra_args, torch_batch_size, shape_policies, device, profile_threads):
     extra = dict(reader_extra_args or {})
     extra.setdefault('num_epochs', None)
     factory = _reader_factory(dataset_url)
     reader = factory(dataset_url, schema_fields=field_regex, reader_pool_type=pool_type,
-                     workers_count=loaders_count, **extra)
+                     workers_count=loaders_count, pool_profiling=profile_threads, **extra)
     try:
         import psutil
         process = psutil.Process()

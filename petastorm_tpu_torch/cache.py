@@ -88,6 +88,14 @@ class MemoryCache(CacheBase):
         self.hits = 0
         self.misses = 0
 
+    def __getstate__(self):
+        # A process pool's worker gets an empty cache of the same cap of its
+        # own, as the JAX package's dill copy of a cache at start-up is.
+        return {'size_limit_bytes': self._size_limit}
+
+    def __setstate__(self, state):
+        self.__init__(state['size_limit_bytes'])
+
     def get(self, key, fill_cache_func):
         while True:
             with self._lock:
@@ -171,6 +179,16 @@ class LocalDiskCache(CacheBase):
         self.hits = 0
         self.misses = 0
         os.makedirs(path, exist_ok=True)
+
+    def __getstate__(self):
+        # A process pool's worker opens the same directory.
+        state = dict(self.__dict__)
+        del state['_lock']
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
 
     def _key_path(self, key):
         digest = hashlib.md5(str(key).encode('utf-8')).hexdigest()

@@ -22,6 +22,12 @@ class DecodeFieldError(PetastormTorchError):
         self.native_error = native_error
 
 
+class WorkerLostError(PetastormTorchError):
+    """A process-pool worker died and the pool's restart budget is spent
+    (``petastorm_tpu/errors.py:13``); the message names the workers'
+    states and the items that were in flight."""
+
+
 class RowGroupQuarantinedError(PetastormTorchError):
     """Poison row-group failures went past the reader's ``error_budget``.
 

@@ -24,8 +24,11 @@ Sites the port runs, and their effect when they fire:
                          (``codecs.decode_image_batch_into``): only that
                          row-group fails, and its ``DecodeFieldError``
                          carries the native codec's error string
-``queue-stall``          sleep ``delay`` seconds before a thread-pool
-                         worker publishes a result
+``queue-stall``          sleep ``delay`` seconds before a pool's worker
+                         publishes a result (threads and processes)
+``worker-kill``          SIGKILL the process-pool worker about to run an
+                         item (``workers/process_pool.run_worker_item``);
+                         with ``token=`` exactly one across the pool
 ``device-put-delay``     sleep ``delay`` seconds at the loader's staging step
 ``store-read-corrupt``   the chunk store treats the entry read as a
                          checksum failure: the entry is quarantined and
@@ -39,8 +42,8 @@ Sites the port runs, and their effect when they fire:
 ======================== ==================================================
 
 The other names of :data:`KNOWN_SITES` parse and never fire here: their
-modules (process pools, the sanitizer, the data service and the fleet) are
-not ported yet.
+modules (the sanitizer, the data service and the fleet) are not ported
+yet.
 
 Params (all optional):
 

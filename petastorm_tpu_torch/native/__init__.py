@@ -9,9 +9,13 @@ own copy of the sources):
   linked against the installed pyarrow wheel's libarrow/libparquet, whose
   record batches cross into pyarrow through the Arrow C Data Interface
   without a copy (``src/parquet_stage.cc``).
+- :mod:`petastorm_tpu_torch.native.shm_ring`: the shared-memory ring of
+  the process pool on shared memory (``src/shm_ring.cc``, ``-lrt``), its
+  pages reserved when it is made.
 
 Each degrades as the JAX package's does: when the toolchain, a header or a
 library is missing, ``available()`` is False, the build error is kept
-(``load_error()``), and the callers take the OpenCV/PIL and pyarrow paths.
-Both are built by :mod:`~petastorm_tpu_torch.native.build`.
+(``load_error()``), and the callers take the OpenCV/PIL and pyarrow paths
+(``reader_pool_type='process'``: zmq). All are built by
+:mod:`~petastorm_tpu_torch.native.build`.
 """

@@ -19,8 +19,11 @@ packages the same row-group order. Every cache tier of
 batch reader) and, on the tensor path, ``'chunk-store'``
 (:mod:`~petastorm_tpu_torch.chunk_store`, whose directory
 ``PSTT_CHUNK_STORE`` can also give, and which that variable arms for the
-default ``cache_type=None``). Of the pools, ``'thread'`` and ``'dummy'``.
-Process pools (ROADMAP §A9g) and autotune (§A9h) come in later slices.
+default ``cache_type=None``). Every pool of ``petastorm_tpu/reader.py:41-73``:
+``'thread'``, ``'dummy'``, and worker processes over shared-memory rings
+or zmq sockets (``'process'``, ``'process-shm'``, ``'process-zmq'``;
+:mod:`~petastorm_tpu_torch.workers.supervision` respawns a dead worker).
+Autotune (ROADMAP §A9h) comes in a later slice.
 
 Health (``petastorm_tpu/reader.py:135-167, 922-972, 1130-1185, 1508-1509``):
 ``watchdog=``/``stall_timeout_s=`` (or ``PSTT_WATCHDOG``) arm a
@@ -121,6 +124,7 @@ from petastorm_tpu_torch.transform import TransformSpec, transform_schema
 from petastorm_tpu_torch.unischema import match_unischema_fields
 from petastorm_tpu_torch.workers import EmptyResultError
 from petastorm_tpu_torch.workers.dummy_pool import DummyPool
+from petastorm_tpu_torch.workers.supervision import SupervisedPoolMixin
 from petastorm_tpu_torch.workers.thread_pool import ThreadPool
 from petastorm_tpu_torch.workers.ventilator import ConcurrentVentilator
 
@@ -161,13 +165,39 @@ def _make_cache(cache_type, cache_location, cache_size_limit, tensor_path=False,
     raise ValueError('Unknown cache_type {!r}'.format(cache_type))
 
 
-def _make_pool(reader_pool_type, workers_count, results_queue_size):
+def _make_pool(reader_pool_type, workers_count, results_queue_size, shm_result_ring_bytes=None,
+               profiling=False):
+    """The pool of ``petastorm_tpu/reader.py:41-73``: ``'process'`` takes
+    the shared-memory rings when they build, else zmq (``diagnostics()
+    ['transport']`` says which); ``'process-shm'`` and ``'process-zmq'``
+    pin one and raise when it is missing. ``profiling`` profiles a thread
+    pool's workers; another pool warns that it ignores it."""
     if reader_pool_type == 'thread':
-        return ThreadPool(workers_count, results_queue_size)
+        return ThreadPool(workers_count, results_queue_size, profiling_enabled=profiling)
+    if profiling:
+        warnings.warn('pool_profiling is only supported by the thread pool; ignoring for '
+                      '{!r}'.format(reader_pool_type))
     if reader_pool_type == 'dummy':
         return DummyPool()
-    raise ValueError("petastorm_tpu_torch has reader_pool_type='thread' and 'dummy' so far, "
-                     'got {!r}'.format(reader_pool_type))
+    if reader_pool_type not in ('process', 'process-shm', 'process-zmq'):
+        raise ValueError('Unknown reader_pool_type {!r}; expected '
+                         'thread|process|process-shm|process-zmq|dummy'.format(reader_pool_type))
+    from petastorm_tpu_torch.workers.process_pool import ProcessPool, zmq_available
+    from petastorm_tpu_torch.workers.shm_process_pool import (ShmProcessPool,
+                                                              shm_transport_available)
+    if reader_pool_type != 'process-zmq':
+        if shm_transport_available():
+            extra = {'result_ring_bytes': shm_result_ring_bytes} if shm_result_ring_bytes else {}
+            return ShmProcessPool(workers_count, results_queue_size, **extra)
+        if reader_pool_type == 'process-shm':
+            from petastorm_tpu_torch.native import shm_ring
+            raise RuntimeError('process-shm pool requested but the native shm transport failed '
+                               'to build: {}'.format(shm_ring.load_error()))
+    if not zmq_available():
+        raise RuntimeError('reader_pool_type={!r} needs pyzmq, which does not import{}'.format(
+            reader_pool_type, '' if reader_pool_type == 'process-zmq'
+            else ', or the native shm transport, which did not build'))
+    return ProcessPool(workers_count, results_queue_size)
 
 
 def _stored_schema(store, factory):
@@ -221,7 +251,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread', work
                 cur_shard=None, shard_count=None, cache_type=None, cache_location=None,
                 cache_size_limit=None, cache_extra_settings=None, transform_spec=None,
                 resume_state=None, deterministic=False, storage_options=None,
-                error_budget=None, watchdog=None, stall_timeout_s=None):
+                error_budget=None, watchdog=None, stall_timeout_s=None,
+                shm_result_ring_bytes=None, pool_profiling=False):
     """Reader of decoded rows, one namedtuple per row.
 
     The arguments are ``make_tensor_reader``'s, except
@@ -250,7 +281,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread', work
     view = _view(stored_schema, schema_fields)
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         **(cache_extra_settings or {}))
-    pool = _make_pool(reader_pool_type, workers_count, results_queue_size)
+    pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
+                      shm_result_ring_bytes, pool_profiling)
     return Reader(store, view, pool, worker_class=PyDictWorker, full_schema=stored_schema,
                   shuffle_row_groups=shuffle_row_groups,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions, seed=seed,
@@ -269,13 +301,17 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
                        cache_extra_settings=None, transform_spec=None, resume_state=None,
                        deterministic=False, shuffle_rows_in_chunk=False,
                        raw_image_fields=None, storage_options=None, error_budget=None,
-                       watchdog=None, stall_timeout_s=None):
+                       watchdog=None, stall_timeout_s=None, shm_result_ring_bytes=None,
+                       pool_profiling=False):
     """Reader of decoded column blocks, one namedtuple per row-group.
 
     :param schema_fields: fields or full-match regex patterns to read
         (default: all).
-    :param reader_pool_type: ``'thread'`` or ``'dummy'`` (the work runs on
-        the consumer's thread).
+    :param reader_pool_type: ``'thread'``, ``'dummy'`` (the work runs on
+        the consumer's thread), or worker processes: ``'process'`` (over
+        shared-memory rings, else zmq), ``'process-shm'`` or
+        ``'process-zmq'``. A process worker imports no ``torch`` and decodes
+        on a static share of the decode-thread budget.
     :param shuffle_row_drop_partitions: ventilate each row-group this many
         times, each time one contiguous slice of its rows, so a row-group's
         rows spread over the epoch (1: whole row-groups).
@@ -338,6 +374,11 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
     :param stall_timeout_s: the stages' stall deadline in seconds (a number
         or a dict stage -> seconds); a stall past twice it raises
         ``PipelineStallError`` from ``next``.
+    :param shm_result_ring_bytes: each worker's result ring of the
+        shared-memory pool (default 64 MiB), reserved in ``/dev/shm`` when
+        the reader is built; the other pools ignore it.
+    :param pool_profiling: run the thread pool's workers under ``cProfile``
+        and print their profile when the reader joins.
     """
     _check_selection_args(predicate, transform_spec, shuffle_row_drop_partitions)
     if isinstance(schema_fields, NGram):
@@ -360,7 +401,8 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
                              'tensor fields {}'.format(bad))
     cache = _make_cache(cache_type, cache_location, cache_size_limit, tensor_path=True,
                         **(cache_extra_settings or {}))
-    pool = _make_pool(reader_pool_type, workers_count, results_queue_size)
+    pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
+                      shm_result_ring_bytes, pool_profiling)
     return Reader(store, view, pool, worker_class=TensorWorker, full_schema=stored_schema,
                   shuffle_row_groups=shuffle_row_groups,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions, seed=seed,
@@ -380,7 +422,8 @@ def make_batch_reader(dataset_url, schema_fields=None, reader_pool_type='thread'
                       cache_row_size_estimate=None, cache_extra_settings=None,
                       transform_spec=None, resume_state=None, shuffle_rows_in_chunk=False,
                       deterministic=False, storage_options=None, error_budget=None,
-                      watchdog=None, stall_timeout_s=None):
+                      watchdog=None, stall_timeout_s=None, shm_result_ring_bytes=None,
+                      pool_profiling=False):
     """Reader of column arrays, one namedtuple per row-group, over any
     Parquet store (``petastorm_tpu/reader.py:382-446``).
 
@@ -412,7 +455,8 @@ def make_batch_reader(dataset_url, schema_fields=None, reader_pool_type='thread'
     view = _view(stored_schema, schema_fields)
     cache = _make_cache(cache_type, cache_location, cache_size_limit, arrow_cache=True,
                         **(cache_extra_settings or {}))
-    pool = _make_pool(reader_pool_type, workers_count, results_queue_size)
+    pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
+                      shm_result_ring_bytes, pool_profiling)
     return Reader(store, view, pool, worker_class=ArrowWorker, full_schema=stored_schema,
                   shuffle_row_groups=shuffle_row_groups,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions, seed=seed,
@@ -750,8 +794,15 @@ class Reader(DeferredRowAccounting):
                 readahead(keys[item['piece_index']])
 
             self._ventilator.on_ventilate = on_ventilate
+        # A process pool's workers cannot share this process's budget live:
+        # each gets a static share of its total (``petastorm_tpu/reader.py:
+        # 785-800``).
+        self._in_process_pool = not isinstance(pool, SupervisedPoolMixin)
+        self._static_decode_threads = (
+            None if self._in_process_pool
+            else max(1, decode_budget.get_budget().total // pool.workers_count))
         pool.start(worker_class, {
-            'store_factory': _StoreFactory(store),
+            'store_factory': _StoreFactory(store), 'decode_threads': self._static_decode_threads,
             'quarantine_poison_rowgroups': error_budget is not None,
             'row_groups': pieces, 'schema': schema,
             'full_schema': full_schema if full_schema is not None else schema,
@@ -763,7 +814,7 @@ class Reader(DeferredRowAccounting):
         # After every raise of the constructor: stop() is the only release.
         # A schema without an image field never decodes one, so its workers
         # would only shrink the other readers' shares.
-        if _has_image_fields(schema):
+        if _has_image_fields(schema) and self._in_process_pool:
             self._decode_share = decode_budget.get_budget().register_pool(pool.workers_count)
         self._register_memory_pools()
         # A reader used alone owns its monitor; a loader over it calls
@@ -807,7 +858,8 @@ class Reader(DeferredRowAccounting):
         self._hb_handoff = registry.register('reader-handoff')
         pool = self._pool
         pool.health_heartbeat = registry.register('worker-pool')
-        # Thread pools have no worker processes to find dead (§A9g).
+        # A process pool's diagnostics name its dead workers
+        # (``dead_workers``), which classify as worker-pool-dead.
         registry.register_probe('worker-pool', lambda: dict(pool.diagnostics))
         registry.register_probe('memory', membudget.get_governor().probe)
         if self._resequencer is not None:
@@ -944,8 +996,8 @@ class Reader(DeferredRowAccounting):
         """The decode path in use: ``image`` (``'native'``, ``'cv2'`` or
         ``'pil'``) and ``image_error`` (why the native codec is not used, or
         None), ``decode_path`` (``PSTT_DECODE_PATH``), ``decode_threads``
-        (a worker's share of the budget now; None for a reader that
-        decodes no image), ``parquet`` (``'native'`` or ``'pyarrow'``, the
+        (a worker's share of the budget now, a process worker's static one;
+        None for a reader that decodes no image), ``parquet`` (``'native'`` or ``'pyarrow'``, the
         tensor path's stage) and ``parquet_error``."""
         from petastorm_tpu_torch.native import parquet as native_pq
         image = decoder_info()
@@ -958,10 +1010,13 @@ class Reader(DeferredRowAccounting):
                 parquet = 'native'
             else:
                 parquet_error = native_pq.load_error()
+        if self._decode_share is not None:
+            decode_threads = self._decode_share.share
+        else:
+            decode_threads = self._static_decode_threads if _has_image_fields(self.schema) \
+                else None
         return {'image': image['decoder'], 'image_error': image['native_error'],
-                'decode_path': decode_path(),
-                'decode_threads': (self._decode_share.share if self._decode_share is not None
-                                   else None),
+                'decode_path': decode_path(), 'decode_threads': decode_threads,
                 'parquet': parquet, 'parquet_error': parquet_error}
 
     @property

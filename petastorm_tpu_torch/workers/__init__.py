@@ -1,5 +1,8 @@
 """Worker pools: ventilator-fed parallel execution with a bounded results
-queue (counterpart of ``petastorm_tpu/workers/__init__.py``).
+queue (counterpart of ``petastorm_tpu/workers/__init__.py``): threads
+(``thread_pool``), the consumer's own thread (``dummy_pool``), and worker
+processes over zmq sockets (``process_pool``) or shared-memory rings
+(``shm_process_pool``), supervised and respawned (``supervision``).
 
 A worker may quarantine a poison row-group, when the reader has an
 ``error_budget``: instead of ending the epoch it publishes a
@@ -19,7 +22,15 @@ class TimeoutWaitingForResultError(Exception):
 
 
 class VentilatedItemProcessedMessage(object):
-    """Sentinel a worker publishes after fully processing one ventilated item."""
+    """Sentinel a worker publishes after fully processing one ventilated item.
+
+    ``worker_id``/``seq`` say which worker finished which dispatched item
+    (the process pools' supervision, :mod:`~petastorm_tpu_torch.workers.
+    supervision`); ``None`` from the in-process pools."""
+
+    def __init__(self, worker_id=None, seq=None):
+        self.worker_id = worker_id
+        self.seq = seq
 
 
 class RowGroupQuarantined(object):

@@ -31,6 +31,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 
+from petastorm_tpu_torch import decode_budget
 from petastorm_tpu_torch.determinism import hole_marker
 from petastorm_tpu_torch.faults import maybe_inject, rowgroup_fault_key
 from petastorm_tpu_torch.trace import get_global_tracer
@@ -41,8 +42,12 @@ logger = logging.getLogger(__name__)
 
 class RowGroupWorkerBase(WorkerBase):
     """``args``: ``row_groups`` (list of RowGroupPiece), ``schema`` (the
-    reader's view) and ``store_factory`` (a zero-argument callable giving
-    the store's :class:`~petastorm_tpu_torch.storage.ParquetStore`)."""
+    reader's view), ``store_factory`` (a zero-argument callable giving
+    the store's :class:`~petastorm_tpu_torch.storage.ParquetStore`) and
+    ``decode_threads``: None in an in-process pool (each decode takes its
+    live share of the process's budget), or a process pool worker's static
+    share, which becomes its own process's whole budget
+    (``petastorm_tpu/reader.py:785-800``)."""
 
     #: Whether this worker class reads through the native stage: a columnar
     #: worker gains from its export without a copy; the per-row worker
@@ -51,6 +56,9 @@ class RowGroupWorkerBase(WorkerBase):
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
+        decode_threads = args.get('decode_threads')
+        if decode_threads is not None:
+            decode_budget.set_budget(decode_budget.DecodeThreadBudget(total=decode_threads))
         self._files = {}
         self._store = None           # built at the first read
         self._native = None          # resolved at the first read

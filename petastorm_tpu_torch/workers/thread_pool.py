@@ -1,8 +1,10 @@
 """In-process thread pool with a ventilator feed and a bounded results queue.
 
 Counterpart of ``petastorm_tpu/workers/thread_pool.py:36-461`` at a fixed
-size (no resize or profiling). ``results_watermark`` arms the
-ventilator's backpressure: while that many results wait undelivered, no
+size (no resize). ``profiling_enabled`` runs each worker thread under
+``cProfile`` and prints the threads' summed profile at ``join()``
+(``:40-85, 415-434``; the benchmark's ``profile_threads``).
+``results_watermark`` arms the ventilator's backpressure: while that many results wait undelivered, no
 new item is fed (the memory governor's shed rung sets it).
 ``results_nbytes()`` is the governor's ``results-queue`` pool, and
 ``inject_consumer_error`` hands an error (a memory breach, a watchdog's
@@ -23,6 +25,8 @@ and pass through unchanged, each chunk's ``key``, ``det`` tag and
 ``get_results()`` releases them in ventilation order.
 """
 
+import cProfile
+import pstats
 import queue
 import threading
 import time
@@ -44,9 +48,16 @@ class _WorkerThread(threading.Thread):
         super().__init__(daemon=True, name='{}{}'.format(THREAD_PREFIX, worker.worker_id))
         self._pool = pool
         self._worker = worker
+        self.profile = None
 
     def run(self):
         pool = self._pool
+        if pool._profiling_enabled:
+            self.profile = cProfile.Profile()
+            try:
+                self.profile.enable()
+            except ValueError:      # another profiler holds this thread
+                self.profile = None
         try:
             while not pool._stop_event.is_set():
                 try:
@@ -65,6 +76,8 @@ class _WorkerThread(threading.Thread):
                     except _Stopping:
                         return
         finally:
+            if self.profile is not None:
+                self.profile.disable()
             self._worker.shutdown()
 
 
@@ -73,10 +86,11 @@ class _Stopping(Exception):
 
 
 class ThreadPool(ResequencedReads):
-    def __init__(self, workers_count, results_queue_size=50):
+    def __init__(self, workers_count, results_queue_size=50, profiling_enabled=False):
         if workers_count < 1:
             raise ValueError('workers_count must be >= 1, got {}'.format(workers_count))
         self._workers_count = workers_count
+        self._profiling_enabled = profiling_enabled
         self._results_queue = queue.Queue(maxsize=results_queue_size)
         self._ventilator_queue = None
         self._stop_event = threading.Event()
@@ -244,4 +258,11 @@ class ThreadPool(ResequencedReads):
     def join(self):
         for thread in self._threads:
             thread.join()
+        if self._profiling_enabled:
+            # A worker that got no item has an empty profile, which
+            # pstats refuses.
+            profiles = [t.profile for t in self._threads
+                        if t.profile is not None and t.profile.getstats()]
+            if profiles:
+                pstats.Stats(*profiles).sort_stats('cumulative').print_stats(30)
         self._threads = []

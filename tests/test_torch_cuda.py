@@ -1422,3 +1422,45 @@ def test_loader_spans_on_card(dev, tmp_path):
     assert summary['read']['count'] == summary['decode']['count'] == 5
     counters = {e['name'] for e in tracer.events if e['ph'] == 'C'}
     assert counters == {'arena_pool_free', 'staging_inflight'}
+
+
+@pytest.mark.parametrize('pool', ['process', 'process-zmq'])
+def test_process_pool_feeds_the_card_without_a_worker_on_it(dev, tmp_path, pool):
+    """A process-pool tensor reader through ``TorchLoader`` on the card for
+    one epoch: while it runs no worker pid is among the card's compute
+    processes or maps the CUDA driver, and the batches equal a thread
+    reader's; after ``stop()`` no worker is alive and no segment is left."""
+    import os
+
+    from petastorm_tpu_torch import bench
+    from petastorm_tpu_torch.native import shm_ring
+    from petastorm_tpu_torch.workers.process_pool import zmq_available
+    if pool == 'process-zmq' and not zmq_available():
+        pytest.skip('pyzmq does not import on this machine')
+    url = _card_store(tmp_path)
+
+    def epoch(reader_pool_type, seen=None):
+        with make_tensor_reader(url, reader_pool_type=reader_pool_type, workers_count=2,
+                                num_epochs=1, seed=0, deterministic=True) as reader:
+            with TorchLoader(reader, 8, device=dev) as loader:
+                batches = []
+                for batch in loader:
+                    batches.append((batch.image.cpu(), batch.label.cpu()))
+                    if seen is not None and len(batches) == 1:
+                        pids = reader._pool.worker_pids()
+                        seen.update(pids=pids, on_card=bench.cuda_compute_pids(),
+                                    mapped=[p for p in pids if bench.maps_cuda_driver(p)])
+        return batches
+
+    seen = {}
+    got, want = epoch(pool, seen), epoch('thread')
+    assert len(got) == len(want) == 7
+    for (image, label), (image_t, label_t) in zip(got, want):
+        assert torch.equal(image, image_t) and torch.equal(label, label_t)
+    assert len(seen['pids']) == 2 and os.getpid() not in seen['pids']
+    assert not set(seen['pids']) & set(seen['on_card']) and not seen['mapped']
+    assert bench.maps_cuda_driver(os.getpid())
+    for pid in seen['pids']:
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)
+    assert not shm_ring.list_segments('pstt_{}_'.format(os.getpid()))

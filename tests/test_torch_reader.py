@@ -171,7 +171,7 @@ def test_schema_fields_view_and_errors(tmp_path):
     with pytest.raises(IOError, match='does not exist'):
         make_tensor_reader('file://' + str(tmp_path / 'missing'))
     with pytest.raises(ValueError, match='thread'):
-        make_tensor_reader(url, reader_pool_type='process')
+        make_tensor_reader(url, reader_pool_type='processes')
 
 
 def test_worker_error_surfaces_in_consumer(tmp_path, monkeypatch):
