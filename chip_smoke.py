@@ -103,8 +103,8 @@ non-zero exit and no result line:
    ``imagenet_train_augment`` (f32 out) inside the 8-step graph, which
    registers the augment's generator; ``aug_cost_frac = 1 - aug / bare``.
    K1 runs 8 times a replay of (a), never in (b); two more replays of (a)
-   must draw different crop boxes. Epoch 1 warms up, 6 are counted (the
-   bench: 4).
+   must draw different crop boxes. Epoch 1 warms up, 4 are counted (the
+   bench's).
 13. lm_long: the ``lm_long`` child (``bench.py:2526-2530``): a store of 256
    rows of 8193 tokens (``bench.py:141``), ``TransformerLM(max_len=8192)``,
    batch 2, K = 4, 2 warm-up and 12 measured calls; each flash kernel 32
@@ -305,12 +305,37 @@ non-zero exit and no result line:
    run, ``decode_s``, the decoder, the ring's and ``/dev/shm``'s bytes, the
    workers' start-up seconds, and whether dill and pyzmq import.
 
+26. imagenet_autotune: the autotuner, run after imagenet_process on the
+   same state (``bench.run_imagenet_autotune``), imagenet_decode (a)'s store
+   and ``null`` cache started from starved knobs: one reader thread, a
+   decode-thread budget of 1 for the phase, ``TorchLoader(prefetch=1,
+   inflight=1, arena_depth=2, autotune=AutotuneConfig(interval_s=0.25))``,
+   which adopts the reader's knobs, ``superbatches(8)``, K1 in the 8-step
+   graph. (a) Calls run until the tuner's last grow, and every knob change
+   after it (a revert, a shrink), is 8 ticks old, or 30 s passed, then 11
+   counted calls and 11 timed, unprofiled. Checks: K1's
+   graph nodes times the counted window's replays; at least one ``grow`` on
+   a ``reader-starved`` or ``input-bound`` tick and a final ``workers``
+   above 1; img/s at least 0.90 of imagenet_decode (a)'s of this run; every
+   loss finite; after ``close()`` no ``pstt-autotune`` thread and no
+   ``pst_autotune_*`` gauge of its pipeline in the registry. (b) The same
+   reader and loader under a fresh governor whose ladder a ballast pool
+   holds at advisory, 3 calls: at least one ``mem-shrink``, no ``grow``,
+   every loss finite. Its line: img/s, device ms a step and stall beside
+   imagenet_scan's and imagenet_decode (a)'s of this run, the start and
+   final knobs, the seconds to the last grow, the ``workers`` and
+   ``decode_threads`` trajectory, the decisions by action, ticks, paused
+   ticks and reverts, and (b)'s mem-shrinks and stall with its arenas
+   unpinned. Every earlier phase runs with ``autotune=False`` (and the
+   script drops ``PSTT_AUTOTUNE`` from its environment), so no earlier
+   protocol moves.
+
 ``python3 chip_smoke.py --decode-turns N`` instead runs the device line,
 the imagenet store and imagenet_scan (for its state), then N turns of
 imagenet_decode (a) on the thread pool and on ``'process'``, in the order
 thread, process, process, thread, ..., each a line, and the ok line.
 
-Phases 5 to 15, 18, 20, 21, 22, 23, 24 and 25 run the bench's protocol through the functions of
+Phases 5 to 15, 18 and 20 to 26 run the bench's protocol through the functions of
 ``petastorm_tpu_torch/bench.py`` (``python -m petastorm_tpu_torch.bench``
 runs them as the bench's children); this script holds their launch counts.
 Each path's kernel launch counts are zeroed just before it and read just
@@ -382,10 +407,11 @@ LONG_SEQ, LONG_BATCH, LONG_K, LONG_STEPS = 8193, 2, 4, 48
 # The lm_moe child (bench.py:2537-2540): 4 experts, 4 layers; batch 8, K 8, 96
 # steps (the bench: 16).
 MOE_EXPERTS, MOE_LAYERS, MOE_STEPS = 4, 4, 96
-# Measured calls of the streamed ResNet scan paths (the bench: 5) and the
-# imagenet_aug epochs (the bench: 4): 13 replays counted, 104 K1 launches,
-# and as many calls timed.
-SCAN_CALLS, AUG_EPOCHS = 11, 6
+# Measured calls of the streamed ResNet scan paths (the bench: 5): 13
+# replays counted, 104 K1 launches, and as many calls timed. The
+# imagenet_aug epochs are the bench's 4, which keeps the script's last phase
+# near 800 s.
+SCAN_CALLS, AUG_EPOCHS = 11, 4
 # The decode phase's reader threads (imagenet_scan's protocol otherwise).
 DECODE_WORKERS = 8
 
@@ -839,9 +865,10 @@ def check_first_batch(url, device):
                                          cv2.COLOR_BGR2RGB)
                             for b in table.column('image').to_pylist()[:BATCH]])
     want_labels = np.asarray(table.column('label').to_pylist()[:BATCH])
-    with make_tensor_reader(url, workers_count=1, shuffle_row_groups=False, num_epochs=1) as reader:
+    with make_tensor_reader(url, workers_count=1, shuffle_row_groups=False, num_epochs=1,
+                            autotune=False) as reader:
         decoder = reader.decoder['image']
-        with TorchLoader(reader, BATCH, device=device, prefetch=2) as loader:
+        with TorchLoader(reader, BATCH, device=device, prefetch=2, autotune=False) as loader:
             batch = next(loader)
             torch.cuda.synchronize()
             images = batch.image.cpu().numpy()
@@ -896,9 +923,10 @@ def run_imagenet(url, device, steps, card):
     losses, wait_s, aug_ms, step_ms = [], 0.0, [], []
     torch.cuda.reset_peak_memory_stats(device)
     reader = make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
-                                workers_count=4, shuffle_row_groups=True, seed=0, num_epochs=None)
+                                workers_count=4, shuffle_row_groups=True, seed=0, num_epochs=None,
+                                autotune=False)
     with reader:
-        with TorchLoader(reader, BATCH, device=device, prefetch=2) as loader:
+        with TorchLoader(reader, BATCH, device=device, prefetch=2, autotune=False) as loader:
             reset_launch_counts()                    # the path starts here
             for i in range(total):
                 if i == WARMUP_STEPS:
@@ -1084,9 +1112,10 @@ def run_lm(url, device, steps, card):
     losses, wait_s, step_ms = [], 0.0, []
     torch.cuda.reset_peak_memory_stats(device)
     reader = make_tensor_reader(url, schema_fields=['tokens'], reader_pool_type='thread',
-                                workers_count=2, shuffle_row_groups=True, seed=0, num_epochs=None)
+                                workers_count=2, shuffle_row_groups=True, seed=0, num_epochs=None,
+                                autotune=False)
     with reader:
-        with TorchLoader(reader, LM_BATCH, device=device, prefetch=2) as loader:
+        with TorchLoader(reader, LM_BATCH, device=device, prefetch=2, autotune=False) as loader:
             reset_launch_counts()                    # the path starts here
             for i in range(total):
                 if i == WARMUP_STEPS:
@@ -1343,11 +1372,11 @@ def preemptible_role(role, url, workdir, launched, device='cuda'):
     reader = make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
                                 workers_count=4, shuffle_row_groups=True, seed=0,
                                 num_epochs=PREEMPT_EPOCHS, cache_type='memory',
-                                deterministic=True, resume_state=resume)
+                                deterministic=True, resume_state=resume, autotune=False)
     train = make_scan_train_step(bench.SCAN_K, preprocess=bench.normalize_bf16)
     calls = PREEMPT_EPOCHS * ROWS // BATCH // bench.SCAN_K
     with reader, TorchLoader(reader, BATCH, device=device, prefetch=2,
-                             lineage=ledger_dir) as loader:
+                             lineage=ledger_dir, autotune=False) as loader:
         groups = loader.superbatches(bench.SCAN_K)
 
         def next_inputs():
@@ -1883,6 +1912,24 @@ def run_process(url, device, card, state, imagenet_scan, worker_decode, workdir)
     return result
 
 
+# --------------------------------------------------------------------------
+# the autotune phase: the tuner from starved knobs, and its memory bias
+# --------------------------------------------------------------------------
+
+def run_autotune(url, device, card, state, imagenet_scan, worker_decode):
+    """Phase 26 (see the module docstring): the ``imagenet_autotune`` cell
+    on ``state``, beside imagenet_scan's and imagenet_decode (a)'s numbers
+    of this run. Returns the phase's line."""
+    result = bench.run_imagenet_autotune(url, device, card, state, worker_decode['img_per_s'],
+                                         calls=SCAN_CALLS)
+    result['beside'] = {
+        name: {'img_per_s': cell['img_per_s'], 'device_step_ms': cell['device_step_ms'],
+               'input_stall_frac': cell['input_stall_frac']}
+        for name, cell in (('imagenet_scan', imagenet_scan),
+                           ('imagenet_decode_worker_decode', worker_decode))}
+    return result
+
+
 def run_decode_turns(url, device, card, state, turns, record):
     """``--decode-turns``: imagenet_decode (a) on the thread pool and on
     ``'process'`` in turns (thread, process, process, thread, ...), one line
@@ -1966,9 +2013,10 @@ def check_loader_surface(store_dir, device):
                                dtype=np.uint8)} for i in range(rows)), rows_per_row_group=16)
     readers = {
         'tensor': lambda: make_tensor_reader(url, schema_fields=['id', 'vec', 'image'],
-                                             workers_count=1, shuffle_row_groups=False),
+                                             workers_count=1, shuffle_row_groups=False,
+                                             autotune=False),
         'row': lambda: make_reader(url, schema_fields=['id', 'vec', 'ragged'], workers_count=1,
-                                   shuffle_row_groups=False)}
+                                   shuffle_row_groups=False, autotune=False)}
     policies = {'tensor': None, 'row': {'ragged': CropTo((20, 20, 3))}}
     configs = {'default': {}, 'prefetch=0': dict(prefetch=0),
                'prefetch=2,inflight=1': dict(prefetch=2, inflight=1),
@@ -1980,7 +2028,7 @@ def check_loader_surface(store_dir, device):
         for label, options in configs.items():
             with factory() as reader:
                 with TorchLoader(reader, batch, device=device, shape_policies=policies[kind],
-                                 **options) as loader:
+                                 autotune=False, **options) as loader:
                     batches = []
                     for b in loader:
                         if not all(t.is_cuda for t in b):
@@ -2093,17 +2141,19 @@ def run_pipeline_governed(url, device, workers):
     ``chunk-store`` row of the tier sweep served its window from the store,
     the ``mem`` block reports an armed budget with no breach, and the
     ``per_device_stream`` block's one-rank NCCL group put tiles on its one
-    device."""
+    device, or if a tuner ran (the phase keeps its fixed knobs)."""
     from petastorm_tpu_torch import membudget
     saved = os.environ.get(membudget.ENV_VAR)
     os.environ[membudget.ENV_VAR] = 'auto'
     try:
-        pipeline = bench.run_pipeline(url, device, workers)
+        pipeline = bench.run_pipeline(url, device, workers, autotune=False)
     finally:
         if saved is None:
             os.environ.pop(membudget.ENV_VAR, None)
         else:
             os.environ[membudget.ENV_VAR] = saved
+    if 'pipeline_autotune' in pipeline:
+        raise AssertionError('pipeline: a tuner ran: {}'.format(pipeline['pipeline_autotune']))
     profile = pipeline['pipeline_stage_profile']
     row = profile['cache_tier_sweep'].get('chunk-store')
     mem = profile.get('mem')
@@ -2140,6 +2190,9 @@ def main():
     if args.steps < 10:
         parser.error('--steps must be >= 10')
 
+    # Every phase but imagenet_autotune runs its protocol with the tuner
+    # off, whatever the environment says.
+    os.environ.pop('PSTT_AUTOTUNE', None)
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script needs a GPU',
@@ -2175,6 +2228,18 @@ def main():
     record({'phase': 'device', 'name': name, 'count': torch.cuda.device_count(),
             'nvidia_smi': smi, 'torch': torch.__version__, 'cuda': torch.version.cuda})
 
+    def finish():
+        """Every line into ``--out``, then the card's line and the ok line."""
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, 'w') as f:
+                for obj in lines:
+                    f.write(json.dumps(obj) + '\n')
+        print(smi.splitlines()[0], flush=True)
+        bench.emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
+                                           'count': torch.cuda.device_count()}})
+        return 0
+
     if args.decode_turns:
         os.makedirs(BUILD_DIR, exist_ok=True)
         store_dir = tempfile.mkdtemp(prefix='smoke_store_', dir=BUILD_DIR)
@@ -2185,10 +2250,7 @@ def main():
             run_decode_turns(url, device, card, state, args.decode_turns, record)
         finally:
             shutil.rmtree(store_dir, ignore_errors=True)
-        print(smi.splitlines()[0], flush=True)
-        bench.emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
-                                           'count': torch.cuda.device_count()}})
-        return 0
+        return finish()
 
     # nvcc builds both flash libraries in the background, at once, while
     # K1's Triton kernel compiles and runs.
@@ -2286,6 +2348,10 @@ def main():
         if isinstance(result['process_zmq'], dict):
             by_path['imagenet_process_zmq'] = bench.path_launches(
                 result['process_zmq'], 'normalize_images', 'normalize_kernel')
+        result = run_autotune(url, device, card, state, imagenet_scan, decode['worker_decode'])
+        record(result)
+        by_path['imagenet_autotune'] = bench.path_launches(result, 'normalize_images',
+                                                           'normalize_kernel')
         k1['launches_by_path'] = by_path
         lm_result = run_lm(lm_url, device, args.steps, card)
         record(lm_result)
@@ -2347,15 +2413,7 @@ def main():
             'bound_ms', 'bound_by', 'library_ms', 'previous_ms', 'host_bound', 'launches_by_path',
             'ptxas', 'variant', 'shape', 'block', 'num_warps', 'variants')
     record({'kernels': [{key: k[key] for key in keys if key in k} for k in [k1] + flash]})
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, 'w') as f:
-            for obj in lines:
-                f.write(json.dumps(obj) + '\n')
-    print(smi.splitlines()[0], flush=True)
-    bench.emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
-                                       'count': torch.cuda.device_count()}})
-    return 0
+    return finish()
 
 
 if __name__ == '__main__':

@@ -20,8 +20,10 @@ poison row-groups (``faults`` injects them: ``PSTT_FAULTS``), and the
 that a watchdog (``health``, ``watchdog=True`` or ``PSTT_WATCHDOG``) turns
 into a diagnosed ``PipelineStallError`` and a flight-recorder dump
 (``PSTT_FLIGHT_RECORDER``); ``trace.Tracer`` records the stages' host spans
-as a Chrome trace. Entry points take ``device=`` and default to
-``'cuda'``.
+as a Chrome trace. An autotuner (``autotune``, ``autotune=True`` or
+``PSTT_AUTOTUNE``; ``AutotuneConfig``) resizes the worker pool and turns the
+loader's depths while the pipeline runs. Entry points take ``device=`` and
+default to ``'cuda'``.
 
 The public names resolve lazily (PEP 562): importing the package imports
 none of its modules, so a worker process of a process pool, which imports
@@ -32,6 +34,7 @@ never make a CUDA context.
 import importlib
 
 _EXPORTS = {
+    'petastorm_tpu_torch.autotune': ('AutotuneConfig',),
     'petastorm_tpu_torch.cache': ('LocalDiskArrowTableCache', 'LocalDiskCache', 'MemoryCache',
                                   'NullCache'),
     'petastorm_tpu_torch.chunk_store': ('DecodedChunkStore',),

@@ -86,11 +86,6 @@ FLASH_WRAPPERS = ('flash_fwd', 'flash_dq', 'flash_dkv', 'flash_fwd_sm90', 'flash
                   'flash_dkv_sm90')
 FLASH_KERNELS = ('flash_fwd_sm90_kernel', 'flash_dq_sm90_kernel', 'flash_dkv_sm90_kernel')
 
-#: The pipeline child's blocks that wait on modules not yet ported, by the
-#: ROADMAP item that brings them.
-PIPELINE_NOT_PORTED = {
-    'autotune': 'ROADMAP §A9h (autotune)',
-}
 #: The decode sweep's acceptance ratio of batched over scalar img/s
 #: (``bench.py:709-714``).
 DECODE_GATE_MIN_RATIO = 1.5
@@ -360,10 +355,11 @@ def graph_launches(train, kernels, replays):
             for name in kernels}
 
 
-def scan_window(train, state, next_inputs, warmup, calls, kernels, profile=True):
+def scan_window(train, state, next_inputs, warmup, calls, kernels, profile=True, until=None):
     """One scan path's counted window: the launch counts zeroed, ``warmup``
     calls (call 1 eager, call 2 captures the graph and replays it, later
-    calls replay), then ``calls`` measured calls under ``torch.profiler``
+    calls replay; with ``until``, more of them until ``until()`` returns
+    True), then ``calls`` measured calls under ``torch.profiler``
     (the path's trace; ``profile=False`` runs them unprofiled and returns
     no profile), the counts read. A replay calls no wrapper, so the
     wrappers count call 1 and the capture; each of ``kernels`` is counted
@@ -383,6 +379,8 @@ def scan_window(train, state, next_inputs, warmup, calls, kernels, profile=True)
     reset_launch_counts()                            # the path starts here
     replays = train.replays
     run(warmup)
+    while until is not None and not until():
+        run(1)
     if profile:
         measured = device_profile(lambda: run(calls))
     else:
@@ -532,7 +530,9 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
     the global batch). ``workers`` reader threads; ``reader_kwargs`` and
     ``loader_kwargs`` go to the reader and the loader (the decode cell's
     ``raw_image_fields`` and ``on_device_augment``; the process cell's
-    ``reader_pool_type``, which replaces ``'thread'``). ``observe(superbatch)``
+    ``reader_pool_type``, which replaces ``'thread'``; ``autotune``, off
+    unless one of them arms it: its record then rides the line's
+    ``autotune``). ``observe(superbatch)``
     sees each superbatch before its call. ``hooks(stage, loader, reader)`` is
     called with ``'timed'`` just before the timed calls and ``'close'`` just
     after them, while the loader still runs. ``profile=False`` leaves the
@@ -545,12 +545,13 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
     torch.cuda.reset_peak_memory_stats(device)
     reader_args = dict(schema_fields=['image', 'label'], reader_pool_type='thread',
                        workers_count=workers, shuffle_row_groups=True, seed=0, num_epochs=None,
-                       cache_type=cache_type, cache_location=cache_location)
+                       cache_type=cache_type, cache_location=cache_location, autotune=False)
     reader_args.update(reader_kwargs or {})
+    loader_args = dict(prefetch=SCAN_PREFETCH, autotune=False)
+    loader_args.update(loader_kwargs or {})
     reader = make_pod_reader(url, mesh=mesh, pod_shard=None if mesh else (0, 1), **reader_args)
     with reader:
-        with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH,
-                         mesh=mesh, **(loader_kwargs or {})) as loader:
+        with TorchLoader(reader, BATCH, device=device, mesh=mesh, **loader_args) as loader:
             groups = loader.superbatches(SCAN_K)
 
             def next_inputs():
@@ -574,6 +575,7 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
             stats, cache, timings = loader.stats, reader.cache_stats(), reader.stage_timings
             holes = reader.holes
             diagnostics = reader.diagnostics()
+            autotune = autotune_summary(stats)
     losses = [[float(m['loss']), float(m['last_loss'])] for m in metrics + timed]
     if not all(math.isfinite(v) for pair in losses for v in pair):
         raise AssertionError('non-finite loss: {}'.format(losses))
@@ -600,7 +602,23 @@ def stream_classifier_scan(url, device, train, state, warmup, calls, kernels,
         'launches': _scan_launches(launches, captured, ran, warmup + calls, replays),
         'trace': (per_step(busy_trace(measured, calls, call_ms), SCAN_K)
                   if measured is not None else None)}
+    if autotune is not None:
+        result['autotune'] = autotune
     return result, (launches, captured, ran, replays)
+
+
+def autotune_summary(stats):
+    """The tuner's record for a bench line (``bench.py:454-467``): the
+    knobs, the last class, the tick counts and the tails of the decision log
+    and the trajectory; None without a tuner."""
+    at = stats.get('autotune')
+    if not at:
+        return None
+    return {'knobs': at.get('knobs'), 'last_class': at.get('last_class'),
+            'ticks': at.get('ticks'), 'paused_ticks': at.get('paused_ticks'),
+            'reverts': at.get('reverts'), 'mem_shrinks': at.get('mem_shrinks'),
+            'decisions': at.get('decisions', [])[-40:],
+            'trajectory': at.get('trajectory', [])[-40:]}
 
 
 def fill_device_cache(url, device):
@@ -611,10 +629,11 @@ def fill_device_cache(url, device):
     from petastorm_tpu_torch import DeviceDatasetCache, TorchLoader, make_tensor_reader
 
     reader = make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
-                                workers_count=4, num_epochs=1, seed=0, cache_type='memory')
+                                workers_count=4, num_epochs=1, seed=0, cache_type='memory',
+                                autotune=False)
     t0 = time.perf_counter()
     with reader:
-        with TorchLoader(reader, BATCH, device=device) as loader:
+        with TorchLoader(reader, BATCH, device=device, autotune=False) as loader:
             cache = DeviceDatasetCache(loader, shuffle=True, seed=0)
             for _ in cache.epoch(0):
                 pass
@@ -672,16 +691,19 @@ def hbm_scan(cache, train, state, epochs, kernels, first_epoch=1, observe=None):
     return result, (launches, captured, ran, replays)
 
 
-def run_imagenet_scan(url, device, card, warmup=3, calls=5):
+def run_imagenet_scan(url, device, card, warmup=3, calls=5, autotune=False):
     """The imagenet child streamed: ResNet-50 through
     ``make_scan_train_step(8, preprocess=K1 normalize -> bf16)``; K1 must
-    run 8 times a call. Returns (its line, the trained state)."""
+    run 8 times a call. ``autotune`` arms the loader's tuner, which adopts
+    the reader's knobs (the bench's ``BENCH_IMAGENET_AUTOTUNE``). Returns
+    (its line, the trained state)."""
     from petastorm_tpu_torch.models import make_scan_train_step
 
     state = resnet50_state(device)
     train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
     result, window = stream_classifier_scan(url, device, train, state, warmup, calls,
-                                            ('normalize_kernel',))
+                                            ('normalize_kernel',),
+                                            loader_kwargs={'autotune': autotune})
     require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
     return dict({'phase': 'imagenet_scan', 'card': card, 'model': 'resnet50', 'stem': 'conv7',
                  'classes': 1000}, **result), state
@@ -794,8 +816,9 @@ def run_imagenet_filtered(url, device, card, state, warmup=3, calls=5, workers=8
     epoch, holes = [], 0
     with make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
                             workers_count=workers, seed=0, num_epochs=1,
-                            **reader_kwargs) as reader:
-        with TorchLoader(reader, BATCH, device=device, last_batch='partial') as loader:
+                            autotune=False, **reader_kwargs) as reader:
+        with TorchLoader(reader, BATCH, device=device, last_batch='partial',
+                         autotune=False) as loader:
             for batch in loader:
                 epoch.append(batch.label.cpu().numpy())
         chunks, holes = reader.stage_timings['chunks'], reader.holes
@@ -807,7 +830,7 @@ def run_imagenet_filtered(url, device, card, state, warmup=3, calls=5, workers=8
     # The threaded, resequenced, permuted stream is the single-threaded one.
     single = []
     with make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='dummy',
-                            seed=0, num_epochs=None, **reader_kwargs) as reader:
+                            seed=0, num_epochs=None, autotune=False, **reader_kwargs) as reader:
         while sum(len(c) for c in single) < check_batches * BATCH:
             single.append(np.asarray(next(reader).label))
     single = np.concatenate(single)[:check_batches * BATCH]
@@ -958,8 +981,10 @@ def run_imagenet_faults(url, device, card, state, warmup=3, calls=5, workers=8, 
         # One epoch through a loader on the card, against pyarrow.
         epoch = []
         with make_tensor_reader(FAULTS_URL, schema_fields=['image', 'label'], seed=0,
-                                workers_count=workers, num_epochs=1, **kwargs) as reader:
-            with TorchLoader(reader, BATCH, device=device, last_batch='partial') as loader:
+                                workers_count=workers, num_epochs=1, autotune=False,
+                                **kwargs) as reader:
+            with TorchLoader(reader, BATCH, device=device, last_batch='partial',
+                             autotune=False) as loader:
                 for batch in loader:
                     epoch.append(batch.label.cpu().numpy())
         epoch = np.concatenate(epoch)
@@ -978,7 +1003,8 @@ def run_imagenet_faults(url, device, card, state, warmup=3, calls=5, workers=8, 
         rows = FAULTS_CHECK_BATCHES * BATCH
         single = []
         with make_tensor_reader(FAULTS_URL, schema_fields=['image', 'label'], seed=0,
-                                reader_pool_type='dummy', num_epochs=None, **kwargs) as reader:
+                                reader_pool_type='dummy', num_epochs=None, autotune=False,
+                                **kwargs) as reader:
             while sum(len(c) for c in single) < rows:
                 single.append(np.asarray(next(reader).label))
         streamed = np.concatenate(seen)[:rows]
@@ -1004,7 +1030,7 @@ def run_imagenet_faults(url, device, card, state, warmup=3, calls=5, workers=8, 
         try:
             with make_tensor_reader(FAULTS_URL, schema_fields=['image', 'label'], seed=0,
                                     workers_count=workers, num_epochs=1, cache_type='null',
-                                    deterministic=True, error_budget=1) as reader:
+                                    deterministic=True, error_budget=1, autotune=False) as reader:
                 for _ in reader:
                     pass
         except RowGroupQuarantinedError as e:
@@ -1221,10 +1247,11 @@ def run_imagenet_health(url, device, card, state, workdir, warmup=3, calls=5, wo
             reader = make_tensor_reader(url, schema_fields=['image', 'label'],
                                         reader_pool_type='thread', workers_count=workers,
                                         shuffle_row_groups=True, seed=0, num_epochs=None,
-                                        cache_type='memory')
+                                        cache_type='memory', autotune=False)
             try:
                 t_warm = time.perf_counter()
-                with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH) as warm:
+                with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH,
+                                 autotune=False) as warm:
                     for _ in range(ROWS // BATCH):
                         next(warm)
                 warm_s = time.perf_counter() - t_warm
@@ -1232,7 +1259,7 @@ def run_imagenet_health(url, device, card, state, workdir, warmup=3, calls=5, wo
                     HEALTH_FAULT_DELAY_S)
                 loader = TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH,
                                      tracer=stall_tracer, watchdog=True,
-                                     stall_timeout_s=HEALTH_FAULT_TIMEOUT_S)
+                                     stall_timeout_s=HEALTH_FAULT_TIMEOUT_S, autotune=False)
                 try:
                     next(loader.superbatches(SCAN_K))
                 except PipelineStallError as e:
@@ -1295,8 +1322,9 @@ def run_imagenet_health(url, device, card, state, workdir, warmup=3, calls=5, wo
         set_global_tracer(previous_tracer)
         with make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
                                 workers_count=workers, shuffle_row_groups=True, seed=0,
-                                num_epochs=None, cache_type='memory') as reader:
-            with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH) as loader:
+                                num_epochs=None, cache_type='memory', autotune=False) as reader:
+            with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH,
+                             autotune=False) as loader:
                 sb = next(loader.superbatches(SCAN_K))
                 metrics_after = train(state, sb.image, sb.label)
                 loss_after = float(metrics_after['loss'])
@@ -1422,8 +1450,8 @@ def _first_labels(url, device, workers, reader_pool_type, batches, ring_bytes=No
     labels = []
     with make_tensor_reader(url, schema_fields=['image', 'label'], deterministic=True, seed=0,
                             num_epochs=None, cache_type='null', workers_count=workers,
-                            reader_pool_type=reader_pool_type, **extra) as reader:
-        with TorchLoader(reader, BATCH, device=device) as loader:
+                            reader_pool_type=reader_pool_type, autotune=False, **extra) as reader:
+        with TorchLoader(reader, BATCH, device=device, autotune=False) as loader:
             for batch in loader:
                 labels.append(batch.label.cpu().numpy())
                 if len(labels) == batches:
@@ -1497,8 +1525,9 @@ def run_imagenet_process(url, device, card, state, workdir, warmup=3, calls=5, w
         registry = metrics.get_registry()
         with make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='process',
                                 workers_count=workers, cache_type='null', num_epochs=1, seed=0,
-                                shm_result_ring_bytes=ring) as reader:
-            with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH) as loader:
+                                shm_result_ring_bytes=ring, autotune=False) as reader:
+            with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH,
+                             autotune=False) as loader:
                 for sb in loader.superbatches(SCAN_K):
                     labels.append(sb.label.cpu().numpy())
                     metrics_ = train(state, sb.image, sb.label)
@@ -1542,6 +1571,234 @@ def run_imagenet_process(url, device, card, state, workdir, warmup=3, calls=5, w
     return out
 
 
+AUTOTUNE_INTERVAL_S = 0.25
+#: The convergence window: the counted calls start once the tuner has grown
+#: and then changed no knob (no grow, revert or shrink) for this many ticks,
+#: or after AUTOTUNE_CONVERGE_S seconds. A revert undoes a grow, so a grow
+#: that the guard reverted does not count as one the tuner settled on.
+AUTOTUNE_SETTLE_TICKS = 8
+AUTOTUNE_CONVERGE_S = 30.0
+AUTOTUNE_MIN_RATIO = 0.90
+AUTOTUNE_MEM_CALLS = 3
+#: The memory cell's governor budget and the ballast that parks its ladder
+#: at advisory (75% of the budget; advisory starts at 70%, degrade at 85%).
+AUTOTUNE_MEM_BUDGET = 10 << 30
+AUTOTUNE_MEM_BALLAST = int(0.75 * AUTOTUNE_MEM_BUDGET)
+
+
+def _tuner_gauges(registry, label):
+    """The registry's ``pst_autotune_*`` gauge samples of pipeline ``label``."""
+    snap = registry.collect()
+    return [(name, s['labels']) for name in ('pst_autotune_bottleneck', 'pst_autotune_knob')
+            for s in snap.get(name, {}).get('samples', ())
+            if (s.get('labels') or {}).get('pipeline') == label]
+
+
+def _autotune_record(at):
+    """The phase line's digest of a tuner's ``stats()``."""
+    decisions = at['decisions']
+    grows = [d for d in decisions if d['action'] == 'grow']
+    actions = {}
+    for d in decisions:
+        actions[d['action']] = actions.get(d['action'], 0) + 1
+    trajectory = at['trajectory']
+    return {'start_knobs': ({k: v for k, v in trajectory[0].items() if k != 't'}
+                            if trajectory else None),
+            'final_knobs': at['knobs'], 'ticks': at['ticks'], 'paused_ticks': at['paused_ticks'],
+            'reverts': at['reverts'], 'mem_shrinks': at['mem_shrinks'],
+            'last_class': at['last_class'], 'decisions_by_action': actions,
+            'seconds_to_last_grow': grows[-1]['t'] if grows else None,
+            'workers_decode_threads': [(p['t'], p.get('workers'), p.get('decode_threads'))
+                                       for p in trajectory],
+            'decisions': [{k: d.get(k) for k in ('t', 'tick', 'action', 'class', 'changes',
+                                                 'rate')} for d in decisions]}
+
+
+def run_imagenet_autotune(url, device, card, state, decode_rate, warmup=3, calls=5):
+    """The autotune cell on ``state``, started from starved knobs: the
+    decode cell's store and protocol (a ``null`` cache, so every epoch
+    decodes; K1 in the 8-step graph), ``make_tensor_reader(workers_count=1)``
+    and ``TorchLoader(prefetch=1, inflight=1, arena_depth=2,
+    autotune=AutotuneConfig(interval_s=0.25))``, which adopts the reader's
+    knobs, under a decode-thread budget of 1 (the process's comes back
+    after) and a fresh metrics registry. (a) Convergence: after ``warmup``
+    calls, calls go on until the tuner's last grow, and every knob change
+    after it, is ``AUTOTUNE_SETTLE_TICKS`` ticks old, or
+    ``AUTOTUNE_CONVERGE_S`` seconds passed; then ``calls`` counted calls,
+    unprofiled, and as many timed. A line that fails a check is printed
+    before the phase raises.
+    Fails unless K1 ran 8 times in each of the window's replays, the tuner
+    grew at least once on a ``reader-starved`` or ``input-bound`` tick and
+    ended above one worker, img/s is at least ``AUTOTUNE_MIN_RATIO`` of
+    ``decode_rate`` (imagenet_decode (a)'s of the same run), every loss is
+    finite, and after ``close()`` no ``pstt-autotune`` thread and no
+    ``pst_autotune_*`` gauge of the tuner's pipeline is left. (b) The memory
+    bias: the same reader and loader, built under a fresh governor armed
+    with an ``AUTOTUNE_MEM_BUDGET`` budget and a ballast pool that holds its
+    ladder at advisory, run ``AUTOTUNE_MEM_CALLS`` calls through (a)'s
+    graph. Fails unless the tuner took a ``mem-shrink`` step, never grew,
+    and every loss is finite. Returns the phase's line."""
+    import threading
+
+    import torch
+    from petastorm_tpu_torch import (TorchLoader, decode_budget, make_tensor_reader, membudget,
+                                     metrics)
+    from petastorm_tpu_torch.autotune import (INPUT_BOUND, READER_STARVED, THREAD_NAME,
+                                              AutotuneConfig)
+    from petastorm_tpu_torch.models import make_scan_train_step
+    from petastorm_tpu_torch.reader import host_cores
+
+    t_phase = time.perf_counter()
+    config = AutotuneConfig(interval_s=AUTOTUNE_INTERVAL_S)
+    knobs = dict(prefetch=1, inflight=1, arena_depth=2)
+    out = {'phase': 'imagenet_autotune', 'card': card, 'model': 'resnet50', 'stem': 'conv7',
+           'classes': 1000, 'cache_type': 'null',
+           'start': dict(knobs, workers=1, decode_threads=1), 'interval_s': config.interval_s,
+           'host_cores': host_cores()}
+
+    def make_reader():
+        return make_tensor_reader(url, schema_fields=['image', 'label'],
+                                  reader_pool_type='thread', workers_count=1, cache_type='null',
+                                  shuffle_row_groups=True, seed=0, num_epochs=None,
+                                  autotune=False)
+
+    def inputs_of(loader):
+        groups = loader.superbatches(SCAN_K)
+
+        def next_inputs():
+            sb = next(groups)
+            return sb.image, sb.label
+        return next_inputs
+
+    def finite(losses):
+        return all(math.isfinite(v) for pair in losses for v in pair)
+
+    previous_budget = decode_budget.set_budget(decode_budget.DecodeThreadBudget(total=1))
+    previous_registry = metrics.set_registry(metrics.MetricsRegistry())
+    try:
+        registry = metrics.get_registry()
+        train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
+        torch.cuda.reset_peak_memory_stats(device)
+        # (a) convergence from starved knobs.
+        with make_reader() as reader:
+            with TorchLoader(reader, BATCH, device=device, autotune=config, **knobs) as loader:
+                tuner = loader._autotuner
+                next_inputs = inputs_of(loader)
+                t0 = time.perf_counter()
+                settle_s = []
+
+                def settled():
+                    at = tuner.stats()
+                    changes = [d['tick'] for d in at['decisions']
+                               if d['action'] in ('grow', 'revert', 'shrink')]
+                    grew = any(d['action'] == 'grow' for d in at['decisions'])
+                    if ((grew and at['ticks'] - changes[-1] >= AUTOTUNE_SETTLE_TICKS)
+                            or time.perf_counter() - t0 >= AUTOTUNE_CONVERGE_S):
+                        settle_s.append(time.perf_counter() - t0)
+                        return True
+                    return False
+
+                metrics_, launches, captured, ran, _, replays = scan_window(
+                    train, state, next_inputs, warmup, calls, ('normalize_kernel',),
+                    profile=False, until=settled)
+                window_s = time.perf_counter() - t0
+                loader.reset_stats()
+                wall, wait_s, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
+                stats = loader.stats
+        time.sleep(0.1)
+        left = {'threads': [t.name for t in threading.enumerate()
+                            if t.name.startswith(THREAD_NAME) and t.is_alive()],
+                'gauges': _tuner_gauges(registry, tuner.pipeline_label)}
+        at = stats['autotune']
+        require_scan_launches(launches, captured, ran, ('normalize_images',), SCAN_K, replays)
+        losses = [[float(m['loss']), float(m['last_loss'])] for m in metrics_ + timed]
+        img_per_s = calls * SCAN_K * BATCH / wall
+        grew = [d for d in at['decisions']
+                if d['action'] == 'grow' and d['class'] in (READER_STARVED, INPUT_BOUND)]
+        out['convergence'] = dict(
+            _autotune_record(at), img_per_s=img_per_s, step_ms=wall / (calls * SCAN_K) * 1e3,
+            input_stall_frac=wait_s / wall, device_call_ms_median=call_ms,
+            device_step_ms=call_ms / SCAN_K, settle_calls=len(metrics_) - calls,
+            settle_s=settle_s[0], window_s=window_s, counted_calls=calls, timed_calls=calls,
+            img_per_s_vs_decode_worker_decode=img_per_s / decode_rate,
+            decode_s=stats['worker_stage_timings']['decode_s'], decoder=stats['decoder'],
+            losses_mean_last=losses, left_after_close=left,
+            k1_graph={'ran': ran['normalize_kernel'], 'expected': SCAN_K * replays,
+                      'replays': replays},
+            launches=_scan_launches(launches, captured, ran, len(metrics_), replays))
+        problems = []
+        if not grew or at['knobs']['workers'] <= 1:
+            problems.append('no starved grow past one worker: {}'.format(at['knobs']))
+        if img_per_s < AUTOTUNE_MIN_RATIO * decode_rate:
+            problems.append("{} img/s is under {} of imagenet_decode (a)'s {}".format(
+                img_per_s, AUTOTUNE_MIN_RATIO, decode_rate))
+        if not finite(losses):
+            problems.append('non-finite loss: {}'.format(losses))
+        if left['threads'] or left['gauges']:
+            problems.append('left after close: {}'.format(left))
+        if problems:
+            emit(dict(out, failed=problems))
+            raise AssertionError('imagenet_autotune (a): {}'.format('; '.join(problems)))
+        # (b) the memory bias: a ballast parks the ladder at advisory.
+        decode_budget.set_budget(decode_budget.DecodeThreadBudget(total=1))
+        governor = membudget.MemoryGovernor()
+        previous_governor = membudget.set_governor(governor)
+        try:
+            governor.arm(budget=AUTOTUNE_MEM_BUDGET)
+            ballast = governor.register_pool('ballast', lambda: AUTOTUNE_MEM_BALLAST)
+            try:
+                with make_reader() as reader:
+                    with TorchLoader(reader, BATCH, device=device, autotune=config,
+                                     **knobs) as loader:
+                        governor.check()
+                        level = governor.pressure_level()
+                        wall_b, wait_b, call_ms_b, timed_b = time_scan_calls(
+                            train, state, inputs_of(loader), AUTOTUNE_MEM_CALLS)
+                        level_after = governor.pressure_level()
+                        stats_b = loader.stats
+                mem_state = governor.stats().get('state')
+            finally:
+                ballast.close()
+        finally:
+            governor.release()
+            membudget.set_governor(previous_governor)
+        at_b = stats_b['autotune']
+        losses_b = [[float(m['loss']), float(m['last_loss'])] for m in timed_b]
+        out['memory_bias'] = dict(
+            _autotune_record(at_b), calls=AUTOTUNE_MEM_CALLS,
+            img_per_s=AUTOTUNE_MEM_CALLS * SCAN_K * BATCH / wall_b,
+            input_stall_frac=wait_b / wall_b, device_step_ms=call_ms_b / SCAN_K,
+            arena_pinned=stats_b['arena_pinned'], pressure_level=level, mem_state=mem_state,
+            budget=AUTOTUNE_MEM_BUDGET, ballast=AUTOTUNE_MEM_BALLAST, losses_mean_last=losses_b)
+        problems = []
+        if level != 1 or level_after != 1:
+            problems.append('the ladder read {} and {}, not advisory'.format(level, level_after))
+        if at_b['mem_shrinks'] < 1:
+            problems.append('no mem-shrink')
+        if any(d['action'] == 'grow' for d in at_b['decisions']):
+            problems.append('a grow at advisory')
+        if not finite(losses_b):
+            problems.append('non-finite loss: {}'.format(losses_b))
+        if problems:
+            emit(dict(out, failed=problems))
+            raise AssertionError('imagenet_autotune (b): {}'.format('; '.join(problems)))
+    finally:
+        metrics.set_registry(previous_registry)
+        decode_budget.set_budget(previous_budget)
+    del train
+    torch.cuda.empty_cache()
+    a = out['convergence']
+    out.update(img_per_s=a['img_per_s'], device_step_ms=a['device_step_ms'],
+               input_stall_frac=a['input_stall_frac'], k1_graph=a['k1_graph'],
+               launches=a['launches'], peak_mem_GB=torch.cuda.max_memory_allocated(device) / 1e9,
+               checks={'k1_per_replay': SCAN_K, 'starved_grow': True, 'workers_above_one': True,
+                       'min_ratio_vs_decode_worker_decode': AUTOTUNE_MIN_RATIO,
+                       'losses_finite': True, 'nothing_left_after_close': True,
+                       'mem_shrink_without_grow': True},
+               seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def run_imagenet_hbm(url, device, card, state):
     """``_measure_device_cache`` through the port on ``state``: see
     :func:`hbm_scan`."""
@@ -1570,9 +1827,9 @@ def _store_epoch(url, device, store_dir):
     from petastorm_tpu_torch import TorchLoader, make_tensor_reader
     reader = make_tensor_reader(url, schema_fields=['image', 'label'], workers_count=4,
                                 num_epochs=1, shuffle_row_groups=False, deterministic=True,
-                                cache_type='chunk-store', cache_location=store_dir)
+                                cache_type='chunk-store', cache_location=store_dir, autotune=False)
     with reader:
-        with TorchLoader(reader, BATCH, device=device) as loader:
+        with TorchLoader(reader, BATCH, device=device, autotune=False) as loader:
             digests = _epoch_digests(loader)
         store = reader.chunk_store
         if not store.flush(timeout_s=120):
@@ -1695,11 +1952,12 @@ def run_imagenet_hbm_partial(url, device, card, state, store_dir, reference_rate
     def reader():
         return make_tensor_reader(url, schema_fields=['image', 'label'], workers_count=4,
                                   num_epochs=1, shuffle_row_groups=False, deterministic=True,
-                                  cache_type='chunk-store', cache_location=store_dir)
+                                  cache_type='chunk-store', cache_location=store_dir,
+                                  autotune=False)
 
     def factory():
         with reader() as r:
-            with TorchLoader(r, BATCH, device=device) as loader:
+            with TorchLoader(r, BATCH, device=device, autotune=False) as loader:
                 yield from loader
 
     digests = {}
@@ -1716,7 +1974,7 @@ def run_imagenet_hbm_partial(url, device, card, state, store_dir, reference_rate
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         with reader() as r:
-            with TorchLoader(r, BATCH, device=device) as loader:
+            with TorchLoader(r, BATCH, device=device, autotune=False) as loader:
                 cache = DeviceDatasetCache(loader, shuffle=True, seed=0, partial=True,
                                            max_bytes=PARTIAL_MAX_BYTES,
                                            superbatch_batches=PARTIAL_RUN_BATCHES,
@@ -1888,7 +2146,7 @@ def lm_token_reader(url, mesh=None):
     return make_pod_reader(url, mesh=mesh, pod_shard=None if mesh else (0, 1),
                            schema_fields=['tokens'], reader_pool_type='thread',
                            workers_count=2, shuffle_row_groups=True, seed=0,
-                           num_epochs=None, cache_type='memory')
+                           num_epochs=None, cache_type='memory', autotune=False)
 
 
 def lm_scan(reader, device, model, batch, k, warmup, calls, layers, mesh=None, lineage=None,
@@ -1921,7 +2179,7 @@ def lm_scan(reader, device, model, batch, k, warmup, calls, layers, mesh=None, l
         sharding = {'tokens': sequence_sharding(mesh, seq_axis=model.seq_axis)}
     with reader:
         with TorchLoader(reader, batch * k, device=device, prefetch=2, mesh=mesh,
-                         sharding=sharding, lineage=lineage) as loader:
+                         sharding=sharding, lineage=lineage, autotune=False) as loader:
             def next_inputs():
                 tokens = next(loader).tokens
                 if observe is not None:
@@ -2059,8 +2317,10 @@ def run_lm_plain(url_a, url_b, tokens_b, lm_url, device, card, workdir, lm_scan_
     # Epoch 1, in storage order, fills the Arrow cache: a miss a row-group.
     t0 = time.perf_counter()
     groups = LM_ROWS // LM_PLAIN_ROWS_PER_GROUP
-    with make_batch_reader(url_a, shuffle_row_groups=False, **dict(kwargs, num_epochs=1)) as r:
-        with TorchLoader(r, LM_BATCH * SCAN_K, device=device, last_batch='partial') as loader:
+    with make_batch_reader(url_a, shuffle_row_groups=False, autotune=False, **dict(kwargs,
+                           num_epochs=1)) as r:
+        with TorchLoader(r, LM_BATCH * SCAN_K, device=device, last_batch='partial',
+                         autotune=False) as loader:
             epoch = torch.cat([b.tokens for b in loader]).cpu().numpy()
         fill = r.cache_stats()
     column = read_store_column(url_a, 'tokens').to_pylist()
@@ -2072,12 +2332,12 @@ def run_lm_plain(url_a, url_b, tokens_b, lm_url, device, card, workdir, lm_scan_
 
     # (a) the batch reader, served by the Arrow cache.
     kept = []
-    reader = make_batch_reader(url_a, **kwargs)
+    reader = make_batch_reader(url_a, autotune=False, **kwargs)
     result, _, _ = lm_scan(reader, device, lm_model(device, LM_LAYERS, LM_SEQ - 1), LM_BATCH,
                            SCAN_K, warmup, calls, LM_LAYERS,
                            observe=lambda tokens, loader: kept.append(tokens.clone()))
     streamed = torch.cat(kept).cpu().numpy()
-    with make_batch_reader(url_a, reader_pool_type='dummy', **kwargs) as single:
+    with make_batch_reader(url_a, reader_pool_type='dummy', autotune=False, **kwargs) as single:
         if not np.array_equal(streamed, _rows_of(single, len(streamed))):
             raise AssertionError('lm_plain (a): the training stream\'s {} batches differ from '
                                  'the dummy-pool reader\'s'.format(len(kept)))
@@ -2105,8 +2365,8 @@ def run_lm_plain(url_a, url_b, tokens_b, lm_url, device, card, workdir, lm_scan_
             if segment['row_start'] == 0:           # a chunk's first rows
                 sources.append(segment['source'])
 
-    mixture = WeightedSamplingReader([make_batch_reader(url_a, **kwargs),
-                                      make_batch_reader(url_b, **kwargs)],
+    mixture = WeightedSamplingReader([make_batch_reader(url_a, autotune=False, **kwargs),
+                                      make_batch_reader(url_b, autotune=False, **kwargs)],
                                      list(LM_PLAIN_MIX), seed=0)
     result, _, _ = lm_scan(mixture, device, lm_model(device, LM_LAYERS, LM_SEQ - 1), LM_BATCH,
                            SCAN_K, warmup, calls, LM_LAYERS,
@@ -2157,8 +2417,9 @@ def run_lm_plain(url_a, url_b, tokens_b, lm_url, device, card, workdir, lm_scan_
         raise AssertionError('lm_plain: the copy carries no reference schema')
     digests = []
     for url in (lm_url, legacy_url):
-        with make_tensor_reader(url, shuffle_row_groups=False, reader_pool_type='dummy') as r:
-            with TorchLoader(r, LM_BATCH * SCAN_K, device=device) as loader:
+        with make_tensor_reader(url, shuffle_row_groups=False, reader_pool_type='dummy',
+                                autotune=False) as r:
+            with TorchLoader(r, LM_BATCH * SCAN_K, device=device, autotune=False) as loader:
                 digests.append(_digest_array(next(loader).tokens.cpu().numpy()))
     if digests[0] != digests[1]:
         raise AssertionError('lm_plain: the reference copy\'s first batch differs from the '
@@ -2238,16 +2499,16 @@ def _measure_cache_tier(url, device, workers, batch, warm, measure, tier):
         store_dir = tempfile.mkdtemp(prefix=TEMP_DIR_PREFIX, dir=BUILD_DIR)
         kwargs['cache_location'] = store_dir
         t0 = time.perf_counter()
-        with make_tensor_reader(url, num_epochs=1, **kwargs) as filler:
+        with make_tensor_reader(url, num_epochs=1, autotune=False, **kwargs) as filler:
             for _ in filler:
                 pass
             if not filler.chunk_store.flush(timeout_s=120):
                 raise RuntimeError('the chunk store did not drain its writes')
         fill_s = time.perf_counter() - t0
     try:
-        reader = make_tensor_reader(url, num_epochs=None, **kwargs)
+        reader = make_tensor_reader(url, num_epochs=None, autotune=False, **kwargs)
         with reader:
-            with TorchLoader(reader, batch, device=device, prefetch=2) as loader:
+            with TorchLoader(reader, batch, device=device, prefetch=2, autotune=False) as loader:
                 for _ in range(warm):
                     b = next(loader)
                 _fence(b)
@@ -2298,7 +2559,7 @@ def decode_path_sweep(url):
     def measure(**kwargs):
         with make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
                                 workers_count=workers, num_epochs=1, shuffle_row_groups=False,
-                                **kwargs) as reader:
+                                autotune=False, **kwargs) as reader:
             t0 = time.perf_counter()
             images = sum(len(chunk.image) for chunk in reader)
             elapsed = time.perf_counter() - t0
@@ -2379,10 +2640,10 @@ def _deterministic_rate(url, device, workers, batch, prefetch, inflight, warm_ba
 
     reader = make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
                                 workers_count=workers, num_epochs=None, shuffle_row_groups=True,
-                                seed=0, cache_type='memory', deterministic=True)
+                                seed=0, cache_type='memory', deterministic=True, autotune=False)
     with reader:
         with TorchLoader(reader, batch, device=device, prefetch=prefetch,
-                         inflight=inflight) as loader:
+                         inflight=inflight, autotune=False) as loader:
             for _ in range(warm_batches):
                 b = next(loader)
             _fence(b)
@@ -2420,9 +2681,9 @@ def _per_device_stream_probe(url, device, workers, batch):
         reader = make_pod_reader(url, mesh=mesh, schema_fields=['image', 'label'],
                                  reader_pool_type='thread', workers_count=workers,
                                  num_epochs=None, shuffle_row_groups=True, seed=0,
-                                 cache_type='memory')
+                                 cache_type='memory', autotune=False)
         with reader:
-            with TorchLoader(reader, batch, mesh=mesh) as loader:
+            with TorchLoader(reader, batch, mesh=mesh, autotune=False) as loader:
                 for _ in range(4):
                     b = next(loader)
                 _fence(b)
@@ -2447,13 +2708,15 @@ def _per_device_stream_probe(url, device, workers, batch):
             'arena_pinned': stats['arena_pinned'], 'measure_batches': measure}
 
 
-def run_pipeline(url, device, workers):
+def run_pipeline(url, device, workers, autotune):
     """Loader-only capacity: the imagenet child's reader and loader with no
     train step (``bench.py:774-949``). ``make_tensor_reader(cache_type=
     'memory', num_epochs=None, shuffle_row_groups=True, seed=0)``,
     ``TorchLoader(batch, prefetch, inflight, arena_depth, lineage=<a
-    throwaway ledger directory>)`` (defaults 128, 2, 2, the loader's;
-    ``BENCH_PIPELINE_*``); warm-up through one epoch plus two batches,
+    throwaway ledger directory>, autotune)`` (defaults 128, 2, 2, the
+    loader's; ``BENCH_PIPELINE_*``). ``autotune`` arms the loader's tuner
+    (the child passes ``BENCH_PIPELINE_AUTOTUNE``, default on,
+    ``bench.py:805-809``), and its record is ``pipeline_autotune``; warm-up through one epoch plus two batches,
     ``reset_stats()``, then ``reps`` (3) windows of 32 batches, each timed
     to the last batch's copy. The rate is the median, the spread max - min;
     the stage profile spans all reps. As in the bench, the lineage ledger is
@@ -2480,11 +2743,11 @@ def run_pipeline(url, device, workers):
     ledger_dir = tempfile.mkdtemp(prefix=TEMP_DIR_PREFIX)
     reader = make_tensor_reader(url, schema_fields=['image', 'label'], reader_pool_type='thread',
                                 workers_count=workers, num_epochs=None, shuffle_row_groups=True,
-                                seed=0, cache_type='memory')
+                                seed=0, cache_type='memory', autotune=False)
     with reader:
         with TorchLoader(reader, batch, device=device, prefetch=prefetch, inflight=inflight,
                          arena_depth=int(arena_depth) if arena_depth else None,
-                         lineage=ledger_dir) as loader:
+                         lineage=ledger_dir, autotune=autotune) as loader:
             # Warm through one epoch: the memory cache fills, so the steady
             # state isolates the pipeline from first-epoch decode (the cold
             # rate below).
@@ -2506,6 +2769,7 @@ def run_pipeline(url, device, workers):
                 rates.append(batch * measure_batches / elapsed)
             stats, timings, cache = loader.stats, reader.stage_timings, reader.cache_stats()
             mem = _mem_governor_summary()     # while this pipeline holds its arm
+            autotune_record = autotune_summary(stats)
     det_rate = None
     if os.environ.get('BENCH_PIPELINE_DETERMINISM', '1') == '1':
         det_rate = _deterministic_rate(url, device, workers, batch, prefetch, inflight,
@@ -2539,7 +2803,7 @@ def run_pipeline(url, device, workers):
     profile['per_device_stream'] = _per_device_stream_probe(url, device, workers, batch)
     if os.environ.get('BENCH_PIPELINE_DECODE_SWEEP', '1') == '1':
         profile['decode_path_sweep'] = decode_path_sweep(url)
-    return {
+    out = {
         'pipeline_img_per_sec': median,
         'pipeline_img_per_sec_reps': rates,
         'pipeline_img_per_sec_spread': ranked[-1] - ranked[0],
@@ -2551,8 +2815,10 @@ def run_pipeline(url, device, workers):
                           'repetitions': reps,
                           'probe_lock': 'left out: the bench takes it against its TPU pool\'s '
                                         'opportunistic prober, which the card does not have'},
-        'pipeline_stage_profile': profile,
-        'not_ported': dict(PIPELINE_NOT_PORTED)}
+        'pipeline_stage_profile': profile}
+    if autotune_record is not None:
+        out['pipeline_autotune'] = autotune_record
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2565,7 +2831,8 @@ def measure_reader(url, workers, pool='thread', cache_type='null'):
     (``bench.py:313-327``)."""
     from petastorm_tpu_torch import make_reader
     with make_reader(url, reader_pool_type=pool, workers_count=workers, num_epochs=None,
-                     shuffle_row_groups=True, seed=0, cache_type=cache_type) as reader:
+                     shuffle_row_groups=True, seed=0, cache_type=cache_type,
+                     autotune=False) as reader:
         for _ in range(HELLO_WARMUP_SAMPLES):
             next(reader)
         start = time.perf_counter()
@@ -2604,9 +2871,10 @@ def run_staging(url, device, workers, pool='thread'):
     fenced on its copy, and the input stall."""
     from petastorm_tpu_torch import PadTo, TorchLoader, make_reader
     with make_reader(url, reader_pool_type=pool, workers_count=workers, num_epochs=None,
-                     shuffle_row_groups=True, seed=0) as reader:
+                     shuffle_row_groups=True, seed=0, autotune=False) as reader:
         with TorchLoader(reader, STAGING_BATCH, device=device,
-                         shape_policies={'array_4d': PadTo((4, 128, 30, 3))}) as loader:
+                         shape_policies={'array_4d': PadTo((4, 128, 30, 3))},
+                         autotune=False) as loader:
             _fence(next(loader))
             loader.reset_stats()
             start = time.perf_counter()
@@ -2731,16 +2999,20 @@ def child_imagenet(device, workdir):
     """The imagenet child and its ``vit`` and ``aug`` variants: the
     streamed scan path and the HBM tier. ``BENCH_IMAGENET_WARMUP`` and
     ``BENCH_IMAGENET_STEPS`` (steps) become calls of 8 steps: at least 2
-    warm-up calls (call 2 captures the graph) and 1 measured."""
+    warm-up calls (call 2 captures the graph) and 1 measured. ResNet-50's
+    streamed loader runs with the autotuner unless
+    ``BENCH_IMAGENET_AUTOTUNE=0``, and its record is ``imagenet_autotune``."""
     url = ensure_imagenet_store(workdir)
     model = os.environ.get('BENCH_IMAGENET_MODEL', 'resnet50')
     aug = os.environ.get('BENCH_IMAGENET_AUG', '0') == '1'
     warmup = max(2, -(-_env_int('BENCH_IMAGENET_WARMUP', ROWS // BATCH + 3) // SCAN_K))
     calls = max(1, _env_int('BENCH_IMAGENET_STEPS', 40) // SCAN_K)
+    # The tuner runs by default, as in the bench (bench.py:1868-1870).
+    autotune = os.environ.get('BENCH_IMAGENET_AUTOTUNE', '1') == '1'
     card = _card(device)
     config = {'model': model, 'augment': aug, 'batch': BATCH, 'scan_microbatches': SCAN_K,
               'prefetch': SCAN_PREFETCH, 'workers': 4, 'cache_type': 'memory',
-              'warmup_calls': warmup, 'measured_calls': calls}
+              'warmup_calls': warmup, 'measured_calls': calls, 'autotune': autotune}
     if model == 'vit':
         line = run_imagenet_vit(url, device, card, warmup, calls)
         streamed, hbm = line['streamed'], line['hbm']
@@ -2749,7 +3021,8 @@ def child_imagenet(device, workdir):
             line = run_imagenet_aug(url, device, card, resnet50_state(device))
             streamed, hbm = None, line['augmented']
         else:
-            streamed, state = run_imagenet_scan(url, device, card, warmup, calls)
+            streamed, state = run_imagenet_scan(url, device, card, warmup, calls,
+                                                autotune=autotune)
             hbm = run_imagenet_hbm(url, device, card, state)
             line = {'streamed': streamed, 'hbm': hbm}
     else:
@@ -2769,6 +3042,8 @@ def child_imagenet(device, workdir):
     if aug:
         out.update(aug_cost_frac=line['aug_cost_frac'],
                    bare_img_per_sec_per_chip=line['bare_cast']['img_per_s'])
+    if streamed is not None and streamed.get('autotune') is not None:
+        out['imagenet_autotune'] = streamed['autotune']
     return out
 
 
@@ -2792,7 +3067,8 @@ def child_lm(device, workdir):
 
 def child_pipeline(device, workdir):
     workers = max(4, min(10, os.cpu_count() or 4))
-    return run_pipeline(ensure_imagenet_store(workdir), device, workers)
+    return run_pipeline(ensure_imagenet_store(workdir), device, workers,
+                        autotune=os.environ.get('BENCH_PIPELINE_AUTOTUNE', '1') == '1')
 
 
 def child_staging(device, workdir):

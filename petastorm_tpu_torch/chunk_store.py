@@ -7,8 +7,10 @@ registry too, and the ``store-read-corrupt`` fault site (``:500-502``)
 makes an entry read fail its check, so the entry is quarantined and
 refilled. The global tracer gets a ``chunk_store_quarantine`` instant for
 each quarantined entry and the ``chunk_store_hits``/``chunk_store_writes``
-counters (``:477-478, 574-575, 749-750``). Left out: the autotuner's
-throttle listener (the throttle itself is here). The store's directory is local: a
+counters (``:477-478, 574-575, 749-750``). An autotuner over the
+pipeline paces the writer through
+:func:`~petastorm_tpu_torch.autotune.writer_throttle_listener` while it
+blames the pipeline itself (``:38-40``). The store's directory is local: a
 ``cache_location`` URL of another scheme than ``file`` raises.
 
 The tiers before it leave a gap: the device cache needs the dataset on the

@@ -10,8 +10,9 @@ many:
 * every in-process worker pool **registers** its worker count
   (:meth:`DecodeThreadBudget.register_pool` -> :class:`PoolShare`) and
   releases it when its reader stops; :meth:`PoolShare.resize` re-divides on
-  a live resize (the port's thread pool cannot resize yet, ROADMAP §A9h, so
-  nothing calls it there);
+  a live resize (``ThreadPool.resize``, the autotuner's ``workers`` knob),
+  and :meth:`DecodeThreadBudget.set_total` (its ``decode_threads`` knob)
+  retargets the total;
 * each decode call asks :meth:`DecodeThreadBudget.share` for the *current*
   per-worker share, ``max(1, total // registered workers)``, so concurrent
   workers never oversubscribe the host. A decode with nothing registered
@@ -80,8 +81,8 @@ class DecodeThreadBudget(object):
         return self._total
 
     def set_total(self, n):
-        """Retarget the process-wide budget at runtime (the JAX package's
-        autotuner knob ``decode_threads``). Takes effect on the next decode
+        """Retarget the process-wide budget at runtime (the autotuner's
+        ``decode_threads`` knob). Takes effect on the next decode
         call of every sharing worker: the C++ threads live for one call."""
         n = int(n)
         if n < 1:

@@ -148,7 +148,10 @@ class FlightRecorder(object):
         if diagnosis is None:
             return
         try:
-            stacks = diagnosis.get('stacks') if hasattr(diagnosis, 'get') else None
+            # A watchdog's StallDiagnosis holds its stacks as walked; a
+            # plain dict may carry them as text.
+            stacks = (diagnosis.stacks_text() if hasattr(diagnosis, 'stacks_text')
+                      else diagnosis.get('stacks'))
             summary = {k: v for k, v in dict(diagnosis).items() if k != 'stacks'}
             with open(os.path.join(dump_dir, 'diagnosis.json'), 'w') as f:
                 # default=repr: probe snapshots may hold numpy scalars.

@@ -125,14 +125,36 @@ def env_stall_timeout():
     return value if value > 0 else None
 
 
+def snapshot_stacks():
+    """Every live thread's stack as ``[(name, ident, [(file, line, function),
+    ...]), ...]``, outermost frame first: a walk of the frames and nothing
+    more, so that a watchdog's check holds the GIL for a fraction of a
+    millisecond (formatting with source lines takes tens of milliseconds
+    when busy threads take the GIL in turns). :func:`format_stacks` makes
+    the text."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out = []
+    for ident, frame in sorted(sys._current_frames().items()):
+        frames = []
+        while frame is not None:
+            frames.append((frame.f_code.co_filename, frame.f_lineno, frame.f_code.co_name))
+            frame = frame.f_back
+        frames.reverse()
+        out.append((names.get(ident, '?'), ident, frames))
+    return out
+
+
+def format_stacks(snapshot):
+    """A :func:`snapshot_stacks` as text, each frame with its source line."""
+    return '\n'.join('Thread {} ({}):\n{}'.format(
+        name, ident, ''.join(traceback.StackSummary.from_list(
+            [(path, line, function, None) for path, line, function in frames]).format()))
+        for name, ident, frames in snapshot)
+
+
 def dump_all_stacks():
     """Every live thread's stack, formatted as one string."""
-    names = {t.ident: t.name for t in threading.enumerate()}
-    chunks = []
-    for ident, frame in sorted(sys._current_frames().items()):
-        chunks.append('Thread {} ({}):\n{}'.format(names.get(ident, '?'), ident,
-                                                   ''.join(traceback.format_stack(frame))))
-    return '\n'.join(chunks)
+    return format_stacks(snapshot_stacks())
 
 
 class Heartbeat(object):
@@ -409,7 +431,11 @@ def _classify_stall_stages(beats, probes):
 
 class StallDiagnosis(dict):
     """classification, stage, detail, the beat table, the probes, the
-    all-thread stacks and the capture time."""
+    all-thread stacks as walked (``stacks``, a :func:`snapshot_stacks`, where
+    the JAX package keeps the formatted text) and the capture time. The
+    stacks are formatted only when printed (:meth:`stacks_text`,
+    :meth:`format`): a check stays cheap, and a diagnosis that nobody
+    prints is never formatted."""
 
     @classmethod
     def capture(cls, registry, classification, stage, detail, beats=None, probes=None):
@@ -418,10 +444,14 @@ class StallDiagnosis(dict):
         return cls(classification=classification, stage=stage, detail=detail,
                    beats=beats if beats is not None else registry.beat_table(),
                    probes=probes if probes is not None else registry.probe_snapshot(),
-                   stacks=dump_all_stacks(), captured_at=time.time())
+                   stacks=snapshot_stacks(), captured_at=time.time())
+
+    def stacks_text(self):
+        """The all-thread stack dump, formatted with source lines."""
+        return format_stacks(self.get('stacks') or ())
 
     def summary(self):
-        """The diagnosis without its stack dump."""
+        """The diagnosis without its stacks."""
         return {k: v for k, v in self.items() if k != 'stacks'}
 
     def format(self):
@@ -432,7 +462,7 @@ class StallDiagnosis(dict):
         if self['probes']:
             lines.append('probes: {}'.format(self['probes']))
         lines.append('--- all-thread stack dump ---')
-        lines.append(self['stacks'])
+        lines.append(self.stacks_text())
         return '\n'.join(lines)
 
 
@@ -636,14 +666,18 @@ class HealthMonitor(object):
 
 
 class PipelineSupervisor(object):
-    """The health half of the JAX package's ``PipelineSupervisor``
-    (``petastorm_tpu/fleet/control_plane.py:367-415``; its autotune half
-    waits for §A9h, the fleet for §A9i): one arm/start/stop lifecycle for a
-    reader's or a loader's :class:`HealthMonitor`. The owner keeps
-    :attr:`health` for its stats."""
+    """The JAX package's ``PipelineSupervisor``
+    (``petastorm_tpu/fleet/control_plane.py:367-457``; the rest of that
+    module, the fleet, waits for ROADMAP §A9i): one arm/start/stop lifecycle
+    for a reader's or a loader's :class:`HealthMonitor` and
+    :class:`~petastorm_tpu_torch.autotune.AutoTuner`. Health is armed first
+    (the tuner reads its watchdog's ``episode_active``); :meth:`stop` stops
+    the tuner first. The owner keeps :attr:`health` and :attr:`autotuner`
+    for its stats."""
 
     def __init__(self):
         self.health = None
+        self.autotuner = None
 
     def arm_health(self, watchdog, stall_timeouts, on_hard_stall, tracer=None, attach_fn=None,
                    start=True):
@@ -670,8 +704,37 @@ class PipelineSupervisor(object):
         if self.health is not None:
             self.health.start()
 
+    def arm_autotune(self, autotune, knobs_fn, telemetry_fn, classify_fn,
+                     watchdog_active_fn=None, memory_state_fn=None, tracer=None,
+                     listeners=()):
+        """Start an :class:`~petastorm_tpu_torch.autotune.AutoTuner` when
+        ``autotune`` resolves on (``True``, an ``AutotuneConfig``, or
+        ``PSTT_AUTOTUNE`` for ``None``) and ``knobs_fn(config)`` returns a
+        knob; else return None. ``listeners`` see every classified tick."""
+        from petastorm_tpu_torch import autotune as autotune_mod
+        if not autotune_mod.autotune_enabled(autotune):
+            return None
+        config = autotune_mod.resolve_config(autotune)
+        knobs = knobs_fn(config)
+        if not knobs:
+            return None
+        if tracer is None:
+            from petastorm_tpu_torch.trace import get_global_tracer
+            tracer = get_global_tracer()
+        self.autotuner = autotune_mod.AutoTuner(
+            telemetry_fn=telemetry_fn, knobs=knobs, config=config, tracer=tracer,
+            classify_fn=classify_fn, watchdog_active_fn=watchdog_active_fn,
+            memory_state_fn=memory_state_fn)
+        for listener in listeners:
+            self.autotuner.add_listener(listener)
+        return self.autotuner.start()
+
     def stop(self):
-        """Stop the monitor (idempotent)."""
+        """Stop the tuner (it turns knobs of stages the monitor watches),
+        then the monitor. Idempotent."""
+        tuner, self.autotuner = self.autotuner, None
+        if tuner is not None:
+            tuner.stop()
         health, self.health = self.health, None
         if health is not None:
             health.stop()

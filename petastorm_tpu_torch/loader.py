@@ -50,6 +50,19 @@ delivered into the staging queue, so ``next`` raises the diagnosed
 :class:`~petastorm_tpu_torch.errors.PipelineStallError`;
 ``stats['watchdog']`` holds the counts, the last diagnosis and the beats.
 
+Autotune (``petastorm_tpu/jax_loader.py:1346-1483``): ``autotune=`` arms
+one :class:`~petastorm_tpu_torch.autotune.AutoTuner` for the pipeline,
+classified by :func:`~petastorm_tpu_torch.autotune.classify_loader`, over
+the loader's knobs (with staging threads: ``prefetch``, ``inflight``,
+``arena_depth``, ``arena_pinned``) and the reader's, which the loader
+adopts (``Reader.adopt_autotune``, stopping the reader's own tuner). It
+pauses while the watchdog has a stall episode open, biases every knob down
+while the memory governor is at advisory or worse, and throttles a chunk
+store's writer while it blames the pipeline; ``stats['autotune']`` holds
+its log and trajectory. The JAX loader's ``device_inflight`` and
+``device_stream_min_mb`` knobs turn its per-device stager, which the port
+does not have: it runs one process a GPU, whose batch is one copy.
+
 dtype table (the JAX package narrows 64-bit types; torch keeps them):
 bool, uint8, int8, int16, int32, int64, float16, float32 and float64 keep
 their type; uint16 widens to int32 and uint32 to int64 (values preserved);
@@ -67,6 +80,7 @@ from collections import deque, namedtuple
 import numpy as np
 import torch
 
+from petastorm_tpu_torch import autotune as autotune_mod
 from petastorm_tpu_torch import membudget, metrics
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.faults import maybe_inject
@@ -643,6 +657,10 @@ class TorchLoader(object):
         or a dict stage -> seconds with an optional ``'default'``); a stall
         past twice its deadline raises ``PipelineStallError`` from ``next``
         (a consumer that stops draining is only recorded).
+    :param autotune: ``True`` or an :class:`~petastorm_tpu_torch.autotune.
+        AutotuneConfig` arms the pipeline's autotuner (see the module
+        docstring), ``False`` keeps it off, ``None`` defers to
+        ``PSTT_AUTOTUNE`` (off by default).
 
     Host memory: the loader registers its pools with the governor
     (:mod:`~petastorm_tpu_torch.membudget`, ``petastorm_tpu/jax_loader.py:
@@ -667,7 +685,8 @@ class TorchLoader(object):
                  last_batch='drop', shuffling_queue_capacity=0, min_after_dequeue=None,
                  seed=None, strict_fields=False, echo=1, inflight=2, arena_depth=None,
                  lineage=None, resume_state=None, mesh=None, sharding=None, batch_axis='data',
-                 on_device_augment=None, tracer=None, watchdog=None, stall_timeout_s=None):
+                 on_device_augment=None, tracer=None, watchdog=None, stall_timeout_s=None,
+                 autotune=None):
         if batch_size < 1:
             raise ValueError('batch_size must be >= 1, got {}'.format(batch_size))
         if prefetch < 0:
@@ -693,6 +712,8 @@ class TorchLoader(object):
         self._init_lineage(reader, lineage, batch_size, last_batch, shape_policies,
                            shuffling_queue_capacity)
         self._prefetch = int(prefetch)
+        # The staging queue's live bound (the autotuner's prefetch knob).
+        self._prefetch_target = max(1, self._prefetch)
         self._inflight = int(inflight)
         self._echo = int(echo)
         self._echo_left = 0
@@ -754,6 +775,93 @@ class TorchLoader(object):
         #: A DeviceDatasetCache over this loader attaches itself here.
         self._device_cache = None
         self._register_memory_pools(reader)
+        self._init_autotune(reader, autotune)
+
+    def _init_autotune(self, reader, autotune):
+        """One controller for the pipeline (``petastorm_tpu/jax_loader.py:
+        1346-1423``): the loader's knobs and the reader's, adopted."""
+        self._reader_telemetry = None
+        self._arena_knob = None
+
+        def build_knobs(config):
+            knobs = {}
+            if self._engine is not None:
+                engine, pool = self._engine, self._pool
+                knobs['prefetch'] = autotune_mod.Knob(
+                    'prefetch', lambda: self._prefetch_target, self.set_prefetch,
+                    lo=config.min_prefetch, hi=config.max_prefetch)
+                knobs['inflight'] = autotune_mod.Knob(
+                    'inflight', lambda: engine.inflight_window, engine.set_inflight,
+                    lo=config.min_inflight, hi=config.max_inflight)
+                self._arena_knob = knobs['arena_depth'] = autotune_mod.Knob(
+                    'arena_depth', lambda: pool.depth, pool.set_depth,
+                    lo=max(config.min_arena_depth, pool.floor),
+                    hi=max(config.max_arena_depth, pool.floor))
+                # A dispatch-bound pipeline pins its arenas; the memory
+                # bias unpins them first. Host memory cannot be pinned
+                # without CUDA, so on the CPU the knob stays at 0.
+                knobs['arena_pinned'] = autotune_mod.Knob(
+                    'arena_pinned', lambda: int(pool.pinned),
+                    lambda v: pool.set_pinned(bool(v)), lo=0, hi=1 if self._cuda else 0)
+            adopt = getattr(reader, 'adopt_autotune', None)
+            if adopt is not None:
+                reader_knobs, self._reader_telemetry = adopt(config)
+                knobs.update(reader_knobs)
+            return knobs
+
+        watchdog_active = None
+        if self._health is not None:
+            watchdog = self._health.watchdog
+            watchdog_active = lambda: watchdog.episode_active  # noqa: E731
+        listeners = []
+        store = getattr(reader, 'chunk_store', None)
+        if store is not None:
+            listeners.append(autotune_mod.writer_throttle_listener(store))
+        self._autotuner = self._supervisor.arm_autotune(
+            autotune, build_knobs, self._autotune_telemetry, autotune_mod.classify_loader,
+            watchdog_active_fn=watchdog_active,
+            memory_state_fn=membudget.get_governor().pressure_level, tracer=self._tracer,
+            listeners=listeners)
+
+    def set_prefetch(self, n):
+        """Retarget the staging queue's bound while the loader runs (the
+        autotuner's ``prefetch`` knob): a raise wakes a dispatch thread
+        blocked on the full queue; a cut takes effect as the consumer drains
+        (no staged batch is dropped). Without staging threads there is no
+        queue and nothing changes."""
+        n = max(1, int(n))
+        self._prefetch_target = n
+        if self._queue is not None:
+            with self._queue.mutex:
+                self._queue.maxsize = n
+                self._queue.not_full.notify_all()
+
+    def _autotune_telemetry(self):
+        """The inputs of :func:`~petastorm_tpu_torch.autotune.classify_loader`
+        (``petastorm_tpu/jax_loader.py:1447-1483``): delivered batches and
+        the consumer's wait (counters), the staging queue's depth and
+        capacity, the waits on the reader, on an arena and on a copy
+        (counters; with ``prefetch=0`` the inline split of the consumer's
+        own staging; a copy from pageable memory counts as a wait on the
+        copy), and the reader's gauges."""
+        out = {'batches': self._batches, 'wait_s': self._wait_s,
+               'queue_depth': self._queue.qsize() if self._queue is not None else 0,
+               'queue_capacity': self._prefetch_target,
+               'arena_wait_s': self._pool.wait_seconds}
+        if self._engine is not None:
+            out['reader_wait_s'] = self._metered.reader_wait_s
+            # A copy from pageable memory waits inside the issue, not at the
+            # event the engine waits on: both are the wait on the transfer.
+            out['ready_wait_s'] = self._engine.ready_wait_seconds + self._pageable_copy_s
+        else:
+            out['reader_wait_s'] = self._inline_reader_s
+            out['ready_wait_s'] = self._inline_dispatch_s
+        if self._reader_telemetry is not None:
+            reader_out = self._reader_telemetry()
+            # The rate the guard judges is the loader's delivered batches.
+            reader_out.pop('batches', None)
+            out.update(reader_out)
+        return out
 
     def _init_health(self, reader, watchdog, stall_timeout_s):
         """The pipeline's health monitor, armed with its start deferred: the
@@ -767,7 +875,7 @@ class TorchLoader(object):
             self._hb_consumer = registry.register('consumer')
             registry.register_probe('consumer', lambda: {
                 'queue_depth': self._queue.qsize() if self._queue is not None else 0,
-                'queue_capacity': self._prefetch, 'exhausted': self._exhausted})
+                'queue_capacity': self._prefetch_target, 'exhausted': self._exhausted})
             attach = getattr(reader, 'attach_health', None)
             if attach is not None:
                 attach(registry)
@@ -1026,6 +1134,11 @@ class TorchLoader(object):
             self._stage_decode_s = 0.0
             self._stage_decode_threads = None
             self._hook_failures = 0
+            # prefetch=0: the consumer's own reader pull and copy issue.
+            self._inline_reader_s = 0.0
+            self._inline_dispatch_s = 0.0
+            # Seconds the copies from pageable memory held the staging thread.
+            self._pageable_copy_s = 0.0
 
     # -- staging -------------------------------------------------------------
 
@@ -1111,6 +1224,7 @@ class TorchLoader(object):
             if any(src.device.type == 'cuda' for src in sources.values()):
                 # A decode hook's output: the copies follow its kernels.
                 self._h2d_stream.wait_stream(torch.cuda.current_stream(self.device))
+            pinned = {} if arena is None or not arena.pinned else arena.tensors
             with torch.cuda.stream(self._h2d_stream):
                 start = torch.cuda.Event(enable_timing=True)
                 start.record(self._h2d_stream)
@@ -1118,9 +1232,17 @@ class TorchLoader(object):
                 for name, src in sources.items():
                     if src.device == self.device:
                         dst = src
-                    else:
+                    elif src is pinned.get(name):
                         dst = torch.empty(src.shape, dtype=src.dtype, device=self.device)
                         dst.copy_(src, non_blocking=True)
+                    else:
+                        # From pageable memory the copy runs before the call
+                        # returns: the wait on the transfer that a pinned
+                        # source spends at its event.
+                        dst = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+                        t_copy = time.perf_counter()
+                        dst.copy_(src, non_blocking=True)
+                        self._pageable_copy_s += time.perf_counter() - t_copy
                     if cuts.get(name) is not None:
                         dst = dst[cuts[name]].contiguous()
                     tensors[name] = dst
@@ -1158,15 +1280,19 @@ class TorchLoader(object):
         hb = self._hb_consumer
         if hb is not None:
             hb.beat('reader-wait')
+        t0 = time.perf_counter()
         try:
             with self._tracer.span('assemble', 'host'):
                 item = next(self._host_iter)
         except StopIteration:
             return _END
+        t1 = time.perf_counter()
+        self._inline_reader_s += t1 - t0
         arena = self._pool.claim_pending()
         if hb is not None:
             hb.beat('device_put')
         staged = self._stage(item, arena)
+        self._inline_dispatch_s += time.perf_counter() - t1
         if arena is not None:
             if not self._cuda:
                 for value in staged.tensors.values():
@@ -1270,6 +1396,11 @@ class TorchLoader(object):
         once its copy landed, and nothing changes."""
         if not self._cuda:
             self._pool.ensure_depth(self._arena_depth + n + (self._echo > 1))
+            knob = self._arena_knob
+            if knob is not None:
+                # The tuner's floor follows the pool's.
+                knob.lo = max(knob.lo, self._pool.floor)
+                knob.hi = max(knob.hi, knob.lo)
 
     def superbatches(self, k):
         """Yield batches of ``k * batch_size`` rows: ``k`` consecutive
@@ -1325,7 +1456,9 @@ class TorchLoader(object):
         """Delivered ``batches`` (echoes included) and source ``rows``;
         ``wait_s`` blocked in ``next`` and ``input_stall_frac`` (over the
         wall time since the first fetch); ``stage_dispatch_s`` issuing
-        copies; ``h2d_bytes``/``h2d_s`` of the completed copies; the
+        copies, ``pageable_copy_s`` of it in copies from pageable memory
+        (unpinned arenas: such a copy completes before its call returns);
+        ``h2d_bytes``/``h2d_s`` of the completed copies; the
         staging engine's ``assemble_s``, ``dispatch_s``, ``overlap_s``,
         ``overlap_frac``, ``ready_wait_s`` (``prefetch >= 1``); the arena
         pool's ``arena_alloc``, ``arena_reuse``, ``arena_wait_s``;
@@ -1343,7 +1476,10 @@ class TorchLoader(object):
         device), ``shards_put`` and, by device,
         ``device_put_s`` and ``device_put_bytes``; ``watchdog`` (stall episodes,
         soft recoveries, hard stalls, the last diagnosis without its stacks,
-        ``alive``, the flight dumps and the beat table) when armed."""
+        ``alive``, the flight dumps and the beat table) when armed;
+        ``autotune`` (the tuner's ``stats()``: ticks, paused ticks, reverts,
+        mem-shrinks, the last class, the knobs, the decision log and the
+        trajectory) when armed."""
         elapsed = (time.perf_counter() - self._first_get_t
                    if self._first_get_t is not None else 0.0)
         with self._stats_lock:
@@ -1352,7 +1488,8 @@ class TorchLoader(object):
                    'stage_dispatch_s': self._stage_s, 'h2d_bytes': self._h2d_bytes,
                    'h2d_s': self._h2d_s, 'stage_decode_s': self._stage_decode_s,
                    'stage_decode_threads': self._stage_decode_threads,
-                   'stage_decode_hook_failures': self._hook_failures}
+                   'stage_decode_hook_failures': self._hook_failures,
+                   'pageable_copy_s': self._pageable_copy_s}
         if self._engine is not None:
             out.update(self._engine.stats())
         out.update(self._pool.stats())
@@ -1378,6 +1515,8 @@ class TorchLoader(object):
             out['mem'] = governor.stats()
         if self._health is not None:
             out['watchdog'] = self._health.stats()
+        if self._autotuner is not None:
+            out['autotune'] = self._autotuner.stats()
         return out
 
     def close(self):
@@ -1386,8 +1525,9 @@ class TorchLoader(object):
         if self._closed:
             return
         self._closed = True
-        # The watchdog first: it would read the stages' deliberate quiet as
-        # a stall. ``_health`` stays referenced, so ``stats`` still shows it.
+        # The tuner and the watchdog first: one would resize stages being
+        # stopped, the other read their deliberate quiet as a stall.
+        # ``_health`` and ``_autotuner`` stay referenced for ``stats``.
         self._supervisor.stop()
         governor = membudget.get_governor()
         for handle in self._mem_handles:

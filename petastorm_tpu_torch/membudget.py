@@ -1,10 +1,10 @@
 """Host memory governor: one byte account over the pipeline's pools, a
 pressure ladder, and a typed error instead of the kernel's OOM kill.
 
-Counterpart of ``petastorm_tpu/membudget.py:1-887`` without its autotuner
-bias (ROADMAP §A9h). Each ladder transition is a ``mem-pressure:<state>``
-instant of the global tracer (``:646-647``); a breach dumps the flight
-recorder (:mod:`~petastorm_tpu_torch.flight_recorder`, ``:761-776``) under
+Counterpart of ``petastorm_tpu/membudget.py:1-887``. Each ladder
+transition is a ``mem-pressure:<state>`` instant of the global tracer
+(``:646-647``); a breach dumps the flight recorder
+(:mod:`~petastorm_tpu_torch.flight_recorder`, ``:761-776``) under
 ``PSTT_FLIGHT_RECORDER``, else the temporary directory, before it raises;
 :meth:`MemoryGovernor.probe` is the watchdog's ``memory`` probe, whose
 state turns a starvation-shaped stall into the soft ``memory-pressure``
@@ -31,7 +31,10 @@ state      trigger        actions
 ========== ============== ====================================================
 ok         < 70% budget   none
 advisory   >= 70%         chunk-store spill paused, new arenas unpinned, the
-                          partial device cache's fill paused
+                          partial device cache's fill paused; an autotuner
+                          (its ``memory_state_fn`` is :meth:`MemoryGovernor.
+                          pressure_level`) stops growing and steps every knob
+                          down once a cooldown (``mem-shrink``)
 degrade    >= 85%         every tick while it holds: evict ``MemoryCache``,
                           drop LRU chunk-store mmaps, evict the device
                           cache's coldest run, shed lineage ledger records
@@ -474,7 +477,8 @@ class MemoryGovernor(object):
     # -- the ladder --------------------------------------------------------
 
     def pressure_level(self):
-        """The ladder's level (0 ok .. 4 breach); 0 while unarmed."""
+        """The ladder's level (0 ok .. 4 breach); 0 while unarmed. The
+        autotuner's memory bias reads it every tick."""
         if not self.armed:
             return 0
         return STATE_LEVELS[self._state]

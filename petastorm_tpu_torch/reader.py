@@ -23,7 +23,21 @@ default ``cache_type=None``). Every pool of ``petastorm_tpu/reader.py:41-73``:
 ``'thread'``, ``'dummy'``, and worker processes over shared-memory rings
 or zmq sockets (``'process'``, ``'process-shm'``, ``'process-zmq'``;
 :mod:`~petastorm_tpu_torch.workers.supervision` respawns a dead worker).
-Autotune (ROADMAP §A9h) comes in a later slice.
+
+Autotune (``petastorm_tpu/reader.py:169-174, 922-960, 1036-1128``):
+``autotune=`` (``True`` or an :class:`~petastorm_tpu_torch.autotune.
+AutotuneConfig`; ``None`` defers to ``PSTT_AUTOTUNE``) arms an
+:class:`~petastorm_tpu_torch.autotune.AutoTuner` over the reader's knobs:
+``workers`` (a thread pool's live resize, the ventilator's cap kept at
+workers + 2), ``decode_threads`` (the decode-thread budget's total, while
+the reader holds a share of it) and ``results_watermark`` (capacity means
+unarmed). Where OpenCV or PIL decodes, both holding the GIL between
+images, ``workers`` and ``decode_threads`` stop at the host's cores. A process or dummy pool cannot resize, so it exposes no
+``workers`` knob, and a reader of one alone arms no tuner. A chunk store's
+writer is throttled while the tuner blames the pipeline. A ``TorchLoader``
+over the reader adopts its knobs (:meth:`Reader.adopt_autotune`), so one
+controller tunes the pipeline; ``diagnostics()['autotune']`` holds the
+tuner's log and trajectory.
 
 Health (``petastorm_tpu/reader.py:135-167, 922-972, 1130-1185, 1508-1509``):
 ``watchdog=``/``stall_timeout_s=`` (or ``PSTT_WATCHDOG``) arm a
@@ -104,6 +118,7 @@ from collections import deque
 
 import numpy as np
 
+from petastorm_tpu_torch import autotune as autotune_mod
 from petastorm_tpu_torch import chunk_store as chunk_store_mod
 from petastorm_tpu_torch import decode_budget, determinism, faults, membudget, metrics
 from petastorm_tpu_torch.arrow_worker import ArrowWorker, restack_list_columns
@@ -252,7 +267,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread', work
                 cache_size_limit=None, cache_extra_settings=None, transform_spec=None,
                 resume_state=None, deterministic=False, storage_options=None,
                 error_budget=None, watchdog=None, stall_timeout_s=None,
-                shm_result_ring_bytes=None, pool_profiling=False):
+                shm_result_ring_bytes=None, pool_profiling=False, autotune=None):
     """Reader of decoded rows, one namedtuple per row.
 
     The arguments are ``make_tensor_reader``'s, except
@@ -290,7 +305,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type='thread', work
                   cur_shard=cur_shard, shard_count=shard_count, cache=cache,
                   transform_spec=transform_spec, ngram=ngram, resume_state=resume_state,
                   deterministic=deterministic, error_budget=error_budget, watchdog=watchdog,
-                  stall_timeout_s=stall_timeout_s)
+                  stall_timeout_s=stall_timeout_s, autotune=autotune)
 
 
 def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
@@ -302,7 +317,7 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
                        deterministic=False, shuffle_rows_in_chunk=False,
                        raw_image_fields=None, storage_options=None, error_budget=None,
                        watchdog=None, stall_timeout_s=None, shm_result_ring_bytes=None,
-                       pool_profiling=False):
+                       pool_profiling=False, autotune=None):
     """Reader of decoded column blocks, one namedtuple per row-group.
 
     :param schema_fields: fields or full-match regex patterns to read
@@ -379,6 +394,10 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
         the reader is built; the other pools ignore it.
     :param pool_profiling: run the thread pool's workers under ``cProfile``
         and print their profile when the reader joins.
+    :param autotune: ``True`` or an :class:`~petastorm_tpu_torch.autotune.
+        AutotuneConfig` arms the autotuner over the reader's knobs (see the
+        module docstring), ``False`` keeps it off, ``None`` defers to
+        ``PSTT_AUTOTUNE`` (off by default).
     """
     _check_selection_args(predicate, transform_spec, shuffle_row_drop_partitions)
     if isinstance(schema_fields, NGram):
@@ -411,7 +430,7 @@ def make_tensor_reader(dataset_url, schema_fields=None, reader_pool_type='thread
                   cache=cache, transform_spec=transform_spec, resume_state=resume_state,
                   deterministic=deterministic, shuffle_rows_in_chunk=shuffle_rows_in_chunk,
                   raw_image_fields=raw_image_fields, error_budget=error_budget,
-                  watchdog=watchdog, stall_timeout_s=stall_timeout_s)
+                  watchdog=watchdog, stall_timeout_s=stall_timeout_s, autotune=autotune)
 
 
 def make_batch_reader(dataset_url, schema_fields=None, reader_pool_type='thread',
@@ -423,7 +442,7 @@ def make_batch_reader(dataset_url, schema_fields=None, reader_pool_type='thread'
                       transform_spec=None, resume_state=None, shuffle_rows_in_chunk=False,
                       deterministic=False, storage_options=None, error_budget=None,
                       watchdog=None, stall_timeout_s=None, shm_result_ring_bytes=None,
-                      pool_profiling=False):
+                      pool_profiling=False, autotune=None):
     """Reader of column arrays, one namedtuple per row-group, over any
     Parquet store (``petastorm_tpu/reader.py:382-446``).
 
@@ -464,7 +483,8 @@ def make_batch_reader(dataset_url, schema_fields=None, reader_pool_type='thread'
                   num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
                   cache=cache, transform_spec=transform_spec, resume_state=resume_state,
                   deterministic=deterministic, shuffle_rows_in_chunk=shuffle_rows_in_chunk,
-                  error_budget=error_budget, watchdog=watchdog, stall_timeout_s=stall_timeout_s)
+                  error_budget=error_budget, watchdog=watchdog, stall_timeout_s=stall_timeout_s,
+                  autotune=autotune)
 
 
 def _resolve_raw_image_fields(view, raw_image_fields):
@@ -493,6 +513,15 @@ def _resolve_raw_image_fields(view, raw_image_fields):
                              'image-codec field — only those can defer decode to the staging '
                              'step'.format(name))
     return names
+
+
+def host_cores():
+    """The cores this process may run on (its CPU affinity where the
+    platform reports it, else the host's count)."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:
+        return os.cpu_count() or 4
 
 
 def _has_image_fields(schema):
@@ -679,7 +708,7 @@ class Reader(DeferredRowAccounting):
                  resume_state=None, deterministic=False, raw_image_fields=(), full_schema=None,
                  predicate=None, rowgroup_selector=None, shuffle_row_drop_partitions=1,
                  transform_spec=None, shuffle_rows_in_chunk=False, ngram=None,
-                 error_budget=None, watchdog=None, stall_timeout_s=None):
+                 error_budget=None, watchdog=None, stall_timeout_s=None, autotune=None):
         # A mistyped memory budget or fault spec fails before any thread
         # starts (a worker thread that met it would die without a word).
         membudget.validate_env_budget()
@@ -722,6 +751,7 @@ class Reader(DeferredRowAccounting):
         self._stopped = False
         self.last_row_consumed = False
         self._last_lineage = None
+        self._rows_delivered = 0     # values handed out: the tuner's rate
         # Checkpoint keys index the filtered row-group list, so whatever
         # filters it is part of the fingerprint.
         self._config_fingerprint = {
@@ -816,6 +846,8 @@ class Reader(DeferredRowAccounting):
         # would only shrink the other readers' shares.
         if _has_image_fields(schema) and self._in_process_pool:
             self._decode_share = decode_budget.get_budget().register_pool(pool.workers_count)
+            if hasattr(pool, 'resize'):
+                pool.decode_share = self._decode_share      # a resize re-divides it
         self._register_memory_pools()
         # A reader used alone owns its monitor; a loader over it calls
         # attach_health with its own registry instead.
@@ -824,13 +856,100 @@ class Reader(DeferredRowAccounting):
         self._health_registry = None
         self._hb_handoff = None
         self._watchdog_error = None
+        self._autotuner = None
         try:
             self._health = self._supervisor.arm_health(watchdog, stall_timeout_s,
                                                        self._deliver_stall,
                                                        attach_fn=self.attach_health)
+            listeners = []
+            if self.chunk_store is not None:
+                listeners.append(autotune_mod.writer_throttle_listener(self.chunk_store))
+            self._autotuner = self._supervisor.arm_autotune(
+                autotune, self._autotune_knobs, self._autotune_telemetry,
+                autotune_mod.classify_reader, watchdog_active_fn=self._watchdog_episode_active,
+                memory_state_fn=membudget.get_governor().pressure_level, listeners=listeners)
         except Exception:
             self.stop()     # a refused deadline leaves no thread running
             raise
+
+    def _watchdog_episode_active(self):
+        return self._health is not None and self._health.watchdog.episode_active
+
+    def _autotune_knobs(self, config):
+        """The reader's knobs (``petastorm_tpu/reader.py:1053-1103``): for a
+        pool that resizes, ``workers`` and, while the reader holds a
+        decode-thread share, ``decode_threads``; ``results_watermark`` for a
+        pool with one. A reader whose images decode without the native codec
+        clamps ``workers`` and ``decode_threads`` at the host's cores."""
+        pool = self._pool
+        knobs = {}
+        # The default clamps (4x the cores for workers, 2x for decode
+        # threads) assume the native codec, which decodes a whole row-group
+        # without the GIL. OpenCV and PIL hold it between images, so
+        # threads past the cores only slow the training loop's thread
+        # (PERF.md, the autotune cell).
+        cores = (host_cores() if self._decode_share is not None
+                 and decoder_info()['decoder'] != 'native' else None)
+        if hasattr(pool, 'resize'):
+            ventilator = self._ventilator
+
+            def set_workers(n):
+                # The resize re-divides the reader's decode share.
+                pool.resize(n)
+                ventilator.set_max_in_flight(n + _VENTILATE_EXTRA_ROWGROUPS)
+
+            hi = config.max_workers if cores is None else min(config.max_workers, cores)
+            knobs['workers'] = autotune_mod.Knob(
+                'workers', lambda: pool.workers_count, set_workers,
+                lo=config.min_workers, hi=max(config.min_workers, hi))
+        if self._decode_share is not None and hasattr(pool, 'resize'):
+            budget = decode_budget.get_budget()
+            hi = (config.max_decode_threads if cores is None
+                  else min(config.max_decode_threads, cores))
+            knobs['decode_threads'] = autotune_mod.Knob(
+                'decode_threads', lambda: budget.total, budget.set_total,
+                lo=config.min_decode_threads, hi=max(config.min_decode_threads, hi))
+        if hasattr(pool, 'results_watermark'):
+            capacity = pool.results_capacity
+
+            def get_watermark():
+                watermark = pool.results_watermark
+                return watermark if watermark is not None else capacity
+
+            def set_watermark(n):
+                # Capacity is the unarmed state (None): an armed watermark
+                # at capacity never trips but keeps the feeder paced.
+                n = int(n)
+                pool.results_watermark = None if n >= capacity else n
+
+            knobs['results_watermark'] = autotune_mod.Knob(
+                'results_watermark', get_watermark, set_watermark,
+                lo=config.min_watermark, hi=capacity)
+        return knobs
+
+    def _autotune_telemetry(self):
+        """Values delivered and the pool's queue gauges, the inputs of
+        :func:`~petastorm_tpu_torch.autotune.classify_reader`."""
+        pool = self._pool
+        out = {'batches': self._rows_delivered}
+        qsize = getattr(pool, 'results_qsize', None)
+        if qsize is not None:
+            out['results_queue_depth'] = qsize
+            out['results_queue_capacity'] = getattr(pool, 'results_capacity', 1)
+        unprocessed = pool.diagnostics.get('ventilated_unprocessed')
+        if unprocessed is not None:
+            out['ventilated_unprocessed'] = unprocessed
+        return out
+
+    def adopt_autotune(self, config):
+        """A wrapping loader takes the tuning over: this reader's own tuner
+        stops, and its knobs and telemetry function are handed back for the
+        loader's tuner."""
+        if self._autotuner is not None:
+            self._autotuner.stop()
+            self._autotuner = None
+            self._supervisor.autotuner = None
+        return self._autotune_knobs(config), self._autotune_telemetry
 
     def _deliver_stall(self, error):
         """The watchdog's hard stall: raised at the next ``next``, and handed
@@ -1042,7 +1161,8 @@ class Reader(DeferredRowAccounting):
     def diagnostics(self):
         """The pool's queues, the quarantine records (``quarantined_rowgroups``)
         and ``error_budget`` (None without one), the chunk store's and the
-        resequencer's counters, and the memory governor's when armed. Reads
+        resequencer's counters, the watchdog's and the autotuner's (its
+        ``stats()``) when armed, and the memory governor's when armed. Reads
         as a mapping and as a call (``reader.diagnostics()['...']``)."""
         diag = _CallableDict(self._pool.diagnostics)
         if self.chunk_store is not None:
@@ -1056,6 +1176,8 @@ class Reader(DeferredRowAccounting):
             diag['watchdog'] = self._health.stats()
         elif self._health_registry is not None:
             diag['heartbeats'] = self._health_registry.beat_table()
+        if self._autotuner is not None:
+            diag['autotune'] = self._autotuner.stats()
         governor = membudget.get_governor()
         if governor.armed:
             diag['mem'] = governor.stats()
@@ -1129,7 +1251,9 @@ class Reader(DeferredRowAccounting):
             raise error
         hb = self._hb_handoff
         if hb is None:
-            return self._next_value()
+            value = self._next_value()
+            self._rows_delivered += 1
+            return value
         # 'poll': waiting on the workers (stale = reader-starved);
         # 'handoff': delivered (stale = the consumer stopped pulling).
         hb.beat('poll')
@@ -1140,6 +1264,7 @@ class Reader(DeferredRowAccounting):
             if error is self._watchdog_error:
                 self._watchdog_error = None
             raise
+        self._rows_delivered += 1
         hb.beat('handoff')
         # A delivered value is recovery: a stall diagnosed while the consumer
         # waited must not end a pipeline that came back.
@@ -1232,9 +1357,10 @@ class Reader(DeferredRowAccounting):
     def stop(self):
         """Stop the workers, unregister the memory pools (releasing the
         governor's arm reference) and stop the chunk store's writer once its
-        queued writes are on disk. Idempotent. The watchdog stops first (it
-        would read the stopped stages as a stall); ``diagnostics`` keeps its
-        section."""
+        queued writes are on disk. Idempotent. The tuner stops first (it
+        would resize a pool being joined), then the watchdog (it would read
+        the stopped stages as a stall); ``diagnostics`` keeps their
+        sections."""
         self._supervisor.stop()
         governor = membudget.get_governor()
         for handle in self._mem_handles:

@@ -3,8 +3,12 @@ engine that overlaps batch collate with host-to-device copies.
 
 Counterpart of ``petastorm_tpu/staging.py:149-600`` (``HostArena``,
 ``ArenaPool``), ``:600-745`` (``OverlapMeter``, ``MeteredReader``) and
-``:1156-`` (``StagingEngine``), trimmed: no sharded layouts, sanitizer
-or autotune hooks. The instruments are the JAX package's:
+``:1156-`` (``StagingEngine``), trimmed: no sharded layouts or
+sanitizer. The autotuner's hooks are the JAX package's (``:531-570,
+1466-1484``): :meth:`ArenaPool.set_depth` and :attr:`ArenaPool.depth`,
+:attr:`ArenaPool.wait_seconds`, :meth:`StagingEngine.set_inflight`,
+:attr:`StagingEngine.inflight_window` and
+:attr:`StagingEngine.ready_wait_seconds`. The instruments are the JAX package's:
 ``pst_assemble_seconds`` and ``pst_dispatch_seconds`` (one observation a
 batch), ``pst_arena_wait_seconds`` (a request that waited for an arena),
 ``pst_arena_pinned_bytes`` (pinned arenas alive) and, for a mesh loader's
@@ -68,6 +72,7 @@ class HostArena(object):
     """
 
     def __init__(self, pool, spec, pinned):
+        self.pinned = pinned
         self.tensors, self.buffers = {}, {}
         for name, (shape, dtype) in spec.items():
             if pinned:
@@ -116,15 +121,19 @@ class ArenaPool(object):
     """Bounded pool of :class:`HostArena`. ``get_buffers`` blocks (stop-
     aware) while every arena is out and grows past ``depth`` after
     ``_GROW_TIMEOUT_S`` rather than deadlocking a consumer that holds many
-    batches. Specs other than the pool's first get ``None``: the caller
-    then allocates plainly. ``heartbeat`` (the assemble stage's) reads
-    ``'arena-wait'`` while a request waits; ``tracer`` gets the
-    ``arena_pool_free`` counter."""
+    batches; such arenas are kept apart from the depth (``arena_grown``),
+    so :meth:`set_depth` (the autotuner's knob) is never undone behind its
+    back and :attr:`depth` reads what it set. Specs other than the pool's
+    first get ``None``: the caller then allocates plainly. ``heartbeat``
+    (the assemble stage's) reads ``'arena-wait'`` while a request waits;
+    ``tracer`` gets the ``arena_pool_free`` counter."""
 
     def __init__(self, depth, stop_event, pinned, tracer=None, heartbeat=None):
         if depth < 1:
             raise ValueError('ArenaPool depth must be >= 1, got {}'.format(depth))
         self._depth = depth
+        self._floor = 1       # the depth ensure_depth asked for: set_depth keeps it
+        self._grown = 0       # arenas allocated past the depth by the grow timeout
         self._stop = stop_event
         self._pinned = pinned
         self._tracer = tracer if tracer is not None else NullTracer()
@@ -153,6 +162,7 @@ class ArenaPool(object):
                 return None
             waited = 0.0
             waiting_hb = False
+            arena = None
             while True:
                 if self._stop.is_set():
                     return None
@@ -161,15 +171,13 @@ class ArenaPool(object):
                     arena._reclaimed = False
                     self._reuse += 1
                     break
-                if self._allocated < self._depth or waited >= _GROW_TIMEOUT_S:
-                    arena = HostArena(self, self._spec, self._pinned)
-                    if self._pinned:
-                        nbytes = sum(t.nbytes for t in arena.tensors.values())
-                        self._m_pinned.inc(nbytes)
-                        weakref.finalize(arena, self._m_pinned.dec, nbytes)
+                if self._allocated < self._depth + self._grown or waited >= _GROW_TIMEOUT_S:
+                    # Counted now, allocated below without the lock: a pinned
+                    # allocation takes milliseconds, and the watchdog's probe
+                    # and the governor read the pool under this lock.
                     self._allocated += 1
                     self._alloc += 1
-                    self._depth = max(self._depth, self._allocated)
+                    self._grown = max(self._grown, self._allocated - self._depth)
                     break
                 if self._heartbeat is not None and not waiting_hb:
                     # One beat on entry, then the age accrues: a wedged pool
@@ -184,9 +192,23 @@ class ArenaPool(object):
             self._wait_s += waited
             if waited:
                 self._m_wait.observe(waited)
+            pinned = self._pinned
+        if arena is None:
+            try:
+                arena = HostArena(self, self._spec, pinned)
+            except BaseException:
+                with self._cond:
+                    self._allocated -= 1
+                    self._cond.notify_all()
+                raise
+            if pinned:
+                nbytes = sum(t.nbytes for t in arena.tensors.values())
+                self._m_pinned.inc(nbytes)
+                weakref.finalize(arena, self._m_pinned.dec, nbytes)
+        with self._cond:
             self._pending = arena
             self._tracer.counter('arena_pool_free', len(self._free), 'staging')
-            return arena.buffers
+        return arena.buffers
 
     @property
     def nbytes(self):
@@ -215,10 +237,48 @@ class ArenaPool(object):
             return self._pinned
 
     def ensure_depth(self, depth):
-        """Keep at least ``depth`` arenas before a request waits."""
+        """Keep at least ``depth`` arenas before a request waits, from now
+        on: :meth:`set_depth` never goes below it."""
         with self._cond:
-            self._depth = max(self._depth, depth)
+            self._floor = max(self._floor, depth)
+            if depth > self._depth:
+                # Arenas grown past the old depth now count in the new one.
+                self._grown = max(0, self._grown - (depth - self._depth))
+                self._depth = depth
             self._cond.notify_all()
+
+    def set_depth(self, depth):
+        """Retarget the depth while the pool runs (the autotuner's
+        ``arena_depth`` knob), at least :attr:`floor`; arenas grown past the
+        old depth are forgotten. A deeper pool wakes a waiting request to
+        allocate; a shallower one drops free arenas past the depth now and
+        the rest as they come back, never one whose copy is in flight."""
+        with self._cond:
+            depth = max(1, int(depth), self._floor)
+            self._depth = depth
+            self._grown = 0
+            while len(self._free) > depth:
+                self._free.pop()
+                self._allocated -= 1
+            self._cond.notify_all()
+
+    @property
+    def depth(self):
+        with self._cond:
+            return self._depth
+
+    @property
+    def floor(self):
+        """The least depth :meth:`set_depth` takes (:meth:`ensure_depth`'s)."""
+        with self._cond:
+            return self._floor
+
+    @property
+    def wait_seconds(self):
+        """Seconds requests waited for a free arena (the autotuner's
+        arena-bound signal)."""
+        with self._cond:
+            return self._wait_s
 
     def claim_pending(self):
         """The arena of the latest ``get_buffers`` call (or None)."""
@@ -228,7 +288,7 @@ class ArenaPool(object):
 
     def _reclaim(self, arena):
         with self._cond:
-            if len(self._free) < self._depth:
+            if len(self._free) < self._depth + self._grown:
                 self._free.append(arena)
             else:
                 self._allocated -= 1
@@ -241,11 +301,13 @@ class ArenaPool(object):
 
     def stats(self):
         """``arena_alloc`` (should stay flat after warm-up), ``arena_reuse``
-        (climbs), ``arena_wait_s`` (assembler backpressure) and the depth."""
+        (climbs), ``arena_wait_s`` (assembler backpressure), the depth and
+        the arenas grown past it."""
         with self._cond:
             return {'arena_alloc': self._alloc, 'arena_reuse': self._reuse,
                     'arena_wait_s': self._wait_s, 'arena_depth': self._depth,
-                    'arena_allocated': self._allocated, 'arena_pinned': self._pinned}
+                    'arena_grown': self._grown, 'arena_allocated': self._allocated,
+                    'arena_pinned': self._pinned}
 
     def reset_stats(self):
         with self._cond:
@@ -615,6 +677,24 @@ class StagingEngine(object):
         self.meter.reset()
         with self._stats_lock:
             self._ready_wait_s = 0.0
+
+    def set_inflight(self, n):
+        """Retarget the copy window while the engine runs (the autotuner's
+        ``inflight`` knob): the dispatch loop reads it each batch, so a wider
+        window takes effect at the next batch and a narrower one drains by
+        waiting on the oldest copies."""
+        self._inflight = max(1, int(n))
+
+    @property
+    def inflight_window(self):
+        return self._inflight
+
+    @property
+    def ready_wait_seconds(self):
+        """Seconds the dispatch thread waited on the oldest copy (the
+        autotuner's dispatch-bound signal)."""
+        with self._stats_lock:
+            return self._ready_wait_s
 
     def stop(self, join_timeout_s=10):
         """Idempotent: set stop, unblock and join both threads. The caller

@@ -1,9 +1,15 @@
 """In-process thread pool with a ventilator feed and a bounded results queue.
 
-Counterpart of ``petastorm_tpu/workers/thread_pool.py:36-461`` at a fixed
-size (no resize). ``profiling_enabled`` runs each worker thread under
-``cProfile`` and prints the threads' summed profile at ``join()``
-(``:40-85, 415-434``; the benchmark's ``profile_threads``).
+Counterpart of ``petastorm_tpu/workers/thread_pool.py:36-461``.
+:meth:`ThreadPool.resize` grows or shrinks the live pool (the autotuner's
+``workers`` knob, ``:176-250``): a grow spawns threads (cancelling pending
+retires first) and widens the ventilation queue; a shrink posts retire
+requests that workers honour between items, so no item is lost or run
+twice; retired threads are reaped at ``join()``. Either re-divides the
+pool's ``decode_share`` of the decode-thread budget. ``profiling_enabled``
+runs each worker thread under ``cProfile`` and prints the threads' summed
+profile at ``join()`` (``:40-85, 415-434``; the benchmark's
+``profile_threads``).
 ``results_watermark`` arms the ventilator's backpressure: while that many results wait undelivered, no
 new item is fed (the memory governor's shed rung sets it).
 ``results_nbytes()`` is the governor's ``results-queue`` pool, and
@@ -41,6 +47,9 @@ from petastorm_tpu_torch.workers import (EmptyResultError, RowGroupQuarantined,
 
 THREAD_PREFIX = 'pstt-pool-worker-'
 _POLL_S = 0.01
+#: Ventilation-queue room over the worker count after a resize (the reader
+#: keeps the ventilator's cap at workers + 2).
+_RESIZE_VENT_SLACK = 4
 
 
 class _WorkerThread(threading.Thread):
@@ -60,6 +69,9 @@ class _WorkerThread(threading.Thread):
                 self.profile = None
         try:
             while not pool._stop_event.is_set():
+                # Between items only: a worker that took an item finishes it.
+                if pool._should_retire(self):
+                    return
                 try:
                     args, kwargs = pool._ventilator_queue.get(timeout=_POLL_S)
                 except queue.Empty:
@@ -95,9 +107,17 @@ class ThreadPool(ResequencedReads):
         self._ventilator_queue = None
         self._stop_event = threading.Event()
         self._threads = []
+        self._retired = []
         self._ventilator = None
         self._unprocessed = 0
         self._count_lock = threading.Lock()
+        # A resize's target may differ from len(_threads) while retire
+        # requests are pending.
+        self._resize_lock = threading.Lock()
+        self._retire_requests = 0
+        self._next_worker_id = workers_count
+        self._worker_class = None
+        self._worker_args = None
         #: Undelivered results at which the ventilator holds; None = unarmed.
         self.results_watermark = None
         #: Moving average of one published result's bytes, kept while the
@@ -109,6 +129,9 @@ class ThreadPool(ResequencedReads):
         self.quarantine_sink = None
         #: The consumer's health heartbeat, or None.
         self.health_heartbeat = None
+        #: The reader's ``decode_budget.PoolShare``, or None: a resize
+        #: re-divides it, so every worker's next decode takes the new share.
+        self.decode_share = None
 
     @property
     def workers_count(self):
@@ -132,7 +155,7 @@ class ThreadPool(ResequencedReads):
                                            if self._ventilator_queue is not None else 0),
                 'ventilated_unprocessed': in_flight,
                 'workers_count': self._workers_count,
-                'live_worker_threads': sum(1 for t in self._threads if t.is_alive()),
+                'live_worker_threads': self._live_threads(),
                 'results_watermark': self.results_watermark}
 
     def results_nbytes(self):
@@ -151,20 +174,86 @@ class ThreadPool(ResequencedReads):
         teardown."""
         self._injected_error = exc
 
+    def _live_threads(self):
+        with self._count_lock:
+            return sum(1 for t in self._threads if t.is_alive())
+
     def start(self, worker_class, worker_args, ventilator):
         if self._threads:
             raise RuntimeError('ThreadPool already started')
         # The ventilator caps unprocessed items at its window, so the queue
-        # never legitimately holds more.
+        # never legitimately holds more (a resize widens both).
         self._ventilator_queue = queue.Queue(maxsize=max(1, ventilator._max_in_flight))
+        self._worker_class = worker_class
+        self._worker_args = worker_args
         for worker_id in range(self._workers_count):
-            thread = _WorkerThread(self, worker_class(worker_id, self._put_result, worker_args))
-            self._threads.append(thread)
-            thread.start()
+            self._spawn_worker(worker_id)
         self._ventilator = ventilator
         ventilator._ventilate_fn = self.ventilate
         ventilator.backpressure_fn = self._results_backpressure
         ventilator.start()
+
+    def _spawn_worker(self, worker_id):
+        thread = _WorkerThread(self, self._worker_class(worker_id, self._put_result,
+                                                        self._worker_args))
+        with self._count_lock:
+            self._threads.append(thread)
+        thread.start()
+
+    def resize(self, n):
+        """Grow or shrink the live pool to ``n`` workers; returns the new
+        target. A grow spawns workers at once, after cancelling pending
+        retires, and widens the ventilation queue to ``n + 4`` under its
+        mutex (a queue still sized for the old pool would hold the feeder
+        to the old width). A shrink posts ``old - n`` retire requests, each
+        taken by one worker between items. Raises ``ValueError`` for
+        ``n < 1`` and ``RuntimeError`` before ``start``."""
+        n = int(n)
+        if n < 1:
+            raise ValueError('workers_count must be >= 1, got {}'.format(n))
+        with self._resize_lock:
+            if self._worker_class is None:
+                raise RuntimeError('ThreadPool.resize() requires a started pool')
+            if self._stop_event.is_set():
+                return self._workers_count
+            with self._count_lock:
+                delta = n - self._workers_count
+                if delta == 0:
+                    return n
+                self._workers_count = n
+                if delta < 0:
+                    self._retire_requests -= delta
+                    spawn = 0
+                else:
+                    cancelled = min(self._retire_requests, delta)
+                    self._retire_requests -= cancelled
+                    spawn = delta - cancelled
+                worker_id = self._next_worker_id
+                self._next_worker_id += spawn
+            for i in range(spawn):
+                self._spawn_worker(worker_id + i)
+            if delta > 0:
+                vent_queue = self._ventilator_queue
+                with vent_queue.mutex:
+                    if n + _RESIZE_VENT_SLACK > vent_queue.maxsize:
+                        vent_queue.maxsize = n + _RESIZE_VENT_SLACK
+                        vent_queue.not_full.notify_all()
+            if self.decode_share is not None:
+                self.decode_share.resize(n)
+            return n
+
+    def _should_retire(self, thread):
+        """Claim one pending retire request for ``thread`` (a worker, between
+        items); the thread moves to the retired list, which ``join`` reaps."""
+        if self._retire_requests <= 0:     # unlocked fast path, every poll
+            return False
+        with self._count_lock:
+            if self._retire_requests <= 0:
+                return False
+            self._retire_requests -= 1
+            self._threads.remove(thread)
+            self._retired.append(thread)
+            return True
 
     def ventilate(self, *args, **kwargs):
         with self._count_lock:
@@ -233,8 +322,10 @@ class ThreadPool(ResequencedReads):
             return result
 
     def _timeout_details(self, timeout):
-        alive = [t.name for t in self._threads if t.is_alive()]
-        dead = [t.name for t in self._threads if not t.is_alive()]
+        with self._count_lock:
+            threads = list(self._threads)
+        alive = [t.name for t in threads if t.is_alive()]
+        dead = [t.name for t in threads if not t.is_alive()]
         with self._count_lock:
             in_flight = self._unprocessed
         return ('No results for {}s. Workers alive: {}; dead: {}. Items in flight: {}. '
@@ -256,13 +347,20 @@ class ThreadPool(ResequencedReads):
         self._stop_event.set()
 
     def join(self):
-        for thread in self._threads:
+        # Under the resize lock: a grow racing stop() has spawned its
+        # workers before the snapshot, so they are reaped too.
+        with self._resize_lock:
+            with self._count_lock:
+                threads = self._threads + self._retired
+        for thread in threads:
             thread.join()
         if self._profiling_enabled:
             # A worker that got no item has an empty profile, which
             # pstats refuses.
-            profiles = [t.profile for t in self._threads
+            profiles = [t.profile for t in threads
                         if t.profile is not None and t.profile.getstats()]
             if profiles:
                 pstats.Stats(*profiles).sort_stats('cumulative').print_stats(30)
-        self._threads = []
+        with self._count_lock:
+            self._threads = []
+            self._retired = []

@@ -19,6 +19,8 @@ With a :class:`~petastorm_tpu_torch.health.Heartbeat` in ``heartbeat`` (set
 by ``Reader.attach_health``) the feeder beats ``'ventilating'`` when it
 feeds, ``'backpressure'`` when it holds and ``'idle'`` once every epoch is
 out (``petastorm_tpu/workers/ventilator.py:139-143, 321-375``).
+:meth:`ConcurrentVentilator.set_max_in_flight` retargets the cap while it
+feeds (``:384-390``).
 """
 
 import hashlib
@@ -269,6 +271,15 @@ class ConcurrentVentilator(object):
     def processed_item(self):
         with self._lock:
             self._in_flight = max(0, self._in_flight - 1)
+        self._wakeup.set()
+
+    def set_max_in_flight(self, n):
+        """Retarget the cap on unprocessed items while feeding (the
+        autotuner's ``workers`` knob keeps it at workers + 2): a raised cap
+        wakes a parked feeder at once; a lowered one holds new items until
+        those in flight drain below it."""
+        with self._lock:
+            self._max_in_flight = max(1, int(n))
         self._wakeup.set()
 
     def completed(self):

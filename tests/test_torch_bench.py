@@ -3,7 +3,7 @@ prints the keys of ``bench.py``'s pipeline child, the median of its reps
 with their spread, its stage profile with the ``lineage`` block (a replay
 self-check that passes), the ``determinism`` block, the cache-tier sweep
 with its ``chunk-store`` row, the ``decode_path_sweep`` and, with the
-governor armed, the ``mem`` block, and the blocks it does not port; the
+governor armed, the ``mem`` block, and the autotuner's record; the
 ``staging`` child and the top-level ``hello_world_samples_per_sec`` run on
 a small hello_world store; an unknown child and a CUDA request without a
 GPU raise."""
@@ -47,7 +47,7 @@ def test_pipeline_child_prints_the_bench_keys(workdir, monkeypatch, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     for key in ('pipeline_img_per_sec', 'pipeline_img_per_sec_reps', 'pipeline_img_per_sec_spread',
                 'pipeline_cold_img_per_sec', 'pipeline_batch', 'pipeline_prefetch',
-                'pipeline_load', 'pipeline_stage_profile', 'not_ported', 'platform',
+                'pipeline_load', 'pipeline_stage_profile', 'pipeline_autotune', 'platform',
                 'device_kind', 'n_devices'):
         assert key in out, key
     reps = out['pipeline_img_per_sec_reps']
@@ -72,8 +72,13 @@ def test_pipeline_child_prints_the_bench_keys(workdir, monkeypatch, capsys):
     assert sweep['chunk-store']['decode_s'] == 0.0 and store['corrupt_quarantined'] == 0
     assert sweep['chunk-store']['fill_s'] > 0
     assert 'mem' not in profile                # the governor is not armed here
-    assert sorted(out['not_ported']) == ['autotune']
-    assert all('ROADMAP' in item for item in out['not_ported'].values())
+    # The tuner runs by default (BENCH_PIPELINE_AUTOTUNE), over the loader's
+    # knobs and the reader's, which the loader adopted.
+    assert 'not_ported' not in out
+    tuner = out['pipeline_autotune']
+    assert {'prefetch', 'inflight', 'arena_depth', 'arena_pinned', 'workers', 'decode_threads',
+            'results_watermark'} == set(tuner['knobs'])
+    assert tuner['ticks'] >= 0 and isinstance(tuner['decisions'], list)
     decode = profile['decode_path_sweep']
     assert decode['workers'] == 1 and decode['gate_min_ratio'] == 1.5
     for row in ('scalar', 'batched', 'chunk-store-warm'):

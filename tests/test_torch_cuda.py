@@ -1384,6 +1384,20 @@ def test_watchdog_check_returns_during_a_card_sleep(dev, tmp_path):
     assert stats['watchdog']['stalls_detected'] == 1
 
 
+def test_watchdog_check_parts_are_timed_on_card(dev, tmp_path):
+    """The timing harness of the watchdog's check (``tests/
+    torch_watchdog_timing.py``) over two runs: each check found the stall
+    while the card slept, its timed parts sum to no more than the check,
+    the stack walk is one of them, and the stacks format after it."""
+    import torch_watchdog_timing
+    rows, summary = torch_watchdog_timing.time_watchdog_check(dev, 2, str(tmp_path))
+    assert summary['runs'] == 2 and summary['stack_walk'] == 'snapshot_stacks'
+    for row in rows:
+        assert row['busy'] and row['classification'] is not None, row
+        assert 'stack_walk' in row and 'capture' in row and row['stacks_chars'] > 0, row
+        assert 0.0 <= row['rest_s'] <= row['check_s'], row
+
+
 def test_device_put_delay_on_card_classifies_dispatch_hung(dev, tmp_path, monkeypatch):
     import time
     from petastorm_tpu_torch import faults
@@ -1464,3 +1478,56 @@ def test_process_pool_feeds_the_card_without_a_worker_on_it(dev, tmp_path, pool)
         with pytest.raises(ProcessLookupError):
             os.kill(pid, 0)
     assert not shm_ring.list_segments('pstt_{}_'.format(os.getpid()))
+
+
+# -- the autotuner on the card ----------------------------------------------------
+
+def test_autotuned_loader_grows_a_starved_reader_on_card(dev, tmp_path, monkeypatch):
+    """A loader with the autotuner over a one-worker thread reader whose
+    reads a fault site slows (0.1 s a row-group): ``superbatches(8)`` on the
+    card for one epoch; the tuner grows ``workers``, the epoch's labels
+    equal the store's as a multiset, and no ``pstt-autotune`` thread is left
+    after the close."""
+    import threading
+    import time
+
+    from petastorm_tpu_torch import faults
+    from petastorm_tpu_torch.autotune import THREAD_NAME, AutotuneConfig
+    url = _card_store(tmp_path, rows=256)
+    monkeypatch.setenv(faults.ENV_VAR, 'fs-read-delay:delay=0.1')
+    config = AutotuneConfig(interval_s=0.05, hysteresis=1, cooldown=0, throughput_tolerance=1.0)
+    with make_tensor_reader(url, workers_count=1, num_epochs=1, seed=0) as reader:
+        with TorchLoader(reader, 8, device=dev, prefetch=1, inflight=1, arena_depth=2,
+                         autotune=config) as loader:
+            labels = [sb.label.cpu() for sb in loader.superbatches(8)]
+            at = loader.stats['autotune']
+    time.sleep(0.1)
+    assert at['knobs']['workers'] > 1, at['decisions']
+    assert any(d['action'] == 'grow' and ('workers', 1, 2) in d['changes']
+               for d in at['decisions'])
+    assert all(label.shape == (64,) for label in labels)
+    assert sorted(torch.cat(labels).tolist()) == list(range(256))
+    assert not [t for t in threading.enumerate() if t.name.startswith(THREAD_NAME)]
+
+
+def test_copies_from_unpinned_arenas_count_as_the_tuners_copy_wait(dev, tmp_path):
+    """A copy from pageable memory completes before its call returns, so its
+    seconds are the wait on the transfer that a pinned copy spends at its
+    event: they ride ``pageable_copy_s`` and the tuner's ``ready_wait_s``.
+    Pinned arenas give none."""
+    from petastorm_tpu_torch.autotune import AutotuneConfig
+    url = _card_store(tmp_path)
+    for pinned in (True, False):
+        with make_tensor_reader(url, workers_count=1, num_epochs=1,
+                                shuffle_row_groups=False) as reader:
+            with TorchLoader(reader, 8, device=dev, prefetch=1,
+                             autotune=AutotuneConfig(interval_s=60)) as loader:
+                loader._pool.set_pinned(pinned)     # the arenas allocated from here on
+                labels = [b.label.cpu() for b in loader]
+                copy_s = loader.stats['pageable_copy_s']
+                telemetry = loader._autotune_telemetry()
+        assert sorted(torch.cat(labels).tolist()) == list(range(56))
+        if pinned:
+            assert copy_s == 0.0
+        else:
+            assert copy_s > 0.0 and telemetry['ready_wait_s'] >= copy_s

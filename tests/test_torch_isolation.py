@@ -171,6 +171,24 @@ def test_no_port_thread_survives_close(tmp_path, prefetch):
 
 
 @pytest.mark.parametrize('prefetch', [0, 2])
+def test_no_autotune_thread_survives_close(tmp_path, prefetch):
+    """The tuner (``pstt-autotune``) runs while its loader lives; the
+    reader's own stops when the loader adopts its knobs."""
+    from petastorm_tpu_torch.autotune import AutotuneConfig
+    url = _store(tmp_path)
+    reader = make_tensor_reader(url, workers_count=2, num_epochs=None, seed=1, autotune=True)
+    assert _port_threads().count('pstt-autotune') == 1
+    loader = TorchLoader(reader, 5, device='cpu', prefetch=prefetch,
+                         autotune=AutotuneConfig(interval_s=0.05))
+    next(loader)
+    assert _port_threads().count('pstt-autotune') == 1 and 'autotune' in loader.stats
+    loader.close()
+    reader.stop()
+    reader.join()
+    assert _port_threads() == []
+
+
+@pytest.mark.parametrize('prefetch', [0, 2])
 def test_no_watchdog_thread_survives_close(tmp_path, prefetch):
     """The watchdog (``pstt-watchdog``) runs while its loader lives and its
     reader's own stops when the loader takes over."""

@@ -47,7 +47,7 @@ from petastorm_tpu_torch.workers import EmptyResultError
 from petastorm_tpu_torch.workers.process_pool import ProcessPool
 from petastorm_tpu_torch.workers.shm_process_pool import ShmProcessPool
 from petastorm_tpu_torch.workers.ventilator import ConcurrentVentilator
-from torch_pool_workers import EchoWorker, ProbeWorker
+from torch_pool_workers import EchoWorker, GatedEchoWorker, ProbeWorker
 
 pytestmark = [pytest.mark.processpool, pytest.mark.chaos]
 
@@ -174,10 +174,14 @@ def test_worker_kill_site_with_a_token_kills_exactly_one_worker(url, registry, t
 
 
 @pytest.mark.parametrize('pool_class', [ProcessPool, ShmProcessPool])
-def test_a_spent_restart_budget_raises_worker_lost(pool_class):
+def test_a_spent_restart_budget_raises_worker_lost(pool_class, tmp_path):
+    # Every item but the first waits for the gate, which stays shut until
+    # the kill has been seen: worker 0 dies with items in flight, so the
+    # epoch cannot end quietly before the budget is checked.
+    gate = tmp_path / 'gate'
     pool = pool_class(2, max_worker_restarts=0)
     ventilator = ConcurrentVentilator(None, [{'value': i} for i in range(200)], iterations=1)
-    pool.start(EchoWorker, None, ventilator)
+    pool.start(GatedEchoWorker, str(gate), ventilator)
     try:
         pool.get_results()
         os.kill(pool._processes[0].pid, signal.SIGKILL)
@@ -189,6 +193,7 @@ def test_a_spent_restart_budget_raises_worker_lost(pool_class):
                 except EmptyResultError:
                     break
     finally:
+        gate.touch()
         pool.stop()
         pool.join()
 

@@ -1,0 +1,75 @@
+"""Phase 26 of ``chip_smoke.py`` (``imagenet_autotune``) in turns on one
+card: the imagenet store, imagenet_scan for its state, then per turn a
+thread-pool imagenet_decode (a) run and ``chip_smoke.run_autotune`` beside
+it. Every line is kept, a failed check's too (the phase prints its line
+before it fails), so the pass rate over turns reads from one file::
+
+    python tests/torch_autotune_turns.py OUT.jsonl TURNS
+
+The cell swings with the shared host, so it is judged over turns, not one.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main(out_path, turns):
+    sys.path.insert(0, ROOT)
+    import torch
+
+    import chip_smoke
+    from petastorm_tpu_torch import bench
+    from petastorm_tpu_torch.models import make_scan_train_step
+
+    out = open(out_path, 'w')
+
+    def emit(obj):
+        line = json.dumps(obj)
+        print(line[:800], flush=True)
+        out.write(line + '\n')
+        out.flush()
+    bench.emit = emit
+
+    device = torch.device('cuda', 0)
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True).stdout.strip()
+    card = '{} ({})'.format(torch.cuda.get_device_name(0), smi)
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, '.torch_build'), exist_ok=True)
+    store_dir = tempfile.mkdtemp(dir=os.path.join(ROOT, '.torch_build'))
+    url = bench.write_imagenet_store(os.path.join(store_dir, 'imagenet'))
+    scan, state = bench.run_imagenet_scan(url, device, card, calls=11)
+    emit({k: scan[k] for k in ('phase', 'img_per_s', 'device_step_ms', 'input_stall_frac')})
+
+    def decode_a():
+        train = make_scan_train_step(bench.SCAN_K, preprocess=bench.normalize_bf16)
+        decode, _ = bench.stream_classifier_scan(url, device, train, state, 3, 11,
+                                                 ('normalize_kernel',), cache_type='null',
+                                                 workers=8)
+        emit({'decode_a': {k: decode[k] for k in ('img_per_s', 'device_step_ms',
+                                                  'input_stall_frac')},
+              't': time.perf_counter() - t0})
+        return decode
+
+    for turn in range(turns):
+        decode = decode_a()
+        try:
+            line = chip_smoke.run_autotune(url, device, card, state, scan, decode)
+            line['turn'] = turn
+            emit(line)
+        except AssertionError as e:
+            emit({'turn': turn, 'failed': str(e)[:2000], 't': time.perf_counter() - t0})
+    shutil.rmtree(store_dir, ignore_errors=True)
+    print('turns done', time.perf_counter() - t0)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main(sys.argv[1], int(sys.argv[2])))

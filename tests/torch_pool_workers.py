@@ -4,6 +4,7 @@ port's worker tier, so those processes start without torch or JAX."""
 
 import os
 import sys
+import time
 
 import numpy as np
 import pyarrow as pa
@@ -13,6 +14,18 @@ from petastorm_tpu_torch.workers import WorkerBase
 
 class EchoWorker(WorkerBase):
     def process(self, value):
+        self.publish_func([value * 2])
+
+
+class GatedEchoWorker(WorkerBase):
+    """Echoes item 0 at once and holds every other item until the gate file
+    (its worker args) exists, for at most a minute: a worker killed while
+    the gate is shut dies with items in flight."""
+
+    def process(self, value):
+        deadline = time.monotonic() + 60
+        while value and not os.path.exists(self.args) and time.monotonic() < deadline:
+            time.sleep(0.01)
         self.publish_func([value * 2])
 
 
