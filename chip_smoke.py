@@ -57,13 +57,14 @@ non-zero exit and no result line:
    one-epoch reader fills a ``DeviceDatasetCache``; superbatches of 8
    carried across epoch boundaries through a scan step of its own (its own
    capture) on the state imagenet_scan trained: epoch 1 warms up, epochs
-   2 to 17 are measured.
+   2 to 7 are measured (the bench measures 16; cut for phase 27's time).
 7. imagenet_chunkstore: imagenet_scan's protocol on the same state, the
    reader with ``cache_type='chunk-store'`` (a fresh store under
    ``.torch_build/``: epoch 0 decodes and spills, later epochs are read from
    the mapped entries, whose writes are flushed before the timed calls);
    img/s, ``decode_s`` of the timed calls (must be 0), the store's
-   counters, K1 8 times a replay. Then an in-order pass of a fresh store
+   counters, K1 8 times a replay (3 + 5 + 5 calls, ``EARLY_CALLS``). Then
+   an in-order pass of a fresh store
    (4 workers, resequenced): a new reader's epoch 1, served from the store,
    must give epoch 0's (decoded) per-field CRC32 digests batch for batch;
    and ``tools.transcode`` fills another store whose epoch 0 decodes
@@ -73,7 +74,7 @@ non-zero exit and no result line:
    chunk-store reader), with ``loader_factory`` a fresh such reader and
    loader: 8 of the 16 batches stay resident in two runs, 8 stream each
    epoch. A memory governor is installed before the cache; after a
-   partial window (1 warm-up, 6 counted, 6 timed epochs through a scan
+   partial window (1 warm-up, 3 counted, 3 timed epochs through a scan
    step of its own) a ballast pool drives one ``check()`` to degrade, which
    evicts the coldest run (the card's allocated bytes fall by the run's),
    and a second window trains on 4 resident batches. K1 8 times a replay
@@ -103,15 +104,17 @@ non-zero exit and no result line:
    ``imagenet_train_augment`` (f32 out) inside the 8-step graph, which
    registers the augment's generator; ``aug_cost_frac = 1 - aug / bare``.
    K1 runs 8 times a replay of (a), never in (b); two more replays of (a)
-   must draw different crop boxes. Epoch 1 warms up, 4 are counted (the
-   bench's).
+   must draw different crop boxes. Epoch 1 warms up, 1 is counted (the
+   bench counts 4; cut for phase 27's time).
 13. lm_long: the ``lm_long`` child (``bench.py:2526-2530``): a store of 256
    rows of 8193 tokens (``bench.py:141``), ``TransformerLM(max_len=8192)``,
-   batch 2, K = 4, 2 warm-up and 12 measured calls; each flash kernel 32
+   batch 2, K = 4, 2 warm-up and 4 measured calls (16 steps, the bench's);
+   each flash kernel 32
    times a replay; attention's share of the traced step.
 14. lm_moe: the ``lm_moe`` child (``bench.py:2537-2540``): the lm store and
    widths with 4 Switch-MoE experts and 4 layers, loss ``ce + 1e-2 * aux``,
-   batch 8, K = 8, 2 warm-up and 12 measured calls; each flash kernel 32
+   batch 8, K = 8, 2 warm-up and 4 measured calls (32 steps; the bench:
+   16); each flash kernel 32
    times a replay; the losses and the aux losses.
 15. pipeline: the bench's ``pipeline`` child (``bench.py:774-949``) on the
    imagenet store: the host pipeline alone, no model (see
@@ -127,8 +130,8 @@ non-zero exit and no result line:
    store (K1 once a step), the long_context example at its defaults (K2-K4
    once a layer a step), the mnist example (accuracy over 0.8).
 18. preemptible: ResNet-50 killed mid-epoch and resumed from a job
-   checkpoint (see :func:`run_preemptible`), three child processes on the
-   imagenet store, deterministic reader, lineage ledger, ``superbatches(8)``
+   checkpoint (see :func:`run_preemptible`), three runs on the imagenet
+   store (U in this process, S1 and S2 in child processes), deterministic reader, lineage ledger, ``superbatches(8)``
    and the 8-step scan trainer with K1 in its graph: U runs 6 calls (3
    epochs); S1 saves after every call (async ``JobCheckpointer``) and is
    SIGKILLed once the save of call 3 is durable; S2 restores and runs
@@ -143,14 +146,15 @@ non-zero exit and no result line:
    ``make_pod_reader`` -> the mesh ``TorchLoader`` -> ``make_scan_train_step
    (mesh=...)``, K1 and the gradient all-reduce (NCCL ``ReduceOp.AVG``,
    whose one-rank reduction kernel runs) in the 8-step graph, each counted
-   by name among the graph's kernel nodes, 8 a replay in 13 replays; (c)
+   by name among the graph's kernel nodes, 8 a replay in 7 replays (3 + 5
+   + 5 calls, ``EARLY_CALLS``); (c)
    the sharded ``JobCheckpointer`` save
    of (a)'s state through the group and its restore into a fresh state,
    bit for bit, then the same save with ``async_save=True`` (its seconds on
    the training thread and in all) and its restore, bit for bit; (b) the lm
    cell's TransformerLM on ``{'data': 1, 'sp': 1, 'model': 1}`` with
-   ``attention='a2a'`` through the 8-step scan graph (K2-K4 counted as
-   lm_scan counts them) and ``attention='ring'`` for three
+   ``attention='a2a'`` through the 8-step scan graph (2 + 6 + 6 calls;
+   K2-K4 counted as lm_scan counts them) and ``attention='ring'`` for three
    eager steps, each holding its first losses to ``attention='flash'``'s
    within ``MESH_LOSS_ATOL``. No number of this phase measures
    communication between two cards. It runs after lm_moe.
@@ -180,8 +184,8 @@ non-zero exit and no result line:
    ``TransformSpec`` mapping each kept label to a dense class id through a
    1000-entry int64 table, ``shuffle_rows_in_chunk=True``,
    ``deterministic=True``, seed 0, no cache (a predicate read decodes every
-   epoch), ``DECODE_WORKERS`` threads. Checks: K1's graph nodes times the
-   replays (104 of 104 in 13); one epoch's labels (a one-epoch reader of the
+   epoch), ``DECODE_WORKERS`` threads, 3 + 5 + 5 calls. Checks: K1's graph
+   nodes times the replays (56 of 56 in 7); one epoch's labels (a one-epoch reader of the
    same arguments through a loader on the card) equal, as a multiset, an
    independent reckoning (pyarrow reads ``label``, the split's md5 buckets
    and the table in numpy); the first 16 batches' labels of the training
@@ -252,13 +256,13 @@ non-zero exit and no result line:
 24. imagenet_health: pipeline health and observability, run after
    imagenet_faults on the same state (``bench.run_imagenet_health``). (a)
    imagenet_scan's protocol (memory cache, ``superbatches(8)``, K1 in the
-   8-step graph; 3 warm-up, 11 counted and 11 timed calls, the counted ones
+   8-step graph; 3 warm-up, 5 counted and 5 timed calls, the counted ones
    unprofiled: the profiler's processing would keep the training loop from
    the loader past the deadline) with
    ``TorchLoader(watchdog=True, stall_timeout_s=10, tracer=...)``, the tracer
    also the global one (the workers' spans), ``PSTT_FLIGHT_RECORDER`` and the
    lineage ledger under the phase's directory. Checks: K1's graph nodes
-   times the replays (104 of 104 in 13); the watchdog alive with no stall
+   times the replays (56 of 56 in 7); the watchdog alive with no stall
    episode, no hard stall and the six stage heartbeats (``ventilator``,
    ``reader-handoff``, ``worker-pool``, ``assemble``, ``dispatch``,
    ``consumer``); the tracer's summary holds ``read``, ``decode``,
@@ -284,7 +288,7 @@ non-zero exit and no result line:
 
 25. imagenet_process: the process pools, run after imagenet_health on the
    same state (``bench.run_imagenet_process``), imagenet_decode (a)'s
-   protocol (``null`` cache, ``DECODE_WORKERS`` workers, 3 + 11 + 11 calls,
+   protocol (``null`` cache, ``DECODE_WORKERS`` workers, 3 + 5 + 5 calls,
    the counted ones unprofiled, K1 in the 8-step graph) decoded in worker
    processes. (a)
    ``reader_pool_type='process'`` with ``shm_result_ring_bytes`` sized to
@@ -297,7 +301,7 @@ non-zero exit and no result line:
    one worker is SIGKILLed while the epoch runs; the epoch, trained through
    (a)'s graph, still yields pyarrow's 2,048 labels as a multiset,
    ``pst_worker_deaths_total`` and ``pst_worker_respawns_total`` are 1 and
-   every loss is finite. Checks in (a) and (b): K1 104 of 104 in 13
+   every loss is finite. Checks in (a) and (b): K1 56 of 56 in 7
    replays; no worker pid among ``nvidia-smi --query-compute-apps=pid`` and
    none mapping the CUDA driver; after ``stop()`` no segment of the script
    left in ``/dev/shm`` and no worker alive. Its line: img/s, device ms a
@@ -330,12 +334,40 @@ non-zero exit and no result line:
    script drops ``PSTT_AUTOTUNE`` from its environment), so no earlier
    protocol moves.
 
+27. imagenet_remote: the data service, run after imagenet_autotune on the
+   same state (``bench.run_imagenet_remote``), imagenet_decode (a)'s store,
+   model and protocol (``null`` cache, ``DECODE_WORKERS`` OpenCV threads,
+   3 + 11 + 11 calls unprofiled, K1 in the 8-step graph) with the reader
+   moved into a server process: ``python -m
+   petastorm_tpu_torch.tools.serve_cli`` with ``CUDA_VISIBLE_DEVICES=''``,
+   ``--await-cursor`` (it reads nothing before the trainer attaches) and as
+   many epochs as the calls need, bound to ``ipc://`` sockets under the
+   phase's directory; the trainer is ``RemoteReader(flow_control=16)`` ->
+   ``TorchLoader(prefetch=8)`` -> ``superbatches(8)``. (a) negotiated: the
+   sole same-host consumer is granted shm, the ring sized for 40 chunks of
+   38.5 MB within half of ``/dev/shm``'s free bytes. (b) ``wire='arrow-ipc'``
+   forced on the consumer. (c) a deterministic server with
+   ``--snapshot-path`` (which pins pickle) for 2 epochs, SIGKILLed by
+   ``PSTT_FAULTS=server-kill:p=0.25:seed=5:token=<file>`` before chunk 5 and
+   restarted with ``--resume`` on the same endpoint while (b)'s trainer keeps
+   stepping; each epoch's per-row digests (on the card) equal an
+   uninterrupted epoch's as a multiset. (d) the bench's ``fleet_wire``
+   record, one repetition a tier, 16 MB chunks. Its line: img/s, device ms a
+   step and stall beside imagenet_scan's and imagenet_decode (a)'s of this
+   run, the granted tier, the server's ``pst_wire_bytes_total`` by transport
+   and serialize ms a chunk, its pid and whether it maps the CUDA driver,
+   the segments left, K1's counts, and (c)'s kill chunk, restart seconds,
+   duplicates dropped and rows lost. It fails, after its line, if K1 is not
+   104 of 104 in 13 replays in (a) or (b), a server maps the driver, a
+   segment is left, a row is lost or delivered twice, or (a) runs under 0.75
+   of imagenet_decode (a)'s img/s.
+
 ``python3 chip_smoke.py --decode-turns N`` instead runs the device line,
 the imagenet store and imagenet_scan (for its state), then N turns of
 imagenet_decode (a) on the thread pool and on ``'process'``, in the order
 thread, process, process, thread, ..., each a line, and the ok line.
 
-Phases 5 to 15, 18 and 20 to 26 run the bench's protocol through the functions of
+Phases 5 to 15, 18 and 20 to 27 run the bench's protocol through the functions of
 ``petastorm_tpu_torch/bench.py`` (``python -m petastorm_tpu_torch.bench``
 runs them as the bench's children); this script holds their launch counts.
 Each path's kernel launch counts are zeroed just before it and read just
@@ -403,15 +435,22 @@ FA_BATCH, FA_SEQ, FA_HEADS, FA_D = 4, 8192, 8, 128
 # The lm_long child (bench.py:2526-2530; store bench.py:141): 256 rows of 8193
 # tokens, batch 2, K 4, 48 measured steps (the bench: 16): the flash kernels
 # see [16, 8192, 64].
-LONG_SEQ, LONG_BATCH, LONG_K, LONG_STEPS = 8193, 2, 4, 48
+LONG_SEQ, LONG_BATCH, LONG_K, LONG_STEPS = 8193, 2, 4, 16
 # The lm_moe child (bench.py:2537-2540): 4 experts, 4 layers; batch 8, K 8, 96
 # steps (the bench: 16).
-MOE_EXPERTS, MOE_LAYERS, MOE_STEPS = 4, 4, 96
+MOE_EXPERTS, MOE_LAYERS, MOE_STEPS = 4, 4, 32
 # Measured calls of the streamed ResNet scan paths (the bench: 5): 13
-# replays counted, 104 K1 launches, and as many calls timed. The
-# imagenet_aug epochs are the bench's 4, which keeps the script's last phase
-# near 800 s.
-SCAN_CALLS, AUG_EPOCHS = 11, 4
+# replays counted, 104 K1 launches, and as many calls timed. imagenet_aug
+# counts 1 epoch (the bench: 4), which with the cuts below keeps the
+# script's last phase under 840 s with phase 27.
+SCAN_CALLS, AUG_EPOCHS = 11, 1
+# Cut for phase 27's time (the bench's depths in brackets): the counted and
+# timed calls of imagenet_chunkstore, imagenet_filtered, imagenet_health,
+# imagenet_process and mesh (a) [11 here before]: 7 replays counted, 56 K1
+# launches; imagenet_hbm's counted epochs [16]; imagenet_hbm_partial's [6].
+# imagenet_scan, imagenet_decode, imagenet_faults, imagenet_autotune and
+# imagenet_remote keep SCAN_CALLS: the later phases' checks read their rates.
+EARLY_CALLS, HBM_EPOCHS, PARTIAL_EPOCHS = 5, 6, 3
 # The decode phase's reader threads (imagenet_scan's protocol otherwise).
 DECODE_WORKERS = 8
 
@@ -1315,7 +1354,7 @@ PREEMPT_CHILD_TIMEOUT_S = 300
 # the a2a scan's 8 and the ring's 3 stayed within 1.7e-4 of flash's (near
 # 10.9), so 2e-3 leaves a margin of about ten.
 MESH_SEQ, MESH_RING_STEPS, MESH_LOSS_ATOL = 1024, 3, 2e-3
-MESH_LM_CALLS, MESH_CHILD_TIMEOUT_S = 12, 600
+MESH_LM_CALLS, MESH_CHILD_TIMEOUT_S = 6, 600
 # NCCL's one-rank reduction kernel (ReduceOp.AVG; an in-place sum on one
 # rank enqueues nothing): the gradient all-reduce, counted by name among
 # the graph's kernel nodes.
@@ -1438,6 +1477,7 @@ def preemptible_role(role, url, workdir, launched, device='cuda'):
         digests=[r['digest'] for r in records], ledger_records=len(records),
         tiers=sorted({s['tier'] for r in records for s in r['segments']}))
     bench.emit(out)
+    return out
 
 
 def preemptible_checks(u, s1, s2):
@@ -1472,7 +1512,8 @@ def _role_line(proc, role):
 
 
 def run_preemptible(url, card):
-    """The preemptible phase: three child processes on the imagenet store
+    """The preemptible phase: three runs on the imagenet store (U in this
+    process, S1 and S2 in child processes)
     (``make_tensor_reader(deterministic=True, seed=0, workers_count=4,
     cache_type='memory', num_epochs=3)``, ``TorchLoader(batch 128,
     prefetch 2, lineage=<dir>)``, ``superbatches(8)``, the 8-step ResNet-50
@@ -1489,7 +1530,12 @@ def run_preemptible(url, card):
     t_phase = time.perf_counter()
     lines = {}
     try:
-        for role in ('U', 'S1', 'S2'):
+        # U runs in this process: its digests and losses are all the checks
+        # read of it, and a child would pay ~40 s to start (the CUDA context,
+        # cuDNN's benchmark of every conv); S1 and S2 stay children, one to
+        # be killed and one to measure a restart.
+        lines['U'] = preemptible_role('U', url, workdir, time.time())
+        for role in ('S1', 'S2'):
             cmd = [sys.executable, os.path.abspath(__file__), '--preemptible-role', role,
                    '--preemptible-url', url, '--preemptible-dir', workdir,
                    '--preemptible-launched', repr(time.time())]
@@ -1545,7 +1591,7 @@ def mesh_resnet(url, device):
     state = bench.resnet50_state(device, mesh=mesh)
     train = make_scan_train_step(bench.SCAN_K, preprocess=bench.normalize_bf16, mesh=mesh)
     result, (launches, captured, ran, replays) = bench.stream_classifier_scan(
-        url, device, train, state, 3, SCAN_CALLS, ('normalize_kernel', NCCL_KERNEL), mesh=mesh)
+        url, device, train, state, 3, EARLY_CALLS, ('normalize_kernel', NCCL_KERNEL), mesh=mesh)
     # K1 and the all-reduce, each 8 times a replay.
     bench.require_scan_launches(launches, captured, ran, ('normalize_images',), bench.SCAN_K,
                                 replays)
@@ -1839,7 +1885,7 @@ def run_filtered(url, device, card, state, imagenet_scan, worker_decode):
     on ``state``, beside imagenet_scan's and imagenet_decode (a)'s numbers
     of this run. Returns the phase's line."""
     t0 = time.perf_counter()
-    result = bench.run_imagenet_filtered(url, device, card, state, calls=SCAN_CALLS,
+    result = bench.run_imagenet_filtered(url, device, card, state, calls=EARLY_CALLS,
                                          workers=DECODE_WORKERS)
     profile = result['stage_profile']
     result.update(
@@ -1883,7 +1929,7 @@ def run_health(url, device, card, state, imagenet_scan, workdir):
     ``state``, beside imagenet_scan's numbers of this run. Returns the
     phase's line."""
     t0 = time.perf_counter()
-    result = bench.run_imagenet_health(url, device, card, state, workdir, calls=SCAN_CALLS,
+    result = bench.run_imagenet_health(url, device, card, state, workdir, calls=EARLY_CALLS,
                                        reference_rate=imagenet_scan['img_per_s'])
     result['beside'] = {'imagenet_scan': {
         'img_per_s': imagenet_scan['img_per_s'], 'device_step_ms': imagenet_scan['device_step_ms'],
@@ -1900,7 +1946,7 @@ def run_process(url, device, card, state, imagenet_scan, worker_decode, workdir)
     """Phase 25 (see the module docstring): the ``imagenet_process`` cell on
     ``state``, beside imagenet_scan's and imagenet_decode (a)'s numbers of
     this run. Returns the phase's line."""
-    result = bench.run_imagenet_process(url, device, card, state, workdir, calls=SCAN_CALLS,
+    result = bench.run_imagenet_process(url, device, card, state, workdir, calls=EARLY_CALLS,
                                         workers=DECODE_WORKERS)
     result['beside'] = {
         name: {'img_per_s': cell['img_per_s'], 'device_step_ms': cell['device_step_ms'],
@@ -1922,6 +1968,26 @@ def run_autotune(url, device, card, state, imagenet_scan, worker_decode):
     of this run. Returns the phase's line."""
     result = bench.run_imagenet_autotune(url, device, card, state, worker_decode['img_per_s'],
                                          calls=SCAN_CALLS)
+    result['beside'] = {
+        name: {'img_per_s': cell['img_per_s'], 'device_step_ms': cell['device_step_ms'],
+               'input_stall_frac': cell['input_stall_frac']}
+        for name, cell in (('imagenet_scan', imagenet_scan),
+                           ('imagenet_decode_worker_decode', worker_decode))}
+    return result
+
+
+# --------------------------------------------------------------------------
+# the remote phase: the reader in a data-service server process
+# --------------------------------------------------------------------------
+
+def run_remote(url, device, card, state, imagenet_scan, worker_decode, workdir):
+    """Phase 27 (see the module docstring): the ``imagenet_remote`` cell on
+    ``state``, beside imagenet_scan's and imagenet_decode (a)'s numbers of
+    this run. Returns the phase's line; its ``failures`` fail the phase
+    once the line is printed."""
+    result = bench.run_imagenet_remote(url, device, card, state, workdir, calls=SCAN_CALLS,
+                                       workers=DECODE_WORKERS,
+                                       decode_rate=worker_decode['img_per_s'])
     result['beside'] = {
         name: {'img_per_s': cell['img_per_s'], 'device_step_ms': cell['device_step_ms'],
                'input_stall_frac': cell['input_stall_frac']}
@@ -2301,19 +2367,20 @@ def main():
         imagenet_scan_rate = result['img_per_s']
         by_path['imagenet_scan'] = bench.path_launches(result, 'normalize_images',
                                                        'normalize_kernel')
-        result = bench.run_imagenet_hbm(url, device, card, state)
+        result = bench.run_imagenet_hbm(url, device, card, state, epochs=HBM_EPOCHS)
         record(result)
         by_path['imagenet_hbm'] = bench.path_launches(result, 'normalize_images',
                                                       'normalize_kernel')
         rates = {'imagenet_scan': imagenet_scan_rate, 'imagenet_hbm': result['img_per_s']}
         chunk_dir = os.path.join(store_dir, 'chunks')
         result = bench.run_imagenet_chunkstore(url, device, card, state, chunk_dir,
-                                               calls=SCAN_CALLS)
+                                               calls=EARLY_CALLS)
         record(result)
         by_path['imagenet_chunkstore'] = bench.path_launches(result, 'normalize_images',
                                                              'normalize_kernel')
         result = bench.run_imagenet_hbm_partial(url, device, card, state,
-                                                os.path.join(chunk_dir, 'transcoded'), rates)
+                                                os.path.join(chunk_dir, 'transcoded'), rates,
+                                                counted=PARTIAL_EPOCHS)
         record(result)
         by_path['imagenet_hbm_partial'] = {
             window: bench.path_launches(result[window], 'normalize_images', 'normalize_kernel')
@@ -2352,6 +2419,15 @@ def main():
         record(result)
         by_path['imagenet_autotune'] = bench.path_launches(result, 'normalize_images',
                                                            'normalize_kernel')
+        result = run_remote(url, device, card, state, imagenet_scan, decode['worker_decode'],
+                            os.path.join(store_dir, 'remote'))
+        record(result)
+        for variant, key in (('negotiated', 'imagenet_remote'),
+                             ('arrow', 'imagenet_remote_arrow')):
+            by_path[key] = bench.path_launches(result[variant], 'normalize_images',
+                                               'normalize_kernel')
+        if result['failures']:
+            raise AssertionError('imagenet_remote: {}'.format('; '.join(result['failures'])))
         k1['launches_by_path'] = by_path
         lm_result = run_lm(lm_url, device, args.steps, card)
         record(lm_result)

@@ -43,8 +43,10 @@ _EXPORTS = {
     'petastorm_tpu_torch.decode_budget': ('DecodeThreadBudget', 'get_decode_budget'),
     'petastorm_tpu_torch.device': ('resolve_device',),
     'petastorm_tpu_torch.device_cache': ('DeviceCacheOverflow', 'DeviceDatasetCache'),
+    'petastorm_tpu_torch.data_service': ('DataServer', 'RemoteReader', 'serve_dataset'),
     'petastorm_tpu_torch.errors': ('HostMemoryExceededError', 'PipelineStallError',
-                                   'RowGroupQuarantinedError', 'WorkerLostError'),
+                                   'RowGroupQuarantinedError', 'ServerOverloaded',
+                                   'WorkerLostError'),
     'petastorm_tpu_torch.etl': ('DatasetWriter', 'get_schema', 'materialize_dataset',
                                 'write_dataset'),
     'petastorm_tpu_torch.loader': ('CropTo', 'PadTo', 'ShapePolicy', 'TorchLoader',

@@ -14,7 +14,10 @@ pools swept, the median of 3 runs at the best, beside the reference's
 (``bench.py:2475-2560, 2781``), each in a subprocess under a timeout as
 ``bench.py:_run_child`` does: staging (hello_world batches through the
 loader with ``PadTo``, on the sweep's pool), imagenet, pipeline,
-imagenet_vit, lm, lm_long, lm_moe, flashattn, imagenet_aug. It prints one
+imagenet_vit, lm, lm_long, lm_moe, flashattn, imagenet_aug, then, where
+the bench runs its ``fleet_wire`` child, imagenet_remote (the imagenet
+store decoded in a data-service server process, :func:`run_imagenet_remote`)
+and fleet_wire (:func:`run_fleet_wire`). It prints one
 JSON object with the metric and a key per child and exits 1 when any child
 failed, naming which.
 
@@ -32,16 +35,18 @@ trainer captured as one CUDA graph and replayed, the HBM tier. Their launch
 windows (:func:`scan_window`) count each hand kernel by name among the
 captured graph's kernel nodes, times the replays; ``chip_smoke.py`` drives
 the same functions and holds the counts. ``--device cpu`` exists for the tests and runs the
-``pipeline`` and ``staging`` children only. No MFU is reported (the bench's TPU peak table has no
+``pipeline``, ``staging`` and ``fleet_wire`` children only. No MFU is reported (the bench's TPU peak table has no
 counterpart here): the children report device ms a step instead.
 """
 
 import argparse
+import collections
 import json
 import math
 import os
 import resource
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1571,6 +1576,510 @@ def run_imagenet_process(url, device, card, state, workdir, warmup=3, calls=5, w
     return out
 
 
+# imagenet_remote: imagenet_decode (a)'s protocol with the reader in a server
+# process (the data service), and the fleet_wire record of bench.py:1344-1552.
+
+#: The remote cell's flow-control credits (chunks sent and not yet granted
+#: back), and the server's and the consumer's zmq high-water marks. A
+#: consumer grants its credits back every 0.25 s once half are owed, so up
+#: to ~10 chunks (0.75 s at 14 chunks/s) sit received and not yet granted;
+#: with 16 credits the server could then run only ~6 chunks ahead, fewer
+#: than the 8 a superbatch call takes at once.
+REMOTE_CREDITS, REMOTE_SNDHWM, REMOTE_RCVHWM = 32, 4, 4
+#: Chunks the shm ring holds: the credits, the loader's prefetch (4 chunks)
+#: and the superbatch it gathers (4), the chunk being cut, acks in transit
+#: (a 0.25 s flush, ~4 chunks), and room to spare.
+REMOTE_RING_CHUNKS = 48
+#: The crash variant: 2 epochs, the server SIGKILLed by ``server-kill``
+#: (unkeyed draws of seed 5: 0.953, 0.325, 0.369, 0.508, 0.539, 0.202, so at
+#: p=0.25 it fires on the serve loop's sixth pass, before chunk 5 is sent).
+REMOTE_CRASH_EPOCHS, REMOTE_KILL_SPEC, REMOTE_KILL_CHUNK = 2, 'server-kill:p=0.25:seed=5', 5
+#: (a)'s img/s floor against imagenet_decode (a)'s of the same run: below it
+#: the shm tier fell back chunk after chunk (noise is not judged).
+REMOTE_MIN_RATIO = 0.75
+#: The fleet_wire record: 4096 rows of 4 KB (16 MB chunks) a chunk, 48 chunks
+#: a pass, the JAX child's 3 repetitions a tier (``BENCH_WIRE_*`` override).
+WIRE_ROWS, WIRE_WIDTH, WIRE_CHUNKS, WIRE_REPS = 4096, 1024, 48, 3
+
+
+def imagenet_chunk_bytes(rows=ROWS_PER_GROUP, size=IMAGE):
+    """One decoded row-group of the imagenet store: uint8 images and int64
+    labels."""
+    return rows * size * size * 3 + rows * 8
+
+
+def remote_ring_bytes(chunk_bytes, chunks=REMOTE_RING_CHUNKS):
+    """The wire ring for ``chunks`` chunks of ``chunk_bytes``, at most half of
+    ``/dev/shm``'s free bytes, a multiple of 4096."""
+    from petastorm_tpu_torch.native import shm_ring
+    free = shm_ring.shm_free_bytes() or 0
+    return min(chunks * chunk_bytes, free // 2) // 4096 * 4096
+
+
+def start_server(url, bind, workers, epochs, args=(), env=None, timeout_s=120):
+    """``python -m petastorm_tpu_torch.tools.serve_cli`` over ``url``'s image
+    and label fields, in a process that sees no card
+    (``CUDA_VISIBLE_DEVICES=''``): ``workers`` reader threads, a ``null``
+    cache, shuffled row-groups (seed 0), ``epochs`` epochs. Returns (the
+    process, its status line, seconds until the line)."""
+    cmd = [sys.executable, '-m', 'petastorm_tpu_torch.tools.serve_cli', url, '--bind', bind,
+           '--fields', 'image', 'label', '--workers', str(workers), '--epochs', str(epochs),
+           '--cache-type', 'null', '--shuffle-row-groups', '--seed', '0',
+           '--sndhwm', str(REMOTE_SNDHWM)] + list(args)
+    full_env = dict(os.environ if env is None else env, CUDA_VISIBLE_DEVICES='')
+    full_env['PYTHONPATH'] = os.pathsep.join(filter(None, [ROOT, full_env.get('PYTHONPATH')]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=full_env, cwd=ROOT)
+    line = proc.stdout.readline()
+    if not line:
+        proc.wait(timeout_s)
+        raise RuntimeError('the server exited with {} before its status line'.format(
+            proc.returncode))
+    return proc, json.loads(line), time.perf_counter() - t0
+
+
+def stop_server(proc, timeout_s=30):
+    """A SIGTERM (the CLI drains), another after 1 s (it stops without the
+    5 s grace that lets a served stream's tail and END reach its consumer),
+    SIGKILL past ``timeout_s``; the exit code."""
+    for signum, wait_s in ((signal.SIGTERM, 1.0), (signal.SIGTERM, timeout_s)):
+        if proc.poll() is not None:
+            return proc.returncode
+        proc.send_signal(signum)
+        try:
+            return proc.wait(wait_s)
+        except subprocess.TimeoutExpired:
+            pass
+    proc.kill()
+    return proc.wait()
+
+
+def wire_segments_of(pids):
+    """The ``pstt-wire-`` segments in ``/dev/shm`` whose header names one of
+    ``pids`` as its owner (segments of other processes are left out)."""
+    from petastorm_tpu_torch.fleet import wire as wire_mod
+    from petastorm_tpu_torch.native import shm_ring
+    out = []
+    for name in shm_ring.list_segments(wire_mod.SEGMENT_PREFIX):
+        header = wire_mod.read_segment_header(os.path.join(shm_ring.shm_dir(), name))
+        if header is not None and header[1] in pids:
+            out.append(name)
+    return out
+
+
+def wire_counters(snapshot):
+    """``pst_wire_bytes_total`` by transport and the serialize seconds'
+    sum and count of a metrics snapshot."""
+    by_transport = {s['labels'].get('transport'): s['value']
+                    for s in (snapshot.get('pst_wire_bytes_total') or {}).get('samples', [])}
+    ser = {'sum': 0.0, 'count': 0}
+    for s in (snapshot.get('pst_wire_serialize_seconds') or {}).get('samples', []):
+        ser['sum'] += s.get('sum', 0.0)
+        ser['count'] += s.get('count', 0)
+    return by_transport, ser
+
+
+def remote_classifier_scan(endpoint, device, train, state, warmup, calls, kernels, wire=None,
+                           hooks=None):
+    """The scan protocol of :func:`stream_classifier_scan` fed by a data
+    server: ``RemoteReader(endpoint, flow_control=REMOTE_CREDITS)`` ->
+    ``TorchLoader(batch=128, prefetch=8)`` -> ``superbatches(8)``;
+    :func:`scan_window` over ``warmup`` + ``calls`` calls (unprofiled), then
+    ``calls`` timed. ``wire`` forces the consumer's tier. ``hooks(reader)``
+    runs after the timed calls while the stream is open. Returns the line
+    and the launch window."""
+    import torch
+    from petastorm_tpu_torch import TorchLoader
+    from petastorm_tpu_torch.data_service import RemoteReader
+
+    torch.cuda.empty_cache()
+    reader = RemoteReader(endpoint, rcvhwm=REMOTE_RCVHWM, flow_control=REMOTE_CREDITS,
+                          wire=wire, end_grace_s=30.0)
+    with reader:
+        with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH,
+                         autotune=False) as loader:
+            groups = loader.superbatches(SCAN_K)
+
+            def next_inputs():
+                sb = next(groups)
+                return sb.image, sb.label
+
+            metrics, launches, captured, ran, _, replays = scan_window(
+                train, state, next_inputs, warmup, calls, kernels, profile=False)
+            stats0 = loader.stats
+            loader.reset_stats()
+            wall, wait_s, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
+            stats = loader.stats
+            extra = hooks(reader) if hooks is not None else {}
+            diagnostics = reader.diagnostics
+    losses = [[float(m['loss']), float(m['last_loss'])] for m in metrics + timed]
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        raise AssertionError('non-finite loss: {}'.format(losses))
+    rows = (warmup + 2 * calls) * SCAN_K * BATCH
+    if stats0['rows'] + stats['rows'] != rows:
+        raise AssertionError('loader delivered {} rows, expected {}'.format(
+            stats0['rows'] + stats['rows'], rows))
+    steps = calls * SCAN_K
+    result = dict({
+        'batch': BATCH, 'microbatches': SCAN_K, 'prefetch': SCAN_PREFETCH,
+        'warmup_calls': warmup, 'counted_calls': calls, 'timed_calls': calls,
+        'losses_mean_last': losses, 'img_per_s': steps * BATCH / wall,
+        'step_ms': wall / steps * 1e3, 'input_stall_frac': wait_s / wall,
+        'device_call_ms_median': call_ms, 'device_step_ms': call_ms / SCAN_K,
+        'rows_delivered': stats0['rows'] + stats['rows'],
+        'remote_chunks': diagnostics['remote_chunks'],
+        'duplicate_chunks': diagnostics['duplicate_chunks'],
+        'wire_decode_errors': diagnostics['wire_decode_errors'],
+        'granted': diagnostics['wire'],
+        'launches': _scan_launches(launches, captured, ran, warmup + calls, replays)}, **extra)
+    return result, (launches, captured, ran, replays)
+
+
+def _server_hooks(proc, seen):
+    """While the stream is open: the server's metrics over the rpc socket,
+    and whether its process maps the CUDA driver or is among the card's
+    compute pids."""
+    def hooks(reader):
+        fleet = reader.fleet_metrics(timeout_ms=10000)
+        by_transport, ser = wire_counters(fleet['aggregate'])
+        seen.update(server_pid=proc.pid, server_maps_cuda=maps_cuda_driver(proc.pid),
+                    server_on_card=proc.pid in cuda_compute_pids())
+        return {'wire_bytes_by_transport': by_transport,
+                'serialize_ms_per_chunk': ser['sum'] / ser['count'] * 1e3 if ser['count'] else None,
+                'serialized_chunks': ser['count'],
+                'server_chunks_served': sum(s['value'] for s in fleet['aggregate'].get(
+                    'pst_data_service_chunks_served_total', {}).get('samples', []))}
+    return hooks
+
+
+def _remote_variant(url, device, train, state, workdir, name, warmup, calls, workers, wire,
+                    ring_bytes):
+    """One streamed variant of the remote cell: a server for as many epochs
+    as the calls need (``--await-cursor``: it reads nothing before the
+    trainer's attach, so no chunk rides the empty fleet's tier), the scan
+    protocol through :func:`remote_classifier_scan`. Fails unless K1 ran 8
+    times a replay, the server neither maps the CUDA driver nor is among
+    the card's compute pids, and no ``pstt-wire-`` segment is left once it
+    stopped. Returns the variant's line."""
+    t0 = time.perf_counter()
+    rows = (warmup + 2 * calls) * SCAN_K * BATCH + (SCAN_PREFETCH + SCAN_K) * BATCH
+    epochs = -(-rows // ROWS) + 1
+    env = dict(os.environ, PSTT_WIRE_SEGMENT_MB=str(ring_bytes / (1 << 20)))
+    bind = 'ipc://' + os.path.join(workdir, name)
+    proc, status, up_s = start_server(url, bind, workers, epochs, ['--await-cursor'], env=env)
+    seen = {}
+    try:
+        result, window = remote_classifier_scan(status['data_endpoint'], device, train, state,
+                                                warmup, calls, ('normalize_kernel',), wire=wire,
+                                                hooks=_server_hooks(proc, seen))
+    finally:
+        rc = stop_server(proc)
+    failures = []
+    try:
+        require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
+    except AssertionError as e:
+        failures.append(str(e))
+    left = wire_segments_of({proc.pid})
+    if seen.get('server_maps_cuda') is not False or seen.get('server_on_card'):
+        failures.append('the server process holds the card: maps libcuda {}, listed by '
+                        'nvidia-smi {}'.format(seen.get('server_maps_cuda'),
+                                               seen.get('server_on_card')))
+    if left:
+        failures.append('segments left after the server stopped: {}'.format(left))
+    result.update(server=dict(seen, epochs=epochs, start_s=up_s, exit_code=rc,
+                              ring_bytes=ring_bytes),
+                  segments_left=left, failures=failures, seconds=time.perf_counter() - t0,
+                  k1_graph={'ran': window[2]['normalize_kernel'],
+                            'expected': SCAN_K * window[3], 'replays': window[3]})
+    return result
+
+
+def _remote_crash(url, device, train, state, workdir, workers):
+    """(c): a deterministic server with self-snapshots, SIGKILLed by the
+    ``server-kill`` site mid-epoch and restarted with ``--resume`` on the
+    same endpoint while the trainer keeps stepping. Each epoch's rows,
+    digested on the card (:func:`_row_digests`), must equal an
+    uninterrupted epoch's as a multiset."""
+    import threading
+    import torch
+    from petastorm_tpu_torch import TorchLoader, make_tensor_reader
+    from petastorm_tpu_torch.data_service import RemoteReader
+
+    t0 = time.perf_counter()
+    with make_tensor_reader(url, schema_fields=['image', 'label'], num_epochs=1,
+                            cache_type='null', workers_count=workers, autotune=False) as reader:
+        with TorchLoader(reader, BATCH, device=device, autotune=False) as loader:
+            reference = torch.sort(torch.cat([_row_digests(b.image) for b in loader])).values
+    snap = os.path.join(workdir, 'remote-crash.pkl')
+    token = os.path.join(workdir, 'remote-crash.token')
+    bind = 'ipc://' + os.path.join(workdir, 'remote-crash')
+    args = ['--deterministic', '--snapshot-path', snap, '--snapshot-every', '4']
+    env = dict(os.environ, PSTT_FAULTS='{}:token={}'.format(REMOTE_KILL_SPEC, token))
+    env.pop('PSTT_WIRE_SEGMENT_MB', None)
+    first, status, up_s = start_server(url, bind, workers, REMOTE_CRASH_EPOCHS, args, env=env)
+    # Read while no consumer is attached, so the server cannot have died yet.
+    maps_cuda = [maps_cuda_driver(first.pid)]
+    clean_env = {k: v for k, v in os.environ.items() if k != 'PSTT_FAULTS'}
+    restart = {}
+
+    def restarter():
+        rc = first.wait()
+        t0 = time.perf_counter()
+        restart['kill_rc'] = rc
+        try:
+            proc, line, _ = start_server(url, bind, workers, REMOTE_CRASH_EPOCHS,
+                                         args + ['--resume', snap], env=clean_env)
+            restart.update(proc=proc, status=line, seconds=time.perf_counter() - t0)
+            maps_cuda.append(maps_cuda_driver(proc.pid))
+        except Exception as e:  # noqa: BLE001 - reported by the phase
+            restart['error'] = repr(e)
+
+    watcher = threading.Thread(target=restarter, name='pstt-bench-restarter', daemon=True)
+    watcher.start()
+    digests, losses, failures, diagnostics = [], [], [], {}
+    try:
+        with RemoteReader(status['data_endpoint'], rcvhwm=REMOTE_RCVHWM, end_grace_s=30.0,
+                          reconnect_s=60.0) as remote:
+            try:
+                with TorchLoader(remote, BATCH, device=device, prefetch=SCAN_PREFETCH,
+                                 autotune=False) as loader:
+                    for sb in loader.superbatches(SCAN_K):
+                        digests.append(_row_digests(sb.image))
+                        metrics = train(state, sb.image, sb.label)
+                        losses.append([float(metrics['loss']), float(metrics['last_loss'])])
+            except Exception as e:  # noqa: BLE001 - the line reports it, then the phase fails
+                failures.append('the stream raised across the kill: {!r}'.format(e))
+            diagnostics = remote.diagnostics
+        watcher.join(timeout=60)
+    finally:
+        for proc in (first, restart.get('proc')):
+            if proc is not None:
+                stop_server(proc)
+    if 'error' in restart or 'proc' not in restart:
+        failures.append('the restart failed: {}'.format(restart.get('error', 'no restart')))
+    got = torch.cat(digests) if digests else torch.empty(0, dtype=torch.int64, device=device)
+    per_epoch = ROWS
+    lost = duplicated = 0
+    for epoch in range(REMOTE_CRASH_EPOCHS):
+        part = torch.sort(got[epoch * per_epoch:(epoch + 1) * per_epoch]).values
+        if part.numel() != reference.numel() or not torch.equal(part, reference):
+            ref_counts = collections.Counter(reference.tolist())
+            got_counts = collections.Counter(part.tolist())
+            lost += sum((ref_counts - got_counts).values())
+            duplicated += sum((got_counts - ref_counts).values())
+    lost += max(0, REMOTE_CRASH_EPOCHS * per_epoch - got.numel())
+    out = {'epochs': REMOTE_CRASH_EPOCHS, 'rows': int(got.numel()),
+           'kill_spec': REMOTE_KILL_SPEC, 'kill_chunk': REMOTE_KILL_CHUNK,
+           'kill_exit_code': restart.get('kill_rc'), 'token': os.path.exists(token),
+           'restart_s': restart.get('seconds'), 'first_server_start_s': up_s,
+           'server_pids': [first.pid] + ([restart['proc'].pid] if 'proc' in restart else []),
+           'servers_map_cuda': maps_cuda,
+           'duplicate_chunks_dropped': diagnostics.get('duplicate_chunks'),
+           'remote_chunks': diagnostics.get('remote_chunks'), 'rows_lost': lost,
+           'rows_duplicated': duplicated, 'losses_mean_last': losses, 'failures': failures,
+           'seconds': time.perf_counter() - t0}
+    if restart.get('kill_rc') != -signal.SIGKILL or not out['token']:
+        failures.append('server-kill did not SIGKILL the server: exit {}, token {}'.format(
+            restart['kill_rc'], out['token']))
+    if any(m is not False for m in maps_cuda):
+        failures.append('a server process maps the CUDA driver: {}'.format(maps_cuda))
+    if lost or duplicated or got.numel() != REMOTE_CRASH_EPOCHS * per_epoch:
+        failures.append('across the kill: {} rows, {} lost, {} delivered twice'.format(
+            got.numel(), lost, duplicated))
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        failures.append('non-finite loss across the kill: {}'.format(losses))
+    return out
+
+
+def run_imagenet_remote(url, device, card, state, workdir, warmup=3, calls=5, workers=8,
+                        decode_rate=None, wire_reps=1):
+    """The remote cell: imagenet_decode (a)'s protocol (a ``null`` cache,
+    ``workers`` OpenCV threads, K1 in the 8-step graph) on ``state``, with
+    the reader in a server process (``serve_cli``, no card) feeding
+    ``RemoteReader`` -> ``TorchLoader`` -> ``superbatches(8)`` over
+    ``ipc://`` sockets in ``workdir``. (a) negotiated: the sole same-host
+    consumer is granted shm, the ring sized by :func:`remote_ring_bytes`;
+    (b) ``wire='arrow-ipc'`` forced on the consumer; (c)
+    :func:`_remote_crash`; (d) :func:`run_fleet_wire` with ``wire_reps``
+    repetitions. The line's ``failures`` lists every check that failed: K1
+    not 8 a replay in (a) or (b), a server mapping the CUDA driver or listed
+    by ``nvidia-smi``, a segment left, a row lost or delivered twice across
+    (c)'s kill, and (a) under :data:`REMOTE_MIN_RATIO` of ``decode_rate``
+    when it is given; the caller prints the line, then fails on them.
+    Returns the phase's line."""
+    import torch
+    from petastorm_tpu_torch.models import make_scan_train_step
+    from petastorm_tpu_torch.native import shm_ring
+
+    t0 = time.perf_counter()
+    os.makedirs(workdir, exist_ok=True)
+    chunk = imagenet_chunk_bytes()
+    ring = remote_ring_bytes(chunk)
+    out = {'phase': 'imagenet_remote', 'card': card, 'model': 'resnet50', 'stem': 'conv7',
+           'classes': 1000, 'cache_type': 'null', 'workers': workers, 'chunk_bytes': chunk,
+           'ring_bytes': ring, 'ring_chunks': ring // chunk,
+           'dev_shm_free_bytes': shm_ring.shm_free_bytes(), 'credits': REMOTE_CREDITS,
+           'sndhwm': REMOTE_SNDHWM, 'rcvhwm': REMOTE_RCVHWM}
+    emit({'phase': 'imagenet_remote', 'step': 'ring', 'ring_bytes': ring, 'chunk_bytes': chunk})
+    for name, wire in (('negotiated', None), ('arrow', 'arrow-ipc')):
+        train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
+        out[name] = _remote_variant(url, device, train, state, workdir, 'remote-' + name,
+                                    warmup, calls, workers, wire, ring)
+        if name == 'arrow':
+            out['crash'] = _remote_crash(url, device, train, state, workdir, workers)
+        del train
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out['fleet_wire'] = run_fleet_wire(reps=wire_reps)
+    out['fleet_wire']['seconds'] = time.perf_counter() - t1
+    a = out['negotiated']
+    failures = ['{}: {}'.format(name, f) for name in ('negotiated', 'arrow', 'crash')
+                for f in out[name]['failures']]
+    if out['fleet_wire']['leaked_segments']:
+        failures.append('fleet_wire: segments left {}'.format(
+            out['fleet_wire']['leaked_segments']))
+    out.update(img_per_s=a['img_per_s'], device_step_ms=a['device_step_ms'],
+               input_stall_frac=a['input_stall_frac'], k1_graph=a['k1_graph'],
+               launches=a['launches'], failures=failures, seconds=time.perf_counter() - t0)
+    if decode_rate:
+        out['img_per_s_vs_decode_worker_decode'] = a['img_per_s'] / decode_rate
+        out['min_ratio'] = REMOTE_MIN_RATIO
+        if a['img_per_s'] < REMOTE_MIN_RATIO * decode_rate:
+            failures.append('(a) at {:.4f} of imagenet_decode (a)\'s img/s, under {}'.format(
+                a['img_per_s'] / decode_rate, REMOTE_MIN_RATIO))
+    return out
+
+
+def _fleet_wire_server(argv):
+    """The server half of :func:`run_fleet_wire`, run as ``python -c`` in a
+    process of its own that sees no card (an in-process server would share
+    the consumer's GIL, ``bench.py:1346-1360``). ``argv``: tier, bind,
+    chunk rows, row width, chunks. Serves the synthetic chunks at the tier,
+    held until the consumer attached; prints the data endpoint, then, once
+    a line arrives on stdin, its metrics snapshot."""
+    tier, bind = argv[0], argv[1]
+    chunk_rows, row_width, n_chunks = (int(v) for v in argv[2:5])
+    import collections as collections_mod
+    from petastorm_tpu_torch import data_service, metrics
+
+    class _StreamReader(object):
+        batched_output = True
+        ngram = None
+
+        def __iter__(self):
+            nt = collections_mod.namedtuple('WireChunk', ['vec', 'sid'])
+            vec = np.random.default_rng(7).random((chunk_rows, row_width)).astype(np.float32)
+            for i in range(n_chunks):
+                yield nt(vec=vec, sid=np.arange(i * chunk_rows, (i + 1) * chunk_rows,
+                                                dtype=np.int64))
+
+        def stop(self):
+            pass
+
+        def join(self):
+            pass
+
+    server = data_service.DataServer(_StreamReader(), bind, sndhwm=32, wire=tier)
+    server._pause.set()
+    server.start()
+    print(json.dumps({'data_endpoint': server.data_endpoint}), flush=True)
+    deadline = time.monotonic() + 120
+    while server._admission.count() < 1 and time.monotonic() < deadline:
+        time.sleep(0.005)
+    server._pause.clear()
+    sys.stdin.readline()
+    print(json.dumps(metrics.get_registry().collect()), flush=True)
+    server.stop()
+
+
+def run_fleet_wire(reps=None, chunk_rows=None, n_chunks=None, bind='tcp://127.0.0.1:*'):
+    """The bench's ``fleet_wire`` child (``bench.py:1416-1552``): one
+    synthetic stream (``chunk_rows`` x 1024 float32, 16 MB chunks by
+    default) drained through ``DataServer`` (a process of its own) ->
+    ``RemoteReader`` once a repetition for each tier, pickle, arrow-ipc and
+    shm, forced on the server. Per tier the median repetition's chunks/s and
+    payload GB/s, the server's ``pst_wire_bytes_total`` by transport (a pass
+    that fell back shows it) and its serialize ms a chunk. Acks are flushed
+    inline every 4 chunks, as the child does. Returns the record."""
+    import gc
+    from petastorm_tpu_torch.data_service import RemoteReader
+    from petastorm_tpu_torch.fleet import wire as wire_mod
+    from petastorm_tpu_torch.native import shm_ring
+
+    chunk_rows = chunk_rows or _env_int('BENCH_WIRE_ROWS', WIRE_ROWS)
+    n_chunks = n_chunks or _env_int('BENCH_WIRE_CHUNKS', WIRE_CHUNKS)
+    reps = max(1, reps or _env_int('BENCH_WIRE_REPS', WIRE_REPS))
+    chunk_bytes = chunk_rows * WIRE_WIDTH * 4 + chunk_rows * 8
+    # A ring of 48 chunks: capacity never forces a fallback mid-pass
+    # (bench.py:1363-1367), within half of /dev/shm's free bytes.
+    free_mb = (shm_ring.shm_free_bytes() or 0) / 2 / (1 << 20)
+    ring_mb = max(1.0, min(max(64.0, 48 * chunk_bytes / (1 << 20)), free_mb))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='', PSTT_WIRE_SEGMENT_MB=str(ring_mb))
+    env['PYTHONPATH'] = os.pathsep.join(filter(None, [ROOT, env.get('PYTHONPATH')]))
+    code = 'import sys; from petastorm_tpu_torch import bench; bench._fleet_wire_server(sys.argv[1:])'
+
+    def run_tier(tier, rep):
+        tier_bind = bind if bind.startswith('tcp://') else '{}-{}-{}'.format(bind, tier, rep)
+        proc = subprocess.Popen([sys.executable, '-c', code, tier, tier_bind, str(chunk_rows),
+                                 str(WIRE_WIDTH), str(n_chunks)], stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        server_pids.add(proc.pid)
+        try:
+            line = proc.stdout.readline()
+            if not line:
+                raise RuntimeError('the fleet_wire server exited with {}'.format(proc.wait(60)))
+            reader = RemoteReader(json.loads(line)['data_endpoint'], rcvhwm=32)
+            got = 0
+            t0 = t_last = time.perf_counter()
+            try:
+                for chunk in reader:
+                    if chunk.vec.dtype != np.float32 or chunk.vec.shape != (chunk_rows,
+                                                                            WIRE_WIDTH):
+                        raise AssertionError('chunk {} came back as {} {}'.format(
+                            got, chunk.vec.dtype, chunk.vec.shape))
+                    got += 1
+                    t_last = time.perf_counter()
+                    if got == 1:
+                        t0 = t_last
+                    del chunk
+                    if got % 4 == 0:
+                        reader._flush_wire_acks()
+                grant = next(iter(reader.fleet_metrics()['wire'].values()))
+            finally:
+                gc.collect()
+                reader._flush_wire_acks()
+                reader.stop()
+                reader.join()
+            server_metrics = json.loads(proc.communicate('stop\n', timeout=60)[0].splitlines()[-1])
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if got != n_chunks:
+            raise AssertionError('{}: {} of {} chunks'.format(tier, got, n_chunks))
+        elapsed = max(t_last - t0, 1e-9)
+        by_transport, ser = wire_counters(server_metrics)
+        return {'granted': grant, 'chunks': got, 'chunks_per_sec': (got - 1) / elapsed,
+                'payload_gb_per_sec': (got - 1) * chunk_bytes / elapsed / 1e9,
+                'wire_bytes_by_transport': by_transport,
+                'serialize_ms_per_chunk': ser['sum'] / ser['count'] * 1e3 if ser['count']
+                else None}
+
+    tiers, server_pids = {}, set()
+    for tier in (wire_mod.TRANSPORT_PICKLE, wire_mod.TRANSPORT_ARROW, wire_mod.TRANSPORT_SHM):
+        runs = sorted((run_tier(tier, rep) for rep in range(reps)),
+                      key=lambda r: r['chunks_per_sec'])
+        tiers[tier] = dict(runs[len(runs) // 2],
+                           chunks_per_sec_reps=[r['chunks_per_sec'] for r in runs])
+    shm_rate = tiers[wire_mod.TRANSPORT_SHM]['chunks_per_sec']
+    pickle_rate = tiers[wire_mod.TRANSPORT_PICKLE]['chunks_per_sec']
+    return {'chunk_bytes': chunk_bytes, 'chunks_per_epoch': n_chunks, 'repetitions': reps,
+            'ring_mb': ring_mb, 'bind': bind.split('://')[0], 'tiers': tiers,
+            'shm_over_pickle': shm_rate / pickle_rate if pickle_rate else None,
+            'gate_min_ratio': 2.0, 'gate_passed': shm_rate >= 2.0 * pickle_rate,
+            'leaked_segments': wire_segments_of(server_pids)}
+
+
 AUTOTUNE_INTERVAL_S = 0.25
 #: The convergence window: the counted calls start once the tuner has grown
 #: and then changed no knob (no grow, revert or shrink) for this many ticks,
@@ -1799,16 +2308,16 @@ def run_imagenet_autotune(url, device, card, state, decode_rate, warmup=3, calls
     return out
 
 
-def run_imagenet_hbm(url, device, card, state):
+def run_imagenet_hbm(url, device, card, state, epochs=HBM_EPOCHS):
     """``_measure_device_cache`` through the port on ``state``: see
-    :func:`hbm_scan`."""
+    :func:`hbm_scan` (``epochs`` counted, as many timed)."""
     import torch
     from petastorm_tpu_torch.models import make_scan_train_step
 
     torch.cuda.reset_peak_memory_stats(device)
     cache, fill_s = fill_device_cache(url, device)
     train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
-    result, window = hbm_scan(cache, train, state, HBM_EPOCHS, ('normalize_kernel',))
+    result, window = hbm_scan(cache, train, state, epochs, ('normalize_kernel',))
     require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
     return dict({'phase': 'imagenet_hbm', 'card': card, 'fill_s': fill_s}, **result)
 
@@ -1929,7 +2438,8 @@ def _row_digest_weights(n, device):
     return _ROW_WEIGHTS[key]
 
 
-def run_imagenet_hbm_partial(url, device, card, state, store_dir, reference_rates):
+def run_imagenet_hbm_partial(url, device, card, state, store_dir, reference_rates,
+                             counted=PARTIAL_EPOCHS):
     """The partial HBM tier under ResNet-50 scan training: a
     ``DeviceDatasetCache(partial=True, max_bytes=160e6,
     superbatch_batches=4, shuffle=True)`` filled from a deterministic
@@ -1937,7 +2447,7 @@ def run_imagenet_hbm_partial(url, device, card, state, store_dir, reference_rate
     with ``loader_factory`` a fresh such reader and loader a pass. 8 of the
     16 batches stay resident in two runs; each epoch streams the other 8.
     Epoch 0 fills; :func:`hbm_scan` trains a partial window (its warm-up
-    epoch, ``PARTIAL_EPOCHS`` counted, as many timed) through a scan step
+    epoch, ``counted`` epochs counted, as many timed) through a scan step
     of its own; then a ballast pool drives one ``check()`` of a memory
     governor (installed before the cache) to *degrade*, which evicts the
     coldest run, and the card's allocated bytes must fall by the run's;
@@ -1989,7 +2499,7 @@ def run_imagenet_hbm_partial(url, device, card, state, store_dir, reference_rate
                 or filled['superbatches'] != 2 or not filled['fill_stopped']):
             raise AssertionError('partial fill: {}'.format(filled))
         windows, freed = [], None
-        for first in (1, 2 + 2 * PARTIAL_EPOCHS):
+        for first in (1, 2 + 2 * counted):
             if windows:
                 torch.cuda.synchronize()
                 before = torch.cuda.memory_allocated(device)
@@ -2014,7 +2524,7 @@ def run_imagenet_hbm_partial(url, device, card, state, store_dir, reference_rate
                     raise AssertionError('eviction: state {}, cache {}, {} bytes freed of a {} '
                                          'byte run'.format(state_after, evicted, freed, run_bytes))
             train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
-            result, window = hbm_scan(cache, train, state, PARTIAL_EPOCHS, ('normalize_kernel',),
+            result, window = hbm_scan(cache, train, state, counted, ('normalize_kernel',),
                                       first_epoch=first, observe=observe)
             require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
             windows.append(result)
@@ -2028,7 +2538,7 @@ def run_imagenet_hbm_partial(url, device, card, state, store_dir, reference_rate
     mismatched = [e for e in epochs if len(digests[e]) == ROWS // BATCH
                   and not torch.equal(torch.sort(torch.cat(digests[e])).values, reference)]
     complete = [e for e in epochs if len(digests[e]) == ROWS // BATCH]
-    if mismatched or len(complete) < 1 + 2 * (1 + 2 * PARTIAL_EPOCHS):
+    if mismatched or len(complete) < 1 + 2 * (1 + 2 * counted):
         raise AssertionError('per-row image digests: epochs {} differ from the fill epoch; {} '
                              'complete epochs'.format(mismatched, len(complete)))
     cache.clear()
@@ -2974,6 +3484,9 @@ CHILDREN = {
     'flashattn': ('flashattn', {}),
     'imagenet_aug': ('imagenet', {'BENCH_IMAGENET_AUG': '1', 'BENCH_IMAGENET_WARMUP': '4',
                                   'BENCH_IMAGENET_STEPS': '16'}),
+    # Last, where the JAX bench runs its fleet_wire child (bench.py:2836).
+    'imagenet_remote': ('imagenet_remote', {}),
+    'fleet_wire': ('fleet_wire', {}),
 }
 #: Seconds each child may take (bench.py's longest child timeout but one).
 CHILD_TIMEOUT_S = 900
@@ -3081,6 +3594,19 @@ def child_flashattn(device, workdir):
     return dict(run_flashattn(device), card=_card(device))
 
 
+def child_imagenet_remote(device, workdir):
+    """The remote cell (:func:`run_imagenet_remote`) on a fresh ResNet-50
+    state: the 3 + 5 + 5 calls of the imagenet child's protocol, the
+    fleet_wire record at its 3 repetitions."""
+    url = ensure_imagenet_store(workdir)
+    return run_imagenet_remote(url, device, _card(device), resnet50_state(device),
+                               os.path.join(workdir, 'remote'), wire_reps=WIRE_REPS)
+
+
+def child_fleet_wire(device, workdir):
+    return {'fleet_wire_stage_profile': run_fleet_wire()}
+
+
 def run_child(name, device, workdir):
     """One child in this process: its JSON object. The stores it reads are
     written into ``workdir`` unless they are there already."""
@@ -3095,12 +3621,14 @@ def run_child(name, device, workdir):
         out = child_pipeline(device, workdir)
     elif kind == 'staging':
         out = child_staging(device, workdir)
+    elif kind == 'fleet_wire':
+        out = child_fleet_wire(device, workdir)
     elif device.type != 'cuda':
-        raise ValueError('child {!r} runs on the card only; --device cpu runs the pipeline and '
-                         'staging children'.format(name))
+        raise ValueError('child {!r} runs on the card only; --device cpu runs the pipeline, '
+                         'staging and fleet_wire children'.format(name))
     else:
-        out = {'imagenet': child_imagenet, 'lm': child_lm,
-               'flashattn': child_flashattn}[kind](device, workdir)
+        out = {'imagenet': child_imagenet, 'lm': child_lm, 'flashattn': child_flashattn,
+               'imagenet_remote': child_imagenet_remote}[kind](device, workdir)
     out.update(_device_keys(device), child=name)
     return out
 
@@ -3141,8 +3669,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--child', default=None, help='run one child: ' + ', '.join(CHILDREN))
     parser.add_argument('--device', default='cuda', help="'cuda' (default) or, for the tests, "
-                                                         "'cpu' (the pipeline and staging "
-                                                         "children only)")
+                                                         "'cpu' (the pipeline, staging and "
+                                                         "fleet_wire children only)")
     parser.add_argument('--workdir', default=None,
                         help='where the stores are written, or found if they are there '
                              '(default: a temporary directory)')

@@ -28,6 +28,19 @@ class WorkerLostError(PetastormTorchError):
     states and the items that were in flight."""
 
 
+class ServerOverloaded(PetastormTorchError):
+    """Every data-service server refused this consumer's attach: at its
+    ``max_consumers`` capacity, shedding under memory pressure, or draining
+    (``petastorm_tpu/errors.py:140``). ``endpoint`` names a refusing rpc
+    endpoint; ``reason`` is the server's refusal (``overloaded`` /
+    ``draining`` / ``drained``)."""
+
+    def __init__(self, message, endpoint=None, reason=None):
+        super(ServerOverloaded, self).__init__(message)
+        self.endpoint = endpoint
+        self.reason = reason
+
+
 class RowGroupQuarantinedError(PetastormTorchError):
     """Poison row-group failures went past the reader's ``error_budget``.
 

@@ -39,11 +39,20 @@ Sites the port runs, and their effect when they fire:
                          picks pools by name. Read through the non-consuming
                          ``selected`` every sampler tick, so the pressure
                          holds and the ladder parks on one rung
+``server-kill``          SIGKILL the data-service server process at a chunk
+                         boundary of its serve loop (``DataServer``)
+``server-slow``          sleep ``delay`` seconds before each chunk a server
+                         sends
+``rpc-blackhole``        the server's rpc thread swallows a request without
+                         a reply (and re-binds its REP socket)
+``wire-segment-leak``    the wire's teardown leaves its shm segments behind
+                         (a SIGKILLed server without the SIGKILL), for the
+                         next server's start-up sweep to collect
 ======================== ==================================================
 
 The other names of :data:`KNOWN_SITES` parse and never fire here: their
-modules (the sanitizer, the data service and the fleet) are not ported
-yet.
+modules (the sanitizer, the lookup tier and the fleet registry and
+autoscaler) are not ported yet.
 
 Params (all optional):
 

@@ -668,7 +668,8 @@ class HealthMonitor(object):
 class PipelineSupervisor(object):
     """The JAX package's ``PipelineSupervisor``
     (``petastorm_tpu/fleet/control_plane.py:367-457``; the rest of that
-    module, the fleet, waits for ROADMAP §A9i): one arm/start/stop lifecycle
+    module is :mod:`petastorm_tpu_torch.fleet.control_plane`, which exposes
+    this class under the same name): one arm/start/stop lifecycle
     for a reader's or a loader's :class:`HealthMonitor` and
     :class:`~petastorm_tpu_torch.autotune.AutoTuner`. Health is armed first
     (the tuner reads its watchdog's ``episode_active``); :meth:`stop` stops

@@ -468,6 +468,13 @@ def _encode_loader_state(loader_state):
     job_checkpoint.py:171-203``)."""
     if loader_state is None:
         return {}
+    if (isinstance(loader_state, dict) and 'server_states' in loader_state
+            and ('pending' in loader_state or 'consumers' in loader_state)):
+        # The data service's states (a sole consumer's state_dict or
+        # checkpoint_shared_stream's) hold the drained numpy chunks: pickle,
+        # with no JSON probe over megabytes of them
+        # (``petastorm_tpu/job_checkpoint.py:181-189``).
+        return _pickle_to_json(loader_state)
     try:
         if json.loads(json.dumps(loader_state)) == loader_state:
             return loader_state

@@ -75,7 +75,7 @@ import queue
 import threading
 import time
 import warnings
-from collections import deque, namedtuple
+from collections import deque
 
 import numpy as np
 import torch
@@ -93,6 +93,7 @@ from petastorm_tpu_torch.shuffling_buffer import build_shuffling_buffer
 from petastorm_tpu_torch.staging import (ArenaPool, DevicePutMeter, MeteredReader, OverlapMeter,
                                          StagingEngine)
 from petastorm_tpu_torch.trace import NullTracer
+from petastorm_tpu_torch.utils import cached_namedtuple
 
 logger = logging.getLogger(__name__)
 
@@ -797,12 +798,17 @@ class TorchLoader(object):
                     'arena_depth', lambda: pool.depth, pool.set_depth,
                     lo=max(config.min_arena_depth, pool.floor),
                     hi=max(config.max_arena_depth, pool.floor))
-                # A dispatch-bound pipeline pins its arenas; the memory
-                # bias unpins them first. Host memory cannot be pinned
-                # without CUDA, so on the CPU the knob stays at 0.
+                # Host memory cannot be pinned without CUDA, so on the CPU
+                # the knob stays at 0. On the card it stays at 1: a copy
+                # from an unpinned arena is synchronous and queues behind
+                # the graph replay, so the consumer-bound shrink that every
+                # graph capture triggers cost phase 26 of chip_smoke.py up
+                # to a third of its rate (PERF.md §6). The memory governor's
+                # advisory rung still unpins the arenas under pressure.
                 knobs['arena_pinned'] = autotune_mod.Knob(
                     'arena_pinned', lambda: int(pool.pinned),
-                    lambda v: pool.set_pinned(bool(v)), lo=0, hi=1 if self._cuda else 0)
+                    lambda v: pool.set_pinned(bool(v)), lo=1 if self._cuda else 0,
+                    hi=1 if self._cuda else 0)
             adopt = getattr(reader, 'adopt_autotune', None)
             if adopt is not None:
                 reader_knobs, self._reader_telemetry = adopt(config)
@@ -1576,6 +1582,4 @@ _BATCH_TYPES = {}
 
 
 def _batch_type(names):
-    if names not in _BATCH_TYPES:
-        _BATCH_TYPES[names] = namedtuple('TorchBatch', names)
-    return _BATCH_TYPES[names]
+    return cached_namedtuple(_BATCH_TYPES, 'TorchBatch', names)

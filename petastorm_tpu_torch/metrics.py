@@ -1,7 +1,7 @@
 """Metrics registry: typed instruments and Prometheus exporters.
 
-Counterpart of ``petastorm_tpu/metrics.py:1-605`` (without
-``scrape_fleet_metrics``, which waits for the data service). The port
+Counterpart of ``petastorm_tpu/metrics.py:1-605``, with
+:func:`scrape_fleet_metrics` for the data service's fleet scrape. The port
 registers only names the JAX package registers, with the same help text,
 labels and buckets, so one dashboard reads either package.
 
@@ -402,6 +402,45 @@ def aggregate_snapshots(snapshots):
                 else:
                     into['value'] += sample['value']
     return merged
+
+
+def scrape_fleet_metrics(endpoints, scrape_one, server_value='metrics',
+                         unreachable_detail=False):
+    """One fleet-wide scrape (``petastorm_tpu/metrics.py:428``):
+    ``scrape_one(endpoint)`` performs one ``metrics`` rpc and returns its
+    reply dict (or raises). Replies are deduplicated on the process
+    registry's uuid (servers in one process share a registry, and summing
+    the same snapshot twice would double every counter) and folded through
+    :func:`aggregate_snapshots`. An endpoint that raises or replies without
+    a ``metrics`` dict lands in ``unreachable``. ``server_value``:
+    ``'metrics'`` (the snapshot) or ``'reply'`` (the whole reply) per
+    endpoint; ``unreachable_detail=True`` records ``{'endpoint', 'error'}``
+    dicts instead of bare endpoints."""
+    servers, unreachable, by_process = {}, [], {}
+
+    def _mark_unreachable(endpoint, error):
+        unreachable.append({'endpoint': endpoint, 'error': error}
+                           if unreachable_detail else endpoint)
+
+    for endpoint in endpoints:
+        try:
+            reply = scrape_one(endpoint)
+        except Exception as e:  # noqa: BLE001 - a server dying mid-scrape
+            logger.debug('fleet metrics scrape: %s failed', endpoint, exc_info=True)
+            _mark_unreachable(endpoint, repr(e))
+            continue
+        if not isinstance(reply, dict) or 'error' in reply \
+                or not isinstance(reply.get('metrics'), dict):
+            _mark_unreachable(endpoint, repr(reply))
+            continue
+        servers[endpoint] = reply if server_value == 'reply' else reply['metrics']
+        # Without a registry id a reply cannot be deduplicated: kept per endpoint.
+        process_key = reply.get('registry_id')
+        by_process[process_key if process_key is not None
+                   else ('endpoint', endpoint)] = reply['metrics']
+    return {'servers': servers,
+            'aggregate': aggregate_snapshots(by_process.values()),
+            'unreachable': unreachable}
 
 
 # --------------------------------------------------------------------------

@@ -125,8 +125,12 @@ class DataLoader(object):
         batch = []
         for row in self.reader:
             if self.reader.batched_output:
-                # A row-group's columns transposed into rows.
-                row_dict = row._asdict()
+                # A row-group's columns transposed into rows. A read-only
+                # block (a cache's shared chunk, a data-service view over a
+                # zmq frame or a shm segment) is copied once, so torch never
+                # wraps memory it must not write.
+                row_dict = {k: v.copy() if isinstance(v, np.ndarray) and not v.flags.writeable
+                            else v for k, v in row._asdict().items()}
                 keys = list(row_dict)
                 rows = [dict(zip(keys, values)) for values in zip(*(row_dict[k] for k in keys))]
             else:

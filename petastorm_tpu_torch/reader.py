@@ -751,6 +751,7 @@ class Reader(DeferredRowAccounting):
         self._stopped = False
         self.last_row_consumed = False
         self._last_lineage = None
+        self._last_det = None
         self._rows_delivered = 0     # values handed out: the tuner's rate
         # Checkpoint keys index the filtered row-group list, so whatever
         # filters it is part of the fingerprint.
@@ -1196,6 +1197,14 @@ class Reader(DeferredRowAccounting):
         recently returned: ``row_start`` is past any resume skip."""
         return self._last_lineage
 
+    @property
+    def last_chunk_det(self):
+        """The deterministic-mode tag (``{'seq', 'epoch', 'pos'}``) of the
+        chunk most recently returned by a batched reader, or None
+        (``petastorm_tpu/reader.py:1356``). A data server ships it with the
+        chunk, and a consumer's resume cursor is built from it."""
+        return getattr(self, '_last_det', None)
+
     def __iter__(self):
         return self
 
@@ -1239,6 +1248,7 @@ class Reader(DeferredRowAccounting):
                 cols = restack_list_columns(cols)
             self._record_chunk(key, n_rows)
             self._last_lineage = lineage
+            self._last_det = det
             return cols
 
     def __next__(self):

@@ -1531,3 +1531,186 @@ def test_copies_from_unpinned_arenas_count_as_the_tuners_copy_wait(dev, tmp_path
             assert copy_s == 0.0
         else:
             assert copy_s > 0.0 and telemetry['ready_wait_s'] >= copy_s
+
+
+# -- the data service on the card ---------------------------------------------------
+
+def _image_stream(chunks, rows, shape, classes=10):
+    """A batched-reader surface serving ``chunks`` synthetic uint8 image
+    chunks of ``rows`` rows (one random array, labels ``0..rows*chunks``
+    mod ``classes``)."""
+    import collections
+
+    nt = collections.namedtuple('ImageChunk', ['image', 'label'])
+    images = np.random.default_rng(0).integers(0, 256, (rows,) + shape, dtype=np.uint8)
+
+    class _Stream(object):
+        batched_output = True
+        ngram = None
+
+        def __iter__(self):
+            for i in range(chunks):
+                yield nt(image=images, label=np.arange(i * rows, (i + 1) * rows,
+                                                       dtype=np.int64) % classes)
+
+        def stop(self):
+            pass
+
+        def join(self):
+            pass
+
+    return _Stream(), images
+
+
+def _wire_bytes():
+    from petastorm_tpu_torch import metrics
+    fam = metrics.get_registry().collect().get('pst_wire_bytes_total') or {'samples': []}
+    return {s['labels']['transport']: s['value'] for s in fam['samples']}
+
+
+def test_a_server_process_feeds_the_loader_on_card_without_mapping_cuda(dev, tmp_path):
+    """The serve CLI in a process that sees no card feeds ``RemoteReader`` ->
+    ``TorchLoader`` on the card; the batches equal a local deterministic
+    reader's, and the server never maps the CUDA driver nor shows among the
+    card's compute processes."""
+    from petastorm_tpu_torch import bench
+    from petastorm_tpu_torch.data_service import RemoteReader
+    url = _card_store(tmp_path)
+    bind = 'ipc://' + str(tmp_path / 's')
+    proc, status, _ = bench.start_server(url, bind, 2, 1, ['--deterministic', '--await-cursor'])
+    try:
+        with RemoteReader(status['data_endpoint']) as remote:
+            with TorchLoader(remote, 8, device=dev) as loader:
+                got = []
+                for batch in loader:
+                    assert batch.image.is_cuda
+                    got.append((batch.image.cpu(), batch.label.cpu()))
+                    if len(got) == 1:
+                        mapped = bench.maps_cuda_driver(proc.pid)
+                        on_card = proc.pid in bench.cuda_compute_pids()
+    finally:
+        assert bench.stop_server(proc) == 0
+    with make_tensor_reader(url, schema_fields=['image', 'label'], workers_count=2,
+                            num_epochs=1, seed=0, shuffle_row_groups=True,
+                            deterministic=True) as reader:
+        with TorchLoader(reader, 8, device=dev) as loader:
+            want = [(b.image.cpu(), b.label.cpu()) for b in loader]
+    assert mapped is False and not on_card
+    assert len(got) == len(want) == 7
+    for (image, label), (image_w, label_w) in zip(got, want):
+        assert torch.equal(image, image_w) and torch.equal(label, label_w)
+
+
+def test_an_shm_pass_at_imagenet_chunks_stays_on_shm(dev, monkeypatch):
+    """38.5 MB chunks (256 rows of 224x224x3) through the shm tier with the
+    ring sized as phase 27 sizes it, into ``TorchLoader(prefetch=8)`` and
+    ``superbatches(8)`` on the card: every chunk rides shm (no byte falls
+    back to Arrow or pickle), the rows equal the source, and no segment is
+    left."""
+    from petastorm_tpu_torch import bench
+    from petastorm_tpu_torch.data_service import DataServer, RemoteReader
+    from petastorm_tpu_torch.fleet import wire
+    from petastorm_tpu_torch.native import shm_ring
+    chunk = bench.imagenet_chunk_bytes()
+    ring = bench.remote_ring_bytes(chunk)
+    if ring < bench.REMOTE_RING_CHUNKS * chunk:
+        pytest.skip('/dev/shm holds less than the ring of phase 27')
+    monkeypatch.setenv('PSTT_WIRE_SEGMENT_MB', str(ring / (1 << 20)))
+    reader, images = _image_stream(24, 256, (224, 224, 3), classes=1000)
+    import tempfile
+    import time
+    sock = tempfile.mkdtemp(prefix='pstt-card-')
+    server = DataServer(reader, 'ipc://' + sock + '/d', sndhwm=bench.REMOTE_SNDHWM)
+    server._pause.set()
+    server.start()
+    before = _wire_bytes()
+    try:
+        with RemoteReader(server.data_endpoint, rcvhwm=bench.REMOTE_RCVHWM,
+                          flow_control=bench.REMOTE_CREDITS) as remote:
+            deadline = time.monotonic() + 30
+            while server._admission.count() < 1 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            server._pause.clear()
+            with TorchLoader(remote, 128, device=dev, prefetch=8) as loader:
+                labels = []
+                for i, sb in enumerate(loader.superbatches(8)):
+                    labels.append(sb.label.cpu())
+                    if i == 0:
+                        assert torch.equal(sb.image[:256].cpu(), torch.from_numpy(images))
+            grant = remote.diagnostics['wire']
+    finally:
+        server.stop()
+    after = _wire_bytes()
+    shipped = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    assert set(grant.values()) == {'shm'}
+    assert shipped.get('shm', 0) >= 24 * 256 * 224 * 224 * 3
+    assert not shipped.get('arrow-ipc') and not shipped.get('pickle'), shipped
+    assert torch.cat(labels).tolist() == [i % 1000 for i in range(24 * 256)]
+    assert not shm_ring.list_segments(wire.SEGMENT_PREFIX)
+
+
+def test_views_are_released_and_acked_while_a_scan_graph_replays(dev, monkeypatch):
+    """A ring of 8 chunks can carry a stream of 40 only if the loader's
+    copies release the views and their acks reach the server while the scan
+    graph replays: every chunk rides shm, K1 runs in every replay, and the
+    ring is empty at the end."""
+    from petastorm_tpu_torch.data_service import DataServer, RemoteReader
+    rows, k = 16, 4
+    reader, _ = _image_stream(40, rows, (32, 32, 3))
+    monkeypatch.setenv('PSTT_WIRE_SEGMENT_MB', str(8 * rows * (32 * 32 * 3 + 8) / (1 << 20)))
+    import tempfile
+    import time
+    sock = tempfile.mkdtemp(prefix='pstt-card-')
+    server = DataServer(reader, 'ipc://' + sock + '/d', sndhwm=1)
+    server._pause.set()
+    server.start()
+    state = create_train_state(_tiny_resnet(dev))
+    step = make_scan_train_step(k, _preprocess)
+    before = _wire_bytes()
+    try:
+        with RemoteReader(server.data_endpoint, rcvhwm=1, flow_control=2) as remote:
+            deadline = time.monotonic() + 30
+            while server._admission.count() < 1 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            server._pause.clear()
+            with TorchLoader(remote, 8, device=dev, prefetch=1) as loader:
+                calls = 0
+                for sb in loader.superbatches(k):
+                    step(state, sb.image, sb.label)
+                    calls += 1
+            assert remote.diagnostics['wire_decode_errors'] == 0
+            deadline = time.monotonic() + 5
+            ring = next(iter(server._wire._rings.values()))
+            while ring.used_bytes and time.monotonic() < deadline:
+                remote._flush_wire_acks()
+                time.sleep(0.05)
+            assert ring.used_bytes == 0
+    finally:
+        server.stop()
+    shipped = {key: value - before.get(key, 0) for key, value in _wire_bytes().items()}
+    from petastorm_tpu_torch.bench import graph_launches
+    assert calls == 40 * rows // (8 * k) and step.replays == calls - 1
+    assert graph_launches(step, ['normalize_kernel'], step.replays) == {
+        'normalize_kernel': k * step.replays}
+    assert shipped.get('shm', 0) > 0
+    assert not shipped.get('arrow-ipc') and not shipped.get('pickle'), shipped
+
+
+def test_the_tuner_keeps_the_arenas_pinned_on_card(dev, tmp_path):
+    """On the card the tuner's ``arena_pinned`` knob is held at 1: the
+    consumer-bound shrink that a graph capture triggers steps every other
+    knob down and leaves the arenas pinned (an unpinned arena's copy is
+    synchronous and queues behind the replay), and the epoch is whole."""
+    from petastorm_tpu_torch.autotune import AutotuneConfig
+    url = _card_store(tmp_path)
+    with make_tensor_reader(url, workers_count=2, num_epochs=1, seed=0) as reader:
+        with TorchLoader(reader, 8, device=dev, prefetch=2, last_batch='partial',
+                         autotune=AutotuneConfig(interval_s=60)) as loader:
+            tuner = loader._autotuner
+            knob = tuner.knobs['arena_pinned']
+            assert (knob.lo, knob.hi) == (1, 1) and knob.get() == 1
+            changes = tuner._shrink()
+            assert changes and 'arena_pinned' not in [name for name, _, _ in changes]
+            assert loader._pool.pinned
+            labels = [b.label.cpu() for b in loader]
+    assert sorted(torch.cat(labels).tolist()) == list(range(60))

@@ -303,3 +303,42 @@ def test_new_modules_stand_alone(module):
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
+
+
+@pytest.mark.parametrize('module', ['data_service', 'fleet', 'fleet.control_plane', 'fleet.wire',
+                                    'tools.serve_cli', 'utils', 'examples.serve_and_train'])
+def test_the_service_tier_imports_no_torch(module):
+    """The data service, its fleet layer, the serve CLI and the example's
+    server half import alone without torch, JAX or the JAX package: a
+    server process never loads the card's runtime."""
+    code = ('import sys, importlib\n'
+            'importlib.import_module("petastorm_tpu_torch.{}")\n'
+            'bad = sorted(m for m in sys.modules if m.split(".")[0] in {!r}\n'
+            '             or m == "petastorm_tpu" or m.startswith("petastorm_tpu.")\n'
+            '             or m == "torch" or m.startswith("torch."))\n'
+            'assert not bad, bad\n').format(module, BANNED_ROOTS)
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_no_service_thread_survives_stop(tmp_path):
+    """A server and its consumer, stopped, leave no ``pstt-data-service``
+    thread."""
+    import time
+
+    from petastorm_tpu_torch.data_service import RemoteReader, serve_dataset
+    url = 'file://' + str(tmp_path / 'store')
+    schema = Unischema('Svc', [UnischemaField('id', np.int64, (), ScalarCodec(np.int64))])
+    write_dataset(url, schema, ({'id': i} for i in range(16)), rows_per_row_group=4)
+    bind = 'ipc://' + str(tmp_path / 'd')
+    with serve_dataset(url, bind, num_epochs=1, seed=0) as server:
+        with RemoteReader(server.data_endpoint) as remote:
+            assert sorted(int(i) for c in remote for i in c.id) == list(range(16))
+    deadline = time.monotonic() + 5
+    while time.monotonic() < deadline:
+        left = [t.name for t in threading.enumerate() if t.name.startswith('pstt-data-service')]
+        if not left:
+            break
+        time.sleep(0.05)
+    assert not left
