@@ -57,13 +57,13 @@ non-zero exit and no result line:
    one-epoch reader fills a ``DeviceDatasetCache``; superbatches of 8
    carried across epoch boundaries through a scan step of its own (its own
    capture) on the state imagenet_scan trained: epoch 1 warms up, epochs
-   2 to 7 are measured (the bench measures 16; cut for phase 27's time).
+   2 to 5 are measured (the bench measures 16; cut for phases 27-29's time).
 7. imagenet_chunkstore: imagenet_scan's protocol on the same state, the
    reader with ``cache_type='chunk-store'`` (a fresh store under
    ``.torch_build/``: epoch 0 decodes and spills, later epochs are read from
    the mapped entries, whose writes are flushed before the timed calls);
    img/s, ``decode_s`` of the timed calls (must be 0), the store's
-   counters, K1 8 times a replay (3 + 5 + 5 calls, ``EARLY_CALLS``). Then
+   counters, K1 8 times a replay (3 + 3 + 3 calls, ``EARLY_CALLS``). Then
    an in-order pass of a fresh store
    (4 workers, resequenced): a new reader's epoch 1, served from the store,
    must give epoch 0's (decoded) per-field CRC32 digests batch for batch;
@@ -74,7 +74,7 @@ non-zero exit and no result line:
    chunk-store reader), with ``loader_factory`` a fresh such reader and
    loader: 8 of the 16 batches stay resident in two runs, 8 stream each
    epoch. A memory governor is installed before the cache; after a
-   partial window (1 warm-up, 3 counted, 3 timed epochs through a scan
+   partial window (1 warm-up, 2 counted, 2 timed epochs through a scan
    step of its own) a ballast pool drives one ``check()`` to degrade, which
    evicts the coldest run (the card's allocated bytes fall by the run's),
    and a second window trains on 4 resident batches. K1 8 times a replay
@@ -146,8 +146,8 @@ non-zero exit and no result line:
    ``make_pod_reader`` -> the mesh ``TorchLoader`` -> ``make_scan_train_step
    (mesh=...)``, K1 and the gradient all-reduce (NCCL ``ReduceOp.AVG``,
    whose one-rank reduction kernel runs) in the 8-step graph, each counted
-   by name among the graph's kernel nodes, 8 a replay in 7 replays (3 + 5
-   + 5 calls, ``EARLY_CALLS``); (c)
+   by name among the graph's kernel nodes, 8 a replay in 5 replays (3 + 3
+   + 3 calls, ``EARLY_CALLS``); (c)
    the sharded ``JobCheckpointer`` save
    of (a)'s state through the group and its restore into a fresh state,
    bit for bit, then the same save with ``async_save=True`` (its seconds on
@@ -173,8 +173,9 @@ non-zero exit and no result line:
    ``on_device_augment=True``, the loader's staging thread decoding each
    batch next to its copy. A line a variant: img/s, device ms a step, the
    stall, ``decode_s`` and ``stage_decode_s``, the decoder and its threads,
-   and K1's graph nodes times the replays (104 of 104 in 13, or the phase
-   fails), beside imagenet_scan's rate of this run. Last, the bench's
+   and K1's graph nodes times the replays ((a) 104 of 104 in 13, (b) 40 of
+   40 in 5 with 3 + 3 + 3 calls, or the phase fails), beside
+   imagenet_scan's rate of this run. Last, the bench's
    reader metric ``hello_world_samples_per_sec`` (pools swept, median of 3)
    and its ``staging`` child, once, to the card.
 21. imagenet_filtered: row selection and transforms, run after the decode
@@ -184,8 +185,8 @@ non-zero exit and no result line:
    ``TransformSpec`` mapping each kept label to a dense class id through a
    1000-entry int64 table, ``shuffle_rows_in_chunk=True``,
    ``deterministic=True``, seed 0, no cache (a predicate read decodes every
-   epoch), ``DECODE_WORKERS`` threads, 3 + 5 + 5 calls. Checks: K1's graph
-   nodes times the replays (56 of 56 in 7); one epoch's labels (a one-epoch reader of the
+   epoch), ``DECODE_WORKERS`` threads, 3 + 3 + 3 calls. Checks: K1's graph
+   nodes times the replays (40 of 40 in 5); one epoch's labels (a one-epoch reader of the
    same arguments through a loader on the card) equal, as a multiset, an
    independent reckoning (pyarrow reads ``label``, the split's md5 buckets
    and the table in numpy); the first 16 batches' labels of the training
@@ -262,7 +263,7 @@ non-zero exit and no result line:
    ``TorchLoader(watchdog=True, stall_timeout_s=10, tracer=...)``, the tracer
    also the global one (the workers' spans), ``PSTT_FLIGHT_RECORDER`` and the
    lineage ledger under the phase's directory. Checks: K1's graph nodes
-   times the replays (56 of 56 in 7); the watchdog alive with no stall
+   times the replays (40 of 40 in 5); the watchdog alive with no stall
    episode, no hard stall and the six stage heartbeats (``ventilator``,
    ``reader-handoff``, ``worker-pool``, ``assemble``, ``dispatch``,
    ``consumer``); the tracer's summary holds ``read``, ``decode``,
@@ -288,7 +289,7 @@ non-zero exit and no result line:
 
 25. imagenet_process: the process pools, run after imagenet_health on the
    same state (``bench.run_imagenet_process``), imagenet_decode (a)'s
-   protocol (``null`` cache, ``DECODE_WORKERS`` workers, 3 + 5 + 5 calls,
+   protocol (``null`` cache, ``DECODE_WORKERS`` workers, 3 + 3 + 3 calls,
    the counted ones unprofiled, K1 in the 8-step graph) decoded in worker
    processes. (a)
    ``reader_pool_type='process'`` with ``shm_result_ring_bytes`` sized to
@@ -301,7 +302,7 @@ non-zero exit and no result line:
    one worker is SIGKILLed while the epoch runs; the epoch, trained through
    (a)'s graph, still yields pyarrow's 2,048 labels as a multiset,
    ``pst_worker_deaths_total`` and ``pst_worker_respawns_total`` are 1 and
-   every loss is finite. Checks in (a) and (b): K1 56 of 56 in 7
+   every loss is finite. Checks in (a) and (b): K1 40 of 40 in 5
    replays; no worker pid among ``nvidia-smi --query-compute-apps=pid`` and
    none mapping the CUDA driver; after ``stop()`` no segment of the script
    left in ``/dev/shm`` and no worker alive. Its line: img/s, device ms a
@@ -358,16 +359,61 @@ non-zero exit and no result line:
    and serialize ms a chunk, its pid and whether it maps the CUDA driver,
    the segments left, K1's counts, and (c)'s kill chunk, restart seconds,
    duplicates dropped and rows lost. It fails, after its line, if K1 is not
-   104 of 104 in 13 replays in (a) or (b), a server maps the driver, a
+   104 of 104 in 13 replays in (a) or 40 of 40 in 5 in (b) (3 + 3 + 3
+   calls), a server maps the driver, a
    segment is left, a row is lost or delivered twice, or (a) runs under 0.75
    of imagenet_decode (a)'s img/s.
+
+28. lookup: the lookup tier, run after imagenet_remote on the same state.
+   The lookup store (512 rows of 224x224x3 JPEG q90 with a unique ``idx``,
+   64-row groups, the row index ``idx_row_ix``) is written first. (a)
+   ``bench.run_lookup``: the JAX bench's lookup child (cold and warm point
+   reads through ``LookupServer`` + ``LookupClient`` over a chunk store, 200
+   warm reads x 3, and a 2-partition x 2-replica fleet of 300 reads with a
+   drain at read 150), its 10 ms ``p99_gate`` recorded as the JAX child
+   records it (a latency on a shared host, not a check). (b)
+   ``bench.run_lookup_serve``: a 2-server fleet (both chunk stores warmed)
+   and one client, 64 requests of 32 keys, one at a time, member 0 drained
+   at request 32; each request is ``client.lookup`` -> a pinned uint8
+   ``[32, 224, 224, 3]`` -> ``non_blocking`` copy -> K1 (bf16) -> ResNet-50
+   forward in eval mode -> top-1 ids on the host. Its line: (a)'s record,
+   (b)'s request, lookup and card p50/p99 ms, img/s and K1's launches. It
+   fails, after its line, if a row's ``idx`` is not its key, a read of
+   either fleet failed or came back short, a client's map version is not the
+   drain's, K1 did not launch 64 times in 64 requests, the first request's
+   images differ from an independent decode (OpenCV exact, 2 levels under
+   the native codec) or its K1 output from ``normalize_images_plain`` by
+   more than 1 bf16 ulp, or its batch's f32 logits through K1 and through
+   the plain normalize differ past rtol=atol=1e-3 (phase 3's).
+
+29. fleet_scale: ResNet-50 scan training fed by an autoscaled two-tenant
+   fleet (``bench.run_fleet_scale``), after lookup on the same state:
+   worker 0 (``tools.fleet --worker``, job ``pstt-bench``, tenant ``det``,
+   deterministic, 8 threads, no card) feeds ``RemoteReader(tenant='det',
+   flow_control=32)`` -> ``TorchLoader`` with a lineage ledger -> the 8-step
+   graph; after its first replay a ``FleetRegistry`` and a
+   ``FleetAutoscaler`` (``SubprocessLauncher``) scale the job 1 -> 3 with
+   one spawn SIGKILLed by ``fleet-worker-kill``, drain one under
+   ``registry-blackhole``, come back to 2 and drain to 1; three calls
+   later worker 0 is drained and the trainer takes the stream to its END.
+   Worker 1 serves tenant ``noisy`` (``max_consumers`` 1): its consumer
+   takes the epoch, a second is refused. A reference run (a fresh worker 0,
+   a loader on the card, no model step) takes as many batches. Its line:
+   img/s during the dance beside imagenet_remote (a)'s, each spawn's seconds
+   to the registry's join, the drain seconds, the refusals per tenant and
+   K1's counts. It fails, after its line, if the dance is not inside the
+   training, det's served chunks are not its delivered ones or noisy's
+   not its epoch, the ledgers diverge (``tools.replay --diff-ledgers``), det
+   was refused, the kill did not fire or a drain was not acknowledged,
+   ``tools.fleet --status`` is not 0, a ``pstt-wire-`` segment is left, a
+   worker maps ``libcuda``, or K1 is not 8 a replay.
 
 ``python3 chip_smoke.py --decode-turns N`` instead runs the device line,
 the imagenet store and imagenet_scan (for its state), then N turns of
 imagenet_decode (a) on the thread pool and on ``'process'``, in the order
 thread, process, process, thread, ..., each a line, and the ok line.
 
-Phases 5 to 15, 18 and 20 to 27 run the bench's protocol through the functions of
+Phases 5 to 15, 18 and 20 to 29 run the bench's protocol through the functions of
 ``petastorm_tpu_torch/bench.py`` (``python -m petastorm_tpu_torch.bench``
 runs them as the bench's children); this script holds their launch counts.
 Each path's kernel launch counts are zeroed just before it and read just
@@ -444,13 +490,16 @@ MOE_EXPERTS, MOE_LAYERS, MOE_STEPS = 4, 4, 32
 # counts 1 epoch (the bench: 4), which with the cuts below keeps the
 # script's last phase under 840 s with phase 27.
 SCAN_CALLS, AUG_EPOCHS = 11, 1
-# Cut for phase 27's time (the bench's depths in brackets): the counted and
-# timed calls of imagenet_chunkstore, imagenet_filtered, imagenet_health,
-# imagenet_process and mesh (a) [11 here before]: 7 replays counted, 56 K1
-# launches; imagenet_hbm's counted epochs [16]; imagenet_hbm_partial's [6].
-# imagenet_scan, imagenet_decode, imagenet_faults, imagenet_autotune and
-# imagenet_remote keep SCAN_CALLS: the later phases' checks read their rates.
-EARLY_CALLS, HBM_EPOCHS, PARTIAL_EPOCHS = 5, 6, 3
+# Cut for phases 27-29's time (the bench's depths in brackets): the counted
+# and timed calls of imagenet_chunkstore, imagenet_filtered, imagenet_health,
+# imagenet_process, mesh (a), imagenet_decode (b) and imagenet_remote (b) [11
+# here before; 5 before phases 28-29]: 5 replays counted, 40 K1 launches;
+# imagenet_hbm's counted epochs [16; 6 before phases 28-29];
+# imagenet_hbm_partial's [6; 3 before phases 28-29]. imagenet_scan,
+# imagenet_decode (a), imagenet_faults, imagenet_autotune and
+# imagenet_remote (a) keep SCAN_CALLS: the later phases' checks read their
+# rates.
+EARLY_CALLS, HBM_EPOCHS, PARTIAL_EPOCHS = 3, 4, 2
 # The decode phase's reader threads (imagenet_scan's protocol otherwise).
 DECODE_WORKERS = 8
 
@@ -1848,7 +1897,7 @@ def run_decode(url, hello_url, device, card, state, imagenet_scan):
     t0 = time.perf_counter()
     checks = check_decode_path(url)
     cell = bench.run_imagenet_decode(url, device, card, state, calls=SCAN_CALLS,
-                                     workers=DECODE_WORKERS)
+                                     workers=DECODE_WORKERS, staging_calls=EARLY_CALLS)
     lines = [dict(checks, phase='decode', card=card)]
     for variant in ('worker_decode', 'staging_decode'):
         result = cell[variant]
@@ -1977,6 +2026,50 @@ def run_autotune(url, device, card, state, imagenet_scan, worker_decode):
 
 
 # --------------------------------------------------------------------------
+# the lookup phase: requests answered on the card
+# --------------------------------------------------------------------------
+
+def run_lookup_phase(store_dir, device, card, state):
+    """Phase 28 (see the module docstring) on ``state``. Returns the
+    phase's line; its ``failures`` fail the phase once the line is
+    printed."""
+    t0 = time.perf_counter()
+    url = bench.write_lookup_store(os.path.join(store_dir, 'lookup'))
+    store_s = time.perf_counter() - t0
+    workdir = os.path.join(store_dir, 'lookup-run')
+    child = bench.run_lookup(url, os.path.join(workdir, 'a'))
+    serve = bench.run_lookup_serve(url, device, card, state, os.path.join(workdir, 'b'))
+    fleet = child['fleet']
+    failures = ['(b) ' + f for f in serve['failures']]
+    if child['wrong_idx'] or fleet['wrong_idx']:
+        failures.append('(a) rows of another key: {} single-server, {} fleet'.format(
+            child['wrong_idx'], fleet['wrong_idx']))
+    if fleet['failed_lookups'] or fleet['truncated_lookups']:
+        failures.append('(a) fleet: {} failed and {} short reads'.format(
+            fleet['failed_lookups'], fleet['truncated_lookups']))
+    if fleet['client_map_version'] != fleet['map_version_after_drain']:
+        failures.append('(a) the client holds map v{}, the drain made v{}'.format(
+            fleet['client_map_version'], fleet['map_version_after_drain']))
+    return {'phase': 'lookup', 'card': card, 'rows': bench.LOOKUP_ROWS,
+            'rows_per_group': bench.LOOKUP_ROWS_PER_GROUP, 'store_s': store_s,
+            'lookup_stage_profile': child, 'serve': serve, 'failures': failures,
+            'seconds': time.perf_counter() - t0}
+
+
+# --------------------------------------------------------------------------
+# the fleet phase: scan training fed by an autoscaled two-tenant fleet
+# --------------------------------------------------------------------------
+
+def run_fleet_phase(url, device, card, state, remote, workdir):
+    """Phase 29 (see the module docstring) on ``state``, beside
+    imagenet_remote (a)'s img/s of this run. Returns the phase's line; its
+    ``failures`` fail the phase once the line is printed."""
+    return bench.run_fleet_scale(url, device, card, state, workdir,
+                                 remote_rate=remote['negotiated']['img_per_s'],
+                                 workers=DECODE_WORKERS)
+
+
+# --------------------------------------------------------------------------
 # the remote phase: the reader in a data-service server process
 # --------------------------------------------------------------------------
 
@@ -1987,7 +2080,8 @@ def run_remote(url, device, card, state, imagenet_scan, worker_decode, workdir):
     once the line is printed."""
     result = bench.run_imagenet_remote(url, device, card, state, workdir, calls=SCAN_CALLS,
                                        workers=DECODE_WORKERS,
-                                       decode_rate=worker_decode['img_per_s'])
+                                       decode_rate=worker_decode['img_per_s'],
+                                       arrow_calls=EARLY_CALLS)
     result['beside'] = {
         name: {'img_per_s': cell['img_per_s'], 'device_step_ms': cell['device_step_ms'],
                'input_stall_frac': cell['input_stall_frac']}
@@ -2428,6 +2522,20 @@ def main():
                                                'normalize_kernel')
         if result['failures']:
             raise AssertionError('imagenet_remote: {}'.format('; '.join(result['failures'])))
+        remote = result
+        result = run_lookup_phase(store_dir, device, card, state)
+        record(result)
+        by_path['lookup_serve'] = {'wrapper': result['serve']['k1_launches'],
+                                   'requests': result['serve']['requests']}
+        if result['failures']:
+            raise AssertionError('lookup: {}'.format('; '.join(result['failures'])))
+        result = run_fleet_phase(url, device, card, state, remote,
+                                 os.path.join(store_dir, 'fleet'))
+        record(result)
+        by_path['fleet_scale'] = bench.path_launches(result, 'normalize_images',
+                                                     'normalize_kernel')
+        if result['failures']:
+            raise AssertionError('fleet_scale: {}'.format('; '.join(result['failures'])))
         k1['launches_by_path'] = by_path
         lm_result = run_lm(lm_url, device, args.steps, card)
         record(lm_result)

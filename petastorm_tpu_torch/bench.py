@@ -14,7 +14,8 @@ pools swept, the median of 3 runs at the best, beside the reference's
 (``bench.py:2475-2560, 2781``), each in a subprocess under a timeout as
 ``bench.py:_run_child`` does: staging (hello_world batches through the
 loader with ``PadTo``, on the sweep's pool), imagenet, pipeline,
-imagenet_vit, lm, lm_long, lm_moe, flashattn, imagenet_aug, then, where
+imagenet_vit, lm, lm_long, lm_moe, flashattn, imagenet_aug, lookup (the
+lookup tier's point reads and its fleet, :func:`run_lookup`), then, where
 the bench runs its ``fleet_wire`` child, imagenet_remote (the imagenet
 store decoded in a data-service server process, :func:`run_imagenet_remote`)
 and fleet_wire (:func:`run_fleet_wire`). It prints one
@@ -35,12 +36,13 @@ trainer captured as one CUDA graph and replayed, the HBM tier. Their launch
 windows (:func:`scan_window`) count each hand kernel by name among the
 captured graph's kernel nodes, times the replays; ``chip_smoke.py`` drives
 the same functions and holds the counts. ``--device cpu`` exists for the tests and runs the
-``pipeline``, ``staging`` and ``fleet_wire`` children only. No MFU is reported (the bench's TPU peak table has no
+``pipeline``, ``staging``, ``lookup`` and ``fleet_wire`` children only. No MFU is reported (the bench's TPU peak table has no
 counterpart here): the children report device ms a step instead.
 """
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import os
@@ -714,11 +716,13 @@ def run_imagenet_scan(url, device, card, warmup=3, calls=5, autotune=False):
                  'classes': 1000}, **result), state
 
 
-def run_imagenet_decode(url, device, card, state, warmup=3, calls=5, workers=8):
+def run_imagenet_decode(url, device, card, state, warmup=3, calls=5, workers=8,
+                        staging_calls=None):
     """The decode cell: imagenet_scan's model and protocol over a ``null``
     cache, so every epoch decodes, ``workers`` reader threads, on ``state``.
     Variant ``worker_decode``: the workers' batched native decode.
-    Variant ``staging_decode``: ``raw_image_fields=['image']`` and
+    Variant ``staging_decode`` (``staging_calls`` counted and timed calls,
+    by default ``calls``): ``raw_image_fields=['image']`` and
     ``on_device_augment=True``, so the loader's staging thread decodes each
     batch next to its copy, the graph still applying K1. K1 must run 8 times
     a replay in each. Returns the phase's line with a line a variant."""
@@ -727,12 +731,13 @@ def run_imagenet_decode(url, device, card, state, warmup=3, calls=5, workers=8):
 
     out = {'phase': 'imagenet_decode', 'card': card, 'model': 'resnet50', 'stem': 'conv7',
            'classes': 1000, 'cache_type': 'null', 'workers': workers}
-    for variant, reader_kwargs, loader_kwargs in (
-            ('worker_decode', {}, {}),
-            ('staging_decode', {'raw_image_fields': ['image']}, {'on_device_augment': True})):
+    for variant, reader_kwargs, loader_kwargs, n in (
+            ('worker_decode', {}, {}, calls),
+            ('staging_decode', {'raw_image_fields': ['image']}, {'on_device_augment': True},
+             calls if staging_calls is None else staging_calls)):
         train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
         result, window = stream_classifier_scan(
-            url, device, train, state, warmup, calls, ('normalize_kernel',), cache_type='null',
+            url, device, train, state, warmup, n, ('normalize_kernel',), cache_type='null',
             workers=workers, reader_kwargs=reader_kwargs, loader_kwargs=loader_kwargs)
         require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
         result['k1_graph'] = {'ran': window[2]['normalize_kernel'],
@@ -1892,14 +1897,15 @@ def _remote_crash(url, device, train, state, workdir, workers):
 
 
 def run_imagenet_remote(url, device, card, state, workdir, warmup=3, calls=5, workers=8,
-                        decode_rate=None, wire_reps=1):
+                        decode_rate=None, wire_reps=1, arrow_calls=None):
     """The remote cell: imagenet_decode (a)'s protocol (a ``null`` cache,
     ``workers`` OpenCV threads, K1 in the 8-step graph) on ``state``, with
     the reader in a server process (``serve_cli``, no card) feeding
     ``RemoteReader`` -> ``TorchLoader`` -> ``superbatches(8)`` over
     ``ipc://`` sockets in ``workdir``. (a) negotiated: the sole same-host
     consumer is granted shm, the ring sized by :func:`remote_ring_bytes`;
-    (b) ``wire='arrow-ipc'`` forced on the consumer; (c)
+    (b) ``wire='arrow-ipc'`` forced on the consumer (``arrow_calls``
+    counted and timed calls, by default ``calls``); (c)
     :func:`_remote_crash`; (d) :func:`run_fleet_wire` with ``wire_reps``
     repetitions. The line's ``failures`` lists every check that failed: K1
     not 8 a replay in (a) or (b), a server mapping the CUDA driver or listed
@@ -1921,10 +1927,11 @@ def run_imagenet_remote(url, device, card, state, workdir, warmup=3, calls=5, wo
            'dev_shm_free_bytes': shm_ring.shm_free_bytes(), 'credits': REMOTE_CREDITS,
            'sndhwm': REMOTE_SNDHWM, 'rcvhwm': REMOTE_RCVHWM}
     emit({'phase': 'imagenet_remote', 'step': 'ring', 'ring_bytes': ring, 'chunk_bytes': chunk})
-    for name, wire in (('negotiated', None), ('arrow', 'arrow-ipc')):
+    for name, wire, n in (('negotiated', None, calls),
+                          ('arrow', 'arrow-ipc', calls if arrow_calls is None else arrow_calls)):
         train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
         out[name] = _remote_variant(url, device, train, state, workdir, 'remote-' + name,
-                                    warmup, calls, workers, wire, ring)
+                                    warmup, n, workers, wire, ring)
         if name == 'arrow':
             out['crash'] = _remote_crash(url, device, train, state, workdir, workers)
         del train
@@ -2078,6 +2085,868 @@ def run_fleet_wire(reps=None, chunk_rows=None, n_chunks=None, bind='tcp://127.0.
             'shm_over_pickle': shm_rate / pickle_rate if pickle_rate else None,
             'gate_min_ratio': 2.0, 'gate_passed': shm_rate >= 2.0 * pickle_rate,
             'leaked_segments': wire_segments_of(server_pids)}
+
+
+# --------------------------------------------------------------------------
+# the lookup tier: the JAX bench's lookup child and requests on the card
+# --------------------------------------------------------------------------
+
+#: The lookup child's store and protocol (``bench.py:1085-1341``): 512 rows
+#: of 224x224x3 JPEG q90 with a unique int64 key ``idx``, 64 rows a
+#: row-group, the row-level index ``idx_row_ix``; 200 warm reads x 3
+#: repetitions; a 2-partition x 2-replica fleet of 300 reads with a drain at
+#: read 150. The 10 ms p99 gate is recorded as the JAX child records it.
+LOOKUP_ROWS, LOOKUP_ROWS_PER_GROUP = 512, 64
+LOOKUP_READS, LOOKUP_REPS, LOOKUP_FLEET_READS = 200, 3, 300
+LOOKUP_P99_GATE_MS = 10.0
+#: Requests on the card (phase 28 (b)): 64 requests of 32 keys (numpy seed
+#: 0), one at a time, one member drained before request 32.
+SERVE_REQUESTS, SERVE_KEYS, SERVE_DRAIN_AT = 64, 32, 32
+
+
+def write_lookup_store(path, rows=None):
+    """The lookup child's store (``bench.py:1085-1128``) with the port's
+    writer and indexer: ``idx`` (unique), a 224x224x3 JPEG q90 ``image``
+    and an int64 ``label``, 64-row groups, seed 13, and ``idx_row_ix``."""
+    from petastorm_tpu_torch import (CompressedImageCodec, ScalarCodec, Unischema,
+                                     UnischemaField, write_dataset)
+    from petastorm_tpu_torch.etl.rowgroup_indexers import SingleFieldRowIndexer
+    from petastorm_tpu_torch.etl.rowgroup_indexing import build_rowgroup_index
+    schema = Unischema('LookupBenchSchema', [
+        UnischemaField('idx', np.int64, (), ScalarCodec(np.int64), False),
+        UnischemaField('image', np.uint8, (IMAGE, IMAGE, 3), CompressedImageCodec('jpeg', 90),
+                       False),
+        UnischemaField('label', np.int64, (), ScalarCodec(np.int64), False),
+    ])
+    rng = np.random.default_rng(13)
+    url = 'file://' + path
+    write_dataset(url, schema, ({'idx': i, 'image': synthetic_image(rng, IMAGE),
+                                 'label': int(rng.integers(0, 1000))}
+                                for i in range(LOOKUP_ROWS if rows is None else rows)),
+                  rows_per_row_group=LOOKUP_ROWS_PER_GROUP)
+    build_rowgroup_index(url, [SingleFieldRowIndexer('idx_row_ix', 'idx')])
+    return url
+
+
+def ensure_lookup_store(workdir):
+    """The lookup store in ``workdir``, written (and indexed) unless it is
+    there with its index."""
+    from petastorm_tpu_torch.etl.rowgroup_indexing import get_row_group_indexes
+    path = os.path.join(workdir, 'lookup')
+    if os.path.exists(os.path.join(path, '_common_metadata')):
+        try:
+            if 'idx_row_ix' in get_row_group_indexes('file://' + path):
+                return 'file://' + path
+        except Exception:  # noqa: BLE001 - a store without its index is written again
+            pass
+    shutil.rmtree(path, ignore_errors=True)
+    return write_lookup_store(path)
+
+
+def percentile_ms(samples, frac):
+    """Nearest-rank percentile of a list of seconds, in ms (the JAX
+    child's ``_percentile_ms``)."""
+    ranked = sorted(samples)
+    rank = max(0, min(len(ranked) - 1, int(round(frac * len(ranked))) - 1))
+    return round(ranked[rank] * 1000.0, 3)
+
+
+#: The lookup tier's series, as the serving modules register them.
+LOOKUP_METRICS = ('pst_lookup_requests_total', 'pst_lookup_latency_seconds',
+                  'pst_lookup_cache_hits_total', 'pst_lookup_hedges_total',
+                  'pst_partition_map_version', 'pst_partition_reassignments_total',
+                  'pst_partition_map_updates_total', 'pst_partition_retries_total',
+                  'pst_partition_warm_fill_chunks_total')
+
+
+def _lookup_metrics():
+    """The registry's series of :data:`LOOKUP_METRICS`."""
+    from petastorm_tpu_torch import metrics
+    return {name: metric for name, metric in metrics.get_registry().collect().items()
+            if name in LOOKUP_METRICS}
+
+
+@contextlib.contextmanager
+def lookup_fleet(url, workdir, names, block_cache_entries=8):
+    """Two lookup servers over ``url`` on ``ipc://`` sockets in
+    ``workdir``, each over a chunk store of its own: the first's filled
+    (every piece decoded and flushed) and holding a 2-partition x 2-replica
+    map, the second warm-joined from it over the ``chunk`` verb; then a
+    ``LookupClient`` on the fleet that has read every piece from every
+    replica once (the first read of a warm-filled chunk opens its mmap).
+    Yields ``(servers, client, the join's summary)``; stops everything."""
+    from petastorm_tpu_torch.serving import LookupClient, LookupEngine, LookupServer
+
+    dirs = [tempfile.mkdtemp(prefix='pstt-lookup-store-', dir=workdir) for _ in names]
+    engines, servers = [], []
+    try:
+        engines = [LookupEngine(url, index_name='idx_row_ix', cache=d,
+                                block_cache_entries=block_cache_entries) for d in dirs]
+        for piece in range(engines[0].piece_count):
+            engines[0].packed_chunk(piece)
+        if not engines[0].flush(60.0):
+            raise AssertionError('the donor chunk store did not drain its spill')
+        servers = [LookupServer(eng, 'ipc://' + os.path.join(workdir, name), lease_s=1.0,
+                                server_name=name).start()
+                   for eng, name in zip(engines, names)]
+        servers[0].init_fleet(n_partitions=2, replication=2)
+        join = servers[1].join_fleet(servers[0].rpc_endpoint, warm=True)
+        with LookupClient([s.rpc_endpoint for s in servers],
+                          control_endpoints=[s.control_endpoint for s in servers],
+                          timeout_ms=30000, hedge_after_ms=50) as client:
+            client.refresh_partition_map()
+            # Each replica's engine, as its server would for a request.
+            for engine in engines:
+                for key in range(0, LOOKUP_ROWS, LOOKUP_ROWS_PER_GROUP):
+                    engine.lookup([key])
+            yield servers, client, join
+    finally:
+        for server in servers:
+            server.stop()
+        for eng in engines:
+            eng.close()
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def _lookup_fleet(url, workdir, reads):
+    """The fleet leg (``bench.py:1136-1238``) over :func:`lookup_fleet`
+    (block LRUs of one block): ``reads`` timed single-key reads with member
+    0 drained before read ``reads // 2``. Besides the JAX child's keys,
+    ``wrong_idx`` counts rows whose ``idx`` is not their key."""
+    rng = np.random.default_rng(1)
+    lat, failed, truncated, wrong = [], 0, 0, 0
+    drain_at, version_after_drain = reads // 2, None
+    with lookup_fleet(url, workdir, ('bench-a', 'bench-b'), block_cache_entries=1) \
+            as (servers, client, join):
+        for i in range(reads):
+            if i == drain_at:
+                servers[0].drain()
+                version_after_drain = servers[1].partition_map.version
+            key = int(rng.integers(0, LOOKUP_ROWS))
+            t0 = time.perf_counter()
+            try:
+                rows = client.lookup([key])[0]
+            except Exception:  # noqa: BLE001 - counted; the gate fails
+                failed += 1
+                continue
+            lat.append(time.perf_counter() - t0)
+            if not rows or int(rows[0]['idx']) != key:
+                truncated += 1
+                wrong += bool(rows)
+        scatter = client.scatter_stats()
+        # A short storm can end inside one heartbeat: converge now.
+        client.refresh_partition_map()
+        client_version = client.partition_map.version if client.partition_map else None
+    p99 = percentile_ms(lat, 0.99) if lat else None
+    return {'n_partitions': 2, 'replication': 2, 'reads': reads,
+            'drained_member_at_read': drain_at,
+            'warm_p50_ms': percentile_ms(lat, 0.50) if lat else None, 'warm_p99_ms': p99,
+            'failed_lookups': failed, 'truncated_lookups': truncated, 'wrong_idx': wrong,
+            'warm_join': {k: join[k] for k in ('warmed_chunks', 'warm_skipped', 'warm_failed')},
+            'map_version_after_join': 2, 'map_version_after_drain': version_after_drain,
+            'client_map_version': client_version, 'scatter': scatter,
+            'p99_gate_ms': LOOKUP_P99_GATE_MS,
+            'p99_gate_passed': (p99 is not None and p99 < LOOKUP_P99_GATE_MS
+                                and failed == 0 and truncated == 0)}
+
+
+def run_lookup(url, workdir, reads=LOOKUP_READS, reps=LOOKUP_REPS,
+               fleet_reads=LOOKUP_FLEET_READS):
+    """The JAX bench's lookup child (``bench.py:1241-1341``) on the port:
+    cold and warm point reads through ``LookupServer`` + ``LookupClient``
+    (``ipc://`` sockets in ``workdir``) over a chunk-store hot tier whose
+    block LRU holds one block, so warm reads are chunk-store hits; the
+    median of ``reps`` repetitions of ``reads`` warm reads; then the fleet
+    leg (:func:`_lookup_fleet`). The probe flock stays out (ROADMAP §A).
+    Returns the child's ``lookup_stage_profile``; ``wrong_idx`` counts rows
+    whose ``idx`` is not their key, in both legs."""
+    import statistics
+
+    from petastorm_tpu_torch.serving import LookupClient, LookupEngine, LookupServer
+
+    os.makedirs(workdir, exist_ok=True)
+    rng = np.random.default_rng(0)
+    store_dir = tempfile.mkdtemp(prefix='pstt-lookup-store-', dir=workdir)
+    wrong = 0
+    try:
+        load_before = os.getloadavg()
+        with LookupEngine(url, index_name='idx_row_ix', cache=store_dir,
+                          block_cache_entries=1) as engine:
+            with LookupServer(engine, 'ipc://' + os.path.join(workdir, 'lookup-rpc')).start() \
+                    as server:
+                with LookupClient([server.rpc_endpoint], timeout_ms=30000) as client:
+                    cold = []
+                    for key in range(0, LOOKUP_ROWS, LOOKUP_ROWS_PER_GROUP):
+                        t0 = time.perf_counter()
+                        rows = client.lookup([key])[0]
+                        cold.append(time.perf_counter() - t0)
+                        wrong += not rows or int(rows[0]['idx']) != key
+                    if not engine.flush(60.0):
+                        raise AssertionError('the chunk store did not drain its spill')
+                    warm_rates, warm_p50s, warm_p99s = [], [], []
+                    for _ in range(reps):
+                        warm = []
+                        for key in rng.integers(0, LOOKUP_ROWS, reads):
+                            t0 = time.perf_counter()
+                            rows = client.lookup([int(key)])[0]
+                            warm.append(time.perf_counter() - t0)
+                            wrong += not rows or int(rows[0]['idx']) != int(key)
+                        warm_p50s.append(percentile_ms(warm, 0.50))
+                        warm_p99s.append(percentile_ms(warm, 0.99))
+                        warm_rates.append(reads / sum(warm))
+                    stats = engine.stats()
+                    served = server.requests_served
+        fleet = _lookup_fleet(url, workdir, fleet_reads)
+        load_after = os.getloadavg()
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    tiers = stats['tiers']
+    store_stats = stats.get('store') or {}
+    total = sum(tiers.values()) or 1
+    hot = sum(n for tier, n in tiers.items() if tier != 'decode')
+    warm_p99 = statistics.median(warm_p99s)
+    return {'warm_p50_ms': statistics.median(warm_p50s), 'warm_p99_ms': warm_p99,
+            'warm_p99_ms_reps': warm_p99s,
+            'warm_reads_per_sec': round(statistics.median(warm_rates), 1),
+            'cold_p50_ms': percentile_ms(cold, 0.50), 'cold_p99_ms': percentile_ms(cold, 0.99),
+            'cold_reads': len(cold), 'hit_rate': round(hot / total, 4), 'tiers': tiers,
+            'store': {k: store_stats.get(k) for k in ('hits', 'misses', 'writes',
+                                                      'bytes_mapped')},
+            'requests_served': served, 'reads_per_rep': reads, 'repetitions': reps,
+            'p99_gate_ms': LOOKUP_P99_GATE_MS, 'p99_gate_passed': warm_p99 < LOOKUP_P99_GATE_MS,
+            'wrong_idx': wrong, 'fleet': fleet,
+            'load': {'loadavg_before': list(load_before), 'loadavg_after': list(load_after)},
+            'metrics': _lookup_metrics()}
+
+
+def _independent_images(url, keys):
+    """The stored JPEG bytes of ``keys`` decoded without port code (pyarrow
+    + OpenCV), in the keys' order."""
+    import cv2
+    idx = read_store_column(url, 'idx').to_pylist()
+    blobs = read_store_column(url, 'image')
+    at = {key: i for i, key in enumerate(idx)}
+    return np.stack([cv2.cvtColor(cv2.imdecode(np.frombuffer(blobs[at[int(k)]].as_py(), np.uint8),
+                                               cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)
+                     for k in keys])
+
+
+def _bf16_ulps(got, want):
+    """Largest |got - want| in units of ``want``'s bf16 ulp (floor 1e-6)."""
+    import torch
+    want = want.float()
+    _, exponent = torch.frexp(want)
+    ulp = torch.clamp(torch.ldexp(torch.ones_like(want), exponent - 8), min=1e-6)
+    return float(((got.float() - want).abs() / ulp).max())
+
+
+def run_lookup_serve(url, device, card, state, workdir, requests=SERVE_REQUESTS,
+                     keys_per_request=SERVE_KEYS, drain_at=SERVE_DRAIN_AT):
+    """Requests answered on the card: a 2-server lookup fleet (2 partitions
+    x 2 replicas over ``ipc://`` sockets in ``workdir``, the donor's chunk
+    store warmed, the joiner's warm-filled) and one ``LookupClient``;
+    ``requests`` requests of ``keys_per_request`` keys (numpy seed 0), one
+    at a time, member 0 drained before request ``drain_at``. Each request:
+    ``client.lookup(keys)`` -> a pinned uint8 ``[keys, 224, 224, 3]`` ->
+    ``non_blocking`` copy -> K1 ``normalize_images`` (bf16) -> ``state``'s
+    ResNet-50 forward in eval mode -> top-1 ids to the host. Lookup ms on
+    the host clock; card ms by CUDA events around the copy, K1 and the
+    forward. Checks (``failures``): every row's ``idx`` is its key; no
+    request failed or came back short; K1 launched once a request; the
+    client's map version is the drain's; the first request's images equal
+    an independent decode of the stored bytes (exact under OpenCV, within 2
+    levels under the native codec); its K1 output is within 1 bf16 ulp of
+    ``normalize_images_plain``'s; and its batch through K1 and through
+    ``normalize_images_plain``, both f32, gives logits within rtol=atol=1e-3
+    (phase 3's ResNet-50 tolerance, TF32 off). Raises without a GPU unless
+    ``device`` is the CPU. Returns the phase's line."""
+    import torch
+    from petastorm_tpu_torch.codecs import decoder_info
+    from petastorm_tpu_torch.device import resolve_device
+    from petastorm_tpu_torch.ops import image_ops
+
+    device = resolve_device(device)
+    cuda = device.type == 'cuda'
+    t_phase = time.perf_counter()
+    os.makedirs(workdir, exist_ok=True)
+    key_sets = np.random.default_rng(0).integers(0, LOOKUP_ROWS, (requests, keys_per_request))
+    model = state.model
+    was_training = model.training
+    lookup_s, request_s, card_ms, events = [], [], [], []
+    failed, truncated, wrong, errors = 0, 0, 0, []
+    first = None
+    try:
+        with lookup_fleet(url, workdir, ('serve-0', 'serve-1')) as (servers, client, join):
+            model.eval()
+            pinned = torch.empty((keys_per_request, IMAGE, IMAGE, 3), dtype=torch.uint8,
+                                 pin_memory=cuda)
+            host = pinned.numpy()
+            with torch.no_grad():            # cudnn picks its eval algorithms here
+                model(image_ops.normalize_images(pinned.to(device), dtype=torch.bfloat16))
+            if cuda:
+                torch.cuda.synchronize()
+            reset_launch_counts()            # the path starts here
+            version_after_drain = None
+            t_loop = time.perf_counter()
+            for i, keys in enumerate(key_sets):
+                if i == drain_at:
+                    servers[0].drain()
+                    version_after_drain = servers[1].partition_map.version
+                keys = [int(k) for k in keys]
+                t0 = time.perf_counter()
+                try:
+                    rows = client.lookup(keys)
+                except Exception as e:  # noqa: BLE001 - counted; the phase fails
+                    failed += 1
+                    errors.append(repr(e))
+                    continue
+                short = [key for key, matches in zip(keys, rows) if len(matches) != 1]
+                bad = [key for key, matches in zip(keys, rows)
+                       if len(matches) == 1 and int(matches[0]['idx']) != key]
+                truncated += bool(short)
+                wrong += len(bad)
+                if short or bad:
+                    continue
+                for j, matches in enumerate(rows):
+                    host[j] = matches[0]['image']
+                t1 = time.perf_counter()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else None
+                if cuda:
+                    ev[0].record()
+                x = pinned.to(device, non_blocking=True)
+                xn = image_ops.normalize_images(x, dtype=torch.bfloat16)
+                with torch.no_grad():
+                    logits = model(xn)
+                if cuda:
+                    ev[1].record()
+                top1 = logits.argmax(-1).cpu()
+                t2 = time.perf_counter()
+                lookup_s.append(t1 - t0)
+                request_s.append(t2 - t0)
+                if cuda:
+                    events.append(ev)
+                else:
+                    card_ms.append((t2 - t1) * 1e3)
+                if first is None:
+                    first = {'keys': keys, 'images': host.copy(), 'k1_bf16': xn.clone(),
+                             'top1': top1.tolist()}
+            wall = time.perf_counter() - t_loop
+            launches = launch_counts()       # the path ends here
+            scatter = client.scatter_stats()
+            client.refresh_partition_map()
+            client_version = client.partition_map.version if client.partition_map else None
+        if cuda:
+            torch.cuda.synchronize()
+            card_ms = [a.elapsed_time(b) for a, b in events]
+        checks = {}
+        if first is not None:
+            decoder = decoder_info()['decoder']
+            want = _independent_images(url, first['keys'])
+            diff = int(np.abs(first['images'].astype(np.int16) - want.astype(np.int16)).max())
+            x = torch.from_numpy(first['images']).to(device)
+            scale, shift = image_ops._scale_shift(image_ops.IMAGENET_MEAN, image_ops.IMAGENET_STD,
+                                                  device)
+            plain_bf16 = image_ops.normalize_images_plain(x, scale, shift, dtype=torch.bfloat16)
+            tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+            dtype, model.dtype = model.dtype, torch.float32
+            try:
+                with torch.no_grad():
+                    via_k1 = model(image_ops.normalize_images(x, dtype=torch.float32)).cpu()
+                    via_plain = model(image_ops.normalize_images_plain(
+                        x, scale, shift, dtype=torch.float32)).cpu()
+            finally:
+                model.dtype = dtype
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+            checks = {'decoder': decoder, 'images_max_abs_diff_vs_opencv': diff,
+                      'images_atol': 0 if decoder == 'cv2' else 2,
+                      'k1_bf16_max_ulps_vs_plain': _bf16_ulps(first['k1_bf16'], plain_bf16),
+                      'logits_f32_max_abs_err': float((via_k1 - via_plain).abs().max()),
+                      'logits_f32_close': bool(torch.isfinite(via_k1).all() and torch.allclose(
+                          via_k1, via_plain, rtol=1e-3, atol=1e-3)),
+                      'logits_tolerance': 'rtol=atol=1e-3 (f32, TF32 off)'}
+    finally:
+        model.train(was_training)
+    served = len(request_s)
+    k1 = launches.get('normalize_images', 0)
+    failures = []
+    if failed or truncated or wrong:
+        failures.append('{} failed, {} short and {} rows of another key: {}'.format(
+            failed, truncated, wrong, errors[:3]))
+    # On the CPU the plain normalize runs and nothing launches.
+    if k1 != (requests if cuda else 0) or served != requests:
+        failures.append('K1 launched {} times for {} requests ({} served)'.format(
+            k1, requests, served))
+    if client_version != version_after_drain:
+        failures.append('the client holds map v{}, the drain made v{}'.format(
+            client_version, version_after_drain))
+    if first is None:
+        failures.append('no request was answered')
+    else:
+        if checks['images_max_abs_diff_vs_opencv'] > checks['images_atol']:
+            failures.append('the first images differ from an independent decode by {}'.format(
+                checks['images_max_abs_diff_vs_opencv']))
+        if checks['k1_bf16_max_ulps_vs_plain'] > 1:
+            failures.append('K1 differs from the plain normalize by {} bf16 ulps'.format(
+                checks['k1_bf16_max_ulps_vs_plain']))
+        if not checks['logits_f32_close']:
+            failures.append('logits through K1 and the plain normalize differ by {}'.format(
+                checks['logits_f32_max_abs_err']))
+    return {'phase': 'lookup', 'variant': 'serve', 'card': card, 'model': 'resnet50',
+            'mode': 'eval', 'requests': requests, 'keys_per_request': keys_per_request,
+            'served': served, 'drained_member_at_request': drain_at,
+            'request_p50_ms': percentile_ms(request_s, 0.50) if request_s else None,
+            'request_p99_ms': percentile_ms(request_s, 0.99) if request_s else None,
+            'lookup_p50_ms': percentile_ms(lookup_s, 0.50) if lookup_s else None,
+            'lookup_p99_ms': percentile_ms(lookup_s, 0.99) if lookup_s else None,
+            'card_p50_ms': float(np.percentile(card_ms, 50)) if card_ms else None,
+            'card_p99_ms': float(np.percentile(card_ms, 99)) if card_ms else None,
+            'img_per_s': served * keys_per_request / wall if served else 0.0,
+            'failed': failed, 'truncated': truncated, 'wrong_idx': wrong,
+            'warm_join': {k: join[k] for k in ('warmed_chunks', 'warm_skipped', 'warm_failed')},
+            'map_version_after_drain': version_after_drain, 'client_map_version': client_version,
+            'scatter': scatter, 'k1_launches': k1, 'launches': launches,
+            'first_request': dict(checks, top1=first['top1'][:8]) if first else None,
+            'failures': failures, 'seconds': time.perf_counter() - t_phase}
+
+
+# --------------------------------------------------------------------------
+# the preprocessing fleet under scan training
+# --------------------------------------------------------------------------
+
+#: Phase 29: the job, the spawns' lease (worker 0, worker 1 and the
+#: reference keep the default 10 s: under 8 decode threads a 0.5 s lease
+#: expires the trainer's admission and frees its shm regions under it), the
+#: spawns' grace to their first heartbeat, and the scan calls after the
+#: dance before worker 0 drains.
+FLEET_JOB, FLEET_LEASE_S, FLEET_SPAWN_GRACE_S, FLEET_TAIL_CALLS = 'pstt-bench', 0.5, 1.5, 3
+#: The trainer gives up on a dance that runs longer than this.
+FLEET_DANCE_LIMIT_S = 150.0
+
+
+def fleet_worker_argv(url, bind, workers=1, job=None, quotas=None, det=False, epochs=0,
+                      lease_s=None, drain_grace=0.5, await_cursor=False):
+    """``python -m petastorm_tpu_torch.tools.fleet --worker`` over ``url``
+    (``lease_s`` None: the CLI's default lease)."""
+    argv = [sys.executable, '-m', 'petastorm_tpu_torch.tools.fleet', '--worker', url, '--bind',
+            bind, '--workers', str(workers), '--epochs', str(epochs), '--drain-grace',
+            str(drain_grace)]
+    if lease_s is not None:
+        argv += ['--lease-s', str(lease_s)]
+    if job is not None:
+        argv += ['--job', job]
+    if quotas is not None:
+        argv += ['--tenant-quotas', json.dumps(quotas)]
+    if det:
+        argv += ['--deterministic', '--seed', '0']
+    if await_cursor:
+        argv.append('--await-cursor')
+    return argv
+
+
+def fleet_worker_env(faults_spec=None, ring_bytes=None):
+    """A fleet worker's environment: no card, the repository on the path,
+    ``PSTT_FAULTS`` only as given, the wire ring sized when asked."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='')
+    env['PYTHONPATH'] = os.pathsep.join(filter(None, [ROOT, env.get('PYTHONPATH')]))
+    env.pop('PSTT_FAULTS', None)
+    if faults_spec:
+        env['PSTT_FAULTS'] = faults_spec
+    if ring_bytes:
+        env['PSTT_WIRE_SEGMENT_MB'] = str(ring_bytes / (1 << 20))
+    return env
+
+
+def start_fleet_worker(argv, env, timeout_s=120):
+    """A fleet worker process and its announce line (its stdout stays a
+    pipe: the final line comes at exit)."""
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    line = proc.stdout.readline()
+    if not line:
+        proc.wait(timeout_s)
+        raise RuntimeError('the fleet worker exited with {} before its announce line'.format(
+            proc.returncode))
+    return proc, json.loads(line)
+
+
+def finish_fleet_worker(proc, timeout_s=60):
+    """Wait for a worker that was asked to drain: (exit code, final line)."""
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    lines = [json.loads(line) for line in (out or '').splitlines() if line.startswith('{')]
+    return proc.returncode, (lines[-1] if lines else None)
+
+
+def fleet_status(rpc_endpoints, timeout_s=10.0):
+    """``python -m petastorm_tpu_torch.tools.fleet --status``: (exit code,
+    its JSON line)."""
+    proc = subprocess.run([sys.executable, '-m', 'petastorm_tpu_torch.tools.fleet', '--status',
+                           '--rpc'] + list(rpc_endpoints) + ['--timeout-s', str(timeout_s)],
+                          capture_output=True, text=True, timeout=120,
+                          env=fleet_worker_env(), cwd=ROOT)
+    lines = [line for line in proc.stdout.splitlines() if line.startswith('{')]
+    return proc.returncode, (json.loads(lines[-1]) if lines else None)
+
+
+def tenant_refusals(status):
+    """``pst_fleet_tenant_refusals_total`` by tenant out of a status line."""
+    metric = ((status or {}).get('tenant_slo') or {}).get('pst_fleet_tenant_refusals_total') or {}
+    out = {}
+    for sample in metric.get('samples', ()):
+        tenant = sample['labels'].get('tenant')
+        out[tenant] = out.get(tenant, 0) + sample['value']
+    return out
+
+
+def _fleet_dance(scaler, registry, launcher, job, log):
+    """The dance of ``tests/test_fleet_preproc.py:645``, actions forced as
+    there: 1 -> 3 (one spawn SIGKILLed by ``fleet-worker-kill``, reaped and
+    retried), a drain-first scale-down under ``registry-blackhole`` (the
+    registry's alone), membership back to 2, then a drain back to 1.
+    Fills ``log``."""
+    from petastorm_tpu_torch.faults import FaultInjector
+
+    t0 = time.perf_counter()
+    joined = log.setdefault('joined', {})
+    deadline = time.monotonic() + 120
+    while True:
+        for member in registry.members(job):
+            joined.setdefault(member['key'], member['joined'])
+        # A spawn killed after its first beat counts until it ages out.
+        count, live = registry.worker_count(job), scaler.live_workers()
+        if count == 3 and live == 2:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError('the fleet never reached 3 live workers ({}, {} '
+                                 'launched alive)'.format(count, live))
+        if count < 3:
+            scaler.scale_to(3)
+        else:
+            time.sleep(0.1)
+    log['scale_up_s'] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    registry.fault_injector = FaultInjector.from_string('registry-blackhole')
+    try:
+        # Forced, as the drill forces it: scale_to would relaunch the
+        # members the blind registry ages out.
+        log['blackholed_down'] = scaler._act('down', registry.worker_count(job))
+    finally:
+        registry.fault_injector = None
+    log['blackholed_drain_s'] = time.perf_counter() - t1
+    deadline = time.monotonic() + 60
+    while registry.worker_count(job) != 2:
+        if time.monotonic() > deadline:
+            raise AssertionError('membership never came back to 2 after the blackhole')
+        time.sleep(0.05)
+    log['reconverged_s'] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    scaler.drain_all()
+    log['drain_all_s'] = time.perf_counter() - t2
+    deadline = time.monotonic() + 60
+    while registry.worker_count(job) != 1:
+        if time.monotonic() > deadline:
+            raise AssertionError('the fleet never shrank back to 1')
+        time.sleep(0.05)
+    log['members_after'] = [m['key'] for m in registry.members(job)]
+    log['seconds'] = time.perf_counter() - t0
+
+
+def run_fleet_scale(url, device, card, state, workdir, remote_rate=None, workers=8):
+    """ResNet-50 scan training fed by an autoscaled two-tenant fleet (the
+    drill of ``tests/test_fleet_preproc.py:645`` with the card as the
+    deterministic tenant's consumer), over ``ipc://`` sockets in
+    ``workdir``.
+
+    Worker 0 is ``tools.fleet --worker`` over ``url`` (job ``pstt-bench``,
+    tenant quotas ``{"det": {}}``, deterministic, seed 0, ``workers``
+    threads, no card, endless); worker 1 the same for tenant ``noisy`` with
+    ``max_consumers`` 1, one epoch. The trainer is ``RemoteReader(worker 0,
+    tenant='det', flow_control=32)`` -> ``TorchLoader`` with a lineage
+    ledger -> ``superbatches(8)`` -> imagenet_scan's 8-step graph on
+    ``state``. After the trainer's first replay a thread runs the dance
+    (:func:`_fleet_dance`: a ``FleetRegistry`` and a ``FleetAutoscaler``
+    with a ``SubprocessLauncher`` of one-thread workers); ``FLEET_TAIL_CALLS``
+    calls after it ends, worker 0 is drained (SIGTERM) and the trainer
+    takes the stream to its END. Then the noisy tenant's one consumer takes
+    worker 1's whole epoch and a second is refused, and a reference run (a
+    fresh worker 0, a loader on the card with no model step) takes as many
+    batches of the same stream into its own ledger.
+
+    ``failures``: the dance not inside the training; det's served chunks
+    not its delivered ones, or noisy's not its epoch; the ledgers diverging
+    (``tools.replay --diff-ledgers`` not 0); det refused; no kill, or a
+    drain not acknowledged; ``tools.fleet --status`` not 0; a
+    ``pstt-wire-`` segment left; a worker mapping ``libcuda``; K1's graph
+    nodes times the replays not exact. Raises without a GPU unless
+    ``device`` is the CPU. Returns the phase's line."""
+    import threading
+
+    import torch
+    from petastorm_tpu_torch import TorchLoader
+    from petastorm_tpu_torch.data_service import RemoteReader
+    from petastorm_tpu_torch.device import resolve_device
+    from petastorm_tpu_torch.errors import ServerOverloaded
+    from petastorm_tpu_torch.fleet.autoscaler import (FleetAutoscaler, ScalePolicy,
+                                                      SubprocessLauncher)
+    from petastorm_tpu_torch.fleet.registry import FleetRegistry
+    from petastorm_tpu_torch.models import make_scan_train_step
+
+    device = resolve_device(device)
+    t_phase = time.perf_counter()
+    os.makedirs(workdir, exist_ok=True)
+    ring = remote_ring_bytes(imagenet_chunk_bytes()) if device.type == 'cuda' else None
+    sock = lambda name: 'ipc://' + os.path.join(workdir, name)  # noqa: E731
+    det_argv = fleet_worker_argv(url, sock('w0'), workers, job=FLEET_JOB, quotas={'det': {}},
+                                 det=True, drain_grace=5.0, await_cursor=True)
+    out = {'phase': 'fleet_scale', 'card': card, 'model': 'resnet50', 'stem': 'conv7',
+           'classes': 1000, 'job': FLEET_JOB, 'workers': workers,
+           'spawn_lease_s': FLEET_LEASE_S,
+           'spawn_grace_s': FLEET_SPAWN_GRACE_S, 'credits': REMOTE_CREDITS, 'ring_bytes': ring}
+    failures = []
+    procs, spawned = {}, []
+    status_rc = status = None
+    maps = {}           # pid -> whether the live worker maps libcuda
+    kill_token = os.path.join(workdir, 'kill-one-spawn.token')
+    registry = FleetRegistry()
+
+    class Launcher(SubprocessLauncher):
+        """Points the registry at each spawn and books its pid, its
+        launch time, whether it maps the CUDA driver, and acknowledged
+        drains."""
+        drained_ok = []
+
+        def launch(self, index):
+            t0 = time.monotonic()
+            handle = super(Launcher, self).launch(index)
+            pid = handle['proc'].pid
+            maps[pid] = maps_cuda_driver(pid)
+            spawned.append({'index': index, 'key': handle['key'], 'pid': pid, 'launched': t0})
+            registry.watch([handle['info']['control_endpoint']])
+            return handle
+
+        def drain(self, handle, timeout_s):
+            ok = super(Launcher, self).drain(handle, timeout_s)
+            if ok:
+                self.drained_ok.append(handle['key'])
+            return ok
+
+    launcher = Launcher(lambda index: fleet_worker_argv(url, sock('s{}'.format(index)), 1,
+                                                        job=FLEET_JOB, lease_s=FLEET_LEASE_S),
+                        announce_timeout_s=60.0,
+                        env=fleet_worker_env('fleet-worker-kill:token={}'.format(kill_token)))
+    scaler = FleetAutoscaler(FLEET_JOB, registry, launcher, metrics_fn=None,
+                             policy=ScalePolicy(min_workers=1, max_workers=3,
+                                                spawn_grace_s=FLEET_SPAWN_GRACE_S,
+                                                drain_timeout_s=60.0))
+    dance, dance_error = {}, []
+    dance_thread = threading.Thread(
+        target=lambda: _run_into(dance_error, _fleet_dance, scaler, registry, launcher,
+                                 FLEET_JOB, dance), name='pstt-bench-fleet-dance', daemon=True)
+    train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
+    try:
+        procs['w0'], w0 = start_fleet_worker(det_argv, fleet_worker_env(ring_bytes=ring))
+        procs['w1'], w1 = start_fleet_worker(
+            fleet_worker_argv(url, sock('w1'), workers, quotas={'noisy': {'max_consumers': 1}},
+                              epochs=1, drain_grace=60.0), fleet_worker_env())
+        out['worker_pids'] = {name: proc.pid for name, proc in procs.items()}
+        registry.watch([w0['control_endpoint']])
+        if not registry.wait_for_member(FLEET_JOB, min_count=1, timeout_s=30.0):
+            raise AssertionError('worker 0 never reached the registry')
+        # -- the trainer, with the dance between its first replay and its last
+        ledger = os.path.join(workdir, 'ledger-fleet')
+        metrics, calls_at, captured = [], [], {}
+        reset_launch_counts()
+        replays0 = train.replays
+        drain_sent = None
+        reader = RemoteReader(w0['data_endpoint'], rcvhwm=REMOTE_RCVHWM,
+                              flow_control=REMOTE_CREDITS, tenant='det', end_grace_s=30.0)
+        with reader:
+            with TorchLoader(reader, BATCH, device=device, prefetch=SCAN_PREFETCH,
+                             autotune=False, lineage=ledger) as loader:
+                groups = loader.superbatches(SCAN_K)
+                tail = None
+                while True:
+                    try:
+                        sb = next(groups)
+                    except StopIteration:
+                        break
+                    capturing, before = train.graph is None and train.calls == 1, launch_counts()
+                    metrics.append(train(state, sb.image, sb.label))
+                    if capturing:
+                        captured.update(_launch_diff(launch_counts(), before))
+                    calls_at.append((time.perf_counter(), train.replays - replays0))
+                    if 'start' not in out and train.replays - replays0 >= 1:
+                        out['start'] = {'call': len(metrics), 'replays': train.replays - replays0}
+                        dance['t_start'] = time.perf_counter()
+                        dance_thread.start()
+                    elif 'end' not in out and 'start' in out \
+                            and time.perf_counter() - dance['t_start'] > FLEET_DANCE_LIMIT_S:
+                        raise AssertionError('the dance took over {} s: {}'.format(
+                            FLEET_DANCE_LIMIT_S, dance))
+                    if 'start' in out and not dance_thread.is_alive() and tail is None:
+                        tail = len(metrics)
+                        out['end'] = {'call': len(metrics), 'replays': train.replays - replays0}
+                        dance['t_end'] = time.perf_counter()
+                    if tail is not None and drain_sent is None \
+                            and len(metrics) >= tail + FLEET_TAIL_CALLS:
+                        status_rc, status = fleet_status([w0['rpc_endpoint'], w1['rpc_endpoint']])
+                        maps.update({proc.pid: maps_cuda_driver(proc.pid)
+                                     for proc in procs.values()})
+                        procs['w0'].send_signal(signal.SIGTERM)
+                        drain_sent = time.perf_counter()
+                stream_end = time.perf_counter()
+                if device.type == 'cuda':
+                    torch.cuda.synchronize()
+                lineage_stats = loader.stats.get('lineage') or {}
+                loader_rows = loader.stats['rows']
+            diagnostics = reader.diagnostics
+        launches = launch_counts()
+        replays = train.replays - replays0
+        ran = graph_launches(train, ('normalize_kernel',), replays)
+        w0_rc, w0_final = finish_fleet_worker(procs.pop('w0'))
+        # -- the noisy tenant: one consumer takes the epoch, a second is refused
+        with RemoteReader(w1['data_endpoint'], tenant='noisy') as noisy:
+            noisy_rows = sum(int(np.asarray(chunk.label).shape[0]) for chunk in noisy)
+            refused = RemoteReader(w1['data_endpoint'], tenant='noisy')
+            noisy_refusal = None
+            try:
+                deadline = time.monotonic() + 30
+                while time.monotonic() < deadline:
+                    next(refused)
+            except ServerOverloaded as e:
+                noisy_refusal = e.reason
+            except StopIteration:
+                pass
+            finally:
+                refused.join()
+            status_end_rc, status_end = fleet_status([w1['rpc_endpoint']])
+        w1_served = ((status_end or {}).get('members') or {}).get(w1['rpc_endpoint'], {}).get(
+            'sent')
+        stop_server(procs.pop('w1'))
+        # -- the reference: the same stream, no scaling, a loader with no model step
+        ref_ledger = os.path.join(workdir, 'ledger-ref')
+        batches = int(lineage_stats.get('records') or 0)
+        ref_argv = fleet_worker_argv(url, sock('ref'), workers, quotas={'det': {}}, det=True,
+                                     drain_grace=5.0, await_cursor=True)
+        procs['ref'], ref = start_fleet_worker(ref_argv, fleet_worker_env(ring_bytes=ring))
+        ref_pid = procs['ref'].pid
+        maps[ref_pid] = maps_cuda_driver(ref_pid)
+        t_ref = time.perf_counter()
+        with RemoteReader(ref['data_endpoint'], rcvhwm=REMOTE_RCVHWM,
+                          flow_control=REMOTE_CREDITS, tenant='det', end_grace_s=30.0) as remote:
+            with TorchLoader(remote, BATCH, device=device, prefetch=SCAN_PREFETCH,
+                             autotune=False, lineage=ref_ledger) as loader:
+                for _ in range(batches):
+                    next(loader)
+            ref_granted = remote.diagnostics['wire']
+        ref_s = time.perf_counter() - t_ref
+        stop_server(procs.pop('ref'))
+        diff = subprocess.run([sys.executable, '-m', 'petastorm_tpu_torch.tools.replay',
+                               '--diff-ledgers', ref_ledger, ledger], capture_output=True,
+                              text=True, timeout=300, env=fleet_worker_env(), cwd=ROOT)
+    finally:
+        if dance_thread.ident is not None:
+            dance_thread.join(timeout=180)
+        scaler.stop()
+        scaler.drain_all()
+        registry.stop()
+        for proc in procs.values():
+            stop_server(proc)
+    left = wire_segments_of(set(maps) | set(out.get('worker_pids', {}).values()))
+    # -- the record and its checks
+    t_start, t_end = dance.get('t_start'), dance.get('t_end')
+    during = [i for i, (t, _) in enumerate(calls_at) if t_start is not None and t_end is not None
+              and t_start <= t <= t_end]
+    dance_rows = len(during) * SCAN_K * BATCH
+    img_per_s = dance_rows / (t_end - t_start) if during and t_end > t_start else None
+    joins = dance.get('joined', {})
+    det_served = (w0_final or {}).get('served_chunks')
+    refusals_mid = tenant_refusals(status)
+    refusals_end = tenant_refusals(status_end)
+    down = dance.get('blackholed_down') or {}
+    out.update({
+        'calls': len(metrics), 'replays': replays, 'dance': {
+            k: v for k, v in dance.items() if k not in ('t_start', 't_end')},
+        'dance_error': dance_error[:1],
+        'img_per_s_during_dance': img_per_s, 'dance_calls': len(during),
+        'imagenet_remote_img_per_s': remote_rate,
+        'img_per_s_vs_imagenet_remote': img_per_s / remote_rate if img_per_s and remote_rate
+        else None,
+        'spawns': [{'index': s['index'], 'key': s['key'], 'pid': s['pid'],
+                    'joined_after_s': (joins[s['key']] - s['launched'])
+                    if s['key'] in joins else None} for s in spawned],
+        'kill_fired': os.path.exists(kill_token),
+        'drains_acknowledged': list(Launcher.drained_ok),
+        'det': {'served_chunks': det_served, 'delivered_chunks': diagnostics['remote_chunks'],
+                'duplicate_chunks': diagnostics['duplicate_chunks'], 'loader_rows': loader_rows,
+                'granted': diagnostics['wire'], 'ledger_batches': batches,
+                'worker_exit': w0_rc, 'drain_to_end_s': (stream_end - drain_sent)
+                if drain_sent else None},
+        'noisy': {'rows': noisy_rows, 'served_chunks': w1_served,
+                  'second_consumer_refused': noisy_refusal},
+        'refusals': {'mid': refusals_mid, 'end': refusals_end},
+        'status_rc': [status_rc, status_end_rc],
+        'reference': {'seconds': ref_s, 'img_per_s': batches * BATCH / ref_s,
+                      'granted': ref_granted},
+        'diff_ledgers_rc': diff.returncode, 'diff_ledgers': diff.stdout.strip()[-2000:],
+        'segments_left': left,
+        'workers_map_cuda': {str(pid): mapped for pid, mapped in maps.items()},
+        'k1_graph': {'ran': ran['normalize_kernel'], 'expected': SCAN_K * replays,
+                     'replays': replays},
+        'launches': _scan_launches(launches, captured, ran, len(metrics), replays),
+        'losses_mean_last': [[float(m['loss']), float(m['last_loss'])] for m in metrics[-3:]]})
+    if dance_error or 'start' not in out or 'end' not in out \
+            or out['end']['replays'] >= replays:
+        failures.append('the dance did not run inside the training: start {}, end {}, {} '
+                        'replays, {}'.format(out.get('start'), out.get('end'), replays,
+                                             dance_error[:1]))
+    if det_served is None or det_served != diagnostics['remote_chunks'] \
+            or loader_rows > diagnostics['remote_chunks'] * ROWS_PER_GROUP:
+        failures.append('det: served {} chunks, delivered {} ({} loader rows)'.format(
+            det_served, diagnostics['remote_chunks'], loader_rows))
+    if noisy_rows != ROWS or w1_served != ROWS // ROWS_PER_GROUP:
+        failures.append('noisy: {} rows delivered, {} chunks served'.format(noisy_rows,
+                                                                          w1_served))
+    if noisy_refusal != 'overloaded' or refusals_end.get('noisy', 0) < 1:
+        failures.append('the second noisy consumer was not refused: {} {}'.format(
+            noisy_refusal, refusals_end))
+    if refusals_mid.get('det', 0) or refusals_end.get('det', 0):
+        failures.append('det was refused: {} {}'.format(refusals_mid, refusals_end))
+    if diff.returncode != 0 or not batches:
+        failures.append('the ledgers diverge (rc {}, {} batches): {}'.format(
+            diff.returncode, batches, diff.stdout.strip()[-400:]))
+    if not out['kill_fired'] or len(Launcher.drained_ok) != 2 or not down.get('ok'):
+        failures.append('kill {}, drains acknowledged {}, blackholed drain {}'.format(
+            out['kill_fired'], Launcher.drained_ok, down))
+    if status_rc != 0 or status_end_rc != 0:
+        failures.append('tools.fleet --status exited {} and {}'.format(status_rc, status_end_rc))
+    if left:
+        failures.append('segments left: {}'.format(left))
+    # Read while each lived; a spawn that killed itself may be gone (None).
+    if any(maps.values()) or any(maps.get(pid) is not False for pid in
+                                 list(out.get('worker_pids', {}).values()) + [ref_pid]):
+        failures.append('a fleet worker maps libcuda: {}'.format(out['workers_map_cuda']))
+    try:
+        require_scan_launches(launches, captured, ran, ('normalize_images',), SCAN_K, replays)
+    except AssertionError as e:
+        failures.append(str(e))
+    if not all(math.isfinite(v) for m in metrics for v in (float(m['loss']),
+                                                           float(m['last_loss']))):
+        failures.append('a non-finite loss')
+    out.update(failures=failures, seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def _run_into(errors, fn, *args):
+    """``fn(*args)`` on a thread: its exception into ``errors``."""
+    try:
+        fn(*args)
+    except Exception as e:  # noqa: BLE001 - the caller's checks report it
+        errors.append(repr(e))
 
 
 AUTOTUNE_INTERVAL_S = 0.25
@@ -3484,6 +4353,8 @@ CHILDREN = {
     'flashattn': ('flashattn', {}),
     'imagenet_aug': ('imagenet', {'BENCH_IMAGENET_AUG': '1', 'BENCH_IMAGENET_WARMUP': '4',
                                   'BENCH_IMAGENET_STEPS': '16'}),
+    # Before the fleet children, where the JAX bench runs it (bench.py:2768-2775).
+    'lookup': ('lookup', {}),
     # Last, where the JAX bench runs its fleet_wire child (bench.py:2836).
     'imagenet_remote': ('imagenet_remote', {}),
     'fleet_wire': ('fleet_wire', {}),
@@ -3607,6 +4478,20 @@ def child_fleet_wire(device, workdir):
     return {'fleet_wire_stage_profile': run_fleet_wire()}
 
 
+def child_lookup(device, workdir):
+    """The JAX bench's lookup child (:func:`run_lookup`); ``BENCH_LOOKUP_READS``,
+    ``BENCH_LOOKUP_REPS`` and ``BENCH_LOOKUP_FLEET_READS`` as there."""
+    sock_dir = tempfile.mkdtemp(prefix='pstt-lookup-', dir=workdir)
+    try:
+        return {'lookup_stage_profile': run_lookup(
+            ensure_lookup_store(workdir), sock_dir,
+            reads=_env_int('BENCH_LOOKUP_READS', LOOKUP_READS),
+            reps=max(1, _env_int('BENCH_LOOKUP_REPS', LOOKUP_REPS)),
+            fleet_reads=_env_int('BENCH_LOOKUP_FLEET_READS', LOOKUP_FLEET_READS))}
+    finally:
+        shutil.rmtree(sock_dir, ignore_errors=True)
+
+
 def run_child(name, device, workdir):
     """One child in this process: its JSON object. The stores it reads are
     written into ``workdir`` unless they are there already."""
@@ -3623,9 +4508,11 @@ def run_child(name, device, workdir):
         out = child_staging(device, workdir)
     elif kind == 'fleet_wire':
         out = child_fleet_wire(device, workdir)
+    elif kind == 'lookup':
+        out = child_lookup(device, workdir)
     elif device.type != 'cuda':
         raise ValueError('child {!r} runs on the card only; --device cpu runs the pipeline, '
-                         'staging and fleet_wire children'.format(name))
+                         'staging, lookup and fleet_wire children'.format(name))
     else:
         out = {'imagenet': child_imagenet, 'lm': child_lm, 'flashattn': child_flashattn,
                'imagenet_remote': child_imagenet_remote}[kind](device, workdir)
@@ -3669,8 +4556,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--child', default=None, help='run one child: ' + ', '.join(CHILDREN))
     parser.add_argument('--device', default='cuda', help="'cuda' (default) or, for the tests, "
-                                                         "'cpu' (the pipeline, staging and "
-                                                         "fleet_wire children only)")
+                                                         "'cpu' (the pipeline, staging, lookup "
+                                                         "and fleet_wire children only)")
     parser.add_argument('--workdir', default=None,
                         help='where the stores are written, or found if they are there '
                              '(default: a temporary directory)')

@@ -48,11 +48,22 @@ Sites the port runs, and their effect when they fire:
 ``wire-segment-leak``    the wire's teardown leaves its shm segments behind
                          (a SIGKILLed server without the SIGKILL), for the
                          next server's start-up sweep to collect
+``partition-lost``       a lookup server swallows a request for one
+                         partition (keyed ``p<partition>``, so every
+                         replica drops it alike): the client must raise,
+                         never return a short result
+``hb-flap``              a lookup server suppresses one lease heartbeat
+``fleet-worker-kill``    a fleet worker (``tools.fleet --worker``) SIGKILLs
+                         itself right after its announce line; with
+                         ``token=`` exactly one spawn
+``registry-blackhole``   the fleet registry drops a heartbeat at ingest
+``scale-race``           the autoscaler sleeps ``delay`` seconds between
+                         deciding and acting
 ======================== ==================================================
 
-The other names of :data:`KNOWN_SITES` parse and never fire here: their
-modules (the sanitizer, the lookup tier and the fleet registry and
-autoscaler) are not ported yet.
+The other names of :data:`KNOWN_SITES` parse and never fire here:
+``arena-stale-view`` and ``lock-order-invert`` belong to the runtime
+sanitizer, which is not ported yet.
 
 Params (all optional):
 

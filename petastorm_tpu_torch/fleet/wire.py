@@ -575,6 +575,7 @@ class ServerWire(object):
         self._segment_bytes = segment_bytes
         self._mem_degraded = False
         self._rings = {}            # consumer id -> ShmSegmentRing
+        self._rings_made = 0        # numbers each session's segment name
         self._lock = threading.Lock()
         self._m = wire_metrics()
         from petastorm_tpu_torch import membudget
@@ -597,9 +598,13 @@ class ServerWire(object):
             with self._lock:
                 ring = self._rings.get(consumer)
                 if ring is None:
-                    name = '{}{}-{}'.format(
+                    # The session number ends the name: a consumer whose
+                    # admission expired keeps its old ring mapped (views,
+                    # chunks in flight), and its map cache is by name.
+                    self._rings_made += 1
+                    name = '{}{}-{}-{}'.format(
                         SEGMENT_PREFIX, self._server_hex[:12],
-                        str(consumer)[:24])
+                        str(consumer)[:24], self._rings_made)
                     try:
                         ring = ShmSegmentRing(
                             name, capacity=self._segment_bytes)

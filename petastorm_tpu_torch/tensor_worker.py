@@ -207,10 +207,11 @@ class TensorWorker(RowGroupWorkerBase):
         return self._read_fields(piece, names).take(pa.array(np.flatnonzero(mask)))
 
 
-def decode_table_to_blocks(table, schema, raw_fields=(), fault_key=None):
+def decode_table_to_blocks(table, schema, raw_fields=(), fault_key=None, decode_threads=None):
     """Arrow table -> dict of contiguous per-field numpy blocks, decoded
     (``petastorm_tpu/tensor_worker.py:365-470``); an image column's call
-    takes the worker's live share of the decode budget. ``raw_fields``
+    takes ``decode_threads`` threads, by default the worker's live share of
+    the decode budget. ``raw_fields``
     names image columns that come out as object columns of their encoded
     bytes instead. ``fault_key`` is the row-group's key of the
     ``decode-corrupt-batch`` fault site."""
@@ -226,7 +227,7 @@ def decode_table_to_blocks(table, schema, raw_fields=(), fault_key=None):
                 if name in raw_fields:
                     cols[name] = _raw_image_column(column)
                 else:
-                    cols[name] = _decode_image_column(column, field, fault_key)
+                    cols[name] = _decode_image_column(column, field, fault_key, decode_threads)
             elif isinstance(codec, (NdarrayCodec, CompressedNdarrayCodec)):
                 cols[name] = _decode_ndarray_column(column, field, codec)
             else:
@@ -248,7 +249,7 @@ def _binary_column_view(column):
     return buffers[2].address + offsets[:-1], np.diff(offsets)
 
 
-def _decode_image_column(column, field, fault_key=None):
+def _decode_image_column(column, field, fault_key=None, decode_threads=None):
     """One ``[N, ...field.shape]`` block, by one native call over the
     column's value buffer (the column stays alive for the call)."""
     out = np.empty((len(column),) + tuple(field.shape), dtype=field.numpy_dtype)
@@ -256,7 +257,7 @@ def _decode_image_column(column, field, fault_key=None):
     if _native_image() is not None and out.dtype == np.uint8:
         ptrs, lens = _binary_column_view(column)
     decode_image_batch_into(field, out, lambda i: column[i].as_py(), ptrs=ptrs, lens=lens,
-                            fault_key=fault_key)
+                            decode_threads=decode_threads, fault_key=fault_key)
     return out
 
 

@@ -392,6 +392,56 @@ def test_tuner_equals_jax_on_a_simulated_pipeline(name):
     assert holds(got, port_extra), (got, port_extra)
 
 
+class BurstPipeline(object):
+    """A consumer that takes its batches in bursts of ``burst`` (a scan
+    trainer's superbatch), as many a second as ``per_worker`` workers
+    supply, up to ``demand``: phase 26's telemetry on a synthetic clock.
+    The reader's starvation accrues evenly; the batches land per burst."""
+
+    def __init__(self, per_worker=4.0, demand=32.0, burst=8, workers=1):
+        self.per_worker, self.demand, self.burst = per_worker, demand, burst
+        self.workers = workers
+        self.t = 0.0
+        self.supplied = 0.0
+        self.batches = 0.0
+        self.wait_s = 0.0
+
+    def advance(self, dt):
+        rate = min(self.workers * self.per_worker, self.demand)
+        self.supplied += rate * dt
+        self.batches = self.burst * (self.supplied // self.burst)
+        self.wait_s += (1.0 - rate / self.demand) * dt
+        self.t += dt
+
+    def telemetry(self):
+        return {'batches': self.batches, 'wait_s': self.wait_s, 'reader_wait_s': self.wait_s,
+                'ready_wait_s': 0.0, 'queue_depth': 0, 'queue_capacity': 4}
+
+    def workers_knob(self, mod):
+        return mod.Knob('workers', lambda: self.workers,
+                        lambda n: setattr(self, 'workers', n), lo=1, hi=8)
+
+
+def _burst_run(mod, seconds=40.0):
+    sim = BurstPipeline()
+    tuner = mod.AutoTuner(sim.telemetry, {'workers': sim.workers_knob(mod)},
+                          config=mod.AutotuneConfig(interval_s=0.25))
+    for _ in range(int(seconds / 0.25)):
+        sim.advance(0.25)
+        tuner.tick(now=sim.t)
+    return tuner.stats(), sim.workers
+
+
+def test_the_tuner_equals_jax_on_bursty_telemetry():
+    """Phase 26's telemetry: a consumer that takes 8 batches a burst, read
+    on 0.25 s ticks. The port's tuner decides as the JAX package's, the
+    reverts the bursts' noise trips included (ROADMAP section C)."""
+    got, got_workers = _burst_run(pat)
+    want, want_workers = _burst_run(jat)
+    assert got == want and got_workers == want_workers
+    assert want['reverts'] > 0, 'the bursts must trip the one-tick guard'
+
+
 def test_stop_retires_the_gauges_and_leaves_other_pipelines():
     registry = metrics.MetricsRegistry()
     previous = metrics.set_registry(registry)

@@ -143,7 +143,7 @@ def test_unknown_child_and_cuda_without_a_gpu_raise(workdir, tmp_path, monkeypat
 def test_children_follow_the_bench_order():
     assert list(bench.CHILDREN) == ['staging', 'imagenet', 'pipeline', 'imagenet_vit', 'lm',
                                     'lm_long', 'lm_moe', 'flashattn', 'imagenet_aug',
-                                    'imagenet_remote', 'fleet_wire']
+                                    'lookup', 'imagenet_remote', 'fleet_wire']
     assert bench.lm_rows(8193) == 256 and bench.lm_rows(1025) == 2048
 
 

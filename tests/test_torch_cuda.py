@@ -1714,3 +1714,103 @@ def test_the_tuner_keeps_the_arenas_pinned_on_card(dev, tmp_path):
             assert loader._pool.pinned
             labels = [b.label.cpu() for b in loader]
     assert sorted(torch.cat(labels).tolist()) == list(range(60))
+
+
+def _lookup_store(tmp_path, rows=48):
+    """A PNG store with a unique ``idx`` and its row-level index."""
+    from petastorm_tpu_torch.etl.rowgroup_indexers import SingleFieldRowIndexer
+    from petastorm_tpu_torch.etl.rowgroup_indexing import build_rowgroup_index
+    schema = Unischema('CardLookup', [
+        UnischemaField('idx', np.int64, (), ScalarCodec(np.int64)),
+        UnischemaField('image', np.uint8, (32, 32, 3), CompressedImageCodec('png')),
+    ])
+    rng = np.random.default_rng(19)
+    url = 'file://' + str(tmp_path / 'lookup')
+    write_dataset(url, schema, ({'idx': i, 'image': rng.integers(0, 256, (32, 32, 3),
+                                                                 dtype=np.uint8)}
+                                for i in range(rows)), rows_per_row_group=8)
+    build_rowgroup_index(url, [SingleFieldRowIndexer('idx_row_ix', 'idx')])
+    return url
+
+
+def test_a_lookup_request_onto_the_card_equals_the_plain_path(dev, tmp_path):
+    """One request through a 2-server lookup fleet lands on the card: the
+    rows' ``idx`` are their keys, K1 launches once and is within 1 bf16 ulp
+    of the plain normalize, and the f32 forward of ResNetTiny over K1's
+    output equals the forward over the plain path's (rtol=atol=1e-4)."""
+    from petastorm_tpu_torch.serving import LookupClient, LookupEngine, LookupServer
+    url = _lookup_store(tmp_path)
+    engines = [LookupEngine(url, index_name='idx_row_ix') for _ in range(2)]
+    servers = [LookupServer(eng, 'ipc://' + str(tmp_path / 'l{}'.format(i)),
+                            server_name='card-{}'.format(i)).start()
+               for i, eng in enumerate(engines)]
+    try:
+        servers[0].init_fleet(n_partitions=2, replication=2)
+        servers[1].join_fleet(servers[0].rpc_endpoint, warm=False)
+        keys = [int(k) for k in np.random.default_rng(0).integers(0, 48, 16)]
+        with LookupClient([s.rpc_endpoint for s in servers]) as client:
+            client.refresh_partition_map()
+            rows = client.lookup(keys)
+    finally:
+        for server in servers:
+            server.stop()
+        for eng in engines:
+            eng.close()
+    assert [int(m[0]['idx']) for m in rows] == keys
+    images = torch.from_numpy(np.stack([m[0]['image'] for m in rows])).pin_memory()
+    x = images.to(dev, non_blocking=True)
+    scale, shift = image_ops._scale_shift(image_ops.IMAGENET_MEAN, image_ops.IMAGENET_STD, dev)
+    before = image_ops.LAUNCHES['normalize_images']
+    got_bf16 = image_ops.normalize_images(x, dtype=torch.bfloat16)
+    assert image_ops.LAUNCHES['normalize_images'] == before + 1
+    assert _within_bf16_ulp(got_bf16.float(), image_ops.normalize_images_plain(
+        x, scale, shift, torch.bfloat16).float())
+    model = init_flax_like(ResNetTiny(num_classes=10, dtype=torch.float32, device=dev),
+                           torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        via_k1 = model(image_ops.normalize_images(x, dtype=torch.float32))
+        via_plain = model(image_ops.normalize_images_plain(x, scale, shift, torch.float32))
+    assert torch.isfinite(via_k1).all()
+    torch.testing.assert_close(via_k1, via_plain, rtol=1e-4, atol=1e-4)
+
+
+def test_a_fleet_worker_feeds_the_loader_on_card_without_mapping_cuda(dev, tmp_path):
+    """``tools.fleet --worker`` (tenant quotas, a job, deterministic) feeds a
+    tenant's ``RemoteReader`` -> ``TorchLoader`` on the card; the registry
+    sees it join, the batches equal a local deterministic reader's, the
+    worker neither maps the CUDA driver nor shows among the card's compute
+    processes, and its SIGTERM drain exits 0."""
+    from petastorm_tpu_torch import bench
+    from petastorm_tpu_torch.data_service import RemoteReader
+    from petastorm_tpu_torch.fleet.registry import FleetRegistry
+    url = _card_store(tmp_path)
+    argv = bench.fleet_worker_argv(url, 'ipc://' + str(tmp_path / 'w'), 2, job='card-job',
+                                   quotas={'det': {}}, det=True, epochs=1, drain_grace=5.0,
+                                   await_cursor=True)
+    proc, announce = bench.start_fleet_worker(argv, bench.fleet_worker_env())
+    try:
+        with FleetRegistry() as registry:
+            registry.watch([announce['control_endpoint']])
+            assert registry.wait_for_member('card-job', key=announce['server_id'], timeout_s=30)
+        with RemoteReader(announce['data_endpoint'], tenant='det') as remote:
+            with TorchLoader(remote, 8, device=dev) as loader:
+                got = []
+                for batch in loader:
+                    assert batch.image.is_cuda
+                    got.append((batch.image.cpu(), batch.label.cpu()))
+                    if len(got) == 1:
+                        mapped = bench.maps_cuda_driver(proc.pid)
+                        on_card = proc.pid in bench.cuda_compute_pids()
+        rc, final = bench.finish_fleet_worker(proc)
+    finally:
+        if proc.poll() is None:
+            bench.stop_server(proc)
+    with make_tensor_reader(url, workers_count=2, num_epochs=1, seed=0,
+                            deterministic=True) as reader:
+        with TorchLoader(reader, 8, device=dev) as loader:
+            want = [(b.image.cpu(), b.label.cpu()) for b in loader]
+    assert mapped is False and not on_card
+    assert rc == 0 and final['state'] in ('served', 'drained')
+    assert len(got) == len(want) == 7
+    for (image, label), (image_w, label_w) in zip(got, want):
+        assert torch.equal(image, image_w) and torch.equal(label, label_w)

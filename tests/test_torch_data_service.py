@@ -1216,35 +1216,15 @@ def test_the_remote_cells_server_sees_no_card_and_drains_on_sigterm(service_data
 
 # -- admission: tenants, drain, the fleet announce ------------------------------------------------
 
-class _StubTenants(object):
-    """The methods ``DataServer(tenants=)`` calls (the JAX package's
-    ``TenantLedger`` surface): ``admit`` refuses the tenant ``noisy``,
-    ``clamp_credits`` halves a grant, ``release`` is recorded."""
-
-    def __init__(self):
-        self.admitted, self.released = [], []
-
-    def admit(self, tenant, consumer, server_id=None, state=None):
-        if tenant == 'noisy':
-            from petastorm_tpu_torch.fleet import control_plane
-            return control_plane.refusal(server_id, control_plane.REFUSED_OVERLOADED, state,
-                                         reason=control_plane.REASON_TENANT_OVER_BUDGET,
-                                         tenant=tenant)
-        self.admitted.append((tenant, consumer))
-        return None
-
-    def clamp_credits(self, tenant, credits):
-        return credits // 2
-
-    def release(self, tenant, consumer, credits=0):
-        self.released.append((tenant, consumer, credits))
-
-    def snapshot(self):
-        return {'admitted': len(self.admitted)}
-
-
 def test_the_tenant_hook_admits_clamps_refuses_and_releases(service_dataset, sock):
-    tenants = _StubTenants()
+    """``DataServer(tenants=)`` with the port's ``TenantLedger``: a tenant
+    at its consumer cap is refused ``tenant-over-budget`` on the
+    ``overloaded`` kind, a grant is clamped to what is left of the
+    tenant's credit partition, and a detach frees the slot and the credits."""
+    from petastorm_tpu_torch.fleet.tenancy import TenantLedger
+
+    tenants = TenantLedger({'noisy': {'max_consumers': 0}, 'quiet': {'credits': 11}},
+                           membudget_pool=None)
     with serve_dataset(service_dataset, ipc(sock, 'd'), num_epochs=None, seed=0,
                        tenants=tenants) as server:
         with RemoteReader(server.data_endpoint, tenant='noisy') as noisy:
@@ -1262,12 +1242,17 @@ def test_the_tenant_hook_admits_clamps_refuses_and_releases(service_dataset, soc
                                                                'credits': 6})
             assert reply['credits'] == 3 and reply['tenant'] == 'quiet'
             fleet = quiet._one_shot_rpc(server.rpc_endpoint, {'cmd': 'fleet'})
-            assert fleet['tenants'] == {'admitted': 2}
+            assert fleet['tenants']['quiet']['consumers'] == 2
+            assert fleet['tenants']['quiet']['credits'] == 11
+            assert fleet['tenants']['noisy']['consumers'] == 0
         deadline = time.monotonic() + 10
-        while ('quiet', 'c-quiet', 4) not in tenants.released and time.monotonic() < deadline:
+        while (tenants.snapshot()['quiet']['consumers'] != 1
+               and time.monotonic() < deadline):
             time.sleep(0.05)
-    assert ('quiet', 'c-quiet') in tenants.admitted
-    assert ('quiet', 'c-quiet', 4) in tenants.released, 'the detach frees the tenant slot'
+    quiet_books = tenants.snapshot()['quiet']
+    assert quiet_books['consumers'] == 1, 'the detach frees the tenant slot'
+    assert quiet_books['credits'] == 3, 'and returns its granted credits'
+    tenants.close()
 
 
 def test_drain_rpc_ends_cleanly_with_the_final_cursor(service_dataset, sock, monkeypatch):
@@ -1291,6 +1276,10 @@ def test_drain_rpc_ends_cleanly_with_the_final_cursor(service_dataset, sock, mon
         assert reply['drained'] and reply['state'] == 'drained'
         assert reply['cursor']['mode'] == 'deterministic'
         assert len(ids) == 8 * reply['sent'] == 8 * remote.diagnostics['remote_chunks']
+        # Beats queued since the subscription may predate the drain: the
+        # next beat after them is the one the drained server sends.
+        while sub.poll(0):
+            sub.recv()
         beats = []
         deadline = time.monotonic() + 5
         while len(beats) < 1 and time.monotonic() < deadline:

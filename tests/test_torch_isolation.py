@@ -306,11 +306,16 @@ def test_new_modules_stand_alone(module):
 
 
 @pytest.mark.parametrize('module', ['data_service', 'fleet', 'fleet.control_plane', 'fleet.wire',
-                                    'tools.serve_cli', 'utils', 'examples.serve_and_train'])
+                                    'tools.serve_cli', 'utils', 'examples.serve_and_train',
+                                    'serving', 'serving.row_index', 'serving.placement',
+                                    'serving.engine', 'serving.server', 'serving.client',
+                                    'fleet.registry', 'fleet.tenancy', 'fleet.autoscaler',
+                                    'tools.lookup', 'tools.fleet'])
 def test_the_service_tier_imports_no_torch(module):
-    """The data service, its fleet layer, the serve CLI and the example's
-    server half import alone without torch, JAX or the JAX package: a
-    server process never loads the card's runtime."""
+    """The data service, its fleet layer, the lookup tier, the serve,
+    lookup and fleet CLIs and the example's server half import alone
+    without torch, JAX or the JAX package: a server process never loads
+    the card's runtime."""
     code = ('import sys, importlib\n'
             'importlib.import_module("petastorm_tpu_torch.{}")\n'
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in {!r}\n'
@@ -320,6 +325,49 @@ def test_the_service_tier_imports_no_torch(module):
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_no_lookup_or_fleet_thread_survives_stop(tmp_path):
+    """A lookup server with REP workers, a scatter-gather client, a
+    registry's watch thread and an autoscaler's loop, stopped, leave no
+    ``pstt-lookup-*`` or ``pstt-fleet-*`` thread."""
+    import time
+
+    from petastorm_tpu_torch.etl.rowgroup_indexers import SingleFieldRowIndexer
+    from petastorm_tpu_torch.etl.rowgroup_indexing import build_rowgroup_index
+    from petastorm_tpu_torch.fleet.autoscaler import FleetAutoscaler, ScalePolicy, WorkerLauncher
+    from petastorm_tpu_torch.fleet.registry import FleetRegistry
+    from petastorm_tpu_torch.serving import LookupClient, LookupEngine, LookupServer
+    url = 'file://' + str(tmp_path / 'store')
+    schema = Unischema('Svc', [UnischemaField('id', np.int64, (), ScalarCodec(np.int64))])
+    write_dataset(url, schema, ({'id': i} for i in range(16)), rows_per_row_group=4)
+    build_rowgroup_index(url, [SingleFieldRowIndexer('id_row_ix', 'id')])
+    with LookupEngine(url) as engine:
+        server = LookupServer(engine, 'ipc://' + str(tmp_path / 'l'), rpc_workers=2,
+                              lease_s=0.5, job_id='j').start()
+        server.init_fleet(n_partitions=4, replication=1)
+        with LookupClient([server.rpc_endpoint]) as client:
+            client.refresh_partition_map()
+            assert [int(rows[0]['id']) for rows in client.lookup(list(range(16)))] == \
+                list(range(16))
+        registry = FleetRegistry().watch([server.control_endpoint])
+        assert registry.wait_for_member('j', timeout_s=10)
+        scaler = FleetAutoscaler('j', registry, WorkerLauncher(), policy=ScalePolicy(
+            min_workers=1, max_workers=1, interval_s=0.05)).start()
+        running = {t.name for t in threading.enumerate()}
+        assert {'pstt-lookup-rpc', 'pstt-lookup-lease', 'pstt-lookup-worker-1',
+                'pstt-fleet-registry', 'pstt-fleet-autoscaler'} <= running
+        scaler.stop()
+        registry.stop()
+        server.stop()
+    deadline = time.monotonic() + 5
+    while time.monotonic() < deadline:
+        left = [t.name for t in threading.enumerate()
+                if t.name.startswith(('pstt-lookup', 'pstt-fleet'))]
+        if not left:
+            break
+        time.sleep(0.05)
+    assert not left
 
 
 def test_no_service_thread_survives_stop(tmp_path):

@@ -23,6 +23,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -30,6 +31,7 @@ import pytest
 
 from petastorm_tpu import data_service as jds
 from petastorm_tpu.fleet import wire as jwire
+from petastorm_tpu_torch import data_service as ds
 from petastorm_tpu_torch import metrics
 from petastorm_tpu_torch.data_service import DataServer, RemoteReader
 from petastorm_tpu_torch.fleet import wire
@@ -556,6 +558,107 @@ def test_midstream_restart_renegotiates_and_loses_nothing(sock, monkeypatch):
     bases = [i for i in deliveries if i % 100 == 0]
     assert [b for b in bases if b < 300] == [0, 100, 200]
     assert [b for b in bases if b >= 300] == [300, 400]
+
+
+def _read_past_a_starved_reattach(package, sock, monkeypatch):
+    """A sole shm consumer (4 credits) of a server with a 0.3 s lease stops
+    re-attaching for 2 s, past the server's 3-lease admission expiry, while
+    it holds the chunks it read, then reads on. Returns the rows it got,
+    the chunks it dropped as undecodable, and each shm ring the server
+    granted, as (name, inode), in order."""
+    mod = jds if package == 'jax' else ds
+    bind = ipc(sock, 'd')
+    ctrl, rpc = endpoints(bind)
+    sids = [i * 100 for i in range(200)]
+    kw = dict(control_bind=ctrl, rpc_bind=rpc) if package == 'jax' else {}
+    server = mod.DataServer(make_stream_reader(sids), bind, lease_s=0.3, **kw)
+    rings = []
+    negotiate = server._wire.negotiate
+
+    def granting(*args, **kwargs):
+        reply = negotiate(*args, **kwargs)
+        if reply.get('segment'):
+            ring = (reply['segment'],
+                    os.stat(os.path.join(shm_ring.shm_dir(), reply['segment'])).st_ino)
+            if ring not in rings:
+                rings.append(ring)
+        return reply
+
+    monkeypatch.setattr(server._wire, 'negotiate', granting)
+    server._pause.set()
+    server.start()
+    stall = threading.Event()
+    attach = mod.RemoteReader._do_attach
+
+    def starved(self, *args, **kwargs):
+        while stall.is_set():
+            time.sleep(0.02)
+        return attach(self, *args, **kwargs)
+
+    monkeypatch.setattr(mod.RemoteReader, '_do_attach', starved)
+    rows, kept, done = [], [], threading.Event()
+    remote = mod.RemoteReader(server.data_endpoint, control_endpoints=[ctrl],
+                              rpc_endpoints=[rpc], flow_control=4)
+
+    def consume():
+        try:
+            for i, chunk in enumerate(remote):
+                kept.append(chunk)
+                rows.extend(int(x) for x in chunk.sid)
+                if i == 3:
+                    stall.set()
+                    time.sleep(2.0)
+                    stall.clear()
+        except Exception:  # noqa: BLE001 - the stream's end is what is read
+            pass
+        finally:
+            done.set()
+
+    try:
+        deadline = time.monotonic() + 30
+        while server._admission.count() < 1:
+            assert time.monotonic() < deadline, 'no attach'
+            time.sleep(0.005)
+        server._pause.clear()
+        thread = threading.Thread(target=consume, daemon=True)
+        thread.start()
+        # Until the stream ends, or it stalls on the chunks it dropped.
+        last, still = -1, time.monotonic()
+        while not done.wait(0.1) and time.monotonic() < deadline:
+            if len(rows) != last:
+                last, still = len(rows), time.monotonic()
+            elif not stall.is_set() and time.monotonic() - still > 2.0:
+                break
+        errors = remote.diagnostics['wire_decode_errors']
+    finally:
+        remote.stop()
+        remote.join()
+        done.wait(10)
+        server.stop()
+    del kept
+    want = sorted(i for b in sids for i in range(b, b + CHUNK_ROWS))
+    return sorted(rows), want, errors, rings
+
+
+@needs_shm
+@pytest.mark.parametrize('package', ['jax', 'port'])
+def test_a_consumer_past_its_admission_expiry_reads_no_overwritten_region(sock, monkeypatch,
+                                                                          package):
+    """The server frees an expired consumer's ring, which the consumer still
+    maps, and makes a new one when it re-attaches. The JAX package names
+    the new ring as the old one: the consumer, whose map cache is by name,
+    reads the new descriptors through the old map, drops them on their
+    checksum and stalls short of the stream. The port names each ring by
+    its session (ROADMAP section C): every row arrives once."""
+    rows, want, errors, rings = _read_past_a_starved_reattach(package, sock, monkeypatch)
+    assert len(rings) == 2, 'a ring before the stall and one after the re-attach'
+    (before, _), (after, _) = rings
+    if package == 'jax':
+        assert before == after
+        assert errors > 0 and len(rows) < len(want)
+    else:
+        assert before != after and before.startswith(wire.SEGMENT_PREFIX)
+        assert errors == 0 and rows == want
 
 
 @needs_shm
