@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--steps N] [--out FILE]
 
 Phases, each printing one JSON line; any failure ends the script with a
-non-zero exit and no result line:
+non-zero exit and no result line, after one line ``{"phase": "failed",
+"during": <the phase that raised>, "elapsed_s": ..., "error": <its repr, at
+most 2,000 characters>}``:
 
 1. device: the card's name and power limit.
 2. kernels: every kernel of both paths is built from this checkout (the
@@ -57,7 +59,7 @@ non-zero exit and no result line:
    one-epoch reader fills a ``DeviceDatasetCache``; superbatches of 8
    carried across epoch boundaries through a scan step of its own (its own
    capture) on the state imagenet_scan trained: epoch 1 warms up, epochs
-   2 to 5 are measured (the bench measures 16; cut for phases 27-29's time).
+   2 and 3 are measured (the bench measures 16; cut for phases 27-30's time).
 7. imagenet_chunkstore: imagenet_scan's protocol on the same state, the
    reader with ``cache_type='chunk-store'`` (a fresh store under
    ``.torch_build/``: epoch 0 decodes and spills, later epochs are read from
@@ -74,7 +76,7 @@ non-zero exit and no result line:
    chunk-store reader), with ``loader_factory`` a fresh such reader and
    loader: 8 of the 16 batches stay resident in two runs, 8 stream each
    epoch. A memory governor is installed before the cache; after a
-   partial window (1 warm-up, 2 counted, 2 timed epochs through a scan
+   partial window (1 warm-up, 1 counted, 1 timed epoch through a scan
    step of its own) a ballast pool drives one ``check()`` to degrade, which
    evicts the coldest run (the card's allocated bytes fall by the run's),
    and a second window trains on 4 resident batches. K1 8 times a replay
@@ -113,8 +115,8 @@ non-zero exit and no result line:
    times a replay; attention's share of the traced step.
 14. lm_moe: the ``lm_moe`` child (``bench.py:2537-2540``): the lm store and
    widths with 4 Switch-MoE experts and 4 layers, loss ``ce + 1e-2 * aux``,
-   batch 8, K = 8, 2 warm-up and 4 measured calls (32 steps; the bench:
-   16); each flash kernel 32
+   batch 8, K = 8, 2 warm-up and 2 measured calls (16 steps, the bench's;
+   cut from 32 for phase 30's time); each flash kernel 32
    times a replay; the losses and the aux losses.
 15. pipeline: the bench's ``pipeline`` child (``bench.py:774-949``) on the
    imagenet store: the host pipeline alone, no model (see
@@ -153,7 +155,8 @@ non-zero exit and no result line:
    bit for bit, then the same save with ``async_save=True`` (its seconds on
    the training thread and in all) and its restore, bit for bit; (b) the lm
    cell's TransformerLM on ``{'data': 1, 'sp': 1, 'model': 1}`` with
-   ``attention='a2a'`` through the 8-step scan graph (2 + 6 + 6 calls;
+   ``attention='a2a'`` through the 8-step scan graph (2 + 3 + 3 calls, cut
+   from 2 + 6 + 6 for phase 30's time;
    K2-K4 counted as lm_scan counts them) and ``attention='ring'`` for three
    eager steps, each holding its first losses to ``attention='flash'``'s
    within ``MESH_LOSS_ATOL``. No number of this phase measures
@@ -408,12 +411,32 @@ non-zero exit and no result line:
    ``tools.fleet --status`` is not 0, a ``pstt-wire-`` segment is left, a
    worker maps ``libcuda``, or K1 is not 8 a replay.
 
+30. imagenet_sanitize: the runtime sanitizer armed under scan training
+   (``bench.run_imagenet_sanitize``), after fleet_scale on the same state,
+   with ``PSTT_SANITIZE=1`` set before its readers and loaders are built (and
+   removed after) and a fresh metrics registry. (a) imagenet_scan's protocol
+   (memory cache, ``superbatches(8)``, K1 in the 8-step graph) at 3 + 3 + 3
+   calls: no ``StaleViewError`` or ``LockOrderViolation``, the sanitizer's
+   counts show arenas poisoned and tracked locks taken, K1's graph nodes
+   times the replays, every loss finite; img/s, device ms a step and stall
+   beside imagenet_scan's, with no rate gate. (b) The in-order poison check:
+   a one-worker, in-order, uncached reader through ``TorchLoader(batch=128,
+   arena_depth=2)``, armed, one epoch (16 batches) on the card, each batch
+   copied back; its per-field CRC32 digests must equal those of the same
+   reader's batches taken unarmed on the CPU (a 0xCB byte copied while its
+   arena was poisoned fails it). (c) The seeded bugs through the same
+   loader: ``PSTT_FAULTS=arena-stale-view:max=1`` must reach the consumer as
+   ``StaleViewError`` and ``lock-order-invert:max=1`` as
+   ``LockOrderViolation`` (the recorder then holds an edge), with no
+   ``pstt-`` thread of the pipeline left after ``close()``. It fails, after
+   its line, on any of these.
+
 ``python3 chip_smoke.py --decode-turns N`` instead runs the device line,
 the imagenet store and imagenet_scan (for its state), then N turns of
 imagenet_decode (a) on the thread pool and on ``'process'``, in the order
 thread, process, process, thread, ..., each a line, and the ok line.
 
-Phases 5 to 15, 18 and 20 to 29 run the bench's protocol through the functions of
+Phases 5 to 15, 18 and 20 to 30 run the bench's protocol through the functions of
 ``petastorm_tpu_torch/bench.py`` (``python -m petastorm_tpu_torch.bench``
 runs them as the bench's children); this script holds their launch counts.
 Each path's kernel launch counts are zeroed just before it and read just
@@ -482,9 +505,9 @@ FA_BATCH, FA_SEQ, FA_HEADS, FA_D = 4, 8192, 8, 128
 # tokens, batch 2, K 4, 48 measured steps (the bench: 16): the flash kernels
 # see [16, 8192, 64].
 LONG_SEQ, LONG_BATCH, LONG_K, LONG_STEPS = 8193, 2, 4, 16
-# The lm_moe child (bench.py:2537-2540): 4 experts, 4 layers; batch 8, K 8, 96
-# steps (the bench: 16).
-MOE_EXPERTS, MOE_LAYERS, MOE_STEPS = 4, 4, 32
+# The lm_moe child (bench.py:2537-2540): 4 experts, 4 layers; batch 8, K 8, 16
+# steps, the bench's (32 here before phase 30, 96 before phase 27).
+MOE_EXPERTS, MOE_LAYERS, MOE_STEPS = 4, 4, 16
 # Measured calls of the streamed ResNet scan paths (the bench: 5): 13
 # replays counted, 104 K1 launches, and as many calls timed. imagenet_aug
 # counts 1 epoch (the bench: 4), which with the cuts below keeps the
@@ -494,12 +517,12 @@ SCAN_CALLS, AUG_EPOCHS = 11, 1
 # and timed calls of imagenet_chunkstore, imagenet_filtered, imagenet_health,
 # imagenet_process, mesh (a), imagenet_decode (b) and imagenet_remote (b) [11
 # here before; 5 before phases 28-29]: 5 replays counted, 40 K1 launches;
-# imagenet_hbm's counted epochs [16; 6 before phases 28-29];
-# imagenet_hbm_partial's [6; 3 before phases 28-29]. imagenet_scan,
-# imagenet_decode (a), imagenet_faults, imagenet_autotune and
-# imagenet_remote (a) keep SCAN_CALLS: the later phases' checks read their
-# rates.
-EARLY_CALLS, HBM_EPOCHS, PARTIAL_EPOCHS = 3, 4, 2
+# imagenet_hbm's counted epochs [16; 6 before phases 28-29, 4 before phase
+# 30]; imagenet_hbm_partial's [6; 3 before phases 28-29, 2 before phase
+# 30]. imagenet_scan, imagenet_decode (a), imagenet_faults,
+# imagenet_autotune and imagenet_remote (a) keep SCAN_CALLS: the later
+# phases' checks read their rates.
+EARLY_CALLS, HBM_EPOCHS, PARTIAL_EPOCHS = 3, 2, 1
 # The decode phase's reader threads (imagenet_scan's protocol otherwise).
 DECODE_WORKERS = 8
 
@@ -1403,7 +1426,7 @@ PREEMPT_CHILD_TIMEOUT_S = 300
 # the a2a scan's 8 and the ring's 3 stayed within 1.7e-4 of flash's (near
 # 10.9), so 2e-3 leaves a margin of about ten.
 MESH_SEQ, MESH_RING_STEPS, MESH_LOSS_ATOL = 1024, 3, 2e-3
-MESH_LM_CALLS, MESH_CHILD_TIMEOUT_S = 6, 600
+MESH_LM_CALLS, MESH_CHILD_TIMEOUT_S = 3, 600
 # NCCL's one-rank reduction kernel (ReduceOp.AVG; an in-place sum on one
 # rank enqueues nothing): the gradient all-reduce, counted by name among
 # the graph's kernel nodes.
@@ -2090,6 +2113,18 @@ def run_remote(url, device, card, state, imagenet_scan, worker_decode, workdir):
     return result
 
 
+def run_sanitize(url, device, card, state, imagenet_scan):
+    """Phase 30 (see the module docstring): the ``imagenet_sanitize`` cell on
+    ``state`` at ``EARLY_CALLS`` depth, beside imagenet_scan's numbers of
+    this run. Returns the phase's line; its ``failures`` fail the phase once
+    the line is printed."""
+    result = bench.run_imagenet_sanitize(url, device, card, state, calls=EARLY_CALLS)
+    result['beside'] = {'imagenet_scan': {
+        'img_per_s': imagenet_scan['img_per_s'], 'device_step_ms': imagenet_scan['device_step_ms'],
+        'input_stall_frac': imagenet_scan['input_stall_frac']}}
+    return result
+
+
 def run_decode_turns(url, device, card, state, turns, record):
     """``--decode-turns``: imagenet_decode (a) on the thread pool and on
     ``'process'`` in turns (thread, process, process, thread, ...), one line
@@ -2332,7 +2367,8 @@ def run_pipeline_governed(url, device, workers):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument('--steps', type=int, default=20, help='measured SGD steps (after 3 warm-up)')
+    parser.add_argument('--steps', type=int, default=12,
+                        help='measured SGD steps (after 3 warm-up; 20 before phase 30)')
     parser.add_argument('--out', default=None, help='also write every JSON line to this file')
     # One run of the preemptible phase, started by the phase itself.
     parser.add_argument('--preemptible-role', choices=('U', 'S1', 'S2'), help=argparse.SUPPRESS)
@@ -2374,11 +2410,32 @@ def main():
 
     started = time.perf_counter()
 
+    running = ['device']
+
     def record(obj):
         if 'phase' in obj:      # seconds since the script started, on each phase's line
             obj = dict(obj, elapsed_s=time.perf_counter() - started)
         bench.emit(obj)
         lines.append(obj)
+
+    def during(name):
+        """The phase that runs from here: a failure names it."""
+        running[0] = name
+
+    try:
+        return run_phases(args, record, during, lines)
+    except BaseException as e:
+        # One line naming the phase that failed, then the failure itself:
+        # the exit code stays non-zero and no result line is printed.
+        bench.emit({'phase': 'failed', 'during': running[0],
+                    'elapsed_s': time.perf_counter() - started, 'error': repr(e)[:2000]})
+        raise
+
+
+def run_phases(args, record, during, lines):
+    """Every phase in order (:func:`main`'s body); ``during(name)`` names the
+    phase that runs next."""
+    import torch
 
     device = torch.device('cuda', 0)
     name = torch.cuda.get_device_name(0)
@@ -2401,6 +2458,7 @@ def main():
         return 0
 
     if args.decode_turns:
+        during('decode_turns')
         os.makedirs(BUILD_DIR, exist_ok=True)
         store_dir = tempfile.mkdtemp(prefix='smoke_store_', dir=BUILD_DIR)
         try:
@@ -2421,6 +2479,7 @@ def main():
         load()
         return time.perf_counter() - start
 
+    during('kernels')
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=2) as pool:
         builds = {source: pool.submit(timed_build, load) for source, load in (
@@ -2436,6 +2495,7 @@ def main():
     os.makedirs(BUILD_DIR, exist_ok=True)
     store_dir = tempfile.mkdtemp(prefix='smoke_store_', dir=BUILD_DIR)
     try:
+        during('store')
         t0 = time.perf_counter()
         url = bench.write_imagenet_store(os.path.join(store_dir, 'imagenet'))
         record({'phase': 'store', 'path': 'imagenet', 'rows': ROWS, 'rows_per_group': ROWS_PER_GROUP,
@@ -2444,6 +2504,7 @@ def main():
         lm_url = bench.write_lm_store(os.path.join(store_dir, 'lm'))
         record({'phase': 'store', 'path': 'lm', 'rows': LM_ROWS, 'rows_per_group': ROWS_PER_GROUP,
                 'codec': 'ndarray int32 ({},)'.format(LM_SEQ), 'seconds': time.perf_counter() - t0})
+        during('checks')
         record(dict(check_first_batch(url, device), phase='checks'))
         record(dict(check_model(device), phase='checks'))
         record(dict(check_lm_model(device), phase='checks'))
@@ -2451,27 +2512,32 @@ def main():
         record(dict(check_moe_model(device), phase='checks'))
         for entry in check_scan_graph(device):
             record(dict(entry, phase='checks'))
+        during('imagenet')
         result = run_imagenet(url, device, args.steps, card)
         record(result)
         k1['launches'] = result['launches'].get('normalize_images', 0)
         by_path = {'imagenet': k1['launches']}
+        during('imagenet_scan')
         result, state = bench.run_imagenet_scan(url, device, card, calls=SCAN_CALLS)
         record(result)
         imagenet_scan = result
         imagenet_scan_rate = result['img_per_s']
         by_path['imagenet_scan'] = bench.path_launches(result, 'normalize_images',
                                                        'normalize_kernel')
+        during('imagenet_hbm')
         result = bench.run_imagenet_hbm(url, device, card, state, epochs=HBM_EPOCHS)
         record(result)
         by_path['imagenet_hbm'] = bench.path_launches(result, 'normalize_images',
                                                       'normalize_kernel')
         rates = {'imagenet_scan': imagenet_scan_rate, 'imagenet_hbm': result['img_per_s']}
+        during('imagenet_chunkstore')
         chunk_dir = os.path.join(store_dir, 'chunks')
         result = bench.run_imagenet_chunkstore(url, device, card, state, chunk_dir,
                                                calls=EARLY_CALLS)
         record(result)
         by_path['imagenet_chunkstore'] = bench.path_launches(result, 'normalize_images',
                                                              'normalize_kernel')
+        during('imagenet_hbm_partial')
         result = bench.run_imagenet_hbm_partial(url, device, card, state,
                                                 os.path.join(chunk_dir, 'transcoded'), rates,
                                                 counted=PARTIAL_EPOCHS)
@@ -2480,6 +2546,7 @@ def main():
             window: bench.path_launches(result[window], 'normalize_images', 'normalize_kernel')
             for window in ('partial', 'after_eviction')}
         shutil.rmtree(chunk_dir, ignore_errors=True)
+        during('decode')
         hello_url = bench.write_hello_world_store(os.path.join(store_dir, 'hello_world'))
         decode_lines, decode = run_decode(url, hello_url, device, card, state, imagenet_scan)
         for line in decode_lines:
@@ -2487,20 +2554,24 @@ def main():
         for variant in ('worker_decode', 'staging_decode'):
             by_path['imagenet_decode_' + variant] = bench.path_launches(
                 decode[variant], 'normalize_images', 'normalize_kernel')
+        during('imagenet_filtered')
         result = run_filtered(url, device, card, state, imagenet_scan,
                               decode['worker_decode'])
         record(result)
         by_path['imagenet_filtered'] = bench.path_launches(result, 'normalize_images',
                                                            'normalize_kernel')
+        during('imagenet_faults')
         result = run_faults(url, device, card, state, imagenet_scan, decode['worker_decode'])
         record(result)
         by_path['imagenet_faults'] = bench.path_launches(result, 'normalize_images',
                                                          'normalize_kernel')
+        during('imagenet_health')
         result = run_health(url, device, card, state, imagenet_scan,
                             os.path.join(store_dir, 'health'))
         record(result)
         by_path['imagenet_health'] = bench.path_launches(result, 'normalize_images',
                                                          'normalize_kernel')
+        during('imagenet_process')
         result = run_process(url, device, card, state, imagenet_scan, decode['worker_decode'],
                              os.path.join(store_dir, 'process'))
         record(result)
@@ -2509,10 +2580,12 @@ def main():
         if isinstance(result['process_zmq'], dict):
             by_path['imagenet_process_zmq'] = bench.path_launches(
                 result['process_zmq'], 'normalize_images', 'normalize_kernel')
+        during('imagenet_autotune')
         result = run_autotune(url, device, card, state, imagenet_scan, decode['worker_decode'])
         record(result)
         by_path['imagenet_autotune'] = bench.path_launches(result, 'normalize_images',
                                                            'normalize_kernel')
+        during('imagenet_remote')
         result = run_remote(url, device, card, state, imagenet_scan, decode['worker_decode'],
                             os.path.join(store_dir, 'remote'))
         record(result)
@@ -2523,12 +2596,14 @@ def main():
         if result['failures']:
             raise AssertionError('imagenet_remote: {}'.format('; '.join(result['failures'])))
         remote = result
+        during('lookup')
         result = run_lookup_phase(store_dir, device, card, state)
         record(result)
         by_path['lookup_serve'] = {'wrapper': result['serve']['k1_launches'],
                                    'requests': result['serve']['requests']}
         if result['failures']:
             raise AssertionError('lookup: {}'.format('; '.join(result['failures'])))
+        during('fleet_scale')
         result = run_fleet_phase(url, device, card, state, remote,
                                  os.path.join(store_dir, 'fleet'))
         record(result)
@@ -2536,22 +2611,35 @@ def main():
                                                      'normalize_kernel')
         if result['failures']:
             raise AssertionError('fleet_scale: {}'.format('; '.join(result['failures'])))
+        during('imagenet_sanitize')
+        result = run_sanitize(url, device, card, state, imagenet_scan)
+        record(result)
+        by_path['imagenet_sanitize'] = bench.path_launches(result, 'normalize_images',
+                                                           'normalize_kernel')
+        if result['failures']:
+            raise AssertionError('imagenet_sanitize: {}'.format('; '.join(result['failures'])))
         k1['launches_by_path'] = by_path
+        during('lm')
         lm_result = run_lm(lm_url, device, args.steps, card)
         record(lm_result)
+        during('lm_scan')
         scans = {'lm_scan': bench.run_lm_scan(lm_url, device, card)}
         record(scans['lm_scan'])
+        during('lm_plain')
         for line in run_lm_plain(store_dir, lm_url, device, card, scans['lm_scan']):
             record(line)
             if line.get('variant') in ('batch_reader', 'mixture'):
                 scans['lm_plain_' + line['variant']] = line
+        during('imagenet_vit')
         record(bench.run_imagenet_vit(url, device, card))
+        during('imagenet_aug')
         aug = bench.run_imagenet_aug(url, device, card, state, epochs=AUG_EPOCHS)
         record(aug)
         by_path['imagenet_aug'] = bench.path_launches(aug['augmented'], 'normalize_images',
                                                       'normalize_kernel')
         del state
         t0 = time.perf_counter()
+        during('lm_long')
         long_rows = bench.lm_rows(LONG_SEQ)
         long_url = bench.write_lm_store(os.path.join(store_dir, 'lm_long'), long_rows, LONG_SEQ)
         record({'phase': 'store', 'path': 'lm_long', 'rows': long_rows,
@@ -2560,9 +2648,11 @@ def main():
         scans['lm_long'] = bench.run_lm_scan(long_url, device, card, seq=LONG_SEQ,
                                              batch=LONG_BATCH, k=LONG_K, steps=LONG_STEPS)
         record(scans['lm_long'])
+        during('lm_moe')
         scans['lm_moe'] = bench.run_lm_scan(lm_url, device, card, steps=MOE_STEPS,
                                             layers=MOE_LAYERS, moe_experts=MOE_EXPERTS)
         record(scans['lm_moe'])
+        during('mesh')
         mesh = run_mesh(url, card)
         mesh['single_gpu'] = {
             'imagenet_scan': {k: imagenet_scan[k] for k in (
@@ -2573,13 +2663,17 @@ def main():
         by_path['mesh_resnet'] = bench.path_launches(mesh['resnet'], 'normalize_images',
                                                      'normalize_kernel')
         workers = max(4, min(10, os.cpu_count() or 4))
+        during('pipeline')
         pipeline = run_pipeline_governed(url, device, workers)
         record(dict({'phase': 'pipeline', 'card': card}, **pipeline))
+        during('loader_surface')
         record(dict(check_loader_surface(store_dir, device), phase='loader_surface', card=card))
+        during('preemptible')
         preempt = run_preemptible(url, card)
         preempt['imagenet_scan_img_per_s'] = imagenet_scan_rate
         record(preempt)
         by_path['preemptible_s2'] = preempt['k1_launches_s2_window']
+        during('examples')
         examples = run_examples(store_dir, device, card)
         record(examples)
         by_path['example_imagenet'] = examples['imagenet']['launches']['normalize_images']
@@ -2592,6 +2686,7 @@ def main():
                    for path, scan in dict(scans, mesh_lm_a2a=mesh['lm']).items()})
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
+    during('kernels_line')
     keys = ('name', 'route', 'kernel_route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms',
             'plain_ms',
             'bound_ms', 'bound_by', 'library_ms', 'previous_ms', 'host_bound', 'launches_by_path',

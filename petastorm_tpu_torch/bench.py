@@ -1469,6 +1469,173 @@ def _first_labels(url, device, workers, reader_pool_type, batches, ring_bytes=No
     return np.concatenate(labels)
 
 
+#: The sanitize cell's (b) and (c) loaders: a shallow arena pool, so arenas
+#: come back (and are poisoned) as fast as their copies finish.
+SANITIZE_ARENA_DEPTH = 2
+SANITIZE_FIELDS = ('image', 'label')
+
+
+def _sanitize_reader(url):
+    """The sanitize cell's deterministic reader: one worker, row-groups in
+    order, one epoch, no cache."""
+    from petastorm_tpu_torch import make_tensor_reader
+    return make_tensor_reader(url, schema_fields=list(SANITIZE_FIELDS), reader_pool_type='thread',
+                              workers_count=1, shuffle_row_groups=False, num_epochs=1,
+                              autotune=False)
+
+
+def sanitize_epoch_digests(url, device):
+    """One epoch of :func:`_sanitize_reader` through ``TorchLoader(batch=128,
+    arena_depth=2)`` on ``device``: each batch copied back to the host and
+    reduced to its fields' CRC32 digests (``lineage._digest_array``)."""
+    from petastorm_tpu_torch import TorchLoader
+    from petastorm_tpu_torch.lineage import _digest_array
+
+    digests = []
+    with _sanitize_reader(url) as reader:
+        with TorchLoader(reader, BATCH, device=device, arena_depth=SANITIZE_ARENA_DEPTH,
+                         autotune=False) as loader:
+            for batch in loader:
+                digests.append({name: _digest_array(getattr(batch, name).cpu().numpy())
+                                for name in SANITIZE_FIELDS})
+    return digests
+
+
+def _port_threads():
+    import threading
+    return {t.ident: t.name for t in threading.enumerate()
+            if t.name.startswith('pstt-') and t.is_alive()}
+
+
+def sanitize_seeded_bug(url, device, site, timeout_s=10.0):
+    """``PSTT_FAULTS=<site>:max=1`` on :func:`_sanitize_reader` through
+    ``TorchLoader(batch=128, arena_depth=2)`` on ``device``: what the
+    consumer got (the exception, or None after a whole epoch), the batches
+    it took before, and the port's threads this pipeline left alive
+    ``timeout_s`` after its ``close()``."""
+    from petastorm_tpu_torch import TorchLoader, faults
+    from petastorm_tpu_torch.analysis.sanitize import LockOrderViolation, StaleViewError
+
+    before = _port_threads()
+    saved = os.environ.get(faults.ENV_VAR)
+    os.environ[faults.ENV_VAR] = site + ':max=1'
+    raised, batches = None, 0
+    try:
+        with _sanitize_reader(url) as reader:
+            with TorchLoader(reader, BATCH, device=device, arena_depth=SANITIZE_ARENA_DEPTH,
+                             autotune=False) as loader:
+                try:
+                    for _ in loader:
+                        batches += 1
+                except (StaleViewError, LockOrderViolation) as e:
+                    raised = e
+    finally:
+        if saved is None:
+            os.environ.pop(faults.ENV_VAR, None)
+        else:
+            os.environ[faults.ENV_VAR] = saved
+    deadline = time.monotonic() + timeout_s
+    while True:
+        left = sorted(name for ident, name in _port_threads().items() if ident not in before)
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    return {'raised': type(raised).__name__ if raised is not None else None,
+            'message': str(raised)[:300] if raised is not None else None,
+            'batches_before': batches, 'threads_left': left}
+
+
+def run_imagenet_sanitize(url, device, card, state, warmup=3, calls=5):
+    """The sanitize cell on ``state``, with ``PSTT_SANITIZE=1`` set before
+    its readers and loaders are built and removed after, and a fresh
+    metrics registry (its lock built armed). (a) imagenet_scan's protocol
+    (memory cache, ``superbatches(8)``, ResNet-50 through
+    ``make_scan_train_step(8, preprocess=K1)``) at ``warmup`` + ``calls``
+    calls: no ``StaleViewError`` or ``LockOrderViolation``, arenas poisoned
+    and tracked-lock acquisitions counted by the sanitizer, K1 8 times a
+    replay, every loss finite; no rate gate. (b) The in-order poison check:
+    one epoch of a one-worker, in-order reader through ``TorchLoader(batch=
+    128, arena_depth=2)`` on ``device``, armed, every batch copied back,
+    must give the per-field CRC32 digests of the same reader's batches taken
+    unarmed on the CPU: a poisoned byte that reached the card fails it.
+    (c) The seeded bugs through the same loader: ``arena-stale-view`` must
+    reach the consumer as ``StaleViewError`` and ``lock-order-invert`` as
+    ``LockOrderViolation`` (the recorder then holds the canary's edge), and
+    neither may leave a thread of the port behind. Returns the phase's line
+    (its ``failures`` fail the phase once it is printed)."""
+    import torch
+    from petastorm_tpu_torch import metrics
+    from petastorm_tpu_torch.analysis import sanitize
+    from petastorm_tpu_torch.models import make_scan_train_step
+
+    t0 = time.perf_counter()
+    failures = []
+    # On the card every batch goes through an arena; on the CPU an uncached
+    # reader's blocks are lent as they are, so (b) poisons nothing there.
+    copying = torch.device(device).type == 'cuda'
+    # The reference digests, taken unarmed on the CPU before arming.
+    saved = os.environ.get(sanitize.ENV_VAR)
+    os.environ.pop(sanitize.ENV_VAR, None)
+    reference = sanitize_epoch_digests(url, 'cpu')
+    os.environ[sanitize.ENV_VAR] = '1'
+    previous_registry = metrics.set_registry(metrics.MetricsRegistry())
+    sanitize.reset_counters()
+    try:
+        # (a) scan training, armed.
+        train = make_scan_train_step(SCAN_K, preprocess=normalize_bf16)
+        result, window = stream_classifier_scan(url, device, train, state, warmup, calls,
+                                                ('normalize_kernel',))
+        require_scan_launches(*window[:3], ('normalize_images',), SCAN_K, window[3])
+        del train
+        counts_a = sanitize.counters()
+        if counts_a['poisoned'] <= 0 or counts_a['acquisitions'] <= 0:
+            failures.append('(a) the sanitizer did not arm: {}'.format(counts_a))
+        if counts_a['violations']:
+            failures.append('(a) {} lock-order violation(s) recorded'.format(
+                counts_a['violations']))
+        # (b) the in-order poison check.
+        armed = sanitize_epoch_digests(url, device)
+        counts_b = sanitize.counters()
+        mismatched = [i for i, (a, b) in enumerate(zip(armed, reference)) if a != b]
+        if len(armed) != len(reference) or len(armed) != ROWS // BATCH or mismatched:
+            failures.append('(b) {} armed batches on the card against {} unarmed on the CPU; '
+                            'digests differ at {}'.format(len(armed), len(reference),
+                                                          mismatched[:8]))
+        if copying and counts_b['poisoned'] <= counts_a['poisoned']:
+            failures.append('(b) no arena was poisoned during the epoch: {}'.format(counts_b))
+        # (c) the seeded bugs.
+        seeded = {}
+        for site, expected in (('arena-stale-view', 'StaleViewError'),
+                               ('lock-order-invert', 'LockOrderViolation')):
+            seeded[site] = sanitize_seeded_bug(url, device, site)
+            if seeded[site]['raised'] != expected:
+                failures.append('(c) {}: the consumer got {}, not {}'.format(
+                    site, seeded[site]['raised'], expected))
+            if seeded[site]['threads_left']:
+                failures.append('(c) {}: threads left after close: {}'.format(
+                    site, seeded[site]['threads_left']))
+        counts_c = sanitize.counters()
+        if counts_c['edges'] <= 0:
+            failures.append('(c) the recorder holds no lock-order edge: {}'.format(counts_c))
+    finally:
+        metrics.set_registry(previous_registry)
+        if saved is None:
+            os.environ.pop(sanitize.ENV_VAR, None)
+        else:
+            os.environ[sanitize.ENV_VAR] = saved
+    result = dict({'phase': 'imagenet_sanitize', 'card': card, 'model': 'resnet50',
+                   'stem': 'conv7', 'classes': 1000}, **result)
+    result.update({
+        'k1_graph': {'ran': window[2]['normalize_kernel'], 'expected': SCAN_K * window[3],
+                     'replays': window[3]},
+        'sanitizer': {'scan': counts_a, 'after_epoch': counts_b, 'after_seeded': counts_c},
+        'poison_check': {'batches': len(armed), 'reference_batches': len(reference),
+                         'arena_depth': SANITIZE_ARENA_DEPTH, 'digests_equal': not mismatched
+                         and len(armed) == len(reference)},
+        'seeded': seeded, 'failures': failures, 'seconds': time.perf_counter() - t0})
+    return result
+
+
 def run_imagenet_process(url, device, card, state, workdir, warmup=3, calls=5, workers=8):
     """The process cell: imagenet_decode (a)'s protocol (a ``null`` cache,
     so every epoch decodes; ``workers`` workers; K1 in the 8-step graph) on

@@ -5,7 +5,9 @@
 ``make_reader``, or the rows of a plain store's ``make_batch_reader``
 chunks), ``'torch'`` the batches of a :class:`~petastorm_tpu_torch.loader.
 TorchLoader` over that reader, on the card unless ``device='cpu'`` (the JAX
-package's ``'jax'``).
+package's ``'jax'``), ``'tensor'`` the decoded column chunks of
+``make_tensor_reader`` (counted by their rows), and ``'tf'`` the elements of
+``tf_utils.make_petastorm_dataset`` over the reader (TensorFlow needed).
 A store without a stored schema is read by ``make_batch_reader``, where the
 JAX harness's readers refuse it. ``warmup_cycles_count`` samples are
 consumed first, then ``measure_cycles_count`` are timed. The process's RSS
@@ -26,18 +28,18 @@ from petastorm_tpu_torch.errors import PetastormMetadataError
 BenchmarkResult = namedtuple('BenchmarkResult',
                              ['time_mean', 'samples_per_second', 'memory_rss_mb', 'cpu_percent'])
 
-READ_METHODS = ('python', 'torch')
+READ_METHODS = ('python', 'torch', 'tensor', 'tf')
 
 
-def _reader_factory(dataset_url):
+def _reader_factory(dataset_url, read_method='python'):
     from petastorm_tpu_torch.etl.dataset_metadata import get_schema
-    from petastorm_tpu_torch.reader import make_batch_reader, make_reader
+    from petastorm_tpu_torch.reader import make_batch_reader, make_reader, make_tensor_reader
     from petastorm_tpu_torch.storage import ParquetStore
     try:
         get_schema(ParquetStore(dataset_url))
     except PetastormMetadataError:
         return make_batch_reader
-    return make_reader
+    return make_tensor_reader if read_method == 'tensor' else make_reader
 
 
 def reader_throughput(dataset_url, field_regex=None, warmup_cycles_count=200,
@@ -79,7 +81,7 @@ def _measure(dataset_url, field_regex, warmup_cycles_count, measure_cycles_count
              reader_extra_args, torch_batch_size, shape_policies, device, profile_threads):
     extra = dict(reader_extra_args or {})
     extra.setdefault('num_epochs', None)
-    factory = _reader_factory(dataset_url)
+    factory = _reader_factory(dataset_url, read_method)
     reader = factory(dataset_url, schema_fields=field_regex, reader_pool_type=pool_type,
                      workers_count=loaders_count, pool_profiling=profile_threads, **extra)
     try:
@@ -96,6 +98,10 @@ def _measure(dataset_url, field_regex, warmup_cycles_count, measure_cycles_count
                                  min_after_dequeue=min_after_dequeue,
                                  shape_policies=shape_policies)
             iterator, unit = iter(loader), torch_batch_size
+        elif read_method == 'tf':
+            from petastorm_tpu_torch.tf_utils import make_petastorm_dataset
+            iterator = iter(make_petastorm_dataset(reader).as_numpy_iterator())
+            unit = None if reader.batched_output else 1
         else:
             # A chunk of a batched reader counts its rows.
             iterator, unit = iter(reader), (None if reader.batched_output else 1)

@@ -18,7 +18,8 @@ exit.
 The cache directory: ``parent_cache_dir_url``, else the one given to
 :func:`register_converter_cache_dir`, else ``PSTT_CONVERTER_CACHE_DIR``,
 else ``petastorm_tpu_torch_converter_cache`` under the temporary directory.
-The JAX package's ``make_tf_dataset`` has no counterpart here.
+:meth:`Converter.make_tf_dataset` gives a ``tf.data.Dataset`` of batches
+(TensorFlow is imported only then).
 """
 
 import atexit
@@ -173,6 +174,24 @@ class Converter(object):
                             shuffling_queue_capacity=shuffling_queue_capacity, seed=seed,
                             device=device) as loader:
                 yield loader
+
+    @contextmanager
+    def make_tf_dataset(self, batch_size=32, num_epochs=None, workers_count=4, seed=None,
+                        shuffle_row_groups=True, reader_pool_type='thread', **reader_kwargs):
+        """Context manager yielding a ``tf.data.Dataset`` over a
+        ``make_batch_reader`` of the store, batched by ``batch_size`` (None:
+        the reader's row-group batches); requires TensorFlow."""
+        from petastorm_tpu_torch.reader import make_batch_reader
+        from petastorm_tpu_torch.tf_utils import make_petastorm_dataset
+
+        reader_kwargs.setdefault('storage_options', self.storage_options)
+        with make_batch_reader(self.dataset_url, reader_pool_type=reader_pool_type,
+                               workers_count=workers_count, num_epochs=num_epochs, seed=seed,
+                               shuffle_row_groups=shuffle_row_groups, **reader_kwargs) as reader:
+            dataset = make_petastorm_dataset(reader)
+            if batch_size is not None:
+                dataset = dataset.batch(batch_size)
+            yield dataset
 
     def delete(self):
         """Remove the store (and forget the converter)."""

@@ -2446,6 +2446,7 @@ class RemoteReader(object):
             reply = None
         now = time.monotonic()
         outcome = None
+        replaced_segment = None
         with self._acct_lock:
             st = self._attach_state.setdefault(
                 endpoint, {'status': 'new', 'next_try': 0.0,
@@ -2475,9 +2476,14 @@ class RemoteReader(object):
                 # Wire grant for this session (renegotiated every renew:
                 # a second consumer attaching demotes shm to arrow on the
                 # next lease beat). No 'wire' key = pre-wire server.
+                previous = (self._endpoint_wire.get(endpoint) or {}).get('segment')
                 self._endpoint_wire[endpoint] = (
                     reply.get('wire')
                     or {'transport': wire_mod.TRANSPORT_PICKLE})
+                if previous and previous != self._endpoint_wire[endpoint].get('segment'):
+                    # A new session's ring in place of an expired one: the
+                    # server freed the old ring, so its map only holds memory.
+                    replaced_segment = previous
                 self._admission_refused.pop(endpoint, None)
                 sid = reply.get('server_id')
                 if sid is not None:
@@ -2493,6 +2499,8 @@ class RemoteReader(object):
                     outcome = 'resumed'
                 elif was_announced:
                     outcome = 'redelivered'
+        if replaced_segment is not None and self._wire_client is not None:
+            self._wire_client.retire_segment(replaced_segment)
         if outcome is not None:
             # Reconnect accounting: 'resumed' = the replacement built its
             # stream from our cursor (bit-identical continuation);

@@ -49,10 +49,22 @@ _M64 = (1 << 64) - 1
 _MISSING = object()
 
 
+def deterministic_safe(fn):
+    """Marker: ``fn`` is on the order-defining path of deterministic mode
+    and must be a pure function of its arguments — no wall-clock reads, no
+    process-global RNG state, no set-iteration order. It changes nothing at
+    runtime; the pstlint ``det-taint`` checker
+    (:mod:`petastorm_tpu_torch.analysis.determinism_taint`) enforces the
+    claim statically, through everything the function calls."""
+    fn.__deterministic_safe__ = True
+    return fn
+
+
 # --------------------------------------------------------------------------
 # seed-stable permutation (counter-based: Feistel + cycle-walking)
 # --------------------------------------------------------------------------
 
+@deterministic_safe
 def epoch_key(seed, epoch):
     """64-bit permutation key of ``(seed, epoch)``, hashed so that nearby
     seeds and epochs give unrelated permutations."""
@@ -60,6 +72,7 @@ def epoch_key(seed, epoch):
     return int.from_bytes(digest[:8], 'little')
 
 
+@deterministic_safe
 def _mix64(v):
     """splitmix64's finaliser on a Python int, mod 2^64."""
     v &= _M64
@@ -68,6 +81,7 @@ def _mix64(v):
     return v ^ (v >> 31)
 
 
+@deterministic_safe
 def feistel_permute(index, n, key):
     """Position of ``index`` under the keyed permutation of ``[0, n)``: a
     4-round balanced Feistel network over the smallest even-bit domain
@@ -89,6 +103,7 @@ def feistel_permute(index, n, key):
             return x
 
 
+@deterministic_safe
 def epoch_order(n, seed, epoch, shuffle=True):
     """``order[p]``: the item fed at global position ``p`` of ``epoch``;
     the identity with ``shuffle=False``."""
@@ -98,6 +113,7 @@ def epoch_order(n, seed, epoch, shuffle=True):
     return [feistel_permute(p, n, key) for p in range(n)]
 
 
+@deterministic_safe
 def shard_positions(n, base, cur_shard, shard_count, phase=0):
     """The global positions host ``cur_shard`` of ``shard_count`` feeds in
     one epoch: ``p`` in ``[base, n)`` with ``(p - base + phase) %
@@ -109,6 +125,7 @@ def shard_positions(n, base, cur_shard, shard_count, phase=0):
     return list(range(first, n, shard_count))
 
 
+@deterministic_safe
 def order_digest(items, order):
     """Short digest of an epoch's fed order, by each item's identity."""
     digest = hashlib.md5()

@@ -60,23 +60,52 @@ def infer_or_load_unischema(store, omit_unsupported_fields=True):
 
 
 @contextmanager
-def materialize_dataset(dataset_url, schema, row_group_size_mb=None, rows_per_row_group=None,
-                        partition_fields=(), storage_options=None):
-    """Yields a :class:`~petastorm_tpu_torch.etl.writer.DatasetWriter` of
-    ``schema`` at ``dataset_url`` (the JAX package's URL flavour)::
+def materialize_dataset(spark_or_url, dataset_url_or_schema=None, schema=None,
+                        row_group_size_mb=None, rows_per_row_group=None, partition_fields=(),
+                        storage_options=None):
+    """Materialization context manager in the JAX package's two flavours
+    (``petastorm_tpu/etl/dataset_metadata.py:75``).
+
+    **A URL first** — yields a :class:`~petastorm_tpu_torch.etl.writer.DatasetWriter`::
 
         with materialize_dataset('file:///tmp/ds', schema, rows_per_row_group=64) as w:
             w.write({'id': 0, 'image': ...})
 
     The metadata is written only when the body ends without an exception:
     a store left half-written is not blessed as complete.
-    """
-    from petastorm_tpu_torch.etl.writer import DatasetWriter
 
-    if schema is None:
+    **A SparkSession first** — ``materialize_dataset(spark, url, schema)``
+    yields None; the body writes the Parquet files itself (``df.write.
+    parquet(url)``), and on exit the metadata is generated over what it
+    wrote. ``row_group_size_mb`` sets the session's ``parquet.block.size``.
+    """
+    from petastorm_tpu_torch.etl.writer import DatasetWriter, finalize_dataset_metadata
+
+    if not isinstance(spark_or_url, str):
+        dataset_url = dataset_url_or_schema
+        if schema is None:
+            raise ValueError('materialize_dataset(spark, url, schema) requires a schema')
+        _configure_spark_row_group_size(spark_or_url, row_group_size_mb)
+        yield None
+        finalize_dataset_metadata(ParquetStore(dataset_url, storage_options), schema,
+                                  partition_fields=partition_fields)
+        return
+    the_schema = dataset_url_or_schema if schema is None else schema
+    if the_schema is None:
         raise ValueError('materialize_dataset(url, schema) requires a schema')
-    writer = DatasetWriter(dataset_url, schema, row_group_size_mb=row_group_size_mb,
+    writer = DatasetWriter(spark_or_url, the_schema, row_group_size_mb=row_group_size_mb,
                            rows_per_row_group=rows_per_row_group,
                            partition_fields=partition_fields, storage_options=storage_options)
     yield writer
     writer.close()
+
+
+def _configure_spark_row_group_size(spark, row_group_size_mb):
+    """Best effort: Hadoop's ``parquet.block.size`` on the session."""
+    if row_group_size_mb is None:
+        return
+    try:
+        hadoop_conf = spark.sparkContext._jsc.hadoopConfiguration()
+        hadoop_conf.setInt('parquet.block.size', row_group_size_mb * 1024 * 1024)
+    except Exception:  # noqa: BLE001 - depends on the JVM's internals
+        logger.warning('Could not set parquet.block.size on the Spark session')

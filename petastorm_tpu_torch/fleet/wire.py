@@ -900,6 +900,7 @@ class WireClient(object):
     def __init__(self, base_dir=None):
         self._base_dir = base_dir or shm_ring.shm_dir()
         self._segments = {}      # name -> mmap
+        self._retired = []       # maps of replaced rings that views still alias
         self._lock = threading.Lock()
         self._acks = {}          # segment name -> [seqs]
         self._m = wire_metrics()
@@ -976,10 +977,41 @@ class WireClient(object):
     def drain_acks(self):
         """``{segment: [seqs]}`` accumulated since the last drain — the
         owner flushes them as ``wire_ack`` rpcs (batched, like credit
-        grants)."""
+        grants). Unmaps the replaced rings whose last view has gone."""
         with self._lock:
             acks, self._acks = self._acks, {}
+            retired = bool(self._retired)
+        if retired:
+            self._close_retired()
         return acks
+
+    def retire_segment(self, name):
+        """The server granted this consumer a new ring in place of ``name``
+        (a re-attach after its admission expired, when the server freed the
+        old ring): unmap ``name`` now, or once the last view of it is gone,
+        and drop its pending acks. The map cache then holds one ring a
+        server."""
+        with self._lock:
+            mm = self._segments.pop(name, None)
+            self._acks.pop(name, None)
+            if mm is not None:
+                self._retired.append(mm)
+        if mm is not None:
+            self._close_retired()
+
+    def _close_retired(self):
+        with self._lock:
+            retired, self._retired = self._retired, []
+        kept = []
+        for mm in retired:
+            try:
+                mm.close()
+            except BufferError:
+                kept.append(mm)      # a view still aliases it: next drain
+        with self._lock:
+            self._retired.extend(kept)
+        if len(retired) > len(kept):
+            self._m['segments'].inc(-(len(retired) - len(kept)))
 
     def requeue_acks(self, segment, seqs):
         """A ``wire_ack`` rpc flush failed: put the seqs back for the
@@ -993,7 +1025,8 @@ class WireClient(object):
     def close(self):
         with self._lock:
             segments, self._segments = dict(self._segments), {}
-        for mm in segments.values():
+            retired, self._retired = self._retired, []
+        for mm in list(segments.values()) + retired:
             try:
                 mm.close()
             except (BufferError, OSError):
@@ -1001,5 +1034,5 @@ class WireClient(object):
                 # final batch): the map stays until they go — the server
                 # unlinks the file regardless.
                 pass
-        if segments:
-            self._m['segments'].inc(-len(segments))
+        if segments or retired:
+            self._m['segments'].inc(-(len(segments) + len(retired)))

@@ -49,6 +49,7 @@ import time
 import traceback
 
 from petastorm_tpu_torch import metrics
+from petastorm_tpu_torch.analysis import sanitize
 from petastorm_tpu_torch.errors import PipelineStallError
 from petastorm_tpu_torch.membudget import STATE_BREACH, STATE_DEGRADE, STATE_SHED
 
@@ -195,9 +196,9 @@ class HeartbeatRegistry(object):
     """
 
     def __init__(self, stall_timeouts=None):
-        # A plain lock: the JAX package's is its sanitizer's tracked lock
-        # (ROADMAP §A9j).
-        self._lock = threading.Lock()
+        # Lock-order-recorded when PSTT_SANITIZE is armed (the name is
+        # pstlint's static graph node), a plain lock otherwise.
+        self._lock = sanitize.tracked_lock('petastorm_tpu_torch.health:HeartbeatRegistry._lock')
         self._beats = {}
         self._probes = {}
         self._recoveries = {}     # classification -> [fn, ...]

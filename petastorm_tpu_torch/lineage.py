@@ -61,6 +61,7 @@ from collections import deque
 import numpy as np
 
 from petastorm_tpu_torch import membudget, metrics
+from petastorm_tpu_torch.analysis import sanitize
 
 logger = logging.getLogger(__name__)
 
@@ -234,7 +235,9 @@ class LineageTracker(object):
                  max_records=1000000, queue_size=1024):
         self.ctx = dict(ctx or {})
         self._state_fn = state_fn
-        self._lock = threading.Lock()
+        # Lock-order-recorded when PSTT_SANITIZE is armed (the name is
+        # pstlint's static graph node), a plain lock otherwise.
+        self._lock = sanitize.tracked_lock('petastorm_tpu_torch.lineage:LineageTracker._lock')
         self._pending = deque()
         self._ring = deque(maxlen=ring_size)
         self._next_batch_id = 0

@@ -1190,7 +1190,7 @@ class TorchLoader(object):
         field lies in it, a tensor as it is, else a tensor over the array."""
         if torch.is_tensor(arr):
             return arr
-        if self._cuda and arena is not None and arr is arena.buffers.get(name):
+        if self._cuda and arena is not None and arena.owns(name, arr):
             return arena.tensors[name]
         return torch.from_numpy(arr)
 
@@ -1218,7 +1218,7 @@ class TorchLoader(object):
         if not self._cuda:
             self._loose_batch_nbytes = sum(
                 arr.nbytes for name, arr in batch.items()
-                if arena is None or arr is not arena.buffers.get(name))
+                if arena is None or not arena.owns(name, arr))
             tensors = {name: src if cuts.get(name) is None else src[cuts[name]].contiguous()
                        for name, src in sources.items()}
             if self._augment_fn is not None:

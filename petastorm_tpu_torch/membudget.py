@@ -70,6 +70,7 @@ import time
 from collections import deque
 
 from petastorm_tpu_torch import faults, metrics
+from petastorm_tpu_torch.analysis import sanitize
 from petastorm_tpu_torch.errors import HostMemoryExceededError
 
 logger = logging.getLogger(__name__)
@@ -303,7 +304,9 @@ class MemoryGovernor(object):
 
     def __init__(self, budget=None, config=None):
         self.config = config if config is not None else GovernorConfig()
-        self._lock = threading.Lock()
+        # Lock-order-recorded when PSTT_SANITIZE is armed (the name is
+        # pstlint's static graph node), a plain lock otherwise.
+        self._lock = sanitize.tracked_lock('petastorm_tpu_torch.membudget:MemoryGovernor._lock')
         self._pools = []
         self._breach_sinks = []
         self._budget = budget

@@ -34,6 +34,8 @@ import os
 import threading
 import uuid
 
+from petastorm_tpu_torch.analysis import sanitize
+
 logger = logging.getLogger(__name__)
 
 THREAD_NAME = 'pstt-metrics-exporter'
@@ -251,7 +253,9 @@ class MetricsRegistry(object):
     """Thread-safe name -> instrument map with one-snapshot collection."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        # Lock-order-recorded when PSTT_SANITIZE is armed (the name is
+        # pstlint's static graph node), a plain lock otherwise.
+        self._lock = sanitize.tracked_lock('petastorm_tpu_torch.metrics:MetricsRegistry._lock')
         self._instruments = {}
 
     def _get_or_create(self, cls, name, help, labelnames, **kwargs):

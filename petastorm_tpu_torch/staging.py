@@ -3,10 +3,9 @@ engine that overlaps batch collate with host-to-device copies.
 
 Counterpart of ``petastorm_tpu/staging.py:149-600`` (``HostArena``,
 ``ArenaPool``), ``:600-745`` (``OverlapMeter``, ``MeteredReader``) and
-``:1156-`` (``StagingEngine``), trimmed: no sharded layouts or
-sanitizer. The autotuner's hooks are the JAX package's (``:531-570,
-1466-1484``): :meth:`ArenaPool.set_depth` and :attr:`ArenaPool.depth`,
-:attr:`ArenaPool.wait_seconds`, :meth:`StagingEngine.set_inflight`,
+``:1156-`` (``StagingEngine``), trimmed: no sharded layouts. The
+autotuner's hooks are the JAX package's (``:531-570, 1466-1484``):
+:meth:`ArenaPool.set_depth` and :attr:`ArenaPool.depth`, :attr:`ArenaPool.wait_seconds`, :meth:`StagingEngine.set_inflight`,
 :attr:`StagingEngine.inflight_window` and
 :attr:`StagingEngine.ready_wait_seconds`. The instruments are the JAX package's:
 ``pst_assemble_seconds`` and ``pst_dispatch_seconds`` (one observation a
@@ -22,6 +21,19 @@ the CUDA event recorded behind its copy completed (the JAX package's
 staged tensors alias the arena (``torch.from_numpy``), so an arena returns
 to the pool only once the consumer dropped every such tensor
 (``holds_mode``, the GC-hold rule of ``staging.py:88``).
+
+The sanitizer (``PSTT_SANITIZE``, :mod:`petastorm_tpu_torch.analysis.sanitize`;
+JAX ``staging.py:221-245``): the collate gets borrow-tagged numpy views of
+an arena's buffers, and a reclaim bumps the arena's ``view_epoch`` and
+poisons its buffers (0xCB), so a view kept past its batch raises
+``StaleViewError`` at its next touch. A reclaim poisons only an arena
+whose copy has settled: its event completed, or no copy was issued; the
+stop path, which retires without waiting, bumps the epoch only. The torch
+tensors over an arena are not guarded: on the card they are the copy
+source, read by the copy alone; on the CPU a staged tensor holds its arena
+(``holds_mode``), so the arena cannot be reclaimed under a live tensor.
+The seeded ``arena-stale-view`` and ``lock-order-invert`` sites (JAX
+``staging.py:1348-1362, 1404-1411``) fire in :class:`StagingEngine`.
 
 Health and tracing (``petastorm_tpu/staging.py:1221-1233, 1287-1430``): with
 a :class:`~petastorm_tpu_torch.health.HeartbeatRegistry` the engine beats
@@ -50,7 +62,8 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from petastorm_tpu_torch import metrics
+from petastorm_tpu_torch import faults, metrics
+from petastorm_tpu_torch.analysis import sanitize
 from petastorm_tpu_torch.trace import NullTracer
 
 logger = logging.getLogger(__name__)
@@ -87,6 +100,39 @@ class HostArena(object):
         self._holds = 0
         self._retired = False
         self._reclaimed = False
+        self._settled = True
+        #: The recycle generation: bumped at every reclaim, the borrow tag
+        #: of the views :meth:`borrowed_buffers` hands out.
+        self.view_epoch = 0
+        self._lent = self.buffers
+
+    def borrow(self, array):
+        """Borrow-tag ``array`` (a buffer or a view of one) against the
+        current epoch; the array itself unless the sanitizer is armed."""
+        return sanitize.guard_view(array, self)
+
+    def borrowed_buffers(self):
+        """The buffers as the collate gets them: borrow-tagged views when
+        the sanitizer is armed, else the buffers themselves."""
+        if sanitize.sanitize_active():
+            self._lent = {name: sanitize.guard_view(buf, self)
+                          for name, buf in self.buffers.items()}
+        else:
+            self._lent = self.buffers
+        return self._lent
+
+    def owns(self, name, array):
+        """True when ``array`` is this arena's buffer ``name``, as is or as
+        lent to the collate."""
+        return array is self.buffers.get(name) or array is self._lent.get(name)
+
+    def _on_reclaim(self):
+        """The buffers rejoin the free list: every view still out is stale.
+        Bump the epoch always; poison (sanitizer only) once the copy out of
+        the buffers has settled, never under an in-flight copy."""
+        self.view_epoch += 1
+        if self._settled:
+            sanitize.poison(self.buffers.values())
 
     def add_hold(self, obj):
         """Keep the arena out of the free list until ``obj`` is collected."""
@@ -104,12 +150,14 @@ class HostArena(object):
         if ready:
             self._pool._reclaim(self)
 
-    def retire(self):
+    def retire(self, settled=True):
         """The transfer is done: back to the pool once no holds remain.
-        Idempotent."""
+        ``settled=False``: a copy out of the buffers may still be in flight
+        (the stop path), so the reclaim must not poison them. Idempotent."""
         with self._lock:
             if self._reclaimed:
                 return
+            self._settled = settled
             if self._holds:
                 self._retired = True
                 return
@@ -208,7 +256,7 @@ class ArenaPool(object):
         with self._cond:
             self._pending = arena
             self._tracer.counter('arena_pool_free', len(self._free), 'staging')
-        return arena.buffers
+        return arena.borrowed_buffers()
 
     @property
     def nbytes(self):
@@ -287,6 +335,7 @@ class ArenaPool(object):
             return arena
 
     def _reclaim(self, arena):
+        arena._on_reclaim()
         with self._cond:
             if len(self._free) < self._depth + self._grown:
                 self._free.append(arena)
@@ -595,14 +644,25 @@ class StagingEngine(object):
         self._put(self._stage_q, _DONE)
 
     def _retire(self, staged, arena, wait):
-        if wait and not self._stop.is_set():
+        settled = wait and not self._stop.is_set()
+        if settled:
             if self._hb_dispatch is not None:
                 self._hb_dispatch.beat('ready-wait')
             t0 = time.perf_counter()
             self._ready_fn(staged)
             with self._stats_lock:
                 self._ready_wait_s += time.perf_counter() - t0
-        arena.retire()
+        # Seeded use-after-reclaim (fault site 'arena-stale-view'): a
+        # borrow-tagged view kept across the retire and touched after.
+        # Armed, the touch raises StaleViewError; unarmed it reads recycled
+        # bytes silently. In holds mode the reclaim waits for the
+        # consumer's tensors, so the proof drives the engine without it.
+        stale_probe = None
+        if faults.faults_active() and faults.get_injector().should_fire('arena-stale-view'):
+            stale_probe = arena.borrow(next(iter(arena.buffers.values())))
+        arena.retire(settled=settled)
+        if stale_probe is not None:
+            stale_probe.sum()
 
     def _dispatch_loop(self):
         hb = self._hb_dispatch
@@ -630,6 +690,10 @@ class StagingEngine(object):
                 batch, arena = item
                 if hb is not None:
                     hb.beat('device_put')
+                # Seeded lock-order inversion (fault site 'lock-order-invert'):
+                # armed, the recorder raises before blocking and the
+                # violation reaches the consumer like any pipeline error.
+                sanitize.maybe_inject_lock_inversion()
                 t0 = time.perf_counter()
                 with self.meter.track('dispatch'), self._tracer.span('dispatch', 'device'):
                     staged = self._stage_fn(batch, arena)
@@ -654,7 +718,7 @@ class StagingEngine(object):
             self._stop.set()
         finally:
             if arena is not None:
-                arena.retire()
+                arena.retire(settled=False)   # its copy may have been issued
             while inflight:
                 self._retire(*inflight.popleft(), wait=False)
 

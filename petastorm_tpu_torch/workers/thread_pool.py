@@ -54,7 +54,7 @@ _RESIZE_VENT_SLACK = 4
 
 class _WorkerThread(threading.Thread):
     def __init__(self, pool, worker):
-        super().__init__(daemon=True, name='{}{}'.format(THREAD_PREFIX, worker.worker_id))
+        super().__init__(daemon=True, name=THREAD_PREFIX + str(worker.worker_id))
         self._pool = pool
         self._worker = worker
         self.profile = None

@@ -1774,6 +1774,56 @@ def test_a_lookup_request_onto_the_card_equals_the_plain_path(dev, tmp_path):
     torch.testing.assert_close(via_k1, via_plain, rtol=1e-4, atol=1e-4)
 
 
+def test_a_fleet_worker_on_a_short_lease_feeds_the_card_without_a_torn_chunk(dev, tmp_path,
+                                                                               monkeypatch):
+    """A fleet worker on a 0.5 s lease with 8 decode threads (the shape that
+    expired a trainer's admission in phase 29's first rehearsal) feeds
+    ``RemoteReader`` -> ``TorchLoader`` on the card over its shm ring: no
+    chunk fails its checksum, every batch equals a local deterministic
+    reader's (every row once, in order), and the consumer re-attached to a
+    new ring at most once."""
+    from petastorm_tpu_torch import bench
+    from petastorm_tpu_torch.data_service import RemoteReader
+    from petastorm_tpu_torch.fleet import wire
+    from petastorm_tpu_torch.lineage import _digest_array
+    retired = []
+    retire = wire.WireClient.retire_segment
+
+    def counting(self, name):
+        retired.append(name)
+        return retire(self, name)
+
+    monkeypatch.setattr(wire.WireClient, 'retire_segment', counting)
+    url = bench.write_imagenet_store(str(tmp_path / 'imagenet'))
+    argv = bench.fleet_worker_argv(url, 'ipc://' + str(tmp_path / 'w'), 8, job='card-lease',
+                                   quotas={'det': {}}, det=True, epochs=1, lease_s=0.5,
+                                   drain_grace=5.0, await_cursor=True)
+    proc, announce = bench.start_fleet_worker(argv, bench.fleet_worker_env())
+
+    def digests(loader):
+        return [(_digest_array(b.image.cpu().numpy()), _digest_array(b.label.cpu().numpy()))
+                for b in loader]
+    try:
+        with RemoteReader(announce['data_endpoint'], tenant='det', flow_control=32) as remote:
+            with TorchLoader(remote, 128, device=dev) as loader:
+                got = digests(loader)
+            errors = remote.diagnostics['wire_decode_errors']
+            tier = remote.diagnostics['wire']
+        rc, _ = bench.finish_fleet_worker(proc)
+    finally:
+        if proc.poll() is None:
+            bench.stop_server(proc)
+    with make_tensor_reader(url, workers_count=8, num_epochs=1, seed=0,
+                            deterministic=True) as reader:
+        with TorchLoader(reader, 128, device=dev) as loader:
+            want = digests(loader)
+    assert errors == 0 and rc == 0
+    assert len(got) == len(want) == bench.ROWS // 128
+    assert got == want
+    assert len(retired) <= 1, retired
+    assert 'shm' in str(tier), tier
+
+
 def test_a_fleet_worker_feeds_the_loader_on_card_without_mapping_cuda(dev, tmp_path):
     """``tools.fleet --worker`` (tenant quotas, a job, deterministic) feeds a
     tenant's ``RemoteReader`` -> ``TorchLoader`` on the card; the registry

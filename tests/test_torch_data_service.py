@@ -437,6 +437,39 @@ def test_serve_cli_sigterm_graceful_drain(service_dataset, sock):
             proc.wait()
 
 
+def test_lease_expiry_counts_and_reconnect_window_raises(service_dataset, sock):
+    """The reference's ``test_fleet_ft.py::test_lease_expiry_counts_and_reconnect_window_raises``
+    against the port: a SIGKILLed serve-CLI server's lease expires on the
+    consumer's side (``pst_server_lease_expiries_total`` counts it), and a
+    sole consumer with a 2 s reconnect window and no replacement raises
+    naming the reconnect window instead of polling forever."""
+    from petastorm_tpu_torch import metrics
+    expiries = metrics.counter('pst_server_lease_expiries_total', '')
+    before = expiries.value
+    proc = _cli([service_dataset, '--bind', ipc(sock, 'd'), '--workers', '2', '--epochs', '0',
+                 '--sndhwm', '1', '--lease-s', '2'])
+    try:
+        eps = json.loads(proc.stdout.readline())
+        with RemoteReader(eps['data_endpoint'], rcvhwm=1, reconnect_s=2.0,
+                          admission=False) as remote:
+            # The lease must be known before the kill; consuming pumps the
+            # control socket.
+            deadline = time.monotonic() + 15
+            while not remote.diagnostics['leases']:
+                assert time.monotonic() < deadline, 'no heartbeat seen'
+                next(remote)
+                time.sleep(0.05)
+            proc.kill()
+            proc.wait()
+            with pytest.raises(RuntimeError, match='reconnect window'):
+                _ids(remote)
+        assert expiries.value > before
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def test_serve_cli_max_consumers_refuses_extra(service_dataset, sock):
     proc = _cli([service_dataset, '--bind', ipc(sock, 'd'), '--workers', '2', '--epochs', '0',
                  '--max-consumers', '0', '--drain-grace', '0'])

@@ -327,6 +327,60 @@ def test_the_service_tier_imports_no_torch(module):
     assert out.returncode == 0, out.stderr[-2000:]
 
 
+@pytest.mark.parametrize('module', ['analysis', 'analysis.core', 'analysis.lock_order',
+                                    'analysis.threads', 'analysis.determinism_taint',
+                                    'analysis.bounded_queues', 'analysis.registry',
+                                    'analysis.registry_sync', 'analysis.sanitize',
+                                    'tools.pstlint', 'generator', 'test_util',
+                                    'test_util.reader_mock', 'test_util.shuffling_analysis',
+                                    'tf_utils', 'spark_utils', 'tools.spark_session_cli'])
+def test_the_last_slice_imports_no_torch_tf_or_spark(module):
+    """The lints, the sanitizer, the test utilities and the TF and Spark
+    adapters import alone without JAX, the JAX package, torch, TensorFlow
+    or pyspark: TensorFlow and pyspark load only when a function needs
+    them (the card machine has neither)."""
+    code = ('import sys, importlib\n'
+            'importlib.import_module("petastorm_tpu_torch.{}")\n'
+            'bad = sorted(m for m in sys.modules if m.split(".")[0] in {!r}\n'
+            '             or m == "petastorm_tpu" or m.startswith("petastorm_tpu.")\n'
+            '             or m.split(".")[0] in ("torch", "tensorflow", "pyspark"))\n'
+            'assert not bad, bad\n').format(module, BANNED_ROOTS)
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_the_package_imports_no_tf_or_spark():
+    """Importing the package and every module of it loads neither
+    TensorFlow nor pyspark."""
+    code = ('import pkgutil, sys\n'
+            'import petastorm_tpu_torch\n'
+            'for m in pkgutil.walk_packages(petastorm_tpu_torch.__path__, "petastorm_tpu_torch."):\n'
+            '    __import__(m.name)\n'
+            'bad = sorted(m for m in sys.modules\n'
+            '             if m.split(".")[0] in ("tensorflow", "pyspark", "keras"))\n'
+            'assert not bad, bad[:10]\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """File by file, the port holds every module of the JAX package but
+    those left out on purpose (ROADMAP §A): ``jax_loader.py`` is the port's
+    ``loader.py``, ``shard_map_compat.py`` is JAX only, and torch's pinned
+    host memory replaces ``native/pinned.py``."""
+    jax_root = os.path.join(REPO, 'petastorm_tpu')
+
+    def modules(root):
+        return {os.path.relpath(os.path.join(d, n), root) for d, _, names in os.walk(root)
+                for n in names if n.endswith('.py')}
+    missing = sorted(modules(jax_root) - modules(PACKAGE))
+    assert missing == ['jax_loader.py', os.path.join('models', 'shard_map_compat.py'),
+                       os.path.join('native', 'pinned.py')]
+    assert os.path.exists(os.path.join(PACKAGE, 'loader.py'))
+
+
 def test_no_lookup_or_fleet_thread_survives_stop(tmp_path):
     """A lookup server with REP workers, a scatter-gather client, a
     registry's watch thread and an autoscaler's loop, stopped, leave no

@@ -374,14 +374,26 @@ def test_a_port_server_warm_joins_a_jax_fleet(fleet_dataset, tmp_path, sock):
 
 
 def test_warm_fill_rejects_torn_blob(fleet_dataset, tmp_path):
+    """A torn peer chunk is refused and not persisted. The blob comes from a
+    peer engine, as in a warm join: exporting a piece warms the exporter's
+    own store behind its back (a write-behind), so the exporter itself could
+    hold the piece whatever ``warm_fill`` did. Two tears: the blob's middle
+    byte and one inside the first field's CRC-covered payload."""
+    from petastorm_tpu_torch.chunk_store import _PREAMBLE
     from petastorm_tpu_torch.errors import CorruptChunkError
     with LookupEngine(fleet_dataset.url, index_name='id_row_ix',
+                      cache=str(tmp_path / 'peer')) as peer:
+        packed = peer.packed_chunk(0)
+    data_start = _PREAMBLE.unpack_from(packed, 0)[3]
+    with LookupEngine(fleet_dataset.url, index_name='id_row_ix',
                       cache=str(tmp_path / 'store')) as eng:
-        blob = bytearray(eng.packed_chunk(0))
-        blob[len(blob) // 2] ^= 0xFF
-        with pytest.raises(CorruptChunkError):
-            eng.warm_fill(0, bytes(blob))
-        assert not eng.has_cached(0)
+        for at in (len(packed) // 2, data_start + 1):
+            blob = bytearray(packed)
+            blob[at] ^= 0xFF
+            with pytest.raises(CorruptChunkError):
+                eng.warm_fill(0, bytes(blob))
+            assert not eng.has_cached(0)
+        assert eng.warm_fill(0, packed) and eng.flush(30.0) and eng.has_cached(0)
     with LookupEngine(fleet_dataset.url, index_name='id_row_ix') as bare:
         with pytest.raises(ValueError, match='DecodedChunkStore'):
             bare.warm_fill(0, b'')

@@ -54,7 +54,7 @@ def test_reader_throughput_without_psutil(scalar_dataset, monkeypatch):
     assert result.memory_rss_mb is None and result.cpu_percent is None
     assert result.samples_per_second > 0
     with pytest.raises(ValueError, match='read_method'):
-        reader_throughput(scalar_dataset.url, read_method='tensor')
+        reader_throughput(scalar_dataset.url, read_method='jax')
 
 
 def test_throughput_cli(scalar_dataset):

@@ -560,12 +560,21 @@ def test_midstream_restart_renegotiates_and_loses_nothing(sock, monkeypatch):
     assert [b for b in bases if b >= 300] == [300, 400]
 
 
-def _read_past_a_starved_reattach(package, sock, monkeypatch):
+def _mapped(client):
+    """The rings a port consumer maps: the live ones by name, and how many
+    replaced ones a view still holds."""
+    return sorted(client._segments), len(client._retired)
+
+
+def _read_past_a_starved_reattach(package, sock, monkeypatch, stalls=(3,), keep=True,
+                                  mappings=None):
     """A sole shm consumer (4 credits) of a server with a 0.3 s lease stops
-    re-attaching for 2 s, past the server's 3-lease admission expiry, while
-    it holds the chunks it read, then reads on. Returns the rows it got,
-    the chunks it dropped as undecodable, and each shm ring the server
-    granted, as (name, inode), in order."""
+    re-attaching for 2 s, past the server's 3-lease admission expiry, after
+    each chunk index in ``stalls``, while it holds the chunks it read
+    (``keep``), then reads on. Returns the rows it got, the chunks it
+    dropped as undecodable, and each shm ring the server granted, as (name,
+    inode), in order. ``mappings``, a list, gets the rings the port
+    consumer maps two chunks after each stall and just before it closes."""
     mod = jds if package == 'jax' else ds
     bind = ipc(sock, 'd')
     ctrl, rpc = endpoints(bind)
@@ -596,6 +605,17 @@ def _read_past_a_starved_reattach(package, sock, monkeypatch):
         return attach(self, *args, **kwargs)
 
     monkeypatch.setattr(mod.RemoteReader, '_do_attach', starved)
+    if mappings is not None:
+        close_sockets = mod.RemoteReader._close_sockets
+
+        def closing(self):
+            if not self._closed and self._wire_client is not None:
+                gc.collect()
+                self._wire_client.drain_acks()
+                mappings.append(_mapped(self._wire_client))
+            return close_sockets(self)
+
+        monkeypatch.setattr(mod.RemoteReader, '_close_sockets', closing)
     rows, kept, done = [], [], threading.Event()
     remote = mod.RemoteReader(server.data_endpoint, control_endpoints=[ctrl],
                               rpc_endpoints=[rpc], flow_control=4)
@@ -603,12 +623,16 @@ def _read_past_a_starved_reattach(package, sock, monkeypatch):
     def consume():
         try:
             for i, chunk in enumerate(remote):
-                kept.append(chunk)
+                if keep:
+                    kept.append(chunk)
                 rows.extend(int(x) for x in chunk.sid)
-                if i == 3:
+                del chunk
+                if i in stalls:
                     stall.set()
                     time.sleep(2.0)
                     stall.clear()
+                if mappings is not None and i - 2 in stalls:
+                    mappings.append(_mapped(remote._wire_client))
         except Exception:  # noqa: BLE001 - the stream's end is what is read
             pass
         finally:
@@ -659,6 +683,26 @@ def test_a_consumer_past_its_admission_expiry_reads_no_overwritten_region(sock, 
     else:
         assert before != after and before.startswith(wire.SEGMENT_PREFIX)
         assert errors == 0 and rows == want
+
+
+@needs_shm
+def test_forced_expiries_leave_one_mapping_a_server(sock, monkeypatch):
+    """Up to three admission expiries in one stream (the first always
+    expires; a later one may re-attach in time): each re-attach is granted a
+    new ring, and the consumer unmaps the ring it replaced (at once, or as
+    soon as its last view goes), so it maps at most one ring of its one
+    server, not one an expiry. Every row still arrives once."""
+    mappings = []
+    rows, want, errors, rings = _read_past_a_starved_reattach(
+        'port', sock, monkeypatch, stalls=(3, 12, 21), keep=False, mappings=mappings)
+    assert len(rings) >= 2, 'no expiry was forced: {}'.format(rings)
+    assert len({name for name, _ in rings}) == len(rings)
+    assert errors == 0 and rows == want
+    expired = {name for name, _ in rings[:-1]}
+    assert len(mappings) == 4, mappings
+    assert all(len(names) + retired <= 1 for names, retired in mappings), (rings, mappings)
+    names, retired = mappings[-1]     # just before close: no expired ring left mapped
+    assert not expired & set(names) and retired == 0, (rings, mappings)
 
 
 @needs_shm
