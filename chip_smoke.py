@@ -133,7 +133,9 @@ most 2,000 characters>}``:
    once a layer a step), the mnist example (accuracy over 0.8).
 18. preemptible: ResNet-50 killed mid-epoch and resumed from a job
    checkpoint (see :func:`run_preemptible`), three runs on the imagenet
-   store (U in this process, S1 and S2 in child processes), deterministic reader, lineage ledger, ``superbatches(8)``
+   store (U in this process, S1 and S2 in child processes; S1 starts with
+   the phase, builds its model while U runs and trains, with cuDNN's
+   heuristics, once U is done), deterministic reader, lineage ledger, ``superbatches(8)``
    and the 8-step scan trainer with K1 in its graph: U runs 6 calls (3
    epochs); S1 saves after every call (async ``JobCheckpointer``) and is
    SIGKILLed once the save of call 3 is durable; S2 restores and runs
@@ -142,8 +144,8 @@ most 2,000 characters>}``:
    record must replay bit-identical (``verify_record``); losses within
    ``PREEMPT_LOSS_RTOL``; K1 counted in S2's window.
 19. mesh: the multi-GPU paths at world size 1 (the machine has one card),
-   in a child process of their own that starts an NCCL process group from
-   a file (no fallback to gloo) and destroys it (see :func:`run_mesh`):
+   in this process, which starts an NCCL process group from a file (no
+   fallback to gloo) and destroys it (see :func:`run_mesh`):
    (a) ResNet-50 on ``{'data': 1, 'model': 1}`` through
    ``make_pod_reader`` -> the mesh ``TorchLoader`` -> ``make_scan_train_step
    (mesh=...)``, K1 and the gradient all-reduce (NCCL ``ReduceOp.AVG``,
@@ -313,59 +315,64 @@ most 2,000 characters>}``:
    run, ``decode_s``, the decoder, the ring's and ``/dev/shm``'s bytes, the
    workers' start-up seconds, and whether dill and pyzmq import.
 
-26. imagenet_autotune: the autotuner, run after imagenet_process on the
-   same state (``bench.run_imagenet_autotune``), imagenet_decode (a)'s store
-   and ``null`` cache started from starved knobs: one reader thread, a
+26. imagenet_autotune: the autotuner, run after imagenet_process on the same
+   state (``bench.run_imagenet_autotune``), imagenet_decode (a)'s store and
+   ``null`` cache started from starved knobs: one reader thread, a
    decode-thread budget of 1 for the phase, ``TorchLoader(prefetch=1,
    inflight=1, arena_depth=2, autotune=AutotuneConfig(interval_s=0.25))``,
    which adopts the reader's knobs, ``superbatches(8)``, K1 in the 8-step
    graph. (a) Calls run until the tuner's last grow, and every knob change
-   after it (a revert, a shrink), is 8 ticks old, or 30 s passed, then 11
-   counted calls and 11 timed, unprofiled. Checks: K1's
-   graph nodes times the counted window's replays; at least one ``grow`` on
-   a ``reader-starved`` or ``input-bound`` tick and a final ``workers``
-   above 1; img/s at least 0.90 of imagenet_decode (a)'s of this run; every
-   loss finite; after ``close()`` no ``pstt-autotune`` thread and no
-   ``pst_autotune_*`` gauge of its pipeline in the registry. (b) The same
-   reader and loader under a fresh governor whose ladder a ballast pool
-   holds at advisory, 3 calls: at least one ``mem-shrink``, no ``grow``,
-   every loss finite. Its line: img/s, device ms a step and stall beside
-   imagenet_scan's and imagenet_decode (a)'s of this run, the start and
-   final knobs, the seconds to the last grow, the ``workers`` and
-   ``decode_threads`` trajectory, the decisions by action, ticks, paused
-   ticks and reverts, and (b)'s mem-shrinks and stall with its arenas
-   unpinned. Every earlier phase runs with ``autotune=False`` (and the
-   script drops ``PSTT_AUTOTUNE`` from its environment), so no earlier
-   protocol moves.
+   after it (a revert, a shrink), is 8 ticks old and the last tick's class
+   finds no knob to grow, or 45 s passed, then 11 counted calls and 11
+   timed, unprofiled. Checks: K1's graph nodes times the counted window's
+   replays; at least one ``grow`` on a ``reader-starved`` or ``input-bound``
+   tick and a final ``workers`` above 1; img/s at least 0.90 of
+   imagenet_decode (a)'s of this run; every loss finite; after ``close()``
+   no ``pstt-autotune`` thread and no ``pst_autotune_*`` gauge of its
+   pipeline in the registry. (b) The same reader and loader under a fresh
+   governor whose ladder a ballast pool holds at advisory, 3 calls: at least
+   one ``mem-shrink``, no ``grow``, every loss finite. Its line: img/s,
+   device ms a step and stall beside imagenet_scan's and imagenet_decode
+   (a)'s of this run, the start and final knobs, the seconds to the last
+   grow, the ``workers`` and ``decode_threads`` trajectory, the decisions by
+   action, ticks, paused ticks and reverts, whether the window settled on
+   ticks or on the 45 s cap, the knobs at its start, the reverts after the
+   last grow and the changes after the settle, and (b)'s mem-shrinks and
+   stall with its arenas unpinned. Every earlier phase runs with
+   ``autotune=False`` (and the script drops ``PSTT_AUTOTUNE`` from its
+   environment), so no earlier protocol moves.
 
 27. imagenet_remote: the data service, run after imagenet_autotune on the
    same state (``bench.run_imagenet_remote``), imagenet_decode (a)'s store,
-   model and protocol (``null`` cache, ``DECODE_WORKERS`` OpenCV threads,
-   3 + 11 + 11 calls unprofiled, K1 in the 8-step graph) with the reader
-   moved into a server process: ``python -m
-   petastorm_tpu_torch.tools.serve_cli`` with ``CUDA_VISIBLE_DEVICES=''``,
-   ``--await-cursor`` (it reads nothing before the trainer attaches) and as
-   many epochs as the calls need, bound to ``ipc://`` sockets under the
-   phase's directory; the trainer is ``RemoteReader(flow_control=16)`` ->
-   ``TorchLoader(prefetch=8)`` -> ``superbatches(8)``. (a) negotiated: the
-   sole same-host consumer is granted shm, the ring sized for 40 chunks of
-   38.5 MB within half of ``/dev/shm``'s free bytes. (b) ``wire='arrow-ipc'``
-   forced on the consumer. (c) a deterministic server with
-   ``--snapshot-path`` (which pins pickle) for 2 epochs, SIGKILLed by
+   model and protocol (``null`` cache, ``DECODE_WORKERS`` OpenCV threads, 3
+   + 11 + 11 calls unprofiled, K1 in the 8-step graph) with the reader moved
+   into a server process: ``python -m petastorm_tpu_torch.tools.serve_cli``
+   with ``CUDA_VISIBLE_DEVICES=''``, ``--await-cursor`` (it reads nothing
+   before the trainer attaches) and as many epochs as the calls need, bound
+   to ``ipc://`` sockets under the phase's directory; the trainer is
+   ``RemoteReader(flow_control=32)`` -> ``TorchLoader(prefetch=8)`` ->
+   ``superbatches(8)``. (a) negotiated: the sole same-host consumer is
+   granted shm, the ring sized for 40 chunks of 38.5 MB within half of
+   ``/dev/shm``'s free bytes. (b) ``wire='arrow-ipc'`` forced on the
+   consumer. (c) a deterministic server with ``--snapshot-path`` (which pins
+   pickle) for 2 epochs, SIGKILLed by
    ``PSTT_FAULTS=server-kill:p=0.25:seed=5:token=<file>`` before chunk 5 and
-   restarted with ``--resume`` on the same endpoint while (b)'s trainer keeps
-   stepping; each epoch's per-row digests (on the card) equal an
+   restarted with ``--resume`` on the same endpoint while (b)'s trainer
+   keeps stepping; each epoch's per-row digests (on the card) equal an
    uninterrupted epoch's as a multiset. (d) the bench's ``fleet_wire``
    record, one repetition a tier, 16 MB chunks. Its line: img/s, device ms a
    step and stall beside imagenet_scan's and imagenet_decode (a)'s of this
    run, the granted tier, the server's ``pst_wire_bytes_total`` by transport
-   and serialize ms a chunk, its pid and whether it maps the CUDA driver,
-   the segments left, K1's counts, and (c)'s kill chunk, restart seconds,
-   duplicates dropped and rows lost. It fails, after its line, if K1 is not
-   104 of 104 in 13 replays in (a) or 40 of 40 in 5 in (b) (3 + 3 + 3
-   calls), a server maps the driver, a
-   segment is left, a row is lost or delivered twice, or (a) runs under 0.75
-   of imagenet_decode (a)'s img/s.
+   and serialize ms a chunk, the timed window's split (the consumer's wait,
+   the staging threads' waits, the credits owed at both ends; the server's
+   chunks served, decode seconds a chunk and its threads' busy share,
+   serialize ms a chunk, bytes by transport and chunks in flight), its pid and
+   whether it maps the CUDA driver, the segments left, K1's counts, and
+   (c)'s kill chunk, restart seconds, duplicates dropped and rows lost. It
+   fails, after its line, if K1 is not 104 of 104 in 13 replays in (a) or 40
+   of 40 in 5 in (b) (3 + 3 + 3 calls), a server maps the driver, a segment
+   is left, a row is lost or delivered twice, or (a) runs under 0.75 of
+   imagenet_decode (a)'s img/s.
 
 28. lookup: the lookup tier, run after imagenet_remote on the same state.
    The lookup store (512 rows of 224x224x3 JPEG q90 with a unique ``idx``,
@@ -511,7 +518,7 @@ MOE_EXPERTS, MOE_LAYERS, MOE_STEPS = 4, 4, 16
 # Measured calls of the streamed ResNet scan paths (the bench: 5): 13
 # replays counted, 104 K1 launches, and as many calls timed. imagenet_aug
 # counts 1 epoch (the bench: 4), which with the cuts below keeps the
-# script's last phase under 840 s with phase 27.
+# script's last phase under 800 s with phase 27.
 SCAN_CALLS, AUG_EPOCHS = 11, 1
 # Cut for phases 27-29's time (the bench's depths in brackets): the counted
 # and timed calls of imagenet_chunkstore, imagenet_filtered, imagenet_health,
@@ -1426,7 +1433,7 @@ PREEMPT_CHILD_TIMEOUT_S = 300
 # the a2a scan's 8 and the ring's 3 stayed within 1.7e-4 of flash's (near
 # 10.9), so 2e-3 leaves a margin of about ten.
 MESH_SEQ, MESH_RING_STEPS, MESH_LOSS_ATOL = 1024, 3, 2e-3
-MESH_LM_CALLS, MESH_CHILD_TIMEOUT_S = 3, 600
+MESH_LM_CALLS = 3
 # NCCL's one-rank reduction kernel (ReduceOp.AVG; an in-place sum on one
 # rank enqueues nothing): the gradient all-reduce, counted by name among
 # the graph's kernel nodes.
@@ -1450,20 +1457,34 @@ def _state_digests(state):
     return out
 
 
-def preemptible_role(role, url, workdir, launched, device='cuda'):
-    """One run of the preemptible phase, in a process of its own (``role``:
-    ``U`` uninterrupted, ``S1`` saves every call and waits to be killed,
-    ``S2`` restores the latest step and finishes). Prints one JSON line."""
+def preemptible_role(role, url, workdir, launched, device='cuda', gate=None):
+    """One run of the preemptible phase (``role``: ``U`` uninterrupted, ``S1``
+    saves every call and waits to be killed, ``S2`` restores the latest step
+    and finishes). ``gate``, a file, is read for one line once the model is
+    built and before anything else (S1 waits there for U to finish). Prints
+    one JSON line."""
     import torch
     from petastorm_tpu_torch import TorchLoader, lineage, make_tensor_reader
     from petastorm_tpu_torch.job_checkpoint import JobCheckpointer
     from petastorm_tpu_torch.models import make_scan_train_step
 
     device = torch.device(device)
+    t_role = time.perf_counter()
+    out = {'role': role, 'launch_to_role_s': time.time() - launched}
     ckpt_dir = os.path.join(workdir, 'ckpt')
     ledger_dir = os.path.join(workdir, 'ledger_' + role)
     state = bench.resnet50_state(device)
-    out = {'role': role}
+    if role == 'S1':
+        # S1 only has to reach a durable save of call 3: cuDNN's heuristics
+        # pick its convolutions instead of a benchmark of each (~20 s in a
+        # fresh process). No check reads S1's speed, and S2's losses are
+        # held to U's within PREEMPT_LOSS_RTOL whatever algorithms ran.
+        torch.backends.cudnn.benchmark = False
+    if gate is not None:
+        t0 = time.perf_counter()
+        if not gate.readline():
+            raise RuntimeError('{}: the gate closed before it opened'.format(role))
+        out['gate_wait_s'] = time.perf_counter() - t0
     resume, first_call = None, 1
     if role == 'S2':
         t0 = time.perf_counter()
@@ -1510,7 +1531,8 @@ def preemptible_role(role, url, workdir, launched, device='cuda'):
                 t0 = time.perf_counter()
                 sync.save(PREEMPT_KILL_AFTER, state, loader=loader)
                 sync_s = time.perf_counter() - t0
-            out.update(saves=PREEMPT_KILL_AFTER, async_save_dispatch_s=dispatch,
+            out.update(role_s=time.perf_counter() - t_role,
+                       saves=PREEMPT_KILL_AFTER, async_save_dispatch_s=dispatch,
                        async_save_durable_s=durable, sync_save_s=sync_s,
                        checkpoint_bytes=ckpt.step_nbytes(PREEMPT_KILL_AFTER),
                        steps_kept=ckpt.all_steps(), loader_state=loader.state_dict())
@@ -1547,7 +1569,8 @@ def preemptible_role(role, url, workdir, launched, device='cuda'):
         timed_calls=n - 2, img_per_s=(n - 2) * bench.SCAN_K * BATCH / wall,
         device_call_ms_median=call_ms, final_loader_state=final_state,
         digests=[r['digest'] for r in records], ledger_records=len(records),
-        tiers=sorted({s['tier'] for r in records for s in r['segments']}))
+        tiers=sorted({s['tier'] for r in records for s in r['segments']}),
+        role_s=time.perf_counter() - t_role)
     bench.emit(out)
     return out
 
@@ -1585,7 +1608,8 @@ def _role_line(proc, role):
 
 def run_preemptible(url, card):
     """The preemptible phase: three runs on the imagenet store (U in this
-    process, S1 and S2 in child processes)
+    process, S1 and S2 in child processes; S1 is started with U and held at
+    its gate until U is done)
     (``make_tensor_reader(deterministic=True, seed=0, workers_count=4,
     cache_type='memory', num_epochs=3)``, ``TorchLoader(batch 128,
     prefetch 2, lineage=<dir>)``, ``superbatches(8)``, the 8-step ResNet-50
@@ -1601,30 +1625,40 @@ def run_preemptible(url, card):
     workdir = tempfile.mkdtemp(prefix='preempt_', dir=BUILD_DIR)
     t_phase = time.perf_counter()
     lines = {}
+
+    def role_cmd(role, *extra):
+        return [sys.executable, os.path.abspath(__file__), '--preemptible-role', role,
+                '--preemptible-url', url, '--preemptible-dir', workdir,
+                '--preemptible-launched', repr(time.time())] + list(extra)
+
     try:
-        # U runs in this process: its digests and losses are all the checks
-        # read of it, and a child would pay ~40 s to start (the CUDA context,
-        # cuDNN's benchmark of every conv); S1 and S2 stay children, one to
-        # be killed and one to measure a restart.
-        lines['U'] = preemptible_role('U', url, workdir, time.time())
-        for role in ('S1', 'S2'):
-            cmd = [sys.executable, os.path.abspath(__file__), '--preemptible-role', role,
-                   '--preemptible-url', url, '--preemptible-dir', workdir,
-                   '--preemptible-launched', repr(time.time())]
-            with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, cwd=ROOT) as proc:
-                try:
-                    lines[role] = _role_line(proc, role)
-                    if role == 'S1':
-                        if proc.stdout.readline().strip() != 'READY':
-                            raise AssertionError('S1 did not report its durable save')
-                        os.kill(proc.pid, signal.SIGKILL)
-                        lines[role]['killed_signal'] = -proc.wait(timeout=60)
-                    elif proc.wait(timeout=PREEMPT_CHILD_TIMEOUT_S) != 0:
-                        raise AssertionError('preemptible {} exited {}'.format(
-                            role, proc.returncode))
-                finally:
-                    if proc.poll() is None:
-                        proc.kill()
+        # S1 starts at once and builds its model while U runs in this
+        # process (U's digests and losses are all the checks read of it);
+        # it trains only once U is done, so no two runs share the card.
+        with subprocess.Popen(role_cmd('S1', '--preemptible-gate'), stdin=subprocess.PIPE,
+                              stdout=subprocess.PIPE, text=True, cwd=ROOT) as proc:
+            try:
+                lines['U'] = preemptible_role('U', url, workdir, time.time())
+                proc.stdin.write('go\n')
+                proc.stdin.flush()
+                lines['S1'] = _role_line(proc, 'S1')
+                if proc.stdout.readline().strip() != 'READY':
+                    raise AssertionError('S1 did not report its durable save')
+                os.kill(proc.pid, signal.SIGKILL)
+                lines['S1']['killed_signal'] = -proc.wait(timeout=60)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+        # S2, a fresh process, measures a restart from the kill's checkpoint.
+        with subprocess.Popen(role_cmd('S2'), stdout=subprocess.PIPE, text=True,
+                              cwd=ROOT) as proc:
+            try:
+                lines['S2'] = _role_line(proc, 'S2')
+                if proc.wait(timeout=PREEMPT_CHILD_TIMEOUT_S) != 0:
+                    raise AssertionError('preemptible S2 exited {}'.format(proc.returncode))
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
         u, s1, s2 = lines['U'], lines['S1'], lines['S2']
         checks, worst = preemptible_checks(u, s1, s2)
         return {
@@ -1639,7 +1673,13 @@ def run_preemptible(url, card):
             'restore_s': s2['restore_s'], 'restored_tensors': s2['restored_tensors'],
             'steps_kept': s1['steps_kept'],
             'process_start_to_first_replay_s': s2['process_start_to_first_replay_s'],
+            'roles_s': {role: {'launch_to_role': line['launch_to_role_s'],
+                               'role': line['role_s'], 'gate_wait': line.get('gate_wait_s')}
+                        for role, line in (('U', u), ('S1', s1), ('S2', s2))},
             'img_per_s': {'U': u['img_per_s'], 'S2': s2['img_per_s']},
+            # U trained while S1 started and built its model on the same
+            # card and host cores: its rate is not that of a run alone.
+            'img_per_s_note': 'U timed while S1 started beside it',
             'timed_calls': {'U': u['timed_calls'], 'S2': s2['timed_calls']},
             'ledger_records': {'U': u['ledger_records'], 'S2': s2['ledger_records']},
             'tiers': {'U': u['tiers'], 'S2': s2['tiers']},
@@ -1789,8 +1829,8 @@ def mesh_lm(workdir, device):
 
 
 def mesh_role(url, workdir):
-    """The mesh phase's child process: NCCL at world size 1 from a file,
-    (a), (c) and (b), one JSON line; the group is destroyed on the way out."""
+    """The mesh phase's body: NCCL at world size 1 from a file, (a), (c)
+    and (b); the group is destroyed on the way out. Returns its record."""
     import torch
     import torch.distributed as dist
     device = torch.device('cuda', 0)
@@ -1798,7 +1838,7 @@ def mesh_role(url, workdir):
     t0 = time.perf_counter()
     dist.init_process_group('nccl', init_method='file://' + os.path.join(workdir, 'init'),
                             rank=0, world_size=1, device_id=device)
-    out = {'role': 'mesh', 'nccl_init_s': time.perf_counter() - t0,
+    out = {'nccl_init_s': time.perf_counter() - t0,
            'backend': dist.get_backend(), 'world_size': dist.get_world_size()}
     try:
         out['resnet'], state = mesh_resnet(url, device)
@@ -1808,33 +1848,24 @@ def mesh_role(url, workdir):
         out['lm'] = mesh_lm(workdir, device)
     finally:
         dist.destroy_process_group()
-    print(json.dumps(out), flush=True)
+    return out
 
 
 def run_mesh(url, card):
-    """Phase 19 in a child process (see :func:`mesh_role`): its line, to
-    which ``main`` adds the same run's single-GPU numbers."""
+    """Phase 19 in this process (see :func:`mesh_role`): its line, to which
+    ``main`` adds the same run's single-GPU numbers. It shares the process's
+    CUDA context, cuDNN's algorithm choices and compiled kernels with the
+    single-GPU cells (a child paid ~40 s to start: the context, cuDNN's
+    benchmark of every convolution); no process group outlives it."""
+    import torch.distributed as dist
     workdir = tempfile.mkdtemp(prefix='mesh_', dir=BUILD_DIR)
     t0 = time.perf_counter()
     try:
-        cmd = [sys.executable, os.path.abspath(__file__), '--mesh-role', '--mesh-url', url,
-               '--mesh-dir', workdir]
-        with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, cwd=ROOT) as proc:
-            try:
-                line = None
-                for text in proc.stdout:
-                    if text.startswith('{') and '"role": "mesh"' in text:
-                        line = json.loads(text)
-                code = proc.wait(timeout=MESH_CHILD_TIMEOUT_S)
-            finally:
-                if proc.poll() is None:
-                    proc.kill()
-        if code != 0 or line is None:
-            raise AssertionError('the mesh child exited {} ({})'.format(
-                code, 'no result' if line is None else 'with a result'))
+        line = mesh_role(url, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    del line['role']
+    if dist.is_initialized():
+        raise AssertionError('a process group outlived the mesh phase')
     return dict({'phase': 'mesh', 'card': card, 'seconds': time.perf_counter() - t0,
                  'cross_card_transfer': 'not measured: world size 1 on one card, so no number '
                                         'here measures communication between two cards'},
@@ -2375,10 +2406,7 @@ def main():
     parser.add_argument('--preemptible-url', help=argparse.SUPPRESS)
     parser.add_argument('--preemptible-dir', help=argparse.SUPPRESS)
     parser.add_argument('--preemptible-launched', type=float, help=argparse.SUPPRESS)
-    # The mesh phase's child process.
-    parser.add_argument('--mesh-role', action='store_true', help=argparse.SUPPRESS)
-    parser.add_argument('--mesh-url', help=argparse.SUPPRESS)
-    parser.add_argument('--mesh-dir', help=argparse.SUPPRESS)
+    parser.add_argument('--preemptible-gate', action='store_true', help=argparse.SUPPRESS)
     parser.add_argument('--decode-turns', type=int, default=0,
                         help='only measure imagenet_decode (a) on the thread and the process '
                              'pool in this many turns')
@@ -2400,10 +2428,8 @@ def main():
         return 2
     if args.preemptible_role:
         preemptible_role(args.preemptible_role, args.preemptible_url, args.preemptible_dir,
-                         args.preemptible_launched)
-        return 0
-    if args.mesh_role:
-        mesh_role(args.mesh_url, args.mesh_dir)
+                         args.preemptible_launched,
+                         gate=sys.stdin if args.preemptible_gate else None)
         return 0
 
     lines = []

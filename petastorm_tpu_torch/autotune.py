@@ -28,6 +28,18 @@ governor's ladder is at advisory or worse (``memory_state_fn``), no grow,
 and one ``mem-shrink`` step down per cooldown. A tick whose counters went
 backward (``reset_stats()``) is discarded with any pending verdict.
 
+Where the consumer takes its batches in bursts (``TorchLoader.superbatches``:
+a scan trainer takes 8 at once, then trains for a few hundred ms), a tick of a
+pipeline that keeps up counts 0, 8 or 16 of them, and the JAX package's
+one-tick verdict reverts on that noise. The telemetry then carries
+``take_batches`` and ``take_t``, the delivered count and the time at the end
+of the consumer's last take; those marks are exact points of the delivered
+curve, so the guard judges such a pipeline on them instead
+(:meth:`AutoTuner._take_verdict`): the base rate over the takes of a settling
+window before the action, the verdict over the takes of at least a settling
+window after it. Without those keys (batches taken one at a time) the guard is
+the JAX package's, tick for tick.
+
 Every decision lands in a bounded log and the knob trajectory
 (``stats()``, surfaced as ``Reader.diagnostics()['autotune']`` and
 ``TorchLoader.stats['autotune']``), in the metrics registry
@@ -255,6 +267,10 @@ _SHRINK_STEPS = (('workers', 1), ('prefetch', 1), ('inflight', 1),
 #: Telemetry keys that are cumulative counters (the rest are gauges).
 _CUMULATIVE_KEYS = ('batches', 'wait_s', 'reader_wait_s', 'arena_wait_s', 'ready_wait_s')
 
+#: A verdict judged on takes waits at most this many settling windows for
+#: a take that closes its window; then it judges the delivered count.
+TAKE_VERDICT_WAIT_WINDOWS = 8
+
 #: Classes during which the chunk store's write-behind writer is paced: the
 #: pipeline's own work is the limit, so the epoch-0 spill must not take its
 #: CPU or disk. Balanced and consumer-bound ticks release it.
@@ -318,6 +334,7 @@ class AutoTuner(object):
         self._streak = (None, 0)
         self._cooldown = 0
         self._pending = None      # the last action, awaiting its throughput verdict
+        self._takes = deque(maxlen=64)   # (take_batches, take_t) marks, oldest first
         self._paused_streak = False
         self._listeners = []
         self.ticks = 0
@@ -436,7 +453,11 @@ class AutoTuner(object):
             # verdict judged on it are garbage; re-baseline from here.
             self._pending = None
             self._streak = (None, 0)
+            self._takes.clear()
             return None
+        if snap.get('take_t') is not None and (
+                not self._takes or self._takes[-1][1] != snap['take_t']):
+            self._takes.append((snap['take_batches'], snap['take_t']))
         rate = deltas.get('batches', 0) / dt
         label, detail = self._classify_fn(deltas, snap, dt, self.config)
         self.last_class = label
@@ -455,18 +476,25 @@ class AutoTuner(object):
         # The verdict on the previous action is due one settling window
         # after it.
         if self._pending is not None and self._cooldown <= 1:
+            judged = rate
+            if 'take' in self._pending:
+                judged = self._take_verdict(snap, now)
+                if judged is None:
+                    return None       # no take has closed the window yet
             pending, self._pending = self._pending, None
             base = pending['base_rate']
             tol = self.config.throughput_tolerance
-            if base > 0 and rate < base * (1.0 - tol):
+            if base > 0 and judged < base * (1.0 - tol):
                 for name, old, _new in pending['changes']:
                     self.knobs[name].set(old)
                 self.reverts += 1
                 decision = {'action': 'revert', 'class': label,
                             'changes': [(n, new, old) for n, old, new in pending['changes']],
-                            'rate': round(rate, 2),
+                            'rate': round(judged, 2),
                             'detail': 'rate {:.1f}/s fell past {:.0%} of pre-action '
-                                      '{:.1f}/s'.format(rate, 1.0 - tol, base)}
+                                      '{:.1f}/s'.format(judged, 1.0 - tol, base)}
+                if 'take' in pending:
+                    decision['basis'] = 'takes'
                 self._record(decision, now)
                 self._snapshot_trajectory(now)
                 self._cooldown = self.config.cooldown
@@ -494,9 +522,68 @@ class AutoTuner(object):
         self._record(decision, now)
         self._snapshot_trajectory(now)
         self._pending = {'changes': changes, 'base_rate': rate}
+        if snap.get('take_t') is not None:
+            self._pending.update(self._take_base(snap, now))
         self._cooldown = self.config.cooldown
         self._streak = (label, 0)
         return decision
+
+    # -- the guard on takes ------------------------------------------------
+
+    def _settle_s(self):
+        """The settling window's length: the cooldown's ticks (one at least)."""
+        return max(1, self.config.cooldown) * self.config.interval_s
+
+    def _take_base(self, snap, now):
+        """The pending verdict's base on takes: the rate between the newest
+        take mark and the newest one at least a settling window older (the
+        oldest there is, if none is), and the delivered count the pipeline
+        is reckoned to have reached at the action, ``now``: the newest mark's
+        plus the base rate since (at most one take more), and no less than
+        the tick's count. With fewer than two marks there is no base: the
+        action gets no verdict, as a one-tick base of 0 gets none."""
+        if self.config.throughput_tolerance >= 1.0:
+            return {}                 # a guard that can revert nothing waits for nothing
+        if len(self._takes) < 2:
+            return {'take': None, 'base_rate': 0.0}
+        last_b, last_t = self._takes[-1]
+        first_b, first_t = self._takes[0]
+        for b, t in reversed(self._takes):
+            if last_t - t >= self._settle_s():
+                first_b, first_t = b, t
+                break
+        base = (last_b - first_b) / (last_t - first_t) if last_t > first_t else 0.0
+        supplied = min(base * max(0.0, now - last_t), last_b - self._takes[-2][0])
+        at_action = max(float(snap.get('batches', 0)), last_b + supplied)
+        return {'take': (at_action, now), 'base_rate': base}
+
+    def _take_verdict(self, snap, now):
+        """The rate since the action on takes: from the count reckoned at
+        the action to the newest take mark at least a settling window after
+        it. None while no such mark exists, for up to
+        ``TAKE_VERDICT_WAIT_WINDOWS`` settling windows; then the tick's
+        delivered count since the action over the time since. With no base
+        (fewer than two marks at the action) 0.0: nothing to judge."""
+        start = self._pending['take']
+        if start is None:
+            return 0.0
+        count0, t0 = start
+        if self._takes:
+            b, t = self._takes[-1]
+            if t - t0 >= self._settle_s():
+                return max(0.0, b - count0) / (t - t0)
+        if now - t0 < TAKE_VERDICT_WAIT_WINDOWS * self._settle_s():
+            return None
+        return max(0.0, snap.get('batches', 0) - count0) / (now - t0)
+
+    def can_grow(self, label=None):
+        """Whether a tick of class ``label`` (the last classified one when
+        None) finds a knob to grow: False for ``balanced`` and
+        ``consumer-bound`` ticks, and once every knob the class grows is at
+        its clamp."""
+        label = self.last_class if label is None else label
+        return any(name in self.knobs and self.knobs[name].get() < self.knobs[name].hi
+                   for name, _ in _GROW_ACTIONS.get(label, ()))
 
     def _mem_pressure(self):
         """True at advisory (level 1) or worse; a failing probe reads 0."""

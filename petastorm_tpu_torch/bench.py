@@ -356,7 +356,9 @@ def graph_kernels(graph):
 def graph_launches(train, kernels, replays):
     """How many times each of ``kernels`` (a substring of kernel names) ran
     in ``replays`` replays of ``train``'s captured graph: its kernel nodes
-    (:func:`graph_kernels`) times the replays."""
+    (:func:`graph_kernels`) times the replays. No kernel asked, no walk."""
+    if not kernels:
+        return {}
     nodes = graph_kernels(train.graph) if train.graph is not None else {}
     return {name: replays * sum(n for kernel, n in nodes.items() if name in kernel)
             for name in kernels}
@@ -1766,8 +1768,11 @@ REMOTE_RING_CHUNKS = 48
 #: (unkeyed draws of seed 5: 0.953, 0.325, 0.369, 0.508, 0.539, 0.202, so at
 #: p=0.25 it fires on the serve loop's sixth pass, before chunk 5 is sent).
 REMOTE_CRASH_EPOCHS, REMOTE_KILL_SPEC, REMOTE_KILL_CHUNK = 2, 'server-kill:p=0.25:seed=5', 5
-#: (a)'s img/s floor against imagenet_decode (a)'s of the same run: below it
-#: the shm tier fell back chunk after chunk (noise is not judged).
+#: (a)'s img/s floor against imagenet_decode (a)'s of the same run. (a) has
+#: read 0.62 to 1.29 of it on an H100 host with every byte on shm, so the
+#: floor catches a tier that falls back or a server that stalls, not the
+#: host's swings; the line's ``timed_split`` and ``timed_server`` say where
+#: a slow window's time went.
 REMOTE_MIN_RATIO = 0.75
 #: The fleet_wire record: 4096 rows of 4 KB (16 MB chunks) a chunk, 48 chunks
 #: a pass, the JAX child's 3 repetitions a tier (``BENCH_WIRE_*`` override).
@@ -1857,8 +1862,13 @@ def remote_classifier_scan(endpoint, device, train, state, warmup, calls, kernel
     server: ``RemoteReader(endpoint, flow_control=REMOTE_CREDITS)`` ->
     ``TorchLoader(batch=128, prefetch=8)`` -> ``superbatches(8)``;
     :func:`scan_window` over ``warmup`` + ``calls`` calls (unprofiled), then
-    ``calls`` timed. ``wire`` forces the consumer's tier. ``hooks(reader)``
-    runs after the timed calls while the stream is open. Returns the line
+    ``calls`` timed. ``wire`` forces the consumer's tier. ``hooks(stage,
+    reader)`` runs with ``'timed'`` just before the timed calls and with
+    ``'close'`` just after them, while the stream is open; what the second
+    returns joins the line. The line's ``timed_split`` says where the timed
+    window's wall went on the consumer's side: blocked in ``next``, the
+    staging threads' wait on the reader, the copies' issue and the arenas'
+    wait, and the credits owed to the server at its end. Returns the line
     and the launch window."""
     import torch
     from petastorm_tpu_torch import TorchLoader
@@ -1880,10 +1890,13 @@ def remote_classifier_scan(endpoint, device, train, state, warmup, calls, kernel
                 train, state, next_inputs, warmup, calls, kernels, profile=False)
             stats0 = loader.stats
             loader.reset_stats()
+            if hooks is not None:
+                hooks('timed', reader)
+            owed0 = reader.diagnostics['credits_owed']
             wall, wait_s, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
             stats = loader.stats
-            extra = hooks(reader) if hooks is not None else {}
             diagnostics = reader.diagnostics
+            extra = hooks('close', reader) if hooks is not None else {}
     losses = [[float(m['loss']), float(m['last_loss'])] for m in metrics + timed]
     if not all(math.isfinite(v) for pair in losses for v in pair):
         raise AssertionError('non-finite loss: {}'.format(losses))
@@ -1903,24 +1916,77 @@ def remote_classifier_scan(endpoint, device, train, state, warmup, calls, kernel
         'duplicate_chunks': diagnostics['duplicate_chunks'],
         'wire_decode_errors': diagnostics['wire_decode_errors'],
         'granted': diagnostics['wire'],
+        'timed_split': {'wall_s': wall, 'consumer_wait_s': wait_s,
+                        'reader_wait_s': stats.get('reader_wait_s', 0.0),
+                        'stage_dispatch_s': stats['stage_dispatch_s'],
+                        'arena_wait_s': stats.get('arena_wait_s', 0.0),
+                        'ready_wait_s': stats.get('ready_wait_s', 0.0),
+                        'credits_owed_start': owed0,
+                        'credits_owed_end': diagnostics['credits_owed'],
+                        'credits': REMOTE_CREDITS},
         'launches': _scan_launches(launches, captured, ran, warmup + calls, replays)}, **extra)
     return result, (launches, captured, ran, replays)
 
 
+def _server_counters(reader):
+    """The server's counters from its metrics: wire bytes by transport,
+    serialize seconds and their count, decode seconds and their count (the
+    reader's ``pst_decode_seconds``) and chunks served; and the chunks the
+    consumer received."""
+    received = reader.diagnostics['remote_chunks']     # first: served >= received
+    fleet = reader.fleet_metrics(timeout_ms=10000)
+    aggregate = fleet['aggregate']
+    by_transport, ser = wire_counters(aggregate)
+    decode = {'sum': 0.0, 'count': 0}
+    for s in (aggregate.get('pst_decode_seconds') or {}).get('samples', []):
+        decode['sum'] += s.get('sum', 0.0)
+        decode['count'] += s.get('count', 0)
+    return {'by_transport': by_transport, 'serialize': ser, 'decode': decode,
+            'served': sum(s['value'] for s in aggregate.get(
+                'pst_data_service_chunks_served_total', {}).get('samples', [])),
+            'received': received}
+
+
 def _server_hooks(proc, seen):
-    """While the stream is open: the server's metrics over the rpc socket,
-    and whether its process maps the CUDA driver or is among the card's
-    compute pids."""
-    def hooks(reader):
-        fleet = reader.fleet_metrics(timeout_ms=10000)
-        by_transport, ser = wire_counters(fleet['aggregate'])
+    """While the stream is open: the server's counters at the timed
+    window's start and end (:func:`_server_counters`), and whether its
+    process maps the CUDA driver or is among the card's compute pids. The
+    line gets the totals and, under ``timed_server``, the window's share:
+    chunks served, decode seconds a chunk and the decode threads' busy
+    share of the window's wall, serialize ms a chunk, bytes by transport,
+    and the chunks in flight at both ends (served and not yet received:
+    with the consumer's credits owed, what the server's credit lacks)."""
+    start = {}
+
+    def hooks(stage, reader):
+        counters = _server_counters(reader)
+        if stage == 'timed':
+            start.update(counters, t=time.perf_counter())
+            return {}
+        wall = time.perf_counter() - start['t']
         seen.update(server_pid=proc.pid, server_maps_cuda=maps_cuda_driver(proc.pid),
                     server_on_card=proc.pid in cuda_compute_pids())
-        return {'wire_bytes_by_transport': by_transport,
+        ser, decode = counters['serialize'], counters['decode']
+        served = counters['served'] - start['served']
+        d_count = decode['count'] - start['decode']['count']
+        d_sum = decode['sum'] - start['decode']['sum']
+        s_count = ser['count'] - start['serialize']['count']
+        s_sum = ser['sum'] - start['serialize']['sum']
+        return {'wire_bytes_by_transport': counters['by_transport'],
                 'serialize_ms_per_chunk': ser['sum'] / ser['count'] * 1e3 if ser['count'] else None,
                 'serialized_chunks': ser['count'],
-                'server_chunks_served': sum(s['value'] for s in fleet['aggregate'].get(
-                    'pst_data_service_chunks_served_total', {}).get('samples', []))}
+                'server_chunks_served': counters['served'],
+                'timed_server': {
+                    'wall_s': wall, 'chunks_served': served,
+                    'decode_calls': d_count, 'decode_s': d_sum,
+                    'decode_s_per_chunk': d_sum / served if served else None,
+                    'decode_busy_share': d_sum / wall if wall > 0 else None,
+                    'serialize_ms_per_chunk': s_sum / s_count * 1e3 if s_count else None,
+                    'wire_bytes_by_transport': {
+                        k: v - start['by_transport'].get(k, 0)
+                        for k, v in counters['by_transport'].items()},
+                    'in_flight_start': start['served'] - start['received'],
+                    'in_flight_end': counters['served'] - counters['received']}}
     return hooks
 
 
@@ -2737,8 +2803,12 @@ def start_fleet_worker(argv, env, timeout_s=120):
     return proc, json.loads(line)
 
 
-def finish_fleet_worker(proc, timeout_s=60):
-    """Wait for a worker that was asked to drain: (exit code, final line)."""
+def finish_fleet_worker(proc, timeout_s=60, delivered=False):
+    """Wait for a worker that was asked to drain: (exit code, final line).
+    ``delivered``: its consumer already took the stream's END, so a second
+    SIGTERM ends the drain grace the worker would otherwise wait out."""
+    if delivered and proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
     try:
         out, _ = proc.communicate(timeout=timeout_s)
     except subprocess.TimeoutExpired:
@@ -2748,15 +2818,28 @@ def finish_fleet_worker(proc, timeout_s=60):
     return proc.returncode, (lines[-1] if lines else None)
 
 
+def run_cli(main, argv):
+    """A command line's ``main(argv)`` in this process, its standard output
+    captured (no interpreter to start): (exit code, the output's text)."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            rc = main(argv)
+        except SystemExit as e:
+            rc = e.code
+    return rc or 0, out.getvalue()
+
+
 def fleet_status(rpc_endpoints, timeout_s=10.0):
-    """``python -m petastorm_tpu_torch.tools.fleet --status``: (exit code,
-    its JSON line)."""
-    proc = subprocess.run([sys.executable, '-m', 'petastorm_tpu_torch.tools.fleet', '--status',
-                           '--rpc'] + list(rpc_endpoints) + ['--timeout-s', str(timeout_s)],
-                          capture_output=True, text=True, timeout=120,
-                          env=fleet_worker_env(), cwd=ROOT)
-    lines = [line for line in proc.stdout.splitlines() if line.startswith('{')]
-    return proc.returncode, (json.loads(lines[-1]) if lines else None)
+    """``python -m petastorm_tpu_torch.tools.fleet --status`` (through
+    :func:`run_cli`): (exit code, its JSON line)."""
+    from petastorm_tpu_torch.tools import fleet as fleet_cli
+    rc, text = run_cli(fleet_cli.main, ['--status', '--rpc'] + list(rpc_endpoints)
+                       + ['--timeout-s', str(timeout_s)])
+    lines = [line for line in text.splitlines() if line.startswith('{')]
+    return rc, (json.loads(lines[-1]) if lines else None)
 
 
 def tenant_refusals(status):
@@ -2974,7 +3057,15 @@ def run_fleet_scale(url, device, card, state, workdir, remote_rate=None, workers
         launches = launch_counts()
         replays = train.replays - replays0
         ran = graph_launches(train, ('normalize_kernel',), replays)
-        w0_rc, w0_final = finish_fleet_worker(procs.pop('w0'))
+        w0_rc, w0_final = finish_fleet_worker(procs.pop('w0'), delivered=drain_sent is not None)
+        # The reference's worker starts now, reading nothing before its
+        # consumer attaches (``--await-cursor``), and runs after the noisy
+        # tenant's epoch.
+        ref_ledger = os.path.join(workdir, 'ledger-ref')
+        batches = int(lineage_stats.get('records') or 0)
+        ref_argv = fleet_worker_argv(url, sock('ref'), workers, quotas={'det': {}}, det=True,
+                                     drain_grace=5.0, await_cursor=True)
+        procs['ref'], ref = start_fleet_worker(ref_argv, fleet_worker_env(ring_bytes=ring))
         # -- the noisy tenant: one consumer takes the epoch, a second is refused
         with RemoteReader(w1['data_endpoint'], tenant='noisy') as noisy:
             noisy_rows = sum(int(np.asarray(chunk.label).shape[0]) for chunk in noisy)
@@ -2995,11 +3086,6 @@ def run_fleet_scale(url, device, card, state, workdir, remote_rate=None, workers
             'sent')
         stop_server(procs.pop('w1'))
         # -- the reference: the same stream, no scaling, a loader with no model step
-        ref_ledger = os.path.join(workdir, 'ledger-ref')
-        batches = int(lineage_stats.get('records') or 0)
-        ref_argv = fleet_worker_argv(url, sock('ref'), workers, quotas={'det': {}}, det=True,
-                                     drain_grace=5.0, await_cursor=True)
-        procs['ref'], ref = start_fleet_worker(ref_argv, fleet_worker_env(ring_bytes=ring))
         ref_pid = procs['ref'].pid
         maps[ref_pid] = maps_cuda_driver(ref_pid)
         t_ref = time.perf_counter()
@@ -3012,9 +3098,8 @@ def run_fleet_scale(url, device, card, state, workdir, remote_rate=None, workers
             ref_granted = remote.diagnostics['wire']
         ref_s = time.perf_counter() - t_ref
         stop_server(procs.pop('ref'))
-        diff = subprocess.run([sys.executable, '-m', 'petastorm_tpu_torch.tools.replay',
-                               '--diff-ledgers', ref_ledger, ledger], capture_output=True,
-                              text=True, timeout=300, env=fleet_worker_env(), cwd=ROOT)
+        from petastorm_tpu_torch.tools import replay as replay_cli
+        diff_rc, diff_out = run_cli(replay_cli.main, ['--diff-ledgers', ref_ledger, ledger])
     finally:
         if dance_thread.ident is not None:
             dance_thread.join(timeout=180)
@@ -3059,7 +3144,7 @@ def run_fleet_scale(url, device, card, state, workdir, remote_rate=None, workers
         'status_rc': [status_rc, status_end_rc],
         'reference': {'seconds': ref_s, 'img_per_s': batches * BATCH / ref_s,
                       'granted': ref_granted},
-        'diff_ledgers_rc': diff.returncode, 'diff_ledgers': diff.stdout.strip()[-2000:],
+        'diff_ledgers_rc': diff_rc, 'diff_ledgers': diff_out.strip()[-2000:],
         'segments_left': left,
         'workers_map_cuda': {str(pid): mapped for pid, mapped in maps.items()},
         'k1_graph': {'ran': ran['normalize_kernel'], 'expected': SCAN_K * replays,
@@ -3083,9 +3168,9 @@ def run_fleet_scale(url, device, card, state, workdir, remote_rate=None, workers
             noisy_refusal, refusals_end))
     if refusals_mid.get('det', 0) or refusals_end.get('det', 0):
         failures.append('det was refused: {} {}'.format(refusals_mid, refusals_end))
-    if diff.returncode != 0 or not batches:
+    if diff_rc != 0 or not batches:
         failures.append('the ledgers diverge (rc {}, {} batches): {}'.format(
-            diff.returncode, batches, diff.stdout.strip()[-400:]))
+            diff_rc, batches, diff_out.strip()[-400:]))
     if not out['kill_fired'] or len(Launcher.drained_ok) != 2 or not down.get('ok'):
         failures.append('kill {}, drains acknowledged {}, blackholed drain {}'.format(
             out['kill_fired'], Launcher.drained_ok, down))
@@ -3117,12 +3202,19 @@ def _run_into(errors, fn, *args):
 
 
 AUTOTUNE_INTERVAL_S = 0.25
-#: The convergence window: the counted calls start once the tuner has grown
-#: and then changed no knob (no grow, revert or shrink) for this many ticks,
-#: or after AUTOTUNE_CONVERGE_S seconds. A revert undoes a grow, so a grow
-#: that the guard reverted does not count as one the tuner settled on.
+#: The convergence window: the counted calls start once the tuner has grown,
+#: then changed no knob (no grow, revert or shrink) for this many ticks, and
+#: its last tick's class finds no knob to grow (``AutoTuner.can_grow``), or
+#: after AUTOTUNE_CONVERGE_S seconds. A revert undoes a grow, so a grow that
+#: the guard reverted does not count as one the tuner settled on; a pause
+#: between grows (a class that changes from tick to tick breaks the
+#: hysteresis) is not a settled tuner while the pipeline still starves.
+#: From one worker and one decode thread the ramp takes 18-30 s on an H100
+#: host when few grows are reverted, and up to 41 s when many are: a window
+#: that the cap started while the decode threads still grew read 0.59-0.80
+#: of decode (a), so the cap leaves room for the slow ramps.
 AUTOTUNE_SETTLE_TICKS = 8
-AUTOTUNE_CONVERGE_S = 30.0
+AUTOTUNE_CONVERGE_S = 45.0
 AUTOTUNE_MIN_RATIO = 0.90
 AUTOTUNE_MEM_CALLS = 3
 #: The memory cell's governor budget and the ballast that parks its ladder
@@ -3168,10 +3260,10 @@ def run_imagenet_autotune(url, device, card, state, decode_rate, warmup=3, calls
     knobs, under a decode-thread budget of 1 (the process's comes back
     after) and a fresh metrics registry. (a) Convergence: after ``warmup``
     calls, calls go on until the tuner's last grow, and every knob change
-    after it, is ``AUTOTUNE_SETTLE_TICKS`` ticks old, or
-    ``AUTOTUNE_CONVERGE_S`` seconds passed; then ``calls`` counted calls,
-    unprofiled, and as many timed. A line that fails a check is printed
-    before the phase raises.
+    after it, is ``AUTOTUNE_SETTLE_TICKS`` ticks old and its last tick's
+    class finds no knob to grow, or ``AUTOTUNE_CONVERGE_S`` seconds passed;
+    then ``calls`` counted calls, unprofiled, and as many timed. A line
+    that fails a check is printed before the phase raises.
     Fails unless K1 ran 8 times in each of the window's replays, the tuner
     grew at least once on a ``reader-starved`` or ``input-bound`` tick and
     ended above one worker, img/s is at least ``AUTOTUNE_MIN_RATIO`` of
@@ -3230,26 +3322,36 @@ def run_imagenet_autotune(url, device, card, state, decode_rate, warmup=3, calls
                 tuner = loader._autotuner
                 next_inputs = inputs_of(loader)
                 t0 = time.perf_counter()
-                settle_s = []
+                settle = {}
 
                 def settled():
                     at = tuner.stats()
                     changes = [d['tick'] for d in at['decisions']
                                if d['action'] in ('grow', 'revert', 'shrink')]
                     grew = any(d['action'] == 'grow' for d in at['decisions'])
-                    if ((grew and at['ticks'] - changes[-1] >= AUTOTUNE_SETTLE_TICKS)
-                            or time.perf_counter() - t0 >= AUTOTUNE_CONVERGE_S):
-                        settle_s.append(time.perf_counter() - t0)
-                        return True
-                    return False
+                    if (grew and at['ticks'] - changes[-1] >= AUTOTUNE_SETTLE_TICKS
+                            and not tuner.can_grow()):
+                        reason = 'ticks'
+                    elif time.perf_counter() - t0 >= AUTOTUNE_CONVERGE_S:
+                        reason = 'cap'
+                    else:
+                        return False
+                    settle.update(s=time.perf_counter() - t0, reason=reason, knobs=at['knobs'],
+                                  tick=at['ticks'])
+                    return True
 
-                metrics_, launches, captured, ran, _, replays = scan_window(
-                    train, state, next_inputs, warmup, calls, ('normalize_kernel',),
-                    profile=False, until=settled)
+                # The graph's kernels are counted after the timed calls: the
+                # walk takes the consumer away for about a second, which the
+                # tuner reads as a pipeline ahead of its trainer and answers
+                # with a shrink just before the timed window.
+                metrics_, launches, captured, _, _, replays = scan_window(
+                    train, state, next_inputs, warmup, calls, (), profile=False,
+                    until=settled)
                 window_s = time.perf_counter() - t0
                 loader.reset_stats()
                 wall, wait_s, call_ms, timed = time_scan_calls(train, state, next_inputs, calls)
                 stats = loader.stats
+                ran = graph_launches(train, ('normalize_kernel',), replays)
         time.sleep(0.1)
         left = {'threads': [t.name for t in threading.enumerate()
                             if t.name.startswith(THREAD_NAME) and t.is_alive()],
@@ -3260,11 +3362,19 @@ def run_imagenet_autotune(url, device, card, state, decode_rate, warmup=3, calls
         img_per_s = calls * SCAN_K * BATCH / wall
         grew = [d for d in at['decisions']
                 if d['action'] == 'grow' and d['class'] in (READER_STARVED, INPUT_BOUND)]
+        last_grow = max((d['tick'] for d in at['decisions'] if d['action'] == 'grow'),
+                        default=0)
+        record = _autotune_record(at)
         out['convergence'] = dict(
-            _autotune_record(at), img_per_s=img_per_s, step_ms=wall / (calls * SCAN_K) * 1e3,
+            record, img_per_s=img_per_s, step_ms=wall / (calls * SCAN_K) * 1e3,
             input_stall_frac=wait_s / wall, device_call_ms_median=call_ms,
             device_step_ms=call_ms / SCAN_K, settle_calls=len(metrics_) - calls,
-            settle_s=settle_s[0], window_s=window_s, counted_calls=calls, timed_calls=calls,
+            settle_s=settle['s'], settled_on=settle['reason'], knobs_at_window=settle['knobs'],
+            reverts_after_last_grow=sum(1 for d in at['decisions']
+                                        if d['action'] == 'revert' and d['tick'] > last_grow),
+            changes_after_settle=[d for d in record['decisions']
+                                  if d['tick'] > settle['tick']],
+            window_s=window_s, counted_calls=calls, timed_calls=calls,
             img_per_s_vs_decode_worker_decode=img_per_s / decode_rate,
             decode_s=stats['worker_stage_timings']['decode_s'], decoder=stats['decoder'],
             losses_mean_last=losses, left_after_close=left,

@@ -118,6 +118,9 @@ _env_float = control_plane.env_float
 #: must stay bounded even on sole-consumer streams where no failover
 #: permanently retires the endpoint.
 _PROBE_DEAD_BACKOFF_S = 30.0
+#: A control-thread rpc polls for its reply in slices of this many ms,
+#: checking between them whether the reader was stopped.
+_CONTROL_POLL_MS = 50
 _MISSING = object()
 
 
@@ -1421,6 +1424,7 @@ class RemoteReader(object):
         self._advertised = {}           # server_id -> served-chunk count
         self._server_errors = {}
         self._stopped = False
+        self._ctl_wake = threading.Event()    # set by stop(): the control loop's sleep ends
         self._nt_cache = {}
         self._last_lineage = None   # provenance of the latest chunk
         self._last_det = None       # deterministic-mode tag of the latest chunk
@@ -1511,6 +1515,7 @@ class RemoteReader(object):
         # the pickle tier, which its untagged frames already are.
         self._wire_caps = wire_mod.client_capabilities(force=wire)
         self._endpoint_wire = {}    # rpc ep -> grant dict from attach
+        self._rings_known = {}      # sid -> its shm rings not yet retired, oldest first
         self._wire_client = None    # lazily built on the first shm chunk
         self._wire_decode_errors = 0    # CRC/segment failures (chunk dropped)
         self._breakers = {}         # rpc endpoint -> retry.CircuitBreaker
@@ -1848,12 +1853,44 @@ class RemoteReader(object):
                     continue
             sid, seq = _META_STRUCT.unpack_from(meta)
             if tag is None:
-                return sid, seq, _load_frames(frames[1:])
-            cols = self._decode_tagged(tag, frames[1:])
-            if cols is None:
-                continue    # decode failure counted; replay/accounting
-            return sid, seq, cols   # catches a genuinely lost chunk
+                cols = _load_frames(frames[1:])
+            else:
+                cols = self._decode_tagged(tag, frames[1:])
+                if cols is None:
+                    # Decode failure counted; replay and the end's
+                    # accounting catch a genuinely lost chunk.
+                    continue
+            self._retire_passed(sid, cols)
+            return sid, seq, cols
         return None
+
+    def _wire(self):
+        """The shm tier's client, made at its first use (by the pump or the
+        control thread)."""
+        with self._acct_lock:
+            if self._wire_client is None:
+                self._wire_client = wire_mod.WireClient()
+            return self._wire_client
+
+    def _retire_passed(self, sid, cols):
+        """Retire the rings of server ``sid`` older than the one a chunk
+        arrived on. The server frees a consumer's ring before it makes the
+        next (an admission expiry, then a re-attach), and its stream is in
+        order, so no descriptor of an older ring can follow. A chunk of
+        another tier proves nothing: a consumer that lags may still have
+        an older ring's descriptors queued behind it."""
+        region = next((v._pst_wire_region for v in cols.values()
+                       if hasattr(v, '_pst_wire_region')), None)
+        if region is None:
+            return
+        with self._acct_lock:
+            known = self._rings_known.setdefault(sid, [])
+            if region.segment not in known:
+                known.append(region.segment)
+            passed = known[:known.index(region.segment)]
+            del known[:len(passed)]
+        for name in passed:
+            self._wire_client.retire_segment(name)
 
     def _decode_tagged(self, tag, frames):
         """Decode a non-legacy chunk (Arrow IPC bytes, or a shm ring
@@ -1871,9 +1908,7 @@ class RemoteReader(object):
             if tag == wire_mod.TAG_ARROW:
                 return wire_mod.decode_arrow(payload)
             if tag == wire_mod.TAG_SHM:
-                if self._wire_client is None:
-                    self._wire_client = wire_mod.WireClient()
-                return self._wire_client.decode_chunk(payload)
+                return self._wire().decode_chunk(payload)
             logger.warning('unknown wire transport tag %r — dropping chunk '
                            '(mixed-version fleet newer than this consumer?)',
                            tag)
@@ -2259,18 +2294,26 @@ class RemoteReader(object):
             raise RuntimeError('malformed rpc reply refused ({}: {})'.format(
                 type(e).__name__, e))
 
-    def _rpc_attempt(self, endpoint, request, timeout_ms):
+    def _rpc_attempt(self, endpoint, request, timeout_ms, control=False):
         """One REQ/REP round-trip on a fresh socket (REQ state machines
-        cannot be reused after a lost reply); RpcUnanswered on timeout."""
+        cannot be reused after a lost reply); RpcUnanswered on timeout.
+        ``control``: a control-thread rpc, which gives up as soon as the
+        reader is stopped (its owner's ``join`` must not wait out a slow
+        server's reply and the retries after it)."""
         zmq = self._zmq
         sock = self._context.socket(zmq.REQ)
         sock.setsockopt(zmq.LINGER, 0)
         try:
             sock.connect(endpoint)
             sock.send(self._rpc_dumps(request))
-            if not sock.poll(timeout_ms):
-                raise RpcUnanswered('{} gave no reply within {}ms'.format(
-                    endpoint, timeout_ms))
+            deadline = time.monotonic() + timeout_ms / 1000.0
+            while True:
+                left_ms = max(0, int((deadline - time.monotonic()) * 1000))
+                if sock.poll(min(left_ms, _CONTROL_POLL_MS) if control else left_ms):
+                    break
+                if left_ms == 0 or (control and self._stopped):
+                    raise RpcUnanswered('{} gave no reply within {}ms'.format(
+                        endpoint, timeout_ms))
             return self._rpc_loads(sock.recv())
         finally:
             sock.close(linger=0)
@@ -2289,20 +2332,24 @@ class RemoteReader(object):
                     reset_timeout_s=self._breaker_reset_s)
             return breaker
 
-    def _one_shot_rpc(self, endpoint, request, timeout_ms=10000):
+    def _one_shot_rpc(self, endpoint, request, timeout_ms=10000, control=False):
         """One logical rpc under the retry policy and the endpoint's
         circuit breaker: a dropped REP gets a fresh-socket retry (small
         jittered budget) instead of immediately branding the server dead;
         a server that misses whole budgets repeatedly opens the circuit
         and further calls return ``None`` instantly instead of hanging
-        the caller on a blackholed endpoint. ``None`` = unreachable."""
+        the caller on a blackholed endpoint. ``None`` = unreachable.
+        ``control``: see :meth:`_rpc_attempt`; no retry once stopped."""
         breaker = self._breaker(endpoint)
         if not breaker.allow():
             return None
+        if control and self._stopped:
+            return None
+        extra = {'control': True} if control else {}
         try:
             reply = self._rpc_retry_policy.call(
                 self._rpc_attempt, endpoint, request, timeout_ms,
-                retry_call_name='data-service-rpc')
+                retry_call_name='data-service-rpc', **extra)
         except RpcUnanswered:
             breaker.record_failure()
             return None
@@ -2413,7 +2460,7 @@ class RemoteReader(object):
                     break
             self._flush_credits()
             self._flush_wire_acks()
-            time.sleep(0.25)
+            self._ctl_wake.wait(0.25)
         # Best-effort detach: free the admission slot promptly instead of
         # letting it age out of the server's ledger.
         if self._stopped:
@@ -2441,12 +2488,12 @@ class RemoteReader(object):
         if cursor is not None:
             request['resume_cursor'] = cursor
         try:
-            reply = self._one_shot_rpc(endpoint, request, timeout_ms=2000)
+            reply = self._one_shot_rpc(endpoint, request, timeout_ms=2000, control=True)
         except Exception:  # noqa: BLE001 - control plane is best-effort
             reply = None
         now = time.monotonic()
         outcome = None
-        replaced_segment = None
+        replaced_segment = granted_segment = None
         with self._acct_lock:
             st = self._attach_state.setdefault(
                 endpoint, {'status': 'new', 'next_try': 0.0,
@@ -2480,7 +2527,8 @@ class RemoteReader(object):
                 self._endpoint_wire[endpoint] = (
                     reply.get('wire')
                     or {'transport': wire_mod.TRANSPORT_PICKLE})
-                if previous and previous != self._endpoint_wire[endpoint].get('segment'):
+                granted_segment = self._endpoint_wire[endpoint].get('segment')
+                if previous and previous != granted_segment:
                     # A new session's ring in place of an expired one: the
                     # server freed the old ring, so its map only holds memory.
                     replaced_segment = previous
@@ -2489,6 +2537,9 @@ class RemoteReader(object):
                 if sid is not None:
                     self._endpoint_sids[endpoint] = sid
                     self._sid_rpc[sid] = endpoint
+                    known = self._rings_known.setdefault(sid, [])
+                    if granted_segment is not None and granted_segment not in known:
+                        known.append(granted_segment)
                 was_announced = endpoint in self._reconnect_announce
                 self._reconnect_announce.discard(endpoint)
                 if reply.get('resume') == 'cursor':
@@ -2499,7 +2550,15 @@ class RemoteReader(object):
                     outcome = 'resumed'
                 elif was_announced:
                     outcome = 'redelivered'
-        if replaced_segment is not None and self._wire_client is not None:
+        if granted_segment is not None and granted_segment != previous:
+            # Map a new ring at once: the server frees it when this
+            # consumer's admission expires, and the descriptors it already
+            # sent on it must still decode from the map after that.
+            self._wire().can_map(granted_segment)
+        if replaced_segment is not None and sid is None and self._wire_client is not None:
+            # A server that names no id: its old ring is retired now. Else
+            # descriptors of it may still sit in the data socket, and the
+            # pump retires it once a chunk of a later ring arrives.
             self._wire_client.retire_segment(replaced_segment)
         if outcome is not None:
             # Reconnect accounting: 'resumed' = the replacement built its
@@ -2531,7 +2590,7 @@ class RemoteReader(object):
             try:
                 delivered = self._one_shot_rpc(
                     endpoint, {'cmd': 'credit', 'n': n},
-                    timeout_ms=1500) is not None
+                    timeout_ms=1500, control=True) is not None
             except Exception:  # noqa: BLE001 - restored below
                 logger.debug('credit grant to %s failed', endpoint,
                              exc_info=True)
@@ -2572,7 +2631,7 @@ class RemoteReader(object):
                 delivered = self._one_shot_rpc(
                     endpoint, {'cmd': 'wire_ack',
                                'consumer': self._consumer_id, 'seqs': seqs},
-                    timeout_ms=1500) is not None
+                    timeout_ms=1500, control=True) is not None
             except Exception:  # noqa: BLE001 - requeued below
                 logger.debug('wire ack flush to %s failed', endpoint,
                              exc_info=True)
@@ -2834,6 +2893,7 @@ class RemoteReader(object):
             wire_tiers = {ep: (g or {}).get('transport')
                           for ep, g in self._endpoint_wire.items()}
             wire_decode_errors = self._wire_decode_errors
+            credits_owed = sum(self._credit_owed.values())
         return {'remote_chunks': self._chunks,
                 'servers': self._n_servers,
                 'servers_ended': len(self._ended_server_ids),
@@ -2856,6 +2916,9 @@ class RemoteReader(object):
                 # outlived its segment across a server restart).
                 'wire': wire_tiers,
                 'wire_decode_errors': wire_decode_errors,
+                # Chunks received and not yet granted back to their
+                # servers as credit (flow control; 0 without it).
+                'credits_owed': credits_owed,
                 # Seconds since each server's last chunk: a server gone
                 # silent (SIGKILL, network partition) shows a growing age
                 # here long before the end-of-epoch accounting notices.
@@ -2868,6 +2931,7 @@ class RemoteReader(object):
         # (otherwise the iterating thread closes at its next poll tick,
         # which is at most poll_timeout_s away).
         self._stopped = True
+        self._ctl_wake.set()
         if self._sock_lock.acquire(blocking=False):
             try:
                 self._close_sockets()

@@ -576,6 +576,7 @@ class ServerWire(object):
         self._mem_degraded = False
         self._rings = {}            # consumer id -> ShmSegmentRing
         self._rings_made = 0        # numbers each session's segment name
+        self._closed = False        # close() ran: no ring is made after it
         self._lock = threading.Lock()
         self._m = wire_metrics()
         from petastorm_tpu_torch import membudget
@@ -597,7 +598,7 @@ class ServerWire(object):
         if tier == TRANSPORT_SHM:
             with self._lock:
                 ring = self._rings.get(consumer)
-                if ring is None:
+                if ring is None and not self._closed:
                     # The session number ends the name: a consumer whose
                     # admission expired keeps its old ring mapped (views,
                     # chunks in flight), and its map cache is by name.
@@ -612,14 +613,18 @@ class ServerWire(object):
                         logger.warning('wire segment create failed; '
                                        'downgrading %s to arrow/pickle',
                                        consumer, exc_info=True)
-                        reply['transport'] = (
-                            TRANSPORT_ARROW
-                            if arrow_available() and
-                            TRANSPORT_ARROW in (caps or {}).get(
-                                'transports', ())
-                            else TRANSPORT_PICKLE)
-                        return reply
-                    self._rings[consumer] = ring
+                    else:
+                        self._rings[consumer] = ring
+            if ring is None:
+                # No ring could be made, or the server is stopping (an
+                # attach its rpc thread answers after close() would make
+                # a ring nothing unlinks).
+                reply['transport'] = (
+                    TRANSPORT_ARROW
+                    if arrow_available() and
+                    TRANSPORT_ARROW in (caps or {}).get('transports', ())
+                    else TRANSPORT_PICKLE)
+                return reply
             reply['segment'] = ring.name
             reply['capacity'] = ring.capacity
         return reply
@@ -745,6 +750,7 @@ class ServerWire(object):
                            'segment(s) behind for the next sweep')
         with self._lock:
             rings, self._rings = dict(self._rings), {}
+            self._closed = True
         for ring in rings.values():
             ring.close(unlink=not leak)
         self._mem_handle.close()

@@ -849,7 +849,9 @@ class TorchLoader(object):
         capacity, the waits on the reader, on an arena and on a copy
         (counters; with ``prefetch=0`` the inline split of the consumer's
         own staging; a copy from pageable memory counts as a wait on the
-        copy), and the reader's gauges."""
+        copy), and the reader's gauges. Under :meth:`superbatches` also the
+        delivered count and the time at the end of the last take
+        (``take_batches``, ``take_t``)."""
         out = {'batches': self._batches, 'wait_s': self._wait_s,
                'queue_depth': self._queue.qsize() if self._queue is not None else 0,
                'queue_capacity': self._prefetch_target,
@@ -862,6 +864,9 @@ class TorchLoader(object):
         else:
             out['reader_wait_s'] = self._inline_reader_s
             out['ready_wait_s'] = self._inline_dispatch_s
+        take = self._take
+        if take is not None:
+            out['take_batches'], out['take_t'] = take
         if self._reader_telemetry is not None:
             reader_out = self._reader_telemetry()
             # The rate the guard judges is the loader's delivered batches.
@@ -1131,6 +1136,9 @@ class TorchLoader(object):
     def _reset_counters(self):
         with self._stats_lock:
             self._batches = 0
+            # The end of the consumer's last take of a superbatch: the
+            # delivered count and the time (the autotuner's guard on takes).
+            self._take = None
             self._rows = 0
             self._wait_s = 0.0
             self._first_get_t = None
@@ -1441,6 +1449,7 @@ class TorchLoader(object):
             if self._pending_fresh_rows:
                 self._reader.rows_consumed(self._pending_fresh_rows)
                 self._pending_fresh_rows = 0
+            self._take = (self._batches, time.monotonic())
             batch = type(parts[0])(*(torch.cat(columns) for columns in zip(*parts)))
             del parts          # the parts (and on the CPU their arenas) go before the yield
             yield batch

@@ -396,34 +396,51 @@ class BurstPipeline(object):
     """A consumer that takes its batches in bursts of ``burst`` (a scan
     trainer's superbatch), as many a second as ``per_worker`` workers
     supply, up to ``demand``: phase 26's telemetry on a synthetic clock.
-    The reader's starvation accrues evenly; the batches land per burst."""
+    The reader's starvation accrues evenly; the batches land per burst.
+    ``rates=(one, more)`` sets the supply instead: ``one`` with one worker,
+    ``more`` with more. ``takes`` adds the loader's take marks
+    (``take_batches``, ``take_t``: the count and the exact time at the end
+    of the last burst), as ``TorchLoader.superbatches`` reports them."""
 
-    def __init__(self, per_worker=4.0, demand=32.0, burst=8, workers=1):
+    def __init__(self, per_worker=4.0, demand=32.0, burst=8, workers=1, rates=None, takes=True):
         self.per_worker, self.demand, self.burst = per_worker, demand, burst
-        self.workers = workers
+        self.workers, self.rates, self.takes = workers, rates, takes
         self.t = 0.0
         self.supplied = 0.0
         self.batches = 0.0
         self.wait_s = 0.0
+        self.take_t = None
+
+    def rate(self):
+        if self.rates is not None:
+            return self.rates[0] if self.workers == 1 else self.rates[1]
+        return min(self.workers * self.per_worker, self.demand)
 
     def advance(self, dt):
-        rate = min(self.workers * self.per_worker, self.demand)
+        rate = self.rate()
+        before = self.supplied
         self.supplied += rate * dt
-        self.batches = self.burst * (self.supplied // self.burst)
+        batches = self.burst * (self.supplied // self.burst)
+        if batches > self.batches:
+            self.take_t = self.t + (batches - before) / rate
+            self.batches = batches
         self.wait_s += (1.0 - rate / self.demand) * dt
         self.t += dt
 
     def telemetry(self):
-        return {'batches': self.batches, 'wait_s': self.wait_s, 'reader_wait_s': self.wait_s,
-                'ready_wait_s': 0.0, 'queue_depth': 0, 'queue_capacity': 4}
+        out = {'batches': self.batches, 'wait_s': self.wait_s, 'reader_wait_s': self.wait_s,
+               'ready_wait_s': 0.0, 'queue_depth': 0, 'queue_capacity': 4}
+        if self.takes and self.take_t is not None:
+            out.update(take_batches=self.batches, take_t=self.take_t)
+        return out
 
     def workers_knob(self, mod):
         return mod.Knob('workers', lambda: self.workers,
                         lambda n: setattr(self, 'workers', n), lo=1, hi=8)
 
 
-def _burst_run(mod, seconds=40.0):
-    sim = BurstPipeline()
+def _burst_run(mod, seconds=40.0, **kwargs):
+    sim = BurstPipeline(**kwargs)
     tuner = mod.AutoTuner(sim.telemetry, {'workers': sim.workers_knob(mod)},
                           config=mod.AutotuneConfig(interval_s=0.25))
     for _ in range(int(seconds / 0.25)):
@@ -434,12 +451,117 @@ def _burst_run(mod, seconds=40.0):
 
 def test_the_tuner_equals_jax_on_bursty_telemetry():
     """Phase 26's telemetry: a consumer that takes 8 batches a burst, read
-    on 0.25 s ticks. The port's tuner decides as the JAX package's, the
-    reverts the bursts' noise trips included (ROADMAP section C)."""
-    got, got_workers = _burst_run(pat)
-    want, want_workers = _burst_run(jat)
+    on 0.25 s ticks, at a supply that no grow cuts. Counted on ticks alone
+    (no take marks), the port's tuner decides as the JAX package's, the
+    reverts the bursts' noise trips included. With the take marks the port
+    judges on takes and keeps every grow over 40 s, while the JAX package's
+    one-tick guard reverts: a difference by design (ROADMAP section C)."""
+    got, got_workers = _burst_run(pat, takes=False)
+    want, want_workers = _burst_run(jat, takes=False)
     assert got == want and got_workers == want_workers
     assert want['reverts'] > 0, 'the bursts must trip the one-tick guard'
+    got, got_workers = _burst_run(pat)
+    want, want_workers = _burst_run(jat)
+    assert got['reverts'] == 0, got['decisions']
+    assert got_workers == 8
+    assert [d['action'] for d in got['decisions']] == ['grow'] * 7
+    assert want['reverts'] > 0 and want_workers < 8
+
+
+def test_a_grow_that_cuts_a_bursty_supply_is_reverted():
+    """Bursts of 8 at 24 batches/s with one worker and 16.8 (30% less) with
+    two: on takes the port reverts every grow past one worker; the JAX
+    package's one-tick guard lets the first stand."""
+    got, _ = _burst_run(pat, rates=(24.0, 16.8))
+    actions = [d['action'] for d in got['decisions']]
+    assert actions[:20] == ['grow', 'revert'] * 10, actions
+    assert max(p['workers'] for p in got['trajectory']) == 2
+    reverts = [d for d in got['decisions'] if d['action'] == 'revert']
+    assert all(d['basis'] == 'takes' and d['rate'] < 0.85 * 24.0 for d in reverts)
+    want, want_workers = _burst_run(jat, rates=(24.0, 16.8))
+    assert want_workers > 1
+
+
+def test_the_take_verdict_waits_for_a_take():
+    """A grow judged on takes waits for a take a settling window after it;
+    with none for ``TAKE_VERDICT_WAIT_WINDOWS`` windows, the delivered count
+    since the action judges it (here none: the grow is reverted)."""
+    state = {'workers': 1, 'batches': 0, 'take_t': None, 'wait_s': 0.0}
+
+    def telemetry():
+        return {'batches': state['batches'], 'wait_s': state['wait_s'],
+                'reader_wait_s': state['wait_s'], 'queue_depth': 0, 'queue_capacity': 4,
+                'take_batches': state['batches'], 'take_t': state['take_t']}
+
+    config = pat.AutotuneConfig(interval_s=0.25, hysteresis=1, cooldown=2)
+    tuner = pat.AutoTuner(telemetry, {'workers': pat.Knob(
+        'workers', lambda: state['workers'], lambda n: state.__setitem__('workers', n), 1, 8)},
+        config=config)
+
+    def tick(t, take=False, starved=True):
+        if starved:
+            state['wait_s'] += 0.25       # the consumer waited the whole tick
+        if take:
+            state['batches'] += 8
+            state['take_t'] = t
+        return tuner.tick(now=t)
+
+    for i in range(8):                    # fed: takes of 8 every 0.25 s, 32 batches/s
+        assert tick(0.25 * i, take=True, starved=False) is None
+    grow = tick(2.0, take=True)
+    assert grow['action'] == 'grow' and state['workers'] == 2
+    assert tuner._pending['base_rate'] == pytest.approx(32.0)
+    windows = pat.TAKE_VERDICT_WAIT_WINDOWS * 2   # ticks (a window is 2 ticks)
+    for i in range(1, windows):
+        assert tick(2.0 + 0.25 * i) is None
+    assert state['workers'] == 2, 'judged before the wait ran out'
+    decision = tick(2.0 + 0.25 * windows)
+    assert decision['action'] == 'revert' and state['workers'] == 1
+    assert decision['rate'] == 0.0 and decision['basis'] == 'takes'
+
+
+@pytest.mark.parametrize('label', [pat.READER_STARVED, pat.INPUT_BOUND, pat.DISPATCH_BOUND,
+                                   pat.ARENA_BOUND, pat.CONSUMER_BOUND, pat.BALANCED])
+def test_can_grow_says_whether_a_tick_of_the_class_would_grow(label):
+    """``can_grow`` is True exactly when a tick of the class grows a knob:
+    knobs below their clamps, then at them (phase 26 settles only on a
+    class with nothing left to grow)."""
+    boxes = {name: {'value': 1} for name in ('workers', 'decode_threads', 'results_watermark',
+                                             'arena_pinned', 'inflight', 'prefetch',
+                                             'arena_depth')}
+
+    def tuner():
+        return pat.AutoTuner(lambda: {}, {name: _box_knob(pat, name, box, 1, 4)
+                                          for name, box in boxes.items()})
+
+    grows = tuner()._grow(label) != []
+    assert tuner().can_grow(label) is grows
+    assert grows is (label not in (pat.CONSUMER_BOUND, pat.BALANCED))
+    for box in boxes.values():
+        box['value'] = 4
+    probe = tuner()
+    assert probe.can_grow(label) is False and probe._grow(label) == []
+    probe.last_class = label
+    assert probe.can_grow() is False
+
+
+def test_the_loader_reports_its_takes(url):
+    """Under ``superbatches(k)`` the loader's telemetry carries the count and
+    the time at the end of the last take; iterated batch by batch, none."""
+    with make_tensor_reader(url, schema_fields=['id', 'matrix'], workers_count=1, num_epochs=1,
+                            shuffle_row_groups=False, autotune=False) as reader:
+        with TorchLoader(reader, 5, device='cpu', autotune=False) as loader:
+            next(iter(loader))
+            assert 'take_t' not in loader._autotune_telemetry()
+            before = time.monotonic()
+            groups = loader.superbatches(3)
+            next(groups)
+            out = loader._autotune_telemetry()
+            assert out['take_batches'] == 4 and before <= out['take_t'] <= time.monotonic()
+            next(groups)
+            assert loader._autotune_telemetry()['take_batches'] == 7
+            loader.reset_stats()
+            assert 'take_t' not in loader._autotune_telemetry()
 
 
 def test_stop_retires_the_gauges_and_leaves_other_pipelines():
@@ -1223,6 +1345,8 @@ def test_autotune_cell_glue_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(bench, 'scan_window', scan_window)
     monkeypatch.setattr(bench, 'time_scan_calls', time_scan_calls)
     monkeypatch.setattr(bench, 'require_scan_launches', lambda *args: None)
+    monkeypatch.setattr(bench, 'graph_launches',
+                        lambda train, kernels, replays: dict.fromkeys(kernels, 0))
     monkeypatch.setattr(models_mod, 'make_scan_train_step', lambda k, preprocess=None: step)
     for name in ('reset_peak_memory_stats', 'empty_cache'):
         monkeypatch.setattr(torch.cuda, name, lambda *args, **kwargs: None)
@@ -1243,5 +1367,7 @@ def test_autotune_cell_glue_on_the_cpu(tmp_path, monkeypatch):
     assert [w for _, w, _ in a['workers_decode_threads']] == [1, 2, 3]
     assert a['left_after_close'] == {'threads': [], 'gauges': []}
     assert a['settle_s'] <= a['window_s']
+    assert a['settled_on'] == 'ticks' and a['knobs_at_window']['workers'] == 3
+    assert a['reverts_after_last_grow'] == 0 and a['changes_after_settle'] == []
     assert b['mem_shrinks'] >= 1 and set(b['decisions_by_action']) == {'mem-shrink'}
     assert b['pressure_level'] == 1 and b['mem_state'] == 'advisory'

@@ -205,3 +205,59 @@ def test_filtered_cell_checks_hold_on_the_cpu(workdir, split):
             return np.concatenate([np.asarray(c.label) for c in reader])
 
     np.testing.assert_array_equal(stream('thread'), stream('dummy'))
+
+
+def test_the_remote_variant_splits_its_timed_window_on_the_cpu(workdir, tmp_path, monkeypatch):
+    """Phase 27 (a)'s glue on the CPU at a small size: a serve-CLI server
+    over the tiny store feeding ``RemoteReader`` -> ``TorchLoader`` ->
+    ``superbatches``, the scan window and the timed calls replaced by host
+    versions. The line splits the timed window: the consumer's side (its
+    wait, the reader wait, credits owed at both ends) and the server's
+    (chunks served, decode seconds a chunk, serialize ms a chunk, bytes by
+    transport, the chunks in flight at both ends)."""
+    import time
+
+    from torch_service_helpers import ipc_dir
+
+    def step(state, x, y):
+        return {'loss': torch.ones(()), 'last_loss': torch.ones(())}
+
+    def scan_window(train, state, next_inputs, warmup, calls, kernels, profile=True, until=None):
+        metrics = [train(state, *next_inputs()) for _ in range(warmup + calls)]
+        return metrics, {}, {}, {'normalize_kernel': 0}, None, 0
+
+    def time_scan_calls(train, state, next_inputs, calls):
+        out, wait_s, t0 = [], 0.0, time.perf_counter()
+        for _ in range(calls):
+            t1 = time.perf_counter()
+            inputs = next_inputs()
+            wait_s += time.perf_counter() - t1
+            out.append(train(state, *inputs))
+        return time.perf_counter() - t0, wait_s, 1.0, out
+
+    monkeypatch.setattr(bench, 'scan_window', scan_window)
+    monkeypatch.setattr(bench, 'time_scan_calls', time_scan_calls)
+    monkeypatch.setattr(bench, 'require_scan_launches', lambda *args: None)
+    monkeypatch.setattr(bench, 'cuda_compute_pids', lambda: [])
+    monkeypatch.setattr(bench, 'ROWS', ROWS)
+    monkeypatch.setattr(bench, 'BATCH', BATCH)
+    monkeypatch.setattr(bench, 'SCAN_K', 2)
+    monkeypatch.setattr(bench, 'SCAN_PREFETCH', 2)
+    monkeypatch.setattr(torch.cuda, 'empty_cache', lambda: None)
+    chunk = PER_GROUP * 32 * 32 * 3 + PER_GROUP * 8
+    line = bench._remote_variant(bench.ensure_imagenet_store(workdir), torch.device('cpu'), step,
+                                 None, ipc_dir(tmp_path), 'remote-a', 2, 3, 2, None,
+                                 bench.remote_ring_bytes(chunk, 16))
+    assert line['failures'] == [] and line['segments_left'] == []
+    assert line['rows_delivered'] == (2 + 2 * 3) * 2 * BATCH
+    split, server = line['timed_split'], line['timed_server']
+    assert split['wall_s'] > 0 and 0 <= split['consumer_wait_s'] <= split['wall_s']
+    assert split['credits'] == bench.REMOTE_CREDITS
+    assert 0 <= split['credits_owed_start'] <= bench.REMOTE_CREDITS
+    assert 0 <= split['credits_owed_end'] <= bench.REMOTE_CREDITS
+    assert server['chunks_served'] >= 0 and server['wall_s'] > 0
+    assert server['decode_calls'] >= 0 and server['decode_s'] >= 0
+    assert set(server['wire_bytes_by_transport']) <= {'shm', 'arrow', 'pickle'}
+    assert sum(line['wire_bytes_by_transport'].values()) > 0
+    assert server['in_flight_start'] >= 0 and server['in_flight_end'] >= 0
+    assert line['server']['exit_code'] is not None

@@ -1180,16 +1180,55 @@ def test_a_server_process_imports_neither_torch_nor_jax(service_dataset, sock):
 
 
 def test_no_service_thread_outlives_its_owners(service_dataset, sock):
+    """The service threads this server and reader started end with them:
+    each is joined (5 s in all), and none is left alive. Threads of other
+    tests in the process are not this test's owners'."""
+    before = set(threading.enumerate())
     with serve_dataset(service_dataset, ipc(sock, 'd'), num_epochs=1, seed=0) as server:
         with RemoteReader(server.data_endpoint) as remote:
+            owned = [t for t in threading.enumerate()
+                     if t not in before and t.name.startswith('pstt-data-service')]
             _ids(remote)
+    assert {t.name for t in owned} >= {'pstt-data-service-serve', 'pstt-data-service-rpc',
+                                       'pstt-data-service-client'}
     deadline = time.monotonic() + 5
-    while time.monotonic() < deadline:
-        left = [t.name for t in threading.enumerate() if t.name.startswith('pstt-data-service')]
-        if not left:
-            break
-        time.sleep(0.05)
+    for thread in owned:
+        thread.join(max(0.0, deadline - time.monotonic()))
+    left = [t.name for t in owned if t.is_alive()]
     assert not left
+
+
+def test_a_stopped_readers_control_thread_ends_during_a_silent_rpc(service_dataset, sock,
+                                                                   monkeypatch):
+    """A server that stops answering the control plane's rpcs (credit
+    grants here) must not hold the reader's control thread past its
+    owner's ``stop()`` and ``join()``: the rpc in flight gives up at once,
+    not after its timeout and the retries behind it (under load that wait
+    outlived the owners, ``test_no_service_thread_outlives_its_owners``)."""
+    silent = threading.Event()
+    with serve_dataset(service_dataset, ipc(sock, 'd'), num_epochs=1, seed=0) as server:
+        handle = server._handle_rpc
+
+        def handle_rpc(request):
+            if request.get('cmd') == 'credit':
+                silent.set()
+                time.sleep(3.0)         # past the grant's 1.5 s poll
+            return handle(request)
+
+        monkeypatch.setattr(server, '_handle_rpc', handle_rpc)
+        remote = RemoteReader(server.data_endpoint, flow_control=2)
+        try:
+            for _ in range(2):          # the window: the grant of both goes out at once
+                next(remote)
+            assert silent.wait(30), 'no credit rpc reached the server'
+            thread = remote._ctl_thread
+            assert thread is not None and thread.is_alive()
+        finally:
+            t0 = time.monotonic()
+            remote.stop()
+            remote.join()
+            joined_s = time.monotonic() - t0
+        assert not thread.is_alive() and joined_s < 1.0, joined_s
 
 
 # -- the example ---------------------------------------------------------------------------------

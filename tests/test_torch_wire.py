@@ -409,6 +409,27 @@ def test_sweep_stale_segments_touches_only_the_ports(tmp_path):
 
 
 @needs_shm
+def test_a_closed_server_wire_makes_no_ring():
+    """An attach answered after the server closed its wire (stop() closes it
+    before the rpc thread ends) is granted no ring: nothing would unlink it."""
+    server_id = os.urandom(16)
+    sw = wire.ServerWire(server_id)
+    caps = wire.client_capabilities()
+    granted = sw.negotiate('c1', caps, sole_consumer=True)
+    assert granted['transport'] == SHM
+    sw.close()
+    try:
+        reply = sw.negotiate('c2', caps, sole_consumer=True)
+        assert reply['transport'] != SHM and 'segment' not in reply
+        assert sw.segments() == {}
+        assert not os.path.exists(os.path.join(shm_ring.shm_dir(), granted['segment']))
+        made = '{}{}-c2-'.format(wire.SEGMENT_PREFIX, server_id.hex()[:12])
+        assert not [n for n in shm_ring.list_segments(wire.SEGMENT_PREFIX) if n.startswith(made)]
+    finally:
+        sw.close()
+
+
+@needs_shm
 def test_wire_segment_leak_drill(monkeypatch):
     sw = wire.ServerWire(b'leakdrill-server')
     reply = sw.negotiate('c1', wire.client_capabilities(), sole_consumer=True)
@@ -439,6 +460,11 @@ def _drain_tier(bind, tier, sids):
         with RemoteReader(server.data_endpoint) as remote:
             _release_on_attach(server)
             chunks = _drain(remote)
+            # Under load the attach's reply can come after the stream's end
+            # (its first try timed out, the server had already admitted).
+            deadline = time.monotonic() + 10
+            while not remote._endpoint_wire and time.monotonic() < deadline:
+                time.sleep(0.02)
             grants = dict(remote.fleet_metrics(timeout_ms=2000)['wire'])
     finally:
         server.stop()
@@ -460,6 +486,28 @@ def test_shm_epoch_bit_identical_to_pickle_and_arrow(sock):
         assert len(got) == len(base) == len(sids)
         for (v1, s1), (v2, s2) in zip(base, got):
             assert v1.tobytes() == v2.tobytes() and s1.tobytes() == s2.tobytes()
+
+
+@needs_shm
+def test_acks_reach_the_server_after_the_stream_ended(sock):
+    """Once a stream has ended the consumer still flushes the acks of the
+    views it released, so the server's ring empties (the card test of a
+    scan graph replaying over a ring of 8 chunks reads the same)."""
+    server = _serve_attached(make_stream_reader([0, 100, 200, 300, 400, 500]), ipc(sock, 'd'),
+                             SHM)
+    try:
+        with RemoteReader(server.data_endpoint, flow_control=2) as remote:
+            _release_on_attach(server)
+            assert len(_drain(remote)) == 6
+            gc.collect()
+            ring = next(iter(server._wire._rings.values()))
+            deadline = time.monotonic() + 10
+            while ring.used_bytes and time.monotonic() < deadline:
+                remote._flush_wire_acks()
+                time.sleep(0.02)
+            assert ring.used_bytes == 0
+    finally:
+        server.stop()
 
 
 @needs_shm
@@ -567,14 +615,29 @@ def _mapped(client):
 
 
 def _read_past_a_starved_reattach(package, sock, monkeypatch, stalls=(3,), keep=True,
-                                  mappings=None):
+                                  mappings=None, held=None, lag=False):
     """A sole shm consumer (4 credits) of a server with a 0.3 s lease stops
-    re-attaching for 2 s, past the server's 3-lease admission expiry, after
-    each chunk index in ``stalls``, while it holds the chunks it read
-    (``keep``), then reads on. Returns the rows it got, the chunks it
-    dropped as undecodable, and each shm ring the server granted, as (name,
-    inode), in order. ``mappings``, a list, gets the rings the port
-    consumer maps two chunks after each stall and just before it closes."""
+    re-attaching after each chunk index in ``stalls`` until the server has
+    expired its admission (3 leases without a renew), while it holds the
+    chunks it read (``keep``), then reads on. Returns the rows it got, the
+    chunks it dropped as undecodable, and each shm ring the server granted,
+    as (name, inode), in order.
+
+    At each stall the server sends one chunk after the expiry (no ring:
+    another tier) and waits until the consumer has heard of the ring its
+    re-attach was granted. A stall after the first waits, from its index
+    on, for a chunk of a ring the consumer had not read at the stall
+    before, so that the consumer has caught up with the newest ring when it
+    stalls. With ``lag`` it stalls at the index itself, and the server
+    sends one chunk on the new ring and waits again, until the last stall:
+    each new ring is freed with a chunk of it queued, unread, behind chunks
+    of other tiers.
+
+    ``mappings``, a list, gets the rings the port consumer maps at each
+    stall, just before it stalls, and just before it closes, which waits
+    until the consumer holds the newest ring the server granted; ``held``, a
+    list, gets how many rings the server had granted when it did (0 if it
+    never did)."""
     mod = jds if package == 'jax' else ds
     bind = ipc(sock, 'd')
     ctrl, rpc = endpoints(bind)
@@ -594,6 +657,33 @@ def _read_past_a_starved_reattach(package, sock, monkeypatch, stalls=(3,), keep=
         return reply
 
     monkeypatch.setattr(server._wire, 'negotiate', granting)
+    park, parking = [], threading.Lock()
+    encode = server._wire.encode
+
+    def encoding(*args, **kwargs):
+        tag, frames = encode(*args, **kwargs)
+        ring = json.loads(bytes(frames[0]))['segment'] if tag == wire.TAG_SHM else None
+        with parking:
+            if park and park[0][0](ring):
+                server._pause.set()
+                park.pop()[1].set()
+        return tag, frames
+
+    def park_after(sent):
+        """Let the server send until a chunk on a ring for which ``sent``
+        holds, then park it; the event is set once it parks."""
+        parked = threading.Event()
+        with parking:
+            park[:] = [(sent, parked)]
+            server._pause.clear()
+        return parked
+
+    def run_free():
+        with parking:
+            park.clear()
+            server._pause.clear()
+
+    monkeypatch.setattr(server._wire, 'encode', encoding)
     server._pause.set()
     server.start()
     stall = threading.Event()
@@ -610,9 +700,12 @@ def _read_past_a_starved_reattach(package, sock, monkeypatch, stalls=(3,), keep=
 
         def closing(self):
             if not self._closed and self._wire_client is not None:
+                newest = len(rings) if heard(0) else 0
                 gc.collect()
                 self._wire_client.drain_acks()
                 mappings.append(_mapped(self._wire_client))
+                if held is not None:
+                    held.append(newest)
             return close_sockets(self)
 
         monkeypatch.setattr(mod.RemoteReader, '_close_sockets', closing)
@@ -620,19 +713,59 @@ def _read_past_a_starved_reattach(package, sock, monkeypatch, stalls=(3,), keep=
     remote = mod.RemoteReader(server.data_endpoint, control_endpoints=[ctrl],
                               rpc_endpoints=[rpc], flow_control=4)
 
+    def expired():
+        """Until the server pruned the consumer's admission and freed its
+        ring (30 s at most)."""
+        deadline = time.monotonic() + 30
+        while ((server._admission.count() > 0 or server._wire._rings)
+               and time.monotonic() < deadline):
+            time.sleep(0.02)
+
+    def heard(before):
+        """Until the consumer holds the newest ring, granted after ``before``
+        rings (30 s at most); whether it does."""
+        deadline = time.monotonic() + 30
+        while True:
+            holds = (len(rings) > before and (remote._endpoint_wire.get(rpc) or {})
+                     .get('segment') == rings[-1][0])
+            if holds or time.monotonic() >= deadline:
+                return holds
+            time.sleep(0.02)
+
     def consume():
+        due, stalled_on = sorted(stalls), set()
         try:
             for i, chunk in enumerate(remote):
                 if keep:
                     kept.append(chunk)
                 rows.extend(int(x) for x in chunk.sid)
+                ring = getattr(getattr(chunk.sid, '_pst_wire_region', None), 'segment', None)
                 del chunk
-                if i in stalls:
-                    stall.set()
-                    time.sleep(2.0)
-                    stall.clear()
-                if mappings is not None and i - 2 in stalls:
-                    mappings.append(_mapped(remote._wire_client))
+                if not due or i < due[0]:
+                    continue
+                if stalled_on and not lag and ring in stalled_on | {None}:
+                    continue
+                due.pop(0)
+                stalled_on.add(ring)
+                if mappings is not None:
+                    # No view of a ring a re-attach replaced is left: each
+                    # chunk of it came before the expiry this stream read past.
+                    gc.collect()
+                    client = remote._wire_client
+                    for segment, seqs in client.drain_acks().items():
+                        client.requeue_acks(segment, seqs)
+                    mappings.append(_mapped(client))
+                before = len(rings)
+                gap = park_after(lambda ring: ring is None)
+                stall.set()
+                expired()
+                gap.wait(30)
+                stall.clear()
+                heard(before)
+                if lag:
+                    park_after(lambda ring: ring == rings[-1][0]).wait(30)
+                if not lag or not due:
+                    run_free()
         except Exception:  # noqa: BLE001 - the stream's end is what is read
             pass
         finally:
@@ -646,12 +779,15 @@ def _read_past_a_starved_reattach(package, sock, monkeypatch, stalls=(3,), keep=
         server._pause.clear()
         thread = threading.Thread(target=consume, daemon=True)
         thread.start()
-        # Until the stream ends, or it stalls on the chunks it dropped.
+        # Until the stream ends, or it stalls short of it on the chunks it
+        # dropped as undecodable.
+        deadline = time.monotonic() + 120
         last, still = -1, time.monotonic()
         while not done.wait(0.1) and time.monotonic() < deadline:
             if len(rows) != last:
                 last, still = len(rows), time.monotonic()
-            elif not stall.is_set() and time.monotonic() - still > 2.0:
+            elif (not stall.is_set() and remote.diagnostics['wire_decode_errors']
+                  and time.monotonic() - still > 2.0):
                 break
         errors = remote.diagnostics['wire_decode_errors']
     finally:
@@ -687,21 +823,44 @@ def test_a_consumer_past_its_admission_expiry_reads_no_overwritten_region(sock, 
 
 @needs_shm
 def test_forced_expiries_leave_one_mapping_a_server(sock, monkeypatch):
-    """Up to three admission expiries in one stream (the first always
-    expires; a later one may re-attach in time): each re-attach is granted a
+    """Three admission expiries in one stream: each re-attach is granted a
     new ring, and the consumer unmaps the ring it replaced (at once, or as
     soon as its last view goes), so it maps at most one ring of its one
     server, not one an expiry. Every row still arrives once."""
-    mappings = []
+    mappings, held = [], []
     rows, want, errors, rings = _read_past_a_starved_reattach(
-        'port', sock, monkeypatch, stalls=(3, 12, 21), keep=False, mappings=mappings)
+        'port', sock, monkeypatch, stalls=(3, 12, 21), keep=False, mappings=mappings,
+        held=held)
     assert len(rings) >= 2, 'no expiry was forced: {}'.format(rings)
     assert len({name for name, _ in rings}) == len(rings)
     assert errors == 0 and rows == want
-    expired = {name for name, _ in rings[:-1]}
     assert len(mappings) == 4, mappings
     assert all(len(names) + retired <= 1 for names, retired in mappings), (rings, mappings)
-    names, retired = mappings[-1]     # just before close: no expired ring left mapped
+    # Just before close, the consumer holding the server's newest grant: no
+    # ring the server granted before that one is left mapped.
+    assert held and held[-1], ('the consumer never held the newest grant', rings)
+    expired = {name for name, _ in rings[:held[-1] - 1]}
+    names, retired = mappings[-1]
+    assert not expired & set(names) and retired == 0, (rings, mappings)
+
+
+@needs_shm
+def test_expiries_behind_queued_chunks_lose_no_row(sock, monkeypatch):
+    """Three admission expiries, each after the consumer heard of the ring
+    its last re-attach was granted and while chunks sent before that ring
+    are still queued for it: the server frees each new ring before the
+    consumer read a chunk of it. The consumer maps a granted ring at once
+    and retires a ring only once a chunk of a later one arrives, so every
+    row still arrives once, and at the end only the newest ring is mapped."""
+    mappings, held = [], []
+    rows, want, errors, rings = _read_past_a_starved_reattach(
+        'port', sock, monkeypatch, stalls=(3, 4, 5), keep=False, mappings=mappings,
+        held=held, lag=True)
+    assert len(rings) >= 4, 'three expiries, each with a re-attach: {}'.format(rings)
+    assert errors == 0 and rows == want
+    assert held and held[-1], ('the consumer never held the newest grant', rings)
+    expired = {name for name, _ in rings[:held[-1] - 1]}
+    names, retired = mappings[-1]
     assert not expired & set(names) and retired == 0, (rings, mappings)
 
 
